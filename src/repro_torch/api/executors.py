@@ -320,12 +320,9 @@ class _PlanExecutor:
 
     @property
     def capabilities(self) -> Capabilities:
-        # Resolved at call time: the hand-written kernels beat the fold on
-        # a card, and there is nothing to prefer on a CPU-only host.
-        return Capabilities(
-            name=type(self).__name__,
-            prefer_pallas=torch.cuda.is_available(),
-        )
+        # The hand-written kernels beat the fold on a card; ``lower`` keeps
+        # the preference only for a plan whose blocks lie on a CUDA device.
+        return Capabilities(name=type(self).__name__, prefer_pallas=True)
 
     # -- engine passthroughs -------------------------------------------------
 

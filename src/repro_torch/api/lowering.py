@@ -154,7 +154,8 @@ class Capabilities:
       pallas_fusion: backend can execute fused partition kernels; False
         lowers everything to the generic fold.
       prefer_pallas: under ``fusion="auto"`` pick the kernel when one is
-        registered — set where the hand-written kernel runs on a card.
+        registered; :func:`lower` honours it only for a plan whose arrays
+        lie on a CUDA device, where the hand-written kernel runs.
       remote: backend dispatches tasks to other processes.  Not supported
         by this package yet: :func:`lower` raises ``NotImplementedError``.
 
@@ -477,6 +478,10 @@ def lower(
         raise NotImplementedError(
             "remote (multi-process) lowering is not ported to repro_torch yet"
         )
+    # The kernel launches only on CUDA operands: a plan over CPU blocks lowers
+    # as the reference's CPU plan does, whatever devices the host has.
+    if caps.prefer_pallas and not all(a.device.type == "cuda" for a in arrays):
+        caps = dataclasses.replace(caps, prefer_pallas=False)
     merge = (
         MergeSpec(spec.combine, key=("merge", stable_task_key(spec.combine)))
         if spec.combine is not None

@@ -24,7 +24,10 @@ __all__ = ["SOURCES", "build", "kernel_function"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("partition_histogramdd", "partition_kmeans")
+SOURCES = (
+    "flash_attention", "partition_histogram", "partition_histogramdd", "partition_kmeans",
+    "ssd_scan",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

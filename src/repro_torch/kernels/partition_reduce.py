@@ -4,9 +4,14 @@ Two fused partition kernels carry the histogram and k-means apps under
 ``SplIter(fusion="pallas")`` (or ``"auto"`` on a card).  Each takes a
 partition's stacked blocks ``(nblocks, rows, d)`` — ``Partition.stacked()``
 — and returns what folding the app's block function over those blocks
-would.  Each is hand-written CUDA C++ for Hopper (``repro_torch/csrc``),
-built with ``nvcc`` at first use and called through ctypes:
+would.  A third, the 1-D value histogram, is reached through
+``repro_torch.kernels.ops`` only, as in the JAX package.  Each is
+hand-written CUDA C++ for Hopper (``repro_torch/csrc``), built with
+``nvcc`` at first use and called through ctypes:
 
+* :func:`partition_histogram` — value histogram over every element into
+  ``(bins,)`` f32, with the JAX kernel's edge comparisons and outlier
+  clamps, bit-exact against its plain version.
 * :func:`partition_histogramdd` — d-dimensional histogram into a
   ``(bins,)*d`` int32 grid, bit-exact against summing
   :func:`histogramdd_block`-style counts per block.
@@ -37,6 +42,8 @@ from repro_torch.kernels._build import kernel_function
 
 __all__ = [
     "digitize_cells",
+    "partition_histogram",
+    "partition_histogram_ref",
     "partition_histogramdd",
     "partition_histogramdd_ref",
     "partition_kmeans",
@@ -66,6 +73,88 @@ def _stream(device: torch.device) -> int:
 def _check(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+# ---------------------------------------------------------------------------
+# 1-D value histogram
+# ---------------------------------------------------------------------------
+
+
+def _hist_thresholds(bins: int, lo: float, hi: float) -> tuple[float, float, float, float]:
+    """``(lo, width, first_below, last_from)`` as the JAX kernel rounds them:
+    ``width = (hi - lo) / bins`` and the two clamp thresholds ``lo + width``
+    and ``hi - width`` are computed in double and rounded once to f32."""
+    if bins < 2:
+        raise ValueError(f"partition_histogram needs bins >= 2, got {bins}")
+    width = (hi - lo) / bins
+    as_f32 = torch.tensor([lo, width, lo + width, hi - width], dtype=torch.float32)
+    return tuple(as_f32.tolist())
+
+
+#: Elements per one-hot slice of the plain value histogram (a bounded
+#: ``(slice, bins)`` boolean temporary).
+_REF_SLICE = 1 << 21
+
+
+def partition_histogram_ref(
+    stacked: torch.Tensor, *, bins: int = 128, lo: float = 0.0, hi: float = 1.0
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`partition_histogram`: the JAX kernel's
+    one-hot over every bin, ``_REF_SLICE`` elements at a time.
+
+    Edge ``j`` is ``lo + width * j`` in f32 (multiply, then add); a value
+    counts in every bin ``j`` with ``e_j <= x < e_j + width``, and also in bin
+    0 when ``x < lo + width`` and in the last bin when ``x >= hi - width``.
+    A NaN counts nowhere.  Counts are exact integers returned as f32.
+    """
+    lo_f, width_f, first_below, last_from = _hist_thresholds(bins, lo, hi)
+    dev = stacked.device
+    x = stacked.to(torch.float32).reshape(-1)
+    j = torch.arange(bins, dtype=torch.float32, device=dev)
+    edges = torch.tensor(width_f, device=dev) * j + torch.tensor(lo_f, device=dev)
+    upper = edges + torch.tensor(width_f, device=dev)
+    first = torch.zeros(bins, dtype=torch.bool, device=dev)
+    first[0] = True
+    last = torch.zeros(bins, dtype=torch.bool, device=dev)
+    last[-1] = True
+    counts = torch.zeros(bins, dtype=torch.int64, device=dev)
+    for xs in x.split(_REF_SLICE):
+        xc = xs[:, None]
+        onehot = (xc >= edges) & (xc < upper)
+        onehot |= (xc < first_below) & first
+        onehot |= (xc >= last_from) & last
+        counts += onehot.sum(dim=0)
+    return counts.to(torch.float32)
+
+
+def partition_histogram(
+    stacked: torch.Tensor, *, bins: int = 128, lo: float = 0.0, hi: float = 1.0
+) -> torch.Tensor:
+    """Value histogram over every element of a partition → ``(bins,)`` f32."""
+    if pallas_interpret(stacked):
+        return partition_histogram_ref(stacked, bins=bins, lo=lo, hi=hi)
+    lo_f, width_f, first_below, last_from = _hist_thresholds(bins, lo, hi)
+    if bins * 4 > _SMEM_OPTIN:
+        raise ValueError(f"partition_histogram: {bins} bins exceed one CTA's shared memory")
+    x = stacked.to(torch.float32).contiguous()
+    counts = torch.zeros(bins, dtype=torch.int32, device=x.device)
+    n = x.numel()
+    grid = max(1, min(math.ceil(n / _THREADS), _num_sms(x.device.index) * 8))
+    fn = kernel_function(
+        "partition_histogram",
+        "repro_histogram",
+        [_VOID, ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+         ctypes.c_float, ctypes.c_float, _VOID, ctypes.c_int, ctypes.c_int, _VOID],
+    )
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), n, bins, lo_f, width_f, first_below, last_from,
+                 counts.data_ptr(), grid, _THREADS, _stream(x.device))
+    _check("partition_histogram", err)
+    partition_histogram.launches += 1
+    return counts.to(torch.float32)
+
+
+partition_histogram.launches = 0
 
 
 # ---------------------------------------------------------------------------

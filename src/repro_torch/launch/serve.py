@@ -1,0 +1,73 @@
+"""Batched serving from the command line.
+
+Draws random weights for a smoke-sized architecture on the device and
+serves batched generation requests: prefill once, then one decode step per
+token for the whole batch.  Port of ``repro/launch/serve.py`` for the
+architectures the port runs (``repro_torch.configs.ARCH_IDS``).
+
+Usage::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-32b \
+        --batch 8 --prompt-len 16 --steps 32 [--device cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ARCH_IDS, get_smoke_config
+from repro_torch.core.blocked import resolve_device
+from repro_torch.models import build_model
+from repro_torch.runtime.server import Server
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", choices=list(ARCH_IDS), required=True)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--steps", type=int, default=32)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--sample", action="store_true", help="sample instead of greedy")
+    ap.add_argument("--ckpt-dir", default=None, help="restore params from here")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    if args.ckpt_dir:
+        raise NotImplementedError(
+            "--ckpt-dir: checkpoint restore is not ported yet (ROADMAP Queue 1, checkpointing)"
+        )
+    cfg = get_smoke_config(args.arch)
+    device = resolve_device(args.device)
+    params = build_model(cfg).init(torch.Generator(device=device).manual_seed(args.seed),
+                                   device=device)
+
+    n_params = cfg.param_counts()["total"]
+    print(f"serving {cfg.name} ({n_params / 1e6:.1f}M params) "
+          f"batch={args.batch} prompt={args.prompt_len} steps={args.steps}",
+          flush=True)
+
+    server = Server(cfg, max_len=args.max_len, device=device)
+    server.load(params)
+
+    rng = np.random.default_rng(args.seed)
+    prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len), dtype=np.int32)
+
+    t0 = time.perf_counter()
+    tokens, stats = server.generate(prompts, steps=args.steps, greedy=not args.sample)
+    wall = time.perf_counter() - t0
+    print(f"prefill {stats.prefill_s * 1e3:.1f} ms   "
+          f"decode {stats.decode_s * 1e3:.1f} ms "
+          f"({stats.decode_s / args.steps * 1e3:.2f} ms/tok)   "
+          f"dispatches={stats.dispatches}   "
+          f"throughput={stats.tokens_out / wall:.1f} tok/s", flush=True)
+    print("first request's tokens:", tokens[0].tolist())
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,308 @@
+"""Transformer building blocks: norms, RoPE, GQA attention, SwiGLU MLP.
+
+Ports of ``repro/models/layers.py``, function for function, over an explicit
+params dict with the JAX package's names and layouts (attention weights
+``(d, heads, head_dim)``, activations ``(B, L, H, Dh)``).  What differs:
+
+* no sharding annotations (the port runs on one card);
+* the decode cache is updated in place: a one-row write at the slot into the
+  caller's cache tensors, where the reference's masked select reads and
+  rewrites the whole cache every step.  The values are the same;
+* with ``cfg.attn_impl == "flash"`` the prefill self-attention runs the
+  hand-written kernel (``repro_torch.kernels.ops.flash_attention``); with
+  ``"ref"`` it runs the plain :func:`_sdpa_auto`.  Decode (one query row
+  against ``kv_len`` cached rows) is plain PyTorch on both routes;
+* cross-attention (``memory``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+
+Params = dict[str, Any]
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.to(torch.float32)
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + w)).to(dt)
+
+
+def layer_norm(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float = 1e-5
+) -> torch.Tensor:
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    return (((x - mu) * torch.rsqrt(var + eps)) * (1.0 + w) + b).to(dt)
+
+
+def apply_norm(x: torch.Tensor, p: Params, name: str, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.norm == "layernorm":
+        return layer_norm(x, p[name], p[name + "_b"])
+    return rms_norm(x, p[name])
+
+
+def init_norm(cfg: ModelConfig, *, device) -> Params:
+    d = cfg.d_model
+    out = {"w": torch.zeros((d,), dtype=torch.float32, device=device)}
+    if cfg.norm == "layernorm":
+        out["b"] = torch.zeros((d,), dtype=torch.float32, device=device)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_cos_sin(positions: torch.Tensor, dim: int, theta: float):
+    """positions (..., L) -> cos/sin (..., L, dim/2) in fp32."""
+    freq = 1.0 / (theta ** (np.arange(0, dim, 2, dtype=np.float32) / dim))
+    freq = torch.from_numpy(freq.astype(np.float32)).to(positions.device)
+    ang = positions.to(torch.float32)[..., None] * freq
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x (B, L, H, Dh); cos/sin (B, L, Dh/2) — rotate-half convention."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    c, s = cos[:, :, None, :], sin[:, :, None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], -1).to(dt)
+
+
+def cache_write(cache: torch.Tensor, new: torch.Tensor, pos: int) -> None:
+    """Write ``new`` (B, 1, ...) into ``cache`` (B, S, ...) at row ``pos``, in place.
+
+    One row is written.  The reference's baseline path selects with a
+    one-hot mask instead, reading and rewriting the whole cache every step
+    (``repro/models/layers.py:113-115``); the values are the same.
+    """
+    cache[:, pos] = new[:, 0].to(cache.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+
+def draw_normal(shape, scale: float, dtype, device, generator) -> torch.Tensor:
+    """N(0, 1) * scale, drawn on ``device`` directly in ``dtype``."""
+    return torch.randn(shape, generator=generator, dtype=dtype, device=device).mul_(scale)
+
+
+def init_attention(
+    cfg: ModelConfig, *, generator: torch.Generator, device, dtype: torch.dtype
+) -> Params:
+    """Self-attention weights from the reference's distributions; the
+    projections are drawn in ``dtype`` (every use casts them to it), the
+    biases and qk-norm weights in f32."""
+    d, dh = cfg.d_model, cfg.resolved_head_dim
+    h, hkv = cfg.num_heads, cfg.num_kv_heads
+    f32 = torch.float32
+    p: Params = {
+        "wq": draw_normal((d, h, dh), 1.0 / np.sqrt(d), dtype, device, generator),
+        "wo": draw_normal((h, dh, d), 1.0 / np.sqrt(h * dh), dtype, device, generator),
+        "wk": draw_normal((d, hkv, dh), 1.0 / np.sqrt(d), dtype, device, generator),
+        "wv": draw_normal((d, hkv, dh), 1.0 / np.sqrt(d), dtype, device, generator),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((h, dh), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((hkv, dh), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((hkv, dh), dtype=dtype, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.zeros((dh,), dtype=f32, device=device)
+        p["k_norm"] = torch.zeros((dh,), dtype=f32, device=device)
+    return p
+
+
+def _sdpa(
+    q: torch.Tensor,  # (B, Lq, H, Dh)
+    k: torch.Tensor,  # (B, Lk, Hkv, Dh)
+    v: torch.Tensor,  # (B, Lk, Hkv, Dh)
+    *,
+    causal: bool,
+    q_offset: int = 0,
+    window: int = 0,
+    kv_len: int | None = None,
+) -> torch.Tensor:
+    """Grouped-query scaled dot-product attention (reference path).
+
+    Never materializes repeated KV heads: q is reshaped to (B, Lq, Hkv, G,
+    Dh) and scores are computed per kv-head group.  ``q_offset`` is the
+    absolute position of q's first row (decode: current position).
+    ``kv_len`` masks cache tails beyond the valid length.
+    """
+    b, lq, h, dh = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    qg = q.reshape(b, lq, hkv, g, dh)
+    scale = 1.0 / np.sqrt(dh)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).to(torch.float32) * scale
+
+    qpos = torch.arange(lq, device=q.device)[:, None] + q_offset  # (Lq, 1) absolute
+    kpos = torch.arange(k.shape[1], device=q.device)[None, :]     # (1, Lk)
+    mask = torch.ones((lq, k.shape[1]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    if kv_len is not None:
+        mask &= kpos < kv_len
+    scores = torch.where(mask, scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+    return out.reshape(b, lq, h, dh)
+
+
+def _sdpa_chunked(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool,
+    window: int = 0,
+    kv_len: int | None = None,
+    q_chunk: int = 512,
+) -> torch.Tensor:
+    """Query-chunked attention: O(bq·Lk) live scores instead of O(Lq·Lk).
+
+    A loop over query chunks (the reference's ``lax.scan``); K/V stay whole.
+    """
+    b, lq, h, dh = q.shape
+    c = min(q_chunk, lq)
+    if lq % c:
+        return _sdpa(q, k, v, causal=causal, window=window, kv_len=kv_len)
+    outs = [
+        _sdpa(q[:, i:i + c], k, v, causal=causal, q_offset=i, window=window, kv_len=kv_len)
+        for i in range(0, lq, c)
+    ]
+    return torch.cat(outs, dim=1)
+
+
+_CHUNK_THRESHOLD = 2048
+
+
+def _sdpa_auto(q, k, v, *, causal, window=0, kv_len=None):
+    if q.shape[1] >= _CHUNK_THRESHOLD:
+        return _sdpa_chunked(q, k, v, causal=causal, window=window, kv_len=kv_len)
+    return _sdpa(q, k, v, causal=causal, window=window, kv_len=kv_len)
+
+
+def _prefill_attention(q, k, v, *, causal: bool, cfg: ModelConfig) -> torch.Tensor:
+    """Full self-attention over a prompt: the kernel under ``attn_impl="flash"``."""
+    if cfg.attn_impl == "flash":
+        return ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                   causal=causal, window=cfg.sliding_window)
+    return _sdpa_auto(q, k, v, causal=causal, window=cfg.sliding_window)
+
+
+def attention(
+    p: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,                 # (B, L, D)
+    *,
+    positions: torch.Tensor,         # (B, L) absolute positions
+    causal: bool = True,
+    cache: Params | None = None,     # {"k","v"} (B, S, Hkv, Dh) ring/linear
+    cache_pos: int | None = None,    # #tokens already cached
+    memory: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, Params | None]:
+    """Self-attention.  Returns (out (B,L,D), the cache or None).
+
+    Modes:
+      * train/prefill: ``cache is None`` → full self-attention; prefill into
+        a cache writes k/v into ``cache`` (in place) with ``cache_pos=0``.
+      * decode: L == 1, ``cache_pos`` = current length; k/v written in place
+        at ``cache_pos`` (ring position for SWA).
+    """
+    if memory is not None or (cache is not None and "k_mem" in cache):
+        raise NotImplementedError(
+            "cross-attention is not ported yet (audio/vlm families, ROADMAP Queue 1 item 12)"
+        )
+    dh = cfg.resolved_head_dim
+    dt = x.dtype
+    q = torch.einsum("bld,dhk->blhk", x, p["wq"].to(dt))
+    if "bq" in p:
+        q = q + p["bq"].to(dt)
+    k = torch.einsum("bld,dhk->blhk", x, p["wk"].to(dt))
+    v = torch.einsum("bld,dhk->blhk", x, p["wv"].to(dt))
+    if "bk" in p:
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+
+    cos, sin = rope_cos_sin(positions, dh, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+
+    if cache is None:
+        out = _prefill_attention(q, k, v, causal=causal, cfg=cfg)
+    else:
+        ck, cv = cache["k"], cache["v"]
+        s_max = ck.shape[1]
+        if q.shape[1] == 1:  # -------- decode step --------
+            # ring index under SWA, linear otherwise; one row written in place
+            slot = cache_pos % s_max if cfg.sliding_window else cache_pos
+            cache_write(ck, k, slot)
+            cache_write(cv, v, slot)
+            if cfg.sliding_window:
+                # every live slot is in-window; mask only unwritten rows
+                valid = min(cache_pos + 1, s_max)
+            else:
+                valid = cache_pos + 1
+            out = _sdpa(q, ck, cv, causal=False, kv_len=valid)
+        else:  # -------- prefill into cache --------
+            lq = q.shape[1]
+            if cfg.sliding_window and lq > s_max:
+                # Only the last window survives; place token t at slot
+                # t % s_max so later decode writes stay consistent.
+                ck.copy_(torch.roll(k[:, -s_max:], lq % s_max, dims=1).to(ck.dtype))
+                cv.copy_(torch.roll(v[:, -s_max:], lq % s_max, dims=1).to(cv.dtype))
+            else:
+                ck[:, :lq] = k.to(ck.dtype)
+                cv[:, :lq] = v.to(cv.dtype)
+            out = _prefill_attention(q, k, v, causal=causal, cfg=cfg)
+
+    out = torch.einsum("blhk,hkd->bld", out, p["wo"].to(dt))
+    return out, cache
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(
+    cfg: ModelConfig, d_ff: int, *, generator: torch.Generator, device, dtype: torch.dtype
+) -> Params:
+    d = cfg.d_model
+    return {
+        "w_gate": draw_normal((d, d_ff), 1.0 / math.sqrt(d), dtype, device, generator),
+        "w_up": draw_normal((d, d_ff), 1.0 / math.sqrt(d), dtype, device, generator),
+        "w_down": draw_normal((d_ff, d), 1.0 / math.sqrt(d_ff), dtype, device, generator),
+    }
+
+
+def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    dt = x.dtype
+    h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
+    return h @ p["w_down"].to(dt)

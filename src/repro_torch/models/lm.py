@@ -1,0 +1,333 @@
+"""Model assembly: LayerSpec segments → init / forward / prefill / decode_step.
+
+Port of ``repro/models/lm.py`` for the decoder-only families whose layers
+are ported (dense attention and Mamba2, with dense MLPs).  The parameter
+tree has the JAX package's names and layout: a segment of ``repeats > 1``
+periods holds each leaf stacked as ``(repeats, ...)``.  Where the reference
+scans a segment with ``lax.scan``, the port loops over the repeats and
+indexes views of the same stacked tensors; the decode cache keeps the same
+stacked layout and each layer updates its views of it in place.
+
+Entry points:
+
+* ``model.init(generator, device=...)``     → params (random, on ``device``)
+* ``params_from_numpy(tree, cfg, device=...)`` → params from the JAX package's
+  tree as numpy arrays
+* ``model.forward(params, batch)``          → logits (B, S, Vp)
+* ``model.init_cache(batch, max_len, ...)`` → cache (decode state)
+* ``model.prefill(params, batch, cache)``   → (last_logits, cache)
+* ``model.decode_step(params, cache, token, pos)`` → (logits, cache)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch._pytree import tree_map
+from repro_torch.configs.base import LayerSpec, ModelConfig, Segment
+from repro_torch.core.blocked import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.ssm import init_mamba, mamba_block
+
+Params = dict[str, Any]
+
+#: Leaves whose every use casts them to ``cfg.dtype``: stored in it.
+CAST_LEAVES = frozenset({
+    "embed", "lm_head", "wq", "wk", "wv", "wo", "bq", "bk", "bv",
+    "w_gate", "w_up", "w_down",
+    "w_in_z", "w_in_x", "w_in_b", "w_in_c", "w_in_dt", "conv_x", "conv_b", "conv_c",
+    "ssm_D", "w_out",
+})
+
+_NOT_PORTED = {  # each arrives with ROADMAP Queue 1 item 12
+    "mla": "the MLA mixer (models/mla.py, deepseek-v2) is not ported yet",
+    "cross_attn": "cross-attention (audio/vlm families) is not ported yet",
+    "enc_attn": "the encoder (audio family) is not ported yet",
+    "moe": "the MoE MLP (models/moe.py, mixtral/jamba) is not ported yet",
+}
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    for seg in cfg.segments():
+        for spec in seg.period:
+            for part in (spec.mixer, spec.mlp):
+                if part in _NOT_PORTED:
+                    raise NotImplementedError(
+                        f"{cfg.name}: {_NOT_PORTED[part]} (ROADMAP Queue 1 item 12)")
+    if cfg.encoder_layers:
+        raise NotImplementedError(
+            f"{cfg.name}: {_NOT_PORTED['enc_attn']} (ROADMAP Queue 1 item 12)")
+
+
+# ---------------------------------------------------------------------------
+# per-layer init / apply
+# ---------------------------------------------------------------------------
+
+
+def _init_layer(spec: LayerSpec, cfg: ModelConfig, *, generator, device, dtype) -> Params:
+    p: Params = {}
+    norm = L.init_norm(cfg, device=device)
+    p["ln1"] = norm["w"]
+    if "b" in norm:
+        p["ln1_b"] = norm["b"]
+    if spec.mixer == "attn":
+        p["mixer"] = L.init_attention(cfg, generator=generator, device=device, dtype=dtype)
+    elif spec.mixer == "mamba2":
+        p["mixer"] = init_mamba(cfg, generator=generator, device=device, dtype=dtype)
+    else:  # pragma: no cover - Model rejects unported configs
+        raise ValueError(spec.mixer)
+    if spec.mlp != "none" and not cfg.parallel_block:
+        p["ln2"] = L.init_norm(cfg, device=device)["w"]
+        if cfg.norm == "layernorm":
+            p["ln2_b"] = L.init_norm(cfg, device=device)["b"]
+    if spec.mlp == "dense":
+        ff = cfg.dense_d_ff or cfg.d_ff
+        p["mlp"] = L.init_mlp(cfg, ff, generator=generator, device=device, dtype=dtype)
+    return p
+
+
+def _apply_layer(
+    p: Params,
+    spec: LayerSpec,
+    cfg: ModelConfig,
+    x: torch.Tensor,
+    ctx: dict[str, Any],
+    cache: Params | None,
+) -> torch.Tensor:
+    """Pre-norm residual block; command-r runs attn ∥ mlp off one norm.
+    A layer's cache (views into the stacked cache) is updated in place."""
+    h = L.apply_norm(x, p, "ln1", cfg)
+    if spec.mixer == "attn":
+        mix, _ = L.attention(
+            p["mixer"], cfg, h,
+            positions=ctx["positions"], causal=True, cache=cache,
+            cache_pos=ctx.get("cache_pos"),
+        )
+    elif spec.mixer == "mamba2":
+        mix, _ = mamba_block(p["mixer"], cfg, h, cache=cache)
+    else:  # pragma: no cover - Model rejects unported configs
+        raise ValueError(spec.mixer)
+
+    if cfg.parallel_block and spec.mlp != "none":
+        # command-r: x + attn(norm(x)) + mlp(norm(x))
+        return x + mix + L.mlp(p["mlp"], h)
+
+    x = x + mix
+    if spec.mlp != "none":
+        h2 = L.apply_norm(x, p, "ln2", cfg)
+        x = x + L.mlp(p["mlp"], h2)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# per-layer cache construction
+# ---------------------------------------------------------------------------
+
+
+def _init_layer_cache(
+    spec: LayerSpec, cfg: ModelConfig, batch: int, max_len: int, dtype, device, lead=()
+) -> Params | None:
+    """One layer's zeroed cache; ``lead`` prepends the segment's repeats."""
+    if spec.mixer == "attn":
+        dh = cfg.resolved_head_dim
+        s = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+        shp = (*lead, batch, s, cfg.num_kv_heads, dh)
+        return {"k": torch.zeros(shp, dtype=dtype, device=device),
+                "v": torch.zeros(shp, dtype=dtype, device=device)}
+    if spec.mixer == "mamba2":
+        din = cfg.ssm_expand * cfg.d_model
+        nh = din // cfg.ssm_head_dim
+        conv_c = din + 2 * cfg.ssm_state
+        return {
+            "conv": torch.zeros((*lead, batch, cfg.ssm_conv_width - 1, conv_c),
+                                dtype=dtype, device=device),
+            # SSM state accumulates across the whole context: keep fp32
+            "h": torch.zeros((*lead, batch, nh, cfg.ssm_head_dim, cfg.ssm_state),
+                             dtype=torch.float32, device=device),
+        }
+    raise ValueError(spec.mixer)  # pragma: no cover - Model rejects unported configs
+
+
+# ---------------------------------------------------------------------------
+# weights
+# ---------------------------------------------------------------------------
+
+
+def _leaf_dtype(name: str, cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype) if name in CAST_LEAVES else torch.float32
+
+
+def params_from_numpy(
+    tree: Any, cfg: ModelConfig, *, device: str | torch.device = "cuda"
+) -> Params:
+    """The JAX package's parameter tree (numpy leaves, same names, stacked
+    ``(repeats, ...)`` segment leaves) as the port's params on ``device``.
+
+    Leaves in :data:`CAST_LEAVES` are stored in ``cfg.dtype`` — every use
+    casts them to it, so the values the model computes with are the same
+    and the memory is halved; the others (norm weights, ``q_norm``,
+    ``k_norm``, ``A_log``, ``dt_bias``) stay f32.
+    """
+    _check_ported(cfg)
+    dev = resolve_device(device)
+
+    def convert(node, name):
+        if isinstance(node, dict):
+            return {k: convert(v, k) for k, v in node.items()}
+        if isinstance(node, (tuple, list)):
+            return type(node)(convert(v, name) for v in node)
+        return torch.from_numpy(np.array(node, dtype=np.float32)).to(
+            device=dev, dtype=_leaf_dtype(name, cfg)
+        )
+
+    return convert(tree, "")
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+
+    def __post_init__(self):
+        _check_ported(self.cfg)
+
+    # ---------------- init ----------------
+
+    def init(self, generator: torch.Generator, *, device: str | torch.device = "cuda") -> Params:
+        """Random weights from the reference's distributions, drawn on
+        ``device`` (where ``generator`` lives) each leaf directly in the type
+        it is stored in (:data:`CAST_LEAVES` in ``cfg.dtype``)."""
+        cfg = self.cfg
+        dev = resolve_device(device)
+        dtype = getattr(torch, cfg.dtype)
+        params: Params = {
+            "embed": L.draw_normal((cfg.padded_vocab, cfg.d_model), 1.0 / math.sqrt(cfg.d_model),
+                               dtype, dev, generator)
+        }
+        for si, seg in enumerate(cfg.segments()):
+            params[f"seg{si}"] = self._init_segment(seg, generator, dev, dtype)
+        params["final_norm"] = L.init_norm(cfg, device=dev)["w"]
+        if cfg.norm == "layernorm":
+            params["final_norm_b"] = L.init_norm(cfg, device=dev)["b"]
+        if not cfg.tie_embeddings:
+            params["lm_head"] = L.draw_normal((cfg.d_model, cfg.padded_vocab),
+                                          1.0 / math.sqrt(cfg.d_model), dtype, dev, generator)
+        return params
+
+    def _init_segment(self, seg: Segment, generator, device, dtype) -> Any:
+        def init_period():
+            return tuple(
+                _init_layer(spec, self.cfg, generator=generator, device=device, dtype=dtype)
+                for spec in seg.period
+            )
+
+        if seg.repeats == 1:
+            return init_period()
+        # leaves stacked (repeats, ...): allocate once, fill repeat by repeat
+        first = init_period()
+        stacked = tree_map(
+            lambda l: torch.empty((seg.repeats, *l.shape), dtype=l.dtype, device=l.device), first
+        )
+        tree_map(lambda s, l: s[0].copy_(l), stacked, first)
+        del first
+        for r in range(1, seg.repeats):
+            tree_map(lambda s, l, r=r: s[r].copy_(l), stacked, init_period())
+        return stacked
+
+    # ---------------- trunk ----------------
+
+    def _run_segment(self, seg_params: Any, seg: Segment, x, ctx, caches) -> torch.Tensor:
+        cfg = self.cfg
+
+        def period_body(x, period_params, period_caches):
+            for i, spec in enumerate(seg.period):
+                c = None if period_caches is None else period_caches[i]
+                x = _apply_layer(period_params[i], spec, cfg, x, ctx, c)
+            return x
+
+        if seg.repeats == 1:
+            return period_body(x, seg_params, caches)
+        for r in range(seg.repeats):  # the reference's lax.scan over stacked leaves
+            pick = lambda l, r=r: l[r]  # noqa: E731
+            period_caches = None if caches is None else tree_map(pick, caches)
+            x = period_body(x, tree_map(pick, seg_params), period_caches)
+        return x
+
+    def _trunk(self, params: Params, x, ctx, caches) -> torch.Tensor:
+        for si, seg in enumerate(self.cfg.segments()):
+            c = None if caches is None else caches[f"seg{si}"]
+            x = self._run_segment(params[f"seg{si}"], seg, x, ctx, c)
+        return x
+
+    def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        if cfg.norm == "layernorm":
+            x = L.layer_norm(x, params["final_norm"], params["final_norm_b"])
+        else:
+            x = L.rms_norm(x, params["final_norm"])
+        head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"]).to(x.dtype)
+        logits = x @ head
+        # mask Megatron-style vocab padding
+        if cfg.padded_vocab != cfg.vocab_size:
+            valid = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size
+            logits = torch.where(valid, logits, -1e30)
+        return logits
+
+    def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        return params["embed"][tokens].to(getattr(torch, self.cfg.dtype))
+
+    # ---------------- entry points ----------------
+
+    def forward(self, params: Params, batch: dict[str, torch.Tensor]) -> torch.Tensor:
+        """Scoring forward → logits (B, S, Vp)."""
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        x = self._embed(params, tokens)
+        pos = torch.arange(s, device=tokens.device).expand(b, s)
+        return self._logits(params, self._trunk(params, x, {"positions": pos}, None))
+
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, *,
+                   device: str | torch.device = "cuda") -> Params:
+        dev = resolve_device(device)
+        caches: Params = {}
+        for si, seg in enumerate(self.cfg.segments()):
+            lead = () if seg.repeats == 1 else (seg.repeats,)
+            caches[f"seg{si}"] = tuple(
+                _init_layer_cache(spec, self.cfg, batch, max_len, dtype, dev, lead)
+                for spec in seg.period
+            )
+        return caches
+
+    def prefill(
+        self, params: Params, batch: dict[str, torch.Tensor], cache: Params
+    ) -> tuple[torch.Tensor, Params]:
+        """Run the full prompt, fill the cache in place, return last-position logits."""
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        x = self._embed(params, tokens)
+        ctx = {"positions": torch.arange(s, device=tokens.device).expand(b, s), "cache_pos": 0}
+        x = self._trunk(params, x, ctx, cache)
+        return self._logits(params, x[:, -1:, :])[:, 0], cache
+
+    def decode_step(
+        self,
+        params: Params,
+        cache: Params,
+        token: torch.Tensor,  # (B, 1) int
+        pos: int,             # #tokens already in cache
+    ) -> tuple[torch.Tensor, Params]:
+        """One token for every sequence; the cache is updated in place."""
+        b = token.shape[0]
+        x = self._embed(params, token)
+        ctx = {"positions": torch.full((b, 1), pos, dtype=torch.int64, device=token.device),
+               "cache_pos": int(pos)}
+        x = self._trunk(params, x, ctx, cache)
+        return self._logits(params, x)[:, 0], cache
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    return Model(cfg)

@@ -1,0 +1,103 @@
+"""Batched serving: prefill once, then one decode step per token.
+
+Port of ``repro/runtime/server.py``.  A batch of same-length prompts is
+prefilled in one call, then the decode loop runs ONE step for the whole
+batch per token (the serving analogue of SplIter's fused accumulation):
+``ServeStats.dispatches`` counts ``1 + steps``, as the reference does.
+
+Where the reference jits both entry points and donates the cache, the port
+calls them eagerly and they update the cache in place.  Greedy decoding is
+``argmax``; sampling draws from ``softmax(logits)`` with a
+``torch.Generator`` seeded per step (the reference's
+``jax.random.categorical`` bits cannot be reproduced).  Generated tokens
+stay on the device until the loop ends.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.blocked import resolve_device
+from repro_torch.models import build_model
+
+
+@dataclasses.dataclass
+class ServeStats:
+    prefill_s: float
+    decode_s: float
+    dispatches: int
+    tokens_out: int
+
+
+class Server:
+    def __init__(self, cfg: ModelConfig, *, max_len: int = 256,
+                 device: str | torch.device = "cuda"):
+        self.cfg = cfg
+        self.model = build_model(cfg)
+        self.max_len = max_len
+        self.device = resolve_device(device)
+
+    def load(self, params: Any) -> None:
+        self.params = params
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @torch.no_grad()
+    def generate(
+        self,
+        prompts: np.ndarray,  # (B, P) int
+        *,
+        steps: int = 32,
+        greedy: bool = True,
+        return_logits: bool = False,
+    ):
+        """Serve ``steps`` tokens for each prompt → ``(tokens (B, steps), stats)``.
+
+        ``return_logits`` adds a third result: the logits of the prefill and
+        of every decode step, ``(B, 1 + steps, Vp)`` on the device.
+        """
+        b, p = prompts.shape
+        if p + steps > self.max_len:
+            raise ValueError(f"prompt {p} + steps {steps} exceed max_len {self.max_len}")
+        # cache in the model's compute dtype (fp32 models get fp32 caches)
+        cache = self.model.init_cache(b, self.max_len, dtype=getattr(torch, self.cfg.dtype),
+                                      device=self.device)
+        tokens = torch.as_tensor(np.asarray(prompts, np.int64), device=self.device)
+        self._sync()
+        t0 = time.perf_counter()
+        logits, cache = self.model.prefill(self.params, {"tokens": tokens}, cache)
+        self._sync()
+        t_prefill = time.perf_counter() - t0
+
+        kept = [logits] if return_logits else None
+        out = []
+        dispatches = 1
+        tok = torch.argmax(logits, -1)[:, None]
+        t0 = time.perf_counter()
+        for i in range(steps):
+            out.append(tok[:, 0])
+            logits, cache = self.model.decode_step(self.params, cache, tok, p + i)
+            dispatches += 1
+            if return_logits:
+                kept.append(logits)
+            if greedy:
+                tok = torch.argmax(logits, -1)[:, None]
+            else:
+                gen = torch.Generator(device=self.device).manual_seed(i)
+                probs = torch.softmax(logits.to(torch.float32), -1)
+                tok = torch.multinomial(probs, 1, generator=gen)
+        self._sync()
+        t_decode = time.perf_counter() - t0
+        served = torch.stack(out, 1).cpu().numpy().astype(np.int32)
+        stats = ServeStats(t_prefill, t_decode, dispatches, b * steps)
+        if return_logits:
+            return served, stats, torch.stack(kept, 1)
+        return served, stats

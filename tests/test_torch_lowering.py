@@ -264,3 +264,17 @@ def test_scope_accumulates_one_report():
         ex.task(lambda v: v, key="extra")(1)
     assert (rep.mode, rep.dispatches, rep.merges) == ("both", 7, 2)
     assert rep.wall_s > 0
+
+
+@pytest.mark.parametrize("pol", ["SplIter(partitions_per_location=2)", "SplIter()"])
+def test_cpu_plan_ignores_a_card_on_the_host(pol, monkeypatch):
+    """Under fusion "auto" the kernel route follows the blocks' device, not
+    the host: a CPU collection lowers as the reference's CPU plan does even
+    where ``torch.cuda.is_available()`` is true."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    jx, tx = _pair(97, 12, 3, "round_robin_placement")
+    jfn = functools.partial(j_hist_block, bins=4, lo=0.0, hi=1.0)
+    tfn = functools.partial(t_hist_block, bins=4, lo=0.0, hi=1.0)
+    got = _describe(tapi, tfn, tx, pol)
+    assert got == _describe(japi, jfn, jx, pol)
+    assert "partition_scan" in got[1] and "partition_pallas" not in got[1]

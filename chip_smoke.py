@@ -48,15 +48,19 @@ it and read just after:
 
 Then each of the three LM-path kernels runs beside its plain version at the
 serving path's shapes: ``flash_attention`` (q 8×512×64×128, k/v
-8×512×8×128, bf16, causal; also a fully masked-row case and a 4096 window),
-``ssd_scan`` (x 8×512×64×64, B/C 8×512×128; in f32 on upcast inputs
-within ``SSD_TOL``, and on the bf16 inputs y within ``BF16_TOL`` and the f32
-state within ``SSD_TOL`` of the same f32 plain version) and
-``partition_histogram`` (16×262,144×5 f32, bins 128).
+8×512×8×128, bf16, causal; also a fully masked-row case, a 4096 window on
+6144 tokens, head dims 64 and 32, a ragged Lq = 500 and group 1, each timed
+beside ``scaled_dot_product_attention``), ``ssd_scan`` (x 8×512×64×64, B/C
+8×512×128; in f32 on upcast inputs and on f32 inputs that are not bf16
+values within ``SSD_TOL``, and on the bf16 inputs y within ``BF16_TOL`` and
+the f32 state within ``SSD_TOL`` of the same f32 plain version) and
+``partition_histogram`` (16×262,144×5 f32, bins 128).  Each kernel's entry
+gives its launches on its path's run and per call of its path.
 
 Output: the card's name and power limit (``nvidia-smi``) on the first line,
-one JSON line per run and check, a ``{"kernels": [...]}`` line, and as the
-last line ``{"ok": true, "device": {...}}``.  Any failed check raises and
+the compiler's registers, stack, spills and shared memory per kernel (a
+``ptxas`` line), one JSON line per run and check, a ``{"kernels": [...]}``
+line, and as the last line ``{"ok": true, "device": {...}}``.  Any failed check raises and
 the script exits non-zero; it also exits non-zero, printing no result,
 when no CUDA device is present or the repository's ``src`` is missing.
 """
@@ -66,6 +70,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -151,6 +156,61 @@ def bound(nbytes: int, flops: int, peak: float = F32_FLOPS_PER_S) -> tuple[float
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def _kernel_name(mangled: str) -> str:
+    """``flash_kernel<128>``, ``ssd_kernel<bf16>`` ... from a mangled name."""
+    m = re.search(r"_cu_[0-9a-f]{8}(\d+)(\w+)", mangled)
+    if not m:
+        return mangled
+    n, rest = int(m.group(1)), m.group(2)
+    name, tail = rest[:n], rest[n:]
+    t = re.match(r"ILi(\d+)EE", tail)
+    if t:
+        return f"{name}<{t.group(1)}>"
+    for code, short in (("I13__nv_bfloat16EE", "bf16"), ("IfEE", "f32")):
+        if tail.startswith(code):
+            return f"{name}<{short}>"
+    return name
+
+
+def ptxas_line(reports: dict) -> list[dict]:
+    """Registers, stack, spills and shared memory per kernel, from the
+    compiler's ``-Xptxas -v`` reports; dynamic shared memory as the flash
+    and SSD kernels request it at launch."""
+    import ctypes
+
+    from repro_torch.kernels._build import kernel_function
+
+    flash_smem = kernel_function("flash_attention", "repro_flash_attention_smem_bytes",
+                                 [ctypes.c_int])
+    ssd_smem = kernel_function("ssd_scan", "repro_ssd_scan_smem_bytes", [ctypes.c_int])
+    dynamic = {f"flash_kernel<{d}>": flash_smem(d) for d in (32, 64, 128)}
+    dynamic.update({"ssd_kernel<bf16>": ssd_smem(1), "ssd_kernel<f32>": ssd_smem(0)})
+    out = []
+    for lib, text in reports.items():
+        entry = None
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                entry = {"library": lib, "function": _kernel_name(m.group(1))}
+                continue
+            if entry is None:
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                entry.update(stack_frame_bytes=int(m.group(1)), spill_store_bytes=int(m.group(2)),
+                             spill_load_bytes=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                entry["registers"] = int(m.group(1))
+                static = re.search(r"(\d+) bytes smem", line)
+                entry["static_smem_bytes"] = int(static.group(1)) if static else 0
+                entry["dynamic_smem_bytes"] = dynamic.get(entry["function"])
+                out.append(entry)
+                entry = None
+    return out
+
+
 def make_data(seed: int, dev: torch.device):
     """Uniform histogram rows and k-means blobs, generated on the card.
 
@@ -187,7 +247,7 @@ def main_path(x_hist, x_km, means, label_counts, seed: int, repeats: int) -> dic
     }
     pr.partition_histogramdd.launches = 0
     pr.partition_kmeans.launches = 0
-    hists, centers, counts = {}, {}, {}
+    hists, centers, counts, per_call = {}, {}, {}, {}
     for name, (pol, kernel_path) in policies.items():
         with LocalExecutor() as ex:
             h0, k0 = pr.partition_histogramdd.launches, pr.partition_kmeans.launches
@@ -203,6 +263,9 @@ def main_path(x_hist, x_km, means, label_counts, seed: int, repeats: int) -> dic
                   "launches": pr.partition_histogramdd.launches - h0})
             check((pr.partition_histogramdd.launches > h0) == kernel_path,
                   f"histogram/{name} kernel routing")
+            if name == "spliter1_pallas":
+                per_call["partition_histogramdd"] = (
+                    (pr.partition_histogramdd.launches - h0) / len(runs), "SplIter(1, pallas) histogram pass")
             walls, results = [], []
             for _ in range(1 + repeats):
                 torch.cuda.synchronize()
@@ -211,6 +274,7 @@ def main_path(x_hist, x_km, means, label_counts, seed: int, repeats: int) -> dic
                 torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t0)
                 results.append(res)
+            km_runs = pr.partition_kmeans.launches - k0
             centers[name] = res.centers
             counts[name] = (
                 Collection.from_blocked(x_km).split(pol)
@@ -226,6 +290,10 @@ def main_path(x_hist, x_km, means, label_counts, seed: int, repeats: int) -> dic
                   "launches": pr.partition_kmeans.launches - k0})
             check((pr.partition_kmeans.launches > k0) == kernel_path,
                   f"kmeans/{name} kernel routing")
+            if name == "spliter1_pallas":
+                per_call["partition_kmeans"] = (
+                    km_runs / len(walls),
+                    f"SplIter(1, pallas) k-means run of {KM_ITERS} iterations")
     launches = {"partition_histogramdd": pr.partition_histogramdd.launches,
                 "partition_kmeans": pr.partition_kmeans.launches}
 
@@ -246,10 +314,10 @@ def main_path(x_hist, x_km, means, label_counts, seed: int, repeats: int) -> dic
     check(err < limit, f"kmeans centers recover the blob means ({err} >= {limit})")
     emit({"phase": "agreement", "policies": list(policies), "histogram_total": int(ref_h.sum()),
           "kmeans_counts": ref_n.tolist(), "kmeans_max_center_error": err})
-    return launches
+    return launches, per_call
 
 
-def kernel_checks(x_hist, x_km, seed: int, launches: dict) -> list[dict]:
+def kernel_checks(x_hist, x_km, seed: int, launches: dict, per_call: dict) -> list[dict]:
     """Each kernel at the main path's per-task shape, against its plain version."""
     from repro_torch.core.apps.kmeans import _init_centers
     from repro_torch.kernels import partition_reduce as pr
@@ -275,6 +343,8 @@ def kernel_checks(x_hist, x_km, seed: int, launches: dict) -> list[dict]:
         "source": "src/repro_torch/csrc/partition_histogramdd.cu",
         "replaces": "src/repro/kernels/partition_reduce.py:146",
         "launches": launches["partition_histogramdd"],
+        "launches_per_call": per_call["partition_histogramdd"][0],
+        "per_call_of": per_call["partition_histogramdd"][1],
         "max_abs_err": int((got - want).abs().max()), "tolerance": "bit-exact",
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "library": "none: no single PyTorch call computes it",
@@ -309,6 +379,8 @@ def kernel_checks(x_hist, x_km, seed: int, launches: dict) -> list[dict]:
         "source": "src/repro_torch/csrc/partition_kmeans.cu",
         "replaces": "src/repro/kernels/partition_reduce.py:211",
         "launches": launches["partition_kmeans"],
+        "launches_per_call": per_call["partition_kmeans"][0],
+        "per_call_of": per_call["partition_kmeans"][1],
         "max_abs_err": float((sums - rsums).abs().max()),
         "max_rel_err": float(((sums - rsums).abs() / rsums.abs().clamp_min(1.0)).max()),
         "tolerance": "counts exact, sums rtol 1e-4",
@@ -544,6 +616,26 @@ def lm_kernel_checks(seed: int, dev: torch.device, x_values: torch.Tensor,
           f"flash_attention window 4096 vs plain ({win_err})")
     win_ms = cuda_ms(lambda: fa.flash_attention(qw, kw, vw, causal=True, window=4096))
     del qw, kw, vw, win
+    # other head dims, a ragged Lq and group 1 (the two warpgroups then take
+    # 128 consecutive rows of one head), each beside its plain version and SDPA
+    cases = []
+    for label, (lq, hq, hk, dh) in {"d64": (l, h, hkv, 64), "d32": (l, h, hkv, 32),
+                                    "ragged_lq500": (500, h, hkv, d),
+                                    "group1": (l, hkv, hkv, d)}.items():
+        qc, kc, vc = normal(b, lq, hq, dh), normal(b, lq, hk, dh), normal(b, lq, hk, dh)
+        gotc = fa.flash_attention(qc, kc, vc, causal=True)
+        wantc = fa.flash_attention_ref(qc, kc, vc, causal=True)
+        errc = float((gotc.float() - wantc.float()).abs().max())
+        check(torch.allclose(gotc.float(), wantc.float(), **BF16_TOL),
+              f"flash_attention {label} within {BF16_TOL} of its plain version ({errc})")
+        sdpa_c = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qc.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2), is_causal=True,
+            enable_gqa=True)
+        cases.append({"case": label, "shape_q": [b, lq, hq, dh], "shape_kv": [b, lq, hk, dh],
+                      "max_abs_err": errc,
+                      "ms": cuda_ms(lambda: fa.flash_attention(qc, kc, vc, causal=True)),
+                      "library_ms": cuda_ms(sdpa_c)})
+        del qc, kc, vc, gotc, wantc
     pairs = l * (l + 1) // 2  # causal (q, k) pairs per (batch, head)
     bound_ms, bound_by = bound(2 * (q.numel() + k.numel() + v.numel() + got.numel()),
                                4 * d * pairs * b * h, BF16_FLOPS_PER_S)
@@ -552,6 +644,8 @@ def lm_kernel_checks(seed: int, dev: torch.device, x_values: torch.Tensor,
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:101",
         "launches": launches["flash_attention"], "max_abs_err": err,
+        "launches_per_call": launches["flash_attention"],
+        "per_call_of": "qwen3-32b prefill (8 layers)",
         "tolerance": f"allclose {BF16_TOL} (bf16 output)",
         "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True)),
         "plain_ms": cuda_ms(lambda: fa.flash_attention_ref(q, k, v, causal=True)),
@@ -559,7 +653,7 @@ def lm_kernel_checks(seed: int, dev: torch.device, x_values: torch.Tensor,
         "library": "torch.nn.functional.scaled_dot_product_attention(is_causal, enable_gqa)",
         "library_max_abs_diff": lib_err, "shape_q": [b, l, h, d], "shape_kv": [b, l, hkv, d],
         "window4096_shape_q": [1, 6144, 8, d], "window4096_max_abs_err": win_err,
-        "window4096_ms": win_ms,
+        "window4096_ms": win_ms, "cases": cases,
     })
     del q, k, v, got, want
 
@@ -587,6 +681,20 @@ def lm_kernel_checks(seed: int, dev: torch.device, x_values: torch.Tensor,
     check(torch.allclose(hbf, rh, **SSD_TOL),
           f"ssd_scan (bf16 in) state within {SSD_TOL} of the f32 plain version "
           f"({bf16_state_err})")
+    # f32 inputs that are not bf16 values: the kernel splits them into three
+    # bf16 terms (its six-product route)
+    raw = (torch.randn((b, l, nh, p), generator=gen, device=dev),
+           torch.rand((b, l, nh), generator=gen, device=dev) * 0.8 + 0.1,
+           -(torch.rand((nh,), generator=gen, device=dev) + 0.5),
+           torch.randn((b, l, n), generator=gen, device=dev),
+           torch.randn((b, l, n), generator=gen, device=dev))
+    y6, h6 = ss.ssd_scan(*raw, chunk=256)
+    ry6, rh6 = ss.ssd_chunked(*raw, chunk=256)
+    f32_raw_err = max(float((y6 - ry6).abs().max()), float((h6 - rh6).abs().max()))
+    check(torch.allclose(y6, ry6, **SSD_TOL) and torch.allclose(h6, rh6, **SSD_TOL),
+          f"ssd_scan (f32, not bf16 values) within {SSD_TOL} of its plain version "
+          f"({f32_raw_err})")
+    del raw, y6, h6, ry6, rh6
     # the function's least work, at the kernel's 64-row chunks: C.B^T once per
     # batch row and chunk (one group: every head shares it), then per head
     # G.x, C.h and the state update, causal halves only.  bf16 products are
@@ -602,6 +710,8 @@ def lm_kernel_checks(seed: int, dev: torch.device, x_values: torch.Tensor,
         "name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:93",
         "launches": launches["ssd_scan"], "max_abs_err": err,
+        "launches_per_call": launches["ssd_scan"], "per_call_of": "mamba2-1.3b prefill (48 layers)",
+        "f32_not_bf16_max_abs_err": f32_raw_err,
         "tolerance": f"f32 on upcast inputs, allclose {SSD_TOL}; bf16 in/out: y allclose "
                      f"{BF16_TOL}, state allclose {SSD_TOL}",
         "ms": cuda_ms(lambda: ss.ssd_scan(*inputs, chunk=256)),
@@ -629,6 +739,8 @@ def lm_kernel_checks(seed: int, dev: torch.device, x_values: torch.Tensor,
         "source": "src/repro_torch/csrc/partition_histogram.cu",
         "replaces": "src/repro/kernels/partition_reduce.py:84",
         "launches": launches["partition_histogram"],
+        "launches_per_call": launches["partition_histogram"],
+        "per_call_of": f"value histogram over {LOCATIONS} partitions",
         "max_abs_err": float((got - want).abs().max()), "tolerance": "bit-exact",
         "ms": cuda_ms(lambda: pr.partition_histogram(st, bins=VALUE_BINS)),
         "plain_ms": cuda_ms(lambda: pr.partition_histogram_ref(st, bins=VALUE_BINS)),
@@ -662,6 +774,7 @@ def main(argv=None) -> int:
     libraries = _build.build(verbose=True)  # prints registers/spills per kernel
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": [p.name for p in libraries.values()]})
+    emit({"phase": "ptxas", "kernels": ptxas_line(_build.REPORTS)})
 
     dev = torch.device("cuda", 0)
     hist, km, means, label_counts = make_data(args.seed, dev)
@@ -670,9 +783,9 @@ def main(argv=None) -> int:
                                 policy=round_robin_placement, device=dev)
         for a in (hist, km)
     )
-    launches = main_path(x_hist, x_km, means, label_counts, args.seed, args.repeats)
+    launches, per_call = main_path(x_hist, x_km, means, label_counts, args.seed, args.repeats)
     check(all(v > 0 for v in launches.values()), f"every kernel launched: {launches}")
-    kernels = kernel_checks(x_hist, x_km, args.seed, launches)
+    kernels = kernel_checks(x_hist, x_km, args.seed, launches, per_call)
     launches["partition_histogram"] = value_histogram_phase(x_hist)
     x_values = torch.stack([x_hist.block(b) for b in x_hist.blocks_at(0)])
     del hist, km, means, label_counts, x_hist, x_km

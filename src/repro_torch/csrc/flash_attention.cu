@@ -7,241 +7,434 @@
 // denominator l and the accumulator acc (all f32) in VMEM between them.
 //
 // On an H100 blocks run in parallel and in no order, so the kv sweep is a loop
-// inside one CTA per (q tile of 64 rows, q head, batch).  Four warps each own
-// 16 query rows and keep their m, l and a 16 x D f32 accumulator in registers
-// for the whole sweep; the CTA stages each 64-row tile of k and v (of kv head
-// h // group, as in the reference) in shared memory.  Products run on the
-// tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate):
-//   * S = Q K^T: bf16 times bf16 is exact in f32, so S is the f32 dot product
-//     of the reference up to the order of the sums;
-//   * O += P V: P is f32, so it is split as P = P_hi + P_lo with both halves
-//     in bf16 and multiplied twice, which keeps about 16 bits of P (the
-//     reference keeps P in f32; the output is rounded to bf16 in both).
-// Masks are the reference's: kpos <= qpos (causal) and kpos > qpos - window,
-// plus kpos < Lk for a ragged last kv tile.  Tiles wholly outside the mask are
-// skipped (their contribution is exactly zero).  A row that no key reaches
-// keeps l = 0 and is written as 0, as the reference's max(l, 1e-30) gives.
-// Query rows past Lq are computed on zeros and not stored, so Lq need not be a
-// multiple of the tile.
+// inside one CTA.  A CTA is one producer warp and two consumer warpgroups of
+// 64 query rows each (288 threads):
+//   * when the GQA group is even, the two warpgroups take the same 64 query
+//     positions of two heads of one group, so each staged K/V tile serves
+//     both; otherwise (group 1 or odd) they take 128 consecutive positions of
+//     one head;
+//   * the grid is persistent (one CTA per SM walks work items, longest causal
+//     query tiles first); per item the producer warp's lane 0 loads both Q
+//     blocks once and K/V tiles of 64 keys through a ring of kStages stages
+//     in shared memory, running ahead into the next item, all by TMA
+//     (cp.async.bulk.tensor) from 4-D tensor maps over (D, H, L, B), so the
+//     strided head layout needs no repacking and TMA's zero fill covers a
+//     ragged Lq or Lk.  Each stage has a full barrier (TMA bytes) and an empty
+//     barrier (one arrival per consumer warp);
+//   * each warpgroup computes S = Q K^T with wgmma (m64n64k16, both operands
+//     in shared memory, K-major, in the tensor maps' 128-byte swizzle, 64-byte
+//     at D = 32), then O += P V with wgmma in its RS form: P from registers
+//     (the S accumulator's layout is the A-fragment layout) and V as an
+//     MN-major B operand.
+// Within a warpgroup, S of the next tile and P V of the current one are in
+// flight together while the softmax of the next tile waits only for its S.
+// Numbers keep the reference's f32 semantics: bf16 times bf16 is exact in f32,
+// so S is the reference's f32 dot product up to the order of the sums; P (f32)
+// is split into bf16 hi + lo and multiplied twice (about 16 bits of P); m, l
+// and acc stay f32.  The softmax runs in base 2 with log2(e) folded into the
+// scale (ex2.approx, relative error about 2^-22).  Masks are positional,
+// kpos <= qpos and kpos > qpos - window, plus kpos < Lk; they are applied only
+// on tiles that cross the diagonal, the window edge or Lk, and tiles wholly
+// outside are never loaded.  A row that no
+// key reaches keeps l = 0 and is written as 0, as the reference's max(l,
+// 1e-30) gives.  Query rows past Lq are computed on TMA's zeros and not
+// stored.
 //
 // What bounds it on an H100: at the main path's shapes (Lq = Lk = 512, D =
-// 128, causal) the bytes of q, k, v and o (0.045 ms at 3.35 TB/s) and the
-// causal products (0.035 ms at 989 TFLOP/s) are close.  This first kernel
-// uses mma.sync from registers without TMA, wgmma or a pipelined load, so it
-// is neither; it is right first.
+// 128, causal, GQA 8) the bytes of q, k, v and o (0.045 ms at 3.35 TB/s) and
+// the causal products (0.035 ms at 989 TFLOP/s; the P split adds half again)
+// are close.  The design overlaps the loads with the products, keeps both
+// products on the tensor cores and overlaps each softmax with the previous
+// tile's P V.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <cuda.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;  // query rows per CTA (16 per warp)
-constexpr int kBK = 64;  // keys per staged tile
-constexpr int kWarps = 4;
-constexpr float kNegInf = -1e30f;
+using namespace hopper;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
+constexpr int kRows = 64;      // query rows per consumer warpgroup
+constexpr int kBK = 64;        // keys per staged tile
+constexpr int kStages = 4;     // K/V ring depth
+constexpr int kThreads = 288;  // 2 consumer warpgroups + 1 producer warp
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct Layout {
+  static constexpr int kSwizzle = D * 2 >= 128 ? 128 : 64;  // bytes per smem row
+  static constexpr int kPanelCols = kSwizzle / 2;            // bf16 columns per panel
+  static constexpr int kPanels = D / kPanelCols;
+  static constexpr int kPanelBytes = 64 * kSwizzle;          // one 64-row box
+  static constexpr int kTileBytes = kPanels * kPanelBytes;   // 64 rows x D
+  static constexpr uint32_t kDescSwizzle = kSwizzle == 128 ? 1 : 2;
+  // Q[2], then K[kStages], V[kStages], then the barriers
+  static constexpr int kBarrierOffset = (2 + 2 * kStages) * kTileBytes;
+  static constexpr int kSmemBytes = kBarrierOffset + (2 * kStages + 2) * 8 + 1024;
+};
+
+// K-major operand (rows x D, D contiguous in 64- or 128-byte swizzled panels):
+// the 16 columns of k-step `k` start `k*16` columns into the tile.
+template <int D>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int k) {
+  using L = Layout<D>;
+  const int col = k * 16;
+  const uint32_t addr = tile + (col / L::kPanelCols) * L::kPanelBytes + (col % L::kPanelCols) * 2;
+  return wgmma_desc(addr, 16, 8 * L::kSwizzle, L::kDescSwizzle);
 }
 
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
+// V as the MN-major B operand of P V: keys 16*kk.. (K dimension, one smem row
+// each), D along the rows (the N dimension, one panel per 64 columns).
+template <int D>
+__device__ __forceinline__ uint64_t v_desc(uint32_t tile, int kk) {
+  using L = Layout<D>;
+  return wgmma_desc(tile + kk * 16 * L::kSwizzle, L::kPanelBytes, 8 * L::kSwizzle,
+                    L::kDescSwizzle);
 }
 
-// d += a * b for one m16n8k16 tile; a: 4 regs (16x16 bf16, row-major),
-// b: 2 regs (16x8 bf16, column-major), d: 4 f32.
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+struct Work {
+  int head, r0, tb, te;  // one warpgroup's head, first query row, kv tiles [tb, te)
+};
+
+__device__ __forceinline__ Work work_of(int w, int unit, int qt, bool pair, int Lk, int causal,
+                                        int window) {
+  Work wk;
+  wk.head = pair ? 2 * unit + w : unit;
+  wk.r0 = pair ? qt * kRows : qt * 2 * kRows + w * kRows;
+  const int nk = (Lk + kBK - 1) / kBK;
+  wk.te = causal ? min(nk, (wk.r0 + kRows - 1) / kBK + 1) : nk;
+  wk.tb = window ? max(0, wk.r0 - window + 1) / kBK : 0;
+  return wk;
 }
 
 template <int D>
-__global__ void __launch_bounds__(kWarps * 32)
-flash_kernel(const __nv_bfloat16* __restrict__ q,  // (B, Lq, H, D)
-             const __nv_bfloat16* __restrict__ k,  // (B, Lk, Hkv, D)
-             const __nv_bfloat16* __restrict__ v,  // (B, Lk, Hkv, D)
-             __nv_bfloat16* __restrict__ o,        // (B, Lq, H, D)
-             int Lq, int Lk, int H, int Hkv, float scale, int causal, int window) {
-  constexpr int LD = D + 8;  // padded smem row (bf16): conflict-free fragment loads
-  __shared__ __align__(16) __nv_bfloat16 ks[kBK * LD];
-  __shared__ __align__(16) __nv_bfloat16 vs[kBK * LD];
+__global__ void __launch_bounds__(kThreads, 1)
+flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+             const __grid_constant__ CUtensorMap vmap,
+             __nv_bfloat16* __restrict__ o,  // (B, Lq, H, D)
+             int Lq, int Lk, int H, int group, int n_qt, int units, int batches,
+             float scale_log2, int causal, int window) {
+  using L = Layout<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* q_s = smem;                           // 2 tiles
+  uint8_t* k_s = smem + 2 * L::kTileBytes;       // kStages tiles
+  uint8_t* v_s = k_s + kStages * L::kTileBytes;  // kStages tiles
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBarrierOffset);
+  uint64_t* empty = full + kStages;
+  uint64_t* qfull = empty + kStages;
+  uint64_t* qempty = qfull + 1;
 
-  const int q0 = blockIdx.x * kBQ;
-  const int head = blockIdx.y;
-  const int batch = blockIdx.z;
-  const int kv_head = head / (H / Hkv);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;  // mma fragment coordinates
-  const int row0 = q0 + warp * 16 + g;    // this thread's two query rows:
-  const int row1 = row0 + 8;              // row0 and row0 + 8
+  // Work items: (q tile, head unit, batch row), the q tile the slowest index
+  // so that the longest causal tiles come first.  The grid is persistent: in
+  // round k CTA b takes item k G + b, or k G + G - 1 - b in odd rounds (G the
+  // grid), which evens out the CTAs' sums of item lengths; its producer loads
+  // the next item's Q and K/V while the consumers finish this one.
+  const bool pair = group % 2 == 0;
+  const int total = n_qt * units * batches;
+  const int G = gridDim.x, b = blockIdx.x;
+  auto item_index = [&](int k) { return k * G + ((k & 1) ? G - 1 - b : b); };
+  struct Item {
+    Work w0, w1;
+    int batch, kv_head, tb, te;  // kv tiles either warpgroup needs: [tb, te)
+  };
+  auto item_of = [&](int idx) {
+    Item it;
+    const int qt = n_qt - 1 - idx / (units * batches);
+    const int rest = idx % (units * batches);
+    const int unit = rest % units;
+    it.batch = rest / units;
+    it.w0 = work_of(0, unit, qt, pair, Lk, causal, window);
+    it.w1 = work_of(1, unit, qt, pair, Lk, causal, window);
+    it.kv_head = it.w0.head / group;  // both warpgroups share it
+    // the two ranges overlap or touch, so their union is one range
+    const bool e0 = it.w0.tb >= it.w0.te, e1 = it.w1.tb >= it.w1.te;
+    it.tb = e0 ? it.w1.tb : (e1 ? it.w0.tb : min(it.w0.tb, it.w1.tb));
+    it.te = e0 ? (e1 ? it.tb : it.w1.te) : (e1 ? it.w0.te : max(it.w0.te, it.w1.te));
+    return it;
+  };
 
-  // Q fragments for the whole head dim, straight from global memory.
-  uint32_t qf[D / 16][4];
-  {
-    const uint32_t* q0p = reinterpret_cast<const uint32_t*>(
-        q + (((long long)batch * Lq + row0) * H + head) * D);
-    const uint32_t* q1p = reinterpret_cast<const uint32_t*>(
-        q + (((long long)batch * Lq + row1) * H + head) * D);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    mbar_init(qfull, 1);
+    mbar_init(qempty, 8);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == 8) {
+    // ---- producer: per item Q once, then K/V tiles through the ring ----
+    if (lane == 0) {
+      int i = 0;  // ring slots so far
+      for (int n = 0; item_index(n) < total; ++n) {
+        const Item it = item_of(item_index(n));
+        mbar_wait(qempty, (n & 1) ^ 1);  // the last item's Q is read
+        mbar_expect_tx(qfull, 2 * L::kTileBytes);
+        for (int w = 0; w < 2; ++w) {
+          const Work& wk = w ? it.w1 : it.w0;
+          for (int p = 0; p < L::kPanels; ++p)
+            tma_load_4d(q_s + w * L::kTileBytes + p * L::kPanelBytes, &qmap, qfull,
+                        p * L::kPanelCols, wk.head, wk.r0, it.batch);
+        }
+        for (int t = it.tb; t < it.te; ++t, ++i) {
+          const int s = i % kStages;
+          mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
+          mbar_expect_tx(&full[s], 2 * L::kTileBytes);
+          for (int p = 0; p < L::kPanels; ++p) {
+            tma_load_4d(k_s + s * L::kTileBytes + p * L::kPanelBytes, &kmap, &full[s],
+                        p * L::kPanelCols, it.kv_head, t * kBK, it.batch);
+            tma_load_4d(v_s + s * L::kTileBytes + p * L::kPanelBytes, &vmap, &full[s],
+                        p * L::kPanelCols, it.kv_head, t * kBK, it.batch);
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns 64 query rows of each item ----
+    const int wg = warp / 4, wwarp = warp % 4;
+    const int g = lane / 4, t4 = lane % 4;
+    const uint32_t q_tile = smem_addr(q_s + wg * L::kTileBytes);
+    Work me = {0, 0, 0, 0};  // this warpgroup's part of the item
+    int row0 = 0, row1 = 0;  // this thread's rows: row0 and row0 + 8
+
+    float acc[D / 2];
+    float m0, m1, l0, l1;  // l: per-thread partials
+    float sc[kBK / 2];                                          // S, then P, of one tile
+    uint32_t ph[kBK / 16][4], pl[kBK / 16][4];                  // P as bf16 hi + lo
+    float al0 = 0.0f, al1 = 0.0f;                               // the last tile's rescale
+
+    // S = Q K^T (64 x 64, f32) of the tile in stage s: one committed group
+    auto issue_s = [&](int s) {
 #pragma unroll
-    for (int kb = 0; kb < D / 16; ++kb) {
-      const int c = kb * 8 + t;  // 32-bit word of columns kb*16 + 2t, +1
-      qf[kb][0] = row0 < Lq ? q0p[c] : 0u;
-      qf[kb][1] = row1 < Lq ? q1p[c] : 0u;
-      qf[kb][2] = row0 < Lq ? q0p[c + 4] : 0u;
-      qf[kb][3] = row1 < Lq ? q1p[c + 4] : 0u;
+      for (int j = 0; j < kBK / 2; ++j) sc[j] = 0.0f;
+      const uint32_t k_tile = smem_addr(k_s + s * L::kTileBytes);
+      fence_regs<kBK / 2>(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < D / 16; ++k)
+        wgmma_ss_n64(sc, kmajor_desc<D>(q_tile, k), kmajor_desc<D>(k_tile, k), k > 0);
+      wgmma_commit();
+    };
+    // O += P V with the V tile in stage s, P in bf16 hi + lo: one committed group
+    auto issue_pv = [&](int s) {
+      const uint32_t v_tile = smem_addr(v_s + s * L::kTileBytes);
+      fence_regs<D / 2>(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        const uint64_t dv = v_desc<D>(v_tile, kk);
+        wgmma_rs<D>(acc, ph[kk], dv);
+        wgmma_rs<D>(acc, pl[kk], dv);
+      }
+      wgmma_commit();
+    };
+    // mask (boundary tiles only) and the online softmax in base 2 of tile t:
+    // S becomes P in place, m and l move on, al0/al1 rescale the old acc
+    auto softmax = [&](int t) {
+      const int k0 = t * kBK;
+      const bool edge = (causal && k0 + kBK - 1 > me.r0) ||
+                        (window && k0 <= me.r0 + kRows - 1 - window) || k0 + kBK > Lk;
+      if (edge) {
+#pragma unroll
+        for (int j = 0; j < kBK / 2; ++j) {
+          const int qpos = (j & 2) ? row1 : row0;
+          const int kpos = k0 + 8 * (j / 4) + 2 * t4 + (j & 1);
+          bool ok = kpos < Lk;
+          if (causal) ok = ok && kpos <= qpos;
+          if (window) ok = ok && kpos > qpos - window;
+          if (!ok) sc[j] = -INFINITY;
+        }
+      }
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kBK / 2; j += 4) {
+        mx0 = fmaxf(mx0, fmaxf(sc[j], sc[j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[j + 2], sc[j + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {  // the 4 threads of a row
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0 * scale_log2), mn1 = fmaxf(m1, mx1 * scale_log2);
+      const float mu0 = mn0 == -INFINITY ? 0.0f : mn0;  // a row with no key yet
+      const float mu1 = mn1 == -INFINITY ? 0.0f : mn1;
+      al0 = exp2_approx(m0 - mu0);
+      al1 = exp2_approx(m1 - mu1);
+      float ps0 = 0.0f, ps1 = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kBK / 2; ++j) {
+        const float p = exp2_approx(fmaf(sc[j], scale_log2, (j & 2) ? -mu1 : -mu0));
+        sc[j] = p;
+        if (j & 2) ps1 += p; else ps0 += p;
+      }
+      l0 = l0 * al0 + ps0;
+      l1 = l1 * al1 + ps1;
+      m0 = mn0;
+      m1 = mn1;
+    };
+    auto make_p = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)  // r: (row0, keys 2t..), (row1, ..), (row0, 2t+8..), (row1, ..)
+          split_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1], ph[kk][r], pl[kk][r]);
+    };
+    auto release = [&](int s) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    };
+
+    // The union of both warpgroups' tiles comes through the ring in order;
+    // this warpgroup computes [me.tb, me.te) of it and only releases the rest.
+    // Within its own tiles, S of tile t and P V of tile t - 1 are in flight
+    // together while the softmax of tile t waits only for S.
+    int i = 0;  // ring slots so far, as the producer counts them
+    for (int n = 0; item_index(n) < total; ++n) {
+      const Item it = item_of(item_index(n));
+      const int te = it.te;
+      me = wg ? it.w1 : it.w0;
+      row0 = me.r0 + wwarp * 16 + g;
+      row1 = row0 + 8;
+#pragma unroll
+      for (int j = 0; j < D / 2; ++j) acc[j] = 0.0f;
+      m0 = m1 = -INFINITY;
+      l0 = l1 = 0.0f;
+      mbar_wait(qfull, n & 1);
+      int t = it.tb;
+      for (; t < te && t < me.tb; ++t, ++i) {
+        mbar_wait(&full[i % kStages], (i / kStages) & 1);
+        release(i % kStages);
+      }
+      const int mine_end = min(te, me.te);
+      if (t < mine_end) {
+        int prev = i % kStages;
+        mbar_wait(&full[prev], (i / kStages) & 1);
+        issue_s(prev);
+        wgmma_wait<0>();
+        fence_regs<kBK / 2>(sc);
+        softmax(t);  // acc is 0: nothing to rescale
+        make_p();
+        for (++t, ++i; t < mine_end; ++t, ++i) {
+          const int s = i % kStages;
+          mbar_wait(&full[s], (i / kStages) & 1);
+          issue_s(s);
+          issue_pv(prev);
+          wgmma_wait<1>();  // S of tile t; P V of tile t - 1 may still run
+          fence_regs<kBK / 2>(sc);
+          softmax(t);
+          wgmma_wait<0>();
+          fence_regs<D / 2>(acc);
+          release(prev);
+#pragma unroll
+          for (int j = 0; j < D / 2; ++j) acc[j] *= (j & 2) ? al1 : al0;
+          make_p();
+          prev = s;
+        }
+        issue_pv(prev);
+        wgmma_wait<0>();
+        fence_regs<D / 2>(acc);
+        release(prev);
+      }
+      for (; t < te; ++t, ++i) {
+        mbar_wait(&full[i % kStages], (i / kStages) & 1);
+        release(i % kStages);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(qempty);  // Q is read: the next item's may come
+
+      // ---- flush: acc / max(l, 1e-30), in bf16 ----
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+      }
+      const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+      __nv_bfloat16* o0 = o + (((long long)it.batch * Lq + row0) * H + me.head) * D;
+      __nv_bfloat16* o1 = o + (((long long)it.batch * Lq + row1) * H + me.head) * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int col = 8 * j + 2 * t4;
+        if (row0 < Lq)
+          *reinterpret_cast<uint32_t*>(o0 + col) =
+              pack_bf16(acc[4 * j] / d0, acc[4 * j + 1] / d0);
+        if (row1 < Lq)
+          *reinterpret_cast<uint32_t*>(o1 + col) =
+              pack_bf16(acc[4 * j + 2] / d1, acc[4 * j + 3] / d1);
+      }
     }
   }
+}
 
-  float acc[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.0f;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;  // l: this thread's partial sums
+// cuTensorMapEncodeTiled, looked up with cudaGetDriverEntryPoint so that the
+// library needs no link against libcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-  // kv tiles that can hold an unmasked key for some row of this q tile
-  int kv_end = Lk;
-  if (causal) kv_end = min(Lk, q0 + kBQ);
-  int kv_begin = 0;
-  if (window) kv_begin = max(0, q0 - window + 1) / kBK * kBK;
-
-  for (int k0 = kv_begin; k0 < kv_end; k0 += kBK) {
-    __syncthreads();  // previous tile fully read
-    constexpr int kVecPerRow = D / 8;  // 16-byte vectors per row
-    for (int e = threadIdx.x; e < kBK * kVecPerRow; e += kWarps * 32) {
-      const int r = e / kVecPerRow, c = e % kVecPerRow;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (k0 + r < Lk) {
-        const long long off = (((long long)batch * Lk + k0 + r) * Hkv + kv_head) * D;
-        kv = reinterpret_cast<const uint4*>(k + off)[c];
-        vv = reinterpret_cast<const uint4*>(v + off)[c];
-      }
-      reinterpret_cast<uint4*>(ks + r * LD)[c] = kv;
-      reinterpret_cast<uint4*>(vs + r * LD)[c] = vv;
-    }
-    __syncthreads();
-
-    // ---- S = Q K^T for this warp's 16 rows x 64 keys ----
-    float s[kBK / 8][4];
-#pragma unroll
-    for (int nb = 0; nb < kBK / 8; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.0f;
-#pragma unroll
-    for (int kb = 0; kb < D / 16; ++kb) {
-#pragma unroll
-      for (int nb = 0; nb < kBK / 8; ++nb) {
-        const __nv_bfloat16* kr = ks + (nb * 8 + g) * LD + kb * 16 + 2 * t;
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kr + 8);
-        mma_bf16(s[nb], qf[kb], b0, b1);
-      }
-    }
-
-    // ---- scale, mask, online softmax ----
-    float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-    for (int nb = 0; nb < kBK / 8; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qpos = e < 2 ? row0 : row1;
-        const int kpos = k0 + nb * 8 + 2 * t + (e & 1);
-        bool ok = kpos < Lk;
-        if (causal) ok = ok && kpos <= qpos;
-        if (window) ok = ok && kpos > qpos - window;
-        s[nb][e] = ok ? s[nb][e] * scale : kNegInf;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[nb][0], s[nb][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nb][2], s[nb][3]));
-    }
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {  // the 4 threads of a row group
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float al0 = m0 == kNegInf ? 0.0f : expf(m0 - mn0);
-    const float al1 = m1 == kNegInf ? 0.0f : expf(m1 - mn1);
-    float ps0 = 0.0f, ps1 = 0.0f;
-#pragma unroll
-    for (int nb = 0; nb < kBK / 8; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float mn = e < 2 ? mn0 : mn1;
-        const float p = mn == kNegInf ? 0.0f : expf(s[nb][e] - mn);
-        s[nb][e] = p;
-        if (e < 2) ps0 += p; else ps1 += p;
-      }
-    }
-    l0 = l0 * al0 + ps0;
-    l1 = l1 * al1 + ps1;
-    m0 = mn0;
-    m1 = mn1;
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      acc[nd][0] *= al0;
-      acc[nd][1] *= al0;
-      acc[nd][2] *= al1;
-      acc[nd][3] *= al1;
-    }
-
-    // ---- O += P V, P split into bf16 hi + lo ----
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t ahi[4], alo[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        // r: 0 = (row0, keys 2t..), 1 = (row1, 2t..), 2 = (row0, 2t+8..), 3 = (row1, 2t+8..)
-        const float* src = s[2 * kk + (r >> 1)] + 2 * (r & 1);
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(src[0], src[1]);
-        ahi[r] = *reinterpret_cast<const uint32_t*>(&hi);
-        alo[r] = pack_bf16(src[0] - __low2float(hi), src[1] - __high2float(hi));
-      }
-      const __nv_bfloat16* vr0 = vs + (kk * 16 + 2 * t) * LD + g;
-#pragma unroll
-      for (int nd = 0; nd < D / 8; ++nd) {
-        const __nv_bfloat16* vr = vr0 + nd * 8;
-        const uint32_t b0 = pack_raw(vr[0], vr[LD]);
-        const uint32_t b1 = pack_raw(vr[8 * LD], vr[9 * LD]);
-        mma_bf16(acc[nd], ahi, b0, b1);
-        mma_bf16(acc[nd], alo, b0, b1);
-      }
-    }
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault) == cudaSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
   }
+  return fn;
+}
 
-  // ---- flush: acc / max(l, 1e-30), in bf16 ----
-#pragma unroll
-  for (int off = 1; off <= 2; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) {
-    const int col = nd * 8 + 2 * t;
-    if (row0 < Lq) {
-      *reinterpret_cast<uint32_t*>(o + (((long long)batch * Lq + row0) * H + head) * D + col) =
-          pack_bf16(acc[nd][0] / d0, acc[nd][1] / d0);
-    }
-    if (row1 < Lq) {
-      *reinterpret_cast<uint32_t*>(o + (((long long)batch * Lq + row1) * H + head) * D + col) =
-          pack_bf16(acc[nd][2] / d1, acc[nd][3] / d1);
-    }
-  }
+// A 4-D map over a (B, L, H, D) bf16 tensor, innermost first, with boxes of
+// (one panel of D, 1 head, 64 rows, 1 batch row).
+template <int D>
+int make_map(CUtensorMap* map, const void* base, int batch, int len, int heads) {
+  using Lt = Layout<D>;
+  EncodeTiled encode = encode_fn();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(len), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(heads) * D * 2,
+                                 static_cast<cuuint64_t>(len) * heads * D * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(Lt::kPanelCols), 1, kRows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            Lt::kSwizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                                : CU_TENSOR_MAP_SWIZZLE_64B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int batch, int Lq, int Lk,
            int H, int Hkv, float scale, int causal, int window, void* stream) {
-  dim3 grid((Lq + kBQ - 1) / kBQ, H, batch);
-  flash_kernel<D><<<grid, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Lq, Lk, H, Hkv,
-      scale, causal, window);
+  CUtensorMap qmap, kmap, vmap;
+  int err = make_map<D>(&qmap, q, batch, Lq, H);
+  if (!err) err = make_map<D>(&kmap, k, batch, Lk, Hkv);
+  if (!err) err = make_map<D>(&vmap, v, batch, Lk, Hkv);
+  if (err) return err;
+  const int group = H / Hkv;
+  const bool pair = group % 2 == 0;
+  const int units = pair ? H / 2 : H;
+  const int rows_per_cta = pair ? kRows : 2 * kRows;
+  const int n_qt = (Lq + rows_per_cta - 1) / rows_per_cta;
+  const int smem = Layout<D>::kSmemBytes;
+  cudaError_t e = cudaFuncSetAttribute(flash_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int device = 0, sms = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int grid = min(n_qt * units * batch, sms);  // one persistent CTA per SM
+  flash_kernel<D><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), Lq, Lk, H, group, n_qt, units, batch,
+      scale * kLog2e, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -252,10 +445,21 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch, int 
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
                                      int batch, int Lq, int Lk, int H, int Hkv, int D,
                                      float scale, int causal, int window, void* stream) {
+  if (Lq < 1 || Lk < 1 || Hkv < 1 || H % Hkv) return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
     case 32: return launch<32>(q, k, v, o, batch, Lq, Lk, H, Hkv, scale, causal, window, stream);
     case 64: return launch<64>(q, k, v, o, batch, Lq, Lk, H, Hkv, scale, causal, window, stream);
     case 128: return launch<128>(q, k, v, o, batch, Lq, Lk, H, Hkv, scale, causal, window, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Dynamic shared memory one CTA of the kernel for head dim D requests.
+extern "C" int repro_flash_attention_smem_bytes(int D) {
+  switch (D) {
+    case 32: return Layout<32>::kSmemBytes;
+    case 64: return Layout<64>::kSmemBytes;
+    case 128: return Layout<128>::kSmemBytes;
+    default: return -1;
   }
 }

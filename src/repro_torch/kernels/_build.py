@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``) into
 its own shared library with a plain C interface; no PyTorch header is
 included, so a build takes seconds.  Libraries land in ``build/repro_torch/``
-at the root of the checkout, named by a hash of the source and the flags,
-so a changed source rebuilds and an unchanged one is reused.  Nothing is
+at the root of the checkout, named by a hash of the source, of every shared
+header ``csrc/*.cuh`` and of the flags, so a changed source or header
+rebuilds and an unchanged one is reused.  Nothing is
 built when a module is imported: the first launch of a kernel builds it,
 and :func:`build` compiles several sources at once (one ``nvcc`` process
 each, all started together).
@@ -20,7 +21,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["SOURCES", "build", "kernel_function"]
+__all__ = ["REPORTS", "SOURCES", "build", "kernel_function"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -35,6 +36,9 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+#: The compiler's report (``-Xptxas -v``: registers, spills, stack per
+#: kernel) of each library that :func:`build` compiled with ``verbose``.
+REPORTS: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -53,19 +57,22 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=SOURCES, *, verbose: bool = False) -> dict[str, Path]:
     """Compile every missing library of ``names`` in parallel; return paths.
 
-    ``verbose`` adds ``-Xptxas -v`` and prints each compiler report
-    (registers, shared memory and spills per kernel).
+    ``verbose`` compiles every library of ``names`` again with ``-Xptxas
+    -v``, prints each compiler report (registers, static shared memory,
+    stack and spills per kernel) and keeps it in :data:`REPORTS`.
     """
     targets = {name: _target(name) for name in names}
-    missing = {n: t for n, t in targets.items() if not t.exists()}
+    missing = {n: t for n, t in targets.items() if verbose or not t.exists()}
     if not missing:
         return targets
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -86,6 +93,7 @@ def build(names=SOURCES, *, verbose: bool = False) -> dict[str, Path]:
             tmp.unlink(missing_ok=True)
             continue
         if verbose:
+            REPORTS[name] = f"{out}{err}"
             print(f"[build {name}] {out}{err}".rstrip())
         os.replace(tmp, missing[name])  # atomic: concurrent builders agree
     if failures:

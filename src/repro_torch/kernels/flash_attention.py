@@ -1,10 +1,14 @@
 """flash_attention — causal / GQA / sliding-window attention, one kernel launch.
 
-Hand-written CUDA C++ for Hopper (``repro_torch/csrc/flash_attention.cu``),
-built with ``nvcc`` at first use and called through ctypes.  It replaces the
-JAX package's Pallas kernel (``repro/kernels/flash_attention.py``): an
-online softmax over kv tiles with the running max, denominator and
-accumulator in f32, the output in ``q``'s type.
+Hand-written CUDA C++ for Hopper (``repro_torch/csrc/flash_attention.cu``,
+``sm_90a``: TMA loads through a ring of shared-memory stages, both products
+on ``wgmma``), built with ``nvcc`` at first use and called through ctypes.
+It replaces the JAX package's Pallas kernel
+(``repro/kernels/flash_attention.py``): an online softmax over kv tiles
+with the running max, denominator and accumulator in f32, the output in
+``q``'s type.  The kernel builds its TMA tensor maps on the host with
+``cuTensorMapEncodeTiled``, looked up with ``cudaGetDriverEntryPoint``, so
+the library needs no link against ``libcuda``.
 
 Beside it is :func:`flash_attention_ref`, its plain PyTorch version, which
 the CPU tests compare with the JAX kernel and ``chip_smoke.py`` compares

@@ -11,7 +11,7 @@ hand-written CUDA C++ for Hopper (``repro_torch/csrc``), built with
 
 * :func:`partition_histogram` — value histogram over every element into
   ``(bins,)`` f32, with the JAX kernel's edge comparisons and outlier
-  clamps, bit-exact against its plain version.
+  clamps as XLA rounds them, bit-exact against its plain version.
 * :func:`partition_histogramdd` — d-dimensional histogram into a
   ``(bins,)*d`` int32 grid, bit-exact against summing
   :func:`histogramdd_block`-style counts per block.
@@ -80,15 +80,26 @@ def _check(name: str, err: int) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _hist_thresholds(bins: int, lo: float, hi: float) -> tuple[float, float, float, float]:
-    """``(lo, width, first_below, last_from)`` as the JAX kernel rounds them:
-    ``width = (hi - lo) / bins`` and the two clamp thresholds ``lo + width``
-    and ``hi - width`` are computed in double and rounded once to f32."""
+def _hist_thresholds(bins: int, lo: float, hi: float) -> tuple[float, float, float, float, float]:
+    """``(lo, width, upper0, first_below, last_from)`` in f32, as XLA rounds
+    the JAX kernel's scalars: ``width = (hi - lo) / bins`` in double, rounded
+    once; ``upper0 = f32(f32(lo) + width)``, the constant XLA folds out of
+    the upper edge ``(lo + width*j) + width`` when it reassociates it into
+    ``width*j + upper0``; the two clamp thresholds ``lo + width`` and
+    ``hi - width`` computed in double and rounded once."""
     if bins < 2:
         raise ValueError(f"partition_histogram needs bins >= 2, got {bins}")
     width = (hi - lo) / bins
-    as_f32 = torch.tensor([lo, width, lo + width, hi - width], dtype=torch.float32)
-    return tuple(as_f32.tolist())
+    lo_f, width_f, first_below, last_from = torch.tensor(
+        [lo, width, lo + width, hi - width], dtype=torch.float32)
+    upper0 = lo_f + width_f
+    return tuple(float(t) for t in (lo_f, width_f, upper0, first_below, last_from))
+
+
+def _flush_subnormal(t: torch.Tensor) -> torch.Tensor:
+    """Subnormal f32 values as 0: XLA on the CPU (and the TPU) compares with
+    subnormals flushed to zero, and so do the kernel and its plain version."""
+    return torch.where(t.abs() < torch.finfo(torch.float32).tiny, torch.zeros_like(t), t)
 
 
 #: Elements per one-hot slice of the plain value histogram (a bounded
@@ -102,17 +113,19 @@ def partition_histogram_ref(
     """Plain PyTorch version of :func:`partition_histogram`: the JAX kernel's
     one-hot over every bin, ``_REF_SLICE`` elements at a time.
 
-    Edge ``j`` is ``lo + width * j`` in f32 (multiply, then add); a value
-    counts in every bin ``j`` with ``e_j <= x < e_j + width``, and also in bin
-    0 when ``x < lo + width`` and in the last bin when ``x >= hi - width``.
-    A NaN counts nowhere.  Counts are exact integers returned as f32.
+    Edge ``j`` is ``lo + width * j`` and its upper edge ``width * j +
+    upper0`` in f32 (multiply, then add; see :func:`_hist_thresholds`); a
+    value counts in every bin ``j`` with ``e_j <= x < upper_j``, and also in
+    bin 0 when ``x < lo + width`` and in the last bin when ``x >= hi -
+    width``.  Subnormal values and edges compare as 0.  A NaN counts
+    nowhere.  Counts are exact integers returned as f32.
     """
-    lo_f, width_f, first_below, last_from = _hist_thresholds(bins, lo, hi)
+    lo_f, width_f, upper0, first_below, last_from = _hist_thresholds(bins, lo, hi)
     dev = stacked.device
-    x = stacked.to(torch.float32).reshape(-1)
-    j = torch.arange(bins, dtype=torch.float32, device=dev)
-    edges = torch.tensor(width_f, device=dev) * j + torch.tensor(lo_f, device=dev)
-    upper = edges + torch.tensor(width_f, device=dev)
+    x = _flush_subnormal(stacked.to(torch.float32).reshape(-1))
+    jw = torch.tensor(width_f, device=dev) * torch.arange(bins, dtype=torch.float32, device=dev)
+    edges = _flush_subnormal(jw + torch.tensor(lo_f, device=dev))
+    upper = _flush_subnormal(jw + torch.tensor(upper0, device=dev))
     first = torch.zeros(bins, dtype=torch.bool, device=dev)
     first[0] = True
     last = torch.zeros(bins, dtype=torch.bool, device=dev)
@@ -133,8 +146,8 @@ def partition_histogram(
     """Value histogram over every element of a partition → ``(bins,)`` f32."""
     if pallas_interpret(stacked):
         return partition_histogram_ref(stacked, bins=bins, lo=lo, hi=hi)
-    lo_f, width_f, first_below, last_from = _hist_thresholds(bins, lo, hi)
-    if bins * 4 > _SMEM_OPTIN:
+    lo_f, width_f, upper0, first_below, last_from = _hist_thresholds(bins, lo, hi)
+    if 3 * bins * 4 > _SMEM_OPTIN:  # counts and both edge arrays
         raise ValueError(f"partition_histogram: {bins} bins exceed one CTA's shared memory")
     x = stacked.to(torch.float32).contiguous()
     counts = torch.zeros(bins, dtype=torch.int32, device=x.device)
@@ -143,11 +156,11 @@ def partition_histogram(
     fn = kernel_function(
         "partition_histogram",
         "repro_histogram",
-        [_VOID, ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-         ctypes.c_float, ctypes.c_float, _VOID, ctypes.c_int, ctypes.c_int, _VOID],
+        [_VOID, ctypes.c_longlong, ctypes.c_int] + [ctypes.c_float] * 5
+        + [_VOID, ctypes.c_int, ctypes.c_int, _VOID],
     )
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), n, bins, lo_f, width_f, first_below, last_from,
+        err = fn(x.data_ptr(), n, bins, lo_f, width_f, upper0, first_below, last_from,
                  counts.data_ptr(), grid, _THREADS, _stream(x.device))
     _check("partition_histogram", err)
     partition_histogram.launches += 1

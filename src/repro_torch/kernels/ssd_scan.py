@@ -3,8 +3,10 @@
 Hand-written CUDA C++ for Hopper (``repro_torch/csrc/ssd_scan.cu``), built
 with ``nvcc`` at first use and called through ctypes.  It replaces the JAX
 package's Pallas kernel (``repro/kernels/ssd_scan.py``): one CTA per
-(batch, head) walks the chunks in order with the ``(P, N)`` state in f32 in
-shared memory.
+(batch, pair of heads) walks the chunks in order, computes each chunk's
+``C·Bᵀ`` once for both heads, runs the four products on the tensor cores
+(``mma.sync``, f32 factors split into bf16 hi + lo) and keeps each head's
+``(P, N)`` state in f32 in registers.
 
 Beside it is :func:`ssd_chunked`, its plain PyTorch version (the paper's
 Algorithm 1, as ``repro.models.ssm.ssd_chunked``), which the model's CPU

@@ -8,6 +8,8 @@ only run on a card, where ``chip_smoke.py`` holds each against the plain
 version tested here.
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -182,15 +184,24 @@ def test_ssd_rejects_ragged_chunking():
 # ---------------------------------------------------------------------------
 
 
-def _hist_data(seed, shape, lo, hi):
+def _hist_data(seed, shape, lo, hi, bins=8):
     """Uniform values over [lo - 10%, hi + 10%] laced with ±inf, NaN, huge
-    values and values exactly on the edges lo + k (hi - lo) / bins."""
+    values, ±0 and subnormals, and values on and one ulp beside each edge
+    lo + k (hi - lo) / bins, each upper edge as f32 arithmetic forms it
+    (lo + w*k) + w and w*k + (lo + w), and the two clamp thresholds."""
     rng = np.random.default_rng(seed)
     width = hi - lo
     x = rng.uniform(lo - 0.1 * width, hi + 0.1 * width, shape).astype(np.float32).reshape(-1)
-    edges = (lo + np.arange(9) * (width / 8)).astype(np.float32)
+    w = np.float32(width / bins)
+    k = np.arange(bins + 1, dtype=np.float32)
+    edges = np.concatenate([
+        (lo + np.arange(bins + 1) * (width / bins)).astype(np.float32),
+        (np.float32(lo) + w * k) + w,
+        w * k + (np.float32(lo) + w),
+        np.float32([lo + width / bins, hi - width / bins]),
+    ])
     special = np.concatenate([
-        [np.inf, -np.inf, np.nan, 1e10, -1e10, lo, hi,
+        [np.inf, -np.inf, np.nan, 1e10, -1e10, lo, hi, 0.0, -0.0, 1e-45, -1e-45, 1e-39,
          np.nextafter(np.float32(lo), np.float32(-np.inf)),
          np.nextafter(np.float32(hi), np.float32(-np.inf))],
         edges,
@@ -242,27 +253,45 @@ def test_histogram_off_zero_range_bit_exact():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-# f32 value -> (bins the JAX kernel counts it in on the CPU, bins the port does)
-EDGE_SIDES = {1.3: ((3,), ()), 1.6: ((5,), (4, 5)), 1.9: ((), (5,))}
-
-
 def test_histogram_edge_rounding_at_lo_0p1_hi_2p5():
-    """At lo=0.1, hi=2.5, bins=8 three values on the edges land on other
-    sides.  The port computes each upper edge as the kernel's source writes
-    it, (lo + width*j) + width, rounding twice in f32; XLA on the CPU
-    reassociates it into width*j + f32(lo + width).  Every other value of
-    the edge-laced data agrees bit for bit."""
+    """At lo=0.1, hi=2.5, bins=8 the source's upper edge (lo + width*j) +
+    width and XLA's reassociated width*j + f32(lo + width) differ; the port
+    rounds as XLA does, so the three f32 values on those edges (1.3, 1.6,
+    1.9) land in the JAX kernel's bins, and all edge-laced data agrees bit
+    for bit."""
     lo, hi = 0.1, 2.5
-    for value, (jax_bins, port_bins) in EDGE_SIDES.items():
+    for value, jax_bins in {1.3: (3,), 1.6: (5,), 1.9: ()}.items():
         one = np.full((1, 1, 1), value, np.float32)
         want = np.asarray(j_hist(jnp.asarray(one), bins=8, lo=lo, hi=hi))
         got = partition_histogram(torch.from_numpy(one), bins=8, lo=lo, hi=hi).numpy()
         assert tuple(np.flatnonzero(want)) == jax_bins, value
-        assert tuple(np.flatnonzero(got)) == port_bins, value
+        np.testing.assert_array_equal(got, want)
     x = _hist_data(7, (2, 64, 3), lo, hi)
-    x = x[~np.isin(x, np.float32(list(EDGE_SIDES)))].reshape(1, -1, 1)
     want = np.asarray(j_hist(jnp.asarray(x), bins=8, lo=lo, hi=hi))
     got = partition_histogram(torch.from_numpy(x), bins=8, lo=lo, hi=hi)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _hist_grids(seed=13, count=30):
+    """Seeded (lo, hi, bins) grids, plus (-1.2, 2.0, 16), where a subnormal
+    value beside the zero edge once fell on the other side."""
+    rng = np.random.default_rng(seed)
+    grids = [(-1.2, 2.0, 16)]
+    while len(grids) < count:
+        lo = round(float(rng.uniform(-3.0, 3.0)), int(rng.integers(1, 4)))
+        hi = round(lo + float(rng.uniform(0.05, 5.0)), int(rng.integers(1, 4)))
+        if hi > lo:
+            grids.append((lo, hi, int(rng.choice([2, 3, 5, 8, 16, 33, 64, 128]))))
+    return grids
+
+
+@pytest.mark.parametrize("lo,hi,bins", _hist_grids())
+def test_histogram_seeded_grids_bit_exact_vs_jax(lo, hi, bins):
+    """Edge-laced data on each grid: the port's plain version equals the JAX
+    kernel bit for bit (subnormals compare as 0 in both)."""
+    x = _hist_data(int(bins * 1000 + abs(lo) * 100), (1, 4 * bins + 96, 3), lo, hi, bins)
+    want = np.asarray(j_hist(jnp.asarray(x), bins=bins, lo=lo, hi=hi))
+    got = partition_histogram(torch.from_numpy(x), bins=bins, lo=lo, hi=hi)
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -281,3 +310,136 @@ def test_other_devices_raise():
         ops.flash_attention(x, x, x)
     with pytest.raises(ValueError, match="meta"):
         ops.partition_histogram(torch.empty((2, 4, 3), device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels' number schemes, emulated on the CPU
+# ---------------------------------------------------------------------------
+#
+# The card cannot run here, so these tests repeat in torch what the kernels do
+# to the numbers: every f32 value is rounded to bf16 terms (term k = bf16 of
+# what the terms before it leave) and multiplied as bf16 products summed in
+# f32, as the tensor cores do.  The results are held to the JAX kernels.
+#
+# Schemes, by products per f32 product: 2 = an f32 factor in two terms times
+# an exact bf16 input (the kernels' bf16 route); 3 = two terms each, hi.hi +
+# hi.lo + lo.hi; 6 = three terms each, the term products of order <= 2
+# (ssd_scan's f32 route).
+_SCHEMES = {2: (2, 1, 1), 3: (2, 2, 1), 6: (3, 3, 2)}  # terms of f, terms of x, max order
+
+
+def _terms(t, k):
+    out = []
+    for _ in range(k):
+        out.append(t.to(torch.bfloat16).float())
+        t = t - out[-1]
+    return out
+
+
+def _split_product(f, x, products):
+    """f @ x as the scheme with that many products computes it."""
+    tf, tx, order = _SCHEMES[products]
+    fs, xs = _terms(f, tf), _terms(x, tx)
+    return sum(fs[i] @ xs[j] for i in range(tf) for j in range(tx) if i + j <= order)
+
+
+def _ssd_emulated(x, dt, a, bm, cm, *, products, q=64):
+    """csrc/ssd_scan.cu's arithmetic: 64-row chunks, C.B^T per chunk, each
+    product split by the scheme; the state in f32.  C.B^T of bf16 inputs
+    (scheme 2) is exact."""
+    b, l, nh, p = x.shape
+    n = bm.shape[-1]
+    y = torch.zeros_like(x)
+    hout = torch.zeros((b, nh, p, n))
+    for bi in range(b):
+        for hd in range(nh):
+            h = torch.zeros((p, n))
+            for c0 in range(0, l, q):
+                xs, cs, bs = x[bi, c0:c0 + q, hd], cm[bi, c0:c0 + q], bm[bi, c0:c0 + q]
+                dts = dt[bi, c0:c0 + q, hd]
+                seg = torch.cumsum(dts * a[hd], 0)
+                cb = cs @ bs.T if products == 2 else _split_product(cs, bs.T, products)
+                lower = torch.tril(torch.ones((len(seg), len(seg)), dtype=torch.bool))
+                g = torch.where(lower, cb * torch.exp(seg[:, None] - seg[None, :]) * dts[None, :],
+                                torch.zeros(()))
+                inter = _split_product(h, cs.T, products).T * torch.exp(seg)[:, None]
+                y[bi, c0:c0 + q, hd] = inter + _split_product(g, xs, products)
+                tail = torch.exp(seg[-1] - seg) * dts
+                h = h * torch.exp(seg[-1]) + _split_product((xs * tail[:, None]).T, bs,
+                                                            products)
+            hout[bi, hd] = h
+    return y, hout
+
+
+@pytest.mark.parametrize("products", [2, 3, 6])
+def test_ssd_split_products_vs_jax(products):
+    """Two products on bf16-valued inputs (the served route); three and six
+    on f32 inputs that are not bf16 values: each within SSD_TOL of the JAX
+    kernel at this size.  (At the mamba2 prefill's shapes three products
+    left 2.3x SSD_TOL on the card, so the kernel's f32 route takes six.)"""
+    arrays = _ssd_inputs(11, 2, 160, 2, 16, 32)
+    if products == 2:
+        arrays = tuple(np.asarray(torch.from_numpy(t).to(torch.bfloat16).float()) for t in arrays)
+    jy, jh = j_ssd(*map(jnp.asarray, arrays), chunk=32)
+    ty, th = _ssd_emulated(*map(torch.from_numpy, arrays), products=products)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **SSD_TOL)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), **SSD_TOL)
+
+
+def _flash_emulated(q, k, v, *, causal, window, bk=64):
+    """csrc/flash_attention.cu's arithmetic: 64-key tiles, S = Q K^T of bf16
+    values in f32, a base-2 online softmax with log2(e) folded into the
+    scale, P split into bf16 hi + lo for P V, the output rounded to bf16."""
+    b, lq, h, d = q.shape
+    lk, hkv = k.shape[1], k.shape[2]
+    scale_log2 = (1.0 / math.sqrt(d)) * 1.4426950408889634
+    out = torch.zeros((b, lq, h, d))
+    qpos = torch.arange(lq)[:, None]
+    for bi in range(b):
+        for hd in range(h):
+            qh, kh, vh = q[bi, :, hd], k[bi, :, hd // (h // hkv)], v[bi, :, hd // (h // hkv)]
+            m = torch.full((lq, 1), -math.inf)
+            lsum = torch.zeros((lq, 1))
+            acc = torch.zeros((lq, d))
+            for k0 in range(0, lk, bk):
+                s = qh @ kh[k0:k0 + bk].T
+                kpos = torch.arange(k0, min(lk, k0 + bk))[None, :]
+                mask = torch.ones_like(s, dtype=torch.bool)
+                if causal:
+                    mask &= kpos <= qpos
+                if window:
+                    mask &= kpos > qpos - window
+                s = torch.where(mask, s, -math.inf)
+                mn = torch.maximum(m, s.amax(1, keepdim=True) * scale_log2)
+                mu = torch.where(mn == -math.inf, 0.0, mn)
+                alpha = torch.exp2(m - mu)
+                pm = torch.exp2(s * scale_log2 - mu)
+                lsum = lsum * alpha + pm.sum(1, keepdim=True)
+                acc = acc * alpha + _split_product(pm, vh[k0:k0 + bk], 2)
+                m = mn
+            out[bi, :, hd] = acc / lsum.clamp_min(1e-30)
+    return out.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("lq,h,hkv,d,window", [
+    (96, 4, 2, 32, 0), (160, 2, 1, 64, 0), (128, 4, 4, 16, 40),
+])
+def test_flash_split_p_vs_jax(lq, h, hkv, d, window):
+    (jq, tq), (jk, tk), (jv, tv) = _flash_pair(np.random.default_rng(lq), 1, lq, lq, h, hkv, d,
+                                               "bfloat16")
+    want = j_flash(jq, jk, jv, causal=True, window=window, block_q=32, block_k=32)
+    got = _flash_emulated(tq.float(), tk.float(), tv.float(), causal=True, window=window)
+    np.testing.assert_allclose(_f32(got), _f32(want), **TOL["bfloat16"])
+
+
+def test_build_hash_covers_shared_headers(tmp_path, monkeypatch):
+    """A changed csrc/*.cuh header changes every library's build target."""
+    from repro_torch.kernels import _build
+
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build._target("k")
+    assert _build._target("k") == before
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert _build._target("k") != before

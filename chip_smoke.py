@@ -18,6 +18,13 @@ Then each hand-written kernel runs at the main path's per-task shape
 a stated tolerance and timed with CUDA events.  Kernel launches are counted
 over the main-path phase only.
 
+Timing: a kernel's ``ms`` (and ``plain_ms``, ``library_ms`` and the other
+times) is one call between two CUDA events on an idle card, so the host's
+work to launch the call is in it.  Beside ``ms``, ``device_ms`` is the
+card's time per call with the calls queued behind a sleeping kernel, so
+that the card runs them back to back and the host's launch work is hidden,
+and ``host_ms`` is that launch work per call on the host's clock.
+
 Three more paths follow, each with every launch count set to 0 just before
 it and read just after:
 
@@ -54,8 +61,11 @@ beside ``scaled_dot_product_attention``), ``ssd_scan`` (x 8×512×64×64, B/C
 8×512×128; in f32 on upcast inputs and on f32 inputs that are not bf16
 values within ``SSD_TOL``, and on the bf16 inputs y within ``BF16_TOL`` and
 the f32 state within ``SSD_TOL`` of the same f32 plain version) and
-``partition_histogram`` (16×262,144×5 f32, bins 128).  Each kernel's entry
-gives its launches on its path's run and per call of its path.
+``partition_histogram`` (16×262,144×5 f32, bins 128, bit-exact and the same
+bits on a second launch, timed beside ``torch.histc`` as a yardstick).
+``partition_kmeans`` must also give the same bits on a second launch.  Each
+kernel's entry gives its launches on its path's run and per call of its
+path.
 
 Output: the card's name and power limit (``nvidia-smi``) on the first line,
 the compiler's registers, stack, spills and shared memory per kernel (a
@@ -69,7 +79,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import math
 import re
 import statistics
 import subprocess
@@ -150,6 +159,41 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def device_and_host_ms(fn, reps: int = 20) -> tuple[float, float]:
+    """``(device ms, host ms)`` per call of ``fn``.  The calls are queued
+    behind a sleeping kernel, so the card runs them back to back: CUDA events
+    around them give the card's time per call without the host's launch work,
+    and the host clock around the queueing gives that work.  Median of 3."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    once = time.perf_counter() - t0
+    reps = max(3, min(reps, int(0.2 / max(once, 1e-6))))
+    device, host = [], []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(3 * reps * once * 2e9) + 1_000_000)  # cycles, at ~2 GHz
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host.append((time.perf_counter() - t0) / reps * 1e3)
+        end.record()
+        end.synchronize()
+        device.append(start.elapsed_time(end) / reps)
+    return statistics.median(device), statistics.median(host)
+
+
+def kernel_times(fn) -> dict:
+    """``ms`` (``cuda_ms``), and ``device_ms`` and ``host_ms``
+    (``device_and_host_ms``)."""
+    device_ms, host_ms = device_and_host_ms(fn)
+    return {"ms": cuda_ms(fn), "device_ms": device_ms, "host_ms": host_ms}
+
+
 def bound(nbytes: int, flops: int, peak: float = F32_FLOPS_PER_S) -> tuple[float, str]:
     """Least time (ms) for the work on an H100 SXM, and what bounds it."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
@@ -174,17 +218,21 @@ def _kernel_name(mangled: str) -> str:
 
 def ptxas_line(reports: dict) -> list[dict]:
     """Registers, stack, spills and shared memory per kernel, from the
-    compiler's ``-Xptxas -v`` reports; dynamic shared memory as the flash
-    and SSD kernels request it at launch."""
+    compiler's ``-Xptxas -v`` reports; dynamic shared memory as each kernel
+    requests it at launch on its main path (k-means at d=20, k=8; the value
+    histogram at 128 bins)."""
     import ctypes
 
+    from repro_torch.kernels import partition_reduce as pr
     from repro_torch.kernels._build import kernel_function
 
     flash_smem = kernel_function("flash_attention", "repro_flash_attention_smem_bytes",
                                  [ctypes.c_int])
     ssd_smem = kernel_function("ssd_scan", "repro_ssd_scan_smem_bytes", [ctypes.c_int])
     dynamic = {f"flash_kernel<{d}>": flash_smem(d) for d in (32, 64, 128)}
-    dynamic.update({"ssd_kernel<bf16>": ssd_smem(1), "ssd_kernel<f32>": ssd_smem(0)})
+    dynamic.update({"ssd_kernel<bf16>": ssd_smem(1), "ssd_kernel<f32>": ssd_smem(0),
+                    "kmeans_partial": pr._kmeans_plan(KM_D, KM_K)[0],
+                    "hist_kernel": pr._histogram_plan(VALUE_BINS)[1]})
     out = []
     for lib, text in reports.items():
         entry = None
@@ -334,7 +382,7 @@ def kernel_checks(x_hist, x_km, seed: int, launches: dict, per_call: dict) -> li
     big = pr.partition_histogramdd(st, bins=16)  # 2**20 cells: the global-atomic variant
     check(torch.equal(big, pr.partition_histogramdd_ref(st, bins=16)),
           "partition_histogramdd (2**20 cells) equals its plain version")
-    ms = cuda_ms(lambda: pr.partition_histogramdd(st, bins=HIST_BINS))
+    times = kernel_times(lambda: pr.partition_histogramdd(st, bins=HIST_BINS))
     plain_ms = cuda_ms(lambda: pr.partition_histogramdd_ref(st, bins=HIST_BINS))
     big_ms = cuda_ms(lambda: pr.partition_histogramdd(st, bins=16))
     bound_ms, bound_by = bound(st.numel() * 4 + HIST_BINS**d * 4, 3 * st.numel())
@@ -346,7 +394,7 @@ def kernel_checks(x_hist, x_km, seed: int, launches: dict, per_call: dict) -> li
         "launches_per_call": per_call["partition_histogramdd"][0],
         "per_call_of": per_call["partition_histogramdd"][1],
         "max_abs_err": int((got - want).abs().max()), "tolerance": "bit-exact",
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        **times, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "library": "none: no single PyTorch call computes it",
         "shape": [nb, rows, d], "bins": HIST_BINS, "stack_ms": stack_ms,
         "ms_2pow20_cells": big_ms,
@@ -359,16 +407,20 @@ def kernel_checks(x_hist, x_km, seed: int, launches: dict, per_call: dict) -> li
     nb, rows, d = st.shape
     c = _init_centers(seed, KM_K, KM_D, torch.float32, st.device)
     sums, cnt = pr.partition_kmeans(st, c)
+    sums2, cnt2 = pr.partition_kmeans(st, c)
     rsums, rcnt = pr.partition_kmeans_ref(st, c)
     check(torch.equal(cnt, rcnt), "partition_kmeans counts equal its plain version")
     check(torch.allclose(sums, rsums, rtol=1e-4, atol=1e-3),
           "partition_kmeans sums within 1e-4 of its plain version")
+    check(torch.equal(sums, sums2) and torch.equal(cnt, cnt2),
+          "partition_kmeans gives the same bits on a second launch")
+    smem, per_sm = pr._kmeans_plan(d, KM_K)
     x64, c64 = st.reshape(-1, d).double(), c.double()
     d2 = torch.sort((c64 * c64).sum(1)[None, :] - 2.0 * x64 @ c64.T, dim=1).values
     near_ties = int(((d2[:, 1] - d2[:, 0]) <= 1e-4).sum())
     check(near_ties == 0, f"no float64 near-tie rows ({near_ties})")
     del x64, d2
-    ms = cuda_ms(lambda: pr.partition_kmeans(st, c))
+    times = kernel_times(lambda: pr.partition_kmeans(st, c))
     plain_ms = cuda_ms(lambda: pr.partition_kmeans_ref(st, c))
     n = nb * rows
     bound_ms, bound_by = bound(
@@ -383,10 +435,11 @@ def kernel_checks(x_hist, x_km, seed: int, launches: dict, per_call: dict) -> li
         "per_call_of": per_call["partition_kmeans"][1],
         "max_abs_err": float((sums - rsums).abs().max()),
         "max_rel_err": float(((sums - rsums).abs() / rsums.abs().clamp_min(1.0)).max()),
-        "tolerance": "counts exact, sums rtol 1e-4",
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "tolerance": "counts exact, sums rtol 1e-4, atol 1e-3; bit-identical across launches",
+        **times, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "library": "none: no single PyTorch call computes it",
         "shape": [nb, rows, d], "k": KM_K, "near_tie_rows": near_ties, "stack_ms": stack_ms,
+        "dynamic_smem_bytes": smem, "ctas_per_sm": per_sm,
     })
     return out
 
@@ -647,7 +700,7 @@ def lm_kernel_checks(seed: int, dev: torch.device, x_values: torch.Tensor,
         "launches_per_call": launches["flash_attention"],
         "per_call_of": "qwen3-32b prefill (8 layers)",
         "tolerance": f"allclose {BF16_TOL} (bf16 output)",
-        "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True)),
+        **kernel_times(lambda: fa.flash_attention(q, k, v, causal=True)),
         "plain_ms": cuda_ms(lambda: fa.flash_attention_ref(q, k, v, causal=True)),
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": cuda_ms(sdpa),
         "library": "torch.nn.functional.scaled_dot_product_attention(is_causal, enable_gqa)",
@@ -714,7 +767,7 @@ def lm_kernel_checks(seed: int, dev: torch.device, x_values: torch.Tensor,
         "f32_not_bf16_max_abs_err": f32_raw_err,
         "tolerance": f"f32 on upcast inputs, allclose {SSD_TOL}; bf16 in/out: y allclose "
                      f"{BF16_TOL}, state allclose {SSD_TOL}",
-        "ms": cuda_ms(lambda: ss.ssd_scan(*inputs, chunk=256)),
+        **kernel_times(lambda: ss.ssd_scan(*inputs, chunk=256)),
         "plain_ms": cuda_ms(lambda: ss.ssd_chunked(*inputs, chunk=256)),
         "ms_f32": cuda_ms(lambda: ss.ssd_scan(*up, chunk=256)),
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
@@ -731,9 +784,14 @@ def lm_kernel_checks(seed: int, dev: torch.device, x_values: torch.Tensor,
     got = pr.partition_histogram(st, bins=VALUE_BINS)
     want = pr.partition_histogram_ref(st, bins=VALUE_BINS)
     check(torch.equal(got, want), "partition_histogram equals its plain version bit for bit")
+    check(torch.equal(pr.partition_histogram(st, bins=VALUE_BINS), got),
+          "partition_histogram gives the same bits on a second launch")
+    histc = lambda: torch.histc(st, bins=VALUE_BINS, min=0.0, max=1.0)  # noqa: E731
+    histc_diff = float((histc() - got).abs().max())
     nelem = st.numel()
-    steps = 2 * math.ceil(math.log2(VALUE_BINS + 1))  # two binary searches per value
-    bound_ms, bound_by = bound(nelem * 4 + VALUE_BINS * 4, 3 * steps * nelem)
+    # per value: the guess (a subtract, a multiply, two clamps) and the four
+    # edge comparisons that close both walks
+    bound_ms, bound_by = bound(nelem * 4 + VALUE_BINS * 4, 8 * nelem)
     out.append({
         "name": "partition_histogram", "route": "cuda",
         "source": "src/repro_torch/csrc/partition_histogram.cu",
@@ -742,10 +800,13 @@ def lm_kernel_checks(seed: int, dev: torch.device, x_values: torch.Tensor,
         "launches_per_call": launches["partition_histogram"],
         "per_call_of": f"value histogram over {LOCATIONS} partitions",
         "max_abs_err": float((got - want).abs().max()), "tolerance": "bit-exact",
-        "ms": cuda_ms(lambda: pr.partition_histogram(st, bins=VALUE_BINS)),
+        **kernel_times(lambda: pr.partition_histogram(st, bins=VALUE_BINS)),
         "plain_ms": cuda_ms(lambda: pr.partition_histogram_ref(st, bins=VALUE_BINS)),
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        "library": "none: torch.histc drops out-of-range values and rounds its edges otherwise",
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": cuda_ms(histc),
+        "library": "torch.histc(bins=128, min=0, max=1), a yardstick only: not the same "
+                   "function (it drops values outside [min, max] where the kernel clamps "
+                   "them into the end bins, and rounds its edges its own way)",
+        "library_max_abs_diff": histc_diff,
         "shape": list(st.shape), "bins": VALUE_BINS,
     })
     return out

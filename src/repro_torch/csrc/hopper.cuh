@@ -1,6 +1,6 @@
-// hopper.cuh: the Hopper (sm_90a) building blocks that the port's attention
-// and SSD kernels share: bf16 packing and the f32 -> bf16 hi + lo split,
-// mma.sync m16n8k16, cp.async, mbarriers, TMA tensor loads and wgmma.
+// hopper.cuh: the Hopper (sm_90a) building blocks that the port's kernels
+// share: bf16 packing and the f32 -> bf16 hi + lo split, mma.sync m16n8k16,
+// cp.async, mbarriers, TMA bulk and tensor loads, launch set-up and wgmma.
 //
 // Every source that includes this header is rebuilt when it changes: the
 // build hashes csrc/*.cuh with each source (kernels/_build.py).
@@ -106,6 +106,16 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 
 // ---- TMA ----------------------------------------------------------------------
 
+// `bytes` contiguous bytes global -> shared by the copy engine (1-D bulk copy);
+// completes on `bar`.  dst, src and bytes are multiples of 16.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // One box of a 4-D tensor map into shared memory; completes on `bar`.
 __device__ __forceinline__ void tma_load_4d(void* dst, const void* map, uint64_t* bar, int c0,
                                             int c1, int c2, int c3) {
@@ -115,6 +125,35 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map, uint64_t
       :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)),
          "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// ---- launch set-up ------------------------------------------------------------
+
+// Lets `kernel` request as much dynamic shared memory as the card's opt-in
+// limit leaves beside its static shared memory, with the SM's memory split
+// at the largest shared-memory share.
+// Sets the attribute once per device: the call is idempotent, so two host
+// threads that race here both set the same value.  `static`: each library
+// keeps its own flags (an inline template's static would be one object per
+// process, shared by every library that instantiates it for the same type).
+template <typename Kernel>
+static inline cudaError_t opt_in_shared_memory(Kernel kernel) {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (dev < 64 && done[dev])) return e;
+  int bytes = 0;
+  cudaFuncAttributes attr;
+  e = cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
+  if (e == cudaSuccess)  // what the kernel's static shared memory leaves
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes - static_cast<int>(attr.sharedSizeBytes));
+  if (e == cudaSuccess)  // the SM's shared memory at its largest, so CTAs can share an SM
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess && dev < 64) done[dev] = true;
+  return e;
 }
 
 // ---- wgmma --------------------------------------------------------------------

@@ -51,6 +51,8 @@ __all__ = [
 ]
 
 _THREADS = 256
+#: Rows per tile of the k-means kernel (two per consumer thread).
+_KMEANS_TILE = 256
 #: Dynamic shared memory one CTA may opt into on Hopper (227 KB), the only
 #: architecture the sources are built for.
 _SMEM_OPTIN = 232_448
@@ -140,31 +142,63 @@ def partition_histogram_ref(
     return counts.to(torch.float32)
 
 
+#: CTAs of the value histogram resident per SM: 6 x 256 threads x two
+#: 16-byte loads keep 48 KB in flight per SM.
+_HIST_CTAS_PER_SM = 6
+#: Values each CTA of the value histogram loads per step (256 threads x 2 x float4).
+_HIST_CHUNK = _THREADS * 8
+
+
+def _histogram_plan(bins: int) -> tuple[int, int]:
+    """``(sub-histograms, shared bytes)`` per CTA of the value-histogram
+    kernel: two f32 bounds per bin and one int32 sub-histogram per warp (8),
+    fewer where that many do not fit (up to 19,370 bins fit one)."""
+    copies = min(_THREADS // 32, _SMEM_OPTIN // (4 * bins) - 2)
+    if copies < 1:
+        raise ValueError(f"partition_histogram: {bins} bins exceed one CTA's shared memory")
+    return copies, 4 * bins * (2 + copies)
+
+
+@functools.cache
+def _hist_kernel_scalars(bins: int, lo: float, hi: float) -> tuple[float, ...]:
+    """The kernel's f32 scalars ``(lo, width, 1 / width, upper0, first_below,
+    last_from)``; ``1 / width`` (0 where width <= 0) only places the guess."""
+    lo_f, width_f, upper0, first_below, last_from = _hist_thresholds(bins, lo, hi)
+    inv_width = float(torch.tensor(1.0) / torch.tensor(width_f)) if width_f > 0 else 0.0
+    return lo_f, width_f, inv_width, upper0, first_below, last_from
+
+
+@functools.cache
+def _histogram_fn():
+    return kernel_function(
+        "partition_histogram",
+        "repro_histogram",
+        [_VOID, ctypes.c_longlong, ctypes.c_int, ctypes.c_int] + [ctypes.c_float] * 6
+        + [_VOID, _VOID, ctypes.c_int, ctypes.c_int, _VOID],
+    )
+
+
 def partition_histogram(
     stacked: torch.Tensor, *, bins: int = 128, lo: float = 0.0, hi: float = 1.0
 ) -> torch.Tensor:
     """Value histogram over every element of a partition → ``(bins,)`` f32."""
     if pallas_interpret(stacked):
         return partition_histogram_ref(stacked, bins=bins, lo=lo, hi=hi)
-    lo_f, width_f, upper0, first_below, last_from = _hist_thresholds(bins, lo, hi)
-    if 3 * bins * 4 > _SMEM_OPTIN:  # counts and both edge arrays
-        raise ValueError(f"partition_histogram: {bins} bins exceed one CTA's shared memory")
+    scalars = _hist_kernel_scalars(bins, lo, hi)
+    copies, shared = _histogram_plan(bins)
     x = stacked.to(torch.float32).contiguous()
-    counts = torch.zeros(bins, dtype=torch.int32, device=x.device)
+    # the f32 result, then the kernel's int32 counts and its ticket
+    buf = torch.empty(2 * bins + 1, dtype=torch.float32, device=x.device)
     n = x.numel()
-    grid = max(1, min(math.ceil(n / _THREADS), _num_sms(x.device.index) * 8))
-    fn = kernel_function(
-        "partition_histogram",
-        "repro_histogram",
-        [_VOID, ctypes.c_longlong, ctypes.c_int] + [ctypes.c_float] * 5
-        + [_VOID, ctypes.c_int, ctypes.c_int, _VOID],
-    )
+    per_sm = max(1, min(_HIST_CTAS_PER_SM, _SMEM_PER_SM // (shared + 1024)))
+    grid = max(1, min(math.ceil(n / _HIST_CHUNK), _num_sms(x.device.index) * per_sm))
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), n, bins, lo_f, width_f, upper0, first_below, last_from,
-                 counts.data_ptr(), grid, _THREADS, _stream(x.device))
+        err = _histogram_fn()(x.data_ptr(), n, bins, copies, *scalars,
+                              buf.data_ptr() + 4 * bins, buf.data_ptr(), grid, shared,
+                              _stream(x.device))
     _check("partition_histogram", err)
     partition_histogram.launches += 1
-    return counts.to(torch.float32)
+    return buf[:bins]
 
 
 partition_histogram.launches = 0
@@ -277,6 +311,32 @@ def partition_kmeans_ref(
     return sums, counts
 
 
+#: CTAs of the k-means kernel resident per SM where shared memory allows: the
+#: minimum of its ``__launch_bounds__``, which caps its registers to fit them.
+_KMEANS_CTAS_PER_SM = 3
+
+
+@functools.cache
+def _kmeans_fn():
+    return kernel_function(
+        "partition_kmeans",
+        "repro_kmeans",
+        [_VOID, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _VOID, _VOID, _VOID, _VOID,
+         _VOID, ctypes.c_int, ctypes.c_int, _VOID],
+    )
+
+
+@functools.cache
+def _kmeans_plan(d: int, k: int) -> tuple[int, int]:
+    """``(shared bytes, CTAs per SM)`` of the k-means kernel for ``(d, k)``."""
+    smem = kernel_function("partition_kmeans", "repro_kmeans_shared_bytes",
+                           [ctypes.c_int] * 2)(d, k)
+    if smem > _SMEM_OPTIN:
+        raise ValueError(f"partition_kmeans: d={d}, k={k} needs {smem} B of shared memory, "
+                         f"above the {_SMEM_OPTIN} B limit")
+    return smem, min(_KMEANS_CTAS_PER_SM, _SMEM_PER_SM // (smem + 1024))
+
+
 def partition_kmeans(
     stacked: torch.Tensor, centers: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -292,32 +352,21 @@ def partition_kmeans(
         )
     x = stacked.to(torch.float32).contiguous()
     c = centers.to(torch.float32).contiguous()
-    shared_bytes = kernel_function(
-        "partition_kmeans", "repro_kmeans_shared_bytes", [ctypes.c_int, ctypes.c_int]
-    )(d, k)
-    if shared_bytes > _SMEM_OPTIN:
-        raise ValueError(f"partition_kmeans: d={d}, k={k} needs {shared_bytes} B "
-                         f"of shared memory, above the {_SMEM_OPTIN} B limit")
+    smem, per_sm = _kmeans_plan(d, k)
     n = nb * rows
-    sms = _num_sms(x.device.index)
-    grid = max(1, min(math.ceil(n / _THREADS), sms * 8))
-    part_sums = torch.empty((grid, k, d), dtype=torch.float32, device=x.device)
-    part_counts = torch.empty((grid, k), dtype=torch.int32, device=x.device)
-    sums = torch.empty((k, d), dtype=torch.float32, device=x.device)
-    counts = torch.empty((k,), dtype=torch.float32, device=x.device)
-    fn = kernel_function(
-        "partition_kmeans",
-        "repro_kmeans",
-        [_VOID, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _VOID, _VOID, _VOID,
-         _VOID, _VOID, ctypes.c_int, _VOID],
-    )
+    grid = max(1, min(math.ceil(n / _KMEANS_TILE), _num_sms(x.device.index) * per_sm))
+    # sums (k, d) and counts (k,), then the per-CTA partials: (grid, k, d) f32
+    # sums and (grid, k) int32 counts
+    kd1 = k * (d + 1)
+    buf = torch.empty((grid + 1) * kd1, dtype=torch.float32, device=x.device)
+    base = buf.data_ptr()
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), n, d, k, c.data_ptr(), part_sums.data_ptr(),
-                 part_counts.data_ptr(), sums.data_ptr(), counts.data_ptr(), grid,
-                 _stream(x.device))
+        err = _kmeans_fn()(x.data_ptr(), n, d, k, c.data_ptr(), base + 4 * kd1,
+                           base + 4 * (kd1 + grid * k * d), base, base + 4 * k * d, grid, smem,
+                           _stream(x.device))
     _check("partition_kmeans", err)
     partition_kmeans.launches += 1
-    return sums, counts
+    return buf[:k * d].view(k, d), buf[k * d:kd1]
 
 
 partition_kmeans.launches = 0

@@ -7,7 +7,10 @@ host without a card each one skips with that reason.  Run them on the card:
 
 Tolerances: bf16 outputs within ``BF16_TOL`` (the reference tests' bf16
 tolerance, ``tests/test_kernels.py`` ``TOL``), the SSD scan in f32 within
-``SSD_TOL`` (``tests/test_kernels.py``), the value histogram bit for bit.
+``SSD_TOL`` (``tests/test_kernels.py``), the value histogram bit for bit;
+k-means counts exactly (on data with no float64 near-tie row) and sums within
+``KMEANS_TOL`` (f32 sums of the same rows in another order).  The two
+partition kernels also give the same bits on a second launch.
 """
 
 import math
@@ -22,6 +25,7 @@ from repro_torch.kernels import ssd_scan as ss
 
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 SSD_TOL = dict(rtol=3e-4, atol=3e-4)
+KMEANS_TOL = dict(rtol=1e-4, atol=1e-3)
 
 pytestmark = pytest.mark.cuda
 
@@ -113,6 +117,23 @@ def test_ssd_bf16_matches_f32_plain(dev, b, l, nh, p, n):
     torch.testing.assert_close(h, rh, **SSD_TOL)
 
 
+def _laced(rng, lo, hi, bins, size):
+    """``size`` values: every lower and upper edge (as both f32 formulas
+    round it), the values one ulp beside them, +-0, +-inf, NaN and
+    subnormals, then uniform values over [lo - 1, hi + 1), shuffled (cut to
+    ``size`` before the shuffle where the laced values alone are more)."""
+    w = np.float32((hi - lo) / bins)
+    k = np.arange(bins + 1, dtype=np.float32)
+    edges = np.concatenate([np.float32(lo) + w * k, w * k + (np.float32(lo) + w)])
+    laced = np.concatenate([edges, np.nextafter(edges, np.float32(np.inf)),
+                            np.nextafter(edges, np.float32(-np.inf)),
+                            np.float32([1e-45, -1e-45, 1e-39, 0.0, -0.0, np.inf, -np.inf,
+                                        np.nan])])
+    x = np.concatenate([laced, rng.uniform(lo - 1, hi + 1, max(0, size - laced.size))
+                        .astype(np.float32)])[:size]
+    return x[rng.permutation(size)]
+
+
 @pytest.mark.parametrize("lo,hi,bins", [(0.1, 2.5, 8), (-1.2, 2.0, 16), (0.0, 1.0, 128)])
 def test_histogram_bit_exact_with_plain(dev, lo, hi, bins):
     rng = np.random.default_rng(bins)
@@ -129,3 +150,107 @@ def test_histogram_bit_exact_with_plain(dev, lo, hi, bins):
     assert torch.equal(got, want)
     assert math.isclose(float(got.sum()), float(pr.partition_histogram_ref(
         t.cpu(), bins=bins, lo=lo, hi=hi).sum()))
+
+
+def _check_histogram(t, **kw):
+    got = pr.partition_histogram(t, **kw)
+    again = pr.partition_histogram(t, **kw)
+    want = pr.partition_histogram_ref(t, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("bins", [1024, 4096])
+def test_histogram_many_bins_bit_exact(dev, bins):
+    """Edge arrays of 4 and 16 KB in shared memory, sub-histograms per warp."""
+    x = _laced(np.random.default_rng(bins), -1.2, 2.0, bins, 200_000)
+    assert np.isnan(x).any() and np.isinf(x).any()
+    _check_histogram(torch.from_numpy(x).reshape(1, -1, 1).to(dev), bins=bins, lo=-1.2, hi=2.0)
+
+
+def test_histogram_most_bins_bit_exact(dev):
+    """19,370 bins, the most one CTA's shared memory holds (8 bytes of edges
+    and one 4-byte sub-histogram per bin)."""
+    bins = 19_370
+    x = _laced(np.random.default_rng(bins), -1.2, 2.0, bins, 3 * 2 * (bins + 1) + 30_011)
+    assert pr._histogram_plan(bins)[0] == 1
+    _check_histogram(torch.from_numpy(x).reshape(1, -1, 1).to(dev), bins=bins, lo=-1.2, hi=2.0)
+
+
+@pytest.mark.parametrize("n,offset", [
+    (4099, 0),         # n % 4 = 3: a tail after the last 16-byte boundary
+    (4099, 1),         # a view one element into its storage: a head of 3
+    (1, 2),            # a head only
+    (6, 3),            # a head of 1 and a tail of 1
+    (1_000_003, 1),    # many CTAs, both ends ragged
+])
+def test_histogram_any_length_and_offset(dev, n, offset):
+    rng = np.random.default_rng(n + offset)
+    x = _laced(rng, 0.1, 2.5, 8, n)
+    buf = torch.from_numpy(np.concatenate([np.zeros(offset, np.float32), x])).to(dev)
+    t = buf[offset:]
+    assert t.data_ptr() % 16 == 4 * offset % 16 and t.numel() == n
+    _check_histogram(t, bins=8, lo=0.1, hi=2.5)
+
+
+def _blobs(seed, n, d, k, sigma=0.05):
+    """Rows around k well-separated centers, and centers near them."""
+    rng = np.random.default_rng(seed)
+    means = 3.0 * rng.normal(size=(k, d))
+    x = means[rng.integers(0, k, n)] + sigma * rng.normal(size=(n, d))
+    c = means + sigma * rng.normal(size=(k, d))
+    return x.astype(np.float32), c.astype(np.float32)
+
+
+def _no_near_ties(x, centers, gap=1e-4):
+    """In float64: every row's two best kernel distances differ by > gap,
+    so an exact count comparison is not luck."""
+    x64 = x.reshape(-1, x.shape[-1]).astype(np.float64)
+    c64 = centers.astype(np.float64)
+    d2 = np.sort((c64 * c64).sum(1)[None, :] - 2.0 * x64 @ c64.T, axis=1)
+    return d2.shape[1] < 2 or float((d2[:, 1] - d2[:, 0]).min()) > gap
+
+
+def _check_kmeans(x, c):
+    sums, counts = pr.partition_kmeans(x, c)
+    sums2, counts2 = pr.partition_kmeans(x, c)
+    want_sums, want_counts = pr.partition_kmeans_ref(x, c)
+    torch.cuda.synchronize()
+    assert torch.equal(counts, want_counts)
+    torch.testing.assert_close(sums, want_sums, **KMEANS_TOL)
+    assert torch.equal(sums, sums2) and torch.equal(counts, counts2)
+
+
+@pytest.mark.parametrize("d", [3, 20, 33, 64])
+@pytest.mark.parametrize("k", [2, 8, 32])
+@pytest.mark.parametrize("nb,rows", [(3, 1000), (1, 100)])  # a ragged last tile; under one tile
+def test_kmeans_matches_plain(dev, nb, rows, d, k):
+    x, c = _blobs(d * 100 + k, nb * rows, d, k)
+    assert _no_near_ties(x, c)
+    _check_kmeans(torch.from_numpy(x).reshape(nb, rows, d).to(dev), torch.from_numpy(c).to(dev))
+
+
+def test_kmeans_main_path_shape(dev):
+    x, c = _blobs(20, 4 * 65536, 20, 8)
+    assert _no_near_ties(x, c)
+    _check_kmeans(torch.from_numpy(x).reshape(4, 65536, 20).to(dev), torch.from_numpy(c).to(dev))
+
+
+@pytest.mark.parametrize("d", [4, 20])
+def test_kmeans_rows_at_any_offset(dev, d):
+    """A view one element into its storage: tiles start off 16-byte
+    boundaries, so rows are read element by element."""
+    x, c = _blobs(d, 3000, d, 8)
+    assert _no_near_ties(x, c)
+    buf = torch.from_numpy(np.concatenate([np.zeros(1, np.float32), x.reshape(-1)])).to(dev)
+    t = buf[1:].view(3, 1000, d)
+    assert t.data_ptr() % 16 == 4
+    _check_kmeans(t, torch.from_numpy(c).to(dev))
+
+
+def test_kmeans_counts_launches(dev):
+    x = torch.zeros((1, 64, 4), device=dev)
+    before = pr.partition_kmeans.launches
+    pr.partition_kmeans(x, x[0, :2])
+    assert pr.partition_kmeans.launches == before + 1

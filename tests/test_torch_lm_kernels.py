@@ -22,6 +22,9 @@ from repro.kernels.ssd_scan import ssd_scan as j_ssd
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+from repro_torch.kernels.partition_reduce import _SMEM_OPTIN, _histogram_plan
+from repro_torch.kernels.partition_reduce import _flush_subnormal as tpr_flush
+from repro_torch.kernels.partition_reduce import _hist_thresholds as tpr_hist_thresholds
 from repro_torch.kernels.partition_reduce import partition_histogram
 from repro_torch.kernels.ssd_scan import ssd_scan
 
@@ -384,6 +387,93 @@ def test_ssd_split_products_vs_jax(products):
     ty, th = _ssd_emulated(*map(torch.from_numpy, arrays), products=products)
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **SSD_TOL)
     np.testing.assert_allclose(th.numpy(), np.asarray(jh), **SSD_TOL)
+
+
+def _hist_guess_and_step(x, *, bins, lo, hi, start_shift=0):
+    """csrc/partition_histogram.cu's binning, value by value in torch.
+
+    Subnormals are flushed first; a NaN is counted nowhere.  With width > 0
+    the guess is ``j = int(clamp((v - lo) * f32(1 / width), 0, bins - 1))``
+    (clamped in float, so +-inf give an index), moved by ``start_shift`` to
+    show that the result does not depend on the start.  Where
+    ``max(e_j, upper_{j-1}) <= v < min(upper_j, e_{j+1})`` (+-inf past the
+    ends), the pair the kernel keeps per bin, the value is in bin j alone;
+    otherwise ``a``, the last j with ``e_j <= v``,
+    and ``b``, the first j with ``v < upper_j``, are found by stepping along
+    the edges from j.  With width <= 0 no interval holds.  Bins ``b..a``
+    count, and the clamps into bins 0 and ``bins - 1`` unless the search
+    already counted them."""
+    lo_f, width_f, upper0, first_below, last_from = tpr_hist_thresholds(bins, lo, hi)
+    f32 = torch.float32
+    v = tpr_flush(torch.from_numpy(np.ascontiguousarray(x)).reshape(-1).to(f32))
+    v = v[~torch.isnan(v)]
+    jw = torch.tensor(width_f, dtype=f32) * torch.arange(bins, dtype=f32)
+    lower = tpr_flush(jw + torch.tensor(lo_f, dtype=f32))
+    upper = tpr_flush(jw + torch.tensor(upper0, dtype=f32))
+    a = torch.full(v.shape, -1, dtype=torch.int64)
+    b = torch.full(v.shape, bins, dtype=torch.int64)
+    if width_f > 0:
+        inv = torch.tensor(1.0, dtype=f32) / torch.tensor(width_f, dtype=f32)
+        g = (v - torch.tensor(lo_f, dtype=f32)) * inv
+        g = torch.where(torch.isnan(g), torch.zeros_like(g), g).clamp(0, bins - 1)
+        j = (g.to(torch.int64) + start_shift).clamp(0, bins - 1)
+        inf = torch.tensor([np.inf], dtype=f32)
+        next_lower, prev_upper = torch.cat([lower[1:], inf]), torch.cat([-inf, upper[:-1]])
+        alone_lo, alone_hi = torch.maximum(lower, prev_upper), torch.minimum(upper, next_lower)
+        alone = (alone_lo[j] <= v) & (v < alone_hi[j])
+        up = lower[j] <= v
+        a = torch.where(up, j, j - 1)
+        while True:
+            step_up = up & (a + 1 < bins) & (lower[(a + 1).clamp(max=bins - 1)] <= v)
+            step_down = ~up & (a >= 0) & ~(lower[a.clamp(min=0)] <= v)
+            if not (step_up.any() or step_down.any()):
+                break
+            a = a + step_up.long() - step_down.long()
+        below = v < upper[j]
+        b = torch.where(below, j, j + 1)
+        while True:
+            step_down = below & (b > 0) & (v < upper[(b - 1).clamp(min=0)])
+            step_up = ~below & (b < bins) & ~(v < upper[b.clamp(max=bins - 1)])
+            if not (step_up.any() or step_down.any()):
+                break
+            b = b - step_down.long() + step_up.long()
+        assert bool((a[alone] == j[alone]).all() and (b[alone] == j[alone]).all())
+        a, b = torch.where(alone, j, a), torch.where(alone, j, b)
+    counts = torch.zeros(bins, dtype=torch.int64)
+    span = (a - b + 1).clamp(min=0)
+    for off in range(int(span.max()) if span.numel() else 0):
+        hit = span > off
+        counts.index_add_(0, b[hit] + off, torch.ones(int(hit.sum()), dtype=torch.int64))
+    counts[0] += int(((v < first_below) & ~((b == 0) & (a >= 0))).sum())
+    counts[-1] += int(((v >= last_from) & ~((b <= bins - 1) & (a == bins - 1))).sum())
+    return counts.to(f32)
+
+
+@pytest.mark.parametrize("lo,hi,bins", _hist_grids() + [(1.0, 1.0, 8), (2.0, -1.0, 16)])
+def test_histogram_guess_and_step_vs_jax(lo, hi, bins):
+    """The value-histogram kernel's guess-then-step binning, emulated, equals
+    the JAX kernel bit for bit on the seeded grids' edge-laced data (NaN,
+    +-inf, huge values, subnormals) and with width <= 0, from the kernel's
+    guess and from guesses moved off it.  (With hi < lo the data is laced
+    for the range [hi, lo].)"""
+    x = _hist_data(int(bins * 1000 + abs(lo) * 100), (1, 4 * bins + 96, 3), min(lo, hi),
+                   max(lo, hi), bins)
+    want = np.asarray(j_hist(jnp.asarray(x), bins=bins, lo=lo, hi=hi))
+    for shift in (0, -2, 3):
+        got = _hist_guess_and_step(x, bins=bins, lo=lo, hi=hi, start_shift=shift)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("bins,copies", [(128, 8), (4096, 8), (7264, 6), (19370, 1)])
+def test_histogram_plan_fits_bins(bins, copies):
+    """The value-histogram kernel keeps 8 bytes of edges per bin and one
+    sub-histogram per warp, fewer where shared memory runs short: up to
+    19,370 bins fit one CTA; one more raises."""
+    got, shared = _histogram_plan(bins)
+    assert (got, shared) == (copies, 4 * bins * (2 + copies)) and shared <= _SMEM_OPTIN
+    if bins == 19370:
+        with pytest.raises(ValueError, match="exceed"):
+            _histogram_plan(bins + 1)
 
 
 def _flash_emulated(q, k, v, *, causal, window, bk=64):

@@ -13,10 +13,17 @@ SplIter(1, pallas), SplIter(2) (fusion "auto": the kernel on a card) and
 Rechunk — must agree: histograms exactly, with a total equal to the row
 count; k-means counts exactly and centers to 1e-4 relative.
 
+On the fused path the histogram kernel reads each partition's blocks where
+they lie: a SplIter(1, pallas) histogram pass must raise
+``torch.cuda.max_memory_allocated`` by less than one partition's bytes
+(16 × 262,144 × 5 × 4 = 83,886,080), which a copy of the blocks would take.
+
 Then each hand-written kernel runs at the main path's per-task shape
-(16 × 262,144 rows stacked) beside its plain PyTorch version, compared with
-a stated tolerance and timed with CUDA events.  Kernel launches are counted
-over the main-path phase only.
+(16 × 262,144 rows: the partition's block list for the histogram, as the
+main path passes it; stacked for k-means, whose wrapper stacks the list)
+beside its plain PyTorch version, compared with a stated tolerance and
+timed with CUDA events.  Kernel launches are counted over the main-path
+phase only.
 
 Timing: a kernel's ``ms`` (and ``plain_ms``, ``library_ms`` and the other
 times) is one call between two CUDA events on an idle card, so the host's
@@ -220,7 +227,7 @@ def ptxas_line(reports: dict) -> list[dict]:
     """Registers, stack, spills and shared memory per kernel, from the
     compiler's ``-Xptxas -v`` reports; dynamic shared memory as each kernel
     requests it at launch on its main path (k-means at d=20, k=8; the value
-    histogram at 128 bins)."""
+    histogram at 128 bins; the d-dimensional histogram at d=5, bins=8)."""
     import ctypes
 
     from repro_torch.kernels import partition_reduce as pr
@@ -232,7 +239,8 @@ def ptxas_line(reports: dict) -> list[dict]:
     dynamic = {f"flash_kernel<{d}>": flash_smem(d) for d in (32, 64, 128)}
     dynamic.update({"ssd_kernel<bf16>": ssd_smem(1), "ssd_kernel<f32>": ssd_smem(0),
                     "kmeans_partial": pr._kmeans_plan(KM_D, KM_K)[0],
-                    "hist_kernel": pr._histogram_plan(VALUE_BINS)[1]})
+                    "hist_kernel": pr._histogram_plan(VALUE_BINS)[1],
+                    "histdd_kernel": pr._histdd_plan(HIST_D, HIST_BINS, 0)[4]})
     out = []
     for lib, text in reports.items():
         entry = None
@@ -296,24 +304,35 @@ def main_path(x_hist, x_km, means, label_counts, seed: int, repeats: int) -> dic
     pr.partition_histogramdd.launches = 0
     pr.partition_kmeans.launches = 0
     hists, centers, counts, per_call = {}, {}, {}, {}
+    partition_bytes = BLOCKS_PER_LOCATION * BLOCK_ROWS * HIST_D * 4
     for name, (pol, kernel_path) in policies.items():
         with LocalExecutor() as ex:
             h0, k0 = pr.partition_histogramdd.launches, pr.partition_kmeans.launches
             runs = []
-            for _ in range(1 + repeats):  # one warm-up, then timed runs
+            for i in range(1 + repeats):  # one warm-up, then timed runs
+                if i == repeats:  # the last run: how far device memory rises
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    base = torch.cuda.memory_allocated()
                 h, rep = histogram(x_hist, bins=HIST_BINS, policy=pol, executor=ex)
                 runs.append(rep)
+            torch.cuda.synchronize()
+            peak_rise = torch.cuda.max_memory_allocated() - base
             hists[name] = h
             emit({"phase": "main_path", "app": "histogram", "policy": name,
                   "dispatches": rep.dispatches, "traces": runs[0].traces,
                   "bytes_moved": runs[0].bytes_moved,
                   "wall_s": statistics.median(r.wall_s for r in runs[1:]),
+                  "peak_memory_rise": peak_rise,
                   "launches": pr.partition_histogramdd.launches - h0})
             check((pr.partition_histogramdd.launches > h0) == kernel_path,
                   f"histogram/{name} kernel routing")
             if name == "spliter1_pallas":
                 per_call["partition_histogramdd"] = (
                     (pr.partition_histogramdd.launches - h0) / len(runs), "SplIter(1, pallas) histogram pass")
+                check(peak_rise < partition_bytes,
+                      f"a SplIter(1, pallas) histogram pass copies no partition: peak memory "
+                      f"rose {peak_rise} B, a partition is {partition_bytes} B")
             walls, results = [], []
             for _ in range(1 + repeats):
                 torch.cuda.synchronize()
@@ -372,19 +391,26 @@ def kernel_checks(x_hist, x_km, seed: int, launches: dict, per_call: dict) -> li
 
     out = []
     ids = x_hist.blocks_at(0)
-    blocks = [x_hist.block(b) for b in ids]
+    blocks = [x_hist.block(b) for b in ids]  # the partition's blocks, where they lie
     st = torch.stack(blocks)
     stack_ms = cuda_ms(lambda: torch.stack(blocks))
     nb, rows, d = st.shape
-    got = pr.partition_histogramdd(st, bins=HIST_BINS)
-    want = pr.partition_histogramdd_ref(st, bins=HIST_BINS)
+    got = pr.partition_histogramdd(blocks, bins=HIST_BINS)
+    want = pr.partition_histogramdd_ref(blocks, bins=HIST_BINS)
     check(torch.equal(got, want), "partition_histogramdd equals its plain version")
-    big = pr.partition_histogramdd(st, bins=16)  # 2**20 cells: the global-atomic variant
-    check(torch.equal(big, pr.partition_histogramdd_ref(st, bins=16)),
+    check(torch.equal(pr.partition_histogramdd(blocks, bins=HIST_BINS), got),
+          "partition_histogramdd gives the same bits on a second launch")
+    check(torch.equal(pr.partition_histogramdd(st, bins=HIST_BINS), want),
+          "partition_histogramdd on the stacked blocks equals its plain version")
+    big = pr.partition_histogramdd(blocks, bins=16)  # 2**20 cells: counts in global memory
+    check(torch.equal(big, pr.partition_histogramdd_ref(blocks, bins=16)),
           "partition_histogramdd (2**20 cells) equals its plain version")
-    times = kernel_times(lambda: pr.partition_histogramdd(st, bins=HIST_BINS))
-    plain_ms = cuda_ms(lambda: pr.partition_histogramdd_ref(st, bins=HIST_BINS))
-    big_ms = cuda_ms(lambda: pr.partition_histogramdd(st, bins=16))
+    times = kernel_times(lambda: pr.partition_histogramdd(blocks, bins=HIST_BINS))
+    plain_ms = cuda_ms(lambda: pr.partition_histogramdd_ref(blocks, bins=HIST_BINS))
+    big_ms = cuda_ms(lambda: pr.partition_histogramdd(blocks, bins=16))
+    big_device_ms, _ = device_and_host_ms(lambda: pr.partition_histogramdd(blocks, bins=16))
+    cluster, slice_log2, tile_rows, stage_bytes, smem, grid = pr._histdd_plan(d, HIST_BINS, 0)
+    # per value a subtract and a multiply, per row one index multiply-add per value
     bound_ms, bound_by = bound(st.numel() * 4 + HIST_BINS**d * 4, 3 * st.numel())
     out.append({
         "name": "partition_histogramdd", "route": "cuda",
@@ -396,8 +422,19 @@ def kernel_checks(x_hist, x_km, seed: int, launches: dict, per_call: dict) -> li
         "max_abs_err": int((got - want).abs().max()), "tolerance": "bit-exact",
         **times, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "library": "none: no single PyTorch call computes it",
-        "shape": [nb, rows, d], "bins": HIST_BINS, "stack_ms": stack_ms,
-        "ms_2pow20_cells": big_ms,
+        "shape": [nb, rows, d], "bins": HIST_BINS, "in_place": True,
+        "stack_ms": stack_ms,
+        "design": {
+            "reads": f"the {nb} blocks in place, by pointer; {tile_rows}-row tiles by bulk "
+                     f"copy into a ring of {pr._HISTDD_STAGES} stages per CTA",
+            "binning": "(x - lo) * C with C = f32(f32(1 / (hi - lo)) * bins), as XLA folds "
+                       "the reference's division; clamp in float, truncate",
+            "merge": f"clusters of {cluster} CTAs share one histogram in distributed shared "
+                     f"memory ({1 << slice_log2} cells a CTA); one global atomic per "
+                     f"non-zero cell per cluster",
+            "grid": grid, "dynamic_smem_bytes": smem,
+        },
+        "ms_2pow20_cells": big_ms, "device_ms_2pow20_cells": big_device_ms,
     })
 
     ids = x_km.blocks_at(0)

@@ -4,7 +4,7 @@ The generic SplIter lowering fuses a partition's per-block work into one
 task that folds the blocks in order (paper Listing 5).  For block functions
 with a hand-written partition kernel (``repro_torch.kernels.partition_reduce``)
 the lowering can do strictly better: ONE kernel launch over the partition's
-stacked blocks, with the reduction kept on chip.
+blocks, read where they lie, with the reduction kept on chip.
 
 The registry maps a *base* block function to a factory.  App modules
 register their kernels at import time (``repro_torch/core/apps/histogram.py``,
@@ -14,9 +14,9 @@ finds the histogram kernel with the right static parameters — and emits a
 ``partition_pallas`` task when the policy's ``fusion`` knob and the backend
 capabilities allow it (the task kind keeps the JAX package's name, so the
 two packages describe the same plan with the same text).  Contract: for a
-stacked run ``(nblocks, rows, *row)`` the kernel's result equals folding
-``block_fn`` over the blocks with the plan's ``combine`` (up to float
-reassociation), so fused and generic lowerings are interchangeable.
+run of ``nblocks`` same-shape blocks ``(rows, *row)`` the kernel's result
+equals folding ``block_fn`` over the blocks with the plan's ``combine`` (up
+to float reassociation), so fused and generic lowerings are interchangeable.
 """
 
 from __future__ import annotations
@@ -65,11 +65,15 @@ class PartitionKernel:
       key: stable task-cache key — must encode every static parameter baked
         into ``fn`` (e.g. ``("hist_dd", bins, lo, hi)``) so two plans with
         different statics never share a registered task.
-      fn: ``fn(stacked, *extra_args) -> partial`` where ``stacked`` is the
-        partition's same-shape blocks ``(nblocks, rows, *row_shape)`` and
-        the result matches the block-fn/combine fold over those blocks.
+      fn: ``fn(blocks, *extra_args) -> partial`` where ``blocks`` is the
+        partition's same-shape blocks, either one stacked ``(nblocks, rows,
+        *row_shape)`` tensor or a sequence of ``(rows, *row_shape)`` blocks
+        (the fused lowering passes the sequence: the blocks themselves, no
+        copy), and the result matches the block-fn/combine fold over those
+        blocks.
       supports: optional shape guard ``(stacked_shape, extra_args) -> bool``;
-        returning False falls back to the generic fold lowering.
+        ``stacked_shape`` is ``(nblocks, rows, *row_shape)``; returning
+        False falls back to the generic fold lowering.
     """
 
     name: str

@@ -15,7 +15,7 @@ Fusion levels for a reduced ``map_blocks`` under ``SplIter``:
     blocks in index order.
 ``partition_pallas``
     A registered hand-written kernel (``repro_torch.api.kernels``): one
-    launch over the run's stacked blocks.  Chosen by the policy's ``fusion``
+    launch over the run's blocks, read where they lie.  Chosen by the policy's ``fusion``
     knob ("pallas", or "auto" on backends that prefer it) with automatic
     fallback to the fold when no kernel is registered, the kernel rejects
     the shapes, or the plan has multiple inputs.  The kind keeps the JAX
@@ -235,7 +235,8 @@ class Task:
     """One placed, keyed task descriptor.
 
     ``operands()`` builds the operand tuple lazily (stacking/concatenating
-    block buffers only when the task actually runs); the first ``n_data``
+    block buffers only when the task actually runs; a ``partition_pallas``
+    task's data operand is the tuple of its blocks); the first ``n_data``
     operands are per-task data, the rest are plan-wide extras shared by
     every task of the same ``key``.
 
@@ -540,17 +541,23 @@ def _lower_map_blocks(spec, arrays, groups, caps: Capabilities) -> list[Task]:
                 stacked_shape = (len(ids), *shape)
                 choice = _pick_fusion(pol, caps, kernel, stacked_shape, extra)
 
-                # The per-dispatch stack copies the run's blocks into one
-                # contiguous operand, as the JAX package does (a known cost,
-                # timed beside the kernels by chip_smoke.py).
-                def operands(ids=ids):
-                    return tuple(
-                        torch.stack([a.block(b) for b in ids], dim=0) for a in arrays
-                    ) + tuple(resolve_deferred(e) for e in extra)
-
                 if choice == "pallas":
+                    # The kernel takes the run's blocks where they lie: no
+                    # copy (SplIter's partitions move no data).
+                    def operands(ids=ids):
+                        return tuple(
+                            tuple(a.block(b) for b in ids) for a in arrays
+                        ) + tuple(resolve_deferred(e) for e in extra)
+
                     task_fn, key, kname = kernel.fn, ("pallas", kernel.key), kernel.name
                 else:
+                    # The scan folds one stacked operand, as the JAX package's
+                    # does: a copy of the run's blocks per dispatch.
+                    def operands(ids=ids):
+                        return tuple(
+                            torch.stack([a.block(b) for b in ids], dim=0) for a in arrays
+                        ) + tuple(resolve_deferred(e) for e in extra)
+
                     task_fn, key, kname = scan_fn, scan_key, None
                 tasks.append(
                     Task(

@@ -9,7 +9,7 @@ A fused partition kernel
 (:func:`repro_torch.kernels.partition_reduce.partition_histogramdd`, CUDA
 C++) is registered for :func:`histogramdd_block`, so
 ``SplIter(fusion="pallas")`` — or ``"auto"`` on a card — lowers each
-partition to ONE kernel launch over its stacked blocks.
+partition to ONE kernel launch that reads its blocks where they lie.
 """
 
 from __future__ import annotations
@@ -55,7 +55,7 @@ def _histogram_kernel_factory(args: tuple, kwargs: dict) -> PartitionKernel | No
     return PartitionKernel(
         name="partition_histogramdd",
         key=("hist_dd", bins, lo, hi),
-        fn=lambda stacked: partition_histogramdd(stacked, bins=bins, lo=lo, hi=hi),
+        fn=lambda blocks: partition_histogramdd(blocks, bins=bins, lo=lo, hi=hi),
         supports=supports,
     )
 

@@ -2,10 +2,13 @@
 
 Two fused partition kernels carry the histogram and k-means apps under
 ``SplIter(fusion="pallas")`` (or ``"auto"`` on a card).  Each takes a
-partition's stacked blocks ``(nblocks, rows, d)`` — ``Partition.stacked()``
-— and returns what folding the app's block function over those blocks
-would.  A third, the 1-D value histogram, is reached through
-``repro_torch.kernels.ops`` only, as in the JAX package.  Each is
+partition's same-shape blocks — the sequence of ``(rows, d)`` blocks that
+the fused lowering passes, or one stacked ``(nblocks, rows, d)`` tensor —
+and returns what folding the app's block function over those blocks
+would.  The d-dimensional histogram reads the blocks where they lie; the
+k-means wrapper stacks a sequence first.  A third, the 1-D value
+histogram, is reached through ``repro_torch.kernels.ops`` only, as in the
+JAX package.  Each is
 hand-written CUDA C++ for Hopper (``repro_torch/csrc``), built with
 ``nvcc`` at first use and called through ctypes:
 
@@ -31,6 +34,8 @@ count per kernel launch.
 
 from __future__ import annotations
 
+import array
+import contextlib
 import ctypes
 import functools
 import math
@@ -69,12 +74,20 @@ def _num_sms(index: int) -> int:
 
 
 def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current CUDA stream of ``device`` as a raw handle (a fraction of
+    the host time of ``torch.cuda.current_stream(device).cuda_stream``)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def _check(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def _on(device: torch.device):
+    """A guard that makes ``device`` current, or none where it already is."""
+    return contextlib.nullcontext() if device.index == torch.cuda.current_device() \
+        else torch.cuda.device(device)
 
 
 # ---------------------------------------------------------------------------
@@ -99,9 +112,9 @@ def _hist_thresholds(bins: int, lo: float, hi: float) -> tuple[float, float, flo
 
 
 def _flush_subnormal(t: torch.Tensor) -> torch.Tensor:
-    """Subnormal f32 values as 0: XLA on the CPU (and the TPU) compares with
-    subnormals flushed to zero, and so do the kernel and its plain version."""
-    return torch.where(t.abs() < torch.finfo(torch.float32).tiny, torch.zeros_like(t), t)
+    """Subnormal values as 0: XLA on the CPU (and the TPU) reads subnormal
+    inputs as zero, and so do the kernels and their plain versions."""
+    return torch.where(t.abs() < torch.finfo(t.dtype).tiny, torch.zeros_like(t), t)
 
 
 #: Elements per one-hot slice of the plain value histogram (a bounded
@@ -209,23 +222,50 @@ partition_histogram.launches = 0
 # ---------------------------------------------------------------------------
 
 
+def _blocks_of(operand) -> tuple[torch.Tensor, list[torch.Tensor] | None]:
+    """``(first block, blocks)`` of a partition kernel's operand: a stacked
+    ``(nblocks, rows, *row)`` tensor (``blocks`` None) or a non-empty
+    sequence of same-shape blocks."""
+    if isinstance(operand, torch.Tensor):
+        return operand, None
+    blocks = list(operand)
+    if not blocks:
+        raise ValueError("a partition kernel needs at least one block")
+    return blocks[0], blocks
+
+
+@functools.cache
+def _digitize_scalars(lo: float, hi: float, bins: int,
+                      dtype: torch.dtype = torch.float32) -> tuple[float, float]:
+    """``(lo, C)`` in ``dtype`` as XLA computes the reference's ``(x - lo) /
+    (hi - lo) * bins``: it folds the two constants into one multiply, ``(x -
+    lo) * C`` with ``C = fl(fl(1 / fl(hi - lo)) * bins)`` (``hi - lo``
+    summed in double, then each step rounded to ``dtype``).  A subnormal
+    ``lo`` reads as 0."""
+    lo_t = _flush_subnormal(torch.tensor(lo, dtype=dtype))
+    recip = torch.tensor(1.0, dtype=dtype) / torch.tensor(hi - lo, dtype=dtype)
+    return float(lo_t), float(recip * torch.tensor(bins, dtype=dtype))
+
+
 def digitize_cells(x: torch.Tensor, *, bins: int, lo: float, hi: float) -> torch.Tensor:
     """Flat row-major cell id (int64) of each row of ``x`` ``(rows, d)``.
 
     Per dimension, ``(x - lo) / (hi - lo) * bins`` in ``x``'s float type,
     truncated toward zero and clipped to ``[0, bins - 1]`` — the JAX
-    package's digitizing, bit for bit.  Two details make it so:
+    package's digitizing under ``jit``, bit for bit.  Three details make it
+    so:
 
-    * ``hi - lo`` is rounded once from a double and divided as a tensor,
-      never as a Python scalar, which PyTorch's CUDA division would turn
-      into a multiply by the reciprocal;
+    * XLA folds the division and the multiply into one multiply by a
+      constant (:func:`_digitize_scalars`), which can round a value within
+      an ulp of a bin edge to the other side of a true division;
     * the scaled value is clamped to ``[-1, bins]`` before the cast, since
       PyTorch's float→int32 cast sends large values and ``±inf`` to
-      ``INT_MIN`` where XLA saturates; NaN goes to bin 0 in both.
+      ``INT_MIN`` where XLA saturates; NaN goes to bin 0 in both;
+    * subnormal inputs read as 0, as XLA reads them.
     """
     dtype = x.dtype if x.is_floating_point() else torch.float32
-    width = torch.tensor(hi - lo, dtype=dtype, device=x.device)
-    scaled = (x.to(dtype) - lo) / width * bins
+    lo_f, scale = _digitize_scalars(lo, hi, bins, dtype)
+    scaled = (_flush_subnormal(x.to(dtype)) - lo_f) * scale
     scaled = scaled.clamp(-1.0, float(bins)).nan_to_num(0.0)
     idx = scaled.to(torch.int64).clamp(0, bins - 1)
     flat = torch.zeros(x.shape[0], dtype=torch.int64, device=x.device)
@@ -235,49 +275,128 @@ def digitize_cells(x: torch.Tensor, *, bins: int, lo: float, hi: float) -> torch
 
 
 def partition_histogramdd_ref(
-    stacked: torch.Tensor, *, bins: int = 8, lo: float = 0.0, hi: float = 1.0
+    blocks, *, bins: int = 8, lo: float = 0.0, hi: float = 1.0
 ) -> torch.Tensor:
-    """Plain PyTorch version of :func:`partition_histogramdd`."""
-    nb, rows, d = stacked.shape
-    flat = digitize_cells(stacked.to(torch.float32).reshape(nb * rows, d),
-                          bins=bins, lo=lo, hi=hi)
-    counts = torch.zeros(bins**d, dtype=torch.int32, device=stacked.device)
-    counts.index_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
+    """Plain PyTorch version of :func:`partition_histogramdd`: the counts of
+    :func:`digitize_cells` over a stacked ``(nblocks, rows, d)`` tensor, or
+    over a sequence of ``(rows, d)`` blocks one block at a time."""
+    first, seq = _blocks_of(blocks)
+    d = first.shape[-1]
+    counts = torch.zeros(bins**d, dtype=torch.int32, device=first.device)
+    for b in [first.reshape(-1, d)] if seq is None else seq:
+        flat = digitize_cells(b.to(torch.float32), bins=bins, lo=lo, hi=hi)
+        counts.index_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
     return counts.reshape((bins,) * d)
 
 
+#: Block pointers a launch carries in its parameters; a partition of more
+#: blocks passes them in a device table.
+_HISTDD_MAX_BLOCKS = 256
+#: Bytes of rows per ring stage the tile size aims at, and ring stages.
+_HISTDD_TILE_BYTES = 16_384
+_HISTDD_STAGES = 4
+#: Largest histogram slice (bytes) one CTA of a cluster holds, and CTAs per
+#: SM the grid aims at.
+_HISTDD_SLICE_BYTES = 65_536
+_HISTDD_CTAS_PER_SM = 2
+
+
+@functools.cache
+def _histdd_fn():
+    return kernel_function(
+        "partition_histogramdd",
+        "repro_histogramdd",
+        [_VOID, _VOID, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+        + [ctypes.c_float] * 2 + [_VOID] + [ctypes.c_int] * 8 + [_VOID],
+    )
+
+
+@functools.cache
+def _histdd_plan(d: int, bins: int, index: int) -> tuple[int, ...]:
+    """``(cluster, slice_log2, tile_rows, stage_bytes, smem, grid)`` of the
+    kernel for ``(d, bins)`` on device ``index``.
+
+    Tiles of ``_HISTDD_TILE_BYTES`` (32 to 512 rows, a multiple of 32) in a
+    ring of ``_HISTDD_STAGES``.  The histogram is split across the smallest
+    cluster (1, 2, 4 or 8 CTAs) whose slices (a power of two of cells each)
+    take at most ``_HISTDD_SLICE_BYTES``; where even 8 would not fit beside
+    the ring, the counts go to global memory (``slice_log2 = -1``).  The
+    grid is what the card holds at once, at most ``_HISTDD_CTAS_PER_SM``
+    per SM, in whole clusters.
+    """
+    cells = bins**d
+    tile_rows = max(32, min(512, _HISTDD_TILE_BYTES // (4 * d) // 32 * 32))
+    stage_bytes = -(-(tile_rows * 4 * d + 32) // 128) * 128
+    smem_bytes = kernel_function("partition_histogramdd", "repro_histogramdd_smem_bytes",
+                                 [ctypes.c_int] * 3)
+    max_ctas = kernel_function("partition_histogramdd", "repro_histogramdd_max_ctas",
+                               [ctypes.c_int] * 2)
+    cluster, slice_log2 = 1, -1
+    for c in (1, 2, 4, 8):
+        log2 = max(0, math.ceil(cells / c) - 1).bit_length()
+        fits = smem_bytes(_HISTDD_STAGES, stage_bytes, 1 << log2) <= _SMEM_OPTIN
+        if fits and (4 << log2 <= _HISTDD_SLICE_BYTES or c == 8):
+            cluster, slice_log2 = c, log2
+            break
+    smem = smem_bytes(_HISTDD_STAGES, stage_bytes, 0 if slice_log2 < 0 else 1 << slice_log2)
+    if smem > _SMEM_OPTIN:
+        raise ValueError(f"partition_histogramdd: rows of {d} values need {smem} B of shared "
+                         f"memory, above the {_SMEM_OPTIN} B limit")
+    with torch.cuda.device(index):
+        fit = max_ctas(cluster, smem)
+    if fit < cluster:
+        raise RuntimeError(f"partition_histogramdd: no cluster of {cluster} CTAs with {smem} B "
+                           f"of shared memory fits the card (CUDA error {-fit})")
+    grid = min(fit, _HISTDD_CTAS_PER_SM * _num_sms(index)) // cluster * cluster
+    return cluster, slice_log2, tile_rows, stage_bytes, smem, max(grid, cluster)
+
+
 def partition_histogramdd(
-    stacked: torch.Tensor, *, bins: int = 8, lo: float = 0.0, hi: float = 1.0
+    blocks, *, bins: int = 8, lo: float = 0.0, hi: float = 1.0
 ) -> torch.Tensor:
     """d-dimensional histogram of a whole partition → ``(bins,)*d`` int32.
 
-    Equals ``sum(histogramdd_block(b) for b in blocks)`` bit-exactly — the
-    contract the kernel registry requires for fused/generic interchange.
+    ``blocks`` is the partition's same-shape ``(rows, d)`` blocks, which the
+    kernel reads where they lie, or one stacked ``(nblocks, rows, d)``
+    tensor.  Equals ``sum(histogramdd_block(b) for b in blocks)``
+    bit-exactly — the contract the kernel registry requires for
+    fused/generic interchange.  Blocks of another float type are cast to
+    f32 (a copy of each), as the reference casts them.
     """
-    if pallas_interpret(stacked):
-        return partition_histogramdd_ref(stacked, bins=bins, lo=lo, hi=hi)
-    nb, rows, d = stacked.shape
+    first, seq = _blocks_of(blocks)
+    if pallas_interpret(first):
+        return partition_histogramdd_ref(blocks, bins=bins, lo=lo, hi=hi)
+    dev = first.device
+    if seq is None:  # one stacked tensor: one block of all its rows
+        if first.dim() != 3:
+            raise ValueError(f"a stacked partition is (nblocks, rows, d), not {tuple(first.shape)}")
+        seq = [first.reshape(-1, first.shape[-1])]
+    shape = seq[0].shape
+    if len(shape) != 2:
+        raise ValueError(f"blocks are (rows, d), not {tuple(shape)}")
+    rows, d = shape
+    index = dev.index
+    # one pass over the blocks on the main path: the host's time per call
+    if not all(b.dtype is torch.float32 and b.is_contiguous() and b.shape == shape
+               and b.get_device() == index for b in seq):
+        seq = [b.to(torch.float32).contiguous() for b in seq]
+        if not all(b.shape == shape and b.get_device() == index for b in seq):
+            raise ValueError("partition_histogramdd: the blocks differ in shape or device: "
+                             f"{[(tuple(b.shape), str(b.device)) for b in seq]}")
+    ptrs = array.array("Q", [b.data_ptr() for b in seq])
+    lo_f, scale = _digitize_scalars(lo, hi, bins)
+    cluster, slice_log2, tile_rows, stage_bytes, smem, grid = _histdd_plan(d, bins, index)
     cells = bins**d
-    x = stacked.to(torch.float32).contiguous()
-    out = torch.zeros(cells, dtype=torch.int32, device=x.device)
-    n = nb * rows
-    sms = _num_sms(x.device.index)
-    hist_bytes = cells * 4
-    if hist_bytes <= _SMEM_OPTIN:
-        per_sm = max(1, min(8, _SMEM_PER_SM // (hist_bytes + 1024)))
-        shared = hist_bytes
-    else:  # too large for one CTA's shared memory: add into global memory
-        per_sm, shared = 8, 0
-    grid = max(1, min(math.ceil(n / _THREADS), sms * per_sm))
-    fn = kernel_function(
-        "partition_histogramdd",
-        "repro_histogramdd",
-        [_VOID, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-         ctypes.c_float, _VOID, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VOID],
-    )
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), n, d, bins, lo, hi - lo, out.data_ptr(), grid,
-                 _THREADS, shared, _stream(x.device))
+    out = torch.empty(cells, dtype=torch.int32, device=dev)
+    table = None
+    if len(ptrs) > _HISTDD_MAX_BLOCKS:  # a device table, copied without a synchronise
+        table = torch.frombuffer(ptrs, dtype=torch.int64).pin_memory().to(dev, non_blocking=True)
+    with _on(dev):
+        err = _histdd_fn()(
+            None if table is not None else ptrs.buffer_info()[0],
+            None if table is None else table.data_ptr(), len(ptrs), rows, d, bins, lo_f, scale,
+            out.data_ptr(), cells, cluster, slice_log2, tile_rows, _HISTDD_STAGES, stage_bytes,
+            grid, smem, _stream(dev))
     _check("partition_histogramdd", err)
     partition_histogramdd.launches += 1
     return out.reshape((bins,) * d)
@@ -292,17 +411,19 @@ partition_histogramdd.launches = 0
 
 
 def partition_kmeans_ref(
-    stacked: torch.Tensor, centers: torch.Tensor
+    blocks, centers: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`partition_kmeans`, block by block
-    in the JAX kernel's order.  Its products run in f32 as long as
-    ``torch.backends.cuda.matmul.allow_tf32`` stays False (the default)."""
+    in the JAX kernel's order, over a stacked ``(nblocks, rows, d)`` tensor
+    or a sequence of ``(rows, d)`` blocks.  Its products run in f32 as long
+    as ``torch.backends.cuda.matmul.allow_tf32`` stays False (the default)."""
+    first, _ = _blocks_of(blocks)
     c = centers.to(torch.float32)
     k, d = c.shape
     cc = torch.sum(c * c, dim=1)
-    sums = torch.zeros((k, d), dtype=torch.float32, device=stacked.device)
-    counts = torch.zeros((k,), dtype=torch.float32, device=stacked.device)
-    for blk in stacked:
+    sums = torch.zeros((k, d), dtype=torch.float32, device=first.device)
+    counts = torch.zeros((k,), dtype=torch.float32, device=first.device)
+    for blk in blocks:
         x = blk.to(torch.float32)
         d2 = cc[None, :] - 2.0 * (x @ c.T)
         onehot = torch.nn.functional.one_hot(torch.argmin(d2, dim=1), k).to(torch.float32)
@@ -338,11 +459,18 @@ def _kmeans_plan(d: int, k: int) -> tuple[int, int]:
 
 
 def partition_kmeans(
-    stacked: torch.Tensor, centers: torch.Tensor
+    blocks, centers: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Fused Lloyd partial step over a partition → (sums (k,d), counts (k,))."""
-    if pallas_interpret(stacked):
-        return partition_kmeans_ref(stacked, centers)
+    """Fused Lloyd partial step over a partition → (sums (k,d), counts (k,)).
+
+    ``blocks`` is a stacked ``(nblocks, rows, d)`` tensor or a sequence of
+    same-shape ``(rows, d)`` blocks, which the wrapper stacks (a copy) before
+    the launch.
+    """
+    first, seq = _blocks_of(blocks)
+    if pallas_interpret(first):
+        return partition_kmeans_ref(blocks, centers)
+    stacked = first if seq is None else torch.stack(seq)
     nb, rows, d = stacked.shape
     k = centers.shape[0]
     if centers.device != stacked.device or tuple(centers.shape) != (k, d):

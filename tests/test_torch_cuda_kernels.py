@@ -7,10 +7,10 @@ host without a card each one skips with that reason.  Run them on the card:
 
 Tolerances: bf16 outputs within ``BF16_TOL`` (the reference tests' bf16
 tolerance, ``tests/test_kernels.py`` ``TOL``), the SSD scan in f32 within
-``SSD_TOL`` (``tests/test_kernels.py``), the value histogram bit for bit;
+``SSD_TOL`` (``tests/test_kernels.py``), both histograms bit for bit;
 k-means counts exactly (on data with no float64 near-tie row) and sums within
-``KMEANS_TOL`` (f32 sums of the same rows in another order).  The two
-partition kernels also give the same bits on a second launch.
+``KMEANS_TOL`` (f32 sums of the same rows in another order).  The partition
+kernels also give the same bits on a second launch.
 """
 
 import math
@@ -254,3 +254,114 @@ def test_kmeans_counts_launches(dev):
     before = pr.partition_kmeans.launches
     pr.partition_kmeans(x, x[0, :2])
     assert pr.partition_kmeans.launches == before + 1
+
+
+
+def _edge_laced_rows(seed, n, d, lo, hi, bins):
+    """``(n, d)`` f32 values: each nominal bin edge lo + j (hi - lo) / bins
+    in f32 and the two f32 values on either side (the edges as XLA rounds
+    them lie among these), NaN, ±inf, ±1e10, ±0 and subnormals, the rest
+    uniform over [lo - 10%, hi + 10%] of the range, shuffled."""
+    rng = np.random.default_rng(seed)
+    a, b = min(lo, hi), max(lo, hi) if hi != lo else lo + 1.0
+    nominal = np.float32(lo + np.arange(bins + 1) * ((hi - lo) / bins))
+    near = [nominal]
+    for direction in (np.inf, -np.inf):
+        v = nominal
+        for _ in range(2):
+            v = np.nextafter(v, np.float32(direction))
+            near.append(v)
+    special = np.concatenate(near + [np.float32([np.nan, np.inf, -np.inf, 1e10, -1e10, 0.0,
+                                                 -0.0, 1e-45, -1e-45, 1e-39])])
+    x = rng.uniform(a - 0.1 * (b - a), b + 0.1 * (b - a), n * d).astype(np.float32)
+    m = min(special.size, x.size)
+    x[:m] = special[:m]
+    return x[rng.permutation(x.size)].reshape(n, d)
+
+
+def _check_histdd(blocks, **kw):
+    """The kernel on the block list and on the stacked blocks, twice each,
+    against the plain version, bit for bit."""
+    want = pr.partition_histogramdd_ref(blocks, **kw)
+    for operand in (blocks, torch.stack(blocks)):
+        got = pr.partition_histogramdd(operand, **kw)
+        again = pr.partition_histogramdd(operand, **kw)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and got.shape == want.shape
+        assert torch.equal(got, want) and torch.equal(again, want)
+    assert int(want.sum()) == sum(b.shape[0] for b in blocks)
+
+
+@pytest.mark.parametrize("lo,hi", [(0.0, 1.0), (0.1, 2.5), (-1.2, 2.0), (1.0, 0.0)])
+@pytest.mark.parametrize("bins,d", [
+    (2, 1), (16, 1), (5, 3), (3, 5), (4, 6),  # one CTA holds the histogram
+    (8, 5),                                   # the main path's 8**5 cells: clusters of 2
+    (6, 6), (7, 6),                           # clusters of 4 and 8
+    (16, 5),                                  # 2**20 cells: counts in global memory
+])
+def test_histdd_bit_exact_with_plain(dev, lo, hi, bins, d):
+    """Three blocks of 1000 rows (ragged row tiles) laced with the bin
+    edges and their neighbours, NaN, ±inf, ±1e10 and subnormals; hi <= lo
+    included."""
+    x = _edge_laced_rows(bins * 10 + d, 3000, d, lo, hi, bins)
+    blocks = list(torch.from_numpy(x).to(dev).split(1000))
+    _check_histdd(blocks, bins=bins, lo=lo, hi=hi)
+
+
+@pytest.mark.parametrize("rows", [1, 37, 511, 513, 1025])
+def test_histdd_rows_that_do_not_fill_a_tile(dev, rows):
+    x = _edge_laced_rows(rows, 2 * rows, 5, 0.1, 2.5, 8)
+    _check_histdd(list(torch.from_numpy(x).to(dev).split(rows)), bins=8, lo=0.1, hi=2.5)
+
+
+@pytest.mark.parametrize("bins", [8, 16])
+def test_histdd_blocks_at_a_4_byte_offset(dev, bins):
+    """Blocks that are views one float into their storage: every tile starts
+    off a 16-byte boundary."""
+    x = _edge_laced_rows(bins, 3 * 777, 5, -1.2, 2.0, bins).reshape(-1)
+    buf = torch.from_numpy(np.concatenate([np.zeros(1, np.float32), x])).to(dev)
+    blocks = list(buf[1:].view(3 * 777, 5).split(777))
+    assert all(b.data_ptr() % 16 != 0 for b in blocks)
+    _check_histdd(blocks, bins=bins, lo=-1.2, hi=2.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16])
+def test_histdd_other_float_types(dev, dtype):
+    """f64 and bf16 blocks are cast to f32, as the reference casts them."""
+    x = _edge_laced_rows(3, 2000, 4, 0.1, 2.5, 8)
+    blocks = list(torch.from_numpy(x).to(dev, dtype).split(500))
+    _check_histdd(blocks, bins=8, lo=0.1, hi=2.5)
+
+
+@pytest.mark.parametrize("nblocks", [1, 16, 200])
+def test_histdd_block_counts(dev, nblocks):
+    """Up to 256 block pointers ride in the launch's parameters; 200 blocks
+    there, and 300 through a device table."""
+    x = _edge_laced_rows(nblocks, nblocks * 300, 3, -1.2, 2.0, 5)
+    blocks = list(torch.from_numpy(x).to(dev).split(300))
+    _check_histdd(blocks, bins=5, lo=-1.2, hi=2.0)
+    if nblocks == 200:
+        many = list(torch.from_numpy(_edge_laced_rows(7, 300 * 64, 3, -1.2, 2.0, 5)).to(dev)
+                    .split(64))
+        assert len(many) == 300
+        _check_histdd(many, bins=5, lo=-1.2, hi=2.0)
+
+
+@pytest.mark.parametrize("bins", [8, 16])
+def test_histdd_main_path_shape(dev, bins):
+    """16 blocks of 262,144 rows of 5 values, views 8 blocks apart in one
+    tensor, as a partition of the main path's data lies."""
+    gen = torch.Generator(device=dev).manual_seed(bins)
+    big = torch.rand((8 * 16 * 65_536, 5), generator=gen, device=dev)
+    blocks = [big[8 * b * 65_536:(8 * b + 1) * 65_536] for b in range(16)]
+    big[0, :] = float("nan")
+    big[8 * 65_536, :] = float("inf")
+    _check_histdd(blocks, bins=bins)
+
+
+def test_histdd_counts_launches(dev):
+    x = torch.zeros((2, 64, 3), device=dev)
+    before = pr.partition_histogramdd.launches
+    pr.partition_histogramdd(x, bins=4)
+    pr.partition_histogramdd(list(x), bins=4)
+    assert pr.partition_histogramdd.launches == before + 2

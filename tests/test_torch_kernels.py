@@ -7,6 +7,9 @@ and sums within the reference's f32 tolerance (``tests/test_kernels.py``
 ``chip_smoke.py`` holds each against the plain version tested here.
 """
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -166,3 +169,142 @@ def test_other_devices_raise():
         tpr.partition_histogramdd(x, bins=2)
     with pytest.raises(ValueError, match="meta"):
         tpr.partition_kmeans(x, torch.empty((2, 3), device="meta"))
+
+
+
+def _grids(seed=17, count=30):
+    """Seeded (lo, hi, bins) grids with hi > lo, three fixed ones first."""
+    rng = np.random.default_rng(seed)
+    grids = [(0.0, 1.0, 8), (0.1, 2.5, 16), (-1.2, 2.0, 16)]
+    while len(grids) < count:
+        lo = round(float(rng.uniform(-3.0, 3.0)), int(rng.integers(1, 4)))
+        hi = round(lo + float(rng.uniform(0.05, 5.0)), int(rng.integers(1, 4)))
+        if hi > lo:
+            grids.append((lo, hi, int(rng.choice([2, 3, 5, 8, 16, 33, 64, 100, 128, 256]))))
+    return grids
+
+
+def _bin_edges(bins, lo, hi):
+    """Per j in 1..bins-1, the smallest f32 that the port digitizes to at
+    least j: a bisection over f32 bit patterns (ordered as the values),
+    with -inf (bin 0) and +inf (the last bin) as its ends."""
+    def key(v):
+        u = np.asarray(v, np.float32).view(np.uint32).astype(np.int64)
+        return np.where(u >= 1 << 31, u ^ 0xFFFFFFFF, u | 1 << 31)
+
+    def value(k):
+        u = np.where(k >= 1 << 31, k & 0x7FFFFFFF, k ^ 0xFFFFFFFF)
+        return u.astype(np.uint32).view(np.float32)
+
+    def digitize(v):
+        return tpr.digitize_cells(torch.from_numpy(v)[:, None], bins=bins, lo=lo, hi=hi).numpy()
+
+    j = np.arange(1, bins)
+    below = np.full(j.shape, key(-np.inf))
+    at = np.full(j.shape, key(np.inf))
+    while (at - below > 1).any():
+        mid = (below + at) // 2
+        reached = digitize(value(mid)) >= j
+        at, below = np.where(reached, mid, at), np.where(reached, below, mid)
+    edges = value(at)
+    assert (digitize(edges) >= j).all() and (digitize(value(at - 1)) < j).all()
+    return edges
+
+
+def _edge_laced(seed, lo, hi, edges, rows, d):
+    """``(rows, d)`` values: every bin edge and its two f32 neighbours, lo,
+    hi, ±inf, NaN, ±1e10, ±0 and subnormals, the rest uniform over [lo -
+    10%, hi + 10%], shuffled."""
+    lo_, hi_ = min(lo, hi), max(lo, hi)
+    e = np.float32(edges)
+    special = np.concatenate([
+        e, np.nextafter(e, np.float32(-np.inf)), np.nextafter(e, np.float32(np.inf)),
+        np.float32([lo, hi, np.inf, -np.inf, np.nan, 1e10, -1e10, 0.0, -0.0, 1e-45, -1e-45,
+                    1e-39]),
+    ])
+    x = _uniform(seed, (rows * d,), lo_, hi_ if hi_ > lo_ else lo_ + 1.0)
+    assert special.size <= x.size
+    x[:special.size] = special
+    return x[np.random.default_rng(seed + 1).permutation(x.size)].reshape(rows, d)
+
+
+def _kernel_arithmetic(x, *, bins, lo, hi):
+    """csrc/partition_histogramdd.cu's binning in numpy f32: a subnormal
+    value as 0, ``(x - lo) * C`` (two roundings), clamped to [0, bins - 1]
+    in float (NaN → 0), truncated; then the row-major flat cells' counts."""
+    lo_f, scale = tpr._digitize_scalars(lo, hi, bins)
+    v = np.where(np.abs(x) < np.finfo(np.float32).tiny, np.float32(0), x)
+    with np.errstate(invalid="ignore", over="ignore"):
+        s = (v - np.float32(lo_f)) * np.float32(scale)
+    idx = np.fmin(np.fmax(s, np.float32(0)), np.float32(bins - 1)).astype(np.int64)
+    flat = np.zeros(x.shape[0], np.int64)
+    for k in range(x.shape[1]):
+        flat = flat * bins + idx[:, k]
+    return np.bincount(flat, minlength=bins ** x.shape[1]).astype(np.int32)
+
+
+@pytest.mark.parametrize("lo,hi,bins", _grids() + [(1.0, 0.0, 4), (0.5, 0.5, 8),
+                                                    (0.0, 1e-45, 4), (2.0, -1.0, 16)])
+def test_histdd_edges_bit_exact_vs_jax(lo, hi, bins):
+    """On data laced with every bin edge (found by bisection) and its f32
+    neighbours, the kernel's arithmetic emulated in numpy, the port's plain
+    version and its block fn equal the JAX kernel (interpret mode) and the
+    JAX block fn under ``jit`` bit for bit — also where hi <= lo.  XLA folds
+    ``/ (hi - lo) * bins`` into one multiply; a true division (the port
+    before) differs at some edges, e.g. 2.35 at (0.1, 2.5, 16)."""
+    edges = _bin_edges(bins, lo, hi) if hi > lo else np.float32([])
+    d = 2 if bins <= 33 else 1
+    x = _edge_laced(bins * 100 + int(abs(lo) * 10), lo, hi, edges, 3 * bins + 40, d)
+    want = np.asarray(jpr.partition_histogramdd(jnp.asarray(x[None]), bins=bins, lo=lo, hi=hi))
+    jitted = jax.jit(functools.partial(j_hist_block, bins=bins, lo=lo, hi=hi))
+    np.testing.assert_array_equal(np.asarray(jitted(jnp.asarray(x))), want)
+    np.testing.assert_array_equal(_kernel_arithmetic(x, bins=bins, lo=lo, hi=hi),
+                                  want.reshape(-1))
+    plain = tpr.partition_histogramdd_ref([torch.from_numpy(x)], bins=bins, lo=lo, hi=hi)
+    np.testing.assert_array_equal(plain.numpy(), want)
+    block = t_hist_block(torch.from_numpy(x), bins=bins, lo=lo, hi=hi)
+    np.testing.assert_array_equal(block.numpy(), want)
+
+
+def test_xla_folds_the_digitize_constants():
+    """At 2.35 on (0.1, 2.5, 16), (x - lo) / (hi - lo) * bins is 14.999999
+    by a true division and 15.0 by XLA's folded multiply; the port bins it
+    in 15, as the JAX kernel does."""
+    x = np.float32([[2.35]])
+    s = np.float32(2.35) - np.float32(0.1)
+    assert int(s / np.float32(2.4) * np.float32(16)) == 14
+    assert tpr._digitize_scalars(0.1, 2.5, 16) == (float(np.float32(0.1)),
+                                                  float(np.float32(1 / np.float32(2.4)) * 16))
+    want = np.asarray(jpr.partition_histogramdd(jnp.asarray(x[None]), bins=16, lo=0.1, hi=2.5))
+    assert int(want.argmax()) == 15
+    assert int(tpr.digitize_cells(torch.from_numpy(x), bins=16, lo=0.1, hi=2.5)) == 15
+
+@pytest.mark.parametrize("lo,hi", RANGES)
+@pytest.mark.parametrize("nb,rows,d,bins", [(3, 32, 2, 4), (16, 8, 5, 3), (1, 40, 1, 16)])
+def test_histogramdd_block_list_equals_stacked_and_jax(nb, rows, d, bins, lo, hi):
+    """The fused lowering's operand — the partition's blocks themselves —
+    gives the stacked operand's counts, and the JAX kernel's."""
+    x = _outliers(nb * rows + d, (nb, rows, d), lo, hi)
+    blocks = [torch.from_numpy(b) for b in x]
+    want = np.asarray(jpr.partition_histogramdd(jnp.asarray(x), bins=bins, lo=lo, hi=hi))
+    for operand in (blocks, tuple(blocks), torch.from_numpy(x)):
+        got = tpr.partition_histogramdd(operand, bins=bins, lo=lo, hi=hi)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_kmeans_block_list_equals_stacked_and_jax():
+    rng = np.random.default_rng(12)
+    x = rng.normal(size=(4, 32, 6)).astype(np.float32)
+    c = rng.normal(size=(5, 6)).astype(np.float32)
+    assert _no_near_ties(x, c)
+    js, jc = jpr.partition_kmeans(jnp.asarray(x), jnp.asarray(c))
+    ss, sc = tpr.partition_kmeans(torch.from_numpy(x), torch.from_numpy(c))
+    ls, lc = tpr.partition_kmeans([torch.from_numpy(b) for b in x], torch.from_numpy(c))
+    assert torch.equal(ls, ss) and torch.equal(lc, sc)
+    np.testing.assert_array_equal(lc.numpy(), np.asarray(jc))
+    np.testing.assert_allclose(ls.numpy(), np.asarray(js), **TOL)
+
+
+def test_empty_block_list_raises():
+    with pytest.raises(ValueError, match="at least one block"):
+        tpr.partition_histogramdd([], bins=2)

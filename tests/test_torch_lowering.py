@@ -278,3 +278,45 @@ def test_cpu_plan_ignores_a_card_on_the_host(pol, monkeypatch):
     got = _describe(tapi, tfn, tx, pol)
     assert got == _describe(japi, jfn, jx, pol)
     assert "partition_scan" in got[1] and "partition_pallas" not in got[1]
+
+
+@pytest.mark.parametrize("pol", ["SplIter(fusion='pallas')",
+                                 "SplIter(partitions_per_location=2, fusion='pallas')"])
+def test_fused_kernel_reads_blocks_in_place(pol):
+    """A partition_pallas task's data operand is the BlockedArray's own
+    block tensors (the same objects, the same storage: no copy), while a
+    partition_scan task still stacks its run into one new tensor."""
+    _, tx = _pair(97, 12, 3, "round_robin_placement")
+    tfn = functools.partial(t_hist_block, bins=4, lo=0.0, hi=1.0)
+    plan = tapi.Collection.from_blocked(tx).split(_policy(tapi, pol)).map_blocks(tfn) \
+        .reduce(_combine).plan()
+    graph = tapi.LocalExecutor().lower(plan)
+    fused = [t for t in graph.tasks if t.kind == "partition_pallas"]
+    assert fused
+    for task in fused:
+        (blocks,) = task.operands()
+        assert isinstance(blocks, tuple) and len(blocks) == len(task.block_ids)
+        for b, t in zip(task.block_ids, blocks):
+            assert t is tx.blocks[b] and t.data_ptr() == tx.blocks[b].data_ptr()
+    scan = tapi.LocalExecutor().lower(
+        tapi.Collection.from_blocked(tx).split(tapi.SplIter(fusion="scan")).map_blocks(tfn)
+        .reduce(_combine).plan())
+    for task in scan.tasks:
+        (stacked,) = task.operands()
+        assert isinstance(stacked, torch.Tensor) and stacked.shape[0] == len(task.block_ids)
+        assert all(stacked.data_ptr() != tx.blocks[b].data_ptr() for b in task.block_ids)
+
+
+def test_fused_histogram_of_block_lists_equals_reference():
+    """The kernel's plain version, fed the block lists the fused lowering
+    passes, gives the JAX package's histogram and EngineReport."""
+    jx, tx = _pair(97, 12, 3, "round_robin_placement", d=3, seed=4)
+    jfn = functools.partial(j_hist_block, bins=4, lo=0.0, hi=1.0)
+    tfn = functools.partial(t_hist_block, bins=4, lo=0.0, hi=1.0)
+    jr = japi.Collection.from_blocked(jx).split(japi.SplIter(fusion="pallas")).map_blocks(jfn) \
+        .reduce(_combine).compute(executor=japi.LocalExecutor())
+    tr = tapi.Collection.from_blocked(tx).split(tapi.SplIter(fusion="pallas")).map_blocks(tfn) \
+        .reduce(_combine).compute(executor=tapi.LocalExecutor())
+    np.testing.assert_array_equal(tr.value.numpy(), np.asarray(jr.value))
+    keys = ("dispatches", "traces", "bytes_moved", "granularity", "merges")
+    assert {k: getattr(tr.report, k) for k in keys} == {k: getattr(jr.report, k) for k in keys}

@@ -32,9 +32,19 @@ card's time per call with the calls queued behind a sleeping kernel, so
 that the card runs them back to back and the host's launch work is hidden,
 and ``host_ms`` is that launch work per call on the host's clock.
 
-Three more paths follow, each with every launch count set to 0 just before
-it and read just after:
+More paths follow, each with every launch count set to 0 just before it and
+read just after:
 
+* ``threaded``: on the main path's data, the histogram under
+  SplIter(1, pallas) and SplIter(2) and the 10-iteration k-means under
+  SplIter(1, pallas), barriered and with ``pipeline=True``, each on a
+  ``ThreadedExecutor`` (one worker thread per location) beside a
+  ``LocalExecutor``: histograms and k-means centers bit-identical, counts,
+  dispatches, merges, traces, bytes moved and granularity equal, the same
+  kernel launches per call (8 per pass, 80 per run at SplIter(1)),
+  ``overlapped_launches`` > 0 on pipelined iterations 2–10, and every
+  worker thread joined after ``close()``; the wall medians print beside
+  Local's.
 * ``value_histogram``: ``repro_torch.kernels.ops.partition_histogram`` (bins
   128) over each location's stacked partition of the histogram data; the
   summed counts must equal ``kernels.ref.histogram_ref`` bit for bit.
@@ -54,17 +64,36 @@ it and read just after:
   the two tokens' recurrence logits are within ``LOGIT_TOL`` (a near-tie).
   ``LOGIT_TOL`` is per run (``SERVE``).  The prefill and the recurrence
   run again in f32 on the same weights upcast (mamba2's prefill through its
-  kernel in f32; qwen3's through the plain attention, the flash kernel
-  taking bf16 only) and must agree within ``F32_LOGIT_TOL``.  A third serve
+  kernel in f32; qwen3's through the flash kernel's SIMT route, once per
+  layer) and must agree within ``F32_LOGIT_TOL``.  A third serve
   run, mamba2-1.3b at full width cut to 2 layers, holds the bf16 SSD route
   to the same checks at a tolerance of 0.25, which 48 random layers' bf16
   rounding does not allow.
+* ``sampled_serve``: mamba2-1.3b cut to 2 layers, ``greedy=False``, 8
+  steps: each token after the first is ``_threefry.categorical`` (the
+  reference's ``jax.random.categorical`` bits) of its step's served
+  logits, and a second run gives the same tokens.
+* ``knn`` at ``benchmarks/bench_knn.py``'s width (d = 3, k = 8): 8
+  locations × 16 blocks × 8,192 fit rows, 8 × 2 × 512 queries, under
+  Baseline, SplIter(1), SplIter(2) and Rechunk on both executors: Local
+  and Threaded bit-identical; the policies name the same neighbors up to
+  equal distances; distances within 1e-4 of a brute force on the card;
+  duplicated fit rows give the CPU's ids; SplIter below Baseline in
+  dispatches and merges.
+* ``svm`` at ``benchmarks/bench_svm.py``'s full mode: 8 locations × 8
+  blocks × 512 rows, d = 8, 32 SVs, 300 steps, 2 iterations, under the same
+  policies: support vectors bit-identical between the executors, each an
+  actual (x, y) pair; training accuracy above 0.85 at 128 SVs and c = 10
+  on the data of the reference's test (``tests/test_core_apps.py:109``;
+  at this phase's size 128 SVs underfit, in the reference as here, and the
+  accuracy is printed); SplIter below Baseline in dispatches.
 
 Then each of the three LM-path kernels runs beside its plain version at the
 serving path's shapes: ``flash_attention`` (q 8×512×64×128, k/v
 8×512×8×128, bf16, causal; also a fully masked-row case, a 4096 window on
 6144 tokens, head dims 64 and 32, a ragged Lq = 500 and group 1, each timed
-beside ``scaled_dot_product_attention``), ``ssd_scan`` (x 8×512×64×64, B/C
+beside ``scaled_dot_product_attention``; and its SIMT route in f32 at the
+same shapes within ``F32_TOL`` and in bf16 at head dim 16), ``ssd_scan`` (x 8×512×64×64, B/C
 8×512×128; in f32 on upcast inputs and on f32 inputs that are not bf16
 values within ``SSD_TOL``, and on the bf16 inputs y within ``BF16_TOL`` and
 the f32 state within ``SSD_TOL`` of the same f32 plain version) and
@@ -138,6 +167,9 @@ F32_LOGIT_TOL = 1e-3
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 #: ssd_scan in f32 against its plain version (tests/test_kernels.py:173)
 SSD_TOL = dict(rtol=3e-4, atol=3e-4)
+#: an f32 kernel output (flash attention's SIMT route) against its plain
+#: version: the reference tests' f32 tolerance (tests/test_kernels.py TOL)
+F32_TOL = dict(rtol=2e-5, atol=2e-5)
 
 
 def emit(obj) -> None:
@@ -217,6 +249,9 @@ def _kernel_name(mangled: str) -> str:
     t = re.match(r"ILi(\d+)EE", tail)
     if t:
         return f"{name}<{t.group(1)}>"
+    t = re.match(r"I(f|13__nv_bfloat16)Li(\d+)EE", tail)
+    if t:
+        return f"{name}<{'f32' if t.group(1) == 'f' else 'bf16'},{t.group(2)}>"
     for code, short in (("I13__nv_bfloat16EE", "bf16"), ("IfEE", "f32")):
         if tail.startswith(code):
             return f"{name}<{short}>"
@@ -235,8 +270,13 @@ def ptxas_line(reports: dict) -> list[dict]:
 
     flash_smem = kernel_function("flash_attention", "repro_flash_attention_smem_bytes",
                                  [ctypes.c_int])
+    simt_smem = kernel_function("flash_attention", "repro_flash_attention_simt_smem_bytes",
+                                [ctypes.c_int])
     ssd_smem = kernel_function("ssd_scan", "repro_ssd_scan_smem_bytes", [ctypes.c_int])
     dynamic = {f"flash_kernel<{d}>": flash_smem(d) for d in (32, 64, 128)}
+    # the SIMT route at the largest head dim of each instantiation
+    dynamic.update({f"flash_simt_kernel<{t},{dv}>": simt_smem(32 * dv)
+                    for t in ("f32", "bf16") for dv in (1, 2, 3, 4)})
     dynamic.update({"ssd_kernel<bf16>": ssd_smem(1), "ssd_kernel<f32>": ssd_smem(0),
                     "kmeans_partial": pr._kmeans_plan(KM_D, KM_K)[0],
                     "hist_kernel": pr._histogram_plan(VALUE_BINS)[1],
@@ -495,8 +535,18 @@ def kernel_counters():
 
 
 def reset_launches() -> None:
+    from repro_torch.kernels import flash_attention
+
     for fn in kernel_counters().values():
         fn.launches = 0
+    flash_attention.flash_attention.simt_launches = 0
+
+
+def simt_launches() -> int:
+    """Launches of the flash kernel's SIMT route (f32; bf16 at other head dims)."""
+    from repro_torch.kernels import flash_attention
+
+    return flash_attention.flash_attention.simt_launches
 
 
 def read_launches() -> dict:
@@ -544,24 +594,28 @@ def recurrence_logits(model, params, prompts: torch.Tensor, served: torch.Tensor
     return torch.stack(out, dim=1)  # (B, steps, Vp)
 
 
-def f32_reference(cfg, params, prompts: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def f32_reference(cfg, params, prompts: torch.Tensor):
     """Last-prompt-position logits of the prefill and of the recurrence, both
-    in f32 on the same weights upcast.  The prefill takes the model's own
-    route where its kernel takes f32 (mamba2's SSD) and the plain attention
-    otherwise (the flash kernel takes bf16 only)."""
+    in f32 on the same weights upcast, the prefill through the model's own
+    route (mamba2's SSD kernel in f32; qwen3's flash kernel on its SIMT
+    route).  Also the prefill's ms and its SIMT-route launches."""
     import dataclasses
 
     from repro_torch._pytree import tree_map
     from repro_torch.models import build_model
 
-    model = build_model(dataclasses.replace(cfg, dtype="float32", attn_impl="ref"))
+    model = build_model(dataclasses.replace(cfg, dtype="float32"))
     params32 = tree_map(lambda t: t.float(), params)
     cache = model.init_cache(SERVE_BATCH, SERVE_MAX_LEN, dtype=torch.float32, device=prompts.device)
+    torch.cuda.synchronize()
+    simt0, t0 = simt_launches(), time.perf_counter()
     with torch.no_grad():
         prefill, _ = model.prefill(params32, {"tokens": prompts}, cache)
+    torch.cuda.synchronize()
+    prefill_ms, simt = 1e3 * (time.perf_counter() - t0), simt_launches() - simt0
     rec = recurrence_logits(model, params32, prompts, prompts[:, :1])[:, 0]
     v = cfg.vocab_size
-    return prefill[:, :v], rec[:, :v]
+    return prefill[:, :v], rec[:, :v], prefill_ms, simt
 
 
 def serve_phase(name: str, seed: int, dev: torch.device) -> dict:
@@ -602,6 +656,7 @@ def serve_phase(name: str, seed: int, dev: torch.device) -> dict:
     reset_launches()
     tokens, stats, logits = server.generate(prompts, steps=SERVE_STEPS, return_logits=True)
     launches = read_launches()
+    bf16_simt = simt_launches()
     peak = torch.cuda.max_memory_allocated(dev)
 
     v = cfg.vocab_size  # past it, the padded vocabulary's logits are -1e30
@@ -621,7 +676,7 @@ def serve_phase(name: str, seed: int, dev: torch.device) -> dict:
         with torch.no_grad():
             ref_logits, _ = ref_model.prefill(params, {"tokens": prompt_t}, cache)
         route_err = float((ref_logits[:, :v].float() - lf[:, 0]).abs().max())
-    prefill32, rec32 = f32_reference(cfg, params, prompt_t)
+    prefill32, rec32, f32_prefill_ms, f32_simt = f32_reference(cfg, params, prompt_t)
     f32_err = float((prefill32 - rec32).abs().max())
     bf16_self_err = float((rf[:, 0] - rec32).abs().max())
     served_vs_f32 = float((lf[:, 0] - rec32).abs().max())
@@ -644,7 +699,8 @@ def serve_phase(name: str, seed: int, dev: torch.device) -> dict:
         "logit_max_abs": float(lf.abs().max()), "logit_std": float(lf.std()),
         "logit_tol": tol, "prefill_vs_recurrence": prefill_err,
         "decode_vs_recurrence": decode_err, "flash_vs_ref_prefill": route_err,
-        "f32_prefill_vs_f32_recurrence": f32_err,
+        "f32_prefill_vs_f32_recurrence": f32_err, "f32_prefill_ms": f32_prefill_ms,
+        "f32_prefill_flash_simt_launches": f32_simt,
         "bf16_recurrence_vs_f32_recurrence": bf16_self_err,
         "prefill_vs_f32_recurrence": served_vs_f32, "argmax_mismatches": len(mismatch),
         "mismatch_gaps": gaps,
@@ -653,6 +709,10 @@ def serve_phase(name: str, seed: int, dev: torch.device) -> dict:
     check(stats.dispatches == 1 + SERVE_STEPS, f"{name}: dispatches {stats.dispatches}")
     want = {k: (cfg.num_layers if k == kernel else 0) for k in launches}
     check(launches == want, f"{name}: {kernel} launched once per layer of one prefill: {launches}")
+    check(bf16_simt == 0, f"{name}: the bf16 prefill takes no SIMT flash launch ({bf16_simt})")
+    want_simt = cfg.num_layers if cfg.attn_impl == "flash" and cfg.num_heads else 0
+    check(f32_simt == want_simt, f"{name}: the f32 prefill launches the flash kernel's SIMT "
+          f"route once per layer: {f32_simt} != {want_simt}")
     check(bool(torch.isfinite(lf).all()), f"{name}: every logit is finite")
     check(prefill_err <= tol, f"{name}: prefill vs recurrence {prefill_err} > {tol}")
     check(decode_err <= tol, f"{name}: decode vs recurrence {decode_err} > {tol}")
@@ -729,6 +789,39 @@ def lm_kernel_checks(seed: int, dev: torch.device, x_values: torch.Tensor,
     pairs = l * (l + 1) // 2  # causal (q, k) pairs per (batch, head)
     bound_ms, bound_by = bound(2 * (q.numel() + k.numel() + v.numel() + got.numel()),
                                4 * d * pairs * b * h, BF16_FLOPS_PER_S)
+    # the SIMT route in f32 at the same shapes: the f32 qwen3 prefill's layer
+    q32, k32, v32 = (normal(*t.shape, dtype=torch.float32) for t in (q, k, v))
+    got32 = fa.flash_attention(q32, k32, v32, causal=True)
+    want32 = fa.flash_attention_ref(q32, k32, v32, causal=True)
+    err32 = float((got32 - want32).abs().max())
+    check(torch.allclose(got32, want32, **F32_TOL),
+          f"flash_attention (SIMT, f32) within {F32_TOL} of its plain version ({err32})")
+    sdpa32 = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q32.transpose(1, 2), k32.transpose(1, 2), v32.transpose(1, 2), is_causal=True,
+        enable_gqa=True)
+    # a bf16 head dim the wgmma route does not take (16, as the reference tests it)
+    q16, k16, v16 = normal(b, l, h, 16), normal(b, l, hkv, 16), normal(b, l, hkv, 16)
+    got16 = fa.flash_attention(q16, k16, v16, causal=True).float()
+    want16 = fa.flash_attention_ref(q16, k16, v16, causal=True).float()
+    err16 = float((got16 - want16).abs().max())
+    check(torch.allclose(got16, want16, **BF16_TOL),
+          f"flash_attention (SIMT, bf16, head dim 16) within {BF16_TOL} of plain ({err16})")
+    bound32_ms, bound32_by = bound(4 * (q32.numel() + k32.numel() + v32.numel() + got32.numel()),
+                                   4 * d * pairs * b * h, F32_FLOPS_PER_S)
+    simt_route = {
+        "route": "simt", "dtype": "float32", "launches": launches["flash_attention_simt"],
+        "launches_per_call": launches["flash_attention_simt"],
+        "per_call_of": "qwen3-32b f32 prefill (8 layers)", "max_abs_err": err32,
+        "tolerance": f"allclose {F32_TOL} (tests/test_kernels.py TOL[float32])",
+        **kernel_times(lambda: fa.flash_attention(q32, k32, v32, causal=True)),
+        "plain_ms": cuda_ms(lambda: fa.flash_attention_ref(q32, k32, v32, causal=True)),
+        "bound_ms": bound32_ms, "bound_by": bound32_by, "library_ms": cuda_ms(sdpa32),
+        "library": "scaled_dot_product_attention on the same f32 inputs",
+        "library_max_abs_diff": float((sdpa32().transpose(1, 2) - got32).abs().max()),
+        "bf16_head_dim16_max_abs_err": err16,
+        "bf16_head_dim16_ms": cuda_ms(lambda: fa.flash_attention(q16, k16, v16, causal=True)),
+    }
+    del q32, k32, v32, got32, want32, q16, k16, v16, got16, want16
     out.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -743,7 +836,7 @@ def lm_kernel_checks(seed: int, dev: torch.device, x_values: torch.Tensor,
         "library": "torch.nn.functional.scaled_dot_product_attention(is_causal, enable_gqa)",
         "library_max_abs_diff": lib_err, "shape_q": [b, l, h, d], "shape_kv": [b, l, hkv, d],
         "window4096_shape_q": [1, 6144, 8, d], "window4096_max_abs_err": win_err,
-        "window4096_ms": win_ms, "cases": cases,
+        "window4096_ms": win_ms, "cases": cases, "simt_route": simt_route,
     })
     del q, k, v, got, want
 
@@ -849,6 +942,308 @@ def lm_kernel_checks(seed: int, dev: torch.device, x_values: torch.Tensor,
     return out
 
 
+STRUCTURAL = ("dispatches", "merges", "traces", "bytes_moved", "granularity")
+
+
+def _structural(report) -> tuple:
+    return tuple(getattr(report, f) for f in STRUCTURAL)
+
+
+def threaded_phase(x_hist, x_km, seed: int, repeats: int) -> dict:
+    """Histogram and k-means on a ThreadedExecutor beside a LocalExecutor,
+    barriered and (k-means) pipelined, on the main path's data."""
+    from repro_torch.api import Collection, LocalExecutor, SplIter, ThreadedExecutor
+    from repro_torch.core.apps.histogram import histogram
+    from repro_torch.core.apps.kmeans import _combine, kmeans, partial_sum_block
+    from repro_torch.kernels import partition_reduce as pr
+
+    runs = {  # name: (app, policy, pipelined)
+        "histogram/spliter1_pallas": ("histogram", SplIter(1, fusion="pallas"), False),
+        "histogram/spliter2": ("histogram", SplIter(2), False),
+        "kmeans/spliter1_pallas": ("kmeans", SplIter(1, fusion="pallas"), False),
+        "kmeans/spliter1_pallas/pipeline": ("kmeans", SplIter(1, fusion="pallas"), True),
+    }
+    out = {}
+    for name, (app, pol, pipelined) in runs.items():
+        got = {}
+        for backend, factory in (("local", LocalExecutor), ("threaded", ThreadedExecutor)):
+            counter = pr.partition_histogramdd if app == "histogram" else pr.partition_kmeans
+            ex = factory()
+            walls, launches = [], []
+            for _ in range(1 + repeats):  # one warm-up, then timed runs
+                torch.cuda.synchronize()
+                c0, t0 = counter.launches, time.perf_counter()
+                if app == "histogram":
+                    value, rep = histogram(x_hist, bins=HIST_BINS, policy=pol, executor=ex)
+                    reports = [rep]
+                else:
+                    res = kmeans(x_km, k=KM_K, iters=KM_ITERS, seed=seed, policy=pol,
+                                 executor=ex, pipeline=pipelined)
+                    value, reports = res.centers, res.reports
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                launches.append(counter.launches - c0)
+            counts = None
+            if app == "kmeans":
+                counts = (Collection.from_blocked(x_km).split(pol)
+                          .map_blocks(partial_sum_block, extra_args=(value,))
+                          .reduce(_combine).compute(executor=ex).value[1])
+            threads = [w._thread for w in getattr(ex, "_workers", {}).values()]
+            ex.close()
+            got[backend] = {
+                "value": value, "counts": counts, "reports": reports, "launches": launches,
+                "wall_s": statistics.median(walls[1:]), "threads": threads,
+                "joined": not any(t.is_alive() for t in threads),
+            }
+        loc, thr = got["local"], got["threaded"]
+        per_call = LOCATIONS * pol.partitions_per_location * (KM_ITERS if app == "kmeans" else 1)
+        overlapped = [r.overlapped_launches for r in thr["reports"]]
+        result = {
+            "phase": "threaded", "run": name, "policy": repr(pol), "pipeline": pipelined,
+            "local_wall_s": loc["wall_s"], "threaded_wall_s": thr["wall_s"],
+            "launches_per_call": thr["launches"][-1], "worker_threads": len(thr["threads"]),
+            "dispatches": sum(r.dispatches for r in thr["reports"]),
+            "overlapped_launches": overlapped,
+        }
+        emit(result)
+        check(torch.equal(loc["value"], thr["value"]),
+              f"threaded {name}: the value equals the LocalExecutor's bit for bit")
+        if counts is not None:
+            check(torch.equal(loc["counts"], thr["counts"]), f"threaded {name}: counts equal")
+        check([_structural(r) for r in loc["reports"]] == [_structural(r) for r in thr["reports"]],
+              f"threaded {name}: dispatches, merges, traces, bytes_moved and granularity equal")
+        check(set(loc["launches"]) == set(thr["launches"]) == {per_call},
+              f"threaded {name}: {per_call} kernel launches per call: "
+              f"{loc['launches']} / {thr['launches']}")
+        check(len(thr["threads"]) == LOCATIONS and thr["joined"],
+              f"threaded {name}: {LOCATIONS} worker threads, all joined after close()")
+        if pipelined:
+            check(overlapped[0] == 0 and sum(overlapped[1:]) > 0,
+                  f"threaded {name}: iterations 2-{KM_ITERS} overlapped ({overlapped})")
+        out[name] = result
+    return out
+
+
+KNN_D, KNN_K = 3, 8  # benchmarks/bench_knn.py:98
+KNN_FIT_BLOCK_ROWS, KNN_Q_BLOCKS, KNN_Q_BLOCK_ROWS = 8_192, 2, 512
+KNN_TOL = 1e-4
+
+
+def same_up_to_ties(a, b) -> int:
+    """Check two kNN results name the same neighbors, up to equal distances.
+
+    Equal f32 distances (the expanded |q|² − 2q·f + |f|² rounds them to
+    about 1.2e-7 near |q|² = 1, so neighbors' distances collide) are ordered
+    by candidate position, which follows each policy's structures, as in
+    the reference.  Each row's sorted distances must agree within 1e-6; an
+    id in one result and not the other must lie within 1e-6 of the row's
+    k-th distance.  Returns the number of rows whose ids differ.
+    """
+    check(float((a.distances - b.distances).abs().max()) <= 1e-6,
+          "knn: sorted distances agree across policies within 1e-6")
+    ia, ib = a.indices.sort(1).values, b.indices.sort(1).values
+    rows = (ia != ib).any(1).nonzero().flatten().tolist()
+    for r in rows:
+        for x, y in ((a, b), (b, a)):
+            extra = ~torch.isin(x.indices[r], y.indices[r])
+            kth = float(x.distances[r, -1])
+            check(bool((x.distances[r][extra] >= kth - 1e-6).all()),
+                  f"knn: row {r} differs across policies only at the k-th distance")
+    return len(rows)
+
+
+def knn_phase(seed: int, dev: torch.device) -> dict:
+    """kNN at the bench's width under four policies on both executors."""
+    import numpy as np
+
+    from repro_torch.api import Baseline, LocalExecutor, Rechunk, SplIter, ThreadedExecutor
+    from repro_torch.core.apps import knn
+    from repro_torch.core.blocked import BlockedArray, round_robin_placement
+
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "knn: the distance product runs in f32, not TF32")
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    n_fit = LOCATIONS * BLOCKS_PER_LOCATION * KNN_FIT_BLOCK_ROWS
+    n_q = LOCATIONS * KNN_Q_BLOCKS * KNN_Q_BLOCK_ROWS
+    fit_t = torch.rand((n_fit, KNN_D), generator=gen, device=dev)
+    q_t = torch.rand((n_q, KNN_D), generator=gen, device=dev)
+    fit = BlockedArray.from_array(fit_t, KNN_FIT_BLOCK_ROWS, num_locations=LOCATIONS,
+                                  policy=round_robin_placement, device=dev)
+    queries = BlockedArray.from_array(q_t, KNN_Q_BLOCK_ROWS, num_locations=LOCATIONS,
+                                      policy=round_robin_placement, device=dev)
+    policies = {"baseline": Baseline(), "spliter1": SplIter(1), "spliter2": SplIter(2),
+                "rechunk": Rechunk()}
+    results, rows = {}, []
+    for pname, pol in policies.items():
+        for backend, factory in (("local", LocalExecutor), ("threaded", ThreadedExecutor)):
+            with factory() as ex:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = knn(fit, queries, k=KNN_K, policy=pol, executor=ex)
+                wall = time.perf_counter() - t0
+            results[(pname, backend)] = r
+            rows.append({"policy": pname, "executor": backend, "wall_s": wall,
+                         "dispatches": r.report.dispatches, "merges": r.report.merges,
+                         "bytes_moved": r.report.bytes_moved})
+    for pname in policies:
+        loc, thr = results[(pname, "local")], results[(pname, "threaded")]
+        check(torch.equal(loc.indices, thr.indices) and torch.equal(loc.distances, thr.distances),
+              f"knn {pname}: Local and Threaded give the same ids and distances bit for bit")
+    ref = results[("baseline", "local")]
+    tie_rows = {p: same_up_to_ties(ref, results[(p, "local")]) for p in policies}
+    for backend in ("local", "threaded"):
+        b, s1 = results[("baseline", backend)].report, results[("spliter1", backend)].report
+        check(s1.dispatches < b.dispatches and s1.merges < b.merges,
+              f"knn {backend}: SplIter dispatches and merges below Baseline's")
+    # brute force on the card: differences squared, in chunks of queries
+    chunk, want, gap = 32, [], []
+    for i in range(0, n_q, chunk):
+        d2 = ((q_t[i:i + chunk, None, :] - fit_t[None]) ** 2).sum(-1)
+        vals = torch.topk(d2, KNN_K + 1, dim=1, largest=False).values
+        want.append(vals[:, :KNN_K])
+        gap.append(vals[:, KNN_K] - vals[:, KNN_K - 1])
+    want, gap = torch.cat(want), torch.cat(gap)
+    clear = gap > KNN_TOL
+    dist_err = float((ref.distances - want).abs().max())
+    check(dist_err <= KNN_TOL, f"knn distances within {KNN_TOL} of brute force ({dist_err})")
+    own = ((q_t[:, None, :] - fit_t[ref.indices.long()]) ** 2).sum(-1)
+    id_err = float((own - ref.distances).abs().max())
+    check(id_err <= KNN_TOL, f"knn: each id's own distance is the reported one ({id_err})")
+    # duplicated fit rows tie exactly: the card keeps the CPU's copies and
+    # order.  Coordinates on a 1/16 grid make every distance exact on both.
+    rng = np.random.default_rng(seed)
+    base = (rng.integers(0, 16, (4_000, KNN_D)) / 16).astype(np.float32)
+    dup_fit = np.concatenate([base] * 3)
+    dup_q = (rng.integers(0, 16, (256, KNN_D)) / 16).astype(np.float32)
+    tie_ok = {}
+    for pname in ("baseline", "spliter1"):
+        ids = []
+        for device in ("cpu", dev):
+            f = BlockedArray.from_array(dup_fit, 750, num_locations=LOCATIONS,
+                                        policy=round_robin_placement, device=device)
+            qq = BlockedArray.from_array(dup_q, 128, num_locations=LOCATIONS,
+                                         policy=round_robin_placement, device=device)
+            ids.append(knn(f, qq, k=KNN_K, policy=policies[pname]).indices.cpu())
+        tie_ok[pname] = bool(torch.equal(ids[0], ids[1]))
+        check(tie_ok[pname], f"knn {pname}: duplicated rows give the CPU's ids on the card")
+    result = {"phase": "knn", "fit_rows": n_fit, "queries": n_q, "d": KNN_D, "k": KNN_K,
+              "runs": rows, "distance_max_abs_err_vs_brute_force": dist_err,
+              "rows_with_kth_gap_over_tol": int(clear.sum()), "id_distance_max_abs_err": id_err,
+              "rows_differing_from_baseline_by_ties": tie_rows,
+              "duplicated_rows_ids_equal_cpu": tie_ok}
+    emit(result)
+    return result
+
+
+SVM_BLOCKS_PER_LOCATION, SVM_BLOCK_ROWS, SVM_D = 8, 512, 8  # benchmarks/bench_svm.py:37,119
+SVM_NUM_SV, SVM_STEPS, SVM_ITERATIONS = 32, 300, 2
+
+
+def svm_phase(seed: int, dev: torch.device) -> dict:
+    """Cascade SVM at the bench's full mode on both executors."""
+    import numpy as np
+
+    from repro_torch.api import Baseline, LocalExecutor, Rechunk, SplIter, ThreadedExecutor
+    from repro_torch.core.apps import cascade_svm
+    from repro_torch.core.blocked import BlockedArray, round_robin_placement
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    n = LOCATIONS * SVM_BLOCKS_PER_LOCATION * SVM_BLOCK_ROWS
+    pts = torch.randn((n, SVM_D), generator=gen, device=dev)
+    w = torch.randn((SVM_D,), generator=gen, device=dev)
+    labels = torch.sign(pts @ w + 0.05 * torch.randn((n,), generator=gen, device=dev))
+    x, y = (BlockedArray.from_array(a, SVM_BLOCK_ROWS, num_locations=LOCATIONS,
+                                    policy=round_robin_placement, device=dev)
+            for a in (pts, labels))
+    policies = {"baseline": Baseline(), "spliter1": SplIter(1), "spliter2": SplIter(2),
+                "rechunk": Rechunk()}
+    rows, dispatches = [], {}
+    for pname, pol in policies.items():
+        got = {}
+        for backend, factory in (("local", LocalExecutor), ("threaded", ThreadedExecutor)):
+            with factory() as ex:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = cascade_svm(x, y, num_sv=SVM_NUM_SV, steps=SVM_STEPS,
+                                iterations=SVM_ITERATIONS, policy=pol, executor=ex)
+                wall = time.perf_counter() - t0
+            got[backend] = r
+            rows.append({"policy": pname, "executor": backend, "wall_s": wall,
+                         "dispatches": r.report.dispatches, "merges": r.report.merges,
+                         "bytes_moved": r.report.bytes_moved})
+        loc, thr = got["local"], got["threaded"]
+        check(torch.equal(loc.sv_x, thr.sv_x) and torch.equal(loc.sv_y, thr.sv_y)
+              and torch.equal(loc.sv_alpha, thr.sv_alpha),
+              f"svm {pname}: support vectors bit-identical between Local and Threaded")
+        match = (loc.sv_x[:, None, :] == pts[None]).all(-1)  # (num_sv, n)
+        paired = match.any(1) & (labels[match.int().argmax(1)] == loc.sv_y)
+        check(bool(paired.all()), f"svm {pname}: every SV is an actual (x, y) pair")
+        dispatches[pname] = loc.report.dispatches
+    check(dispatches["spliter1"] < dispatches["baseline"],
+          f"svm: SplIter dispatches below Baseline's ({dispatches})")
+    # training accuracy as tests/test_core_apps.py:109-116 holds it: its data
+    # (256 rows of 4, blocks of 32 on 4 locations), 128 SVs, c = 10
+    rng = np.random.default_rng(3)
+    xs = rng.normal(size=(256, 4)).astype(np.float32)
+    ys = np.sign(xs @ rng.normal(size=(4,)).astype(np.float32) + 0.1).astype(np.float32)
+    xb, yb = (BlockedArray.from_array(a, 32, num_locations=4, policy=round_robin_placement,
+                                      device=dev) for a in (xs, ys))
+    small = cascade_svm(xb, yb, num_sv=128, steps=SVM_STEPS, iterations=SVM_ITERATIONS,
+                        policy=SplIter(), c=10.0)
+    xs_t, ys_t = torch.from_numpy(xs).to(dev), torch.from_numpy(ys).to(dev)
+    acc = float((torch.sign(small.decision(xs_t)) == ys_t).float().mean())
+    check(acc > 0.85, f"svm training accuracy {acc} > 0.85 (the reference test's data)")
+    # at this phase's size 128 SVs underfit 32,768 rows (the reference too)
+    full = cascade_svm(x, y, num_sv=128, steps=SVM_STEPS, iterations=SVM_ITERATIONS,
+                       policy=SplIter(), c=10.0)
+    acc_full = float((torch.sign(full.decision(pts)) == labels).float().mean())
+    result = {"phase": "svm", "rows": n, "d": SVM_D, "num_sv": SVM_NUM_SV, "steps": SVM_STEPS,
+              "iterations": SVM_ITERATIONS, "runs": rows,
+              "train_accuracy_test_data_num_sv128_c10": acc,
+              "train_accuracy_full_num_sv128_c10": acc_full}
+    emit(result)
+    return result
+
+
+SAMPLED_STEPS = 8
+
+
+def sampled_serve_phase(seed: int, dev: torch.device) -> dict:
+    """mamba2-1.3b cut to 2 layers, sampling: the reference's Threefry draws."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch._threefry import categorical
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.runtime import Server
+
+    cfg = dataclasses.replace(get_config("mamba2-1.3b"), num_layers=2)
+    params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), dtype=np.int32)
+    server = Server(cfg, max_len=SERVE_MAX_LEN, device=dev)
+    server.load(params)
+    tokens, stats, logits = server.generate(prompts, steps=SAMPLED_STEPS, greedy=False,
+                                            return_logits=True)
+    again, _ = server.generate(prompts, steps=SAMPLED_STEPS, greedy=False)
+    served = torch.as_tensor(tokens, dtype=torch.int64, device=dev)
+    drawn = torch.stack([categorical(t - 1, logits[:, t]) for t in range(1, SAMPLED_STEPS)], 1)
+    greedy_first = torch.argmax(logits[:, 0], -1)
+    result = {"phase": "sampled_serve", "arch": "mamba2-1.3b", "layers": cfg.num_layers,
+              "steps": SAMPLED_STEPS, "logits_dtype": str(logits.dtype).removeprefix("torch."),
+              "decode_ms_per_token": stats.decode_s / SAMPLED_STEPS * 1e3,
+              "distinct_tokens": int(served.unique().numel())}
+    emit(result)
+    check(torch.equal(served[:, 0], greedy_first), "sampled serve: the first token is the argmax")
+    check(torch.equal(served[:, 1:], drawn),
+          "sampled serve: each token is _threefry.categorical of its step's served logits")
+    check(np.array_equal(tokens, again), "sampled serve: a second run gives the same tokens")
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -884,19 +1279,29 @@ def main(argv=None) -> int:
     launches, per_call = main_path(x_hist, x_km, means, label_counts, args.seed, args.repeats)
     check(all(v > 0 for v in launches.values()), f"every kernel launched: {launches}")
     kernels = kernel_checks(x_hist, x_km, args.seed, launches, per_call)
+    threaded_phase(x_hist, x_km, args.seed, args.repeats)
     launches["partition_histogram"] = value_histogram_phase(x_hist)
     x_values = torch.stack([x_hist.block(b) for b in x_hist.blocks_at(0)])
     del hist, km, means, label_counts, x_hist, x_km
     torch.cuda.empty_cache()
 
     for name, spec in SERVE.items():
-        served = serve_phase(name, args.seed, dev)["launches"][spec["kernel"]]
+        result = serve_phase(name, args.seed, dev)
         if not spec.get("depth_check"):
-            launches[spec["kernel"]] = served
+            launches[spec["kernel"]] = result["launches"][spec["kernel"]]
+        if spec["kernel"] == "flash_attention":
+            launches["flash_attention_simt"] = result["f32_prefill_flash_simt_launches"]
         torch.cuda.empty_cache()
+    sampled_serve_phase(args.seed, dev)
+    torch.cuda.empty_cache()
+    knn_phase(args.seed, dev)
+    svm_phase(args.seed, dev)
+    torch.cuda.empty_cache()
     kernels += lm_kernel_checks(args.seed, dev, x_values, launches)
     check(len(kernels) == 5 and all(k["launches"] > 0 for k in kernels),
           f"every kernel launched on its path: {launches}")
+    check(launches["flash_attention_simt"] > 0,
+          f"the flash kernel's SIMT route launched on the f32 prefill: {launches}")
     emit({"kernels": kernels})
     torch.cuda.synchronize()
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

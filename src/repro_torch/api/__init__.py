@@ -10,7 +10,9 @@ The curated ``__all__`` below lists what this package has ported so far:
 * The two-stage execution split: a **lowering pass** (:func:`lower`)
   turns ``(plan, policy, backend Capabilities)`` into a frozen
   :class:`TaskGraph` of placed, keyed :class:`Task` descriptors;
-  :class:`LocalExecutor` schedules it sequentially and reports costs via
+  :class:`LocalExecutor` schedules it sequentially, :class:`ThreadedExecutor`
+  on a persistent worker thread per location (its ``execute_async``
+  overlaps consecutive submissions), and both report costs via
   :class:`~repro_torch.core.engine.EngineReport`.
 * The chunk tier's in-memory half: :class:`ChunkRef` handles resolved at
   dispatch time, behind an :class:`InMemoryStore`.
@@ -30,6 +32,7 @@ from repro_torch.api.executors import (
     LocalExecutor,
     PartitionView,
     PrepareStats,
+    ThreadedExecutor,
 )
 from repro_torch.api.futures import ComputeFuture, Deferred, PipelineBrokenError
 from repro_torch.api.kernels import (
@@ -59,6 +62,7 @@ __all__ = [
     "PipelineBrokenError",
     "Executor",
     "LocalExecutor",
+    "ThreadedExecutor",
     "inputs_signature",
     "ChunkRef",
     "InMemoryStore",

@@ -15,14 +15,32 @@ Backends schedule through ONE dependency-driven scheduler core
 (:meth:`_PlanExecutor._schedule`): the backend turns the TaskGraph into
 dispatch *units* (hook ``_plan_dispatches``), the core appends the merge as
 a unit depending on every task unit, and the backend drains the ready set
-(hook ``_drain``).  Every unit runs instrumented: the core emits a
+(hook ``_drain``: inline on the calling thread, or through the persistent
+per-location worker pool).  Every unit runs instrumented: the core emits a
 :class:`~repro_torch.api.profile.ProfileEvent` (dispatch overhead, wall,
 bytes) into the executor's :class:`~repro_torch.api.profile.ProfileStore`.
 
-:class:`LocalExecutor` dispatches sequentially on the calling thread.  CUDA
-launches are asynchronous, so a unit's ``dispatch_s`` is the host-side
+:class:`LocalExecutor`
+    Sequential dispatch on the calling thread.
+:class:`ThreadedExecutor`
+    A persistent worker thread per *location*, reused across executes,
+    overlapping per-partition dispatch across locations.  Partials are
+    collected by unit index and merged in plan order, so results are
+    bit-identical to :class:`LocalExecutor`.  Its ``execute_async``
+    overlaps consecutive submissions (DESIGN.md §14): iteration *k+1*'s
+    unit for a partition launches when iteration *k*'s unit for the same
+    partition (and the merge a :class:`~repro_torch.api.futures.Deferred`
+    operand reads) has completed, at most :attr:`_PlanExecutor.pipeline_depth`
+    submissions in flight.
+
+CUDA launches are asynchronous, so a unit's ``dispatch_s`` is the host-side
 launch overhead; ``execute`` synchronises the result's device before it
-stops its clock, so ``EngineReport.wall_s`` includes device time.
+stops its clock, so ``EngineReport.wall_s`` includes device time.  Every
+worker launches on the device's default stream: a consumer unit (the
+merge, a gated unit of the next iteration, a ``Deferred``) is enqueued
+only after its producers' host calls returned, so the one stream orders
+them, and what overlaps is host work (lowering, scheduling, wrapper
+launches) with the card.
 
 ``SplIter(partitions_per_location="auto")`` closes the loop: the executor
 owns an :class:`~repro_torch.api.autotune.Autotuner` per workload that
@@ -39,11 +57,15 @@ single report.
 
 from __future__ import annotations
 
+import atexit
 import collections
 import contextlib
 import dataclasses
 import math
+import queue
+import threading
 import time
+import weakref
 from typing import Any, Callable, Hashable, Protocol, runtime_checkable
 
 import torch
@@ -51,7 +73,7 @@ import torch
 from repro_torch._pytree import tree_leaves, tree_map
 from repro_torch.api.autotune import Autotuner
 from repro_torch.api.chunkstore import chunk_stores
-from repro_torch.api.futures import ComputeFuture
+from repro_torch.api.futures import ComputeFuture, Deferred, PipelineBrokenError
 from repro_torch.api.lowering import (
     Capabilities,
     MergeSpec,
@@ -59,9 +81,11 @@ from repro_torch.api.lowering import (
     PlacedGroup,
     Task,
     TaskGraph,
+    cross_iteration_edges,
     fold_plan,
     inputs_signature,
     lower,
+    partition_key,
     planned_fold,
     stable_task_key,
     stacked_fold,
@@ -77,9 +101,12 @@ from repro_torch.core.spliter import stripe_local_blocks
 __all__ = [
     "ComputeResult",
     "ComputeFuture",
+    "Deferred",
+    "PipelineBrokenError",
     "PartitionView",
     "Executor",
     "LocalExecutor",
+    "ThreadedExecutor",
     "PrepareStats",
 ]
 
@@ -102,13 +129,14 @@ class Executor(Protocol):
     """The contract every execution backend satisfies (DESIGN.md §5).
 
     ``execute`` runs a validated plan; ``execute_async`` submits one and
-    returns a :class:`~repro_torch.api.futures.ComputeFuture`; ``task``
-    registers out-of-plan app stages against the same task cache and
-    accounting; ``report`` exposes the current
+    returns a :class:`~repro_torch.api.futures.ComputeFuture` (pipelined
+    backends overlap consecutive submissions, DESIGN.md §14; the rest
+    complete it at once); ``task`` registers out-of-plan app stages against
+    the same task cache and accounting; ``report`` exposes the current
     :class:`~repro_torch.core.engine.EngineReport`.
 
-    >>> isinstance(LocalExecutor(), Executor)
-    True
+    >>> [isinstance(ex(), Executor) for ex in (LocalExecutor, ThreadedExecutor)]
+    [True, True]
     """
 
     def execute(self, plan: ExecutionPlan) -> ComputeResult: ...
@@ -263,38 +291,145 @@ class _Unit:
 
 
 class _SchedulerState:
-    """Dependency/result bookkeeping for one TaskGraph run.
+    """Thread-safe dependency/result bookkeeping for one TaskGraph run.
 
-    The dependency core of the JAX package's scheduler state; the
-    ownership, replay and subscription hooks of its threaded, pipelined
-    and cluster backends are not ported yet.
+    Pipelined executes (DESIGN.md §14) add three things:
+
+    * ``report`` — the :class:`~repro_torch.core.engine.EngineReport` this
+      graph's units bill (``None``: the engine's current report, the
+      synchronous path).  With several graphs in flight, billing rides
+      with the graph, not with whichever report the engine points at.
+    * per-unit / completion *subscriptions* — :meth:`subscribe` /
+      :meth:`on_all_done` / :meth:`on_fail`: how the NEXT iteration's
+      gated units learn their cross-iteration predecessors finished.
+      :meth:`complete` fires unit subscriptions before completion
+      subscriptions before ``done.set()``, all outside the lock — so a
+      dependent iteration's launch is enqueued before the completed
+      iteration's future can resolve.
+    * ``partition_versions`` — for each
+      :func:`~repro_torch.api.lowering.partition_key` this graph covers,
+      which pipelined version of that partition it computes (predecessor's
+      version + 1; first submission: 1).
+
+    The JAX package's ownership hooks (``assign`` / ``release`` /
+    ``requeue``), which its cluster backend replays lost units through,
+    arrive with that backend.
     """
 
-    def __init__(self, units: list[_Unit]):
+    def __init__(self, units: list[_Unit], report: EngineReport | None = None):
         self.units = units
+        self.report = report
         self.results: list[Any] = [None] * len(units)
         self.errors: list[BaseException] = []
+        self._lock = threading.Lock()
         self._indegree = [len(u.deps) for u in units]
         self._dependents: list[list[int]] = [[] for _ in units]
         for u in units:
             for d in u.deps:
                 self._dependents[d].append(u.index)
+        self._remaining = len(units)
+        self._done_units: set[int] = set()
+        self._unit_subs: dict[int, list[Callable[[], None]]] = {}
+        self._done_subs: list[Callable[[], None]] = []
+        self._fail_subs: list[Callable[[BaseException], None]] = []
+        self.partition_versions: dict[tuple, int] = {}
+        self.done = threading.Event()
+        if not units:
+            self.done.set()
 
     def initial_ready(self) -> list[_Unit]:
         return [u for u in self.units if not u.deps]
 
+    def subscribe(self, index: int, cb: Callable[[], None]) -> bool:
+        """Fire ``cb`` when unit ``index`` completes; False if already done
+        (the caller then runs its callback itself)."""
+        with self._lock:
+            if index in self._done_units:
+                return False
+            self._unit_subs.setdefault(index, []).append(cb)
+            return True
+
+    def on_all_done(self, cb: Callable[[], None]) -> None:
+        """Fire ``cb`` once every unit has completed (not on failure)."""
+        with self._lock:
+            if self._remaining > 0:
+                self._done_subs.append(cb)
+                return
+        cb()
+
+    def on_fail(self, cb: Callable[[BaseException], None]) -> None:
+        """Fire ``cb`` on the first failure (immediately if already failed)."""
+        with self._lock:
+            if not self.errors:
+                self._fail_subs.append(cb)
+                return
+            exc = self.errors[0]
+        cb(exc)
+
     def complete(self, unit: _Unit, value: Any) -> list[_Unit]:
-        """Record a result; return units that just became ready."""
-        self.results[unit.index] = value
+        """Record a result; return units that just became ready.
+
+        Unit subscriptions (cross-iteration launches) fire first, then —
+        when this was the last unit — completion subscriptions (the
+        future's raw value), then ``done.set()``; all outside the lock, on
+        the completing thread.
+        """
         newly: list[_Unit] = []
-        for di in self._dependents[unit.index]:
-            self._indegree[di] -= 1
-            if self._indegree[di] == 0:
-                newly.append(self.units[di])
+        finished = False
+        with self._lock:
+            if unit.index in self._done_units:
+                return []
+            self._done_units.add(unit.index)
+            self.results[unit.index] = value
+            for di in self._dependents[unit.index]:
+                self._indegree[di] -= 1
+                if self._indegree[di] == 0:
+                    newly.append(self.units[di])
+            self._remaining -= 1
+            subs = self._unit_subs.pop(unit.index, ())
+            if self._remaining == 0:
+                finished = True
+                done_subs, self._done_subs = self._done_subs, []
+        for cb in subs:
+            cb()
+        if finished:
+            for cb in done_subs:
+                cb()
+            self.done.set()
         return newly
 
     def fail(self, exc: BaseException) -> None:
-        self.errors.append(exc)
+        with self._lock:
+            self.errors.append(exc)
+            fail_subs, self._fail_subs = self._fail_subs, []
+        for cb in fail_subs:
+            cb(exc)
+        self.done.set()
+
+
+@dataclasses.dataclass
+class _PipelineEntry:
+    """One in-flight pipelined execute (DESIGN.md §14).
+
+    Everything the synchronous ``execute`` keeps on its stack — graph,
+    scheduler state, report, policy/tuner snapshot, store marks, timing —
+    promoted to an object so several executes can be in flight at once.
+    :meth:`_PlanExecutor._finalize_entry` consumes it exactly once.
+    """
+
+    iteration: int
+    graph: TaskGraph
+    state: _SchedulerState
+    merge_index: int | None
+    report: EngineReport
+    future: ComputeFuture
+    policy: ExecutionPolicy
+    tuner: Autotuner | None
+    t0: float
+    t_done: float = 0.0
+    finalized: bool = False
+    result: ComputeResult | None = None
+    store_marks: list = dataclasses.field(default_factory=list)
 
 
 class _PlanExecutor:
@@ -302,6 +437,13 @@ class _PlanExecutor:
 
     #: bound on cached (inputs, policy) preparations (LRU eviction).
     prepare_cache_size: int = 8
+
+    #: backend overlaps consecutive execute_async submissions (DESIGN.md §14).
+    _pipelined: bool = False
+
+    #: in-flight window for execute_async: admitting a submission beyond
+    #: this many unresolved entries finalizes the oldest first.
+    pipeline_depth: int = 2
 
     def __init__(self, engine: TaskEngine | None = None):
         self.engine = engine or TaskEngine()
@@ -314,6 +456,7 @@ class _PlanExecutor:
             collections.OrderedDict()
         )
         self._scope_depth = 0
+        self._pipeline: collections.deque[_PipelineEntry] = collections.deque()
         self._iteration = 0  # execute_async submit counter (error attribution)
 
     # -- backend capabilities (consumed by the lowering pass) -----------------
@@ -322,7 +465,9 @@ class _PlanExecutor:
     def capabilities(self) -> Capabilities:
         # The hand-written kernels beat the fold on a card; ``lower`` keeps
         # the preference only for a plan whose blocks lie on a CUDA device.
-        return Capabilities(name=type(self).__name__, prefer_pallas=True)
+        return Capabilities(
+            name=type(self).__name__, prefer_pallas=True, pipelined=self._pipelined
+        )
 
     # -- engine passthroughs -------------------------------------------------
 
@@ -348,6 +493,11 @@ class _PlanExecutor:
     # -- the Executor entry points --------------------------------------------
 
     def execute(self, plan: ExecutionPlan) -> ComputeResult:
+        # Barrier rule: a synchronous execute never overlaps — in-flight
+        # pipelined submissions resolve first, in submit order (their
+        # futures keep the outcomes; errors surface there, not here).
+        if self._pipeline:
+            self._drain_pipeline()
         spec = plan.spec
         own_report = self._scope_depth == 0
         if own_report:
@@ -397,19 +547,294 @@ class _PlanExecutor:
             report.wall_s = dt
         return ComputeResult(value=value, report=report)
 
-    def execute_async(self, plan: ExecutionPlan) -> ComputeFuture:
-        """Submit a plan; returns a :class:`ComputeFuture`.
+    # -- pipelined (asynchronous) execution — DESIGN.md §14 --------------------
 
-        This backend does not overlap submissions: the plan executes now
-        and the future is already completed (or failed), so application
-        code written for pipelined backends runs unchanged.
+    def execute_async(self, plan: ExecutionPlan) -> ComputeFuture:
+        """Submit a plan without draining it; returns a :class:`ComputeFuture`.
+
+        On a pipelined backend (``capabilities.pipelined``) consecutive
+        submissions overlap: each unit of this plan is gated on its
+        same-partition predecessors in the previous in-flight submission
+        (plus any :class:`~repro_torch.api.futures.Deferred` operand's
+        source merge) via
+        :func:`~repro_torch.api.lowering.cross_iteration_edges`, and
+        launches the moment those complete.  At most :attr:`pipeline_depth`
+        submissions stay unresolved; admitting one past the window
+        finalizes the oldest first.
+
+        Everywhere else — non-pipelined backends, inside a :meth:`scope`
+        (one accumulated report means one report window at a time), or
+        during an autotuner *probe* window (profiled walls must never
+        measure overlapped executes) — this is a synchronous execute
+        wrapped in an already-completed future, so application code is
+        identical either way.
         """
+        spec = plan.spec
+        if not self.capabilities.pipelined or self._scope_depth:
+            return self._sync_future(plan)
+        policy, tuner = self._resolve_policy(spec)
+        if tuner is not None and tuner.probing:
+            # Probe guard: a probe iteration's wall feeds the cost model;
+            # overlapping it with a neighbour would record contended walls.
+            return self._sync_future(plan)
+        return self._submit_entry(spec, policy, tuner)
+
+    def _sync_future(self, plan: ExecutionPlan) -> ComputeFuture:
+        """The non-overlapping path: execute now, return a done future."""
+        self._drain_pipeline()
         iteration, self._iteration = self._iteration, self._iteration + 1
         try:
             result = self.execute(plan)
         except Exception as e:  # noqa: BLE001 — surfaced via the future
             return ComputeFuture.failed(e, iteration=iteration)
         return ComputeFuture.completed(result, iteration=iteration)
+
+    def _submit_entry(
+        self, spec: MapReduceSpec, policy: ExecutionPolicy, tuner: Autotuner | None
+    ) -> ComputeFuture:
+        # Flow control: the in-flight window is pipeline_depth whole
+        # executes; the oldest entry resolves before a new one is admitted.
+        while len(self._pipeline) >= max(1, int(self.pipeline_depth)):
+            try:
+                self._finalize_entry(self._pipeline[0])
+            except Exception:  # noqa: BLE001 — kept on the evicted future
+                pass
+
+        prev = self._pipeline[-1] if self._pipeline else None
+        iteration, self._iteration = self._iteration, self._iteration + 1
+        report = EngineReport(mode=spec.policy.mode_name)
+        if (
+            tuner is not None
+            and tuner.last_ppl is not None
+            and policy.partitions_per_location != tuner.last_ppl
+        ):
+            report.retunes += 1
+        t0 = time.perf_counter()
+        # Prepare/lower/build under the entry's report binding so traces
+        # paid at registration time are credited to this submission.
+        with self.engine.bind_report(report):
+            prepared = self._prepare(spec.inputs, policy, report)
+            graph = lower(spec, prepared.arrays, prepared.groups, self.capabilities)
+            units, state, merge_unit = self._build_units(graph, report=report)
+
+        fut = ComputeFuture(iteration=iteration)
+        entry = _PipelineEntry(
+            iteration=iteration,
+            graph=graph,
+            state=state,
+            merge_index=None if merge_unit is None else merge_unit.index,
+            report=report,
+            future=fut,
+            policy=policy,
+            tuner=tuner,
+            t0=t0,
+            store_marks=[(st, st.stats.snapshot()) for st in chunk_stores(spec.inputs)],
+        )
+        fut._finalize = lambda: self._finalize_entry(entry)
+
+        # Versioned keys: each partition this graph covers computes the
+        # next version after its predecessor's (1 on first submission).
+        for t in graph.tasks:
+            k = partition_key(t)
+            base = prev.state.partition_versions.get(k, 0) if prev is not None else 0
+            state.partition_versions[k] = base + 1
+
+        self._wire_future(entry)
+        if prev is not None:
+            self._wire_poison(entry, prev)
+            # Overlap accounting, frozen at SUBMIT time: an earlier
+            # unresolved submission exists, so every unit of this one is
+            # admitted before the previous execute's resolution — a
+            # function of the call order alone, not of host speed.
+            report.overlapped_launches = len(units)
+        self._pipeline.append(entry)
+        self._start_entry(entry, prev)
+        return fut
+
+    def _wire_future(self, entry: _PipelineEntry) -> None:
+        """Raw-phase completion: state outcome → the entry's future."""
+        state, fut = entry.state, entry.future
+        merge_index = entry.merge_index
+
+        def on_done():
+            entry.t_done = time.perf_counter()
+            fut._set_raw(
+                state.results[merge_index]
+                if merge_index is not None
+                else list(state.results)
+            )
+
+        def on_fail(exc: BaseException):
+            entry.t_done = time.perf_counter()
+            fut._set_error(exc)
+
+        state.on_all_done(on_done)
+        state.on_fail(on_fail)
+
+    def _wire_poison(self, entry: _PipelineEntry, prev: _PipelineEntry) -> None:
+        """An upstream failure poisons this entry with a typed error naming
+        the originating iteration; gated units that never launched stay
+        unlaunched, and this entry's own failure cascades further."""
+
+        def poison(exc: BaseException):
+            entry.state.fail(
+                PipelineBrokenError(
+                    f"pipelined execute #{entry.iteration} aborted: upstream "
+                    f"iteration #{prev.iteration} failed: {exc}",
+                    iteration=prev.iteration,
+                )
+            )
+
+        prev.state.on_fail(poison)
+
+    def _gate_units(
+        self,
+        entry: _PipelineEntry,
+        prev: _PipelineEntry | None,
+        launch: Callable[[_Unit], None],
+    ) -> None:
+        """Launch ``entry``'s initially-ready units behind their cross-
+        iteration gates.
+
+        Each unit waits on (a) its same-partition predecessors in ``prev``
+        (units a retune left unmatched fall back to ``prev``'s merge), plus
+        (b) the merge of any in-flight submission one of this plan's
+        ``Deferred`` operands resolves against — a data dependency, so
+        resolution never blocks inside a dispatch.  Ungated units launch
+        immediately; gate callbacks fire on whichever thread completed the
+        last predecessor.
+        """
+        state = entry.state
+        ready = state.initial_ready()
+        gates: dict[int, list[tuple[_SchedulerState, int]]] = {}
+        if prev is not None:
+            edges = cross_iteration_edges(prev.graph, entry.graph)
+            fallback = (
+                [(prev.state, prev.merge_index)]
+                if prev.merge_index is not None
+                else []
+            )
+            for u in ready:
+                if u.location < 0 or not u.tasks:
+                    continue
+                deps = [(prev.state, i) for i in edges.get(u.index, ())]
+                gates[u.index] = deps if deps else list(fallback)
+        merge_gates: list[tuple[_SchedulerState, int]] = []
+        for e in entry.graph.spec.extra_args:
+            if isinstance(e, Deferred):
+                src = next(
+                    (p for p in self._pipeline if p is not entry and p.future is e.future),
+                    None,
+                )
+                if src is not None and src.merge_index is not None:
+                    merge_gates.append((src.state, src.merge_index))
+        if merge_gates:
+            for u in ready:
+                if u.location < 0 or not u.tasks:
+                    continue
+                gates.setdefault(u.index, []).extend(merge_gates)
+
+        for u in ready:
+            seen: set[tuple[int, int]] = set()
+            uniq: list[tuple[_SchedulerState, int]] = []
+            for dep in gates.get(u.index) or ():
+                mark = (id(dep[0]), dep[1])
+                if mark not in seen:
+                    seen.add(mark)
+                    uniq.append(dep)
+            if not uniq:
+                launch(u)
+                continue
+            hold = threading.Lock()
+            left = [len(uniq)]
+
+            def advance(u=u, hold=hold, left=left):
+                with hold:
+                    left[0] -= 1
+                    fire = left[0] == 0
+                if fire:
+                    launch(u)
+
+            for src_state, idx in uniq:
+                if not src_state.subscribe(idx, advance):
+                    advance()  # predecessor already completed
+
+    def _start_entry(
+        self, entry: _PipelineEntry, prev: _PipelineEntry | None
+    ) -> None:  # pragma: no cover — every pipelined backend overrides
+        """Begin executing a submitted entry (pipelined-backend hook)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} declares pipelined capabilities but "
+            "does not implement _start_entry"
+        )
+
+    def _finalize_entry(self, entry: _PipelineEntry) -> ComputeResult:
+        """The deferred half of ``execute()``: run exactly once per entry.
+
+        Waits for raw completion (worker threads complete entries; the
+        caller blocks on the state's event), then does the per-execute
+        bookkeeping the synchronous path does behind its barrier — device
+        sync, store window deltas, granularity stamp, tuner feedback,
+        ``wall_s`` — and seals the entry's ComputeResult.  Raises the
+        entry's failure (the future carries it too).
+        """
+        if not entry.finalized:
+            entry.finalized = True
+            try:
+                entry.state.done.wait()
+            finally:
+                try:
+                    self._pipeline.remove(entry)
+                except ValueError:
+                    pass
+            state, report = entry.state, entry.report
+            # wall_s runs from submit to raw completion, on the host clock
+            dt = (entry.t_done or time.perf_counter()) - entry.t0
+            report.wall_s = dt
+            if not state.errors:
+                try:
+                    value = _synchronize(
+                        state.results[entry.merge_index]
+                        if entry.merge_index is not None
+                        else list(state.results)
+                    )
+                except Exception as e:  # noqa: BLE001 — kept on the future
+                    state.errors.append(e)
+                    entry.future._set_error(e)
+                else:
+                    for store, mark in entry.store_marks:
+                        st = store.stats
+                        report.bytes_loaded += st.bytes_loaded - mark.bytes_loaded
+                        report.bytes_spilled += st.bytes_spilled - mark.bytes_spilled
+                        report.prefetch_hits += st.prefetch_hits - mark.prefetch_hits
+                    if isinstance(entry.policy, SplIter):
+                        report.granularity = entry.policy.partitions_per_location
+                    if entry.tuner is not None:
+                        self._feed_tuner(
+                            entry.tuner, entry.policy, entry.graph, dt,
+                            traced=report.traces > 0,
+                        )
+                    entry.result = ComputeResult(value=value, report=report)
+                    entry.future._result = entry.result
+        if entry.state.errors:
+            raise entry.state.errors[0]
+        return entry.result
+
+    def _drain_pipeline(self) -> None:
+        """Resolve every in-flight pipelined execute, in submit order.
+
+        The pipeline's barrier: ``execute``, ``close`` and the sync path
+        call this first.  Failures stay on the entries' futures; the
+        barrier itself never raises another submission's error.
+        """
+        while self._pipeline:
+            entry = self._pipeline[0]
+            try:
+                self._finalize_entry(entry)
+            except Exception:  # noqa: BLE001 — kept on the entry's future
+                pass
+            if self._pipeline and self._pipeline[0] is entry:
+                self._pipeline.popleft()  # defensive: never spin
 
     def lower(self, plan: ExecutionPlan) -> TaskGraph:
         """Lower a plan for this backend without running it (inspection)."""
@@ -567,7 +992,14 @@ class _PlanExecutor:
             store.trim()
 
     def close(self) -> None:
-        """Release cached preparations and trim their chunk stores (idempotent)."""
+        """Release cached preparations and trim their chunk stores.
+
+        In-flight pipelined futures drain first (their results stay
+        retrievable through ``result()`` after close).  Idempotent;
+        backends with worker pools extend it and drain the pipeline before
+        stopping whatever executes it.
+        """
+        self._drain_pipeline()
         entries = list(self._prepare_cache.values())
         self._prepare_cache.clear()
         self._tuners.clear()
@@ -599,7 +1031,7 @@ class _PlanExecutor:
         ]
 
     def _build_units(
-        self, graph: TaskGraph
+        self, graph: TaskGraph, *, report: EngineReport | None = None
     ) -> tuple[list[_Unit], _SchedulerState, _Unit | None]:
         """TaskGraph → ``(units, state, merge_unit)``, merge closure bound.
 
@@ -629,7 +1061,7 @@ class _PlanExecutor:
                 kind="merge",
             )
             units.append(merge_unit)
-        state = _SchedulerState(units)
+        state = _SchedulerState(units, report=report)
         if merge_unit is not None:
             deps = merge_unit.deps
 
@@ -658,7 +1090,18 @@ class _PlanExecutor:
         return list(state.results)
 
     def _run_unit(self, unit: _Unit, state: _SchedulerState) -> list[_Unit]:
-        """Profiled execution of one ready unit; returns newly-ready units."""
+        """Profiled execution of one ready unit; returns newly-ready units.
+
+        When the state carries its own report (a pipelined entry), the
+        unit's dispatches/merges/traces bill that report through the
+        engine's thread-local binding, whichever thread runs the unit.
+        """
+        if state.report is not None:
+            with self.engine.bind_report(state.report):
+                return self._run_unit_inner(unit, state)
+        return self._run_unit_inner(unit, state)
+
+    def _run_unit_inner(self, unit: _Unit, state: _SchedulerState) -> list[_Unit]:
         try:
             t0 = time.perf_counter()
             value = unit.run()
@@ -693,3 +1136,137 @@ def _default_local(engine: TaskEngine | None = None) -> LocalExecutor:
     """The library's internal default backend (apps and ``Collection.compute``
     fall back to it when no executor is passed)."""
     return LocalExecutor(engine=engine)
+
+class _LocationWorker:
+    """A persistent worker thread draining one location's job queue."""
+
+    def __init__(self, name: str):
+        self._jobs: queue.SimpleQueue = queue.SimpleQueue()
+        self._thread = threading.Thread(target=self._loop, name=name, daemon=True)
+        self._thread.start()
+
+    def _loop(self) -> None:
+        while True:
+            job = self._jobs.get()
+            if job is None:
+                return
+            job()
+
+    def submit(self, job: Callable[[], None]) -> None:
+        self._jobs.put(job)
+
+    def stop(self) -> None:
+        """Post the poison pill and JOIN: a worker that launched CUDA work
+        must not still be alive during the interpreter's CUDA teardown."""
+        self._jobs.put(None)
+        self._thread.join(timeout=5.0)
+
+
+# Live worker-owning executors, closed at interpreter exit so pools that
+# were never close()d leave no thread that launched CUDA work alive into
+# the CUDA runtime's teardown.
+_LIVE_POOLS: "weakref.WeakSet[ThreadedExecutor]" = weakref.WeakSet()
+
+
+def _close_live_pools() -> None:
+    for ex in list(_LIVE_POOLS):
+        ex.close()
+
+
+atexit.register(_close_live_pools)
+
+
+class ThreadedExecutor(_PlanExecutor):
+    """One persistent worker thread per location: overlapped dispatch.
+
+    Workers are created lazily per location id and REUSED across
+    ``execute`` calls, so iterative workloads pay thread startup once per
+    executor lifetime.  :meth:`close` stops and joins them (they respawn on
+    next use).
+
+    Determinism: the shared scheduler core indexes partials by unit
+    position and the merge unit folds them in plan order (on whichever
+    worker completed the last dependency), so the value is bit-identical
+    to :class:`LocalExecutor` regardless of thread timing.
+
+    Pipelined (``execute_async``): gated units are submitted to the
+    location workers from the completion callbacks of their
+    cross-iteration predecessors, so iteration *k+1* starts on a location
+    the moment *k* finishes there.  The pipelined path always routes
+    through the pool, never the one-location inline path below.
+    """
+
+    _pipelined = True
+
+    def __init__(self, engine: TaskEngine | None = None):
+        super().__init__(engine)
+        self._workers: dict[int, _LocationWorker] = {}
+        _LIVE_POOLS.add(self)
+
+    def _worker(self, location: int) -> _LocationWorker:
+        w = self._workers.get(location)
+        if w is None:
+            w = self._workers[location] = _LocationWorker(f"repro-torch-loc-{location}")
+            _LIVE_POOLS.add(self)  # respawned after close(): joined at exit again
+        return w
+
+    def _on_pool_thread(self) -> bool:
+        cur = threading.current_thread()
+        return any(w._thread is cur for w in self._workers.values())
+
+    def _drain(self, state: _SchedulerState) -> None:
+        locations = {u.location for u in state.units if u.location >= 0}
+        if len(locations) <= 1 or self._on_pool_thread():
+            # One location — or a nested compute() called from inside one
+            # of our own workers (a map_partitions callback): submitting to
+            # the pool from a pool thread would deadlock that location's
+            # single-thread queue, so run inline on the calling thread.
+            return super()._drain(state)
+        for u in state.initial_ready():
+            self._submit_unit(u, state)
+        state.done.wait()
+
+    def _submit_unit(self, unit: _Unit, state: _SchedulerState) -> None:
+        if unit.location < 0:
+            # Placement-free unit (the merge): run on the thread that
+            # unblocked it; the fold order is fixed by unit indices.
+            self._step(unit, state)
+        else:
+            self._worker(unit.location).submit(lambda: self._step(unit, state))
+
+    def _step(self, unit: _Unit, state: _SchedulerState) -> None:
+        for nxt in self._run_unit(unit, state):
+            self._submit_unit(nxt, state)
+
+    def _start_entry(self, entry: _PipelineEntry, prev: _PipelineEntry | None) -> None:
+        state = entry.state
+
+        def launch(unit: _Unit) -> None:
+            if not state.errors:  # poisoned entries stop launching
+                self._submit_unit(unit, state)
+
+        self._gate_units(entry, prev, launch)
+
+    def execute_async(self, plan: ExecutionPlan) -> ComputeFuture:
+        if self._on_pool_thread():
+            # Nested submission from inside one of our own units:
+            # pipelining through the pool would queue work behind the very
+            # unit that is waiting for it.
+            return self._sync_future(plan)
+        return super().execute_async(plan)
+
+    def _drain_pipeline(self) -> None:
+        if self._on_pool_thread():
+            # A pool thread must not block on entries whose units are
+            # queued on itself; the pool keeps draining them regardless.
+            return
+        super()._drain_pipeline()
+
+    def close(self) -> None:
+        """Drain in-flight submissions, then stop and join the worker pool
+        (idempotent; workers respawn on next use)."""
+        self._drain_pipeline()
+        for w in self._workers.values():
+            w.stop()
+        self._workers.clear()
+        super().close()

@@ -1,8 +1,8 @@
 """Futures for pipelined (asynchronous) plan execution — DESIGN.md §14.
 
 ``Executor.execute_async(plan)`` returns a :class:`ComputeFuture` instead of
-draining the plan on the calling thread.  On a pipelined backend (the JAX
-package's threaded, streaming and cluster executors; none is ported yet)
+draining the plan on the calling thread.  On a pipelined backend
+(``Capabilities.pipelined``: :class:`~repro_torch.api.executors.ThreadedExecutor`)
 consecutive ``execute_async`` submissions *overlap*: iteration *k+1*'s
 units launch the moment their same-partition iteration-*k* predecessors
 (and, when a :class:`Deferred` operand ties them, the *k* merge fold)

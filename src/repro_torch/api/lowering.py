@@ -158,15 +158,23 @@ class Capabilities:
         lie on a CUDA device, where the hand-written kernel runs.
       remote: backend dispatches tasks to other processes.  Not supported
         by this package yet: :func:`lower` raises ``NotImplementedError``.
+      pipelined: backend overlaps consecutive ``execute_async`` submissions
+        (DESIGN.md §14): iteration *k+1*'s units are gated on their
+        same-partition *k* predecessors via :func:`cross_iteration_edges`
+        instead of a global drain.  Non-pipelined backends run
+        ``execute_async`` as a synchronous execute returning an
+        already-completed future — same results, no overlap.
 
-    The JAX package's ``grouped_dispatch``, ``out_of_core``, ``pipelined``
-    and ``exporter`` capabilities arrive with the backends that set them.
+    The JAX package's ``grouped_dispatch``, ``out_of_core`` and
+    ``exporter`` capabilities arrive with the mesh, stream and cluster
+    backends that set them.
     """
 
     name: str = "local"
     pallas_fusion: bool = True
     prefer_pallas: bool = False
     remote: bool = False
+    pipelined: bool = False
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,7 @@ import dataclasses
 
 import torch
 
+from repro_torch._threefry import uniform
 from repro_torch.api import Collection, Executor, ExecutionPolicy, SplIter, as_policy
 from repro_torch.api.executors import _default_local
 from repro_torch.api.kernels import PartitionKernel, register_partition_kernel
@@ -64,9 +65,9 @@ def _centers_of(partials):
 def _init_centers(
     seed: int, k: int, d: int, dtype: torch.dtype, device: torch.device
 ) -> torch.Tensor:
-    """The initial centers: uniform in ``[0, 1)^d``, drawn from ``seed``."""
-    gen = torch.Generator(device=device).manual_seed(seed)
-    return torch.rand((k, d), generator=gen, dtype=dtype, device=device)
+    """The initial centers: uniform in ``[0, 1)^d``, drawn from ``seed`` on
+    ``device`` with the reference's bits (``jax.random.uniform``)."""
+    return uniform(seed, (k, d), dtype, device=device)
 
 
 def _kmeans_kernel_factory(args: tuple, kwargs: dict) -> PartitionKernel | None:
@@ -125,9 +126,10 @@ def kmeans(
     """Run ``iters`` Lloyd iterations from seeded initial centers.
 
     ``pipeline=True`` submits each iteration with ``compute_async`` and
-    carries the centers as a lazy ``Deferred``; on a backend that does not
-    overlap submissions (``LocalExecutor``) it computes the same values in
-    the same order as the barriered loop.
+    carries the centers as a lazy ``Deferred``: a pipelined backend
+    (``ThreadedExecutor``) starts iteration *k+1* on a partition once
+    iteration *k*'s merge is done, and a barriered one (``LocalExecutor``)
+    runs each submission at once.  Both compute the barriered loop's bits.
     """
     d = x.row_shape[0]
     centers = _init_centers(seed, k, d, x.dtype, x.device)

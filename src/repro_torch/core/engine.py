@@ -166,15 +166,15 @@ class TaskEngine:
         :func:`~repro_torch.api.lowering.stable_task_key`).
         """
         key = key if key is not None else fn
-        if key not in self._cache:
+        with self._lock:  # one registration per key, whichever thread asks
+            if key not in self._cache:
 
-            def dispatch(*args, _fn=fn, _self=self, **kw):
-                with _self._lock:
-                    _self.current_report.dispatches += 1
-                return _fn(*args, **kw)
+                def dispatch(*args, _fn=fn, _self=self, **kw):
+                    with _self._lock:
+                        _self.current_report.dispatches += 1
+                    return _fn(*args, **kw)
 
-            self._cache[key] = dispatch
-            with self._lock:
+                self._cache[key] = dispatch
                 self.traces_total += 1
                 rep = self.current_report
                 if rep is self.report:
@@ -184,4 +184,4 @@ class TaskEngine:
                     # whichever report is current, so credit the newly paid
                     # trace to the bound report alone.
                     rep.traces += 1
-        return self._cache[key]
+            return self._cache[key]

@@ -1,5 +1,7 @@
 // flash_attention: causal / GQA / sliding-window attention with an online
-// softmax, for bf16 q, k, v.
+// softmax.  Two routes: the wgmma route below, for bf16 q, k, v at head dims
+// 32, 64 and 128, and the SIMT route at the end of the file, for f32 at any
+// head dim that is a multiple of 8 up to 128 and for bf16 at the others.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::
 // flash_attention (_attn_kernel), whose grid (batch, q_head, q_block,
@@ -438,6 +440,174 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch, int 
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the SIMT route: f32 q, k, v at any head dim, bf16 at the head dims the
+// wgmma route does not take ----
+//
+// One CTA per (query tile of kSimtRows rows, head, batch row): four warps,
+// eight query rows each.  K/V tiles of kSimtKeys keys are staged through
+// shared memory in f32 (bf16 is widened on load), K with a padded row stride
+// (D + 1 floats, odd for every D the route takes) so that lanes reading
+// different keys hit different banks.  For each of its rows a warp computes
+// the scores of the tile's keys (lane j: keys j and j + 32) with f32 FMAs,
+// reduces their max and the sum of exp(s - m) across the warp, and updates the
+// row's running max, denominator and accumulator (lane c holds output columns
+// c, c + 32, ...) with the same online softmax as the wgmma route, all in f32
+// (expf, no fast-math exponent).  Masks are positional as there; a row that no
+// key reaches keeps l = 0 and is written as 0.  No tensor core: TF32 would
+// break the f32 tolerance.
+//
+// What bounds it: its f32 FMAs (the causal products at 67 TFLOP/s) more than
+// its bytes; each FMA also reads shared memory once, which holds it below
+// the FMA peak.  This route is right and simple, not fast (ROADMAP Queue 2).
+
+constexpr int kSimtRows = 32;   // query rows per CTA
+constexpr int kSimtKeys = 64;   // keys per staged tile
+constexpr int kSimtWarps = 4;
+constexpr int kSimtRowsPerWarp = kSimtRows / kSimtWarps;
+
+__host__ __device__ constexpr int simt_smem_floats(int D) {
+  return kSimtRows * D + kSimtKeys * (D + 1) + kSimtKeys * D + kSimtWarps * kSimtKeys;
+}
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void narrow(float* p, float x) { *p = x; }
+__device__ __forceinline__ void narrow(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+
+// DV = ceil(D / 32): output columns per lane.
+template <typename T, int DV>
+__global__ void __launch_bounds__(kSimtWarps * 32)
+flash_simt_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                  T* __restrict__ o, int Lq, int Lk, int H, int Hkv, int D, float scale,
+                  int causal, int window) {
+  extern __shared__ float simt_smem[];
+  const int ds = D + 1;
+  float* sq = simt_smem;               // kSimtRows x D
+  float* sk = sq + kSimtRows * D;      // kSimtKeys x (D + 1)
+  float* sv = sk + kSimtKeys * ds;     // kSimtKeys x D
+  float* sp = sv + kSimtKeys * D;      // kSimtWarps x kSimtKeys probabilities
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kSimtRows;
+  const int hk = h / (H / Hkv);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  constexpr int kThreadsSimt = kSimtWarps * 32;
+
+  for (int i = tid; i < kSimtRows * D; i += kThreadsSimt) {
+    const int r = i / D, c = i - r * D, qi = q0 + r;
+    sq[i] = qi < Lq ? widen(q[((static_cast<long long>(b) * Lq + qi) * H + h) * D + c]) : 0.f;
+  }
+  // keys any row of this tile can reach
+  const int kend = causal ? min(Lk, q0 + kSimtRows) : Lk;
+  const int kbeg = window > 0 ? max(0, q0 - window + 1) : 0;
+
+  float m[kSimtRowsPerWarp], l[kSimtRowsPerWarp], acc[kSimtRowsPerWarp][DV];
+#pragma unroll
+  for (int rr = 0; rr < kSimtRowsPerWarp; ++rr) {
+    m[rr] = -INFINITY;
+    l[rr] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DV; ++i) acc[rr][i] = 0.f;
+  }
+  float* p_w = sp + warp * kSimtKeys;
+
+  for (int t0 = (kbeg / kSimtKeys) * kSimtKeys; t0 < kend; t0 += kSimtKeys) {
+    __syncthreads();  // the previous tile is consumed (and Q is visible)
+    for (int i = tid; i < kSimtKeys * D; i += kThreadsSimt) {
+      const int r = i / D, c = i - r * D, kj = t0 + r;
+      const long long off = ((static_cast<long long>(b) * Lk + kj) * Hkv + hk) * D + c;
+      const bool in = kj < Lk;
+      sk[r * ds + c] = in ? widen(k[off]) : 0.f;
+      sv[r * D + c] = in ? widen(v[off]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int rr = 0; rr < kSimtRowsPerWarp; ++rr) {
+      const int r = warp * kSimtRowsPerWarp + rr, qi = q0 + r;
+      const float* qrow = sq + r * D;
+      const int j0 = lane, j1 = lane + 32;
+      const float* k0 = sk + j0 * ds;
+      const float* k1 = sk + j1 * ds;
+      float d0 = 0.f, d1 = 0.f;
+      for (int c = 0; c < D; ++c) {
+        const float qc = qrow[c];
+        d0 = fmaf(qc, k0[c], d0);
+        d1 = fmaf(qc, k1[c], d1);
+      }
+      const int kj0 = t0 + j0, kj1 = t0 + j1;
+      const bool v0 = kj0 < Lk && (!causal || kj0 <= qi) && (window <= 0 || kj0 > qi - window);
+      const bool v1 = kj1 < Lk && (!causal || kj1 <= qi) && (window <= 0 || kj1 > qi - window);
+      const float s0 = v0 ? d0 * scale : -INFINITY;
+      const float s1 = v1 ? d1 * scale : -INFINITY;
+      float mx = fmaxf(s0, s1);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      if (mx == -INFINITY) continue;  // no key of this tile reaches the row (warp-uniform)
+      const float mn = fmaxf(m[rr], mx);
+      const float alpha = expf(m[rr] - mn);
+      const float p0 = v0 ? expf(s0 - mn) : 0.f;
+      const float p1 = v1 ? expf(s1 - mn) : 0.f;
+      float ps = p0 + p1;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) ps += __shfl_xor_sync(0xffffffffu, ps, off);
+      l[rr] = l[rr] * alpha + ps;
+      m[rr] = mn;
+      p_w[j0] = p0;
+      p_w[j1] = p1;
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < DV; ++i) {
+        const int c = lane + 32 * i;
+        if (c < D) {
+          float a = acc[rr][i] * alpha;
+          for (int j = 0; j < kSimtKeys; ++j) a = fmaf(p_w[j], sv[j * D + c], a);
+          acc[rr][i] = a;
+        }
+      }
+      __syncwarp();  // p_w is read before the next row writes it
+    }
+  }
+
+#pragma unroll
+  for (int rr = 0; rr < kSimtRowsPerWarp; ++rr) {
+    const int qi = q0 + warp * kSimtRowsPerWarp + rr;
+    if (qi >= Lq) continue;
+    const float den = fmaxf(l[rr], 1e-30f);
+    T* orow = o + ((static_cast<long long>(b) * Lq + qi) * H + h) * D;
+#pragma unroll
+    for (int i = 0; i < DV; ++i) {
+      const int c = lane + 32 * i;
+      if (c < D) narrow(orow + c, acc[rr][i] / den);
+    }
+  }
+}
+
+template <typename T, int DV>
+int launch_simt(const void* q, const void* k, const void* v, void* o, int batch, int Lq, int Lk,
+                int H, int Hkv, int D, float scale, int causal, int window, void* stream) {
+  // Set per launch, not through opt_in_shared_memory: its once-only flag is
+  // kept per kernel *type*, which every instantiation of one T shares.
+  const int smem = simt_smem_floats(D) * static_cast<int>(sizeof(float));
+  cudaError_t e = cudaFuncSetAttribute(flash_simt_kernel<T, DV>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((Lq + kSimtRows - 1) / kSimtRows, H, batch);
+  flash_simt_kernel<T, DV><<<grid, kSimtWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), Lq, Lk, H, Hkv, D, scale, causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch_simt(const void* q, const void* k, const void* v, void* o, int batch, int Lq,
+                  int Lk, int H, int Hkv, int D, float scale, int causal, int window,
+                  void* stream) {
+  switch ((D + 31) / 32) {
+    case 1: return launch_simt<T, 1>(q, k, v, o, batch, Lq, Lk, H, Hkv, D, scale, causal, window, stream);
+    case 2: return launch_simt<T, 2>(q, k, v, o, batch, Lq, Lk, H, Hkv, D, scale, causal, window, stream);
+    case 3: return launch_simt<T, 3>(q, k, v, o, batch, Lq, Lk, H, Hkv, D, scale, causal, window, stream);
+    default: return launch_simt<T, 4>(q, k, v, o, batch, Lq, Lk, H, Hkv, D, scale, causal, window, stream);
+  }
+}
+
 }  // namespace
 
 // q (B, Lq, H, D), k and v (B, Lk, Hkv, D), o (B, Lq, H, D): bf16, contiguous,
@@ -462,4 +632,24 @@ extern "C" int repro_flash_attention_smem_bytes(int D) {
     case 128: return Layout<128>::kSmemBytes;
     default: return -1;
   }
+}
+
+// The SIMT route: q (B, Lq, H, D), k and v (B, Lk, Hkv, D), o (B, Lq, H, D),
+// contiguous, all f32 (bf16 != 0: all bf16); D a multiple of 8 from 8 to 128;
+// H a multiple of Hkv.
+extern "C" int repro_flash_attention_simt(const void* q, const void* k, const void* v, void* o,
+                                          int batch, int Lq, int Lk, int H, int Hkv, int D,
+                                          float scale, int causal, int window, int bf16,
+                                          void* stream) {
+  if (Lq < 1 || Lk < 1 || Hkv < 1 || H % Hkv || D < 8 || D > 128 || D % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return bf16 ? dispatch_simt<__nv_bfloat16>(q, k, v, o, batch, Lq, Lk, H, Hkv, D, scale, causal,
+                                             window, stream)
+              : dispatch_simt<float>(q, k, v, o, batch, Lq, Lk, H, Hkv, D, scale, causal, window,
+                                     stream);
+}
+
+// Dynamic shared memory one CTA of the SIMT route requests at head dim D.
+extern "C" int repro_flash_attention_simt_smem_bytes(int D) {
+  return simt_smem_floats(D) * static_cast<int>(sizeof(float));
 }

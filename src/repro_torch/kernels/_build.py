@@ -21,7 +21,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["REPORTS", "SOURCES", "build", "kernel_function"]
+__all__ = ["REPORTS", "SOURCES", "build", "count_launch", "kernel_function"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -35,6 +35,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 #: The compiler's report (``-Xptxas -v``: registers, spills, stack per
 #: kernel) of each library that :func:`build` compiled with ``verbose``.
@@ -115,3 +116,13 @@ def kernel_function(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+def count_launch(fn, counter: str = "launches") -> None:
+    """Add one to the launch count ``fn.<counter>`` of a kernel wrapper.
+
+    Wrappers run on executor worker threads too, and ``+=`` on an attribute
+    is a read and a write that two threads can interleave, losing a count.
+    """
+    with _count_lock:
+        setattr(fn, counter, getattr(fn, counter) + 1)

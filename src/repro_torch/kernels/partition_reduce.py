@@ -43,7 +43,7 @@ import math
 import torch
 
 from repro_torch.api.kernels import pallas_interpret
-from repro_torch.kernels._build import kernel_function
+from repro_torch.kernels._build import count_launch, kernel_function
 
 __all__ = [
     "digitize_cells",
@@ -210,7 +210,7 @@ def partition_histogram(
                               buf.data_ptr() + 4 * bins, buf.data_ptr(), grid, shared,
                               _stream(x.device))
     _check("partition_histogram", err)
-    partition_histogram.launches += 1
+    count_launch(partition_histogram)
     return buf[:bins]
 
 
@@ -398,7 +398,7 @@ def partition_histogramdd(
             out.data_ptr(), cells, cluster, slice_log2, tile_rows, _HISTDD_STAGES, stage_bytes,
             grid, smem, _stream(dev))
     _check("partition_histogramdd", err)
-    partition_histogramdd.launches += 1
+    count_launch(partition_histogramdd)
     return out.reshape((bins,) * d)
 
 
@@ -493,7 +493,7 @@ def partition_kmeans(
                            base + 4 * (kd1 + grid * k * d), base, base + 4 * k * d, grid, smem,
                            _stream(x.device))
     _check("partition_kmeans", err)
-    partition_kmeans.launches += 1
+    count_launch(partition_kmeans)
     return buf[:k * d].view(k, d), buf[k * d:kd1]
 
 

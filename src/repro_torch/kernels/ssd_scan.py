@@ -23,7 +23,7 @@ import ctypes
 import torch
 
 from repro_torch.api.kernels import pallas_interpret
-from repro_torch.kernels._build import kernel_function
+from repro_torch.kernels._build import count_launch, kernel_function
 
 __all__ = ["ssd_chunked", "ssd_scan"]
 
@@ -123,7 +123,7 @@ def ssd_scan(
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan: CUDA launch failed with error {err}")
-    ssd_scan.launches += 1
+    count_launch(ssd_scan)
     return y, h
 
 

@@ -7,10 +7,12 @@ batch per token (the serving analogue of SplIter's fused accumulation):
 
 Where the reference jits both entry points and donates the cache, the port
 calls them eagerly and they update the cache in place.  Greedy decoding is
-``argmax``; sampling draws from ``softmax(logits)`` with a
-``torch.Generator`` seeded per step (the reference's
-``jax.random.categorical`` bits cannot be reproduced).  Generated tokens
-stay on the device until the loop ends.
+``argmax``; sampling at decode step ``i`` is the reference's
+``jax.random.categorical(jax.random.key(i), logits)``, drawn with the same
+Threefry bits on the device (:func:`repro_torch._threefry.categorical`),
+in the logits' type as the reference draws it, so a seed gives the same
+tokens in both packages.  As in the reference, the first token is the
+prefill's argmax.  Generated tokens stay on the device until the loop ends.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch._threefry import categorical
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.blocked import resolve_device
 from repro_torch.models import build_model
@@ -91,9 +94,7 @@ class Server:
             if greedy:
                 tok = torch.argmax(logits, -1)[:, None]
             else:
-                gen = torch.Generator(device=self.device).manual_seed(i)
-                probs = torch.softmax(logits.to(torch.float32), -1)
-                tok = torch.multinomial(probs, 1, generator=gen)
+                tok = categorical(i, logits)[:, None]
         self._sync()
         t_decode = time.perf_counter() - t0
         served = torch.stack(out, 1).cpu().numpy().astype(np.int32)

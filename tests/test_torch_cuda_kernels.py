@@ -365,3 +365,192 @@ def test_histdd_counts_launches(dev):
     pr.partition_histogramdd(x, bins=4)
     pr.partition_histogramdd(list(x), bins=4)
     assert pr.partition_histogramdd.launches == before + 2
+
+
+# ---------------------------------------------------------------------------
+# flash attention's SIMT route (f32, and bf16 at the other head dims): the
+# reference's TestFlashAttention cases (tests/test_kernels.py) on the card
+# ---------------------------------------------------------------------------
+
+F32_TOL = dict(rtol=2e-5, atol=2e-5)  # tests/test_kernels.py TOL[float32]
+
+
+def _np_normal(seed, *shape):
+    return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+
+
+def _flash_case(dev, seed, b, lq, lk, h, hkv, d, dtype=torch.float32):
+    return tuple(torch.from_numpy(_np_normal(seed + i, *shape)).to(dev, dtype)
+                 for i, shape in enumerate(((b, lq, h, d), (b, lk, hkv, d), (b, lk, hkv, d))))
+
+
+def _check_flash(q, k, v, tol, route, **kw):
+    before = (fa.flash_attention.launches, fa.flash_attention.simt_launches)
+    got = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype
+    assert (fa.flash_attention.launches - before[0],
+            fa.flash_attention.simt_launches - before[1]) == (1, int(route == "simt"))
+    ref_kw = {key: val for key, val in kw.items() if key in ("causal", "window")}
+    torch.testing.assert_close(got.float(), fa.flash_attention_ref(q, k, v, **ref_kw).float(),
+                               **tol)
+    return got
+
+
+@pytest.mark.parametrize("b,lq,lk,h,hkv,d", [
+    (1, 32, 32, 2, 2, 8),      # MHA
+    (2, 64, 64, 4, 2, 16),     # GQA 2:1
+    (1, 128, 128, 8, 1, 32),   # MQA
+    (2, 48, 96, 4, 4, 64),     # cross length, not causal
+])
+def test_flash_simt_reference_shapes_f32(dev, b, lq, lk, h, hkv, d):
+    q, k, v = _flash_case(dev, lq + d, b, lq, lk, h, hkv, d)
+    _check_flash(q, k, v, F32_TOL, "simt", causal=lq == lk, block_q=16, block_k=16)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)])
+def test_flash_simt_reference_dtypes(dev, dtype, tol):
+    q, k, v = _flash_case(dev, 5, 2, 64, 64, 4, 2, 16, dtype)
+    _check_flash(q, k, v, tol, "simt", block_q=32, block_k=32)
+
+
+@pytest.mark.parametrize("window", [8, 24, 64])
+def test_flash_simt_reference_windows(dev, window):
+    q, k, v = _flash_case(dev, window, 1, 64, 64, 2, 2, 16)
+    _check_flash(q, k, v, F32_TOL, "simt", window=window, block_q=16, block_k=16)
+
+
+@pytest.mark.parametrize("bq,bk", [(8, 8), (16, 32), (32, 16), (64, 64)])
+def test_flash_simt_block_shape_invariance(dev, bq, bk):
+    q, k, v = _flash_case(dev, 9, 1, 64, 64, 2, 2, 16)
+    got = _check_flash(q, k, v, F32_TOL, "simt", block_q=bq, block_k=bk)
+    assert torch.equal(got, fa.flash_attention(q, k, v))
+
+
+@pytest.mark.parametrize("b,lq,lk,h,hkv,d,causal,window", [
+    (1, 100, 100, 4, 2, 24, True, 0),     # ragged tiles, D = 24
+    (1, 77, 130, 6, 3, 40, False, 0),     # cross length, odd group, D = 40
+    (2, 300, 300, 4, 2, 96, True, 100),   # window edge tiles, D = 96
+    (1, 200, 200, 8, 2, 128, True, 0),    # D = 128
+    (8, 512, 512, 64, 8, 128, True, 0),   # one f32 qwen3-32b prefill layer
+])
+def test_flash_simt_f32_other_shapes(dev, b, lq, lk, h, hkv, d, causal, window):
+    q, k, v = _flash_case(dev, lq + h, b, lq, lk, h, hkv, d)
+    _check_flash(q, k, v, F32_TOL, "simt", causal=causal, window=window)
+
+
+@pytest.mark.parametrize("d", [8, 16, 48, 72, 120])
+def test_flash_simt_bf16_other_head_dims(dev, d):
+    q, k, v = _flash_case(dev, d, 2, 96, 96, 4, 2, d, torch.bfloat16)
+    _check_flash(q, k, v, BF16_TOL, "simt", causal=True)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_wgmma_route_head_dims(dev, d):
+    q, k, v = _flash_case(dev, d, 2, 192, 192, 8, 2, d, torch.bfloat16)
+    _check_flash(q, k, v, BF16_TOL, "wgmma", causal=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_simt_fully_masked_rows_are_zero(dev, dtype):
+    q, k, v = _flash_case(dev, 3, 1, 64, 16, 4, 1, 16, dtype)
+    got = _check_flash(q, k, v, F32_TOL if dtype == torch.float32 else BF16_TOL, "simt",
+                       causal=True, window=4)
+    assert bool((got[:, 19:] == 0).all())
+
+
+def test_flash_rejects_what_no_route_takes(dev):
+    x = torch.zeros((1, 16, 2, 12), device=dev)
+    with pytest.raises(ValueError, match="not taken on the card"):
+        fa.flash_attention(x, x, x)
+    x = torch.zeros((1, 16, 2, 64), device=dev, dtype=torch.float16)
+    with pytest.raises(ValueError, match="not taken on the card"):
+        fa.flash_attention(x, x, x)
+
+
+# ---------------------------------------------------------------------------
+# top-k tie order (kNN, cascade SVM) and the ThreadedExecutor on the card
+# ---------------------------------------------------------------------------
+
+
+def test_top_k_tie_order_on_the_card(dev):
+    """``_top_k`` keeps the lower index first among equal values on the card
+    as on the CPU: values with many exact ties, rows long enough for the
+    card's segmented sort."""
+    from repro_torch.core.apps.knn import _top_k
+
+    x = torch.from_numpy(np.random.default_rng(0).integers(0, 6, (64, 70_000)).astype(np.float32))
+    cv, ci = _top_k(x, 40)
+    gv, gi = _top_k(x.to(dev), 40)
+    assert torch.equal(gv.cpu(), cv) and torch.equal(gi.cpu(), ci)
+    # lower index first among equals
+    assert bool(((cv[:, 1:] < cv[:, :-1]) | (ci[:, 1:] > ci[:, :-1])).all())
+
+
+@pytest.mark.parametrize("policy", ["Baseline", "SplIter"])
+def test_knn_ties_on_the_card_equal_the_cpu(dev, policy):
+    """Fit rows repeated three times, on a 1/16 grid so that every distance
+    is exact on both devices: the card keeps the CPU's copies, in its order
+    (the CPU's equals ``lax.top_k``'s, tests/test_torch_apps.py)."""
+    from repro_torch import api
+    from repro_torch.core.apps import knn
+    from repro_torch.core.blocked import BlockedArray, round_robin_placement
+
+    rng = np.random.default_rng(11)
+    fit = np.concatenate([(rng.integers(0, 16, (100, 3)) / 16).astype(np.float32)] * 3)
+    q = (rng.integers(0, 16, (64, 3)) / 16).astype(np.float32)
+    out = []
+    for device in ("cpu", dev):
+        blocked = lambda a, r: BlockedArray.from_array(  # noqa: E731
+            a, r, num_locations=4, policy=round_robin_placement, device=device)
+        r = knn(blocked(fit, 25), blocked(q, 16), k=5, policy=getattr(api, policy)())
+        out.append((r.indices.cpu(), r.distances.cpu()))
+    assert torch.equal(out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])
+    assert bool((out[0][1][:, 1:] == out[0][1][:, :-1]).any())  # the case has ties
+
+
+def test_svm_ties_on_the_card_equal_the_cpu(dev):
+    """With ``c`` tiny every coefficient clips to exactly ``c``: the support
+    vectors are the first ``num_sv`` points on the card as on the CPU."""
+    from repro_torch.core.apps.cascade_svm import svc_train
+
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=(64, 4)).astype(np.float32))
+    y = torch.from_numpy(np.sign(rng.normal(size=(64,))).astype(np.float32))
+    cpu = svc_train(x, y, c=1e-3, steps=50, num_sv=16)
+    card = svc_train(x.to(dev), y.to(dev), c=1e-3, steps=50, num_sv=16)
+    assert bool((cpu[2] == 1e-3).all()) and torch.equal(cpu[0], x[:16])
+    for a, b in zip(cpu, card):
+        assert torch.equal(a, b.cpu())
+
+
+def test_threaded_executor_launches_kernels_from_workers(dev):
+    """Histogram and pipelined k-means on a ThreadedExecutor, the kernels
+    launched from its worker threads: the bits and the launch counts of a
+    LocalExecutor."""
+    from repro_torch.api import LocalExecutor, SplIter, ThreadedExecutor
+    from repro_torch.core.apps import histogram, kmeans
+    from repro_torch.core.blocked import BlockedArray, round_robin_placement
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    xh = BlockedArray.from_array(torch.rand((64 * 4096, 5), generator=gen, device=dev), 4096,
+                                 num_locations=8, policy=round_robin_placement, device=dev)
+    xk = BlockedArray.from_array(torch.rand((64 * 4096, 6), generator=gen, device=dev), 4096,
+                                 num_locations=8, policy=round_robin_placement, device=dev)
+    pol = SplIter(fusion="pallas")
+    results = {}
+    for name, ex in (("local", LocalExecutor()), ("threaded", ThreadedExecutor())):
+        with ex:
+            h0, k0 = pr.partition_histogramdd.launches, pr.partition_kmeans.launches
+            h, _ = histogram(xh, bins=4, policy=pol, executor=ex)
+            km = kmeans(xk, k=4, iters=5, seed=1, policy=pol, executor=ex, pipeline=True)
+            torch.cuda.synchronize()
+            results[name] = (h, km.centers, pr.partition_histogramdd.launches - h0,
+                             pr.partition_kmeans.launches - k0,
+                             [r.overlapped_launches for r in km.reports])
+            workers = [w._thread for w in getattr(ex, "_workers", {}).values()]
+        assert not any(t.is_alive() for t in workers)
+    local, threaded = results["local"], results["threaded"]
+    assert torch.equal(local[0], threaded[0]) and torch.equal(local[1], threaded[1])
+    assert local[2:4] == threaded[2:4] == (8, 40)
+    assert local[4] == [0] * 5 and threaded[4][0] == 0 and all(n > 0 for n in threaded[4][1:])

@@ -71,6 +71,7 @@ def test_runs_with_jax_unimportable():
 
 DOCTEST_MODULES = [
     "repro_torch._pytree",
+    "repro_torch._threefry",
     "repro_torch.api.autotune",
     "repro_torch.api.chunkstore",
     "repro_torch.api.collection",

@@ -307,6 +307,25 @@ def test_cpu_calls_do_not_count_launches():
     assert (flash_attention.launches, ssd_scan.launches, partition_histogram.launches) == counts
 
 
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 32, "wgmma"), (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 16, "simt"), (torch.bfloat16, 72, "simt"), (torch.float32, 8, "simt"),
+    (torch.float32, 128, "simt"), (torch.float16, 64, None), (torch.float32, 12, None),
+    (torch.float32, 136, None), (torch.bfloat16, 4, None),
+])
+def test_flash_routes_by_type_and_head_dim(dtype, d, route):
+    """On the card bf16 at head dims 32/64/128 takes the wgmma route, f32 and
+    the other bf16 head dims (multiples of 8 up to 128) the SIMT route; any
+    other case raises, with no quiet fall-back to the plain version."""
+    from repro_torch.kernels.flash_attention import _route
+
+    if route is None:
+        with pytest.raises(ValueError, match="not taken on the card"):
+            _route(dtype, d)
+    else:
+        assert _route(dtype, d) == route
+
+
 def test_other_devices_raise():
     x = torch.empty((1, 8, 2, 8), device="meta")
     with pytest.raises(ValueError, match="meta"):

@@ -64,7 +64,7 @@ read just after:
   the two tokens' recurrence logits are within ``LOGIT_TOL`` (a near-tie).
   ``LOGIT_TOL`` is per run (``SERVE``).  The prefill and the recurrence
   run again in f32 on the same weights upcast (mamba2's prefill through its
-  kernel in f32; qwen3's through the flash kernel's SIMT route, once per
+  kernel in f32; qwen3's through the flash kernel's split route, once per
   layer) and must agree within ``F32_LOGIT_TOL``.  A third serve
   run, mamba2-1.3b at full width cut to 2 layers, holds the bf16 SSD route
   to the same checks at a tolerance of 0.25, which 48 random layers' bf16
@@ -92,8 +92,11 @@ Then each of the three LM-path kernels runs beside its plain version at the
 serving path's shapes: ``flash_attention`` (q 8×512×64×128, k/v
 8×512×8×128, bf16, causal; also a fully masked-row case, a 4096 window on
 6144 tokens, head dims 64 and 32, a ragged Lq = 500 and group 1, each timed
-beside ``scaled_dot_product_attention``; and its SIMT route in f32 at the
-same shapes within ``F32_TOL`` and in bf16 at head dim 16), ``ssd_scan`` (x 8×512×64×64, B/C
+beside ``scaled_dot_product_attention``; and its split route in f32 at the
+same shapes within ``F32_TOL``; with q and k at 1, 2, 3, 4 and 6 times the
+scale beside the plain version in f64 and the kernel's arithmetic emulated
+with f32 products, within ``F32_TOL`` of the f32 plain version at 2 and of
+the f64 one at 3; and in bf16 at head dim 16), ``ssd_scan`` (x 8×512×64×64, B/C
 8×512×128; in f32 on upcast inputs and on f32 inputs that are not bf16
 values within ``SSD_TOL``, and on the bf16 inputs y within ``BF16_TOL`` and
 the f32 state within ``SSD_TOL`` of the same f32 plain version) and
@@ -167,7 +170,7 @@ F32_LOGIT_TOL = 1e-3
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 #: ssd_scan in f32 against its plain version (tests/test_kernels.py:173)
 SSD_TOL = dict(rtol=3e-4, atol=3e-4)
-#: an f32 kernel output (flash attention's SIMT route) against its plain
+#: an f32 kernel output (flash attention's split route) against its plain
 #: version: the reference tests' f32 tolerance (tests/test_kernels.py TOL)
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -270,13 +273,14 @@ def ptxas_line(reports: dict) -> list[dict]:
 
     flash_smem = kernel_function("flash_attention", "repro_flash_attention_smem_bytes",
                                  [ctypes.c_int])
-    simt_smem = kernel_function("flash_attention", "repro_flash_attention_simt_smem_bytes",
-                                [ctypes.c_int])
+    split_smem = kernel_function("flash_attention", "repro_flash_attention_split_smem_bytes",
+                                 [ctypes.c_int, ctypes.c_int])
     ssd_smem = kernel_function("ssd_scan", "repro_ssd_scan_smem_bytes", [ctypes.c_int])
     dynamic = {f"flash_kernel<{d}>": flash_smem(d) for d in (32, 64, 128)}
-    # the SIMT route at the largest head dim of each instantiation
-    dynamic.update({f"flash_simt_kernel<{t},{dv}>": simt_smem(32 * dv)
-                    for t in ("f32", "bf16") for dv in (1, 2, 3, 4)})
+    # the split route at each padded head dim, and its split kernel (f32)
+    dynamic.update({f"flash_split_kernel<{t},{d}>": split_smem(d, int(t == "bf16"))
+                    for t in ("f32", "bf16") for d in (32, 64, 128)})
+    dynamic["split_kv_kernel"] = 0
     dynamic.update({"ssd_kernel<bf16>": ssd_smem(1), "ssd_kernel<f32>": ssd_smem(0),
                     "kmeans_partial": pr._kmeans_plan(KM_D, KM_K)[0],
                     "hist_kernel": pr._histogram_plan(VALUE_BINS)[1],
@@ -539,14 +543,16 @@ def reset_launches() -> None:
 
     for fn in kernel_counters().values():
         fn.launches = 0
-    flash_attention.flash_attention.simt_launches = 0
+    flash_attention.flash_attention.split_launches = 0
+    flash_attention.split_kv.launches = 0
 
 
-def simt_launches() -> int:
-    """Launches of the flash kernel's SIMT route (f32; bf16 at other head dims)."""
+def split_launches() -> tuple[int, int]:
+    """Launches of the flash kernel's split route (f32; bf16 at other head
+    dims) and of its split kernel."""
     from repro_torch.kernels import flash_attention
 
-    return flash_attention.flash_attention.simt_launches
+    return flash_attention.flash_attention.split_launches, flash_attention.split_kv.launches
 
 
 def read_launches() -> dict:
@@ -597,8 +603,9 @@ def recurrence_logits(model, params, prompts: torch.Tensor, served: torch.Tensor
 def f32_reference(cfg, params, prompts: torch.Tensor):
     """Last-prompt-position logits of the prefill and of the recurrence, both
     in f32 on the same weights upcast, the prefill through the model's own
-    route (mamba2's SSD kernel in f32; qwen3's flash kernel on its SIMT
-    route).  Also the prefill's ms and its SIMT-route launches."""
+    route (mamba2's SSD kernel in f32; qwen3's flash kernel on its split
+    route).  Also the prefill's ms and its split-route and split-kernel
+    launches."""
     import dataclasses
 
     from repro_torch._pytree import tree_map
@@ -608,14 +615,15 @@ def f32_reference(cfg, params, prompts: torch.Tensor):
     params32 = tree_map(lambda t: t.float(), params)
     cache = model.init_cache(SERVE_BATCH, SERVE_MAX_LEN, dtype=torch.float32, device=prompts.device)
     torch.cuda.synchronize()
-    simt0, t0 = simt_launches(), time.perf_counter()
+    split0, t0 = split_launches(), time.perf_counter()
     with torch.no_grad():
         prefill, _ = model.prefill(params32, {"tokens": prompts}, cache)
     torch.cuda.synchronize()
-    prefill_ms, simt = 1e3 * (time.perf_counter() - t0), simt_launches() - simt0
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    split = tuple(n - n0 for n, n0 in zip(split_launches(), split0))
     rec = recurrence_logits(model, params32, prompts, prompts[:, :1])[:, 0]
     v = cfg.vocab_size
-    return prefill[:, :v], rec[:, :v], prefill_ms, simt
+    return prefill[:, :v], rec[:, :v], prefill_ms, split
 
 
 def serve_phase(name: str, seed: int, dev: torch.device) -> dict:
@@ -656,7 +664,7 @@ def serve_phase(name: str, seed: int, dev: torch.device) -> dict:
     reset_launches()
     tokens, stats, logits = server.generate(prompts, steps=SERVE_STEPS, return_logits=True)
     launches = read_launches()
-    bf16_simt = simt_launches()
+    bf16_split = split_launches()
     peak = torch.cuda.max_memory_allocated(dev)
 
     v = cfg.vocab_size  # past it, the padded vocabulary's logits are -1e30
@@ -676,7 +684,7 @@ def serve_phase(name: str, seed: int, dev: torch.device) -> dict:
         with torch.no_grad():
             ref_logits, _ = ref_model.prefill(params, {"tokens": prompt_t}, cache)
         route_err = float((ref_logits[:, :v].float() - lf[:, 0]).abs().max())
-    prefill32, rec32, f32_prefill_ms, f32_simt = f32_reference(cfg, params, prompt_t)
+    prefill32, rec32, f32_prefill_ms, f32_split = f32_reference(cfg, params, prompt_t)
     f32_err = float((prefill32 - rec32).abs().max())
     bf16_self_err = float((rf[:, 0] - rec32).abs().max())
     served_vs_f32 = float((lf[:, 0] - rec32).abs().max())
@@ -700,7 +708,8 @@ def serve_phase(name: str, seed: int, dev: torch.device) -> dict:
         "logit_tol": tol, "prefill_vs_recurrence": prefill_err,
         "decode_vs_recurrence": decode_err, "flash_vs_ref_prefill": route_err,
         "f32_prefill_vs_f32_recurrence": f32_err, "f32_prefill_ms": f32_prefill_ms,
-        "f32_prefill_flash_simt_launches": f32_simt,
+        "f32_prefill_flash_split_launches": f32_split[0],
+        "f32_prefill_split_kv_launches": f32_split[1],
         "bf16_recurrence_vs_f32_recurrence": bf16_self_err,
         "prefill_vs_f32_recurrence": served_vs_f32, "argmax_mismatches": len(mismatch),
         "mismatch_gaps": gaps,
@@ -709,10 +718,12 @@ def serve_phase(name: str, seed: int, dev: torch.device) -> dict:
     check(stats.dispatches == 1 + SERVE_STEPS, f"{name}: dispatches {stats.dispatches}")
     want = {k: (cfg.num_layers if k == kernel else 0) for k in launches}
     check(launches == want, f"{name}: {kernel} launched once per layer of one prefill: {launches}")
-    check(bf16_simt == 0, f"{name}: the bf16 prefill takes no SIMT flash launch ({bf16_simt})")
-    want_simt = cfg.num_layers if cfg.attn_impl == "flash" and cfg.num_heads else 0
-    check(f32_simt == want_simt, f"{name}: the f32 prefill launches the flash kernel's SIMT "
-          f"route once per layer: {f32_simt} != {want_simt}")
+    check(bf16_split == (0, 0), f"{name}: the bf16 prefill takes no split-route flash launch "
+          f"({bf16_split})")
+    want_split = cfg.num_layers if cfg.attn_impl == "flash" and cfg.num_heads else 0
+    check(f32_split == (want_split, want_split), f"{name}: the f32 prefill launches the flash "
+          f"kernel's split route and its split kernel once per layer: {f32_split} != "
+          f"{want_split}")
     check(bool(torch.isfinite(lf).all()), f"{name}: every logit is finite")
     check(prefill_err <= tol, f"{name}: prefill vs recurrence {prefill_err} > {tol}")
     check(decode_err <= tol, f"{name}: decode vs recurrence {decode_err} > {tol}")
@@ -789,13 +800,47 @@ def lm_kernel_checks(seed: int, dev: torch.device, x_values: torch.Tensor,
     pairs = l * (l + 1) // 2  # causal (q, k) pairs per (batch, head)
     bound_ms, bound_by = bound(2 * (q.numel() + k.numel() + v.numel() + got.numel()),
                                4 * d * pairs * b * h, BF16_FLOPS_PER_S)
-    # the SIMT route in f32 at the same shapes: the f32 qwen3 prefill's layer
+    # the split route in f32 at the same shapes: the f32 qwen3 prefill's layer
     q32, k32, v32 = (normal(*t.shape, dtype=torch.float32) for t in (q, k, v))
     got32 = fa.flash_attention(q32, k32, v32, causal=True)
     want32 = fa.flash_attention_ref(q32, k32, v32, causal=True)
     err32 = float((got32 - want32).abs().max())
     check(torch.allclose(got32, want32, **F32_TOL),
-          f"flash_attention (SIMT, f32) within {F32_TOL} of its plain version ({err32})")
+          f"flash_attention (split, f32) within {F32_TOL} of its plain version ({err32})")
+    # q and k at 1 to 6 times the scale (exact in f32): each output beside
+    # the plain version in f64 and beside the kernel's arithmetic emulated
+    # with f32 matrix products (flash_attention_emulated), which tells the
+    # split's rounding from the tensor cores' summing.  Checked: scale 2
+    # within F32_TOL of the f32 plain version, scale 3 of the f64 one.
+    scores = {}
+    for sc in (1, 2, 3, 4, 6):
+        qs, ks = sc * q32, sc * k32
+        got_s = fa.flash_attention(qs, ks, v32, causal=True)
+        plain_s = fa.flash_attention_ref(qs, ks, v32, causal=True)
+        truth = fa.flash_attention_ref(qs.double(), ks.double(), v32.double(), causal=True)
+        emul = fa.flash_attention_emulated(qs, ks, v32, causal=True)
+        row = {"qk_scale": sc, "max_abs_err": float((got_s - plain_s).abs().max()),
+               "emulated_max_abs_err": float((emul - plain_s).abs().max())}
+        for name, x in (("", got_s), ("plain_", plain_s), ("emulated_", emul)):
+            row[f"{name}f64_max_abs_err"] = float((x.double() - truth).abs().max())
+        row["within_tol_of_f32_plain"] = bool(torch.allclose(got_s, plain_s, **F32_TOL))
+        row["within_tol_of_f64_plain"] = bool(torch.allclose(got_s.double(), truth, **F32_TOL))
+        row["plain_within_tol_of_f64_plain"] = bool(
+            torch.allclose(plain_s.double(), truth, **F32_TOL))
+        scores[sc] = row
+        del qs, ks, got_s, plain_s, truth, emul
+    check(scores[2]["within_tol_of_f32_plain"],
+          f"flash_attention (split, f32, q and k x2) within {F32_TOL} of plain "
+          f"({scores[2]['max_abs_err']})")
+    check(scores[3]["within_tol_of_f64_plain"],
+          f"flash_attention (split, f32, q and k x3) within {F32_TOL} of the f64 plain version "
+          f"({scores[3]['f64_max_abs_err']})")
+    # the split kernel's terms sum back to K and V bit for bit
+    kt, vt = fa.split_kv(k32, v32)
+    for x, t in ((k32, kt), (v32, vt)):
+        check(torch.equal((t[0].float() + t[1].float()) + t[2].float(), x),
+              "split_kv: hi + mid + lo equals the f32 input bit for bit")
+    del kt, vt
     sdpa32 = lambda: F.scaled_dot_product_attention(  # noqa: E731
         q32.transpose(1, 2), k32.transpose(1, 2), v32.transpose(1, 2), is_causal=True,
         enable_gqa=True)
@@ -805,19 +850,37 @@ def lm_kernel_checks(seed: int, dev: torch.device, x_values: torch.Tensor,
     want16 = fa.flash_attention_ref(q16, k16, v16, causal=True).float()
     err16 = float((got16 - want16).abs().max())
     check(torch.allclose(got16, want16, **BF16_TOL),
-          f"flash_attention (SIMT, bf16, head dim 16) within {BF16_TOL} of plain ({err16})")
-    bound32_ms, bound32_by = bound(4 * (q32.numel() + k32.numel() + v32.numel() + got32.numel()),
-                                   4 * d * pairs * b * h, F32_FLOPS_PER_S)
-    simt_route = {
-        "route": "simt", "dtype": "float32", "launches": launches["flash_attention_simt"],
-        "launches_per_call": launches["flash_attention_simt"],
+          f"flash_attention (split, bf16, head dim 16) within {BF16_TOL} of plain ({err16})")
+    # the function's own work: the f32 bytes of q, k, v and o, or one product
+    # per causal (q, k) pair at the card's fastest rate (989 TFLOP/s: the
+    # route gets f32 accuracy from bf16 products).  The route's six bf16
+    # products are its own work, beside it as split_work_ms.
+    split_bound_ms, split_bound_by = bound(
+        4 * (q32.numel() + k32.numel() + v32.numel() + got32.numel()),
+        4 * d * pairs * b * h, BF16_FLOPS_PER_S)
+    split_work_ms = 1e3 * 6 * 4 * d * pairs * b * h / BF16_FLOPS_PER_S
+    # K and V read in f32, their three bf16 terms written
+    split_kv_bound_ms, _ = bound(4 * 2 * k32.numel() + 6 * 2 * k32.numel(), 0)
+    split_route = {
+        "route": "split", "dtype": "float32", "launches": launches["flash_attention_split"],
+        "launches_per_call": launches["flash_attention_split"],
+        "split_kv_launches": launches["split_kv"],
         "per_call_of": "qwen3-32b f32 prefill (8 layers)", "max_abs_err": err32,
         "tolerance": f"allclose {F32_TOL} (tests/test_kernels.py TOL[float32])",
+        "qk_scales": list(scores.values()),
         **kernel_times(lambda: fa.flash_attention(q32, k32, v32, causal=True)),
         "plain_ms": cuda_ms(lambda: fa.flash_attention_ref(q32, k32, v32, causal=True)),
-        "bound_ms": bound32_ms, "bound_by": bound32_by, "library_ms": cuda_ms(sdpa32),
+        "bound_ms": split_bound_ms, "bound_by": split_bound_by,
+        "bound": "the f32 bytes of q, k, v and o, or one product of the causal pairs at "
+                 "989 TFLOP/s",
+        "split_work_ms": split_work_ms,
+        "split_work": "the route's six bf16 products of the causal pairs at 989 TFLOP/s",
+        "library_ms": cuda_ms(sdpa32),
         "library": "scaled_dot_product_attention on the same f32 inputs",
         "library_max_abs_diff": float((sdpa32().transpose(1, 2) - got32).abs().max()),
+        "split_kv_ms": cuda_ms(lambda: fa.split_kv(k32, v32)),
+        "split_kv_device_ms": device_and_host_ms(lambda: fa.split_kv(k32, v32))[0],
+        "split_kv_bound_ms": split_kv_bound_ms,
         "bf16_head_dim16_max_abs_err": err16,
         "bf16_head_dim16_ms": cuda_ms(lambda: fa.flash_attention(q16, k16, v16, causal=True)),
     }
@@ -836,7 +899,7 @@ def lm_kernel_checks(seed: int, dev: torch.device, x_values: torch.Tensor,
         "library": "torch.nn.functional.scaled_dot_product_attention(is_causal, enable_gqa)",
         "library_max_abs_diff": lib_err, "shape_q": [b, l, h, d], "shape_kv": [b, l, hkv, d],
         "window4096_shape_q": [1, 6144, 8, d], "window4096_max_abs_err": win_err,
-        "window4096_ms": win_ms, "cases": cases, "simt_route": simt_route,
+        "window4096_ms": win_ms, "cases": cases, "split_route": split_route,
     })
     del q, k, v, got, want
 
@@ -1290,7 +1353,8 @@ def main(argv=None) -> int:
         if not spec.get("depth_check"):
             launches[spec["kernel"]] = result["launches"][spec["kernel"]]
         if spec["kernel"] == "flash_attention":
-            launches["flash_attention_simt"] = result["f32_prefill_flash_simt_launches"]
+            launches["flash_attention_split"] = result["f32_prefill_flash_split_launches"]
+            launches["split_kv"] = result["f32_prefill_split_kv_launches"]
         torch.cuda.empty_cache()
     sampled_serve_phase(args.seed, dev)
     torch.cuda.empty_cache()
@@ -1300,8 +1364,8 @@ def main(argv=None) -> int:
     kernels += lm_kernel_checks(args.seed, dev, x_values, launches)
     check(len(kernels) == 5 and all(k["launches"] > 0 for k in kernels),
           f"every kernel launched on its path: {launches}")
-    check(launches["flash_attention_simt"] > 0,
-          f"the flash kernel's SIMT route launched on the f32 prefill: {launches}")
+    check(launches["flash_attention_split"] > 0 and launches["split_kv"] > 0,
+          f"the flash kernel's split route launched on the f32 prefill: {launches}")
     emit({"kernels": kernels})
     torch.cuda.synchronize()
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

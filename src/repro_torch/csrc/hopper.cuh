@@ -1,6 +1,7 @@
 // hopper.cuh: the Hopper (sm_90a) building blocks that the port's kernels
 // share: bf16 packing and the f32 -> bf16 hi + lo split, mma.sync m16n8k16,
-// cp.async, mbarriers, TMA bulk and tensor loads, launch set-up and wgmma.
+// ldmatrix, cp.async, mbarriers, TMA bulk and tensor loads, proxy fences, named
+// barriers and register budgets, launch set-up and wgmma.
 //
 // Every source that includes this header is rebuilt when it changes: the
 // build hashes csrc/*.cuh with each source (kernels/_build.py).
@@ -53,6 +54,14 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, one row address per lane
+// (lanes 8m..8m+7: matrix m), into the mma A-fragment layout: r[m] holds
+// row lane / 4, columns 2 (lane % 4), +1 of matrix m.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
 }
 
 // 16 bytes global -> shared, asynchronous; bytes past `valid` (0 or 16) are zero.
@@ -125,6 +134,29 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map, uint64_t
       :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)),
          "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// Orders this thread's generic-proxy writes to shared memory before later
+// async-proxy reads of it (wgmma operands, TMA stores).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` (1..15; 0 is __syncthreads) over `threads` threads of the CTA.
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// Sets this warpgroup's registers per thread to N (a multiple of 8 in [24,
+// 256]); every warp of the warpgroup executes it.  A producer warpgroup gives
+// registers up, so that the consumer warpgroups can take them.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
 }
 
 // ---- launch set-up ------------------------------------------------------------
@@ -205,7 +237,31 @@ __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// d (64 x 32 f32) += A (registers, 4 x bf16x2) . B (smem, MN-major: tnspB = 1)
+// d (64 x 32 f32, 16 per thread) = / += A (smem, K-major) . B (smem, K-major)
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int accumulate) {
+  static_assert(N == 32 || N == 64, "wgmma_ss: N is 32 or 64");
+  if constexpr (N == 32) wgmma_ss_n32(d, da, db, accumulate);
+  else wgmma_ss_n64(d, da, db, accumulate);
+}
+
+// d (64 x N f32) += A (registers, 4 x bf16x2) . B (smem): B MN-major with
+// TransB = 1 (tnspB), K-major with TransB = 0
+template <int TransB>
 __device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\n"
@@ -213,14 +269,14 @@ __device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a, uint64
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
       "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TransB));
 }
 
-// d (64 x 64 f32) += A (registers, 4 x bf16x2) . B (smem, MN-major: tnspB = 1)
+template <int TransB>
 __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\n"
@@ -229,16 +285,16 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64
       "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TransB));
 }
 
-// d (64 x 128 f32) += A (registers, 4 x bf16x2) . B (smem, MN-major: tnspB = 1)
+template <int TransB>
 __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\n"
@@ -249,7 +305,7 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint6
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
@@ -261,22 +317,15 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint6
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TransB));
 }
 
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db);
-template <>
-__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a, uint64_t db) {
-  wgmma_rs_n32(d, a, db);
-}
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a, uint64_t db) {
-  wgmma_rs_n64(d, a, db);
-}
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a, uint64_t db) {
-  wgmma_rs_n128(d, a, db);
+template <int N, int TransB = 1>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db) {
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma_rs: N is 32, 64 or 128");
+  if constexpr (N == 32) wgmma_rs_n32<TransB>(d, a, db);
+  else if constexpr (N == 64) wgmma_rs_n64<TransB>(d, a, db);
+  else wgmma_rs_n128<TransB>(d, a, db);
 }
 
 }  // namespace hopper

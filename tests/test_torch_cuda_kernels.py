@@ -368,8 +368,9 @@ def test_histdd_counts_launches(dev):
 
 
 # ---------------------------------------------------------------------------
-# flash attention's SIMT route (f32, and bf16 at the other head dims): the
-# reference's TestFlashAttention cases (tests/test_kernels.py) on the card
+# flash attention's split route (f32, and bf16 at the other head dims, on
+# bf16 terms): the reference's TestFlashAttention cases (tests/test_kernels.py)
+# on the card
 # ---------------------------------------------------------------------------
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)  # tests/test_kernels.py TOL[float32]
@@ -385,15 +386,19 @@ def _flash_case(dev, seed, b, lq, lk, h, hkv, d, dtype=torch.float32):
 
 
 def _check_flash(q, k, v, tol, route, **kw):
-    before = (fa.flash_attention.launches, fa.flash_attention.simt_launches)
+    before = (fa.flash_attention.launches, fa.flash_attention.split_launches,
+              fa.split_kv.launches)
     got = fa.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert got.dtype == q.dtype
-    assert (fa.flash_attention.launches - before[0],
-            fa.flash_attention.simt_launches - before[1]) == (1, int(route == "simt"))
-    ref_kw = {key: val for key, val in kw.items() if key in ("causal", "window")}
-    torch.testing.assert_close(got.float(), fa.flash_attention_ref(q, k, v, **ref_kw).float(),
-                               **tol)
+    split = int(route == "split")
+    split_kv = int(route == "split" and q.dtype == torch.float32)  # bf16 K/V are read as they are
+    assert (fa.flash_attention.launches - before[0], fa.flash_attention.split_launches - before[1],
+            fa.split_kv.launches - before[2]) == (1, split, split_kv)
+    if tol is not None:  # None: the caller compares
+        ref_kw = {key: val for key, val in kw.items() if key in ("causal", "window")}
+        torch.testing.assert_close(got.float(), fa.flash_attention_ref(q, k, v, **ref_kw).float(),
+                                   **tol)
     return got
 
 
@@ -403,27 +408,27 @@ def _check_flash(q, k, v, tol, route, **kw):
     (1, 128, 128, 8, 1, 32),   # MQA
     (2, 48, 96, 4, 4, 64),     # cross length, not causal
 ])
-def test_flash_simt_reference_shapes_f32(dev, b, lq, lk, h, hkv, d):
+def test_flash_split_reference_shapes_f32(dev, b, lq, lk, h, hkv, d):
     q, k, v = _flash_case(dev, lq + d, b, lq, lk, h, hkv, d)
-    _check_flash(q, k, v, F32_TOL, "simt", causal=lq == lk, block_q=16, block_k=16)
+    _check_flash(q, k, v, F32_TOL, "split", causal=lq == lk, block_q=16, block_k=16)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)])
-def test_flash_simt_reference_dtypes(dev, dtype, tol):
+def test_flash_split_reference_dtypes(dev, dtype, tol):
     q, k, v = _flash_case(dev, 5, 2, 64, 64, 4, 2, 16, dtype)
-    _check_flash(q, k, v, tol, "simt", block_q=32, block_k=32)
+    _check_flash(q, k, v, tol, "split", block_q=32, block_k=32)
 
 
 @pytest.mark.parametrize("window", [8, 24, 64])
-def test_flash_simt_reference_windows(dev, window):
+def test_flash_split_reference_windows(dev, window):
     q, k, v = _flash_case(dev, window, 1, 64, 64, 2, 2, 16)
-    _check_flash(q, k, v, F32_TOL, "simt", window=window, block_q=16, block_k=16)
+    _check_flash(q, k, v, F32_TOL, "split", window=window, block_q=16, block_k=16)
 
 
 @pytest.mark.parametrize("bq,bk", [(8, 8), (16, 32), (32, 16), (64, 64)])
-def test_flash_simt_block_shape_invariance(dev, bq, bk):
+def test_flash_split_block_shape_invariance(dev, bq, bk):
     q, k, v = _flash_case(dev, 9, 1, 64, 64, 2, 2, 16)
-    got = _check_flash(q, k, v, F32_TOL, "simt", block_q=bq, block_k=bk)
+    got = _check_flash(q, k, v, F32_TOL, "split", block_q=bq, block_k=bk)
     assert torch.equal(got, fa.flash_attention(q, k, v))
 
 
@@ -434,15 +439,64 @@ def test_flash_simt_block_shape_invariance(dev, bq, bk):
     (1, 200, 200, 8, 2, 128, True, 0),    # D = 128
     (8, 512, 512, 64, 8, 128, True, 0),   # one f32 qwen3-32b prefill layer
 ])
-def test_flash_simt_f32_other_shapes(dev, b, lq, lk, h, hkv, d, causal, window):
+def test_flash_split_f32_other_shapes(dev, b, lq, lk, h, hkv, d, causal, window):
     q, k, v = _flash_case(dev, lq + h, b, lq, lk, h, hkv, d)
-    _check_flash(q, k, v, F32_TOL, "simt", causal=causal, window=window)
+    _check_flash(q, k, v, F32_TOL, "split", causal=causal, window=window)
+
+
+@pytest.mark.parametrize("scale", [2, 3])
+@pytest.mark.parametrize("b,lq,h,hkv,d", [
+    (1, 200, 8, 2, 128),   # D = 128: 32-key tiles
+    (2, 160, 4, 4, 40),    # D = 40, padded to 64
+    (8, 512, 64, 8, 128),  # one f32 qwen3-32b prefill layer
+])
+def test_flash_split_larger_scores(dev, b, lq, h, hkv, d, scale):
+    """q and k drawn at scale 2 and 3 (scores 4x and 9x as large, softmax
+    far from uniform), within the reference's f32 tolerance: at 2 of the
+    plain version, at 3 of the plain version computed in f64 (there the f32
+    plain version's own rounding of the scores puts it further from f64
+    than the kernel)."""
+    q, k, v = _flash_case(dev, lq + d, b, lq, lq, h, hkv, d)
+    q, k = scale * q, scale * k
+    got = _check_flash(q, k, v, F32_TOL if scale == 2 else None, "split", causal=True)
+    if scale == 3:
+        want = fa.flash_attention_ref(q.double(), k.double(), v.double(), causal=True)
+        torch.testing.assert_close(got.double(), want, **F32_TOL)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 128), (torch.float32, 24),
+                                     (torch.float32, 72), (torch.float32, 16)])
+@pytest.mark.parametrize("data", ["normal", "wide"])
+def test_split_kv_terms_sum_back_bit_for_bit(dev, dtype, d, data):
+    """The split kernel's three terms of f32 K and V sum back to them bit for
+    bit, are zero past the head dim and equal the plain version's; "wide"
+    scales each value by 10**u, u uniform in [-20, 20].  (bf16 K and V are
+    not split: the route reads them as they are.)"""
+    rng = np.random.default_rng(d)
+    k, v = (rng.normal(size=(2, 77, 3, d)).astype(np.float32) for _ in range(2))
+    if data == "wide":
+        k, v = (x * np.float32(10.0) ** rng.uniform(-20, 20, x.shape).astype(np.float32)
+                for x in (k, v))
+    k, v = (torch.from_numpy(x).to(dev, dtype) for x in (k, v))
+    dp = fa._padded_head_dim(d)
+    before = fa.split_kv.launches
+    kt, vt = fa.split_kv(k, v)
+    torch.cuda.synchronize()
+    assert fa.split_kv.launches == before + 1
+    for x, t in ((k, kt), (v, vt)):
+        assert t.shape == (3, *x.shape[:-1], dp)
+        assert t.dtype == torch.bfloat16 and bool((t[..., d:] == 0).all())
+        total = t[0].float()
+        for term in t[1:]:
+            total = total + term.float()
+        assert torch.equal(total[..., :d], x.float())
+        assert torch.equal(t, fa.split_terms_ref(x))
 
 
 @pytest.mark.parametrize("d", [8, 16, 48, 72, 120])
-def test_flash_simt_bf16_other_head_dims(dev, d):
+def test_flash_split_bf16_other_head_dims(dev, d):
     q, k, v = _flash_case(dev, d, 2, 96, 96, 4, 2, d, torch.bfloat16)
-    _check_flash(q, k, v, BF16_TOL, "simt", causal=True)
+    _check_flash(q, k, v, BF16_TOL, "split", causal=True)
 
 
 @pytest.mark.parametrize("d", [32, 64, 128])
@@ -452,9 +506,9 @@ def test_flash_wgmma_route_head_dims(dev, d):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_simt_fully_masked_rows_are_zero(dev, dtype):
+def test_flash_split_fully_masked_rows_are_zero(dev, dtype):
     q, k, v = _flash_case(dev, 3, 1, 64, 16, 4, 1, 16, dtype)
-    got = _check_flash(q, k, v, F32_TOL if dtype == torch.float32 else BF16_TOL, "simt",
+    got = _check_flash(q, k, v, F32_TOL if dtype == torch.float32 else BF16_TOL, "split",
                        causal=True, window=4)
     assert bool((got[:, 19:] == 0).all())
 

@@ -8,8 +8,6 @@ only run on a card, where ``chip_smoke.py`` holds each against the plain
 version tested here.
 """
 
-import math
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,7 +19,8 @@ from repro.kernels.partition_reduce import partition_histogram as j_hist
 from repro.kernels.ssd_scan import ssd_scan as j_ssd
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_emulated,
+                                                 flash_attention_ref, split_terms_ref)
 from repro_torch.kernels.partition_reduce import _SMEM_OPTIN, _histogram_plan
 from repro_torch.kernels.partition_reduce import _flush_subnormal as tpr_flush
 from repro_torch.kernels.partition_reduce import _hist_thresholds as tpr_hist_thresholds
@@ -309,13 +308,13 @@ def test_cpu_calls_do_not_count_launches():
 
 @pytest.mark.parametrize("dtype,d,route", [
     (torch.bfloat16, 32, "wgmma"), (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
-    (torch.bfloat16, 16, "simt"), (torch.bfloat16, 72, "simt"), (torch.float32, 8, "simt"),
-    (torch.float32, 128, "simt"), (torch.float16, 64, None), (torch.float32, 12, None),
+    (torch.bfloat16, 16, "split"), (torch.bfloat16, 72, "split"), (torch.float32, 8, "split"),
+    (torch.float32, 128, "split"), (torch.float16, 64, None), (torch.float32, 12, None),
     (torch.float32, 136, None), (torch.bfloat16, 4, None),
 ])
 def test_flash_routes_by_type_and_head_dim(dtype, d, route):
     """On the card bf16 at head dims 32/64/128 takes the wgmma route, f32 and
-    the other bf16 head dims (multiples of 8 up to 128) the SIMT route; any
+    the other bf16 head dims (multiples of 8 up to 128) the split route; any
     other case raises, with no quiet fall-back to the plain version."""
     from repro_torch.kernels.flash_attention import _route
 
@@ -495,41 +494,6 @@ def test_histogram_plan_fits_bins(bins, copies):
             _histogram_plan(bins + 1)
 
 
-def _flash_emulated(q, k, v, *, causal, window, bk=64):
-    """csrc/flash_attention.cu's arithmetic: 64-key tiles, S = Q K^T of bf16
-    values in f32, a base-2 online softmax with log2(e) folded into the
-    scale, P split into bf16 hi + lo for P V, the output rounded to bf16."""
-    b, lq, h, d = q.shape
-    lk, hkv = k.shape[1], k.shape[2]
-    scale_log2 = (1.0 / math.sqrt(d)) * 1.4426950408889634
-    out = torch.zeros((b, lq, h, d))
-    qpos = torch.arange(lq)[:, None]
-    for bi in range(b):
-        for hd in range(h):
-            qh, kh, vh = q[bi, :, hd], k[bi, :, hd // (h // hkv)], v[bi, :, hd // (h // hkv)]
-            m = torch.full((lq, 1), -math.inf)
-            lsum = torch.zeros((lq, 1))
-            acc = torch.zeros((lq, d))
-            for k0 in range(0, lk, bk):
-                s = qh @ kh[k0:k0 + bk].T
-                kpos = torch.arange(k0, min(lk, k0 + bk))[None, :]
-                mask = torch.ones_like(s, dtype=torch.bool)
-                if causal:
-                    mask &= kpos <= qpos
-                if window:
-                    mask &= kpos > qpos - window
-                s = torch.where(mask, s, -math.inf)
-                mn = torch.maximum(m, s.amax(1, keepdim=True) * scale_log2)
-                mu = torch.where(mn == -math.inf, 0.0, mn)
-                alpha = torch.exp2(m - mu)
-                pm = torch.exp2(s * scale_log2 - mu)
-                lsum = lsum * alpha + pm.sum(1, keepdim=True)
-                acc = acc * alpha + _split_product(pm, vh[k0:k0 + bk], 2)
-                m = mn
-            out[bi, :, hd] = acc / lsum.clamp_min(1e-30)
-    return out.to(torch.bfloat16)
-
-
 @pytest.mark.parametrize("lq,h,hkv,d,window", [
     (96, 4, 2, 32, 0), (160, 2, 1, 64, 0), (128, 4, 4, 16, 40),
 ])
@@ -537,8 +501,64 @@ def test_flash_split_p_vs_jax(lq, h, hkv, d, window):
     (jq, tq), (jk, tk), (jv, tv) = _flash_pair(np.random.default_rng(lq), 1, lq, lq, h, hkv, d,
                                                "bfloat16")
     want = j_flash(jq, jk, jv, causal=True, window=window, block_q=32, block_k=32)
-    got = _flash_emulated(tq.float(), tk.float(), tv.float(), causal=True, window=window)
+    got = flash_attention_emulated(tq, tk, tv, causal=True, window=window)
     np.testing.assert_allclose(_f32(got), _f32(want), **TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("data", ["normal", "wide"])
+def test_split_terms_reconstruct_f32_bit_for_bit(data):
+    """The split kernel's plain version: hi + mid + lo is the f32 input bit
+    for bit, for normal draws and for magnitudes from about 1e-24 to 1e20
+    (10**u, u uniform in [-20, 20]); zero past the head dim."""
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(3, 50, 2, 40)).astype(np.float32)
+    if data == "wide":
+        x = x * np.float32(10.0) ** rng.uniform(-20, 20, x.shape).astype(np.float32)
+    t = split_terms_ref(torch.from_numpy(x))
+    assert t.shape == (3, 3, 50, 2, 64) and t.dtype == torch.bfloat16
+    assert bool((t[..., 40:] == 0).all())
+    total = (t[0].float() + t[1].float()) + t[2].float()
+    np.testing.assert_array_equal(total[..., :40].numpy(), x)
+
+
+def _split_route_vs_jax(b, lq, lk, h, hkv, d, *, causal=True, window=0, bq=16, bk=16, scale=1):
+    rng = np.random.default_rng(lq + d + window)
+    q, k, v = _normal(rng, b, lq, h, d), _normal(rng, b, lk, hkv, d), _normal(rng, b, lk, hkv, d)
+    (jq, tq), (jk, tk), (jv, tv) = (_both(a) for a in (scale * q, scale * k, v))
+    want = j_flash(jq, jk, jv, causal=causal, window=window, block_q=bq, block_k=bk)
+    got = flash_attention_emulated(tq, tk, tv, causal=causal, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL["float32"])
+
+
+@pytest.mark.parametrize("b,lq,lk,h,hkv,d,bq", [
+    (1, 32, 32, 2, 2, 8, 16),      # MHA
+    (2, 64, 64, 4, 2, 16, 16),     # GQA 2:1
+    (1, 128, 128, 8, 1, 32, 16),   # MQA
+    (2, 48, 96, 4, 4, 64, 16),     # cross-length, non-causal
+    (2, 64, 64, 4, 2, 16, 32),     # the reference's f32 dtype case
+])
+def test_flash_split_route_shapes_vs_jax(b, lq, lk, h, hkv, d, bq):
+    """The split route's arithmetic, emulated, at the reference's f32
+    TestFlashAttention shapes, within its f32 TOL of the JAX kernel."""
+    _split_route_vs_jax(b, lq, lk, h, hkv, d, causal=lq == lk, bq=bq, bk=bq)
+
+
+@pytest.mark.parametrize("window", [8, 24, 64])
+def test_flash_split_route_windows_vs_jax(window):
+    _split_route_vs_jax(1, 64, 64, 2, 2, 16, window=window)
+
+
+@pytest.mark.parametrize("bq,bk", [(8, 8), (16, 32), (32, 16), (64, 64)])
+def test_flash_split_route_block_shapes_vs_jax(bq, bk):
+    _split_route_vs_jax(1, 64, 64, 2, 2, 16, bq=bq, bk=bk)
+
+
+@pytest.mark.parametrize("scale", [1, 2])
+def test_flash_split_route_qwen3_layer_vs_jax(scale):
+    """A narrowed f32 qwen3-32b layer: head dim 128 (32-key tiles), GQA 8,
+    128 tokens, causal; also with q and k at twice the scale, where three
+    products (two terms) miss TOL and the six products hold it."""
+    _split_route_vs_jax(1, 128, 128, 16, 2, 128, bq=64, bk=64, scale=scale)
 
 
 def test_build_hash_covers_shared_headers(tmp_path, monkeypatch):

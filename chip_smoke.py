@@ -45,6 +45,29 @@ read just after:
   ``overlapped_launches`` > 0 on pipelined iterations 2–10, and every
   worker thread joined after ``close()``; the wall medians print beside
   Local's.
+* ``stream``: on the same data, both apps streamed from disk through a
+  ``DiskStore`` on the card whose budget is a quarter of the data
+  (167,772,160 B for the histogram, two of its SplIter(1) partitions of
+  83,886,080 B; 671,088,640 B for k-means), on a ``StreamExecutor`` with
+  ``prefetch_depth`` 1 and 0.  The histogram under SplIter(1, pallas) and
+  SplIter(2), a fresh store each: one cold pass (its evictions write the
+  spill files) and three warm ones; k-means under SplIter(1, pallas) for
+  3 iterations (cut from 10 for the time limit), barriered and then with
+  ``pipeline=True`` on one store.  Against a ``LocalExecutor`` on the
+  in-memory data: histograms, k-means centers and counts bit-identical;
+  dispatches, merges, traces, bytes moved and granularity equal; one
+  kernel launch per partition; ``bytes_spilled`` > 0 on the cold pass,
+  ``bytes_loaded`` > 0, ``prefetch_hits`` > 0 exactly when prefetching;
+  ``overlapped_launches`` > 0 on pipelined iterations 2–3; the store's peak
+  resident bytes at most 1.25 × the budget; the device memory a store's
+  runs take (``max_memory_allocated`` after a reset, less the allocation
+  before the store) at most 1.25 × the budget + one partition (k-means's
+  stacked operand) + 16 MiB, each term printed; the spill directory gone
+  after ``close()``.  One more histogram pass on a ``ThreadedExecutor``
+  over a DiskStore copy must equal Local's.  Each line prints the walls
+  beside Local's in-memory wall, GB loaded and spilled, and the load rate;
+  the kernels line gives the launches of the StreamExecutor runs as
+  ``stream_launches``.
 * ``value_histogram``: ``repro_torch.kernels.ops.partition_histogram`` (bins
   128) over each location's stacked partition of the histogram data; the
   summed counts must equal ``kernels.ref.histogram_ref`` bit for bit.
@@ -118,6 +141,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -1087,6 +1111,228 @@ def threaded_phase(x_hist, x_km, seed: int, repeats: int) -> dict:
     return out
 
 
+#: the stream phase cuts k-means from KM_ITERS to 3 iterations for the time
+#: limit; each histogram store takes one cold pass and this many warm ones
+STREAM_KM_ITERS, STREAM_WARM_PASSES = 3, 3
+#: device memory the stream phase may take beyond 1.25 x the budget and one
+#: partition (k-means's stacked operand): a loaded chunk not yet inserted, a
+#: chunk waiting for its spill write, the apps' small tensors
+STREAM_SLACK_BYTES = 16 * 2**20
+
+
+def _stream_memory(base: int, budget: int, partition: int, what: str) -> dict:
+    """The device memory a stream run took beyond ``base``, against its bound."""
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    terms = {"peak_rise": rise, "budget_x1_25": 1.25 * budget, "partition": partition,
+             "slack": STREAM_SLACK_BYTES, "limit": 1.25 * budget + partition + STREAM_SLACK_BYTES}
+    check(rise <= terms["limit"], f"stream {what}: device memory rose {rise} B, more than "
+          f"1.25 x budget + a partition + 16 MiB = {terms['limit']} B")
+    return terms
+
+
+def _io_of(reports) -> dict:
+    loaded = sum(r.bytes_loaded for r in reports)
+    return {"bytes_loaded": loaded, "bytes_spilled": sum(r.bytes_spilled for r in reports),
+            "prefetch_hits": sum(r.prefetch_hits for r in reports)}
+
+
+def stream_phase(x_hist, x_km, seed: int, repeats: int) -> dict:
+    """Both apps streamed from disk through a ``DiskStore`` on the card whose
+    budget is a quarter of the data, on a ``StreamExecutor`` with
+    ``prefetch_depth`` 1 and 0, against a ``LocalExecutor`` on the in-memory
+    data.  Returns the kernel launches of the StreamExecutor runs."""
+    from repro_torch.api import (Collection, DiskStore, LocalExecutor, SplIter,
+                                 StreamExecutor, ThreadedExecutor)
+    from repro_torch.core.apps.histogram import histogram
+    from repro_torch.core.apps.kmeans import _combine, kmeans, partial_sum_block
+    from repro_torch.kernels import partition_reduce as pr
+
+    dev = x_hist.device
+    hist_budget, km_budget = x_hist.nbytes // 4, x_km.nbytes // 4
+    hist_partition = BLOCKS_PER_LOCATION * BLOCK_ROWS * HIST_D * 4
+    km_partition = BLOCKS_PER_LOCATION * BLOCK_ROWS * KM_D * 4
+    hist_pols = {"spliter1_pallas": SplIter(1, fusion="pallas"), "spliter2": SplIter(2)}
+    km_pol = SplIter(1, fusion="pallas")
+    launched = {"partition_histogramdd": 0, "partition_kmeans": 0}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        h0, k0, t0 = pr.partition_histogramdd.launches, pr.partition_kmeans.launches, \
+            time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, (pr.partition_histogramdd.launches - h0,
+                                               pr.partition_kmeans.launches - k0)
+
+    def km_counts(x, centers, ex):
+        return (Collection.from_blocked(x).split(km_pol)
+                .map_blocks(partial_sum_block, extra_args=(centers,))
+                .reduce(_combine).compute(executor=ex).value[1])
+
+    # -- the LocalExecutor on the in-memory data: values, reports, walls ----
+    local = {}
+    for name, pol in hist_pols.items():
+        with LocalExecutor() as ex:
+            runs = [timed(lambda: histogram(x_hist, bins=HIST_BINS, policy=pol, executor=ex))
+                    for _ in range(1 + STREAM_WARM_PASSES)]
+        local[name] = {"value": runs[0][0][0], "cold": runs[0][0][1], "warm": runs[-1][0][1],
+                       "wall_s": statistics.median(w for _, w, _ in runs[1:])}
+    with LocalExecutor() as ex:
+        for pipelined in (False, True):
+            runs = [timed(lambda: kmeans(x_km, k=KM_K, iters=STREAM_KM_ITERS, seed=seed,
+                                         policy=km_pol, executor=ex, pipeline=pipelined))
+                    for _ in range(1 + repeats)]
+            res = runs[0][0]
+            local[("kmeans", pipelined)] = {
+                "value": res.centers, "reports": res.reports,
+                "counts": km_counts(x_km, res.centers, ex),
+                "wall_s": statistics.median(w for _, w, _ in runs[1:])}
+
+    out = {}
+    for depth in (1, 0):
+        # -- histogram: a fresh store per policy, one cold and three warm passes
+        for name, pol in hist_pols.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            store = DiskStore(residency_bytes=hist_budget, device=dev)
+            xd, ingest_s, _ = timed(lambda: x_hist.to_store(store))
+            ex = StreamExecutor(prefetch_depth=depth)
+            passes = []
+            for i in range(1 + STREAM_WARM_PASSES):
+                (h, rep), wall, (nh, _) = timed(
+                    lambda: histogram(xd, bins=HIST_BINS, policy=pol, executor=ex))
+                launched["partition_histogramdd"] += nh
+                ref = local[name]
+                check(torch.equal(h, ref["value"]),
+                      f"stream histogram/{name} depth {depth} pass {i}: counts equal Local's")
+                check(_structural(rep) == _structural(ref["cold" if i == 0 else "warm"]),
+                      f"stream histogram/{name} depth {depth} pass {i}: dispatches, merges, "
+                      f"traces, bytes_moved and granularity equal Local's")
+                check(nh == LOCATIONS * pol.partitions_per_location,
+                      f"stream histogram/{name}: one kernel launch per partition ({nh})")
+                passes.append({"pass": "cold" if i == 0 else "warm", "wall_s": wall,
+                               "launches": nh, **_io_of([rep]),
+                               "load_gb_per_s": rep.bytes_loaded / wall / 1e9})
+            spill_dir = store.spill_dir
+            ex.close()
+            memory = _stream_memory(base, hist_budget, hist_partition, f"histogram/{name}")
+            result = {
+                "phase": "stream", "run": f"histogram/{name}", "policy": repr(pol),
+                "prefetch_depth": depth, "data_bytes": x_hist.nbytes, "budget": hist_budget,
+                "ingest_s": ingest_s, "passes": passes,
+                "warm_wall_s": statistics.median(p["wall_s"] for p in passes[1:]),
+                "local_wall_s": local[name]["wall_s"],
+                "gb_loaded": sum(p["bytes_loaded"] for p in passes) / 1e9,
+                "gb_spilled": store.stats.bytes_spilled / 1e9,
+                "peak_resident_bytes": store.stats.peak_resident_bytes,
+                "peak_resident_limit": 1.25 * hist_budget, "device_memory": memory,
+                "store_closed": store.closed, "spill_dir_removed": not os.path.exists(spill_dir),
+            }
+            emit(result)
+            check(passes[0]["bytes_spilled"] > 0, f"stream {result['run']}: the cold pass spilled")
+            check(all(p["bytes_loaded"] > 0 for p in passes),
+                  f"stream {result['run']}: every pass loaded")
+            check(all((p["prefetch_hits"] > 0) == (depth > 0) for p in passes),
+                  f"stream {result['run']} depth {depth}: prefetch hits iff prefetching")
+            check(store.stats.peak_resident_bytes <= 1.25 * hist_budget,
+                  f"stream {result['run']}: peak resident {store.stats.peak_resident_bytes} B "
+                  f"within 1.25 x the budget")
+            check(result["store_closed"] and result["spill_dir_removed"],
+                  f"stream {result['run']}: close() removed the spill directory")
+            out[(result["run"], depth)] = result
+
+        # -- k-means: one store, barriered (its first iteration is the cold
+        # pass), then pipelined
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        store = DiskStore(residency_bytes=km_budget, device=dev)
+        xd, ingest_s, _ = timed(lambda: x_km.to_store(store))
+        ex = StreamExecutor(prefetch_depth=depth)
+        runs = []
+        for pipelined in (False, True):
+            loaded0 = store.stats.bytes_loaded
+            res, wall, (_, nk) = timed(lambda: kmeans(
+                xd, k=KM_K, iters=STREAM_KM_ITERS, seed=seed, policy=km_pol, executor=ex,
+                pipeline=pipelined))
+            loaded = store.stats.bytes_loaded - loaded0  # this run's reads, exactly
+            counts, _, (_, nk_counts) = timed(lambda: km_counts(xd, res.centers, ex))
+            launched["partition_kmeans"] += nk + nk_counts
+            ref = local[("kmeans", pipelined)]
+            name = f"kmeans/spliter1_pallas{'/pipeline' if pipelined else ''}"
+            check(torch.equal(res.centers, ref["value"]),
+                  f"stream {name} depth {depth}: centers equal Local's bit for bit")
+            check(torch.equal(counts, ref["counts"]), f"stream {name} depth {depth}: counts equal")
+            check([_structural(r) for r in res.reports] == [_structural(r) for r in ref["reports"]],
+                  f"stream {name} depth {depth}: dispatches, merges, traces, bytes_moved and "
+                  f"granularity equal Local's")
+            check(nk == LOCATIONS * STREAM_KM_ITERS,
+                  f"stream {name}: one kernel launch per partition and iteration ({nk})")
+            overlapped = [r.overlapped_launches for r in res.reports]
+            if pipelined:
+                check(overlapped[0] == 0 and all(n > 0 for n in overlapped[1:]),
+                      f"stream {name} depth {depth}: iterations 2-{STREAM_KM_ITERS} "
+                      f"overlapped ({overlapped})")
+            io = _io_of(res.reports)
+            check(io["bytes_loaded"] > 0 and (io["prefetch_hits"] > 0) == (depth > 0),
+                  f"stream {name} depth {depth}: loads, and prefetch hits iff prefetching ({io})")
+            if not pipelined:
+                check(io["bytes_spilled"] > 0, f"stream {name}: the cold run spilled")
+            # A pipelined entry's report bills the store's counters from its
+            # drain's start to its finalization, which can follow the next
+            # entry's drain (as in the JAX package): the reports' sum then
+            # counts an iteration twice.  The rate uses the store's counters.
+            runs.append({"run": name, "wall_s": wall, "local_wall_s": ref["wall_s"],
+                         "iterations": STREAM_KM_ITERS, "launches": nk,
+                         "overlapped_launches": overlapped, "reports": io,
+                         "store_bytes_loaded": loaded, "load_gb_per_s": loaded / wall / 1e9})
+        spill_dir = store.spill_dir
+        ex.close()
+        memory = _stream_memory(base, km_budget, km_partition, "kmeans")
+        result = {
+            "phase": "stream", "run": "kmeans/spliter1_pallas", "policy": repr(km_pol),
+            "prefetch_depth": depth, "data_bytes": x_km.nbytes, "budget": km_budget,
+            "iterations": f"{STREAM_KM_ITERS} (cut from {KM_ITERS} for the time limit)",
+            "ingest_s": ingest_s, "runs": runs,
+            "gb_loaded": store.stats.bytes_loaded / 1e9,
+            "gb_spilled": store.stats.bytes_spilled / 1e9,
+            "peak_resident_bytes": store.stats.peak_resident_bytes,
+            "peak_resident_limit": 1.25 * km_budget, "device_memory": memory,
+            "store_closed": store.closed, "spill_dir_removed": not os.path.exists(spill_dir),
+        }
+        emit(result)
+        check(store.stats.peak_resident_bytes <= 1.25 * km_budget,
+              f"stream kmeans: peak resident {store.stats.peak_resident_bytes} B within "
+              f"1.25 x the budget")
+        check(result["store_closed"] and result["spill_dir_removed"],
+              "stream kmeans: close() removed the spill directory")
+        out[(result["run"], depth)] = result
+
+    # -- the pin hooks on a threaded backend: one pass over a DiskStore copy
+    store = DiskStore(residency_bytes=hist_budget, device=dev)
+    xd = x_hist.to_store(store)
+    with ThreadedExecutor() as ex:
+        (h, rep), wall, _ = timed(lambda: histogram(xd, bins=HIST_BINS,
+                                                    policy=hist_pols["spliter1_pallas"],
+                                                    executor=ex))
+    spill_dir = store.spill_dir
+    store.close()
+    emit({"phase": "stream", "run": "histogram/spliter1_pallas/threaded", "wall_s": wall,
+          **_io_of([rep]), "spill_dir_removed": not os.path.exists(spill_dir)})
+    check(torch.equal(h, local["spliter1_pallas"]["value"]),
+          "stream threaded histogram over a DiskStore equals Local's")
+    check(_structural(rep) == _structural(local["spliter1_pallas"]["cold"]),
+          "stream threaded histogram: structural columns equal Local's")
+    check(rep.bytes_loaded > 0 and not os.path.exists(spill_dir),
+          "stream threaded histogram loaded from disk, and its spill directory is gone")
+    emit({"phase": "stream", "stream_launches": launched})
+    check(all(n > 0 for n in launched.values()),
+          f"both partition kernels launched through the stream path: {launched}")
+    return launched
+
+
 KNN_D, KNN_K = 3, 8  # benchmarks/bench_knn.py:98
 KNN_FIT_BLOCK_ROWS, KNN_Q_BLOCKS, KNN_Q_BLOCK_ROWS = 8_192, 2, 512
 KNN_TOL = 1e-4
@@ -1343,6 +1589,9 @@ def main(argv=None) -> int:
     check(all(v > 0 for v in launches.values()), f"every kernel launched: {launches}")
     kernels = kernel_checks(x_hist, x_km, args.seed, launches, per_call)
     threaded_phase(x_hist, x_km, args.seed, args.repeats)
+    stream_launches = stream_phase(x_hist, x_km, args.seed, args.repeats)
+    for k in kernels:
+        k["stream_launches"] = stream_launches[k["name"]]
     launches["partition_histogram"] = value_histogram_phase(x_hist)
     x_values = torch.stack([x_hist.block(b) for b in x_hist.blocks_at(0)])
     del hist, km, means, label_counts, x_hist, x_km

@@ -12,10 +12,15 @@ The curated ``__all__`` below lists what this package has ported so far:
   :class:`TaskGraph` of placed, keyed :class:`Task` descriptors;
   :class:`LocalExecutor` schedules it sequentially, :class:`ThreadedExecutor`
   on a persistent worker thread per location (its ``execute_async``
-  overlaps consecutive submissions), and both report costs via
+  overlaps consecutive submissions), :class:`StreamExecutor` in plan order
+  with a prefetch thread that loads partition *k+1* while *k* computes
+  (out-of-core, DESIGN.md §10), and all report costs via
   :class:`~repro_torch.core.engine.EngineReport`.
-* The chunk tier's in-memory half: :class:`ChunkRef` handles resolved at
-  dispatch time, behind an :class:`InMemoryStore`.
+* The chunk tier: :class:`ChunkRef` handles resolved at dispatch time,
+  behind the :class:`ChunkStore` contract — an :class:`InMemoryStore`, or
+  a :class:`DiskStore` with a residency budget on the card that spills to
+  ``.npy`` files (evicting a pinned chunk raises
+  :class:`ChunkPinnedError`).
 * :class:`PartitionKernel` / :func:`register_partition_kernel` — the
   registry through which a ``map_blocks`` fn declares a fused partition
   kernel (one kernel launch per partition run).
@@ -24,7 +29,15 @@ The curated ``__all__`` below lists what this package has ported so far:
 """
 
 from repro_torch.api.autotune import Autotuner, CostModel, fit_cost_model
-from repro_torch.api.chunkstore import ChunkRef, InMemoryStore, resolve_chunk
+from repro_torch.api.chunkstore import (
+    ChunkPinnedError,
+    ChunkRef,
+    ChunkStore,
+    ChunkStoreError,
+    DiskStore,
+    InMemoryStore,
+    resolve_chunk,
+)
 from repro_torch.api.collection import Collection
 from repro_torch.api.executors import (
     ComputeResult,
@@ -53,6 +66,7 @@ from repro_torch.api.lowering import (
 from repro_torch.api.plan import ExecutionPlan, PlanError
 from repro_torch.api.policy import Baseline, ExecutionPolicy, Rechunk, SplIter, as_policy
 from repro_torch.api.profile import ProfileEvent, ProfileStore, TaskProfile
+from repro_torch.api.stream_executor import StreamExecutor
 
 __all__ = [
     "Collection",
@@ -63,9 +77,14 @@ __all__ = [
     "Executor",
     "LocalExecutor",
     "ThreadedExecutor",
+    "StreamExecutor",
     "inputs_signature",
     "ChunkRef",
+    "ChunkStore",
+    "ChunkStoreError",
+    "ChunkPinnedError",
     "InMemoryStore",
+    "DiskStore",
     "resolve_chunk",
     "PartitionView",
     "PrepareStats",

@@ -33,6 +33,13 @@ bytes) into the executor's :class:`~repro_torch.api.profile.ProfileStore`.
     operand reads) has completed, at most :attr:`_PlanExecutor.pipeline_depth`
     submissions in flight.
 
+:class:`~repro_torch.api.stream_executor.StreamExecutor` (its own module)
+streams chunk-backed inputs through a budgeted
+:class:`~repro_torch.api.chunkstore.DiskStore`.  Every unit runs between
+the core's resolve/release hooks (:meth:`_PlanExecutor._acquire_unit` /
+``_release_unit``), which pin an out-of-core backend's chunk operands
+while it dispatches.
+
 CUDA launches are asynchronous, so a unit's ``dispatch_s`` is the host-side
 launch overhead; ``execute`` synchronises the result's device before it
 stops its clock, so ``EngineReport.wall_s`` includes device time.  Every
@@ -430,6 +437,22 @@ class _PipelineEntry:
     finalized: bool = False
     result: ComputeResult | None = None
     store_marks: list = dataclasses.field(default_factory=list)
+    # Backend drive attachments (opaque to the core):
+    pending: Any = None      # StreamExecutor: this entry's pending unit deque
+    jobs: Any = None         # StreamExecutor: unit index -> prefetch job
+    draining: bool = False   # StreamExecutor: drain in progress/finished
+
+    def mark_stores(self, stores=None) -> None:
+        """(Re)snapshot the input stores' lifetime counters.
+
+        Pipelined report exactness for chunk I/O is *window-based*: the
+        entry bills the store-counter delta between this mark and its
+        finalization.  Backends that begin real I/O later than submit
+        (StreamExecutor drains entries in order) re-mark at drain start so
+        the window covers exactly this entry's streaming.
+        """
+        src = stores if stores is not None else [s for s, _ in self.store_marks]
+        self.store_marks = [(s, s.stats.snapshot()) for s in src]
 
 
 class _PlanExecutor:
@@ -628,9 +651,10 @@ class _PlanExecutor:
             policy=policy,
             tuner=tuner,
             t0=t0,
-            store_marks=[(st, st.stats.snapshot()) for st in chunk_stores(spec.inputs)],
         )
+        entry.mark_stores(chunk_stores(spec.inputs))
         fut._finalize = lambda: self._finalize_entry(entry)
+        fut._drive = lambda: self._drive_raw(entry)
 
         # Versioned keys: each partition this graph covers computes the
         # next version after its predecessor's (1 on first submission).
@@ -768,11 +792,25 @@ class _PlanExecutor:
             "does not implement _start_entry"
         )
 
+    def _drive_raw(self, entry: _PipelineEntry) -> None:
+        """Make progress until ``entry`` reaches raw completion (hook).
+
+        No-op by default: push-driven backends (ThreadedExecutor) complete
+        entries from their worker threads and waiters just block on the
+        state event.  Cooperative backends (StreamExecutor) override this
+        to drain queued entries on the calling thread.
+        """
+
+    def _drive_entry(self, entry: _PipelineEntry) -> None:
+        if not entry.state.done.is_set():
+            self._drive_raw(entry)
+            entry.state.done.wait()
+
     def _finalize_entry(self, entry: _PipelineEntry) -> ComputeResult:
         """The deferred half of ``execute()``: run exactly once per entry.
 
-        Waits for raw completion (worker threads complete entries; the
-        caller blocks on the state's event), then does the per-execute
+        Waits for raw completion (driving a cooperative backend, else
+        blocking on the state's event), then does the per-execute
         bookkeeping the synchronous path does behind its barrier — device
         sync, store window deltas, granularity stamp, tuner feedback,
         ``wall_s`` — and seals the entry's ComputeResult.  Raises the
@@ -781,7 +819,7 @@ class _PlanExecutor:
         if not entry.finalized:
             entry.finalized = True
             try:
-                entry.state.done.wait()
+                self._drive_entry(entry)
             finally:
                 try:
                     self._pipeline.remove(entry)
@@ -1089,6 +1127,32 @@ class _PlanExecutor:
             return state.results[merge_unit.index]
         return list(state.results)
 
+    def _acquire_unit(self, unit: _Unit) -> None:
+        """Resolve hook before dispatch: pin the unit's chunk operands.
+
+        Pins are refcounted eviction guards — while the unit runs, the
+        residency-budget eviction of its store(s) must not drop buffers the
+        ``operands()`` closure is about to (or did just) resolve.  Units of
+        non-chunked inputs, and every unit of a backend that is not
+        ``out_of_core``, carry no refs and the hook is free.
+        """
+        for task in unit.tasks:
+            for ref in task.chunk_refs:
+                ref.store.pin(ref)
+
+    def _release_unit(self, unit: _Unit) -> None:
+        """Release hook after dispatch: unpin, making the chunks evictable.
+
+        The unit's kernels may still be queued on the card when this runs;
+        what keeps their operands intact is the store's stream guard
+        (:class:`~repro_torch.api.chunkstore.DiskStore`, "Stream order"),
+        not the pin.  This unpin is what lets a streaming pass shed
+        partition *k* while *k+1* loads.
+        """
+        for task in unit.tasks:
+            for ref in task.chunk_refs:
+                ref.store.unpin(ref)
+
     def _run_unit(self, unit: _Unit, state: _SchedulerState) -> list[_Unit]:
         """Profiled execution of one ready unit; returns newly-ready units.
 
@@ -1103,12 +1167,16 @@ class _PlanExecutor:
 
     def _run_unit_inner(self, unit: _Unit, state: _SchedulerState) -> list[_Unit]:
         try:
-            t0 = time.perf_counter()
-            value = unit.run()
-            t1 = time.perf_counter()
-            if self.profile.sync:
-                value = _synchronize(value)
-            wall = time.perf_counter() - t0
+            self._acquire_unit(unit)
+            try:
+                t0 = time.perf_counter()
+                value = unit.run()
+                t1 = time.perf_counter()
+                if self.profile.sync:
+                    value = _synchronize(value)
+                wall = time.perf_counter() - t0
+            finally:
+                self._release_unit(unit)
             self.profile.record_tasks(
                 unit.tasks,
                 kind=unit.kind,
@@ -1162,10 +1230,11 @@ class _LocationWorker:
         self._thread.join(timeout=5.0)
 
 
-# Live worker-owning executors, closed at interpreter exit so pools that
-# were never close()d leave no thread that launched CUDA work alive into
-# the CUDA runtime's teardown.
-_LIVE_POOLS: "weakref.WeakSet[ThreadedExecutor]" = weakref.WeakSet()
+# Live thread-owning executors (ThreadedExecutor pools, StreamExecutor
+# prefetchers), closed at interpreter exit so executors that were never
+# close()d leave no thread that launched CUDA work alive into the CUDA
+# runtime's teardown.
+_LIVE_POOLS: "weakref.WeakSet[_PlanExecutor]" = weakref.WeakSet()
 
 
 def _close_live_pools() -> None:

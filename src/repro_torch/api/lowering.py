@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch._pytree import tree_map
+from repro_torch.api.chunkstore import ChunkRef
 from repro_torch.api.futures import resolve_deferred
 from repro_torch.api.kernels import PartitionKernel, partition_kernel_for
 from repro_torch.api.plan import MapReduceSpec
@@ -156,6 +157,13 @@ class Capabilities:
       prefer_pallas: under ``fusion="auto"`` pick the kernel when one is
         registered; :func:`lower` honours it only for a plan whose arrays
         lie on a CUDA device, where the hand-written kernel runs.
+      out_of_core: backend streams chunk-backed blocks under a residency
+        budget (StreamExecutor).  Lowering then attaches each task's
+        :class:`~repro_torch.api.chunkstore.ChunkRef` operands to the
+        descriptor (``Task.chunk_refs``) so the scheduler can
+        pin/prefetch/release them around dispatch without materializing
+        operands; non-streaming backends skip the bookkeeping (refs still
+        resolve lazily inside ``operands()``).
       remote: backend dispatches tasks to other processes.  Not supported
         by this package yet: :func:`lower` raises ``NotImplementedError``.
       pipelined: backend overlaps consecutive ``execute_async`` submissions
@@ -165,14 +173,14 @@ class Capabilities:
         ``execute_async`` as a synchronous execute returning an
         already-completed future — same results, no overlap.
 
-    The JAX package's ``grouped_dispatch``, ``out_of_core`` and
-    ``exporter`` capabilities arrive with the mesh, stream and cluster
-    backends that set them.
+    The JAX package's ``grouped_dispatch`` and ``exporter`` capabilities
+    arrive with the mesh and cluster backends that set them.
     """
 
     name: str = "local"
     pallas_fusion: bool = True
     prefer_pallas: bool = False
+    out_of_core: bool = False
     remote: bool = False
     pipelined: bool = False
 
@@ -267,6 +275,10 @@ class Task:
     #: ((shape, dtype_name), ...) of the per-task data operands — lets
     #: profiling size a task WITHOUT materializing operands.
     data_shapes: tuple = ()
+    #: store-held chunk refs this task's operands resolve — populated only
+    #: for out-of-core backends (``Capabilities.out_of_core``), which
+    #: pin/prefetch/release them around dispatch.
+    chunk_refs: tuple = ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -498,13 +510,22 @@ def lower(
     )
 
     if spec.kind == "map_partitions":
-        tasks = _lower_partition_views(spec, arrays, groups)
+        tasks = _lower_partition_views(spec, arrays, groups, caps)
     else:
         tasks = _lower_map_blocks(spec, arrays, groups, caps)
     return TaskGraph(tasks=tuple(tasks), merge=merge, spec=spec)
 
 
-def _lower_partition_views(spec, arrays, groups) -> list[Task]:
+def _refs_of(arrays, ids, caps: Capabilities) -> tuple:
+    """The chunk refs a task over ``ids`` resolves — out-of-core backends only."""
+    if not caps.out_of_core:
+        return ()
+    return tuple(
+        a.blocks[i] for a in arrays for i in ids if isinstance(a.blocks[i], ChunkRef)
+    )
+
+
+def _lower_partition_views(spec, arrays, groups, caps: Capabilities) -> list[Task]:
     tasks = []
     for g in groups:
         view = PartitionView(arrays=arrays, location=g.location, block_ids=g.block_ids)
@@ -519,6 +540,7 @@ def _lower_partition_views(spec, arrays, groups) -> list[Task]:
                 block_ids=g.block_ids,
                 n_data=1,
                 counted=False,
+                chunk_refs=_refs_of(arrays, g.block_ids, caps),
             )
         )
     return tasks
@@ -578,6 +600,7 @@ def _lower_map_blocks(spec, arrays, groups, caps: Capabilities) -> list[Task]:
                         block_ids=ids,
                         n_data=n_in,
                         kernel_name=kname,
+                        chunk_refs=_refs_of(arrays, ids, caps),
                         data_shapes=tuple(
                             (
                                 (len(ids), *a.blocks[ids[0]].shape),
@@ -606,6 +629,7 @@ def _lower_map_blocks(spec, arrays, groups, caps: Capabilities) -> list[Task]:
                     operands=operands,
                     block_ids=g.block_ids,
                     n_data=n_in,
+                    chunk_refs=_refs_of(arrays, g.block_ids, caps),
                     data_shapes=tuple(
                         (
                             (
@@ -640,6 +664,7 @@ def _lower_map_blocks(spec, arrays, groups, caps: Capabilities) -> list[Task]:
                     operands=operands,
                     block_ids=(b,),
                     n_data=n_in,
+                    chunk_refs=_refs_of(arrays, (b,), caps),
                     data_shapes=tuple(
                         (tuple(a.blocks[b].shape), dtype_name(a.blocks[b].dtype))
                         for a in arrays

@@ -79,6 +79,7 @@ DOCTEST_MODULES = [
     "repro_torch.api.kernels",
     "repro_torch.api.lowering",
     "repro_torch.api.policy",
+    "repro_torch.api.stream_executor",
 ]
 
 

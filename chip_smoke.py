@@ -68,6 +68,36 @@ read just after:
   beside Local's in-memory wall, GB loaded and spilled, and the load rate;
   the kernels line gives the launches of the StreamExecutor runs as
   ``stream_launches``.
+* ``mesh``: on the same data, both apps through ``engine("mesh")`` at one
+  rank (``cuda:0``) and at eight (``devices=(cuda:0,) * 8``: eight ranks on
+  the one card), beside a ``LocalExecutor``: the histogram under Baseline,
+  SplIter(1, scan), SplIter(1, pallas), SplIter(2) and Rechunk, k-means
+  under SplIter(1, pallas).  Histogram counts equal Local's exactly; k-means
+  counts equal, centers bit-identical where the mesh's fold has Local's
+  association (each line prints ``same_association_as_local``), within the
+  reference's 2e-4 elsewhere; one sharded dispatch per SplIter pass and per
+  k-means iteration; ``merges`` 0 and ``bytes_moved`` Local's at one rank,
+  ``merges`` 1 and Local's + 7 × the partial's bytes at eight (917,504 B a
+  histogram pass, 4,704 B a k-means iteration); kernel launches per pass
+  equal Local's; device memory rises in a pass by at most Local's rise +
+  4 MiB (nothing is stacked along the group axis).  Walls: medians of 3
+  warm passes beside Local's.  The value histogram runs once on an
+  eight-rank mesh, its ``partition_histogram`` kernel reached through the
+  partition-kernel registry: 8 launches, equal to ``histogram_ref``.
+* ``service``: through ``engine("server", server_backend="local"|"mesh")``:
+  two ``JobClient`` tenants, weights 2:1, run histogram passes and a
+  10-iteration k-means at the same width on an in-memory server, every
+  value equal to the direct Local call's bit for bit (the unit slots each
+  tenant took while both had work are printed); three histogram jobs per
+  tenant submitted before the scheduler starts, where the weight-2 tenant
+  must run twice the other's units, within two; a durable histogram job
+  (``root`` a temporary directory) with ``fsync`` on and off: the payload's
+  encoding, the submission (which journals the 671,088,640 B of blocks) and
+  the job's wall after it, beside the direct call's.  Last, a durable
+  histogram job on the ``local`` backend is ``kill()``ed after two units
+  and a fresh server resumes it: restored + recomputed units equal the
+  total, the value equals the direct call's, the inputs were rebuilt on
+  the card, and the resumed task units launched ``partition_histogramdd``.
 * ``value_histogram``: ``repro_torch.kernels.ops.partition_histogram`` (bins
   128) over each location's stacked partition of the histogram data; the
   summed counts must equal ``kernels.ref.histogram_ref`` bit for bit.
@@ -128,6 +158,10 @@ bits on a second launch, timed beside ``torch.histc`` as a yardstick).
 ``partition_kmeans`` must also give the same bits on a second launch.  Each
 kernel's entry gives its launches on its path's run and per call of its
 path.
+
+The kernels line gives each kernel's launches on the mesh and service runs
+as ``mesh_launches`` and ``service_launches`` (null for a kernel not on
+those paths).
 
 Output: the card's name and power limit (``nvidia-smi``) on the first line,
 the compiler's registers, stack, spills and shared memory per kernel (a
@@ -357,7 +391,7 @@ def make_data(seed: int, dev: torch.device):
 
 def main_path(x_hist, x_km, means, label_counts, seed: int, repeats: int) -> dict:
     """Both apps under every policy through the port's entry points."""
-    from repro_torch.api import Baseline, Collection, LocalExecutor, Rechunk, SplIter
+    from repro_torch.api import Baseline, Collection, Rechunk, SplIter, engine
     from repro_torch.core.apps.histogram import histogram
     from repro_torch.core.apps.kmeans import _combine, kmeans, partial_sum_block
     from repro_torch.kernels import partition_reduce as pr
@@ -374,7 +408,7 @@ def main_path(x_hist, x_km, means, label_counts, seed: int, repeats: int) -> dic
     hists, centers, counts, per_call = {}, {}, {}, {}
     partition_bytes = BLOCKS_PER_LOCATION * BLOCK_ROWS * HIST_D * 4
     for name, (pol, kernel_path) in policies.items():
-        with LocalExecutor() as ex:
+        with engine("local") as ex:
             h0, k0 = pr.partition_histogramdd.launches, pr.partition_kmeans.launches
             runs = []
             for i in range(1 + repeats):  # one warm-up, then timed runs
@@ -1039,7 +1073,7 @@ def _structural(report) -> tuple:
 def threaded_phase(x_hist, x_km, seed: int, repeats: int) -> dict:
     """Histogram and k-means on a ThreadedExecutor beside a LocalExecutor,
     barriered and (k-means) pipelined, on the main path's data."""
-    from repro_torch.api import Collection, LocalExecutor, SplIter, ThreadedExecutor
+    from repro_torch.api import Collection, SplIter, engine
     from repro_torch.core.apps.histogram import histogram
     from repro_torch.core.apps.kmeans import _combine, kmeans, partial_sum_block
     from repro_torch.kernels import partition_reduce as pr
@@ -1053,9 +1087,9 @@ def threaded_phase(x_hist, x_km, seed: int, repeats: int) -> dict:
     out = {}
     for name, (app, pol, pipelined) in runs.items():
         got = {}
-        for backend, factory in (("local", LocalExecutor), ("threaded", ThreadedExecutor)):
+        for backend in ("local", "threaded"):
             counter = pr.partition_histogramdd if app == "histogram" else pr.partition_kmeans
-            ex = factory()
+            ex = engine(backend)
             walls, launches = [], []
             for _ in range(1 + repeats):  # one warm-up, then timed runs
                 torch.cuda.synchronize()
@@ -1142,8 +1176,7 @@ def stream_phase(x_hist, x_km, seed: int, repeats: int) -> dict:
     budget is a quarter of the data, on a ``StreamExecutor`` with
     ``prefetch_depth`` 1 and 0, against a ``LocalExecutor`` on the in-memory
     data.  Returns the kernel launches of the StreamExecutor runs."""
-    from repro_torch.api import (Collection, DiskStore, LocalExecutor, SplIter,
-                                 StreamExecutor, ThreadedExecutor)
+    from repro_torch.api import Collection, DiskStore, SplIter, engine
     from repro_torch.core.apps.histogram import histogram
     from repro_torch.core.apps.kmeans import _combine, kmeans, partial_sum_block
     from repro_torch.kernels import partition_reduce as pr
@@ -1173,12 +1206,12 @@ def stream_phase(x_hist, x_km, seed: int, repeats: int) -> dict:
     # -- the LocalExecutor on the in-memory data: values, reports, walls ----
     local = {}
     for name, pol in hist_pols.items():
-        with LocalExecutor() as ex:
+        with engine("local") as ex:
             runs = [timed(lambda: histogram(x_hist, bins=HIST_BINS, policy=pol, executor=ex))
                     for _ in range(1 + STREAM_WARM_PASSES)]
         local[name] = {"value": runs[0][0][0], "cold": runs[0][0][1], "warm": runs[-1][0][1],
                        "wall_s": statistics.median(w for _, w, _ in runs[1:])}
-    with LocalExecutor() as ex:
+    with engine("local") as ex:
         for pipelined in (False, True):
             runs = [timed(lambda: kmeans(x_km, k=KM_K, iters=STREAM_KM_ITERS, seed=seed,
                                          policy=km_pol, executor=ex, pipeline=pipelined))
@@ -1198,7 +1231,7 @@ def stream_phase(x_hist, x_km, seed: int, repeats: int) -> dict:
             base = torch.cuda.memory_allocated()
             store = DiskStore(residency_bytes=hist_budget, device=dev)
             xd, ingest_s, _ = timed(lambda: x_hist.to_store(store))
-            ex = StreamExecutor(prefetch_depth=depth)
+            ex = engine("stream", prefetch_depth=depth)
             passes = []
             for i in range(1 + STREAM_WARM_PASSES):
                 (h, rep), wall, (nh, _) = timed(
@@ -1250,7 +1283,7 @@ def stream_phase(x_hist, x_km, seed: int, repeats: int) -> dict:
         base = torch.cuda.memory_allocated()
         store = DiskStore(residency_bytes=km_budget, device=dev)
         xd, ingest_s, _ = timed(lambda: x_km.to_store(store))
-        ex = StreamExecutor(prefetch_depth=depth)
+        ex = engine("stream", prefetch_depth=depth)
         runs = []
         for pipelined in (False, True):
             loaded0 = store.stats.bytes_loaded
@@ -1313,7 +1346,7 @@ def stream_phase(x_hist, x_km, seed: int, repeats: int) -> dict:
     # -- the pin hooks on a threaded backend: one pass over a DiskStore copy
     store = DiskStore(residency_bytes=hist_budget, device=dev)
     xd = x_hist.to_store(store)
-    with ThreadedExecutor() as ex:
+    with engine("threaded") as ex:
         (h, rep), wall, _ = timed(lambda: histogram(xd, bins=HIST_BINS,
                                                     policy=hist_pols["spliter1_pallas"],
                                                     executor=ex))
@@ -1330,6 +1363,478 @@ def stream_phase(x_hist, x_km, seed: int, repeats: int) -> dict:
     emit({"phase": "stream", "stream_launches": launched})
     check(all(n > 0 for n in launched.values()),
           f"both partition kernels launched through the stream path: {launched}")
+    return launched
+
+
+#: the mesh phase's ranks: one card as one rank, and as eight (the JAX
+#: package's tests force 8 host devices; here eight ranks share cuda:0)
+MESH_RANKS = (1, 8)
+#: how far a mesh pass may raise device memory above Local's same pass: the
+#: rank partials and their gathered copies (8 x 131,072 B for the histogram)
+MESH_MEMORY_SLACK = 4 * 2**20
+#: the reference's mesh tolerance for k-means centers (tests/test_api.py:427)
+MESH_TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+def value_histogram_block(block, *, bins: int, lo: float, hi: float):
+    """The value histogram of one block: the plain fold the registry's
+    ``partition_histogram`` kernel replaces on the mesh phase's run."""
+    from repro_torch.kernels.ref import histogram_ref
+
+    return histogram_ref(block, bins=bins, lo=lo, hi=hi)
+
+
+def _value_histogram_kernel(args: tuple, kwargs: dict):
+    from repro_torch.api.kernels import PartitionKernel
+    from repro_torch.kernels.partition_reduce import partition_histogram
+
+    if args or set(kwargs) != {"bins", "lo", "hi"}:
+        return None
+    bins, lo, hi = kwargs["bins"], kwargs["lo"], kwargs["hi"]
+    return PartitionKernel(
+        name="partition_histogram", key=("value_hist", bins, lo, hi),
+        # the kernel takes the stacked partition, as the value histogram
+        # phase passes it: a copy of the partition's blocks per launch
+        fn=lambda blocks: partition_histogram(torch.stack(list(blocks)), bins=bins, lo=lo,
+                                              hi=hi),
+        supports=lambda stacked_shape, extra_args: not extra_args)
+
+
+def _fold_tree(groups) -> tuple:
+    """The association of a fold: each group chained left to right, then
+    the groups' values chained in group order."""
+    def chain(xs):
+        xs = list(xs)
+        acc = xs[0]
+        for x in xs[1:]:
+            acc = (acc, x)
+        return acc
+
+    return chain(chain(g) for g in groups)
+
+
+def same_association(locations: list[int], ranks: int) -> bool:
+    """Whether the mesh folds one run of task partials (at ``locations``, in
+    plan order) as LocalExecutor's merge does: Local chains each location's
+    partials, then the locations (``fold_plan``); the mesh chains each
+    rank's contiguous share, then the ranks.  Where the two trees agree,
+    float partials give the same bits."""
+    from repro_torch.api import MeshExecutor
+    from repro_torch.api.lowering import fold_plan
+
+    local = _fold_tree(m for _, m in fold_plan(enumerate(locations)))
+    n = len(locations)
+    m = MeshExecutor._axis_size(n, ranks)
+    share = n // m
+    return local == _fold_tree(range(r * share, (r + 1) * share) for r in range(m))
+
+
+def _peak_rise(run) -> tuple:
+    """``run()``'s result and how far it raised the allocated device memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = run()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def mesh_phase(x_hist, x_km, seed: int, repeats: int) -> dict:
+    """Both apps on ``engine("mesh")`` at one and eight ranks on the card,
+    beside a LocalExecutor on the same data; the value histogram once on the
+    mesh through the registry.  Returns the kernel launches of the mesh runs."""
+    import functools
+
+    from repro_torch.api import (Baseline, Collection, Rechunk, SplIter, engine,
+                                 register_partition_kernel)
+    from repro_torch.core.apps.histogram import histogram, histogramdd_block
+    from repro_torch.core.apps.kmeans import _combine, kmeans, partial_sum_block
+    from repro_torch.kernels import partition_reduce as pr
+    from repro_torch.kernels.ref import histogram_ref
+
+    dev = x_hist.device
+    hist_fn = functools.partial(histogramdd_block, bins=HIST_BINS, lo=0.0, hi=1.0)
+    reset_launches()  # the phase's launches: counted from 0, read at its end
+    launched = {"partition_histogram": 0, "partition_histogramdd": 0, "partition_kmeans": 0}
+    hist_partial = HIST_BINS**HIST_D * 4
+    km_partial = (KM_K * KM_D + KM_K) * 4
+    policies = {"baseline": Baseline(), "spliter1_scan": SplIter(1, fusion="scan"),
+                "spliter1_pallas": SplIter(1, fusion="pallas"), "spliter2": SplIter(2),
+                "rechunk": Rechunk()}
+
+    def hist_runs(ex, pol):
+        runs = []
+        for i in range(1 + repeats):  # one warm-up, then timed passes
+            def one():
+                torch.cuda.synchronize()
+                c0, t0 = pr.partition_histogramdd.launches, time.perf_counter()
+                h, rep = histogram(x_hist, bins=HIST_BINS, policy=pol, executor=ex)
+                torch.cuda.synchronize()
+                return h, rep, time.perf_counter() - t0, pr.partition_histogramdd.launches - c0
+            out, rise = _peak_rise(one)
+            runs.append((*out, rise))
+        return runs
+
+    def km_runs(ex, pol):
+        runs = []
+        for _ in range(1 + repeats):
+            def one():
+                torch.cuda.synchronize()
+                c0, t0 = pr.partition_kmeans.launches, time.perf_counter()
+                res = kmeans(x_km, k=KM_K, iters=KM_ITERS, seed=seed, policy=pol, executor=ex)
+                torch.cuda.synchronize()
+                return res, time.perf_counter() - t0, pr.partition_kmeans.launches - c0
+            out, rise = _peak_rise(one)
+            runs.append((*out, rise))
+        c0 = pr.partition_kmeans.launches
+        counts = (Collection.from_blocked(x_km).split(pol)
+                  .map_blocks(partial_sum_block, extra_args=(runs[-1][0].centers,))
+                  .reduce(_combine).compute(executor=ex).value[1])
+        return runs, counts, pr.partition_kmeans.launches - c0
+
+    # one executor per backend for the whole phase; each policy runs on Local
+    # and then on each mesh back to back, so that the walls compare within
+    # a few seconds of each other
+    km_pol = SplIter(1, fusion="pallas")
+    executors = {"local": engine("local")}
+    executors.update({ranks: engine("mesh", devices=(dev,) * ranks) for ranks in MESH_RANKS})
+    hist = {name: {k: hist_runs(ex, pol) for k, ex in executors.items()}
+            for name, pol in policies.items()}
+    kms = {k: km_runs(ex, km_pol) for k, ex in executors.items()}
+    # each plan's task locations, in plan order: what decides the fold's association
+    lower = executors["local"].lower
+    locations = {name: [t.location for t in lower(
+        Collection.from_blocked(x_hist).split(pol).map_blocks(hist_fn)
+        .reduce(torch.add).plan()).tasks] for name, pol in policies.items()}
+    local_km, local_counts, _ = kms["local"]
+    km_locations = [t.location for t in lower(
+        Collection.from_blocked(x_km).split(km_pol)
+        .map_blocks(partial_sum_block, extra_args=(local_km[0][0].centers,))
+        .reduce(_combine).plan()).tasks]
+    for ex in executors.values():
+        ex.close()
+
+    for ranks in MESH_RANKS:
+        devices = (dev,) * ranks
+        rows = []
+        for name, pol in policies.items():
+            runs, ref = hist[name][ranks], hist[name]["local"]
+            launched["partition_histogramdd"] += sum(r[3] for r in runs)
+            same = same_association(locations[name], ranks)
+            row = {"policy": name, "tasks": len(locations[name]),
+                   "same_association_as_local": same,
+                   "dispatches": [r[1].dispatches for r in runs],
+                   "local_dispatches": ref[-1][1].dispatches,
+                   "merges": runs[-1][1].merges, "traces": runs[0][1].traces,
+                   "bytes_moved": [r[1].bytes_moved for r in runs],
+                   "launches_per_pass": runs[-1][3], "local_launches_per_pass": ref[-1][3],
+                   "wall_s": statistics.median(r[2] for r in runs[1:]),
+                   "local_wall_s": statistics.median(r[2] for r in ref[1:]),
+                   "peak_memory_rise": runs[-1][4], "local_peak_memory_rise": ref[-1][4]}
+            rows.append(row)
+            what = f"mesh {ranks} rank(s) histogram/{name}"
+            check(all(torch.equal(r[0], q[0]) for r, q in zip(runs, ref)),
+                  f"{what}: counts equal Local's")
+            if isinstance(pol, SplIter):
+                check(all(r[1].dispatches == 1 for r in runs),
+                      f"{what}: one sharded dispatch per pass ({row['dispatches']})")
+            moved = (ranks - 1) * hist_partial if ranks > 1 else 0
+            check(all(r[1].merges == (1 if ranks > 1 else 0)
+                      and r[1].bytes_moved == q[1].bytes_moved + moved
+                      and r[1].granularity == q[1].granularity for r, q in zip(runs, ref)),
+                  f"{what}: merges {int(ranks > 1)} and bytes_moved Local's + {moved} B "
+                  f"({[(r[1].merges, r[1].bytes_moved) for r in runs]})")
+            check([r[3] for r in runs] == [q[3] for q in ref],
+                  f"{what}: kernel launches per pass equal Local's "
+                  f"({[r[3] for r in runs]} / {[q[3] for q in ref]})")
+            check(runs[-1][4] <= ref[-1][4] + MESH_MEMORY_SLACK,
+                  f"{what}: device memory rose {runs[-1][4]} B in a pass, Local's "
+                  f"{ref[-1][4]} B + {MESH_MEMORY_SLACK} B at most (no group-axis copy)")
+
+        runs, counts, counts_launches = kms[ranks]
+        launched["partition_kmeans"] += sum(r[2] for r in runs) + counts_launches
+        same = same_association(km_locations, ranks)
+        km = runs[-1][0]
+        row = {"policy": "kmeans/spliter1_pallas", "iterations": KM_ITERS,
+               "same_association_as_local": same,
+               "dispatches": [r.dispatches for r in km.reports],
+               "merges": [r.merges for r in km.reports],
+               "bytes_moved": [r.bytes_moved for r in km.reports],
+               "launches_per_run": runs[-1][2], "local_launches_per_run": local_km[-1][2],
+               "wall_s": statistics.median(r[1] for r in runs[1:]),
+               "local_wall_s": statistics.median(r[1] for r in local_km[1:]),
+               "peak_memory_rise": runs[-1][3], "local_peak_memory_rise": local_km[-1][3],
+               "max_center_diff": float((km.centers - local_km[-1][0].centers).abs().max())}
+        rows.append(row)
+        what = f"mesh {ranks} rank(s) kmeans"
+        check(torch.equal(counts, local_counts), f"{what}: counts equal Local's")
+        for r, q in zip(runs, local_km):
+            if same:
+                check(torch.equal(r[0].centers, q[0].centers),
+                      f"{what}: centers bit-identical to Local's (same association)")
+            else:
+                check(torch.allclose(r[0].centers, q[0].centers, **MESH_TOL),
+                      f"{what}: centers within 2e-4 of Local's")
+        moved = (ranks - 1) * km_partial if ranks > 1 else 0
+        check(all([x.dispatches for x in r[0].reports] == [1] * KM_ITERS
+                  and all(x.merges == int(ranks > 1) and x.bytes_moved == moved
+                          for x in r[0].reports) for r in runs),
+              f"{what}: one sharded dispatch per iteration, merges {int(ranks > 1)} and "
+              f"{moved} B moved per iteration")
+        check([r[2] for r in runs] == [q[2] for q in local_km] == [KM_ITERS * LOCATIONS] *
+              len(runs), f"{what}: {KM_ITERS * LOCATIONS} kernel launches per run, as Local")
+        check(runs[-1][3] <= local_km[-1][3] + MESH_MEMORY_SLACK,
+              f"{what}: device memory rose {runs[-1][3]} B in a run, Local's "
+              f"{local_km[-1][3]} B + {MESH_MEMORY_SLACK} B at most")
+        emit({"phase": "mesh", "ranks": ranks, "devices": [str(d) for d in devices],
+              "rows": rows})
+
+    # the value histogram once on the mesh, its kernel reached through the registry
+    register_partition_kernel(value_histogram_block, _value_histogram_kernel)
+    fn = functools.partial(value_histogram_block, bins=VALUE_BINS, lo=0.0, hi=1.0)
+    with engine("mesh", devices=(dev,) * LOCATIONS) as ex:
+        torch.cuda.synchronize()
+        c0, t0 = pr.partition_histogram.launches, time.perf_counter()
+        res = (Collection.from_blocked(x_hist).split(SplIter(1, fusion="pallas"))
+               .map_blocks(fn).reduce(torch.add).compute(executor=ex))
+        torch.cuda.synchronize()
+        wall, n = time.perf_counter() - t0, pr.partition_histogram.launches - c0
+    launched["partition_histogram"] += n
+    want = histogram_ref(x_hist.collect(), bins=VALUE_BINS, lo=0.0, hi=1.0)
+    emit({"phase": "mesh", "run": "value_histogram", "ranks": LOCATIONS, "bins": VALUE_BINS,
+          "wall_s": wall, "launches": n, "dispatches": res.report.dispatches,
+          "bytes_moved": res.report.bytes_moved})
+    check(n == LOCATIONS, f"mesh value histogram: one partition_histogram launch a partition ({n})")
+    check(torch.equal(res.value, want), "mesh value histogram equals histogram_ref bit for bit")
+    check(res.report.bytes_moved == (LOCATIONS - 1) * VALUE_BINS * 4,
+          "mesh value histogram: (8 - 1) partials of 128 f32 moved")
+    emit({"phase": "mesh", "mesh_launches": launched})
+    # the counters, set to 0 at the phase's start, hold the mesh runs'
+    # launches and those of the Local runs beside them
+    local = {"partition_histogram": 0,
+             "partition_histogramdd": sum(r[3] for runs in hist.values() for r in runs["local"]),
+             "partition_kmeans": sum(r[2] for r in kms["local"][0]) + kms["local"][2]}
+    counts = read_launches()
+    check(counts == {**{k: launched[k] + local[k] for k in launched}, "flash_attention": 0,
+                     "ssd_scan": 0},
+          f"mesh: the counters equal the mesh runs' and Local's launches ({counts})")
+    return launched
+
+
+#: the service phase's durable submissions (each journals the histogram's
+#: 671,088,640 B of blocks): one killed and resumed job, and one per backend
+#: and fsync setting for the timing
+SERVICE_WATCHDOG_S = 300.0
+
+
+def _watch(server, predicate, *, stop: bool = False):
+    """An event set the first time ``predicate(job, kind)`` holds for a
+    lifecycle event the server emits.  With ``stop`` the scheduler stops
+    right there, on its own thread, so the next ``kill()`` finds exactly
+    that state."""
+    import threading
+
+    hit = threading.Event()
+    emit_ = server._emit
+
+    def watched(job, kind, detail="", completed=0, total=0):
+        emit_(job, kind, detail, completed, total)
+        if not hit.is_set() and predicate(job, kind):
+            if stop:
+                server._stop.set()
+            hit.set()
+
+    server._emit = watched
+    return hit
+
+
+def service_phase(x_hist, x_km, seed: int, repeats: int) -> dict:
+    """The job service on the card: two weighted tenants multiplexed onto
+    one pool, stride fairness, a durable job killed and resumed, and the
+    journal's cost.  Returns the kernel launches of the server runs."""
+    import functools
+    import operator
+    import tempfile
+    import threading
+
+    from repro_torch.api import Collection, JobClient, JobServer, SplIter, engine
+    from repro_torch.core.apps.histogram import histogram, histogramdd_block
+    from repro_torch.core.apps.kmeans import kmeans
+    from repro_torch.kernels import partition_reduce as pr
+
+    pol = SplIter(1, fusion="pallas")
+    mesh = (x_hist.device,)  # the mesh backend's one rank: the card the data is on
+    reset_launches()  # the phase's launches: counted from 0, read at its end
+    launched = {"partition_histogramdd": 0, "partition_kmeans": 0}
+    hist_fn = functools.partial(histogramdd_block, bins=HIST_BINS, lo=0.0, hi=1.0)
+    # operator.add, not torch.add: a builtin of torch has no importable
+    # reference, and a durable job's combine must have one
+    plan = (Collection.from_blocked(x_hist).split(pol).map_blocks(hist_fn)
+            .reduce(operator.add).plan())
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        value = fn()
+        torch.cuda.synchronize()
+        return value, time.perf_counter() - t0
+
+    def counted(fn):
+        h0, k0 = pr.partition_histogramdd.launches, pr.partition_kmeans.launches
+        out = fn()
+        launched["partition_histogramdd"] += pr.partition_histogramdd.launches - h0
+        launched["partition_kmeans"] += pr.partition_kmeans.launches - k0
+        return out
+
+    # direct calls on a LocalExecutor: the values every server run must give
+    h0, k0 = pr.partition_histogramdd.launches, pr.partition_kmeans.launches
+    with engine("local") as ex:
+        runs = [synced(lambda: histogram(x_hist, bins=HIST_BINS, policy=pol, executor=ex)[0])
+                for _ in range(1 + repeats)]
+        ref_h, direct_hist_s = runs[0][0], statistics.median(w for _, w in runs[1:])
+        runs = [synced(lambda: kmeans(x_km, k=KM_K, iters=KM_ITERS, seed=seed, policy=pol,
+                                      executor=ex)) for _ in range(1 + repeats)]
+        ref_k, direct_km_s = runs[0][0], statistics.median(w for _, w in runs[1:])
+    direct = {"partition_histogramdd": pr.partition_histogramdd.launches - h0,
+              "partition_kmeans": pr.partition_kmeans.launches - k0}
+
+    for backend in ("local", "mesh"):
+        # -- two tenants, weights 2:1: histogram passes and a k-means run ---
+        srv = engine("server", server_backend=backend, devices=mesh, autostart=False)
+        hist_client = JobClient(srv, tenant="histogram", weight=2)
+        km_client = JobClient(srv, tenant="kmeans", weight=1)
+        got = {}
+
+        def run_hist():
+            got["h"] = [histogram(x_hist, bins=HIST_BINS, policy=pol, executor=hist_client)[0]
+                        for _ in range(repeats)]
+
+        def run_km():
+            got["k"] = kmeans(x_km, k=KM_K, iters=KM_ITERS, seed=seed, policy=pol,
+                              executor=km_client)
+
+        tenants = set()
+        queued = _watch(srv, lambda job, kind: kind == "queued" and (
+            tenants.add(job.tenant) or len(tenants) == 2))
+        threads = [threading.Thread(target=run_hist), threading.Thread(target=run_km)]
+
+        def both():
+            for t in threads:
+                t.start()
+            check(queued.wait(SERVICE_WATCHDOG_S), "service: both tenants admitted")
+            srv.start()
+            for t in threads:
+                t.join(SERVICE_WATCHDOG_S)
+            check(not any(t.is_alive() for t in threads), "service: both tenants finished")
+
+        _, wall = synced(lambda: counted(both))
+        srv.close()
+        check(all(torch.equal(h, ref_h) for h in got["h"]),
+              f"service/{backend}: every histogram equals the direct Local call's")
+        check(torch.equal(got["k"].centers, ref_k.centers),
+              f"service/{backend}: k-means centers equal the direct Local run's bit for bit")
+        owners = [srv._jobs[e.job_id].tenant for e in srv.event_log
+                  if e.kind in ("running", "merged") and e.total]
+        # the window in which both tenants had work: up to the first one's last unit
+        last = {t: len(owners) - 1 - owners[::-1].index(t) for t in set(owners)}
+        window = owners[:min(last.values()) + 1]
+        slots = {t: window.count(t) for t in ("histogram", "kmeans")}
+        two = {"phase": "service", "backend": backend, "run": "two_tenants",
+               "weights": {"histogram": 2, "kmeans": 1}, "histogram_passes": repeats,
+               "kmeans_iterations": KM_ITERS, "jobs": len(srv.jobs()), "wall_s": wall,
+               "direct_wall_s": repeats * direct_hist_s + direct_km_s,
+               "unit_slots_while_both_open": slots,
+               "slot_ratio": slots["histogram"] / max(slots["kmeans"], 1),
+               "job_walls_s": {t: [j.report.wall_s for j in srv.jobs() if j.tenant == t]
+                               for t in ("histogram", "kmeans")}}
+        emit(two)
+
+        # -- stride fairness: three jobs each, submitted before the start ---
+        srv = engine("server", server_backend=backend, devices=mesh, autostart=False)
+        heavy = [srv.submit(plan, tenant="heavy", weight=2) for _ in range(3)]
+        light = [srv.submit(plan, tenant="light", weight=1) for _ in range(3)]
+        counted(lambda: (srv.start(), [srv.wait(j, SERVICE_WATCHDOG_S) for j in heavy + light]))
+        srv.close()
+        check(all(torch.equal(j.result, ref_h) for j in heavy + light),
+              f"service/{backend}: fairness jobs equal the direct call's")
+        owners = [srv._jobs[e.job_id].tenant for e in srv.event_log
+                  if e.kind in ("running", "merged") and e.total]
+        window = owners[:len(owners) - 1 - owners[::-1].index("heavy") + 1]
+        h, l_ = window.count("heavy"), window.count("light")
+        fair = {"phase": "service", "backend": backend, "run": "fairness",
+                "units_per_job": heavy[0].total_units, "heavy_units": h,
+                "light_units_meanwhile": l_}
+        emit(fair)
+        check(abs(h - 2 * l_) <= 2,
+              f"service/{backend}: weight 2 ran twice weight 1's units while both were open "
+              f"({h} / {l_})")
+
+        # -- the journal's cost: one durable job with fsync on and off -------
+        timing = []
+        for fsync in (True, False):
+            with tempfile.TemporaryDirectory() as root:
+                (_, encode_s) = synced(lambda: JobServer._encode_payload(plan.spec))
+                srv = engine("server", server_backend=backend, devices=mesh, root=root,
+                             fsync=fsync)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                job = srv.submit(plan, tenant="t")
+                submit_s = time.perf_counter() - t0
+                value, run_s = synced(lambda: counted(
+                    lambda: srv.wait(job, SERVICE_WATCHDOG_S).value))
+                journal_bytes = os.path.getsize(os.path.join(root, "journal.bin"))
+                srv.close()
+            check(torch.equal(value, ref_h), f"service/{backend} fsync={fsync}: value exact")
+            timing.append({"fsync": fsync, "encode_payload_s": encode_s, "submit_s": submit_s,
+                           "job_wall_after_submit_s": run_s, "direct_wall_s": direct_hist_s,
+                           "journal_bytes": journal_bytes, "units": job.total_units})
+        emit({"phase": "service", "backend": backend, "run": "durable_job", "timing": timing})
+
+    # -- a durable histogram job killed after two units, resumed by a fresh server
+    with tempfile.TemporaryDirectory() as root:
+        srv = engine("server", server_backend="local", root=root, snapshot_every=2,
+                     autostart=False)
+        job = srv.submit(plan, tenant="alice")
+        reached = _watch(srv, lambda j, kind: kind == "running" and j.recomputed_units >= 2,
+                         stop=True)
+        counted(lambda: (srv.start(), reached.wait(SERVICE_WATCHDOG_S)))
+        check(reached.is_set(), "service: the durable job ran two units")
+        srv.kill()
+        done_at_kill = job.recomputed_units
+        check(job.status == "running" and done_at_kill < job.total_units,
+              f"service: killed mid-job ({job.status}, {done_at_kill}/{job.total_units})")
+        h0 = pr.partition_histogramdd.launches
+        srv2, restart_s = synced(lambda: engine("server", server_backend="local", root=root))
+        job2 = srv2.jobs()[0]
+        value, resume_s = synced(lambda: srv2.wait(job2, SERVICE_WATCHDOG_S).value)
+        resumed_launches = pr.partition_histogramdd.launches - h0
+        launched["partition_histogramdd"] += resumed_launches
+        srv2.close()
+    resumed = {"phase": "service", "run": "kill_and_resume", "total_units": job2.total_units,
+               "done_at_kill": done_at_kill, "restored_units": job2.restored_units,
+               "recomputed_units": job2.recomputed_units, "resumed_launches": resumed_launches,
+               "inputs_device": str(job2.spec.inputs[0].device), "value_device": str(value.device),
+               "restart_s": restart_s, "resume_s": resume_s}
+    emit(resumed)
+    check(srv2.resumed_jobs == 1 and job2.restored_units == done_at_kill,
+          "service: the restart restored the journaled units")
+    check(job2.restored_units + job2.recomputed_units == job2.total_units,
+          "service: restored + recomputed units = total units")
+    check(torch.equal(value, ref_h), "service: the resumed job's value equals the direct call's")
+    check(job2.spec.inputs[0].device.type == "cuda" and value.is_cuda,
+          "service: the resumed job's inputs were rebuilt on the card")
+    # every recomputed unit but the merge is a task: one kernel launch each
+    check(resumed_launches == job2.recomputed_units - 1 > 0,
+          f"service: the resumed units launched partition_histogramdd on the card "
+          f"({resumed_launches} for {job2.recomputed_units - 1} task units)")
+    emit({"phase": "service", "service_launches": launched})
+    counts = read_launches()
+    check(counts == {**{k: launched[k] + direct[k] for k in launched},
+                     "partition_histogram": 0, "flash_attention": 0, "ssd_scan": 0},
+          f"service: the counters, set to 0 at the phase's start, equal the server runs' "
+          f"and the direct calls' launches ({counts})")
+    check(all(n > 0 for n in launched.values()),
+          f"both partition kernels launched through the service: {launched}")
     return launched
 
 
@@ -1365,7 +1870,7 @@ def knn_phase(seed: int, dev: torch.device) -> dict:
     """kNN at the bench's width under four policies on both executors."""
     import numpy as np
 
-    from repro_torch.api import Baseline, LocalExecutor, Rechunk, SplIter, ThreadedExecutor
+    from repro_torch.api import Baseline, Rechunk, SplIter, engine
     from repro_torch.core.apps import knn
     from repro_torch.core.blocked import BlockedArray, round_robin_placement
 
@@ -1385,8 +1890,8 @@ def knn_phase(seed: int, dev: torch.device) -> dict:
                 "rechunk": Rechunk()}
     results, rows = {}, []
     for pname, pol in policies.items():
-        for backend, factory in (("local", LocalExecutor), ("threaded", ThreadedExecutor)):
-            with factory() as ex:
+        for backend in ("local", "threaded"):
+            with engine(backend) as ex:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 r = knn(fit, queries, k=KNN_K, policy=pol, executor=ex)
@@ -1453,7 +1958,7 @@ def svm_phase(seed: int, dev: torch.device) -> dict:
     """Cascade SVM at the bench's full mode on both executors."""
     import numpy as np
 
-    from repro_torch.api import Baseline, LocalExecutor, Rechunk, SplIter, ThreadedExecutor
+    from repro_torch.api import Baseline, Rechunk, SplIter, engine
     from repro_torch.core.apps import cascade_svm
     from repro_torch.core.blocked import BlockedArray, round_robin_placement
 
@@ -1470,8 +1975,8 @@ def svm_phase(seed: int, dev: torch.device) -> dict:
     rows, dispatches = [], {}
     for pname, pol in policies.items():
         got = {}
-        for backend, factory in (("local", LocalExecutor), ("threaded", ThreadedExecutor)):
-            with factory() as ex:
+        for backend in ("local", "threaded"):
+            with engine(backend) as ex:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 r = cascade_svm(x, y, num_sv=SVM_NUM_SV, steps=SVM_STEPS,
@@ -1590,6 +2095,8 @@ def main(argv=None) -> int:
     kernels = kernel_checks(x_hist, x_km, args.seed, launches, per_call)
     threaded_phase(x_hist, x_km, args.seed, args.repeats)
     stream_launches = stream_phase(x_hist, x_km, args.seed, args.repeats)
+    mesh_launches = mesh_phase(x_hist, x_km, args.seed, args.repeats)
+    service_launches = service_phase(x_hist, x_km, args.seed, args.repeats)
     for k in kernels:
         k["stream_launches"] = stream_launches[k["name"]]
     launches["partition_histogram"] = value_histogram_phase(x_hist)
@@ -1611,6 +2118,9 @@ def main(argv=None) -> int:
     svm_phase(args.seed, dev)
     torch.cuda.empty_cache()
     kernels += lm_kernel_checks(args.seed, dev, x_values, launches)
+    for k in kernels:  # launches on the mesh and service paths (None: not on them)
+        k["mesh_launches"] = mesh_launches.get(k["name"])
+        k["service_launches"] = service_launches.get(k["name"])
     check(len(kernels) == 5 and all(k["launches"] > 0 for k in kernels),
           f"every kernel launched on its path: {launches}")
     check(launches["flash_attention_split"] > 0 and launches["split_kv"] > 0,

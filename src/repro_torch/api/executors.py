@@ -40,6 +40,12 @@ the core's resolve/release hooks (:meth:`_PlanExecutor._acquire_unit` /
 ``_release_unit``), which pin an out-of-core backend's chunk operands
 while it dispatches.
 
+:class:`~repro_torch.api.mesh_executor.MeshExecutor` (its own module) turns
+each same-signature run of tasks into ONE ``"sharded"`` unit folded rank by
+rank over a list of devices (DESIGN.md §5.4).  Every backend is built
+through :func:`repro_torch.api.engine`; a direct constructor call still
+works and emits a ``DeprecationWarning``.
+
 CUDA launches are asynchronous, so a unit's ``dispatch_s`` is the host-side
 launch overhead; ``execute`` synchronises the result's device before it
 stops its clock, so ``EngineReport.wall_s`` includes device time.  Every
@@ -67,11 +73,13 @@ from __future__ import annotations
 import atexit
 import collections
 import contextlib
+import contextvars
 import dataclasses
 import math
 import queue
 import threading
 import time
+import warnings
 import weakref
 from typing import Any, Callable, Hashable, Protocol, runtime_checkable
 
@@ -115,6 +123,7 @@ __all__ = [
     "LocalExecutor",
     "ThreadedExecutor",
     "PrepareStats",
+    "SharedAssets",
 ]
 
 
@@ -175,6 +184,34 @@ class PrepareStats:
     splits: int = 0      # placement scans (SplitBase builds)
     regroups: int = 0    # ppl regroups served WITHOUT re-splitting
     rechunks: int = 0    # physical rechunk preparations
+
+
+@dataclasses.dataclass
+class SharedAssets:
+    """Cross-executor caches, owned by a long-lived service (DESIGN.md §12).
+
+    A standalone executor owns a private copy of each of these; a
+    :class:`~repro_torch.api.jobserver.JobServer` builds ONE
+    ``SharedAssets`` and has its pooled executor
+    :meth:`~_PlanExecutor.adopt_shared_assets`, so prepared placements,
+    profile events and autotuner state accumulate across tenants: tenant
+    B's ``SplIter("auto")`` submission starts from the granularity tenant
+    A's probes converged on, keyed by the geometry-based
+    :func:`~repro_torch.api.lowering.inputs_signature` rather than object
+    ids.
+
+    The JobServer's single scheduler thread serializes unit execution, so
+    no locking is layered on top of what each structure already has.
+    """
+
+    prepare_cache: collections.OrderedDict = dataclasses.field(
+        default_factory=collections.OrderedDict
+    )
+    prepare_stats: PrepareStats = dataclasses.field(default_factory=PrepareStats)
+    profile: ProfileStore = dataclasses.field(default_factory=ProfileStore)
+    tuners: collections.OrderedDict = dataclasses.field(
+        default_factory=collections.OrderedDict
+    )
 
 
 @dataclasses.dataclass
@@ -283,14 +320,14 @@ def _merge_partials(
 
 @dataclasses.dataclass
 class _Unit:
-    """One schedulable unit: a task, or the merge.
+    """One schedulable unit: a task, a sharded bucket, or the merge.
 
     ``run`` is a nullary thunk; ``deps`` are unit indices that must
     complete first (the merge depends on every task unit).
     """
 
     index: int
-    location: int                  # -1: any thread (merge)
+    location: int                  # -1: any thread (merge / sharded bucket)
     tasks: tuple[Task, ...]        # graph descriptors covered (merge: ())
     run: Callable[[], Any] | None
     deps: tuple[int, ...] = ()
@@ -318,7 +355,8 @@ class _SchedulerState:
       which pipelined version of that partition it computes (predecessor's
       version + 1; first submission: 1).
 
-    The JAX package's ownership hooks (``assign`` / ``release`` /
+    :meth:`is_done` is what the JobServer reads when it restores journaled
+    units.  The JAX package's ownership hooks (``assign`` / ``release`` /
     ``requeue``), which its cluster backend replays lost units through,
     arrive with that backend.
     """
@@ -346,6 +384,10 @@ class _SchedulerState:
 
     def initial_ready(self) -> list[_Unit]:
         return [u for u in self.units if not u.deps]
+
+    def is_done(self, index: int) -> bool:
+        with self._lock:
+            return index in self._done_units
 
     def subscribe(self, index: int, cb: Callable[[], None]) -> bool:
         """Fire ``cb`` when unit ``index`` completes; False if already done
@@ -455,6 +497,39 @@ class _PipelineEntry:
         self.store_marks = [(s, s.stats.snapshot()) for s in src]
 
 
+#: True while :func:`repro_torch.api.engine` is constructing a backend —
+#: direct constructor calls outside the factory get a DeprecationWarning.
+_via_factory: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "repro_torch_engine_via_factory", default=False
+)
+
+
+@contextlib.contextmanager
+def _factory_construction():
+    """Suppress the direct-construction warning (factory / internal defaults)."""
+    token = _via_factory.set(True)
+    try:
+        yield
+    finally:
+        _via_factory.reset(token)
+
+
+def _warn_direct_construction(cls: type) -> None:
+    """One DeprecationWarning per direct (non-factory) backend construction.
+
+    The per-backend constructors keep working; new code is pointed at the
+    factory.
+    """
+    if not _via_factory.get():
+        warnings.warn(
+            f"constructing {cls.__name__} directly is deprecated; use "
+            f"repro_torch.api.engine(backend=..., config=EngineConfig(...)) "
+            f"(DESIGN.md §16)",
+            DeprecationWarning,
+            stacklevel=3,
+        )
+
+
 class _PlanExecutor:
     """Shared prepare/lower/schedule core; subclasses customize dispatch."""
 
@@ -469,6 +544,7 @@ class _PlanExecutor:
     pipeline_depth: int = 2
 
     def __init__(self, engine: TaskEngine | None = None):
+        _warn_direct_construction(type(self))
         self.engine = engine or TaskEngine()
         self._prepare_cache: collections.OrderedDict[tuple, Any] = (
             collections.OrderedDict()
@@ -481,6 +557,25 @@ class _PlanExecutor:
         self._scope_depth = 0
         self._pipeline: collections.deque[_PipelineEntry] = collections.deque()
         self._iteration = 0  # execute_async submit counter (error attribution)
+
+    def adopt_shared_assets(self, assets: SharedAssets) -> None:
+        """Rebind this executor's caches to server-owned :class:`SharedAssets`.
+
+        After adoption the executor reads and writes the shared structures
+        directly (no copies).  Pre-adoption private profile history folds
+        into the shared store so earlier probes keep informing the shared
+        overhead hint; prepare/tuner entries migrate by dict update (shared
+        entries win on key collision).
+        """
+        assets.profile.merge(self.profile)
+        for key, entry in self._prepare_cache.items():
+            assets.prepare_cache.setdefault(key, entry)
+        for key, entry in self._tuners.items():
+            assets.tuners.setdefault(key, entry)
+        self._prepare_cache = assets.prepare_cache
+        self.prepare_stats = assets.prepare_stats
+        self.profile = assets.profile
+        self._tuners = assets.tuners
 
     # -- backend capabilities (consumed by the lowering pass) -----------------
 
@@ -941,6 +1036,7 @@ class _PlanExecutor:
                     "partition_scan",
                     "partition_pallas",
                     "partition_materialized",
+                    "sharded",
                 ),
                 keys={t.key for t in graph.tasks if t.counted},
             ),
@@ -1202,8 +1298,11 @@ class LocalExecutor(_PlanExecutor):
 
 def _default_local(engine: TaskEngine | None = None) -> LocalExecutor:
     """The library's internal default backend (apps and ``Collection.compute``
-    fall back to it when no executor is passed)."""
-    return LocalExecutor(engine=engine)
+    fall back to it when no executor is passed) — constructed through the
+    factory's suppressed path, so library code never trips the nudge."""
+    with _factory_construction():
+        return LocalExecutor(engine=engine)
+
 
 class _LocationWorker:
     """A persistent worker thread draining one location's job queue."""

@@ -31,6 +31,9 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import hashlib
+import pickle
+import sys
 from typing import Any, Callable, Hashable
 
 import numpy as np
@@ -38,7 +41,8 @@ import torch
 
 from repro_torch._pytree import tree_map
 from repro_torch.api.chunkstore import ChunkRef
-from repro_torch.api.futures import resolve_deferred
+from repro_torch.api.fnref import encode_fn
+from repro_torch.api.futures import Deferred, resolve_deferred
 from repro_torch.api.kernels import PartitionKernel, partition_kernel_for
 from repro_torch.api.plan import MapReduceSpec
 from repro_torch.api.policy import SplIter
@@ -57,7 +61,9 @@ __all__ = [
     "planned_fold",
     "lower",
     "inputs_signature",
+    "key_summary",
     "partition_key",
+    "plan_fingerprint",
     "stable_task_key",
     "stacked_fold",
 ]
@@ -72,9 +78,13 @@ def stable_task_key(fn: Callable) -> Hashable:
     """A hashable identity for ``fn`` stable across re-creations.
 
     Two callables get the same key iff they share the same code object, the
-    same default arguments, the same closure cell values, and (for partials)
-    the same statics — i.e. they compute the same function.  Anything
-    non-hashable falls back to the object itself (identity keying).
+    same global namespace, the same default arguments, the same closure cell
+    values, and (for partials) the same statics — i.e. they compute the same
+    function.  Anything non-hashable falls back to the object itself
+    (identity keying).  A function whose globals are an imported module's
+    namespace names that module, so its key renders the same in every
+    process (the JobServer's journaled unit keys rely on it); other
+    namespaces are told apart by identity.
 
     >>> import functools
     >>> def f(x, *, bins):
@@ -94,9 +104,9 @@ def stable_task_key(fn: Callable) -> Hashable:
     code = getattr(fn, "__code__", None)
     if code is None:
         return fn  # builtins / callables: identity is the best we can do
-    # id(__globals__) guards against identical bytecode resolving different
-    # global bindings (two modules defining the same-looking fn).
-    parts: list[Any] = [code, id(getattr(fn, "__globals__", None))]
+    # the namespace guards against identical bytecode resolving different
+    # global bindings (two modules defining the same-looking fn)
+    parts: list[Any] = [code, _namespace(fn)]
     defaults = getattr(fn, "__defaults__", None)
     cells = getattr(fn, "__closure__", None)
     try:
@@ -110,6 +120,22 @@ def stable_task_key(fn: Callable) -> Hashable:
     except (TypeError, ValueError):  # unhashable default/cell, or empty cell
         return fn
     return ("fn", *parts)
+
+
+def _namespace(fn: Callable) -> Hashable:
+    """The identity of ``fn``'s global namespace: its module's name when the
+    globals are that module's ``__dict__`` (the same in every process),
+    else the namespace's id.
+
+    The JAX package keys on the id alone, so its journaled unit keys differ
+    in a restarted process and a resumed job recomputes every unit.
+    """
+    g = getattr(fn, "__globals__", None)
+    name = getattr(fn, "__module__", None)
+    module = sys.modules.get(name) if isinstance(name, str) else None
+    if g is not None and getattr(module, "__dict__", None) is g:
+        return ("module", name)
+    return id(g)
 
 
 def dtype_name(dtype: torch.dtype) -> str:
@@ -141,6 +167,61 @@ def inputs_signature(arrays: tuple) -> tuple:
     )
 
 
+def plan_fingerprint(spec: MapReduceSpec, policy=None) -> str:
+    """A stable hex digest identifying a plan across processes and restarts.
+
+    Combines the plan shape (kind, fn/combine references via
+    :func:`~repro_torch.api.fnref.encode_fn`, extra-arg shapes and dtypes),
+    the policy and the :func:`inputs_signature`.  The JobServer journals it
+    per submission: equal fingerprints mean "the same work".  Unencodable
+    callables degrade to their qualified name, so the fingerprint always
+    exists — it is an identity, not a replay payload.
+    """
+
+    def fn_part(fn):
+        if fn is None:
+            return None
+        ref = encode_fn(fn)
+        if ref is not None:
+            return ref
+        return getattr(fn, "__qualname__", repr(type(fn)))
+
+    def extra_part(e):
+        # A Deferred (pipelined iteration) has no geometry until its source
+        # execute resolves; fingerprinting must not block on it.
+        if isinstance(e, Deferred):
+            return ("deferred",)
+        if isinstance(e, torch.Tensor):
+            return (tuple(e.shape), dtype_name(e.dtype))
+        a = np.asarray(e)
+        return (tuple(a.shape), str(a.dtype))
+
+    parts = (
+        spec.kind,
+        repr(policy if policy is not None else spec.policy),
+        fn_part(spec.fn),
+        fn_part(spec.combine),
+        tuple(extra_part(e) for e in spec.extra_args),
+        inputs_signature(spec.inputs),
+    )
+    return hashlib.sha256(pickle.dumps(parts)).hexdigest()[:32]
+
+
+def key_summary(key: Hashable) -> str:
+    """Short, address-free rendering of a task key (errors, journal keys).
+
+    >>> print(key_summary(("pallas", ("kmeans_partial",))))
+    ('pallas', ('kmeans_partial'))
+    """
+    if isinstance(key, tuple):
+        return "(" + ", ".join(key_summary(k) for k in key) + ")"
+    name = getattr(key, "co_name", None)
+    if name is not None:
+        return f"<code {name}>"
+    r = repr(key)
+    return r if len(r) <= 48 else r[:45] + "..."
+
+
 # ---------------------------------------------------------------------------
 # backend capabilities
 # ---------------------------------------------------------------------------
@@ -157,6 +238,8 @@ class Capabilities:
       prefer_pallas: under ``fusion="auto"`` pick the kernel when one is
         registered; :func:`lower` honours it only for a plan whose arrays
         lie on a CUDA device, where the hand-written kernel runs.
+      grouped_dispatch: backend consumes location groups as single sharded
+        dispatches (MeshExecutor) rather than per-task calls.
       out_of_core: backend streams chunk-backed blocks under a residency
         budget (StreamExecutor).  Lowering then attaches each task's
         :class:`~repro_torch.api.chunkstore.ChunkRef` operands to the
@@ -173,13 +256,14 @@ class Capabilities:
         ``execute_async`` as a synchronous execute returning an
         already-completed future — same results, no overlap.
 
-    The JAX package's ``grouped_dispatch`` and ``exporter`` capabilities
-    arrive with the mesh and cluster backends that set them.
+    The JAX package's ``exporter`` capability (the cluster's shared-memory
+    data plane) arrives with the cluster backend.
     """
 
     name: str = "local"
     pallas_fusion: bool = True
     prefer_pallas: bool = False
+    grouped_dispatch: bool = False
     out_of_core: bool = False
     remote: bool = False
     pipelined: bool = False

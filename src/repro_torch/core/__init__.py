@@ -9,6 +9,8 @@ Public surface:
 * :func:`rechunk` — the materializing competitor, with traffic accounting.
 * :class:`TaskEngine`, :class:`EngineReport` — cached task registration
   with dispatch/trace/bytes accounting.
+* :func:`run_map_reduce` — DEPRECATED stringly-typed shim; execution lives
+  in the plan-based ``repro_torch.api`` layer.
 * ``repro_torch.core.apps`` — the paper's histogram and k-means apps.
 """
 
@@ -18,7 +20,7 @@ from repro_torch.core.blocked import (
     resolve_device,
     round_robin_placement,
 )
-from repro_torch.core.engine import EngineReport, TaskEngine
+from repro_torch.core.engine import MODES, EngineReport, TaskEngine, run_map_reduce
 from repro_torch.core.rechunk import RechunkStats, rechunk
 from repro_torch.core.spliter import Partition, split, spliter
 
@@ -29,6 +31,8 @@ __all__ = [
     "round_robin_placement",
     "EngineReport",
     "TaskEngine",
+    "run_map_reduce",
+    "MODES",
     "RechunkStats",
     "rechunk",
     "Partition",

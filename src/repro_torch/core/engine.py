@@ -17,6 +17,9 @@ Execution strategies live in ``repro_torch.api``: a lazy
 :class:`~repro_torch.api.ExecutionPlan` which an executor runs under a typed
 :class:`~repro_torch.api.ExecutionPolicy` (``Baseline`` / ``SplIter`` /
 ``Rechunk``).
+
+:func:`run_map_reduce` — the seed's stringly-typed entry point — remains
+only as a deprecated shim over the plan-based layer.
 """
 
 from __future__ import annotations
@@ -25,9 +28,16 @@ import contextlib
 import dataclasses
 import json
 import threading
-from typing import Any, Callable, Hashable
+import warnings
+from typing import Any, Callable, Hashable, Sequence
 
-__all__ = ["EngineReport", "TaskEngine"]
+from repro_torch.core.blocked import BlockedArray
+
+__all__ = ["EngineReport", "TaskEngine", "run_map_reduce", "MODES"]
+
+# Legacy mode strings, accepted by the deprecated shim (and mapped onto the
+# typed policies by repro_torch.api.as_policy).
+MODES = ("baseline", "spliter", "spliter_mat", "rechunk")
 
 BlockFn = Callable[..., Any]           # (*blocks, *extra_args) -> partial pytree
 CombineFn = Callable[[Any, Any], Any]  # (acc, partial) -> acc, associative
@@ -185,3 +195,45 @@ class TaskEngine:
                     # trace to the bound report alone.
                     rep.traces += 1
             return self._cache[key]
+
+
+def run_map_reduce(
+    inputs: Sequence[BlockedArray],
+    block_fn: BlockFn,
+    combine: CombineFn,
+    *,
+    mode: str = "spliter",
+    partitions_per_location: int = 1,
+    extra_args: tuple = (),
+    engine: TaskEngine | None = None,
+) -> tuple[Any, EngineReport]:
+    """DEPRECATED shim over the plan-based layer — use :mod:`repro_torch.api`.
+
+    ``run_map_reduce(inputs, f, c, mode=m)`` is equivalent to::
+
+        Collection.from_blocked(inputs).split(as_policy(m))
+            .map_blocks(f, extra_args=...).reduce(c)
+            .compute(executor=engine("local"))
+
+    Returns ``(result, report)``; results are policy-independent up to
+    floating-point reassociation.
+    """
+    warnings.warn(
+        "run_map_reduce(mode=...) is deprecated; build a plan with "
+        "repro_torch.api.Collection and run it with an Executor "
+        "(see DESIGN.md §8 for the migration table)",
+        DeprecationWarning,
+        stacklevel=2,
+    )
+    from repro_torch.api import Collection, as_policy
+    from repro_torch.api.executors import _default_local
+
+    policy = as_policy(mode, partitions_per_location=partitions_per_location)
+    res = (
+        Collection.from_blocked(list(inputs))
+        .split(policy)
+        .map_blocks(block_fn, extra_args=tuple(extra_args))
+        .reduce(combine)
+        .compute(executor=_default_local(engine=engine))
+    )
+    return res.value, res.report

@@ -76,10 +76,13 @@ DOCTEST_MODULES = [
     "repro_torch.api.chunkstore",
     "repro_torch.api.collection",
     "repro_torch.api.executors",
+    "repro_torch.api.factory",
+    "repro_torch.api.fnref",
     "repro_torch.api.kernels",
     "repro_torch.api.lowering",
     "repro_torch.api.policy",
     "repro_torch.api.stream_executor",
+    "repro_torch.checkpoint.checkpointer",
 ]
 
 

@@ -98,6 +98,33 @@ read just after:
   and a fresh server resumes it: restored + recomputed units equal the
   total, the value equals the direct call's, the inputs were rebuilt on
   the card, and the resumed task units launched ``partition_histogramdd``.
+* ``cluster``: on the same data, ``engine("cluster")`` with one spawned
+  worker process per location (8), each computing on the card in its own
+  CUDA context, operands through POSIX shared memory, beside a
+  LocalExecutor.  ``/dev/shm`` must hold twice the exports (both datasets,
+  3,355,443,200 B); the rows per block are cut only if it does not, and the
+  setup line prints the free space and any cut.  The histogram under
+  SplIter(1, pallas) and Baseline, a first pass (spawn, contexts, export)
+  and ``--repeats`` warm ones: counts equal Local's; dispatches, merges,
+  bytes moved and granularity equal; ``remote_dispatches`` = the tasks, no
+  retries; the dataset's bytes exported on the first pass only and
+  ``shm_bytes`` = exports + one 131,072 B reply a task; 8
+  ``partition_histogramdd`` launches a fused pass counted in the workers
+  (read with ``ClusterExecutor.call_workers``), none in the driver; each
+  pass's seconds split into export, the workers' operand copies, compute
+  and replies (``cluster_worker.unit_stats``).  The workers' partials equal
+  the plain versions (histogram exactly; k-means counts, sums to 1e-4).
+  k-means under SplIter(1, pallas), 10 iterations: 80 ``partition_kmeans``
+  launches in the workers, centers bit-identical to Local's (the driver
+  folds with Local's plan).  Per-worker device memory.  Then a fresh pool
+  whose worker 3 dies after its first unit of a SplIter(2) pass (its lost
+  unit replays on a survivor, bit-identical, ``retries`` 1) and one under
+  ``ChaosSchedule(seed=11)`` over the 8 owners with stealing (a kill, a
+  straggler, a grow and a shrink; every round bit-identical, steals,
+  retries and scale events equal to the logs, every pin released).  After
+  each ``close()`` no segment is left in ``/dev/shm`` and no worker process
+  lives.  The kernels line gives the workers' launches as
+  ``cluster_launches``.
 * ``value_histogram``: ``repro_torch.kernels.ops.partition_histogram`` (bins
   128) over each location's stacked partition of the histogram data; the
   summed counts must equal ``kernels.ref.histogram_ref`` bit for bit.
@@ -159,9 +186,9 @@ bits on a second launch, timed beside ``torch.histc`` as a yardstick).
 kernel's entry gives its launches on its path's run and per call of its
 path.
 
-The kernels line gives each kernel's launches on the mesh and service runs
-as ``mesh_launches`` and ``service_launches`` (null for a kernel not on
-those paths).
+The kernels line gives each kernel's launches on the mesh, service and
+cluster runs as ``mesh_launches``, ``service_launches`` and
+``cluster_launches`` (null for a kernel not on those paths).
 
 Output: the card's name and power limit (``nvidia-smi``) on the first line,
 the compiler's registers, stack, spills and shared memory per kernel (a
@@ -369,7 +396,7 @@ def ptxas_line(reports: dict) -> list[dict]:
     return out
 
 
-def make_data(seed: int, dev: torch.device):
+def make_data(seed: int, dev: torch.device, block_rows: int = BLOCK_ROWS):
     """Uniform histogram rows and k-means blobs, generated on the card.
 
     The blob means sit near the seed's initial k-means centers (a 0.05
@@ -378,7 +405,7 @@ def make_data(seed: int, dev: torch.device):
     """
     from repro_torch.core.apps.kmeans import _init_centers
 
-    n = LOCATIONS * BLOCKS_PER_LOCATION * BLOCK_ROWS
+    n = LOCATIONS * BLOCKS_PER_LOCATION * block_rows
     gen = torch.Generator(device=dev).manual_seed(seed)
     hist = torch.rand((n, HIST_D), generator=gen, device=dev)
     init = _init_centers(seed, KM_K, KM_D, torch.float32, dev)
@@ -1621,6 +1648,291 @@ def mesh_phase(x_hist, x_km, seed: int, repeats: int) -> dict:
     return launched
 
 
+#: room the cluster phase leaves in /dev/shm: its exports (both datasets in
+#: one arena) may take at most half the free space, else rows are cut
+CLUSTER_SHM_FACTOR = 2
+#: the arena's budget above the exports: the k-means centers and slack
+CLUSTER_SHM_SLACK = 64 * 2**20
+#: the chaos round: ChaosSchedule(seed) over the 8 location owners — this
+#: seed kills worker 4 on its 3rd dispatch, slows worker 1 by 0.02 s a unit,
+#: and grows a roamer before round 2 and shrinks it before round 3
+CLUSTER_CHAOS_SEED, CLUSTER_CHAOS_ROUNDS = 11, 3
+
+
+def _worker_launches(ex) -> dict:
+    """The partition kernels' launch counts summed over the live workers."""
+    import functools
+
+    from repro_torch.kernels import partition_reduce as pr
+
+    return {name: sum(ex.call_workers(functools.partial(getattr, fn, "launches")).values())
+            for name, fn in (("partition_histogramdd", pr.partition_histogramdd),
+                             ("partition_kmeans", pr.partition_kmeans))}
+
+
+def _worker_stats(ex) -> dict:
+    """The workers' unit timings since the last read, summed (then zeroed)."""
+    from repro_torch.api import cluster_worker
+
+    per = ex.call_workers(cluster_worker.unit_stats, True)
+    return {k: sum(v[k] for v in per.values()) for k in ("units", "operands_s", "compute_s",
+                                                         "reply_s")}
+
+
+def _processes_gone(pids) -> bool:
+    return not any(os.path.exists(f"/proc/{pid}") for pid in pids)
+
+
+def cluster_phase(x_hist, x_km, seed: int, repeats: int) -> dict:
+    """Both apps on ``engine("cluster")``: one spawned worker per location,
+    each computing on the card in its own CUDA context, operands over POSIX
+    shared memory; beside a LocalExecutor.  Then a killed worker's replay and
+    one ChaosSchedule.  Returns the kernel launches counted in the workers."""
+    import functools
+
+    from repro_torch.api import Baseline, ChaosSchedule, Collection, FaultPlan, SplIter, engine
+    from repro_torch.api.shm import leaked_segments
+    from repro_torch.core.apps.histogram import histogram, histogramdd_block
+    from repro_torch.core.apps.kmeans import _combine, kmeans, partial_sum_block
+    from repro_torch.core.blocked import BlockedArray, round_robin_placement
+    from repro_torch.kernels import partition_reduce as pr
+
+    dev = x_hist.device
+    st = os.statvfs("/dev/shm")
+    free = st.f_bavail * st.f_frsize
+    export = x_hist.nbytes + x_km.nbytes
+    rows = BLOCK_ROWS
+    if free < CLUSTER_SHM_FACTOR * export:
+        rows = max(1024, int(BLOCK_ROWS * free / (CLUSTER_SHM_FACTOR * export)) // 1024 * 1024)
+        hist, km, _, _ = make_data(seed, dev, rows)
+        x_hist, x_km = (
+            BlockedArray.from_array(a, rows, num_locations=LOCATIONS,
+                                    policy=round_robin_placement, device=dev)
+            for a in (hist, km))
+        del hist, km
+        export = x_hist.nbytes + x_km.nbytes
+    emit({"phase": "cluster", "run": "setup", "dev_shm_free_bytes": free,
+          "export_bytes": export, "block_rows": rows,
+          "rows_cut_from": BLOCK_ROWS if rows != BLOCK_ROWS else None,
+          "workers": LOCATIONS, "heartbeat_timeout_s": 30.0})
+    check(free >= CLUSTER_SHM_FACTOR * export, "/dev/shm holds twice the phase's exports")
+
+    hist_partial = HIST_BINS**HIST_D * 4
+    on_card = dev.type == "cuda"  # (a CPU rehearsal runs the plain versions: no launches)
+    launched = {"partition_histogramdd": 0, "partition_kmeans": 0}
+    local = engine("local")
+    ex = engine("cluster", shm_budget_bytes=export + CLUSTER_SHM_SLACK)
+    arena = ex._shm
+    torch.cuda.synchronize()
+    free_before_spawn = torch.cuda.mem_get_info(dev)[0]
+
+    driver_launches = []  # the driver's own launches during each cluster run
+
+    def timed(fn, cluster: bool = True):
+        torch.cuda.synchronize()
+        d0 = sum(read_launches().values())
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if cluster:
+            driver_launches.append(sum(read_launches().values()) - d0)
+        return out, wall
+
+    def counted(fn):
+        """``fn``'s value, wall, worker launches, bytes exported, export seconds."""
+        c0, e0, s0 = _worker_launches(ex), arena.bytes_exported, arena.export_seconds
+        out, wall = timed(fn)
+        c1 = _worker_launches(ex)
+        return (out, wall, {k: c1[k] - c0.get(k, 0) for k in c1},
+                arena.bytes_exported - e0, arena.export_seconds - s0)
+
+    rows_out = []
+    policies = (("spliter1_pallas", SplIter(1, fusion="pallas")), ("baseline", Baseline()))
+    for name, pol in policies:
+        runs, split = [], []
+        for _ in range(1 + repeats):  # the first pass spawns and exports
+            run = counted(lambda: histogram(x_hist, bins=HIST_BINS, policy=pol, executor=ex))
+            runs.append(run)
+            split.append(_worker_stats(ex))
+        refs = [timed(lambda: histogram(x_hist, bins=HIST_BINS, policy=pol, executor=local),
+                      cluster=False) for _ in range(1 + repeats)]
+        ref, ref_rep = refs[-1][0]
+        tasks = ref_rep.dispatches - ref_rep.merges
+        per_pass = LOCATIONS * on_card if isinstance(pol, SplIter) else 0
+        launched["partition_histogramdd"] += sum(r[2]["partition_histogramdd"] for r in runs)
+        reps = [r[0][1] for r in runs]
+        row = {"policy": name, "tasks": tasks,
+               "dispatches": [r.dispatches for r in reps], "local_dispatches": ref_rep.dispatches,
+               "merges": [r.merges for r in reps], "traces": reps[0].traces,
+               "bytes_moved": [r.bytes_moved for r in reps],
+               "remote_dispatches": [r.remote_dispatches for r in reps],
+               "ipc_bytes": [r.ipc_bytes for r in reps], "shm_bytes": [r.shm_bytes for r in reps],
+               "exported_bytes": [r[3] for r in runs], "retries": [r.retries for r in reps],
+               "launches_per_pass": [r[2]["partition_histogramdd"] for r in runs],
+               "first_pass_wall_s": runs[0][1],
+               "wall_s": statistics.median(r[1] for r in runs[1:]),
+               "local_wall_s": statistics.median(r[1] for r in refs[1:]),
+               "export_s": runs[0][4],
+               "split_s": [{**s, "export_s": r[4]} for s, r in zip(split, runs)]}
+        rows_out.append(row)
+        emit({"phase": "cluster", "run": f"histogram/{name}", **row})
+        what = f"cluster histogram/{name}"
+        check(all(torch.equal(r[0][0], ref) for r in runs), f"{what}: counts equal Local's")
+        check(all(r.dispatches == ref_rep.dispatches and r.merges == ref_rep.merges
+                  and r.bytes_moved == ref_rep.bytes_moved
+                  and r.granularity == ref_rep.granularity for r in reps),
+              f"{what}: dispatches, merges, bytes moved and granularity equal Local's")
+        check(all(r.remote_dispatches == tasks and r.retries == 0 and r.ipc_bytes > 0
+                  for r in reps), f"{what}: {tasks} remote dispatches a pass, no retries")
+        first = x_hist.nbytes if name == policies[0][0] else 0
+        check([r[3] for r in runs] == [first] + [0] * repeats,
+              f"{what}: the dataset's {x_hist.nbytes} B exported on the first pass only "
+              f"({[r[3] for r in runs]})")
+        check(all(r.shm_bytes == e[3] + tasks * hist_partial for r, e in zip(reps, runs)),
+              f"{what}: shm_bytes = the exports + {tasks} replies of {hist_partial} B")
+        check([r[2]["partition_histogramdd"] for r in runs] == [per_pass] * (1 + repeats),
+              f"{what}: {per_pass} partition_histogramdd launches a pass in the workers")
+
+    # each kernel's worker result against its plain version on the card
+    pol = SplIter(1, fusion="pallas")
+    plain_hist = sum(pr.partition_histogramdd_ref([x_hist.block(b) for b in x_hist.blocks_at(loc)],
+                                                  bins=HIST_BINS) for loc in range(LOCATIONS))
+    c0 = _worker_launches(ex)
+    (value, _), _ = timed(lambda: histogram(x_hist, bins=HIST_BINS, policy=pol, executor=ex))
+    n = _worker_launches(ex)["partition_histogramdd"] - c0["partition_histogramdd"]
+    launched["partition_histogramdd"] += n
+    check(n == LOCATIONS * on_card and torch.equal(value, plain_hist),
+          "cluster: the workers' partition_histogramdd partials sum to the plain version's")
+
+    c0 = _worker_launches(ex)
+    km, km_wall = timed(lambda: kmeans(x_km, k=KM_K, iters=KM_ITERS, seed=seed, policy=pol,
+                                       executor=ex))
+    km_split = _worker_stats(ex)
+    km_launches = _worker_launches(ex)["partition_kmeans"] - c0["partition_kmeans"]
+    km_ref, km_local_wall = timed(lambda: kmeans(x_km, k=KM_K, iters=KM_ITERS, seed=seed,
+                                                 policy=pol, executor=local), cluster=False)
+    centers = km_ref.centers
+    plan = (Collection.from_blocked(x_km).split(pol)
+            .map_blocks(partial_sum_block, extra_args=(centers,)).reduce(_combine))
+    c0 = _worker_launches(ex)
+    (sums, counts), _ = timed(lambda: plan.compute(executor=ex).value)
+    km_launches_check = _worker_launches(ex)["partition_kmeans"] - c0["partition_kmeans"]
+    lsums, lcounts = plan.compute(executor=local).value
+    psums = torch.zeros_like(lsums)
+    pcounts = torch.zeros_like(lcounts)
+    for loc in range(LOCATIONS):
+        st_ = torch.stack([x_km.block(b) for b in x_km.blocks_at(loc)])
+        s_, c_ = pr.partition_kmeans_ref(st_, centers)
+        psums += s_
+        pcounts += c_
+    del st_
+    launched["partition_kmeans"] += km_launches + km_launches_check
+    km_row = {"policy": "kmeans/spliter1_pallas", "iterations": KM_ITERS,
+              "same_association_as_local": True,
+              "dispatches": [r.dispatches for r in km.reports],
+              "remote_dispatches": [r.remote_dispatches for r in km.reports],
+              "ipc_bytes": [r.ipc_bytes for r in km.reports],
+              "shm_bytes": [r.shm_bytes for r in km.reports],
+              "retries": [r.retries for r in km.reports],
+              "launches_per_run": km_launches, "wall_s": km_wall, "local_wall_s": km_local_wall,
+              "iteration_wall_s": [r.wall_s for r in km.reports],
+              "local_iteration_wall_s": [r.wall_s for r in km_ref.reports],
+              "split_s": km_split, "max_center_diff": float((km.centers - centers).abs().max()),
+              "partial_max_abs_err_vs_plain": float((sums - psums).abs().max())}
+    emit({"phase": "cluster", "run": "kmeans", **km_row})
+    check(torch.equal(km.centers, centers), "cluster kmeans: centers bit-identical to Local's "
+          "(the driver folds the partials with Local's plan)")
+    check([r.dispatches for r in km.reports] == [r.dispatches for r in km_ref.reports],
+          "cluster kmeans: dispatches equal Local's")
+    check(km_launches == KM_ITERS * LOCATIONS * on_card,
+          f"cluster kmeans: {KM_ITERS * LOCATIONS} partition_kmeans launches a run in the "
+          f"workers ({km_launches})")
+    check(torch.equal(sums, lsums) and torch.equal(counts, lcounts),
+          "cluster kmeans partial: bit-identical to Local's")
+    check(torch.equal(counts, pcounts) and torch.allclose(sums, psums, rtol=1e-4, atol=1e-3),
+          "cluster kmeans partial: counts equal the plain version's, sums within 1e-4")
+
+    pids = list(ex.worker_pids().values())
+    worker_mem = ex.call_workers(torch.cuda.max_memory_allocated)
+    worker_reserved = ex.call_workers(torch.cuda.memory_reserved)
+    torch.cuda.synchronize()
+    used_by_workers = free_before_spawn - torch.cuda.mem_get_info(dev)[0]
+    smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    prefix = arena.prefix
+    ex.close()
+    local.close()
+    emit({"phase": "cluster", "run": "memory", "workers": len(pids),
+          "worker_max_allocated_bytes": sorted(worker_mem.values()),
+          "worker_reserved_bytes": sorted(worker_reserved.values()),
+          "card_bytes_taken_by_workers": used_by_workers,
+          "per_worker_bytes": used_by_workers / max(1, len(pids)),
+          "nvidia_smi_compute_apps": smi.stdout.strip().splitlines()})
+    check(leaked_segments(prefix) == [], "cluster: no segment outlives close()")
+    check(_processes_gone(pids), "cluster: every worker process exited")
+
+    # a worker killed after its first unit of a fused pass: its second unit
+    # (SplIter(2): two units a worker) replays on a survivor
+    pol2 = SplIter(2, fusion="pallas")
+    ref2, ref2_rep = histogram(x_hist, bins=HIST_BINS, policy=pol2)
+    kill = FaultPlan(kill_after=((3, 2),))
+    ex = engine("cluster", fault_plan=kill, shm_budget_bytes=export + CLUSTER_SHM_SLACK)
+    (h, rep), wall = timed(lambda: histogram(x_hist, bins=HIST_BINS, policy=pol2, executor=ex))
+    pids = list(ex.worker_pids().values())
+    retry_log, prefix = list(ex.retry_log), ex._shm.prefix
+    ex.close()
+    emit({"phase": "cluster", "run": "kill", "fault_plan": {"kill_after": [[3, 2]]},
+          "wall_s": wall, "retries": rep.retries, "retry_log": retry_log,
+          "remote_dispatches": rep.remote_dispatches, "dispatches": rep.dispatches,
+          "local_dispatches": ref2_rep.dispatches})
+    check(torch.equal(h, ref2), "cluster kill: the replayed pass equals Local's bit for bit")
+    check(rep.retries >= 1 and {e["worker"] for e in retry_log} == {3},
+          f"cluster kill: worker 3's lost unit replayed ({retry_log})")
+    check(leaked_segments(prefix) == [] and leaked_segments() == [],
+          "cluster kill: no segment outlives close()")
+    check(_processes_gone(pids), "cluster kill: every worker process exited")
+
+    # one ChaosSchedule: a kill, a straggler and a grow/shrink, with stealing
+    cs = ChaosSchedule(seed=CLUSTER_CHAOS_SEED, rounds=CLUSTER_CHAOS_ROUNDS,
+                       workers=tuple(range(LOCATIONS)))
+    ref1, _ = histogram(x_hist, bins=HIST_BINS, policy=pol)
+    ex = engine("cluster", fault_plan=cs.fault_plan(), steal=True, max_workers=LOCATIONS + 4,
+                shm_budget_bytes=export + CLUSTER_SHM_SLACK)
+    applied, reports, walls, identical = 0, [], [], []
+    for action in cs.actions():
+        if action == "grow":
+            applied += ex.grow() is not None
+        elif action == "shrink":
+            applied += ex.shrink() is not None
+        (h, rep), wall = timed(lambda: histogram(x_hist, bins=HIST_BINS, policy=pol, executor=ex))
+        reports.append(rep)
+        walls.append(wall)
+        identical.append(torch.equal(h, ref1))
+    logs = (list(ex.steal_log), list(ex.retry_log), list(ex.scale_log))
+    pinned, pids, prefix = ex._shm.pinned_segments(), list(ex.worker_pids().values()), ex._shm.prefix
+    ex.close()
+    emit({"phase": "cluster", "run": "chaos", "seed": CLUSTER_CHAOS_SEED,
+          "fault_plan": {"kill_after": cs.fault_plan().kill_after, "slow": cs.fault_plan().slow},
+          "actions": cs.actions(), "identical": identical, "wall_s": walls,
+          "steals": [r.steals for r in reports], "retries": [r.retries for r in reports],
+          "scale_events": [r.scale_events for r in reports], "steal_log": len(logs[0]),
+          "retry_log": logs[1], "scale_log": logs[2]})
+    check(all(identical), "cluster chaos: every round equals Local's bit for bit")
+    check(sum(r.steals for r in reports) == len(logs[0])
+          and sum(r.retries for r in reports) == len(logs[1]) and len(logs[2]) == applied,
+          "cluster chaos: steals, retries and scale events reconcile exactly with the logs")
+    check(pinned == {}, f"cluster chaos: every dispatch pin released ({pinned})")
+    check(leaked_segments(prefix) == [] and _processes_gone(pids),
+          "cluster chaos: no segment and no worker outlives close()")
+    emit({"phase": "cluster", "cluster_launches": launched,
+          "driver_launches": sum(driver_launches)})
+    check(sum(driver_launches) == 0,
+          f"cluster: no kernel launched in the driver during the cluster's runs "
+          f"({driver_launches})")
+    return launched
+
+
 #: the service phase's durable submissions (each journals the histogram's
 #: 671,088,640 B of blocks): one killed and resumed job, and one per backend
 #: and fsync setting for the timing
@@ -2097,6 +2409,7 @@ def main(argv=None) -> int:
     stream_launches = stream_phase(x_hist, x_km, args.seed, args.repeats)
     mesh_launches = mesh_phase(x_hist, x_km, args.seed, args.repeats)
     service_launches = service_phase(x_hist, x_km, args.seed, args.repeats)
+    cluster_launches = cluster_phase(x_hist, x_km, args.seed, args.repeats)
     for k in kernels:
         k["stream_launches"] = stream_launches[k["name"]]
     launches["partition_histogram"] = value_histogram_phase(x_hist)
@@ -2121,6 +2434,7 @@ def main(argv=None) -> int:
     for k in kernels:  # launches on the mesh and service paths (None: not on them)
         k["mesh_launches"] = mesh_launches.get(k["name"])
         k["service_launches"] = service_launches.get(k["name"])
+        k["cluster_launches"] = cluster_launches.get(k["name"])
     check(len(kernels) == 5 and all(k["launches"] > 0 for k in kernels),
           f"every kernel launched on its path: {launches}")
     check(launches["flash_attention_split"] > 0 and launches["split_kv"] > 0,

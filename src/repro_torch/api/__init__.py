@@ -1,13 +1,10 @@
 """repro_torch.api — the lazy Collection/Executor execution layer (DESIGN.md §3–§5).
 
-The curated ``__all__`` below lists what this package has ported so far —
-every name of the JAX package's ``repro.api`` except the multi-process
-cluster's (``ClusterExecutor`` and its shared-memory data plane):
+The curated ``__all__`` below holds every name of the JAX package's
+``repro.api``:
 
 * :func:`engine` / :class:`EngineConfig` / :data:`BACKENDS` — the one
-  construction path for every backend (``with engine("mesh") as ex:``);
-  ``engine("cluster")`` raises ``NotImplementedError`` until the cluster
-  is ported.
+  construction path for every backend (``with engine("mesh") as ex:``).
 * :class:`Collection` — fluent, lazy plan builder over blocked arrays:
   ``Collection.from_array(...).split(policy).map_blocks(fn).reduce(c)``.
 * :class:`ExecutionPolicy` and its concrete policies :class:`Baseline`,
@@ -22,8 +19,14 @@ cluster's (``ClusterExecutor`` and its shared-memory data plane):
   with a prefetch thread that loads partition *k+1* while *k* computes
   (out-of-core, DESIGN.md §10), :class:`MeshExecutor` as one sharded
   dispatch per same-signature task run over a list of devices (DESIGN.md
-  §5.4), and all report costs via
-  :class:`~repro_torch.core.engine.EngineReport`.
+  §5.4), :class:`ClusterExecutor` in spawned worker processes, each
+  computing on the card in its own CUDA context, with operands and
+  partials over POSIX shared memory (:class:`ShmStore`,
+  :class:`ShmBlockRef`, :class:`ShmAttachments`, :func:`shm_available`),
+  picklable :class:`TaskSpec` descriptors, deterministic replay of a dead
+  worker's units (:class:`FaultPlan`, :class:`ClusterFailedError`), work
+  stealing and autoscaling (:class:`ChaosSchedule`), and all report costs
+  via :class:`~repro_torch.core.engine.EngineReport`.
 * The job service: a :class:`JobServer` multiplexes many tenants' plans
   onto one executor at unit granularity (stride fairness, admission
   control, :class:`SharedAssets`), journals them in a :class:`JobJournal`
@@ -33,7 +36,9 @@ cluster's (``ClusterExecutor`` and its shared-memory data plane):
   behind the :class:`ChunkStore` contract — an :class:`InMemoryStore`, or
   a :class:`DiskStore` with a residency budget on the card that spills to
   ``.npy`` files (evicting a pinned chunk raises
-  :class:`ChunkPinnedError`), its counters in :class:`StoreStats`.
+  :class:`ChunkPinnedError`), its counters in :class:`StoreStats`; a
+  worker process reads a store through its :class:`StoreManifest` as an
+  :class:`AttachedStore`, chunk by :class:`ChunkHandle`.
 * :class:`PartitionKernel` / :func:`register_partition_kernel` — the
   registry through which a ``map_blocks`` fn declares a fused partition
   kernel (one kernel launch per partition run).
@@ -43,14 +48,23 @@ cluster's (``ClusterExecutor`` and its shared-memory data plane):
 
 from repro_torch.api.autotune import Autotuner, CostModel, fit_cost_model
 from repro_torch.api.chunkstore import (
+    AttachedStore,
+    ChunkHandle,
     ChunkPinnedError,
     ChunkRef,
     ChunkStore,
     ChunkStoreError,
     DiskStore,
     InMemoryStore,
+    StoreManifest,
     StoreStats,
     resolve_chunk,
+)
+from repro_torch.api.cluster_executor import (
+    ChaosSchedule,
+    ClusterExecutor,
+    ClusterFailedError,
+    FaultPlan,
 )
 from repro_torch.api.collection import Collection
 from repro_torch.api.executors import (
@@ -78,6 +92,7 @@ from repro_torch.api.lowering import (
     Capabilities,
     Task,
     TaskGraph,
+    TaskSpec,
     inputs_signature,
     lower,
     plan_fingerprint,
@@ -88,6 +103,7 @@ from repro_torch.api.mesh_executor import MeshExecutor
 from repro_torch.api.plan import ExecutionPlan, PlanError
 from repro_torch.api.policy import Baseline, ExecutionPolicy, Rechunk, SplIter, as_policy
 from repro_torch.api.profile import ProfileEvent, ProfileStore, TaskProfile
+from repro_torch.api.shm import ShmAttachments, ShmBlockRef, ShmStore, shm_available
 from repro_torch.api.stream_executor import StreamExecutor
 
 __all__ = [
@@ -105,6 +121,10 @@ __all__ = [
     "ThreadedExecutor",
     "MeshExecutor",
     "StreamExecutor",
+    "ClusterExecutor",
+    "ClusterFailedError",
+    "FaultPlan",
+    "ChaosSchedule",
     "JobServer",
     "JobClient",
     "Job",
@@ -116,6 +136,9 @@ __all__ = [
     "inputs_signature",
     "plan_fingerprint",
     "ChunkRef",
+    "ChunkHandle",
+    "StoreManifest",
+    "AttachedStore",
     "ChunkStore",
     "ChunkStoreError",
     "ChunkPinnedError",
@@ -123,6 +146,10 @@ __all__ = [
     "DiskStore",
     "StoreStats",
     "resolve_chunk",
+    "ShmStore",
+    "ShmBlockRef",
+    "ShmAttachments",
+    "shm_available",
     "PartitionView",
     "PrepareStats",
     "Autotuner",
@@ -135,6 +162,7 @@ __all__ = [
     "Capabilities",
     "Task",
     "TaskGraph",
+    "TaskSpec",
     "lower",
     "stable_task_key",
     "encode_fn",

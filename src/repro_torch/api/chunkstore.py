@@ -41,10 +41,13 @@ Accounting flows upward: executors snapshot each store's
 :class:`StoreStats` around an execution and report the deltas as
 ``EngineReport.bytes_loaded`` / ``bytes_spilled`` / ``prefetch_hits``.
 
-The JAX package's handoff half — ``ChunkHandle``, ``StoreManifest``,
-``AttachedStore``, ``DiskStore.handle()``/``manifest()`` and the store uid,
-through which worker processes attach a store — arrives with the cluster
-backend, whose shared-memory transport it needs.
+The handoff half — the store ``uid``, :class:`ChunkHandle`,
+:class:`StoreManifest`, :class:`AttachedStore` and
+:meth:`DiskStore.handle`/:meth:`DiskStore.manifest` — is how a cluster
+worker process reads another process's store: chunks resident on the card
+export as shared-memory descriptors (one copy to the host), spilled ones by
+their files, and the worker's :class:`AttachedStore` puts each chunk on its
+own device.
 """
 
 from __future__ import annotations
@@ -61,19 +64,40 @@ from typing import Iterable, Protocol, runtime_checkable
 import numpy as np
 import torch
 
+from repro_torch.api.shm import (
+    ShmAttachments,
+    dtype_str_of,
+    torch_dtype,
+)
 from repro_torch.core.blocked import resolve_device
 
 __all__ = [
     "ChunkRef",
+    "ChunkHandle",
     "ChunkStore",
     "ChunkStoreError",
     "ChunkPinnedError",
     "InMemoryStore",
     "DiskStore",
+    "AttachedStore",
+    "StoreManifest",
     "StoreStats",
     "resolve_chunk",
     "chunk_stores",
 ]
+
+# Store uids are process-scoped: a manifest shipped to a worker names its
+# origin store, and the worker maps uid -> AttachedStore.  The pid prefix
+# keeps uids unambiguous across a parent and its spawned workers.
+_store_uid_lock = threading.Lock()
+_store_uid_seq = 0
+
+
+def _new_store_uid() -> str:
+    global _store_uid_seq
+    with _store_uid_lock:
+        _store_uid_seq += 1
+        return f"store-{os.getpid()}-{_store_uid_seq}"
 
 
 class ChunkStoreError(RuntimeError):
@@ -132,6 +156,113 @@ def chunk_stores(arrays: Iterable) -> list:
             if isinstance(b, ChunkRef) and b.store not in out:
                 out.append(b.store)
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class ChunkHandle:
+    """A picklable, store-independent pointer to one chunk.
+
+    What crosses a process boundary instead of a :class:`ChunkRef` (whose
+    ``store`` attribute holds locks and finalizers): the origin store's
+    uid plus the chunk id and geometry.  A worker resolves a handle
+    against the :class:`AttachedStore` it built from that store's
+    :class:`StoreManifest` — bytes never transit the control channel.
+    ``dtype_str`` follows :mod:`~repro_torch.api.shm`'s convention (a numpy
+    type string, or ``"bfloat16"``).
+    """
+
+    store_uid: str
+    chunk_id: int
+    shape: tuple
+    dtype_str: str
+
+    @property
+    def nbytes(self) -> int:
+        size = torch_dtype(self.dtype_str).itemsize
+        return int(np.prod(self.shape)) * size if self.shape else size
+
+
+@dataclasses.dataclass(frozen=True)
+class StoreManifest:
+    """The handoff half of store attach: where every chunk's bytes live.
+
+    Produced by :meth:`DiskStore.manifest` and consumed worker-side by
+    :class:`AttachedStore`.  Picklable by construction; each entry is a
+    tagged tuple naming its transport:
+
+    ``("shm", ShmBlockRef)``
+        The chunk was resident driver-side (on the card: copied to the
+        host once) and exported into a shared memory segment.  The
+        preferred path: no disk write, no pipe bytes.
+    ``("file", path, shape, dtype_str)``
+        The chunk has a spill file (it was evicted, or the shm budget was
+        exhausted): workers read the ``.npy``, whose elements are the raw
+        bits of ``dtype_str`` as integers of its size.
+
+    Manifests of a grown store are **incremental**: ``manifest(known=...)``
+    returns only the chunks the caller has not seen, and
+    :meth:`AttachedStore.merge` folds the delta into an existing attach.
+    """
+
+    uid: str
+    spill_dir: str
+    chunks: dict  # chunk_id -> ("shm", ShmBlockRef) | ("file", path, shape, dtype_str)
+
+
+class AttachedStore:
+    """A worker-side, read-only view of another process's DiskStore.
+
+    Resolves :class:`ChunkHandle`\\ s against the manifest's tagged entries
+    onto the caller's device: ``shm`` chunks from the origin's segments
+    (attached once per segment, cached; on the card, one host-to-device
+    copy), ``file`` chunks by reading the spill files.  There is no
+    residency budget and no cache: every resolve returns a fresh tensor the
+    caller owns, so no queued kernel can see its block reused by the store.
+    ``stats.bytes_loaded`` bills only the *disk* reads — shm resolution
+    moves no bytes the parent has not already paid for (billed once as
+    ``shm_bytes``).
+    """
+
+    def __init__(self, manifest: StoreManifest):
+        self.manifest = manifest
+        self.stats = StoreStats()
+        self._shm = ShmAttachments()
+
+    @property
+    def uid(self) -> str:
+        return self.manifest.uid
+
+    def merge(self, delta: StoreManifest) -> None:
+        """Fold a grown store's incremental manifest into this attach."""
+        if delta.uid != self.uid:
+            raise ChunkStoreError(f"manifest for store {delta.uid} merged into {self.uid}")
+        self.manifest.chunks.update(delta.chunks)
+
+    def get(self, chunk_id: int, device: torch.device | str = "cpu") -> torch.Tensor:
+        entry = self.manifest.chunks.get(chunk_id)
+        if entry is None:
+            raise ChunkStoreError(f"chunk {chunk_id} not in manifest of store {self.uid}")
+        device = torch.device(device)
+        if entry[0] == "shm":
+            return self._shm.tensor(entry[1], device)
+        _tag, path, _shape, dtype_str = entry
+        mm = np.load(path, mmap_mode="r")
+        bits = torch.from_numpy(np.array(mm))  # copy out of the mmap, then free it
+        del mm
+        arr = bits.view(torch_dtype(dtype_str)).to(device)
+        self.stats.loads += 1
+        self.stats.bytes_loaded += arr.nbytes
+        return arr
+
+    def resolve(self, handle: ChunkHandle, device: torch.device | str = "cpu") -> torch.Tensor:
+        if handle.store_uid != self.uid:
+            raise ChunkStoreError(
+                f"handle for store {handle.store_uid} resolved against {self.uid}"
+            )
+        return self.get(handle.chunk_id, device)
+
+    def close(self) -> None:
+        self._shm.close()
 
 
 @dataclasses.dataclass
@@ -200,6 +331,7 @@ class InMemoryStore:
     """
 
     def __init__(self):
+        self.uid = _new_store_uid()
         self.stats = StoreStats()
         self._chunks: dict[int, torch.Tensor] = {}
         self._next_id = 0
@@ -307,6 +439,7 @@ class DiskStore:
         dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
+        self.uid = _new_store_uid()
         self.device = dev
         self.residency_bytes = int(residency_bytes)
         self._own_dir = spill_dir is None
@@ -324,6 +457,7 @@ class DiskStore:
         # the lock); the write happens in _flush_spills OUTSIDE the lock.
         self._pending_spills: dict[int, torch.Tensor] = {}
         self._spilling: set[int] = set()  # cids with a write in flight
+        self._manifested: set[int] = set()  # cids covered by some manifest()
         # CUDA only: the event each put's copy recorded (a spill waits for
         # it), and the side stream reloads and spills run on.
         self._put_events: dict[int, torch.cuda.Event] = {}
@@ -484,6 +618,107 @@ class DiskStore:
                 self._evict_one(cid)
         self._flush_spills()
 
+    def handle(self, ref: ChunkRef) -> ChunkHandle | None:
+        """Picklable :class:`ChunkHandle` for ``ref``, if workers can read it.
+
+        A chunk is handle-able once it has a spill file OR has appeared in
+        a :meth:`manifest` (whose shm entries workers resolve without any
+        file).  Returns None otherwise — callers (the cluster payload
+        builder) then ship the bytes inline/exported instead.
+        """
+        with self._lock:
+            meta = self._meta.get(ref.chunk_id)
+            if meta is None or (meta[2] is None and ref.chunk_id not in self._manifested):
+                return None
+        return ChunkHandle(
+            store_uid=self.uid,
+            chunk_id=ref.chunk_id,
+            shape=ref.shape,
+            dtype_str=dtype_str_of(ref.dtype),
+        )
+
+    def manifest(self, *, export=None, known: Iterable[int] = ()) -> StoreManifest:
+        """Handoff projection for worker attach — shm-first, incremental.
+
+        Args:
+          export: ``callable(chunk_id, tensor) -> ShmBlockRef | None`` — the
+            executor's shared-memory exporter.  Chunks that are resident
+            (or eviction-pending) hand off as ``("shm", ref)`` entries
+            with **no disk write** (a chunk on the card is copied to the
+            host once, into the segment); only when the exporter declines
+            (shm budget exhausted, or ``export is None``) does the chunk
+            force-spill to a ``("file", ...)`` entry.  Chunks that already
+            have a spill file always reuse it.
+          known: chunk ids the caller has already received — the returned
+            manifest contains only the REST, so a store that grew
+            mid-session yields a cheap delta instead of re-shipping (and
+            re-exporting) the world.
+
+        Billing: only a genuinely new spill *write* counts as
+        ``stats.spills``/``bytes_spilled``.  Shm handoffs and chunks whose
+        file already exists bill nothing — a second manifest of an
+        unchanged store is free.
+        """
+        self._flush_spills()  # settle any deferred eviction writes first
+        known = set(known)
+        chunks: dict = {}
+        while True:
+            with self._lock:
+                if self._closed:
+                    raise ChunkStoreError("manifest() on a closed DiskStore")
+                cid = next(
+                    (
+                        c
+                        for c, (_s, _d, p) in self._meta.items()
+                        if p is None
+                        and c not in known
+                        and c not in chunks
+                        and c not in self._spilling
+                    ),
+                    None,
+                )
+                if cid is None:
+                    for c, (s, d, p) in self._meta.items():
+                        if p is not None and c not in known and c not in chunks:
+                            chunks[c] = ("file", p, s, dtype_str_of(d))
+                    self._manifested.update(chunks)
+                    return StoreManifest(uid=self.uid, spill_dir=self._dir, chunks=chunks)
+                arr = self._resident.get(cid)
+                if arr is None:
+                    arr = self._pending_spills.get(cid)
+                shape, dtype, _ = self._meta[cid]
+                event = self._put_events.get(cid)
+            if event is not None:
+                event.synchronize()  # the put's copy has landed
+            # Shm-first: the resident tensor hands off as a segment
+            # descriptor — the residency cache stays warm, nothing is
+            # written, nothing is billed.
+            if export is not None:
+                ref = export(cid, arr)
+                if ref is not None:
+                    chunks[cid] = ("shm", ref)
+                    continue
+            # Fallback: force-spill (exporter declined / shm disabled).
+            # The write happens outside the lock; _spilling claims the
+            # chunk against a concurrent flusher.
+            with self._lock:
+                if cid in self._spilling:
+                    continue  # a flusher claimed it meanwhile: re-scan
+                self._spilling.add(cid)
+            path = self._path(cid)
+            np.save(path, self._host_bits(arr, None))
+            with self._lock:
+                self._spilling.discard(cid)
+                if self._closed or cid not in self._meta:
+                    raise ChunkStoreError("DiskStore closed during manifest()")
+                _s, _d, existing = self._meta[cid]
+                self._meta[cid] = (shape, dtype, path)
+                self._put_events.pop(cid, None)
+                if existing is None:  # bill only a genuinely NEW spill write
+                    self.stats.spills += 1
+                    self.stats.bytes_spilled += self._nbytes(cid)
+                self._pending_spills.pop(cid, None)
+
     def close(self) -> None:
         """Release resident chunks and delete the spill directory."""
         with self._lock:
@@ -496,6 +731,7 @@ class DiskStore:
             self._pins.clear()
             self._pending_spills.clear()
             self._put_events.clear()
+            self._manifested.clear()
             self.stats.resident_bytes = 0
         if self._finalizer is not None:
             self._finalizer()  # rmtree now, exactly once

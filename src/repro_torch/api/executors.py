@@ -355,10 +355,14 @@ class _SchedulerState:
       which pipelined version of that partition it computes (predecessor's
       version + 1; first submission: 1).
 
-    :meth:`is_done` is what the JobServer reads when it restores journaled
-    units.  The JAX package's ownership hooks (``assign`` / ``release`` /
-    ``requeue``), which its cluster backend replays lost units through,
-    arrive with that backend.
+    Beyond the dependency core, the state tracks *ownership*: which
+    executor-defined owner (a cluster worker process) a unit was assigned
+    to, how many times it has been attempted, and — via :meth:`requeue` —
+    which in-flight units an owner took down with it.  Owners are opaque
+    hashables; the hooks are what make the fault-tolerant backend
+    (ClusterExecutor) a scheduling concern instead of a fork of the core.
+    :meth:`is_done` is also what the JobServer reads when it restores
+    journaled units.
     """
 
     def __init__(self, units: list[_Unit], report: EngineReport | None = None):
@@ -374,6 +378,8 @@ class _SchedulerState:
                 self._dependents[d].append(u.index)
         self._remaining = len(units)
         self._done_units: set[int] = set()
+        self.owner: dict[int, Hashable] = {}        # unit index -> owner
+        self.attempts: collections.Counter = collections.Counter()
         self._unit_subs: dict[int, list[Callable[[], None]]] = {}
         self._done_subs: list[Callable[[], None]] = []
         self._fail_subs: list[Callable[[BaseException], None]] = []
@@ -385,9 +391,72 @@ class _SchedulerState:
     def initial_ready(self) -> list[_Unit]:
         return [u for u in self.units if not u.deps]
 
+    def assign(self, unit: _Unit, owner: Hashable) -> None:
+        """Record who is executing ``unit`` (attempt counted on assign).
+
+        Double-claim prevention (the work-stealing invariant): a unit that
+        is still owned by a *different* live owner cannot be re-assigned —
+        ownership must first move through :meth:`requeue` (death),
+        :meth:`release` (steal / preemption), or completion.  A late
+        assign raced against a completed unit is equally rejected; both
+        raise, so no interleaving can run a unit twice.
+        """
+        with self._lock:
+            if unit.index in self._done_units:
+                raise RuntimeError(f"unit {unit.index} assigned to {owner!r} after completion")
+            prev = self.owner.get(unit.index)
+            if prev is not None and prev != owner:
+                raise RuntimeError(
+                    f"unit {unit.index} double-claimed: owned by {prev!r}, "
+                    f"assigned to {owner!r}"
+                )
+            self.owner[unit.index] = owner
+            self.attempts[unit.index] += 1
+
+    def release(self, unit: _Unit) -> bool:
+        """Disown a claimed-but-unstarted unit (steal grant / preemption).
+
+        The voided dispatch's attempt is refunded: a steal is a scheduling
+        decision, not a failure, so it must not count against
+        ``max_retries``.  Returns False — and changes nothing — when the
+        unit already completed (the victim raced the grant) or was never
+        owned, so callers can treat the grant as stale.
+        """
+        with self._lock:
+            if unit.index in self._done_units or unit.index not in self.owner:
+                return False
+            del self.owner[unit.index]
+            if self.attempts[unit.index] > 0:
+                self.attempts[unit.index] -= 1
+            return True
+
+    def refund_attempt(self, index: int) -> None:
+        """Refund one attempt after :meth:`requeue` of a *planned* preemption
+        (scale-down must not push units toward retry exhaustion)."""
+        with self._lock:
+            if self.attempts[index] > 0:
+                self.attempts[index] -= 1
+
     def is_done(self, index: int) -> bool:
         with self._lock:
             return index in self._done_units
+
+    def requeue(self, owner: Hashable) -> list[_Unit]:
+        """Disown ``owner``'s incomplete units (worker death) for replay.
+
+        Returns the lost units; their ownership entries are cleared so a
+        late/duplicate completion from the dead owner is ignorable via
+        :meth:`is_done`, and a surviving owner may claim them.
+        """
+        with self._lock:
+            lost = [
+                self.units[i]
+                for i, o in list(self.owner.items())
+                if o == owner and i not in self._done_units
+            ]
+            for u in lost:
+                del self.owner[u.index]
+        return lost
 
     def subscribe(self, index: int, cb: Callable[[], None]) -> bool:
         """Fire ``cb`` when unit ``index`` completes; False if already done
@@ -483,6 +552,7 @@ class _PipelineEntry:
     pending: Any = None      # StreamExecutor: this entry's pending unit deque
     jobs: Any = None         # StreamExecutor: unit index -> prefetch job
     draining: bool = False   # StreamExecutor: drain in progress/finished
+    ctx: Any = None          # ClusterExecutor: this entry's drain context
 
     def mark_stores(self, stores=None) -> None:
         """(Re)snapshot the input stores' lifetime counters.

@@ -32,7 +32,7 @@ backend       class
 ``threaded``  :class:`~repro_torch.api.executors.ThreadedExecutor`
 ``mesh``      :class:`~repro_torch.api.mesh_executor.MeshExecutor`
 ``stream``    :class:`~repro_torch.api.stream_executor.StreamExecutor`
-``cluster``   not ported yet: raises ``NotImplementedError``
+``cluster``   :class:`~repro_torch.api.cluster_executor.ClusterExecutor`
 ``server``    :class:`~repro_torch.api.jobserver.JobServer` (over an inner
               ``server_backend`` engine it owns)
 ============  =========================================================
@@ -80,18 +80,18 @@ class EngineConfig:
     devices: tuple | None = None        # None: the visible CUDA devices
     axis_name: str = "loc"
 
-    # -- cluster (not ported yet: engine("cluster") raises) -----------------
+    # -- cluster -----------------------------------------------------------
     max_retries: int = 2
     heartbeat_s: float = 0.2
     heartbeat_timeout_s: float = 30.0
-    fault_plan: Any = None
+    fault_plan: Any = None              # repro_torch.api.cluster_executor.FaultPlan
     log_dir: str | None = None
     poll_s: float = 0.02
     shm: bool | None = None
     shm_min_bytes: int = 1024
     shm_segment_bytes: int = 4 << 20
     shm_budget_bytes: int | None = None
-    p2p: bool | str = "auto"
+    p2p: bool | str = "auto"            # True raises: the peer exchange is not ported
     p2p_min_bytes: int = 1 << 16
     steal: bool = False
     autoscale: bool = False
@@ -107,6 +107,29 @@ class EngineConfig:
     snapshot_every: int = 8
     fsync: bool = True
     autostart: bool = True
+
+
+def _cluster_kwargs(cfg: EngineConfig) -> dict:
+    return dict(
+        max_retries=cfg.max_retries,
+        heartbeat_s=cfg.heartbeat_s,
+        heartbeat_timeout_s=cfg.heartbeat_timeout_s,
+        fault_plan=cfg.fault_plan,
+        log_dir=cfg.log_dir,
+        poll_s=cfg.poll_s,
+        shm=cfg.shm,
+        shm_min_bytes=cfg.shm_min_bytes,
+        shm_segment_bytes=cfg.shm_segment_bytes,
+        shm_budget_bytes=cfg.shm_budget_bytes,
+        p2p=cfg.p2p,
+        p2p_min_bytes=cfg.p2p_min_bytes,
+        steal=cfg.steal,
+        autoscale=cfg.autoscale,
+        min_workers=cfg.min_workers,
+        max_workers=cfg.max_workers,
+        scale_up_backlog=cfg.scale_up_backlog,
+        scale_idle_ticks=cfg.scale_idle_ticks,
+    )
 
 
 def engine(
@@ -128,8 +151,7 @@ def engine(
 
     Returns an executor (or, for ``"server"``, a
     :class:`~repro_torch.api.jobserver.JobServer`) ready for
-    ``with engine(...) as ex:`` — exit closes it.  ``"cluster"`` raises
-    ``NotImplementedError``: the multi-process backend is not ported yet.
+    ``with engine(...) as ex:`` — exit closes it.
     """
     if backend not in BACKENDS:
         raise ValueError(
@@ -146,14 +168,8 @@ def engine(
             )
         cfg = dataclasses.replace(cfg, **overrides)
 
-    if backend == "cluster":
-        raise NotImplementedError(
-            "engine('cluster'): the multi-process ClusterExecutor is not ported "
-            "to repro_torch yet (ROADMAP.md, Queue 1, the cluster item); use "
-            "'local', 'threaded', 'mesh', 'stream' or 'server'"
-        )
-
-    # Late imports: the factory sits above every backend module — pay only
+    # Late imports: the factory sits above every backend module, and the
+    # cluster/server stacks are heavy (multiprocessing, journal) — pay only
     # for the backend actually constructed.
     from repro_torch.api.executors import _factory_construction
 
@@ -182,6 +198,10 @@ def engine(
                 prefetch_depth=cfg.prefetch_depth,
                 close_stores=cfg.close_stores,
             )
+        if backend == "cluster":
+            from repro_torch.api.cluster_executor import ClusterExecutor
+
+            return ClusterExecutor(engine=cfg.engine, **_cluster_kwargs(cfg))
         # "server": a JobServer owning an inner engine() backend.
         from repro_torch.api.jobserver import JobServer
 

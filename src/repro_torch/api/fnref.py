@@ -10,6 +10,9 @@ same function:
 ``("import", module, qualname)``
     A module-level function: the reader imports ``module`` and walks
     ``qualname``.  The cheapest and preferred form.
+``("pickle", blob)``
+    A builtin the stdlib pickler names but whose qualname does not walk
+    back to it (``torch.sum``).
 ``("partial", inner, args, kwargs)``
     A ``functools.partial`` over an encodable base with picklable statics
     (e.g. ``partial(histogramdd_block, bins=8, lo=0.0, hi=1.0)``).
@@ -83,6 +86,14 @@ def encode_fn(fn: Callable) -> tuple | None:
     if imp is not None:
         return ("import", *imp)
 
+    if isinstance(fn, types.BuiltinFunctionType):
+        # A builtin whose qualname does not walk back to it (``torch.sum``
+        # lives on ``torch._C``'s function class): the pickler names it.
+        blob = _pickled(fn)
+        if blob is not None and pickle.loads(blob) is fn:
+            return ("pickle", blob)
+        return None
+
     code = getattr(fn, "__code__", None)
     module = getattr(fn, "__module__", None)
     if code is None or module is None:
@@ -108,6 +119,8 @@ def encode_fn(fn: Callable) -> tuple | None:
 def decode_fn(ref: tuple) -> Callable:
     """Resolve a reference produced by :func:`encode_fn` in this process."""
     kind = ref[0]
+    if kind == "pickle":
+        return pickle.loads(ref[1])
     if kind == "partial":
         _, inner, args, kwargs = ref
         return functools.partial(

@@ -40,10 +40,10 @@ import numpy as np
 import torch
 
 from repro_torch._pytree import tree_map
-from repro_torch.api.chunkstore import ChunkRef
+from repro_torch.api.chunkstore import ChunkRef, resolve_chunk
 from repro_torch.api.fnref import encode_fn
 from repro_torch.api.futures import Deferred, resolve_deferred
-from repro_torch.api.kernels import PartitionKernel, partition_kernel_for
+from repro_torch.api.kernels import PartitionKernel, kernel_ref, partition_kernel_for
 from repro_torch.api.plan import MapReduceSpec
 from repro_torch.api.policy import SplIter
 from repro_torch.core.blocked import BlockedArray
@@ -62,6 +62,7 @@ __all__ = [
     "lower",
     "inputs_signature",
     "key_summary",
+    "TaskSpec",
     "partition_key",
     "plan_fingerprint",
     "stable_task_key",
@@ -247,17 +248,22 @@ class Capabilities:
         pin/prefetch/release them around dispatch without materializing
         operands; non-streaming backends skip the bookkeeping (refs still
         resolve lazily inside ``operands()``).
-      remote: backend dispatches tasks to other processes.  Not supported
-        by this package yet: :func:`lower` raises ``NotImplementedError``.
+      remote: backend dispatches tasks to other processes (the cluster):
+        lowering attaches a picklable code reference (``Task.fn_ref``) and
+        a dispatch-time builder of the raw operand payloads
+        (``Task.remote_operands``) to every task it can reference.
       pipelined: backend overlaps consecutive ``execute_async`` submissions
         (DESIGN.md §14): iteration *k+1*'s units are gated on their
         same-partition *k* predecessors via :func:`cross_iteration_edges`
         instead of a global drain.  Non-pipelined backends run
         ``execute_async`` as a synchronous execute returning an
         already-completed future — same results, no overlap.
-
-    The JAX package's ``exporter`` capability (the cluster's shared-memory
-    data plane) arrives with the cluster backend.
+      exporter: dispatch-time block exporter of the shared-memory data
+        plane (``callable(block) -> ShmBlockRef | None``), or None.  When
+        set, operand builders hand large blocks off as shm descriptors
+        instead of raw host payloads; a ``None`` return falls back to
+        inline bytes.  Excluded from equality/hash so caches keyed on
+        capabilities don't fragment on executor identity.
     """
 
     name: str = "local"
@@ -267,6 +273,7 @@ class Capabilities:
     out_of_core: bool = False
     remote: bool = False
     pipelined: bool = False
+    exporter: Any = dataclasses.field(default=None, compare=False, repr=False)
 
 
 # ---------------------------------------------------------------------------
@@ -363,6 +370,65 @@ class Task:
     #: for out-of-core backends (``Capabilities.out_of_core``), which
     #: pin/prefetch/release them around dispatch.
     chunk_refs: tuple = ()
+    #: picklable reference to this task's code (``Capabilities.remote``
+    #: lowerings only): ``("fn", ref)``, ``("scan", fn_ref, combine_ref,
+    #: n_in)`` or ``("kernel", kernel_ref)``.  None ⇒ not remotable.
+    fn_ref: tuple | None = None
+    #: nullary builder of the raw remote payload ``(data, extras, device)``
+    #: — per-input block payloads (ndarray, ChunkHandle or ShmBlockRef)
+    #: still UNstacked, so the worker rebuilds the operands exactly as the
+    #: in-process lowering does, on the device the plan's blocks lie on.
+    remote_operands: Callable[[], tuple] | None = None
+
+    def spec(self) -> "TaskSpec":
+        """Project this descriptor into its picklable :class:`TaskSpec`.
+
+        Only valid on tasks lowered under ``Capabilities.remote`` with a
+        resolvable ``fn_ref`` — the cluster backend checks ``fn_ref`` and
+        schedules every other task in-process.
+        """
+        if self.fn_ref is None or self.remote_operands is None:
+            raise ValueError(f"task {self.index} ({self.kind}) has no remote projection")
+        data, extras, device = self.remote_operands()
+        return TaskSpec(
+            index=self.index,
+            location=self.location,
+            kind=self.kind,
+            key_repr=key_summary(self.key),
+            fn_ref=self.fn_ref,
+            block_ids=self.block_ids,
+            n_data=self.n_data,
+            data=data,
+            extras=extras,
+            device=device,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class TaskSpec:
+    """The picklable projection of one :class:`Task` (DuctTeip-style cheap
+    task descriptor): everything a worker process needs to replay the task
+    — code reference, geometry, per-block operand payloads (host ndarrays,
+    store-attached :class:`~repro_torch.api.chunkstore.ChunkHandle`\\ s or
+    shared-memory :class:`~repro_torch.api.shm.ShmBlockRef`\\ s) and the
+    type of device the plan's blocks lie on (``"cuda:0"`` or ``"cpu"``).
+
+    Deterministic replay contract: running the same TaskSpec twice (on any
+    worker) produces bit-identical partials, because the payloads are
+    immutable snapshots and the worker rebuilds the exact operands + fn
+    the in-process lowering would have dispatched, on the same device.
+    """
+
+    index: int
+    location: int
+    kind: str
+    key_repr: str          # human-readable key digest (errors, worker logs)
+    fn_ref: tuple
+    block_ids: tuple
+    n_data: int
+    data: tuple            # per input: tuple of block payloads
+    extras: tuple          # plan-wide extras: payloads, or plain python values
+    device: str = "cpu"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -579,10 +645,6 @@ def lower(
     for ``Rechunk``; the original arrays plus partition groups otherwise) —
     executors compute them once per ``(inputs, policy)`` and cache.
     """
-    if caps.remote:
-        raise NotImplementedError(
-            "remote (multi-process) lowering is not ported to repro_torch yet"
-        )
     # The kernel launches only on CUDA operands: a plan over CPU blocks lowers
     # as the reference's CPU plan does, whatever devices the host has.
     if caps.prefer_pallas and not all(a.device.type == "cuda" for a in arrays):
@@ -607,6 +669,64 @@ def _refs_of(arrays, ids, caps: Capabilities) -> tuple:
     return tuple(
         a.blocks[i] for a in arrays for i in ids if isinstance(a.blocks[i], ChunkRef)
     )
+
+
+def _inline(x):
+    """A host value of tensor ``x`` that pickles only its own elements."""
+    t = x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:  # numpy has no such type
+        return t.clone()
+    return t.numpy()
+
+
+def _block_payload(block, exporter=None):
+    """One block as it crosses a process boundary.
+
+    Cheapest transport first: store-held chunks covered by a manifest
+    travel as tiny :class:`~repro_torch.api.chunkstore.ChunkHandle`
+    descriptors (the worker resolves them against its attached store);
+    other blocks go through the backend's shared-memory ``exporter`` when
+    one is set (descriptors instead of bytes; a block on the card is
+    copied to the host once); only when both decline do raw host bytes
+    ship over the control channel.
+    """
+    if isinstance(block, ChunkRef):
+        handle = getattr(block.store, "handle", None)
+        if handle is not None:
+            h = handle(block)
+            if h is not None:
+                return h
+    if exporter is not None:
+        ref = exporter(block)
+        if ref is not None:
+            return ref
+    return _inline(resolve_chunk(block))
+
+
+def _remote_operands_builder(arrays, ids, extra, exporter=None) -> Callable[[], tuple]:
+    """Builder of a task's raw remote payload — evaluated at dispatch time.
+
+    Tensor extras ship like blocks; any other extra (a python scalar)
+    ships as itself, so the worker calls the fn with the same types.
+    """
+    device = str(arrays[0].device)
+
+    def build():
+        data = tuple(
+            tuple(_block_payload(a.blocks[b], exporter) for b in ids) for a in arrays
+        )
+        extras = []
+        for e in extra:
+            e = resolve_deferred(e)  # pipelined loop-carried operand
+            if not isinstance(e, torch.Tensor):
+                extras.append(e)
+                continue
+            ref = exporter(e) if exporter is not None else None
+            extras.append(ref if ref is not None else _inline(e))
+        return data, tuple(extras), device
+
+    return build
 
 
 def _lower_partition_views(spec, arrays, groups, caps: Capabilities) -> list[Task]:
@@ -637,6 +757,26 @@ def _lower_map_blocks(spec, arrays, groups, caps: Capabilities) -> list[Task]:
     fn_key = stable_task_key(spec.fn)
     tasks: list[Task] = []
 
+    # Remote code references (Capabilities.remote): computed once per plan,
+    # shared by every task.  A None reference — unencodable fn/combine —
+    # simply leaves the tasks in-process-only; lowering never fails on it.
+    plain_ref = scan_ref = None
+    if caps.remote:
+        efn = encode_fn(spec.fn)
+        plain_ref = ("fn", efn) if efn is not None else None
+        if spec.combine is not None:
+            ecomb = encode_fn(spec.combine)
+            if efn is not None and ecomb is not None:
+                scan_ref = ("scan", efn, ecomb, n_in)
+
+    def remote_fields(fn_ref, ids):
+        if not caps.remote or fn_ref is None:
+            return {}
+        return {
+            "fn_ref": fn_ref,
+            "remote_operands": _remote_operands_builder(arrays, ids, extra, caps.exporter),
+        }
+
     fused = isinstance(pol, SplIter) and not pol.materialize and spec.combine is not None
     if fused:
         # Fused iteration: ONE dispatch folding (or one kernel over) the
@@ -646,6 +786,10 @@ def _lower_map_blocks(spec, arrays, groups, caps: Capabilities) -> list[Task]:
         kernel = partition_kernel_for(spec.fn) if n_in == 1 else None
         scan_fn = _partition_body(spec.fn, spec.combine, n_in)
         scan_key = ("part", fn_key, stable_task_key(spec.combine), n_in)
+        pallas_ref = None
+        if caps.remote and kernel is not None:
+            kref = kernel_ref(spec.fn)
+            pallas_ref = ("kernel", kref) if kref is not None else None
         for g in groups:
             by_shape: dict[tuple, list[int]] = {}
             for b in g.block_ids:
@@ -692,6 +836,9 @@ def _lower_map_blocks(spec, arrays, groups, caps: Capabilities) -> list[Task]:
                             )
                             for a in arrays
                         ),
+                        **remote_fields(
+                            pallas_ref if choice == "pallas" else scan_ref, ids
+                        ),
                     )
                 )
     elif isinstance(pol, SplIter) and pol.materialize:
@@ -724,6 +871,7 @@ def _lower_map_blocks(spec, arrays, groups, caps: Capabilities) -> list[Task]:
                         )
                         for a in arrays
                     ),
+                    **remote_fields(plain_ref, g.block_ids),
                 )
             )
     else:
@@ -753,6 +901,7 @@ def _lower_map_blocks(spec, arrays, groups, caps: Capabilities) -> list[Task]:
                         (tuple(a.blocks[b].shape), dtype_name(a.blocks[b].dtype))
                         for a in arrays
                     ),
+                    **remote_fields(plain_ref, (b,)),
                 )
             )
     return tasks

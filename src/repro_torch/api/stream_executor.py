@@ -187,23 +187,30 @@ class StreamExecutor(_PlanExecutor):
         fewer than ``prefetch_depth`` units left, the top-up continues
         into the NEXT queued submission's launched units.
         """
+        release = None  # the previous unit's prefetch pins, not yet dropped
         try:
             while pending and not state.errors:
+                # A unit whose load an earlier step queued is waited for
+                # BEFORE the lookahead pins: the pins of unit k+2 must not
+                # land while unit k+1's load is still choosing its eviction
+                # victims, or the bill would depend on how fast unit k
+                # computed (a fast compute thread pinned — and so kept — a
+                # block that a slow one lets the load evict and reload).
+                queued = pending[0].index in inflight
                 self._top_up(pending, inflight, entry)  # current unit's load
                 unit = pending.popleft()
                 job = inflight.pop(unit.index, None)
+                if queued and not self._await(job, state):
+                    return
                 # Lookahead NOW, before this unit computes: unit k+1's read
-                # overlaps unit k's dispatch and the card's work.
-                self._top_up(pending, inflight, entry)
-                if job is not None:
-                    try:
-                        job.wait()  # chunks resident + pinned (the hit path)
-                    except BaseException as e:
-                        job.release()
-                        if not isinstance(e, Exception):
-                            raise
-                        state.fail(e)
-                        return
+                # overlaps unit k's dispatch and the card's work.  The
+                # previous unit's release is queued after the lookahead's
+                # pins and before its load, so every eviction on the
+                # prefetch thread sees one fixed set of pins.
+                self._top_up(pending, inflight, entry, release)
+                release = None
+                if job is not None and not queued and not self._await(job, state):
+                    return
                 try:
                     # _run_unit pins again around dispatch (the shared
                     # resolve/release hooks), so dropping the prefetch pin
@@ -214,13 +221,15 @@ class StreamExecutor(_PlanExecutor):
                         job.release()
                     raise
                 if job is not None:
-                    # Release on the worker thread: the last unpin evicts
+                    # Released on the worker thread: the last unpin evicts
                     # the finished partition, and a first-pass eviction
                     # performs the spill write — I/O serializes with I/O
                     # while compute keeps running.
-                    self._prefetch_worker().submit(job.release)
+                    release = job.release
                 pending.extend(sorted(newly, key=lambda u: u.index))
         finally:
+            if release is not None:
+                self._prefetch_worker().submit(release)
             for job in inflight.values():  # error path: drop leftover pins
                 job.done.wait()
                 job.release()
@@ -233,24 +242,46 @@ class StreamExecutor(_PlanExecutor):
                 self._prefetcher.submit(done.set)
                 done.wait()
 
+    @staticmethod
+    def _await(job: _PrefetchJob | None, state: _SchedulerState) -> bool:
+        """Wait for ``job``'s chunks; on a load failure drop its pins, fail
+        the run and return False."""
+        if job is None:
+            return True
+        try:
+            job.wait()  # chunks resident + pinned (the hit path)
+        except BaseException as e:
+            job.release()
+            if not isinstance(e, Exception):
+                raise
+            state.fail(e)
+            return False
+        return True
+
     def _top_up(
         self,
         pending: "collections.deque[_Unit]",
         inflight: dict[int, _PrefetchJob],
         entry=None,
+        release=None,
     ) -> None:
         """Keep the next ``prefetch_depth`` upcoming units' chunks loading.
 
         Upcoming means drain order: this queue first, then — pipelined —
         the next submission's launched units, each job filed against its
-        owning entry so the later drain finds it.
+        owning entry so the later drain finds it.  ``release`` (a finished
+        unit's unpin) goes to the prefetch thread after the new pins and
+        before the new loads.
         """
         if self.prefetch_depth <= 0:
+            if release is not None:
+                self._prefetch_worker().submit(release)
             return
         lookahead: list[tuple[_Unit, dict]] = [(u, inflight) for u in pending]
         nxt = self._entry_after(entry) if entry is not None else None
         if nxt is not None and nxt.jobs is not None:
             lookahead.extend((u, nxt.jobs) for u in nxt.pending)
+        loads = []
         for unit, jobs in lookahead[: self.prefetch_depth]:
             if unit.index in jobs:
                 continue
@@ -263,8 +294,12 @@ class StreamExecutor(_PlanExecutor):
             # shrink the store.
             for ref in refs:
                 ref.store.pin(ref)
-            self._prefetch_worker().submit(job.run)
             jobs[unit.index] = job
+            loads.append(job)
+        if release is not None:
+            self._prefetch_worker().submit(release)
+        for job in loads:
+            self._prefetch_worker().submit(job.run)
 
     # -- pipelined execution (DESIGN.md §14) -----------------------------------
 

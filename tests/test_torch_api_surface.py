@@ -3,8 +3,8 @@
 ``repro_torch.api.__all__`` is curated: every exported name resolves, none
 is listed twice, every backend built through ``engine()`` supports
 ``with engine(...) as ex:``, and the surface is the JAX package's minus
-exactly the multi-process cluster's names still to port — a later slice
-that ports the cluster has to shrink ``NOT_YET_PORTED``.
+exactly the names still to port (``NOT_YET_PORTED``, empty since the
+cluster was ported).
 """
 
 from __future__ import annotations
@@ -17,22 +17,9 @@ import torch
 import repro.api as japi
 import repro_torch.api as api
 
-#: ``repro.api`` names the port lacks: the cluster backend and its
-#: shared-memory data plane (ROADMAP.md, Queue 1, the cluster item).
-NOT_YET_PORTED = {
-    "ClusterExecutor",
-    "ClusterFailedError",
-    "FaultPlan",
-    "ChaosSchedule",
-    "TaskSpec",
-    "ChunkHandle",
-    "StoreManifest",
-    "AttachedStore",
-    "ShmStore",
-    "ShmBlockRef",
-    "ShmAttachments",
-    "shm_available",
-}
+#: ``repro.api`` names the port lacks (none: the cluster and its
+#: shared-memory data plane are ported).
+NOT_YET_PORTED: set[str] = set()
 
 
 def test_all_exports_resolve():
@@ -62,16 +49,12 @@ def test_exported_kind_matches_reference(name):
 
 
 def test_every_backend_is_a_context_manager():
-    """``with engine(backend) as ex:`` works uniformly — exit closes; the
-    cluster is the one name that raises until it is ported."""
+    """``with engine(backend) as ex:`` works uniformly — exit closes (the
+    cluster's workers spawn only at a dispatch, so none starts here)."""
     for backend in api.BACKENDS:
         overrides = {"devices": (torch.device("cpu"),)}
         if backend == "server":
             overrides.update(root=None, autostart=False)
-        if backend == "cluster":
-            with pytest.raises(NotImplementedError):
-                api.engine(backend, **overrides)
-            continue
         with warnings.catch_warnings():
             warnings.simplefilter("error", DeprecationWarning)
             obj = api.engine(backend, **overrides)
@@ -84,7 +67,7 @@ def test_every_executor_satisfies_the_protocol():
     from repro_torch.api import JobClient
 
     cpu = (torch.device("cpu"),)
-    for backend in ("local", "threaded", "mesh", "stream"):
+    for backend in ("local", "threaded", "mesh", "stream", "cluster"):
         with api.engine(backend, devices=cpu) as ex:
             assert isinstance(ex, api.Executor), backend
     with api.engine("server", autostart=False) as srv:

@@ -7,8 +7,8 @@ has the reference's fields and defaults, keyword overrides patch fields and
 an unknown one raises ``TypeError``, every backend is a context manager, a
 direct constructor call warns and a factory construction does not, the
 ``run_map_reduce`` shim warns and matches the plan API, and
-``engine("cluster")`` raises ``NotImplementedError`` until the cluster is
-ported.
+``engine("cluster")`` builds a ClusterExecutor carrying the config's
+cluster knobs (its runs are tested in ``tests/test_torch_cluster*.py``).
 """
 
 import dataclasses
@@ -90,10 +90,26 @@ def test_every_backend_builds_and_runs(backend):
 
 
 def test_cluster_is_not_ported_yet():
+    """The cluster is ported now: ``engine("cluster")`` builds a
+    ClusterExecutor (no worker spawns before a dispatch) with the config's
+    knobs, a server can own one, and only the peer exchange of partials
+    (``p2p=True``), which is not ported, raises."""
+    from repro_torch.api import ClusterExecutor, FaultPlan
+
+    plan = FaultPlan(kill_after=((0, 2),))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", DeprecationWarning)
+        ex = engine("cluster", max_retries=5, fault_plan=plan, steal=True)
+    assert type(ex) is ClusterExecutor
+    assert (ex.max_retries, ex.fault_plan, ex.steal_enabled) == (5, plan, True)
+    assert ex.heartbeat_timeout_s == japi.ClusterExecutor().heartbeat_timeout_s == 30.0
+    assert ex.workers_alive() == []
+    ex.close()
+    srv = engine("server", server_backend="cluster", autostart=False)
+    assert type(srv.executor) is ClusterExecutor
+    srv.close()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine("cluster")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine("server", server_backend="cluster", autostart=False)
+        engine("cluster", p2p=True)
 
 
 def test_unknown_backend_and_field():

@@ -3,7 +3,8 @@
 An AST scan of every module of ``src/repro_torch`` and of ``chip_smoke.py``
 finds no import of ``jax`` or ``repro``, and a fresh interpreter in which
 both names are unimportable imports the port and runs a histogram on the
-CPU.  The port's docstring examples run here too.
+CPU; a spawned cluster worker imports neither.  The port's docstring
+examples run here too.
 """
 
 import ast
@@ -69,11 +70,41 @@ def test_runs_with_jax_unimportable():
     assert out.stdout.split() == ["ok", "3"]
 
 
+def test_spawned_cluster_worker_imports_no_jax():
+    """A cluster worker is a fresh spawned interpreter: after it ran a fused
+    histogram unit, its ``sys.modules`` holds neither ``jax`` nor ``repro``
+    (the probe function lives in a jax-free test helper module)."""
+    code = "\n".join([
+        "import numpy as np",
+        "import _torch_cluster_fns as fns",
+        "from repro_torch.api import ClusterExecutor, SplIter",
+        "from repro_torch.core.apps.histogram import histogram",
+        "from repro_torch.core.blocked import BlockedArray, round_robin_placement",
+        "pts = np.random.default_rng(0).random((64, 2)).astype(np.float32)",
+        "x = BlockedArray.from_array(pts, 8, num_locations=2,",
+        "                            policy=round_robin_placement, device='cpu')",
+        "with ClusterExecutor() as ex:",
+        "    h, rep = histogram(x, bins=4, policy=SplIter(fusion='pallas'), executor=ex)",
+        "    roots = ex.call_workers(fns.module_roots)",
+        "bad = {'jax', 'jaxlib', 'repro'}",
+        "print(rep.remote_dispatches, len(roots), all('torch' in r for r in roots.values()),",
+        "      sorted(bad & {m for r in roots.values() for m in r}))",
+    ])
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT / "tests")]))
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    dispatches, workers, *rest = out.stdout.split()
+    assert int(dispatches) >= 2 and workers == "2" and rest == ["True", "[]"]
+
+
 DOCTEST_MODULES = [
     "repro_torch._pytree",
     "repro_torch._threefry",
     "repro_torch.api.autotune",
     "repro_torch.api.chunkstore",
+    "repro_torch.api.cluster_executor",
     "repro_torch.api.collection",
     "repro_torch.api.executors",
     "repro_torch.api.factory",
@@ -81,6 +112,7 @@ DOCTEST_MODULES = [
     "repro_torch.api.kernels",
     "repro_torch.api.lowering",
     "repro_torch.api.policy",
+    "repro_torch.api.shm",
     "repro_torch.api.stream_executor",
     "repro_torch.checkpoint.checkpointer",
 ]

@@ -215,12 +215,29 @@ def test_stable_task_key_survives_rebuilds():
 
 
 def test_remote_lowering_is_not_ported():
-    _, tx = _pair(40, 8, 2, "round_robin_placement")
+    """Remote lowering is ported: under ``Capabilities(remote=True)`` every
+    task carries the reference's kind of code reference and projects to a
+    picklable TaskSpec whose payloads are the blocks' host bytes (no
+    exporter) and whose device is the blocks' device."""
+    jx, tx = _pair(40, 8, 2, "round_robin_placement")
     plan = tapi.Collection.from_blocked(tx).split(tapi.SplIter()).map_blocks(torch.sum)
     spec = plan.reduce(_combine).plan().spec
-    groups = [tlow.PlacedGroup(0, (0,))]
-    with pytest.raises(NotImplementedError):
-        tlow.lower(spec, spec.inputs, groups, tlow.Capabilities(remote=True))
+    jplan = japi.Collection.from_blocked(jx).split(japi.SplIter()).map_blocks(jnp.sum)
+    jspec = jplan.reduce(_combine).plan().spec
+    groups = [tlow.PlacedGroup(0, (0, 2)), tlow.PlacedGroup(1, (1, 3))]
+    jgroups = [jlow.PlacedGroup(0, (0, 2)), jlow.PlacedGroup(1, (1, 3))]
+    graph = tlow.lower(spec, spec.inputs, groups, tlow.Capabilities(remote=True))
+    jgraph = jlow.lower(jspec, jspec.inputs, jgroups, jlow.Capabilities(remote=True))
+    assert [t.fn_ref[0] for t in graph.tasks] == [t.fn_ref[0] for t in jgraph.tasks] == [
+        "scan", "scan"]
+    for t, jt in zip(graph.tasks, jgraph.tasks):
+        ts, js = t.spec(), jt.spec()
+        assert (ts.kind, ts.block_ids, ts.n_data, ts.device) == (js.kind, js.block_ids,
+                                                               js.n_data, "cpu")
+        for tb, jb in zip(ts.data[0], js.data[0]):
+            np.testing.assert_array_equal(tb, np.asarray(jb))
+    local = tlow.lower(spec, spec.inputs, groups, tlow.Capabilities())
+    assert all(t.fn_ref is None and t.remote_operands is None for t in local.tasks)
 
 
 def test_trace_accounting_per_report_window():

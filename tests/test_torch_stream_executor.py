@@ -21,6 +21,7 @@ where the reference's is (``_io_parity``).
 
 import importlib
 import os
+import threading
 
 import jax.numpy as jnp
 import numpy as np
@@ -567,6 +568,48 @@ def test_iteration_pipeline_matches_reference_stream():
         assert r.report.overlapped_launches == j.report.overlapped_launches
     _io_parity(_io([r.report for r in results]), _io([r.report for r in jresults]),
                _io([r.report for r in jresults2]))
+
+
+PIPELINE_BILL = ((8192, 16384, 8), (0, 32768, 16), (0, 16384, 8))
+
+
+@pytest.mark.parametrize("slow", ["compute", "load", None])
+def test_iteration_pipeline_bills_each_window_as_reference(monkeypatch, slow):
+    """The pipelined bill window by window, not only its sum: the first
+    iteration spills and loads every block once, whether the compute thread
+    or the prefetch thread is the slower one (the lookahead pins wait for
+    the current unit's load, so no eviction depends on the race)."""
+    x = _np_dataset(512, 8)
+    budget = x.nbytes // 2
+    store = japi.DiskStore(budget)
+    ex = japi.StreamExecutor(close_stores=False)
+    try:
+        xd = japi.Collection.from_array(jnp.asarray(x), block_rows=64, num_locations=2,
+                                        store=store)
+        jresults, _ = _iterate(japi, xd, jnp.ones((8,)), ex, 3, pipelined=True)
+    finally:
+        ex.close()
+        store.close()
+    assert tuple(_io([r.report]) for r in jresults) == PIPELINE_BILL
+
+    barrier = threading.Event()  # never set: each wait is a 10 ms delay
+    if slow == "compute":
+        run_unit = StreamExecutor._run_unit
+        monkeypatch.setattr(StreamExecutor, "_run_unit",
+                            lambda self, u, st: (barrier.wait(0.01), run_unit(self, u, st))[1])
+    elif slow == "load":
+        load = DiskStore._load
+        monkeypatch.setattr(DiskStore, "_load",
+                            lambda self, cid: (barrier.wait(0.01), load(self, cid))[1])
+    store = _store(budget)
+    ex = StreamExecutor(close_stores=False)
+    try:
+        xd = Collection.from_array(x, block_rows=64, num_locations=2, store=store, device="cpu")
+        results, _ = _iterate(tapi, xd, torch.ones(8), ex, 3, pipelined=True)
+    finally:
+        ex.close()
+        store.close()
+    assert tuple(_io([r.report]) for r in results) == PIPELINE_BILL
 
 
 def test_capabilities_match_reference():

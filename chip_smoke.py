@@ -105,14 +105,21 @@ read just after:
   3,355,443,200 B); the rows per block are cut only if it does not, and the
   setup line prints the free space and any cut.  The histogram under
   SplIter(1, pallas) and Baseline, a first pass (spawn, contexts, export)
-  and ``--repeats`` warm ones: counts equal Local's; dispatches, merges,
-  bytes moved and granularity equal; ``remote_dispatches`` = the tasks, no
-  retries; the dataset's bytes exported on the first pass only and
-  ``shm_bytes`` = exports + one 131,072 B reply a task; 8
-  ``partition_histogramdd`` launches a fused pass counted in the workers
-  (read with ``ClusterExecutor.call_workers``), none in the driver; each
-  pass's seconds split into export, the workers' operand copies, compute
-  and replies (``cluster_worker.unit_stats``).  The workers' partials equal
+  and ``--repeats`` warm ones: counts equal Local's; bytes moved and
+  granularity equal; no retries; the dataset's bytes exported on the first
+  pass only; 8 ``partition_histogramdd`` launches a fused pass counted in
+  the workers (read with ``ClusterExecutor.call_workers``), none in the
+  driver; each pass's seconds split into export, the workers' operand
+  copies, compute, replies and folds (``cluster_worker.unit_stats``).  The
+  fused passes bill Local's dispatches and merges, ``remote_dispatches`` =
+  the tasks and ``shm_bytes`` = exports + one 131,072 B reply a task.  The
+  Baseline passes are folded by the peer exchange under the default
+  ``p2p="auto"`` (the fused passes have shown the merge's 131,072 B
+  partials): the reference's bill, Local's dispatches and merges + 8 fold
+  units, ``remote_dispatches`` = tasks + 8, ``shm_bytes`` = the 128
+  published partials + 8 fold replies, ``p2p_bytes`` = 128 × 131,072 B,
+  ``driver_merge_bytes`` = 8 × 131,072 B, 8 folds in the workers'
+  ``unit_stats``.  The workers' partials equal
   the plain versions (histogram exactly; k-means counts, sums to 1e-4).
   k-means under SplIter(1, pallas), 10 iterations: 80 ``partition_kmeans``
   launches in the workers, centers bit-identical to Local's (the driver
@@ -121,10 +128,20 @@ read just after:
   unit replays on a survivor, bit-identical, ``retries`` 1) and one under
   ``ChaosSchedule(seed=11)`` over the 8 owners with stealing (a kill, a
   straggler, a grow and a shrink; every round bit-identical, steals,
-  retries and scale events equal to the logs, every pin released).  After
-  each ``close()`` no segment is left in ``/dev/shm`` and no worker process
-  lives.  The kernels line gives the workers' launches as
-  ``cluster_launches``.
+  retries and scale events equal to the logs, every pin released).  Then
+  the peer exchange forced on (``p2p=True``) on a fresh pool under
+  SplIter(2, pallas): the histogram (16 launches and 8 fold units of
+  fan-in 2 a pass, ``p2p_bytes`` 2,097,152 B and ``driver_merge_bytes``
+  1,048,576 B where the pinned pass above billed 2,097,152 B, counts equal
+  Local's and the plain version's) and a 10-iteration k-means (160
+  ``partition_kmeans`` launches and 80 folds in the workers, 16 × 672 B
+  peer-side and 8 × 672 B at the driver an iteration, centers bit-identical
+  to Local's SplIter(2), one folded partial equal to Local's and the plain
+  version's); and a fresh p2p pool whose worker 3 dies on receiving its
+  fold (the fold replays, bit-identical, the bill exact).  After each
+  ``close()`` no segment (published partials included) is left in
+  ``/dev/shm`` and no worker process lives.  The kernels line gives the
+  workers' launches as ``cluster_launches``.
 * ``value_histogram``: ``repro_torch.kernels.ops.partition_histogram`` (bins
   128) over each location's stacked partition of the histogram data; the
   summed counts must equal ``kernels.ref.histogram_ref`` bit for bit.
@@ -148,7 +165,11 @@ read just after:
   layer) and must agree within ``F32_LOGIT_TOL``.  A third serve
   run, mamba2-1.3b at full width cut to 2 layers, holds the bf16 SSD route
   to the same checks at a tolerance of 0.25, which 48 random layers' bf16
-  rounding does not allow.
+  rounding does not allow.  Three more runs take the dense configs' other
+  layer branches through the same checks at full width cut to 2 layers, 8
+  decode steps, ``attn_impl="flash"`` (head dim 128: the ``wgmma`` route):
+  qwen2-72b (QKV bias), command-r-35b (parallel block, layernorm, tied
+  embeddings) and deepseek-7b (MHA, 32 heads of 128 for keys and values).
 * ``sampled_serve``: mamba2-1.3b cut to 2 layers, ``greedy=False``, 8
   steps: each token after the first is ``_threefry.categorical`` (the
   reference's ``jax.random.categorical`` bits) of its step's served
@@ -201,6 +222,7 @@ when no CUDA device is present or the repository's ``src`` is missing.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import re
@@ -237,6 +259,10 @@ VALUE_BINS = 128
 # leaves mamba2's bf16 route loosely held, so a third run holds it at 2 layers
 # of the same width, where the yardstick is small.  "depth_check" runs stay
 # out of the kernel line's launch counts, which come from the full-depth runs.
+# The three dense configs whose layer branches qwen3 does not take (qwen2's
+# QKV bias, command-r's parallel block, layernorm and tied embeddings,
+# deepseek's MHA) run at full width cut to 2 layers, 8 decode steps; their
+# yardsticks measured 0.063, 0.043 and 0.065 on an H100, hence 0.2.
 SERVE = {
     "qwen3-32b": {"arch": "qwen3-32b", "overrides": {"num_layers": 8, "attn_impl": "flash"},
                   "kernel": "flash_attention", "logit_tol": 0.25},
@@ -244,6 +270,9 @@ SERVE = {
                     "logit_tol": 2.5},
     "mamba2-1.3b/2-layers": {"arch": "mamba2-1.3b", "overrides": {"num_layers": 2},
                              "kernel": "ssd_scan", "logit_tol": 0.25, "depth_check": True},
+    **{arch: {"arch": arch, "overrides": {"num_layers": 2, "attn_impl": "flash"},
+              "kernel": "flash_attention", "logit_tol": 0.2, "steps": 8, "depth_check": True}
+       for arch in ("qwen2-72b", "command-r-35b", "deepseek-7b")},
 }
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS, SERVE_MAX_LEN = 8, 512, 32, 576
 #: the prefill and the recurrence in f32 on the same weights: only float
@@ -440,6 +469,7 @@ def main_path(x_hist, x_km, means, label_counts, seed: int, repeats: int) -> dic
             runs = []
             for i in range(1 + repeats):  # one warm-up, then timed runs
                 if i == repeats:  # the last run: how far device memory rises
+                    gc.collect()  # earlier passes' cycles (see _peak_rise)
                     torch.cuda.synchronize()
                     torch.cuda.reset_peak_memory_stats()
                     base = torch.cuda.memory_allocated()
@@ -724,6 +754,7 @@ def serve_phase(name: str, seed: int, dev: torch.device) -> dict:
 
     spec = SERVE[name]
     arch, kernel, tol = spec["arch"], spec["kernel"], spec["logit_tol"]
+    steps = spec.get("steps", SERVE_STEPS)
     full = get_config(arch)
     cfg = dataclasses.replace(full, **spec["overrides"])
     model = build_model(cfg)
@@ -736,8 +767,10 @@ def serve_phase(name: str, seed: int, dev: torch.device) -> dict:
     # least time per phase on an H100 SXM: a decode step reads every weight but
     # the embedding (of which it gathers 8 rows) once; a prefill does at least
     # the layers' matrix products for all 4096 tokens in bf16
+    # (a tied head reads the whole embedding as its weight)
     embed = params["embed"]
-    decode_bound_ms = 1e3 * (param_bytes - embed.numel() * embed.element_size()) / HBM_BYTES_PER_S
+    gathered = 0 if cfg.tie_embeddings else embed.numel() * embed.element_size()
+    decode_bound_ms = 1e3 * (param_bytes - gathered) / HBM_BYTES_PER_S
     layer_params = sum(t.numel() for t in tree_leaves(params["seg0"]))  # the one segment
     prefill_bound_ms = 1e3 * 2 * layer_params * SERVE_BATCH * SERVE_PROMPT / BF16_FLOPS_PER_S
     prompts = np.random.default_rng(seed).integers(
@@ -747,7 +780,7 @@ def serve_phase(name: str, seed: int, dev: torch.device) -> dict:
     server.generate(prompts, steps=2)  # warm-up: library handles, kernel loads
 
     reset_launches()
-    tokens, stats, logits = server.generate(prompts, steps=SERVE_STEPS, return_logits=True)
+    tokens, stats, logits = server.generate(prompts, steps=steps, return_logits=True)
     launches = read_launches()
     bf16_split = split_launches()
     peak = torch.cuda.max_memory_allocated(dev)
@@ -755,7 +788,7 @@ def serve_phase(name: str, seed: int, dev: torch.device) -> dict:
     v = cfg.vocab_size  # past it, the padded vocabulary's logits are -1e30
     served = torch.as_tensor(tokens, dtype=torch.int64, device=dev)
     prompt_t = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
-    lf = logits[:, :SERVE_STEPS, :v].float()
+    lf = logits[:, :steps, :v].float()
     rf = recurrence_logits(model, params, prompt_t, served)[..., :v].float()
     prefill_err = float((lf[:, 0] - rf[:, 0]).abs().max())
     decode_err = float((lf[:, 1:] - rf[:, 1:]).abs().max())
@@ -778,10 +811,10 @@ def serve_phase(name: str, seed: int, dev: torch.device) -> dict:
         "phase": "serve", "run": name, "arch": arch, "d_model": cfg.d_model,
         "layers": cfg.num_layers,
         "layers_full": full.num_layers, "attn_impl": cfg.attn_impl if cfg.num_heads else None,
-        "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "steps": SERVE_STEPS,
+        "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "steps": steps,
         "max_len": SERVE_MAX_LEN, "dtype": cfg.dtype,
         "prefill_ms": stats.prefill_s * 1e3, "prefill_matmul_bound_ms": prefill_bound_ms,
-        "decode_ms_per_token": stats.decode_s / SERVE_STEPS * 1e3,
+        "decode_ms_per_token": stats.decode_s / steps * 1e3,
         "decode_bytes_bound_ms": decode_bound_ms,
         "decode_tokens_per_s": stats.tokens_out / stats.decode_s,
         "tokens_per_s": stats.tokens_out / (stats.prefill_s + stats.decode_s),
@@ -800,7 +833,7 @@ def serve_phase(name: str, seed: int, dev: torch.device) -> dict:
         "mismatch_gaps": gaps,
     }
     emit(result)
-    check(stats.dispatches == 1 + SERVE_STEPS, f"{name}: dispatches {stats.dispatches}")
+    check(stats.dispatches == 1 + steps, f"{name}: dispatches {stats.dispatches}")
     want = {k: (cfg.num_layers if k == kernel else 0) for k in launches}
     check(launches == want, f"{name}: {kernel} launched once per layer of one prefill: {launches}")
     check(bf16_split == (0, 0), f"{name}: the bf16 prefill takes no split-route flash launch "
@@ -1253,6 +1286,7 @@ def stream_phase(x_hist, x_km, seed: int, repeats: int) -> dict:
     for depth in (1, 0):
         # -- histogram: a fresh store per policy, one cold and three warm passes
         for name, pol in hist_pols.items():
+            gc.collect()  # earlier passes' cycles (see _peak_rise)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
@@ -1305,6 +1339,7 @@ def stream_phase(x_hist, x_km, seed: int, repeats: int) -> dict:
 
         # -- k-means: one store, barriered (its first iteration is the cold
         # pass), then pipelined
+        gc.collect()  # earlier passes' cycles (see _peak_rise)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
@@ -1457,7 +1492,13 @@ def same_association(locations: list[int], ranks: int) -> bool:
 
 
 def _peak_rise(run) -> tuple:
-    """``run()``'s result and how far it raised the allocated device memory."""
+    """``run()``'s result and how far it raised the allocated device memory.
+
+    An executor's pass leaves reference cycles that hold its tensors, so an
+    earlier pass's garbage is collected first: freed during ``run()``, it
+    would offset the rise being measured.
+    """
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -1675,8 +1716,8 @@ def _worker_stats(ex) -> dict:
     from repro_torch.api import cluster_worker
 
     per = ex.call_workers(cluster_worker.unit_stats, True)
-    return {k: sum(v[k] for v in per.values()) for k in ("units", "operands_s", "compute_s",
-                                                         "reply_s")}
+    return {k: sum(v[k] for v in per.values())
+            for k in ("units", "operands_s", "compute_s", "reply_s", "folds", "fold_s")}
 
 
 def _processes_gone(pids) -> bool:
@@ -1750,6 +1791,10 @@ def cluster_phase(x_hist, x_km, seed: int, repeats: int) -> dict:
     rows_out = []
     policies = (("spliter1_pallas", SplIter(1, fusion="pallas")), ("baseline", Baseline()))
     for name, pol in policies:
+        # Baseline's 16 partials a location clear the default p2p="auto" gate
+        # once a pass of the same merge has shown their size (131,072 B): the
+        # SplIter(1, pallas) passes before it have, so from its first pass one
+        # fold unit a location folds them in its worker (DESIGN.md §16)
         runs, split = [], []
         for _ in range(1 + repeats):  # the first pass spawns and exports
             run = counted(lambda: histogram(x_hist, bins=HIST_BINS, policy=pol, executor=ex))
@@ -1759,6 +1804,7 @@ def cluster_phase(x_hist, x_km, seed: int, repeats: int) -> dict:
                       cluster=False) for _ in range(1 + repeats)]
         ref, ref_rep = refs[-1][0]
         tasks = ref_rep.dispatches - ref_rep.merges
+        folds = [LOCATIONS if name == "baseline" else 0] * (1 + repeats)
         per_pass = LOCATIONS * on_card if isinstance(pol, SplIter) else 0
         launched["partition_histogramdd"] += sum(r[2]["partition_histogramdd"] for r in runs)
         reps = [r[0][1] for r in runs]
@@ -1769,6 +1815,9 @@ def cluster_phase(x_hist, x_km, seed: int, repeats: int) -> dict:
                "remote_dispatches": [r.remote_dispatches for r in reps],
                "ipc_bytes": [r.ipc_bytes for r in reps], "shm_bytes": [r.shm_bytes for r in reps],
                "exported_bytes": [r[3] for r in runs], "retries": [r.retries for r in reps],
+               "p2p_bytes": [r.p2p_bytes for r in reps],
+               "driver_merge_bytes": [r.driver_merge_bytes for r in reps],
+               "fold_units": [s["folds"] for s in split],
                "launches_per_pass": [r[2]["partition_histogramdd"] for r in runs],
                "first_pass_wall_s": runs[0][1],
                "wall_s": statistics.median(r[1] for r in runs[1:]),
@@ -1779,18 +1828,30 @@ def cluster_phase(x_hist, x_km, seed: int, repeats: int) -> dict:
         emit({"phase": "cluster", "run": f"histogram/{name}", **row})
         what = f"cluster histogram/{name}"
         check(all(torch.equal(r[0][0], ref) for r in runs), f"{what}: counts equal Local's")
-        check(all(r.dispatches == ref_rep.dispatches and r.merges == ref_rep.merges
+        check(all(r.dispatches == ref_rep.dispatches + f and r.merges == ref_rep.merges + f
                   and r.bytes_moved == ref_rep.bytes_moved
-                  and r.granularity == ref_rep.granularity for r in reps),
-              f"{what}: dispatches, merges, bytes moved and granularity equal Local's")
-        check(all(r.remote_dispatches == tasks and r.retries == 0 and r.ipc_bytes > 0
-                  for r in reps), f"{what}: {tasks} remote dispatches a pass, no retries")
+                  and r.granularity == ref_rep.granularity for r, f in zip(reps, folds)),
+              f"{what}: dispatches and merges equal Local's plus the fold units {folds}, "
+              f"bytes moved and granularity equal Local's")
+        check(all(r.remote_dispatches == tasks + f and r.retries == 0 and r.ipc_bytes > 0
+                  for r, f in zip(reps, folds)),
+              f"{what}: {tasks} remote dispatches a pass plus the fold units, no retries")
         first = x_hist.nbytes if name == policies[0][0] else 0
         check([r[3] for r in runs] == [first] + [0] * repeats,
               f"{what}: the dataset's {x_hist.nbytes} B exported on the first pass only "
               f"({[r[3] for r in runs]})")
-        check(all(r.shm_bytes == e[3] + tasks * hist_partial for r, e in zip(reps, runs)),
-              f"{what}: shm_bytes = the exports + {tasks} replies of {hist_partial} B")
+        # published partials (N·S) and the folds' replies (L·S) in segments
+        check(all(r.shm_bytes == e[3] + tasks * hist_partial + f * hist_partial
+                  for r, e, f in zip(reps, runs, folds)),
+              f"{what}: shm_bytes = the exports + {tasks} partials of {hist_partial} B "
+              f"+ a fold's reply a fold unit")
+        check([r.p2p_bytes for r in reps] == [tasks * hist_partial if f else 0 for f in folds]
+              and [r.driver_merge_bytes for r in reps]
+              == [f * hist_partial if f else tasks * hist_partial for f in folds],
+              f"{what}: p2p_bytes N·S and driver_merge_bytes L·S on folded passes, "
+              f"driver_merge_bytes N·S otherwise")
+        check([s["folds"] for s in split] == folds,
+              f"{what}: the fold units ran in the workers ({[s['folds'] for s in split]})")
         check([r[2]["partition_histogramdd"] for r in runs] == [per_pass] * (1 + repeats),
               f"{what}: {per_pass} partition_histogramdd launches a pass in the workers")
 
@@ -1887,6 +1948,10 @@ def cluster_phase(x_hist, x_km, seed: int, repeats: int) -> dict:
           "remote_dispatches": rep.remote_dispatches, "dispatches": rep.dispatches,
           "local_dispatches": ref2_rep.dispatches})
     check(torch.equal(h, ref2), "cluster kill: the replayed pass equals Local's bit for bit")
+    pinned_merge_bytes = rep.driver_merge_bytes  # a first pass: no observed size, no folds
+    check(rep.p2p_bytes == 0 and pinned_merge_bytes == 2 * LOCATIONS * hist_partial,
+          f"cluster kill: the SplIter(2) pass pinned, driver_merge_bytes "
+          f"{2 * LOCATIONS * hist_partial} ({pinned_merge_bytes})")
     check(rep.retries >= 1 and {e["worker"] for e in retry_log} == {3},
           f"cluster kill: worker 3's lost unit replayed ({retry_log})")
     check(leaked_segments(prefix) == [] and leaked_segments() == [],
@@ -1925,11 +1990,178 @@ def cluster_phase(x_hist, x_km, seed: int, repeats: int) -> dict:
     check(pinned == {}, f"cluster chaos: every dispatch pin released ({pinned})")
     check(leaked_segments(prefix) == [] and _processes_gone(pids),
           "cluster chaos: no segment and no worker outlives close()")
+    p2p_launches = cluster_p2p_rows(x_hist, x_km, seed, repeats, export, timed, plain_hist,
+                                    pinned_merge_bytes)
+    for k, n in p2p_launches.items():
+        launched[k] += n
     emit({"phase": "cluster", "cluster_launches": launched,
           "driver_launches": sum(driver_launches)})
     check(sum(driver_launches) == 0,
           f"cluster: no kernel launched in the driver during the cluster's runs "
           f"({driver_launches})")
+    return launched
+
+
+def cluster_p2p_rows(x_hist, x_km, seed: int, repeats: int, export: int, timed, plain_hist,
+                     pinned_merge_bytes: int) -> dict:
+    """The peer exchange forced on (``p2p=True``) under SplIter(2, pallas):
+    the two partials of each location are published to shared memory and
+    one fold unit a location folds them in its worker, on the card; the
+    driver folds the 8 values.  The histogram (1 + ``repeats`` passes) and
+    a 10-iteration k-means on one fresh pool, then a fresh pool whose worker
+    3 dies on receiving its fold.  Returns the launches in the workers."""
+    from repro_torch.api import Collection, FaultPlan, SplIter, engine
+    from repro_torch.api.shm import leaked_segments
+    from repro_torch.core.apps.histogram import histogram
+    from repro_torch.core.apps.kmeans import _combine, kmeans, partial_sum_block
+    from repro_torch.kernels import partition_reduce as pr
+
+    pol = SplIter(2, fusion="pallas")
+    tasks, on_card = 2 * LOCATIONS, x_hist.device.type == "cuda"
+    s_hist = HIST_BINS**HIST_D * 4  # 131,072 B: int32 counts
+    s_km = KM_K * KM_D * 4 + KM_K * 4  # 672 B: f32 sums and counts
+    launched = {"partition_histogramdd": 0, "partition_kmeans": 0}
+    local = engine("local")
+    ex = engine("cluster", p2p=True, shm_budget_bytes=export + CLUSTER_SHM_SLACK)
+    arena = ex._shm
+
+    def counted(fn):
+        c0, e0 = _worker_launches(ex), arena.bytes_exported
+        out, wall = timed(fn)
+        c1 = _worker_launches(ex)
+        return out, wall, {k: c1[k] - c0.get(k, 0) for k in c1}, arena.bytes_exported - e0
+
+    runs, split = [], []
+    for _ in range(1 + repeats):
+        runs.append(counted(lambda: histogram(x_hist, bins=HIST_BINS, policy=pol, executor=ex)))
+        split.append(_worker_stats(ex))
+    refs = [timed(lambda: histogram(x_hist, bins=HIST_BINS, policy=pol, executor=local),
+                  cluster=False) for _ in range(1 + repeats)]
+    ref, ref_rep = refs[-1][0]
+    reps = [r[0][1] for r in runs]
+    hist_launches = [r[2]["partition_histogramdd"] for r in runs]
+    launched["partition_histogramdd"] += sum(hist_launches)
+    row = {"policy": "spliter2_pallas_p2p", "tasks": tasks,
+           "fold_units": [s["folds"] for s in split],
+           "dispatches": [r.dispatches for r in reps], "local_dispatches": ref_rep.dispatches,
+           "merges": [r.merges for r in reps],
+           "remote_dispatches": [r.remote_dispatches for r in reps],
+           "ipc_bytes": [r.ipc_bytes for r in reps], "shm_bytes": [r.shm_bytes for r in reps],
+           "exported_bytes": [r[3] for r in runs], "retries": [r.retries for r in reps],
+           "p2p_bytes": [r.p2p_bytes for r in reps],
+           "driver_merge_bytes": [r.driver_merge_bytes for r in reps],
+           "pinned_driver_merge_bytes": pinned_merge_bytes,
+           "launches_per_pass": hist_launches, "first_pass_wall_s": runs[0][1],
+           "wall_s": statistics.median(r[1] for r in runs[1:]),
+           "local_wall_s": statistics.median(r[1] for r in refs[1:]),
+           "fold_s": [s["fold_s"] for s in split], "split_s": split}
+    emit({"phase": "cluster", "run": "histogram/spliter2_pallas_p2p", **row})
+    what = "cluster histogram/spliter2_pallas_p2p"
+    check(all(torch.equal(r[0][0], ref) and torch.equal(r[0][0], plain_hist) for r in runs),
+          f"{what}: counts equal Local's and the plain partition_histogramdd's")
+    check(all(r.p2p_bytes == tasks * s_hist and r.driver_merge_bytes == LOCATIONS * s_hist
+              for r in reps) and ref_rep.driver_merge_bytes == tasks * s_hist
+          and pinned_merge_bytes == tasks * s_hist,
+          f"{what}: p2p_bytes {tasks * s_hist} and driver_merge_bytes {LOCATIONS * s_hist} a "
+          f"pass, where Local's and the pinned pass's are {tasks * s_hist}")
+    check(all(r.dispatches == ref_rep.dispatches + LOCATIONS
+              and r.merges == ref_rep.merges + LOCATIONS
+              and r.remote_dispatches == tasks + LOCATIONS and r.retries == 0 for r in reps),
+          f"{what}: Local's dispatches and merges plus {LOCATIONS} fold units, "
+          f"{tasks + LOCATIONS} remote dispatches, no retries")
+    check([r[3] for r in runs] == [x_hist.nbytes] + [0] * repeats
+          and all(r.shm_bytes == e[3] + (tasks + LOCATIONS) * s_hist for r, e in zip(reps, runs)),
+          f"{what}: shm_bytes = the export + {tasks} published partials + {LOCATIONS} fold replies")
+    check([s["folds"] for s in split] == [LOCATIONS] * (1 + repeats),
+          f"{what}: {LOCATIONS} fold units a pass ran in the workers")
+    check(hist_launches == [tasks * on_card] * (1 + repeats),
+          f"{what}: {tasks} partition_histogramdd launches a pass in the workers ({hist_launches})")
+
+    c0 = _worker_launches(ex)
+    km, km_wall = timed(lambda: kmeans(x_km, k=KM_K, iters=KM_ITERS, seed=seed, policy=pol,
+                                       executor=ex))
+    km_split = _worker_stats(ex)
+    km_launches = _worker_launches(ex)["partition_kmeans"] - c0["partition_kmeans"]
+    km_ref, km_local_wall = timed(lambda: kmeans(x_km, k=KM_K, iters=KM_ITERS, seed=seed,
+                                                 policy=pol, executor=local), cluster=False)
+    plan = (Collection.from_blocked(x_km).split(pol)
+            .map_blocks(partial_sum_block, extra_args=(km_ref.centers,)).reduce(_combine))
+    c1 = _worker_launches(ex)["partition_kmeans"]
+    (sums, counts), _ = timed(lambda: plan.compute(executor=ex).value)
+    km_check_launches = _worker_launches(ex)["partition_kmeans"] - c1
+    lsums, lcounts = plan.compute(executor=local).value
+    psums, pcounts = torch.zeros_like(lsums), torch.zeros_like(lcounts)
+    for loc in range(LOCATIONS):
+        st_ = torch.stack([x_km.block(b) for b in x_km.blocks_at(loc)])
+        s_, c_ = pr.partition_kmeans_ref(st_, km_ref.centers)
+        psums += s_
+        pcounts += c_
+    del st_
+    launched["partition_kmeans"] += km_launches + km_check_launches
+    km_row = {"policy": "kmeans/spliter2_pallas_p2p", "iterations": KM_ITERS,
+              "fold_units": km_split["folds"], "fold_s": km_split["fold_s"],
+              "dispatches": [r.dispatches for r in km.reports],
+              "local_dispatches": [r.dispatches for r in km_ref.reports],
+              "remote_dispatches": [r.remote_dispatches for r in km.reports],
+              "shm_bytes": [r.shm_bytes for r in km.reports],
+              "p2p_bytes": [r.p2p_bytes for r in km.reports],
+              "driver_merge_bytes": [r.driver_merge_bytes for r in km.reports],
+              "local_driver_merge_bytes": [r.driver_merge_bytes for r in km_ref.reports],
+              "retries": [r.retries for r in km.reports], "launches_per_run": km_launches,
+              "wall_s": km_wall, "local_wall_s": km_local_wall,
+              "iteration_wall_s": [r.wall_s for r in km.reports],
+              "local_iteration_wall_s": [r.wall_s for r in km_ref.reports], "split_s": km_split,
+              "partial_max_abs_err_vs_plain": float((sums - psums).abs().max())}
+    emit({"phase": "cluster", "run": "kmeans/spliter2_pallas_p2p", **km_row})
+    what = "cluster kmeans/spliter2_pallas_p2p"
+    check(torch.equal(km.centers, km_ref.centers),
+          f"{what}: centers bit-identical to Local's SplIter(2) (the same fold association)")
+    check(all(r.p2p_bytes == tasks * s_km and r.driver_merge_bytes == LOCATIONS * s_km
+              for r in km.reports)
+          and all(r.driver_merge_bytes == tasks * s_km for r in km_ref.reports),
+          f"{what}: p2p_bytes {tasks * s_km} and driver_merge_bytes {LOCATIONS * s_km} an "
+          f"iteration (Local's {tasks * s_km})")
+    check([r.dispatches for r in km.reports]
+          == [r.dispatches + LOCATIONS for r in km_ref.reports]
+          and all(r.retries == 0 for r in km.reports),
+          f"{what}: Local's dispatches plus {LOCATIONS} fold units an iteration, no retries")
+    check(km_split["folds"] == KM_ITERS * LOCATIONS,
+          f"{what}: {KM_ITERS * LOCATIONS} fold units ran in the workers ({km_split['folds']})")
+    check(km_launches == KM_ITERS * tasks * on_card,
+          f"{what}: {KM_ITERS * tasks} partition_kmeans launches a run in the workers "
+          f"({km_launches})")
+    check(torch.equal(sums, lsums) and torch.equal(counts, lcounts)
+          and torch.equal(counts, pcounts) and torch.allclose(sums, psums, rtol=1e-4, atol=1e-3),
+          f"{what}: the folded partial equals Local's bit for bit and the plain "
+          f"partition_kmeans's (counts exactly, sums within 1e-4)")
+    pids, prefix = list(ex.worker_pids().values()), arena.prefix
+    ex.close()
+    local.close()
+    check(leaked_segments(prefix) == [] and _processes_gone(pids),
+          "cluster p2p: no segment (published partials included) and no worker outlives close()")
+
+    # worker 3 dies on receiving its fold (its third dispatch, after its two
+    # units published): the fold replays on a survivor over the same segments
+    kill = FaultPlan(kill_after=((3, 3),))
+    ex = engine("cluster", p2p=True, fault_plan=kill, shm_budget_bytes=export + CLUSTER_SHM_SLACK)
+    (h, rep), wall = timed(lambda: histogram(x_hist, bins=HIST_BINS, policy=pol, executor=ex))
+    folds = _worker_stats(ex)["folds"]  # the survivors' (the dead worker's are gone)
+    pids, prefix, retry_log = list(ex.worker_pids().values()), ex._shm.prefix, list(ex.retry_log)
+    ex.close()
+    emit({"phase": "cluster", "run": "fold_kill", "fault_plan": {"kill_after": [[3, 3]]},
+          "wall_s": wall, "retries": rep.retries, "retry_log": retry_log,
+          "fold_units_in_survivors": folds, "p2p_bytes": rep.p2p_bytes,
+          "driver_merge_bytes": rep.driver_merge_bytes, "dispatches": rep.dispatches})
+    check(torch.equal(h, ref), "cluster fold kill: the replayed pass equals Local's bit for bit")
+    check(rep.retries >= 1 and [(e["worker"], e["unit"] >= tasks) for e in retry_log]
+          == [(3, True)],
+          f"cluster fold kill: worker 3's fold replayed ({retry_log})")
+    check(rep.p2p_bytes == tasks * s_hist and rep.driver_merge_bytes == LOCATIONS * s_hist
+          and folds == LOCATIONS,
+          f"cluster fold kill: the bill stays exact ({rep.p2p_bytes}, {rep.driver_merge_bytes}) "
+          f"and all {LOCATIONS} folds ran in the surviving workers ({folds})")
+    check(leaked_segments(prefix) == [] and leaked_segments() == [] and _processes_gone(pids),
+          "cluster fold kill: no segment and no worker outlives close()")
     return launched
 
 
@@ -2421,9 +2653,9 @@ def main(argv=None) -> int:
         result = serve_phase(name, args.seed, dev)
         if not spec.get("depth_check"):
             launches[spec["kernel"]] = result["launches"][spec["kernel"]]
-        if spec["kernel"] == "flash_attention":
-            launches["flash_attention_split"] = result["f32_prefill_flash_split_launches"]
-            launches["split_kv"] = result["f32_prefill_split_kv_launches"]
+            if spec["kernel"] == "flash_attention":
+                launches["flash_attention_split"] = result["f32_prefill_flash_split_launches"]
+                launches["split_kv"] = result["f32_prefill_split_kv_launches"]
         torch.cuda.empty_cache()
     sampled_serve_phase(args.seed, dev)
     torch.cuda.empty_cache()

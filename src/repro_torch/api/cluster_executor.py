@@ -61,13 +61,18 @@ units off an overloaded sibling when the cost model approves; with
 ``autoscale=True`` the pool grows *roamer* workers under backlog and
 retires them when idle, through the same requeue/replay path as a death.
 
+Peer exchange of partials (DESIGN.md §16): when a location runs several
+units of one merge, their partials can stay in named shared-memory segments
+(*published*) and a ``"fold"`` unit on that location's worker folds them
+with the driver's own chain — on the card for a card plan — so the driver
+receives one merged value per location.  ``EngineReport.p2p_bytes`` bills
+the member bytes that skipped the driver, ``driver_merge_bytes`` those
+that did not.  ``p2p="auto"`` gates it per execute on the observed partial
+size (:func:`~repro_torch.api.autotune.should_fold_remote`).
+
 Driver-level stages (``executor.task`` — k-NN's lookup/merge loops,
 Cascade SVM's cascade) ship over the same channel as synchronous RPCs when
 their function is referencable; unreferencable callables run in-process.
-
-Not ported: the JAX package's peer exchange of partials (its ``p2p``
-option, DESIGN.md §16).  ``p2p="auto"`` and ``False`` keep every fold in
-the driver; ``p2p=True`` raises.
 """
 
 from __future__ import annotations
@@ -87,9 +92,15 @@ import torch
 
 from repro_torch._pytree import tree_map
 from repro_torch.api import shm
-from repro_torch.api.autotune import should_steal
+from repro_torch.api.autotune import should_fold_remote, should_steal
 from repro_torch.api.chunkstore import ChunkHandle, StoreManifest, chunk_stores, resolve_chunk
-from repro_torch.api.executors import _LIVE_POOLS, _PlanExecutor, _SchedulerState, _Unit
+from repro_torch.api.executors import (
+    _LIVE_POOLS,
+    _PlanExecutor,
+    _SchedulerState,
+    _tree_nbytes,
+    _Unit,
+)
 from repro_torch.api.fnref import encode_fn
 from repro_torch.api.lowering import Capabilities, _inline, key_summary, stable_task_key
 from repro_torch.api.shm import ShmBlockRef, ShmStore, shm_available
@@ -252,6 +263,11 @@ class ChaosSchedule:
         return tuple(out)
 
 
+def _host_leaf(leaf):
+    """A tensor leaf as a host value that pickles only its own elements."""
+    return _inline(leaf) if isinstance(leaf, torch.Tensor) else leaf
+
+
 def _on_device(tree, device: str):
     """A reply's host values as tensors on ``device`` (python values stay)."""
     dev = torch.device(device)
@@ -363,7 +379,8 @@ class _DrainContext:
         self.replays: collections.deque[_Unit] = collections.deque()
         self.inflight: dict[int, _Unit] = {}
         self.meta: dict[int, tuple] = {}  # unit index -> (t0_send, send_seconds)
-        # unit index -> the device its partial returns to (the plan's)
+        # unit index -> the device its partial returns to (the plan's); a
+        # publishing member's stays until its fold replies, which runs there
         self.devices: dict[int, str] = {}
         # unit index -> shm refs this dispatch exported: segment pins that
         # must drop on reply, requeue, or drain teardown.
@@ -375,6 +392,11 @@ class _DrainContext:
         # that victim (else a victim with no observed service time yet is
         # the survivor of choice, and the unit ping-pongs back to it).
         self.stolen_from: dict[int, int] = {}
+        # unit index -> SegmentLease over that unit's *published* partial
+        # (peer exchange).  The driver owns every published segment through
+        # these: a lease is released when the sibling fold consumes it
+        # (billing p2p_bytes) or — the backstop — when the context closes.
+        self.leases: dict[int, shm.SegmentLease] = {}
 
     def record_failure(self, index: int, wid: int, error: str, log_path: str | None) -> None:
         self.history.setdefault(index, []).append(
@@ -390,13 +412,23 @@ class _DrainContext:
         }
 
 
+def _unit_origin(unit: _Unit):
+    """The app task a failure attributes to: a fold unit names its
+    subtree's ORIGINATING task (first member), never the synthetic fold."""
+    return unit.tasks[0] if unit.tasks else unit.origin
+
+
 def _label(unit: _Unit) -> tuple[str, str | None]:
     """(error label, task key summary) of the app task a unit runs."""
-    task = unit.tasks[0] if unit.tasks else None
+    task = _unit_origin(unit)
     if task is None:
-        return f"unit {unit.index}", None
-    key = key_summary(task.key)
-    return f"task {key} (blocks={task.block_ids})", key
+        label, key = f"unit {unit.index}", None
+    else:
+        key = key_summary(task.key)
+        label = f"task {key} (blocks={task.block_ids})"
+    if unit.kind == "fold":
+        label = f"merge fold of {label}"
+    return label, key
 
 
 class ClusterExecutor(_PlanExecutor):
@@ -426,9 +458,16 @@ class ClusterExecutor(_PlanExecutor):
       shm_budget_bytes: cap on live segment bytes (default 256 MiB, or
         the ``REPRO_SHM_BUDGET`` environment variable).  Exhaustion falls
         back to inline/spill-file transport, never to an error.
-      p2p / p2p_min_bytes: the JAX package's peer exchange of partials,
-        not ported: ``"auto"`` (default) and ``False`` fold every partial
-        in the driver; ``True`` raises ``NotImplementedError``.
+      p2p: peer exchange of partials (DESIGN.md §16).  ``"auto"``
+        (default) lets :func:`~repro_torch.api.autotune.should_fold_remote`
+        decide per execute, fed by an observed per-merge-key partial-size
+        EMA — small partials keep the driver's fold.  ``True`` folds
+        worker-side whenever the plan and data plane allow; ``False`` never.
+        When active, each location's multi-member group publishes its
+        partials as named segments, a ``fold`` unit on the location's worker
+        folds them, and the driver receives ONE value per location.
+      p2p_min_bytes: the ``"auto"`` gate's floor: observed partials below
+        this never leave the driver's fold.
       steal: enable work stealing: an idle worker takes queued units off an
         overloaded sibling when the cost model says remote fetch beats the
         expected wait.  Off by default.
@@ -481,11 +520,6 @@ class ClusterExecutor(_PlanExecutor):
         scale_up_backlog: int = 2,
         scale_idle_ticks: int = 50,
     ):
-        if p2p is True:
-            raise NotImplementedError(
-                "ClusterExecutor(p2p=True): the peer exchange of partials is not "
-                "ported to repro_torch (ROADMAP.md); every fold runs in the driver"
-            )
         super().__init__(engine)
         self.max_retries = max_retries
         self.heartbeat_s = heartbeat_s
@@ -513,6 +547,13 @@ class ClusterExecutor(_PlanExecutor):
             else None
         )
         self.shm_min_bytes = shm_min_bytes
+        self.p2p = p2p
+        self.p2p_min_bytes = p2p_min_bytes
+        # merge key -> observed partial-size EMA (bytes): the auto gate's
+        # evidence, from unit replies — an iterative app pays one execute on
+        # the driver's fold before the gate can switch it to peer folds.
+        self._fold_ema: dict[Hashable, float] = {}
+        self._fold_refs: dict[Hashable, tuple | None] = {}
         # A parent that holds a CUDA context must never fork.
         self._ctx = multiprocessing.get_context("spawn")
         self._kernels_built = False
@@ -793,6 +834,113 @@ class ClusterExecutor(_PlanExecutor):
         _build.build(_PARTITION_SOURCES)
         self._kernels_built = True
 
+    # -- peer-to-peer partial exchange (DESIGN.md §16) -------------------------
+
+    def _publish_name(self, epoch: int, index: int, attempt: int) -> str:
+        """Deterministic segment name for a published partial.
+
+        Addressed by unit identity (epoch/index/attempt), never worker id:
+        a stolen or replayed unit publishes to the same place, so the
+        sibling fold's ref tree stays valid however the unit was routed.
+        The trailing ``z`` ends the name — sweeping attempt 1's segment can
+        never match attempt 10's.
+        """
+        return f"{self._shm.prefix}p{epoch}x{index}a{attempt}z"
+
+    def _fold_ref(self, merge) -> tuple | None:
+        """Cached reference of a merge combine (None: not referencable)."""
+        if merge.key not in self._fold_refs:
+            self._fold_refs[merge.key] = encode_fn(merge.combine)
+        return self._fold_refs[merge.key]
+
+    def _note_partial_bytes(self, key: Hashable, nbytes: int) -> None:
+        if nbytes <= 0:
+            return
+        prev = self._fold_ema.get(key)
+        self._fold_ema[key] = float(nbytes) if prev is None else 0.5 * prev + 0.5 * nbytes
+
+    def _remote_fold_plan(self, graph, units, plan):
+        """Fold-plan groups whose merge chains run worker-side (the hook
+        :meth:`~repro_torch.api.executors._PlanExecutor._build_units`
+        consults).
+
+        A group qualifies when it has several members, every member can
+        dispatch remotely and the data plane is up; the whole mechanism
+        then gates on the cost model — ``p2p=True`` forces it, ``"auto"``
+        requires an observed partial-size EMA for this merge key that
+        clears :func:`~repro_torch.api.autotune.should_fold_remote`.
+        Selected groups' member units are marked ``publish``.
+        """
+        if not self.p2p or self._shm is None or graph.merge is None:
+            return ()
+        if self._fold_ref(graph.merge) is None:
+            return ()
+        groups = tuple(
+            members
+            for _loc, members in plan
+            if len(members) > 1 and all(self._remotable(units[i]) for i in members)
+        )
+        if not groups:
+            return ()
+        if self.p2p is not True:  # "auto": the observed-size cost gate
+            ema = self._fold_ema.get(graph.merge.key)
+            if ema is None or not should_fold_remote(
+                self._steal_model(),
+                partial_bytes=int(ema),
+                fan_in=max(len(m) for m in groups),
+                min_bytes=self.p2p_min_bytes,
+            ):
+                return ()
+        for members in groups:
+            for i in members:
+                units[i].publish = True
+        return groups
+
+    def _dispatch_fold(
+        self,
+        unit: _Unit,
+        ctx: _DrainContext,
+        *,
+        prefer_survivor: bool = False,
+        avoid: int | None = None,
+    ) -> bool:
+        """Stage one fold unit for a worker (default: its location's owner).
+
+        The message carries the members' packed ref trees — segment
+        descriptors, not partial bytes — the combine's reference and the
+        plan's device; the worker attaches each published segment, stacks
+        the partials on the device and runs the driver's chain.  Member
+        leases stay with the driver until the fold's reply confirms
+        consumption (``_on_reply``), so a death at any point leaves every
+        segment owned and sweepable.  Same window discipline and
+        False-means-defer contract as :meth:`_dispatch_remote`.
+        """
+        worker = (
+            self._survivor(not_worker=avoid) if prefer_survivor else None
+        ) or self._worker_for(unit.location)
+        if ctx.state.errors:
+            return True
+        if self._outstanding.get(worker.id, 0) > 0:
+            return False
+        # every member was dispatched remotely and keeps the plan's device
+        # until this fold replies, whether its publish landed or not
+        device = ctx.devices[unit.fold_group[0]]
+        # a member whose publish was declined (``/dev/shm`` full) came back
+        # as values: they travel as host values in the message
+        trees = tuple(
+            ctx.state.results[i] if i in ctx.leases else tree_map(_host_leaf, ctx.state.results[i])
+            for i in unit.fold_group
+        )
+        ctx.state.assign(unit, worker.id)
+        ctx.devices[unit.index] = device
+        attempt = ctx.state.attempts[unit.index] - 1
+        msg = (
+            "fold", ctx.epoch, unit.index, attempt, self._fold_ref(unit.merge),
+            key_summary(unit.merge.key), trees, device,
+        )
+        self._outbox.setdefault(worker.id, []).append(((), msg, unit, ctx))
+        return True
+
     def _stage_attaches(self, worker: _WorkerHandle, spec) -> list:
         """Attach messages ``worker`` needs before running ``spec``.
 
@@ -882,6 +1030,10 @@ class ClusterExecutor(_PlanExecutor):
                 ctx.shm_pins[unit.index] = refs
         attempt = ctx.state.attempts[unit.index] - 1
         msg = ("unit", ctx.epoch, spec, attempt)
+        if unit.publish and self._shm is not None:
+            # Peer exchange: the worker leaves this unit's partial in a
+            # segment at the deterministic name the sibling fold expects.
+            msg = msg + (self._publish_name(ctx.epoch, unit.index, attempt),)
         self._outbox.setdefault(worker.id, []).append((attaches, msg, unit, ctx))
         return True
 
@@ -961,6 +1113,11 @@ class ClusterExecutor(_PlanExecutor):
                 self._dispatch_order[wid] = kept
             else:
                 del self._dispatch_order[wid]
+        # Unconsumed publish leases (error/abort paths): the driver owns
+        # every published segment, so the context takes them down with it.
+        for lease in ctx.leases.values():
+            shm.unlink_segments(lease.segments)
+        ctx.leases.clear()
         self._contexts.pop(ctx.epoch, None)
 
     def _sweep_context(self, ctx: _DrainContext) -> None:
@@ -978,7 +1135,8 @@ class ClusterExecutor(_PlanExecutor):
                 if state.is_done(unit.index):
                     continue  # a salvaged duplicate reply beat the replay
                 avoid = ctx.stolen_from.get(unit.index)
-                if self._dispatch_remote(unit, ctx, prefer_survivor=True, avoid=avoid):
+                route = self._dispatch_fold if unit.kind == "fold" else self._dispatch_remote
+                if route(unit, ctx, prefer_survivor=True, avoid=avoid):
                     ctx.stolen_from.pop(unit.index, None)
                 else:
                     deferred.append(unit)
@@ -986,7 +1144,14 @@ class ClusterExecutor(_PlanExecutor):
             deferred = []
             while ctx.ready and not state.errors:
                 unit = ctx.ready.popleft()
-                if self._remotable(unit):
+                if unit.kind == "fold":
+                    # Peer-exchange merge chain: always in a worker — the
+                    # in-process branch would fold descriptors.  The data
+                    # plane and the combine's reference were preconditions
+                    # of materializing the unit, and neither changes.
+                    if not self._dispatch_fold(unit, ctx):
+                        deferred.append(unit)
+                elif self._remotable(unit):
                     if not self._dispatch_remote(unit, ctx):
                         # Owner busy: an idle sibling may take it now
                         # (driver-side steal) instead of waiting.
@@ -1176,9 +1341,36 @@ class ClusterExecutor(_PlanExecutor):
             )
             return
         _, _, _, _, result, loaded, shm_wrote = msg
-        result, _segs = shm.unpack_tree(result)  # consume-and-unlink
-        value = _on_device(result, ctx.devices.pop(index, "cpu"))
         report = ctx.report
+        lease = shm.tree_lease(result) if unit.publish else None
+        if lease is not None:
+            # Published partial: the packed ref tree IS the unit's result —
+            # the sibling fold forwards the descriptors and attaches the
+            # segments in place.  The driver records the lease; nothing is
+            # copied here, and the device stays for the fold.
+            ctx.leases[index] = lease
+            value = result
+            if ctx.state.merge_key is not None:
+                self._note_partial_bytes(ctx.state.merge_key, lease.nbytes)
+        else:
+            result, _segs = shm.unpack_tree(result)  # consume-and-unlink
+            # a declined publish keeps its device for the fold, as a lease's does
+            device = ctx.devices[index] if unit.publish else ctx.devices.pop(index, "cpu")
+            value = _on_device(result, device)
+            if ctx.state.merge_key is not None and unit.kind != "fold":
+                self._note_partial_bytes(ctx.state.merge_key, _tree_nbytes(value))
+        if unit.kind == "fold":
+            # The worker-side chain replaces a driver merge dispatch: bill
+            # the merge, credit the member bytes that never crossed the
+            # driver, and release their segments — consumption is where
+            # ownership ends.
+            report.merges += 1
+            for mi in unit.fold_group:
+                ctx.devices.pop(mi, None)
+                mlease = ctx.leases.pop(mi, None)
+                if mlease is not None:
+                    report.p2p_bytes += mlease.nbytes
+                    shm.unlink_segments(mlease.segments)
         report.dispatches += 1
         report.remote_dispatches += 1
         report.bytes_loaded += loaded
@@ -1333,6 +1525,12 @@ class ClusterExecutor(_PlanExecutor):
                 refs = ctx.shm_pins.pop(index, None)
                 if refs:
                     self._shm.unpin_refs(refs)
+                if unit.publish:
+                    # The victim never started the granted unit, but its
+                    # voided attempt's publish name is swept all the same.
+                    shm.sweep_segments(
+                        self._publish_name(epoch, index, ctx.state.attempts[index] - 1)
+                    )
             if not ctx.state.release(unit):
                 continue  # completed under the victim after all: stale grant
             ctx.report.steals += 1
@@ -1506,6 +1704,15 @@ class ClusterExecutor(_PlanExecutor):
                     refs = ctx.shm_pins.pop(unit.index, None)
                     if refs:
                         self._shm.unpin_refs(refs)
+                    if unit.publish:
+                        # The dead worker may have published this attempt's
+                        # partial without delivering the reply; the replay
+                        # publishes under a fresh attempt name.
+                        shm.sweep_segments(
+                            self._publish_name(
+                                ctx.epoch, unit.index, ctx.state.attempts[unit.index] - 1
+                            )
+                        )
                 if preempted:
                     ctx.state.refund_attempt(unit.index)
                     ctx.replays.append(unit)

@@ -18,7 +18,13 @@ the parent coalesces a scheduling sweep's commands into one send)
     resolve :class:`~repro_torch.api.chunkstore.ChunkHandle` payloads; a
     second attach for the same store is a *delta* of a grown store and
     merges into the existing attach;
-    ``("unit", epoch, TaskSpec, attempt)`` — execute one task descriptor;
+    ``("unit", epoch, TaskSpec, attempt[, publish])`` — execute one task
+    descriptor; with ``publish`` (peer exchange, DESIGN.md §16) the whole
+    partial is left in a segment of that name for a sibling's fold;
+    ``("fold", epoch, index, attempt, combine_ref, key, trees, device)`` —
+    fold the members' published partials (their packed ref trees) with
+    the combine's :func:`~repro_torch.api.lowering.stacked_fold` chain on
+    ``device``;
     ``("call", epoch, call_id, fn_ref, args, devices, key)`` — execute one
     driver-level task RPC (the ``executor.task()`` path), each tensor
     argument rebuilt on its device;
@@ -55,8 +61,11 @@ in-process lowering would have dispatched — the fused kernel takes the
 partition's blocks as they are, the generic fold a ``torch.stack`` of
 them, a materialized partition their ``torch.cat`` — on the same device,
 so a replayed unit, or the same unit on a different worker, produces
-bit-identical partials.  There is no fallback: a card unit whose kernel
-cannot build or launch fails with the kernel's error.
+bit-identical partials.  A fold unit runs the driver's merge chain for
+its location (the same association, on the plan's device), so a peer
+merged execute is bit-identical to a driver merged one.  There is no
+fallback: a card unit whose kernel cannot build or launch, or a fold that
+cannot run on the card, fails with its error.
 
 Fault injection (tests and chip runs): ``kill_after`` makes the worker
 ``os._exit`` on *receiving* its nth dispatch (the unit is lost in flight);
@@ -85,8 +94,11 @@ RETRY_KILLED_EXIT = 24
 
 #: this process's unit timings, summed: building the operands (for a card
 #: unit, the copies from shared memory to the card), the function up to its
-#: device's completion, and the reply (results to the host, packed, sent)
-_STATS = {"units": 0, "operands_s": 0.0, "compute_s": 0.0, "reply_s": 0.0}
+#: device's completion, and the reply (results to the host, packed, sent);
+#: fold units are counted apart, with their whole time (attach, fold, reply)
+_ZERO = {"units": 0, "operands_s": 0.0, "compute_s": 0.0, "reply_s": 0.0,
+         "folds": 0, "fold_s": 0.0}
+_STATS = dict(_ZERO)
 
 
 def unit_stats(reset: bool = False) -> dict:
@@ -94,7 +106,7 @@ def unit_stats(reset: bool = False) -> dict:
     ``ClusterExecutor.call_workers(unit_stats)``); ``reset`` zeroes them."""
     out = dict(_STATS)
     if reset:
-        _STATS.update(units=0, operands_s=0.0, compute_s=0.0, reply_s=0.0)
+        _STATS.update(_ZERO)
     return out
 
 
@@ -117,6 +129,11 @@ def _resolve_fn(fn_ref: tuple, cache: dict):
 
         _, efn, ecomb, n_in = fn_ref
         fn = _partition_body(decode_fn(efn), decode_fn(ecomb), n_in)
+    elif kind == "fold":
+        # A peer-exchange merge chain: the driver's merge task's fold body.
+        from repro_torch.api.lowering import stacked_fold
+
+        fn = stacked_fold(decode_fn(fn_ref[1]))
     elif kind == "kernel":
         from repro_torch.api.kernels import kernel_from_ref
 
@@ -191,6 +208,27 @@ def _build_operands(spec, stores: dict, shm_att):
     return tuple(ops), loaded
 
 
+def _fold_operand(trees, device):
+    """The members' published partials, stacked on ``device``.
+
+    Each packed ref tree's segments are attached read-only, copied onto the
+    device and released at once: unlinking stays with the driver's lease.
+    """
+    import torch
+
+    from repro_torch._pytree import tree_map
+    from repro_torch.api import shm as shm_mod
+
+    att = shm_mod.ShmAttachments()
+    try:
+        partials = [
+            tree_map(lambda leaf: _resolve(leaf, device, {}, att)[0], tree) for tree in trees
+        ]
+    finally:
+        att.close()
+    return tree_map(lambda *xs: torch.stack(xs, 0), *partials)
+
+
 def _to_host(tree):
     """Result tensors → host values that pickle only their own elements."""
     import torch
@@ -248,11 +286,22 @@ def worker_main(
     dispatches = 0
     reply_seq = 0
 
-    def pack(tree):
-        """Large reply leaves → one fresh segment; (tree, bytes_copied)."""
+    def pack(tree, *, publish=None):
+        """Large reply leaves → one fresh segment; (tree, bytes_copied).
+
+        ``publish`` names the segment and drops the size floor to 0: a
+        published partial (peer exchange) lands at the name the driver
+        derived from the unit's epoch, index and attempt — never from the
+        worker — so a replay or a steal publishes to the same place, and
+        every leaf is packed, since a sibling attaches the segment instead
+        of reading the reply.
+        """
         nonlocal reply_seq
         if result_prefix is None:
             return tree, 0
+        if publish is not None:
+            packed, _seg, wrote = shm_mod.pack_tree(tree, threshold=0, name=publish)
+            return packed, wrote
         reply_seq += 1
         packed, _seg, wrote = shm_mod.pack_tree(
             tree, threshold=result_min_bytes, name=f"{result_prefix}{reply_seq}"
@@ -282,8 +331,12 @@ def worker_main(
         granted = []
         kept: collections.deque = collections.deque()
         for i, qm in enumerate(pending):
-            if i > 0 and qm[0] == "unit" and (qm[1], qm[2].index) in want:
-                granted.append((qm[1], qm[2].index))
+            key = (
+                (qm[1], qm[2].index) if qm[0] == "unit"
+                else (qm[1], qm[2]) if qm[0] == "fold" else None
+            )
+            if i > 0 and key in want:
+                granted.append(key)
             else:
                 kept.append(qm)
         pending.clear()
@@ -310,7 +363,8 @@ def worker_main(
             os._exit(KILLED_EXIT)
 
         if kind == "unit":
-            _, epoch, spec, attempt = msg
+            _, epoch, spec, attempt = msg[:4]
+            publish = msg[4] if len(msg) > 4 else None
             if kill_on_retry and attempt > 0:
                 _log_line(log, worker_id, f"FAULT: killing on retried unit {spec.index}")
                 os._exit(RETRY_KILLED_EXIT)
@@ -328,7 +382,7 @@ def worker_main(
 
                     torch.cuda.synchronize(spec.device)
                 t2 = time.perf_counter()
-                out, wrote = pack(_to_host(result))
+                out, wrote = pack(_to_host(result), publish=publish)
                 reply(("unit_done", worker_id, epoch, spec.index, out, loaded, wrote))
                 _STATS["units"] += 1
                 _STATS["operands_s"] += t1 - t0
@@ -337,12 +391,44 @@ def worker_main(
                 _log_line(
                     log, worker_id,
                     f"unit {spec.index} kind={spec.kind} blocks={spec.block_ids} "
-                    f"device={spec.device} attempt={attempt} ok",
+                    f"device={spec.device} attempt={attempt} ok"
+                    + (f" published={publish}" if publish else ""),
                 )
             except Exception:  # the unit fails; the worker goes on
                 err = traceback.format_exc()
                 _log_line(log, worker_id, f"unit {spec.index} FAILED\n{err}")
                 reply(("unit_error", worker_id, epoch, spec.index, err))
+        elif kind == "fold":
+            # Peer exchange (DESIGN.md §16): fold a location's published
+            # partials in place with the driver's chain, on the plan's device.
+            _, epoch, index, attempt, combine_ref, key_repr, trees, device = msg
+            if kill_on_retry and attempt > 0:
+                _log_line(log, worker_id, f"FAULT: killing on retried fold {index}")
+                os._exit(RETRY_KILLED_EXIT)
+            _log_line(log, worker_id, f"fold {index} start attempt={attempt}")
+            if slow_s:
+                time.sleep(slow_s)
+            try:
+                import torch
+
+                t0 = time.perf_counter()
+                fold = _resolve_fn(("fold", combine_ref), fns)
+                result = fold(_fold_operand(trees, torch.device(device)))
+                if device.startswith("cuda"):
+                    torch.cuda.synchronize(device)
+                out, wrote = pack(_to_host(result))
+                reply(("unit_done", worker_id, epoch, index, out, 0, wrote))
+                _STATS["folds"] += 1
+                _STATS["fold_s"] += time.perf_counter() - t0
+                _log_line(
+                    log, worker_id,
+                    f"fold {index} key={key_repr} fan_in={len(trees)} device={device} "
+                    f"attempt={attempt} ok",
+                )
+            except Exception:  # the fold fails; the worker goes on
+                err = traceback.format_exc()
+                _log_line(log, worker_id, f"fold {index} FAILED\n{err}")
+                reply(("unit_error", worker_id, epoch, index, err))
         elif kind == "call":
             _, epoch, call_id, fn_ref, args, devices, key = msg
             try:

@@ -320,18 +320,33 @@ def _merge_partials(
 
 @dataclasses.dataclass
 class _Unit:
-    """One schedulable unit: a task, a sharded bucket, or the merge.
+    """One schedulable unit: a task, a sharded bucket, a fold, or the merge.
 
     ``run`` is a nullary thunk; ``deps`` are unit indices that must
     complete first (the merge depends on every task unit).
+
+    ``kind == "fold"`` units exist only when a backend materializes a
+    :func:`~repro_torch.api.lowering.fold_plan` group as its own schedulable
+    unit (the cluster's peer exchange, DESIGN.md §16): ``fold_group`` holds
+    the member unit indices (== ``deps``), ``origin`` the first member's
+    task descriptor (a failure names the originating app task, never the
+    synthetic fold), and ``merge`` the graph's
+    :class:`~repro_torch.api.lowering.MergeSpec`.  ``publish`` marks a task
+    unit whose partial a sibling fold consumes in place: the cluster asks
+    its worker to leave the result in a named shared-memory segment instead
+    of shipping it back.
     """
 
     index: int
     location: int                  # -1: any thread (merge / sharded bucket)
-    tasks: tuple[Task, ...]        # graph descriptors covered (merge: ())
+    tasks: tuple[Task, ...]        # graph descriptors covered (merge, fold: ())
     run: Callable[[], Any] | None
     deps: tuple[int, ...] = ()
     kind: str = "task"
+    fold_group: tuple[int, ...] = ()
+    origin: Task | None = None
+    merge: MergeSpec | None = None
+    publish: bool = False
 
 
 class _SchedulerState:
@@ -384,6 +399,9 @@ class _SchedulerState:
         self._done_subs: list[Callable[[], None]] = []
         self._fail_subs: list[Callable[[BaseException], None]] = []
         self.partition_versions: dict[tuple, int] = {}
+        # the graph's MergeSpec key (None: no merge): what the cluster's
+        # observed partial sizes are keyed by
+        self.merge_key: Hashable | None = None
         self.done = threading.Event()
         if not units:
             self.done.set()
@@ -1241,20 +1259,45 @@ class _PlanExecutor:
 
         The merge folds along the canonical merge tree (DESIGN.md §16):
         per-location chains, then a root chain over the per-location
-        values, in a single dispatch.
+        values.  Backends that fold location chains elsewhere (the
+        cluster's peer exchange) materialize those groups as their own
+        ``"fold"`` units through the :meth:`_remote_fold_plan` hook; every
+        other backend keeps one merge unit that folds along the same tree
+        in a single dispatch.  A :class:`~repro_torch.api.jobserver.JobServer`
+        calls this directly and runs the units one by one.
         """
         units = list(self._plan_dispatches(graph))
         merge_unit = None
+        fold_units: list[_Unit] = []
         merge_plan: tuple = ()
         if graph.merge is not None:
             plan = fold_plan((u.index, u.location) for u in units)
+            remote_groups = set(self._remote_fold_plan(graph, units, plan))
             merge_deps: list[int] = []
             merge_plan_groups: list[tuple[int, tuple[int, ...]]] = []
             for loc, members in plan:
-                merge_plan_groups.append(
-                    (loc, tuple(range(len(merge_deps), len(merge_deps) + len(members))))
-                )
-                merge_deps.extend(members)
+                if members in remote_groups and len(members) > 1:
+                    first = units[members[0]]
+                    fu = _Unit(
+                        index=len(units),
+                        location=loc,
+                        tasks=(),
+                        run=None,
+                        deps=members,
+                        kind="fold",
+                        fold_group=members,
+                        origin=first.tasks[0] if first.tasks else None,
+                        merge=graph.merge,
+                    )
+                    units.append(fu)
+                    fold_units.append(fu)
+                    merge_plan_groups.append((loc, (len(merge_deps),)))
+                    merge_deps.append(fu.index)
+                else:
+                    merge_plan_groups.append(
+                        (loc, tuple(range(len(merge_deps), len(merge_deps) + len(members))))
+                    )
+                    merge_deps.extend(members)
             merge_plan = tuple(merge_plan_groups)
             merge_unit = _Unit(
                 index=len(units),
@@ -1266,7 +1309,16 @@ class _PlanExecutor:
             )
             units.append(merge_unit)
         state = _SchedulerState(units, report=report)
+        state.merge_key = graph.merge.key if graph.merge is not None else None
         if merge_unit is not None:
+            for fu in fold_units:
+                # The driver-side run (the JobServer's path, and the
+                # cluster's fallback): the chain a worker-side fold runs.
+                def run_fold(members=fu.fold_group):
+                    partials = [state.results[i] for i in members]
+                    return _merge_partials(self.engine, graph.merge, partials)
+
+                fu.run = run_fold
             deps = merge_unit.deps
 
             def run_merge():
@@ -1277,6 +1329,18 @@ class _PlanExecutor:
 
             merge_unit.run = run_merge
         return units, state, merge_unit
+
+    def _remote_fold_plan(
+        self, graph: TaskGraph, units: list[_Unit], plan: tuple
+    ) -> tuple[tuple[int, ...], ...]:
+        """Fold groups to materialize as standalone units (backend hook).
+
+        Default: none — the merge unit folds the whole plan itself.  The
+        cluster returns the multi-member groups whose chains run worker-side
+        over the peer exchange (DESIGN.md §16) and marks their member units
+        ``publish``.
+        """
+        return ()
 
     def _schedule(self, graph: TaskGraph) -> Any:
         """Run a TaskGraph through the shared dependency-driven core.

@@ -91,7 +91,7 @@ class EngineConfig:
     shm_min_bytes: int = 1024
     shm_segment_bytes: int = 4 << 20
     shm_budget_bytes: int | None = None
-    p2p: bool | str = "auto"            # True raises: the peer exchange is not ported
+    p2p: bool | str = "auto"
     p2p_min_bytes: int = 1 << 16
     steal: bool = False
     autoscale: bool = False

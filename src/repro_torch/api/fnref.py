@@ -21,8 +21,16 @@ same function:
     pickled defaults and closure cell *values*.  The reader rebuilds the
     function against the defining module's ``__dict__`` (so a lambda of
     this package resolves ``torch`` as its module imported it) with fresh
-    cells.  Only meaningful between processes running the same
-    interpreter.
+    cells.  In a process that has not imported that module (a spawned
+    cluster worker running a combine defined inside a test function), the
+    function gets a namespace of its own instead: the modules it names
+    (recorded at encoding, beside the defaults) are imported by their own
+    names, builtins stay builtins, and only another global imports the
+    defining module; a ``global`` write then lands in that namespace, not
+    in the module.  A reference written before modules were recorded
+    (defaults a pair, not a triple) resolves against the imported defining
+    module, as it always did.  Only meaningful between processes running
+    the same interpreter.
 
 :func:`encode_fn` returns ``None`` when a callable cannot be referenced
 (unpicklable cell values, no code object, ...); callers treat that as
@@ -36,6 +44,7 @@ same function:
 
 from __future__ import annotations
 
+import builtins
 import functools
 import importlib
 import marshal
@@ -102,7 +111,7 @@ def encode_fn(fn: Callable) -> tuple | None:
         cells = tuple(c.cell_contents for c in fn.__closure__ or ())
     except ValueError:  # empty cell (fn referenced before definition)
         return None
-    defaults = _pickled((fn.__defaults__, fn.__kwdefaults__))
+    defaults = _pickled((fn.__defaults__, fn.__kwdefaults__, _module_globals(fn)))
     closure = _pickled(cells)
     if defaults is None or closure is None:
         return None
@@ -114,6 +123,60 @@ def encode_fn(fn: Callable) -> tuple | None:
         defaults,
         closure,
     )
+
+
+def _module_globals(fn) -> dict[str, str]:
+    """``{global name: module name}`` for the modules ``fn``'s code names.
+
+    >>> import math
+    >>> _module_globals(lambda x: math.floor(x))
+    {'math': 'math'}
+    """
+    names: set[str] = set()
+    todo = [fn.__code__]
+    while todo:
+        code = todo.pop()
+        names.update(code.co_names)
+        todo.extend(c for c in code.co_consts if isinstance(c, types.CodeType))
+    env = getattr(fn, "__globals__", {})
+    return {
+        n: env[n].__name__
+        for n in sorted(names)
+        if isinstance(env.get(n), types.ModuleType)
+    }
+
+
+class _Namespace(dict):
+    """Globals of a function rebuilt away from its defining module.
+
+    Filled lazily: a recorded module global imports that module, a builtin
+    falls through to the builtins, and any other name imports the defining
+    module and takes its attribute.  So a closure defined in a module that
+    imports packages the closure does not use resolves without them.  A
+    global's value is taken at its first use, and a ``global`` write stays
+    here: neither reaches the defining module.
+    """
+
+    def __init__(self, module: str, modules: dict[str, str]):
+        super().__init__(__name__=module, __builtins__=builtins)
+        self._module = module
+        self._modules = modules
+
+    def __missing__(self, name: str):
+        if name in self._modules:
+            value = importlib.import_module(self._modules[name])
+        elif hasattr(builtins, name):
+            raise KeyError(name)  # the interpreter looks in builtins next
+        else:
+            value = getattr(importlib.import_module(self._module), name)
+        self[name] = value
+        return value
+
+
+def _globals_for(module: str, modules: dict[str, str]) -> dict:
+    """The defining module's namespace where it is loaded, else a lazy one."""
+    mod = sys.modules.get(module)
+    return mod.__dict__ if mod is not None else _Namespace(module, modules)
 
 
 def decode_fn(ref: tuple) -> Callable:
@@ -134,11 +197,14 @@ def decode_fn(ref: tuple) -> Callable:
         return obj
     if kind == "code":
         _, module, code_bytes, name, defaults, closure = ref
-        mod = importlib.import_module(module)
         code = marshal.loads(code_bytes)
-        dflt, kwdflt = pickle.loads(defaults)
+        dflt, kwdflt, *recorded = pickle.loads(defaults)
         cells = tuple(types.CellType(v) for v in pickle.loads(closure))
-        fn = types.FunctionType(code, mod.__dict__, name, dflt, cells or None)
+        if recorded:
+            env = _globals_for(module, recorded[0])
+        else:  # written before modules were recorded
+            env = importlib.import_module(module).__dict__
+        fn = types.FunctionType(code, env, name, dflt, cells or None)
         if kwdflt:
             fn.__kwdefaults__ = dict(kwdflt)
         return fn

@@ -594,7 +594,7 @@ def pack_tree(tree, *, threshold: int, name: str):
         nonlocal cursor, wrote
         if not (isinstance(leaf, np.ndarray) and leaf.nbytes >= threshold):
             return leaf
-        arr = np.ascontiguousarray(leaf)
+        arr = np.ascontiguousarray(leaf).reshape(leaf.shape)  # a 0-d leaf stays 0-d
         view = np.ndarray(arr.shape, arr.dtype, buffer=seg.buf, offset=cursor)
         view[...] = arr
         ref = ShmBlockRef(name, cursor, tuple(arr.shape), arr.dtype.str)

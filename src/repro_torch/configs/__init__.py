@@ -14,7 +14,10 @@ import importlib
 from repro_torch.configs.base import SHAPES, LayerSpec, ModelConfig, Segment, ShapeCell
 
 _MODULES: dict[str, str] = {
+    "qwen2-72b": "repro_torch.configs.qwen2_72b",
+    "command-r-35b": "repro_torch.configs.command_r_35b",
     "qwen3-32b": "repro_torch.configs.qwen3_32b",
+    "deepseek-7b": "repro_torch.configs.deepseek_7b",
     "mamba2-1.3b": "repro_torch.configs.mamba2_1p3b",
 }
 

@@ -29,6 +29,32 @@ def combine(a, b):
     return a + b
 
 
+def big_partial(b):
+    """A 256 KB partial (the column sums tiled): it clears the peer
+    exchange's ``"auto"`` gate."""
+    return torch.sum(b, dim=0).repeat(65536 // b.shape[1])
+
+
+def colsum_and_one(b):
+    """A partial with a 0-d leaf."""
+    return torch.sum(b, dim=0), torch.ones(())
+
+
+# -- the iterative plan of tests/test_pipeline.py: partials -> merge -> map --
+
+
+def pipe_partial(b, c):
+    return (b * c).sum(0), torch.ones(())
+
+
+def pipe_combine(a, b):
+    return a[0] + b[0], a[1] + b[1]
+
+
+def pipe_boom(b, c):
+    raise ValueError("injected unit failure")
+
+
 def module_roots():
     """The top-level package names this process has imported."""
     return sorted({name.split(".")[0] for name, mod in sys.modules.items() if mod is not None})

@@ -424,6 +424,20 @@ def test_fnref_roundtrip():
     assert encode_fn(lambda x: (lock, x)) is None
 
 
+def test_fnref_code_ref_of_the_older_form_still_decodes():
+    """A ``("code", ...)`` reference journaled before the modules a
+    function names were recorded (its defaults a pair) resolves against
+    the defining module, as it did then."""
+    k = 3
+    ref = encode_fn(lambda x: torch.full((2,), float(x * k)))
+    kind, module, code, name, defaults, closure = ref
+    dflt, kwdflt, modules = pickle.loads(defaults)
+    assert modules == {"torch": "torch"}
+    old = decode_fn((kind, module, code, name, pickle.dumps((dflt, kwdflt)), closure))
+    assert old.__globals__ is globals()
+    assert torch.equal(old(7), torch.full((2,), 21.0))
+
+
 def test_cluster_executor_satisfies_protocol():
     # (prefer_pallas is not compared: the port prefers its kernel whenever a
     # plan's blocks lie on the card, and lowering decides that per plan)

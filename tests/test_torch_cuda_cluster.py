@@ -13,6 +13,11 @@ that reason.  Run them on the card:
   chunks copied to the host once) and the workers put the chunks back on
   the card; a worker killed mid-run replays bit-identically, leaving no
   segment behind.
+* With ``p2p=True`` (the peer exchange) a location's partials are folded
+  by a fold unit in its worker, on the card: the histogram's and k-means's
+  values equal Local's bit for bit, the bill is the exact byte formula.
+  A member whose publish is declined (its reply comes back as values)
+  still folds in its worker on the card, never on the host.
 * Tensors on the card (f32 and bf16) round-trip through the arena and the
   workers' attachments bit for bit; a driver RPC (kNN's lookups) computes
   on the card and returns there.
@@ -144,3 +149,62 @@ def test_driver_rpc_computes_on_the_card(dev):
     assert res.report.remote_dispatches >= 1
     assert res.indices.device == dev
     assert torch.equal(res.indices, ref.indices) and torch.equal(res.distances, ref.distances)
+
+
+def test_cluster_p2p_folds_on_the_card(dev, tmp_path):
+    from repro_torch.api import SplIter, cluster_worker, engine
+    from repro_torch.api.shm import leaked_segments
+    from repro_torch.core.apps.histogram import histogram
+    from repro_torch.core.apps.kmeans import kmeans
+
+    x = _data(dev, 5, seed=6)
+    pol = SplIter(2, fusion="pallas")
+    partial = 8**5 * 4  # one histogram partial, int32
+    with engine("local") as ex:
+        ref, ref_rep = histogram(x, bins=8, policy=pol, executor=ex)
+    with engine("cluster", p2p=True, log_dir=str(tmp_path)) as ex:
+        prefix = ex._shm.prefix
+        h, rep = histogram(x, bins=8, policy=pol, executor=ex)
+        stats = ex.call_workers(cluster_worker.unit_stats, True)
+        assert _launches(ex)["partition_histogramdd"] == 8  # 2 tasks a location
+        assert sum(v["folds"] for v in stats.values()) == 4  # one fold a location
+        xk = _data(dev, 20, seed=7)
+        with engine("local") as local:
+            kref = kmeans(xk, k=8, iters=2, policy=pol, executor=local)
+        kres = kmeans(xk, k=8, iters=2, policy=pol, executor=ex)
+    assert h.device == dev and torch.equal(h, ref)
+    assert (rep.p2p_bytes, rep.driver_merge_bytes) == (8 * partial, 4 * partial)
+    assert ref_rep.driver_merge_bytes == 8 * partial
+    assert (rep.dispatches, rep.merges) == (ref_rep.dispatches + 4, ref_rep.merges + 4)
+    logs = "".join(f.read_text() for f in tmp_path.glob("worker-*.log"))
+    assert logs.count("fan_in=2 device=cuda:0") == 4 + 2 * 4
+    assert torch.equal(kres.centers, kref.centers)
+    assert all(r.p2p_bytes > 0 for r in kres.reports)
+    assert leaked_segments(prefix) == []
+
+
+def test_cluster_declined_publish_folds_on_the_card(dev, tmp_path, monkeypatch):
+    from repro_torch.api import SplIter, cluster_worker, engine, shm
+    from repro_torch.api.shm import leaked_segments
+    from repro_torch.core.apps.histogram import histogram
+
+    x = _data(dev, 5, seed=6)
+    pol = SplIter(2, fusion="pallas")
+    with engine("local") as ex:
+        ref, _ = histogram(x, bins=8, policy=pol, executor=ex)
+    def declined(tree):
+        return None  # the driver reads every publishing reply's values in place
+
+    with engine("cluster", p2p=True, log_dir=str(tmp_path)) as ex:
+        prefix = ex._shm.prefix
+        monkeypatch.setattr(shm, "tree_lease", declined)
+        h, rep = histogram(x, bins=8, policy=pol, executor=ex)
+        monkeypatch.undo()
+        stats = ex.call_workers(cluster_worker.unit_stats, True)
+    assert h.device == dev and torch.equal(h, ref)
+    assert sum(v["folds"] for v in stats.values()) == 4  # one fold a location
+    assert rep.p2p_bytes == 0 and rep.driver_merge_bytes == 4 * 8**5 * 4
+    logs = "".join(f.read_text() for f in tmp_path.glob("worker-*.log"))
+    assert logs.count("fan_in=2 device=cuda:0") == 4
+    assert "device=cpu" not in logs
+    assert leaked_segments(prefix) == []

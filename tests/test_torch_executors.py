@@ -20,12 +20,14 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cluster_fns as fns
 import repro.api as japi
 import repro.api.lowering as jlow
 import repro_torch.api as tapi
 import repro_torch.api.lowering as tlow
 from repro.core import blocked as jblocked
 from repro_torch.api.futures import Deferred, PipelineBrokenError, resolve_deferred
+from repro_torch.api.shm import leaked_segments
 from repro_torch.core import blocked as tblocked
 from repro_torch.kernels._build import count_launch
 
@@ -93,19 +95,17 @@ def _ratio(v):
     return v[0] / v[1]
 
 
-def _boom(b, c):
-    raise ValueError("injected unit failure")
-
-
 def _data():
     return np.random.default_rng(0).random((512, 8), np.float32)
 
 
-def _plan(x, c, *, fn=_partial, policy=None):
+def _plan(x, c, *, fn=fns.pipe_partial, policy=None):
+    """The port's plan; its functions live in ``tests/_torch_cluster_fns.py``
+    so that a cluster worker running them never imports JAX."""
     policy = policy if policy is not None else _policy(tapi, POL_TEXT)
     return (
         tapi.Collection.from_array(x, block_rows=64, num_locations=2, device="cpu")
-        .split(policy).map_blocks(fn, extra_args=(c,)).reduce(_combine)
+        .split(policy).map_blocks(fn, extra_args=(c,)).reduce(fns.pipe_combine)
     )
 
 
@@ -267,12 +267,24 @@ def test_launch_counts_from_threads_are_exact():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", ["local", "threaded"])
-def test_pipelined_matches_barriered(name):
+#: the five backends and whether each pipelines (tests/test_pipeline.py)
+PIPELINE_BACKENDS = [("local", False), ("threaded", True), ("mesh", False), ("stream", True),
+                     ("cluster", True)]
+
+
+def _backend(name):
+    if name == "mesh":
+        return tapi.engine("mesh", devices=(torch.device("cpu"),))
+    return tapi.engine(name)
+
+
+@pytest.mark.parametrize("name,pipelines", PIPELINE_BACKENDS,
+                         ids=[b[0] for b in PIPELINE_BACKENDS])
+def test_pipelined_matches_barriered(name, pipelines):
     x = _data()
-    factory = {"local": tapi.LocalExecutor, "threaded": tapi.ThreadedExecutor}[name]
-    ex = factory()
+    ex = _backend(name)
     try:
+        assert ex.capabilities.pipelined is pipelines
         ref, _ = _barriered(x, ex, 4)
         got, final, results = _pipelined(x, ex, 4)
     finally:
@@ -280,14 +292,67 @@ def test_pipelined_matches_barriered(name):
     assert all(torch.equal(a, b) for a, b in zip(ref, got))
     assert torch.equal(final, ref[-1])
     overlapped = [r.report.overlapped_launches for r in results]
-    if name == "threaded":
+    if pipelines:
         # frozen at submit time: iteration 0 has no predecessor, every later
-        # submit finds one in flight
+        # submit finds one in flight, so the whole unit count overlaps
         assert overlapped[0] == 0 and all(n == overlapped[1] > 0 for n in overlapped[1:])
     else:
         assert overlapped == [0, 0, 0, 0]
-        fut = _plan(x, torch.ones(8)).compute_async(executor=tapi.LocalExecutor())
-        assert fut.done()
+        # non-pipelined backends degrade to sync futures: done at return
+        with _backend(name) as ex2:
+            fut = _plan(x, torch.ones(8)).compute_async(executor=ex2)
+            assert fut.done()
+
+
+# -- the cluster's pipeline: poisoned and closed contexts leak no segment --
+
+
+@pytest.mark.skipif(not tapi.shm_available(), reason="host has no POSIX shared memory")
+@pytest.mark.parametrize("p2p", ["auto", True])
+def test_cluster_failure_poisons_and_leaks_nothing(p2p):
+    """Iteration 1 fails in its workers: its future raises the original
+    error, iteration 2's a typed poison naming it; with ``p2p=True`` the
+    poisoned context's published partials are swept too."""
+    x = _data()
+    ex = tapi.engine("cluster", p2p=p2p)
+    prefix = ex._shm.prefix
+    try:
+        f0 = _plan(x, torch.ones(8)).compute_async(executor=ex)
+        f1 = _plan(x, f0.map(_ratio), fn=fns.pipe_boom).compute_async(executor=ex)
+        f2 = _plan(x, f1.map(_ratio)).compute_async(executor=ex)
+        assert f0.result() is not None
+        assert (f0.result().report.p2p_bytes > 0) == (p2p is True)
+        with pytest.raises(Exception) as exc:
+            f1.result()
+        assert "injected unit failure" in str(exc.value)
+        with pytest.raises(PipelineBrokenError) as exc2:
+            f2.result()
+        assert exc2.value.iteration == f1.iteration
+    finally:
+        ex.close()
+    assert leaked_segments(prefix) == []
+
+
+@pytest.mark.skipif(not tapi.shm_available(), reason="host has no POSIX shared memory")
+@pytest.mark.parametrize("p2p", ["auto", True])
+def test_cluster_close_with_inflight_leaks_no_segments(p2p):
+    """``close()`` with three pipelined submissions unresolved drains them:
+    each equals the barriered loop's, and no segment survives — with
+    ``p2p=True``, none of the published partials either."""
+    x = _data()
+    ref, _ = _barriered(x, tapi.LocalExecutor(), 3)
+    ex = tapi.engine("cluster", p2p=p2p)
+    prefix = ex._shm.prefix
+    c_op, futs = torch.ones(8), []
+    for _ in range(3):
+        fut = _plan(x, c_op).compute_async(executor=ex)
+        futs.append(fut)
+        c_op = fut.map(_ratio)
+    ex.close()
+    got = [_ratio(f.result().value) for f in futs]
+    assert all(torch.equal(a, b) for a, b in zip(ref, got))
+    assert all((f.result().report.p2p_bytes > 0) == (p2p is True) for f in futs)
+    assert leaked_segments(prefix) == []
 
 
 def test_pipelined_reports_equal_reference():
@@ -368,7 +433,7 @@ def test_failure_fails_own_future_and_poisons_next():
     x = _data()
     with tapi.ThreadedExecutor() as ex:
         f0 = _plan(x, torch.ones(8)).compute_async(executor=ex)
-        f1 = _plan(x, f0.map(_ratio), fn=_boom).compute_async(executor=ex)
+        f1 = _plan(x, f0.map(_ratio), fn=fns.pipe_boom).compute_async(executor=ex)
         f2 = _plan(x, f1.map(_ratio)).compute_async(executor=ex)
         assert f0.result() is not None
         with pytest.raises(ValueError, match="injected unit failure"):
@@ -382,7 +447,7 @@ def test_failure_fails_own_future_and_poisons_next():
 def test_deferred_against_failed_future_raises_typed():
     x = _data()
     with tapi.ThreadedExecutor() as ex:
-        fut = _plan(x, torch.ones(8), fn=_boom).compute_async(executor=ex)
+        fut = _plan(x, torch.ones(8), fn=fns.pipe_boom).compute_async(executor=ex)
         with pytest.raises(PipelineBrokenError) as exc:
             fut.map(_ratio).resolve()
         assert exc.value.iteration == fut.iteration
@@ -407,7 +472,7 @@ def test_close_with_inflight_futures_drains_cleanly():
 def test_close_after_failure_is_clean():
     x = _data()
     ex = tapi.ThreadedExecutor()
-    f0 = _plan(x, torch.ones(8), fn=_boom).compute_async(executor=ex)
+    f0 = _plan(x, torch.ones(8), fn=fns.pipe_boom).compute_async(executor=ex)
     f1 = _plan(x, f0.map(_ratio)).compute_async(executor=ex)
     ex.close()  # errors stay on the futures; close itself does not raise
     with pytest.raises(ValueError):

@@ -89,11 +89,10 @@ def test_every_backend_builds_and_runs(backend):
     np.testing.assert_allclose(value.numpy(), x.sum(0), rtol=2e-5, atol=2e-5)
 
 
-def test_cluster_is_not_ported_yet():
-    """The cluster is ported now: ``engine("cluster")`` builds a
-    ClusterExecutor (no worker spawns before a dispatch) with the config's
-    knobs, a server can own one, and only the peer exchange of partials
-    (``p2p=True``), which is not ported, raises."""
+def test_cluster_builds_with_the_configs_knobs():
+    """``engine("cluster")`` builds a ClusterExecutor (no worker spawns
+    before a dispatch) with the config's knobs, a server can own one, and
+    ``p2p=True`` builds a pool that folds worker-side, as the reference's."""
     from repro_torch.api import ClusterExecutor, FaultPlan
 
     plan = FaultPlan(kill_after=((0, 2),))
@@ -108,8 +107,13 @@ def test_cluster_is_not_ported_yet():
     srv = engine("server", server_backend="cluster", autostart=False)
     assert type(srv.executor) is ClusterExecutor
     srv.close()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine("cluster", p2p=True)
+    ex = engine("cluster", p2p=True, p2p_min_bytes=1 << 10)
+    jex = japi.engine("cluster", p2p=True, p2p_min_bytes=1 << 10)
+    assert (ex.p2p, ex.p2p_min_bytes) == (jex.p2p, jex.p2p_min_bytes) == (True, 1 << 10)
+    assert EngineConfig().p2p == japi.EngineConfig().p2p == "auto"
+    assert ex.workers_alive() == []
+    ex.close()
+    jex.close()
 
 
 def test_unknown_backend_and_field():

@@ -156,8 +156,9 @@ def test_params_from_numpy_stores_cast_leaves_in_model_dtype(arch):
             assert node.dtype == want, name
 
     walk(tparams, "")
-    assert {"embed", "lm_head", "final_norm"} <= seen
-    assert ("wq" in seen) == (arch == "qwen3-32b") and ("A_log" in seen) == (arch != "qwen3-32b")
+    assert {"embed", "final_norm"} <= seen
+    assert ("lm_head" in seen) != cfg.tie_embeddings  # a tied head is the embedding
+    assert ("wq" in seen) == (cfg.family == "dense") and ("A_log" in seen) == (cfg.family == "ssm")
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)

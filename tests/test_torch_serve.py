@@ -26,6 +26,7 @@ NEAR_TIE = 1e-3
 
 @pytest.mark.parametrize("arch,attn_impl", [
     ("qwen3-32b", "ref"), ("qwen3-32b", "flash"), ("mamba2-1.3b", "ref"),
+    ("qwen2-72b", "flash"), ("command-r-35b", "flash"), ("deepseek-7b", "flash"),
 ])
 def test_generate_matches_reference(arch, attn_impl):
     cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32", attn_impl=attn_impl)

@@ -170,6 +170,34 @@ read just after:
   decode steps, ``attn_impl="flash"`` (head dim 128: the ``wgmma`` route):
   qwen2-72b (QKV bias), command-r-35b (parallel block, layernorm, tied
   embeddings) and deepseek-7b (MHA, 32 heads of 128 for keys and values).
+  Each row's kernel launches are counted from the config's segments:
+  ``flash_attention`` once per attention layer under ``attn_impl="flash"``,
+  ``ssd_scan`` once per Mamba2 layer; its f32 prefill launches the flash
+  split route once per attention layer.  The prefill's matrix-product bound
+  sums every segment's parameters, an MoE layer's experts counted as a token
+  uses them (``ModelConfig.param_counts()["active"]``).
+* ``serve`` for the MoE configs at full width, batch 8, 512-token prompts,
+  8 decode steps, bf16, on random weights from ``--seed``: mixtral-8x7b cut
+  to 2 of 32 layers and jamba-v0.1-52b to one period (8 of 32: 7 Mamba2
+  layers, one attention layer, 4 MoE MLPs), both with
+  ``attn_impl="flash"``; deepseek-v2-236b cut to 2 of 60 (its dense first
+  layer and one MoE layer; MLA, no kernel).  The dropless row runs at
+  capacity factor E/k (4, 8, 160/6), where no group drops a token: the
+  prefill must launch ``flash_attention`` 2 / 1 / 0 times and ``ssd_scan``
+  0 / 7 / 0 times; ``moe_mlp``'s route recorder takes every layer's routes
+  in the served run and in the recurrence, and ``route_mismatches`` counts
+  per MoE layer the positions routed apart (a near-tie of bf16-rounded
+  router probabilities).  The bf16 prefill, decode and argmax checks hold
+  every compared position whose own routes agree in every layer, within the
+  row's ``logit_tol`` (``MOE_SERVE``); positions routed apart are printed
+  with their errors and may be at most ``ROUTE_FLIP_SHARE`` of those
+  compared.  Then the bf16 weights are upcast leaf by leaf, and the f32
+  prefill, the f32 decode steps over the served tokens and the f32
+  recurrence must agree at every position within ``F32_LOGIT_TOL``.  The
+  published row runs the same weights at the configs' capacity factor 1.25:
+  prefill and decode times, the bounds, the onehot path's expert work at its
+  capacity, the dropped (token, choice) pairs of the prefill and of each
+  decode step, memory; checked: finite logits, dispatches, launches.
 * ``sampled_serve``: mamba2-1.3b cut to 2 layers, ``greedy=False``, 8
   steps: each token after the first is ``_threefry.categorical`` (the
   reference's ``jax.random.categorical`` bits) of its step's served
@@ -188,11 +216,22 @@ read just after:
   on the data of the reference's test (``tests/test_core_apps.py:109``;
   at this phase's size 128 SVs underfit, in the reference as here, and the
   accuracy is printed); SplIter below Baseline in dispatches.
+* ``moe``: one MoE layer of mixtral-8x7b (8 experts split into 16 virtual
+  ones) and of jamba-v0.1-52b (16 experts) at full width and capacity
+  factor 1.25: ``moe_mlp`` against the plain per-expert version
+  (``repro_torch.models.moe_ref.moe_plain``: argmax top-k, sort-ranked
+  slots, per-expert gathers) on 4096 tokens in groups of 1024 (tilted by
+  one shared random row, so the capacity drops choices) and on 8
+  decode-sized groups of 8 tokens.  In f32 on the upcast inputs the drop
+  sets are equal and the outputs within ``F32_TOL``; in bf16 the outputs
+  within ``BF16_TOL`` where the routes agree; the decode-sized groups must
+  drop.  Drop counts and both versions' times print.
 
 Then each of the three LM-path kernels runs beside its plain version at the
 serving path's shapes: ``flash_attention`` (q 8×512×64×128, k/v
 8×512×8×128, bf16, causal; also a fully masked-row case, a 4096 window on
-6144 tokens, head dims 64 and 32, a ragged Lq = 500 and group 1, each timed
+6144 tokens, head dims 64 and 32, a ragged Lq = 500, group 1 and mixtral's
+and jamba's 32 / 8 heads, each timed
 beside ``scaled_dot_product_attention``; and its split route in f32 at the
 same shapes within ``F32_TOL``; with q and k at 1, 2, 3, 4 and 6 times the
 scale beside the plain version in f64 and the kernel's arithmetic emulated
@@ -200,12 +239,15 @@ with f32 products, within ``F32_TOL`` of the f32 plain version at 2 and of
 the f64 one at 3; and in bf16 at head dim 16), ``ssd_scan`` (x 8×512×64×64, B/C
 8×512×128; in f32 on upcast inputs and on f32 inputs that are not bf16
 values within ``SSD_TOL``, and on the bf16 inputs y within ``BF16_TOL`` and
-the f32 state within ``SSD_TOL`` of the same f32 plain version) and
+the f32 state within ``SSD_TOL`` of the same f32 plain version; and at
+jamba's layer, x 8×512×128×64, B/C 8×512×16, the same checks, times and
+bound) and
 ``partition_histogram`` (16×262,144×5 f32, bins 128, bit-exact and the same
 bits on a second launch, timed beside ``torch.histc`` as a yardstick).
 ``partition_kmeans`` must also give the same bits on a second launch.  Each
 kernel's entry gives its launches on its path's run and per call of its
-path.
+path; ``launches`` sums its launches over the serve runs, and
+``launches_by_run`` gives each run's.
 
 The kernels line gives each kernel's launches on the mesh, service and
 cluster runs as ``mesh_launches``, ``service_launches`` and
@@ -224,6 +266,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
 import os
 import re
 import statistics
@@ -275,6 +318,32 @@ SERVE = {
        for arch in ("qwen2-72b", "command-r-35b", "deepseek-7b")},
 }
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS, SERVE_MAX_LEN = 8, 512, 32, 576
+#: the MoE configs at full width, depth cut (mixtral 2 of 32 layers, jamba
+#: one period of 8 of 32, deepseek-v2 its dense first layer and one MoE
+#: layer of 60), 8 decode steps.  The dropless row runs at capacity factor
+#: E/k (no group drops a token, so the prefill and the recurrence compute
+#: one function), the published row at the config's 1.25 on the same
+#: weights.  Mixtral and jamba attend with the flash kernel; deepseek-v2's
+#: MLA attends with its own products.  The bf16 logit tolerance is two to
+#: three times the yardstick ("bf16_recurrence_vs_f32_recurrence", at the
+#: positions where the two recurrences route alike) measured on an H100
+#: (700 W): 0.156 for mixtral, 1.05 for jamba (a route flip at an earlier
+#: position changes the SSM state every later position reads), 0.077 for
+#: deepseek-v2.
+MOE_SERVE = {
+    "mixtral-8x7b": {"layers": 2, "flash": True, "logit_tol": 0.4},
+    "jamba-v0.1-52b": {"layers": 8, "flash": True, "logit_tol": 2.5},
+    "deepseek-v2-236b": {"layers": 2, "flash": False, "logit_tol": 0.2},
+}
+MOE_STEPS = 8
+#: in bf16 a near-tie of router probabilities sends a token to another
+#: expert in the prefill than in the recurrence (an O(1) change of its
+#: output); such positions are printed and left out of the bf16 logit
+#: checks, and may be at most this share of the compared positions
+ROUTE_FLIP_SHARE = 0.25
+#: the moe phase: 4096 tokens (groups of 1024) tilted by MOE_SKEW times one
+#: shared random row, and MOE_DECODE_GROUPS decode-sized groups of 8
+MOE_TOKENS, MOE_SKEW, MOE_DECODE_GROUPS = 4096, 1.0, 8
 #: the prefill and the recurrence in f32 on the same weights: only float
 #: reassociation separates them
 F32_LOGIT_TOL = 1e-3
@@ -741,6 +810,41 @@ def f32_reference(cfg, params, prompts: torch.Tensor):
     return prefill[:, :v], rec[:, :v], prefill_ms, split
 
 
+def layer_counts(cfg) -> dict:
+    """How many layers of the config's segments take each mixer and MLP."""
+    counts: dict = {}
+    for seg in cfg.segments():
+        for spec in seg.period:
+            for part in (spec.mixer, spec.mlp):
+                counts[part] = counts.get(part, 0) + seg.repeats
+    return counts
+
+
+def expected_launches(cfg, launches: dict) -> dict:
+    """Each LM kernel's launches in one prefill, counted from the segments:
+    ``flash_attention`` once per attention layer under ``attn_impl="flash"``,
+    ``ssd_scan`` once per Mamba2 layer; the partition kernels none."""
+    counts = layer_counts(cfg)
+    want = {k: 0 for k in launches}
+    want["flash_attention"] = counts.get("attn", 0) if cfg.attn_impl == "flash" else 0
+    want["ssd_scan"] = counts.get("mamba2", 0)
+    return want
+
+
+def prefill_matmul_bound_ms(cfg, params) -> float:
+    """Least time of a prefill's layer products for all 4096 tokens in bf16
+    on an H100 SXM: two operations per parameter of every segment and token,
+    with an MoE layer's experts counted as a token uses them (top-k of E,
+    ``ModelConfig.param_counts()["active"]``)."""
+    from repro_torch._pytree import tree_leaves
+
+    trunk = sum(t.numel() for key, seg in params.items() if key.startswith("seg")
+                for t in tree_leaves(seg))
+    counts = cfg.param_counts()
+    active = trunk - (counts["total"] - counts["active"])  # the experts a token skips
+    return 1e3 * 2 * active * SERVE_BATCH * SERVE_PROMPT / BF16_FLOPS_PER_S
+
+
 def serve_phase(name: str, seed: int, dev: torch.device) -> dict:
     """``Server.generate`` at full width, checked against the recurrence."""
     import dataclasses
@@ -771,8 +875,7 @@ def serve_phase(name: str, seed: int, dev: torch.device) -> dict:
     embed = params["embed"]
     gathered = 0 if cfg.tie_embeddings else embed.numel() * embed.element_size()
     decode_bound_ms = 1e3 * (param_bytes - gathered) / HBM_BYTES_PER_S
-    layer_params = sum(t.numel() for t in tree_leaves(params["seg0"]))  # the one segment
-    prefill_bound_ms = 1e3 * 2 * layer_params * SERVE_BATCH * SERVE_PROMPT / BF16_FLOPS_PER_S
+    prefill_bound_ms = prefill_matmul_bound_ms(cfg, params)
     prompts = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), dtype=np.int32)
     server = Server(cfg, max_len=SERVE_MAX_LEN, device=dev)
@@ -834,11 +937,11 @@ def serve_phase(name: str, seed: int, dev: torch.device) -> dict:
     }
     emit(result)
     check(stats.dispatches == 1 + steps, f"{name}: dispatches {stats.dispatches}")
-    want = {k: (cfg.num_layers if k == kernel else 0) for k in launches}
+    want = expected_launches(cfg, launches)
     check(launches == want, f"{name}: {kernel} launched once per layer of one prefill: {launches}")
     check(bf16_split == (0, 0), f"{name}: the bf16 prefill takes no split-route flash launch "
           f"({bf16_split})")
-    want_split = cfg.num_layers if cfg.attn_impl == "flash" and cfg.num_heads else 0
+    want_split = want["flash_attention"]
     check(f32_split == (want_split, want_split), f"{name}: the f32 prefill launches the flash "
           f"kernel's split route and its split kernel once per layer: {f32_split} != "
           f"{want_split}")
@@ -853,10 +956,381 @@ def serve_phase(name: str, seed: int, dev: torch.device) -> dict:
     return result
 
 
+def _recording_routes(fn):
+    """``fn()`` with ``moe_mlp``'s route recorder on → (its result, the routes)."""
+    from repro_torch.models.moe import moe_mlp
+
+    moe_mlp.routes = []
+    try:
+        out = fn()
+        return out, moe_mlp.routes
+    finally:
+        moe_mlp.routes = None
+
+
+def _per_layer(routes: list, n_layers: int, key: str = "experts") -> list[torch.Tensor]:
+    """Recorded calls (layer after layer, prefill and step after step) → per
+    MoE layer, ``(B, positions, k)`` along the positions (experts sorted per
+    token: a route is the set a token chose)."""
+    out = []
+    for layer in range(n_layers):
+        calls = [r[key] for r in routes[layer::n_layers]]
+        out.append(torch.cat([c.sort(-1).values if key == "experts" else c for c in calls], 1))
+    return out
+
+
+def _route_flips(a: list, b: list) -> torch.Tensor:
+    """``(layers, B, P)``: where two runs' routes differ, over the positions
+    both recorded."""
+    p = min(a[0].shape[1], b[0].shape[1])
+    return torch.stack([(x[:, :p] != y[:, :p]).any(-1) for x, y in zip(a, b)])
+
+
+def _drops(routes: list, n_layers: int) -> tuple[int, list[int]]:
+    """Dropped (token, choice) pairs in the prefill, and in each decode step."""
+    per_call = [int(r["dropped"].sum()) for r in routes]
+    steps = [sum(per_call[i:i + n_layers]) for i in range(0, len(per_call), n_layers)]
+    return steps[0], steps[1:]
+
+
+def _onehot_work(cfg, tokens: int, moe_layers: int | None = None) -> dict:
+    """The onehot dispatch's expert work for ``tokens`` tokens at the
+    config's capacity: every expert's MLP over all its capacity slots, and
+    the dispatch and combine products, in every MoE layer of the config
+    (or in ``moe_layers``)."""
+    e, k, vs = cfg.moe_experts, cfg.moe_top_k, cfg.moe_virtual_split
+    g = min(cfg.moe_group, tokens)
+    while tokens % g:
+        g //= 2
+    cap = min(max(int(math.ceil(g * k / e * cfg.moe_capacity_factor)), 1), g)
+    d, ev, fv = cfg.d_model, e * vs, cfg.moe_d_ff // vs
+    per_group = 2 * ev * cap * 3 * d * fv + 2 * 2 * g * ev * cap * d
+    layers = layer_counts(cfg)["moe"] if moe_layers is None else moe_layers
+    flops = layers * (tokens // g) * per_group
+    return {"group": g, "capacity": cap, "tflop": flops / 1e12,
+            "bound_ms": 1e3 * flops / BF16_FLOPS_PER_S}
+
+
+def upcast_in_place(tree) -> None:
+    """Every tensor of a params tree to f32, leaf by leaf: each bf16 leaf is
+    freed as its f32 copy is made, so the two trees are never whole at once."""
+    for node in (tree.values() if isinstance(tree, dict) else tree):
+        if isinstance(node, (dict, tuple, list)):
+            upcast_in_place(node)
+    if isinstance(tree, dict):
+        for key, leaf in tree.items():
+            if isinstance(leaf, torch.Tensor):
+                tree[key] = leaf.float()
+
+
+def moe_serve_phase(name: str, seed: int, dev: torch.device) -> dict:
+    """An MoE config at full width through ``Server.generate``: the dropless
+    row (capacity factor E/k) against the recurrence, route by route, then
+    the published-capacity row on the same weights, then the f32 checks."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch._pytree import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.runtime import Server
+
+    spec = MOE_SERVE[name]
+    tol, steps = spec["logit_tol"], MOE_STEPS
+    full = get_config(name)
+    cfg = dataclasses.replace(full, num_layers=spec["layers"],
+                              attn_impl="flash" if spec["flash"] else "ref",
+                              moe_capacity_factor=full.moe_experts / full.moe_top_k)
+    n_moe = layer_counts(cfg)["moe"]
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    param_count = sum(t.numel() for t in tree_leaves(params))
+    embed = params["embed"]
+    decode_bound_ms = 1e3 * (param_bytes - embed.numel() * embed.element_size()) / HBM_BYTES_PER_S
+    prefill_bound_ms = prefill_matmul_bound_ms(cfg, params)
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), dtype=np.int32)
+    prompt_t = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
+    v = cfg.vocab_size
+
+    # ---- dropless: the served run against the recurrence, route by route ----
+    server = Server(cfg, max_len=SERVE_MAX_LEN, device=dev)
+    server.load(params)
+    server.generate(prompts, steps=2)  # warm-up
+    reset_launches()
+    (tokens, stats, logits), served_routes = _recording_routes(
+        lambda: server.generate(prompts, steps=steps, return_logits=True))
+    launches = read_launches()
+    bf16_split = split_launches()
+    peak_bf16 = torch.cuda.max_memory_allocated(dev)
+    served = torch.as_tensor(tokens, dtype=torch.int64, device=dev)
+    lf = logits[:, :steps, :v].float()
+    del logits
+    rf, rec_routes = _recording_routes(
+        lambda: recurrence_logits(model, params, prompt_t, served)[..., :v].float())
+    served_sets = _per_layer(served_routes, n_moe)
+    rec_sets = _per_layer(rec_routes, n_moe)
+    flips = _route_flips(served_sets, rec_sets)              # (layers, B, positions)
+    at = SERVE_PROMPT - 1 + torch.arange(steps, device=dev)   # the compared positions
+    flipped = flips[:, :, at].any(0)                          # (B, steps)
+    err = (lf - rf).abs().amax(-1)                            # (B, steps)
+    held = ~flipped
+    prefill_err = float(err[:, 0][held[:, 0]].max()) if held[:, 0].any() else None
+    decode_err = float(err[:, 1:][held[:, 1:]].max()) if held[:, 1:].any() else None
+    flipped_rows = [{"b": b, "step": t, "err": float(err[b, t]),
+                     "layers": [i for i in range(n_moe) if flips[i, b, SERVE_PROMPT - 1 + t]]}
+                    for b, t in flipped.nonzero().tolist()]
+    ref_argmax = rf.argmax(-1)
+    mismatch = ((ref_argmax != served) & held).nonzero().tolist()
+    gaps = [float(rf[b, t, ref_argmax[b, t]] - rf[b, t, served[b, t]]) for b, t in mismatch]
+    route_err = None
+    if cfg.attn_impl == "flash":  # the ref route's prefill, where its routes agree
+        ref_model = build_model(dataclasses.replace(cfg, attn_impl="ref"))
+        cache = ref_model.init_cache(SERVE_BATCH, SERVE_MAX_LEN, dtype=torch.bfloat16, device=dev)
+        with torch.no_grad():
+            (ref_logits, _), ref_routes = _recording_routes(
+                lambda: ref_model.prefill(params, {"tokens": prompt_t}, cache))
+        del cache
+        ref_flip = _route_flips(served_sets, _per_layer(ref_routes, n_moe))
+        same = ~ref_flip[:, :, SERVE_PROMPT - 1].any(0)
+        if same.any():
+            route_err = float((ref_logits[:, :v].float() - lf[:, 0]).abs().amax(-1)[same].max())
+        del ref_logits
+
+    # ---- the published capacity on the same weights ----
+    published = published_row(name, full, cfg, params, prompts, dev, decode_bound_ms)
+
+    # ---- f32: the served path and the recurrence on the same weights upcast ----
+    del server
+    upcast_in_place(params)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    cache = model32.init_cache(SERVE_BATCH, SERVE_MAX_LEN, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    split0, t0 = split_launches(), time.perf_counter()
+    with torch.no_grad():
+        (first, _), served32_routes = _recording_routes(
+            lambda: model32.prefill(params, {"tokens": prompt_t}, cache))
+    torch.cuda.synchronize()
+    f32_prefill_ms = 1e3 * (time.perf_counter() - t0)
+    f32_split = tuple(n - n0 for n, n0 in zip(split_launches(), split0))
+    steps32 = [first]
+    with torch.no_grad():
+        for t in range(1, steps):
+            (step, _), r = _recording_routes(lambda t=t: model32.decode_step(
+                params, cache, served[:, t - 1:t], SERVE_PROMPT + t - 1))
+            steps32.append(step)
+            served32_routes += r
+    del cache
+    lf32 = torch.stack(steps32, 1)[..., :v]
+    rf32, rec32_routes = _recording_routes(
+        lambda: recurrence_logits(model32, params, prompt_t, served)[..., :v])
+    peak_f32 = torch.cuda.max_memory_allocated(dev)
+    f32_err = float((lf32 - rf32).abs().max())
+    rec32_sets = _per_layer(rec32_routes, n_moe)
+    f32_flips = _route_flips(_per_layer(served32_routes, n_moe), rec32_sets)
+    # the yardstick: the bf16 recurrence against the f32 one, at the compared
+    # positions where their routes agree
+    yard_flip = _route_flips(rec_sets, rec32_sets)[:, :, at].any(0)
+    yard = (rf - rf32).abs().amax(-1)
+    bf16_self_err = float(yard[~yard_flip].max()) if (~yard_flip).any() else None
+    del params, lf32, rf32
+    torch.cuda.empty_cache()
+
+    result = {
+        "phase": "serve", "run": name, "arch": name, "d_model": cfg.d_model,
+        "layers": cfg.num_layers, "layers_full": full.num_layers,
+        "layer_counts": layer_counts(cfg), "attn_impl": cfg.attn_impl,
+        "moe_capacity_factor": cfg.moe_capacity_factor,
+        "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "steps": steps,
+        "max_len": SERVE_MAX_LEN, "dtype": cfg.dtype,
+        "prefill_ms": stats.prefill_s * 1e3, "prefill_matmul_bound_ms": prefill_bound_ms,
+        "prefill_onehot_expert_work": _onehot_work(cfg, SERVE_BATCH * SERVE_PROMPT),
+        "decode_onehot_expert_work": _onehot_work(cfg, SERVE_BATCH),
+        "decode_ms_per_token": stats.decode_s / steps * 1e3,
+        "decode_bytes_bound_ms": decode_bound_ms,
+        "times_with_route_recorder": True,
+        "dispatches": stats.dispatches, "launches": launches,
+        "max_memory_allocated": peak_bf16, "f32_max_memory_allocated": peak_f32,
+        "param_bytes": param_bytes, "param_count": param_count, "init_s": init_s,
+        "logit_max_abs": float(lf.abs().max()), "logit_std": float(lf.std()),
+        "logit_tol": tol, "route_mismatches": [int(f.sum()) for f in flips],
+        "route_positions": int(flips.shape[1] * flips.shape[2]),
+        "flipped_compared_positions": flipped_rows,
+        "compared_positions": int(flipped.numel()),
+        "prefill_vs_recurrence": prefill_err, "decode_vs_recurrence": decode_err,
+        "flash_vs_ref_prefill": route_err,
+        "f32_prefill_vs_f32_recurrence_every_step": f32_err,
+        "f32_route_mismatches": [int(f.sum()) for f in f32_flips],
+        "f32_prefill_ms": f32_prefill_ms,
+        "f32_prefill_flash_split_launches": f32_split[0],
+        "f32_prefill_split_kv_launches": f32_split[1],
+        "bf16_recurrence_vs_f32_recurrence": bf16_self_err,
+        "bf16_vs_f32_recurrence_route_flips": int(yard_flip.sum()),
+        "argmax_mismatches": len(mismatch), "mismatch_gaps": gaps,
+    }
+    emit(result)
+    check(stats.dispatches == 1 + steps, f"{name}: dispatches {stats.dispatches}")
+    want = expected_launches(cfg, launches)
+    check(launches == want, f"{name}: prefill launches {launches} != {want} (from the segments)")
+    check(bf16_split == (0, 0), f"{name}: the bf16 prefill takes no split-route flash launch")
+    check(f32_split == (want["flash_attention"],) * 2, f"{name}: the f32 prefill launches the "
+          f"flash kernel's split route once per attention layer: {f32_split}")
+    check(bool(torch.isfinite(lf).all()), f"{name}: every logit is finite")
+    check(len(flipped_rows) <= ROUTE_FLIP_SHARE * flipped.numel(),
+          f"{name}: {len(flipped_rows)} of {flipped.numel()} compared positions route apart")
+    check(prefill_err is not None and prefill_err <= tol,
+          f"{name}: prefill vs recurrence {prefill_err} > {tol}")
+    check(decode_err is not None and decode_err <= tol,
+          f"{name}: decode vs recurrence {decode_err} > {tol}")
+    if route_err is not None:
+        check(route_err <= tol, f"{name}: flash vs ref route {route_err} > {tol}")
+    check(f32_err <= F32_LOGIT_TOL, f"{name}: f32 served steps vs f32 recurrence {f32_err}")
+    check(all(g <= tol for g in gaps), f"{name}: served tokens are the recurrence's argmax "
+          f"except at near-ties: gaps {gaps}")
+    return {"dropless": result, "published": published}
+
+
+def published_row(name: str, full, cfg, params, prompts, dev: torch.device,
+                  decode_bound_ms: float) -> dict:
+    """The same weights at the config's own capacity factor (1.25): times,
+    bounds, dropped choices and memory.  Not compared with the recurrence:
+    drops depend on the group, and a prefill group holds 1024 tokens where a
+    decode group holds 8."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.runtime import Server
+
+    steps = MOE_STEPS
+    pub = dataclasses.replace(cfg, moe_capacity_factor=full.moe_capacity_factor)
+    n_moe = layer_counts(pub)["moe"]
+    server = Server(pub, max_len=SERVE_MAX_LEN, device=dev)
+    server.load(params)
+    server.generate(prompts, steps=2)  # warm-up
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    tokens, stats, logits = server.generate(prompts, steps=steps, return_logits=True)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    finite = bool(torch.isfinite(logits[..., :pub.vocab_size]).all())
+    del logits
+    # the same run again with the route recorder on, for the drop counts
+    (again, _), routes = _recording_routes(lambda: server.generate(prompts, steps=steps))
+    prefill_drops, decode_drops = _drops(routes, n_moe)
+    tokens_x_choices = pub.moe_top_k * n_moe
+    row = {
+        "phase": "serve", "run": f"{name}/published", "arch": name,
+        "layers": pub.num_layers, "moe_capacity_factor": pub.moe_capacity_factor,
+        "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "steps": steps, "dtype": pub.dtype,
+        "prefill_ms": stats.prefill_s * 1e3,
+        "prefill_matmul_bound_ms": prefill_matmul_bound_ms(pub, params),
+        "prefill_onehot_expert_work": _onehot_work(pub, SERVE_BATCH * SERVE_PROMPT),
+        "decode_ms_per_token": stats.decode_s / steps * 1e3,
+        "decode_bytes_bound_ms": decode_bound_ms,
+        "decode_onehot_expert_work": _onehot_work(pub, SERVE_BATCH),
+        "dispatches": stats.dispatches, "launches": launches,
+        "dropped_prefill": prefill_drops,
+        "dropped_prefill_of": SERVE_BATCH * SERVE_PROMPT * tokens_x_choices,
+        "dropped_per_decode_step": decode_drops,
+        "dropped_decode_step_of": SERVE_BATCH * tokens_x_choices,
+        "same_tokens_with_recorder": bool(np.array_equal(tokens, again)),
+        "max_memory_allocated": peak,
+    }
+    emit(row)
+    check(finite, f"{name}/published: every logit is finite")
+    check(stats.dispatches == 1 + steps, f"{name}/published: dispatches {stats.dispatches}")
+    check(launches == expected_launches(pub, launches),
+          f"{name}/published: prefill launches {launches}")
+    check(row["same_tokens_with_recorder"], f"{name}/published: the recorder changes no token")
+    return row
+
+
+def moe_phase(seed: int, dev: torch.device) -> list[dict]:
+    """One MoE layer of mixtral (virtual split 2) and of jamba at full width
+    and the published capacity factor, ``moe_mlp`` against the plain
+    per-expert version (``repro_torch.models.moe_ref``): 4096 tokens in
+    groups of 1024 (rows tilted by one shared random row, so that experts
+    are over-subscribed and the capacity drops choices) and decode-sized
+    groups of 8, in f32 and bf16."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import init_moe, moe_mlp
+    from repro_torch.models.moe_ref import moe_plain
+
+    rows = []
+    for arch in ("mixtral-8x7b", "jamba-v0.1-52b"):
+        cfg = get_config(arch)
+        gen = torch.Generator(device=dev).manual_seed(seed + 3)
+        p = init_moe(cfg, generator=gen, device=dev, dtype=torch.bfloat16)
+        d = cfg.d_model
+        x = torch.randn((MOE_TOKENS // cfg.moe_group, cfg.moe_group, d), generator=gen, device=dev)
+        x = (x + MOE_SKEW * torch.randn((d,), generator=gen, device=dev)).to(torch.bfloat16)
+        steps = [torch.randn((SERVE_BATCH, 1, d), generator=gen, device=dev).to(torch.bfloat16)
+                 for _ in range(MOE_DECODE_GROUPS)]
+        row = {"phase": "moe", "arch": arch, "d_model": d, "experts": cfg.moe_experts,
+               "top_k": cfg.moe_top_k, "virtual_split": cfg.moe_virtual_split,
+               "moe_d_ff": cfg.moe_d_ff, "capacity_factor": cfg.moe_capacity_factor,
+               "tokens": MOE_TOKENS, "skew": MOE_SKEW, "decode_groups": MOE_DECODE_GROUPS,
+               "decode_group_tokens": SERVE_BATCH,
+               "prefill_work": _onehot_work(cfg, MOE_TOKENS, moe_layers=1),
+               "tolerance": {"float32": f"allclose {F32_TOL}",
+                             "bfloat16": f"allclose {BF16_TOL} where the routes agree"}}
+        for dtype in (torch.bfloat16, torch.float32):
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            if dtype == torch.float32:
+                p = {k: t.float() for k, t in p.items()}
+                x, steps = x.float(), [t.float() for t in steps]
+            drops = {}
+            for case, inputs in (("tokens4096", [x]), ("decode8", steps)):
+                errs, agree_all, dropped_n = [], 0, 0
+                for xi in inputs:
+                    got, routes = _recording_routes(lambda xi=xi: moe_mlp(p, cfg, xi))
+                    (rec,) = routes
+                    want, experts, dropped = moe_plain(p, cfg, xi)
+                    agree = ((rec["experts"] == experts) & (rec["dropped"] == dropped)).all(-1)
+                    if dtype == torch.float32:
+                        check(torch.equal(rec["experts"], experts)
+                              and torch.equal(rec["dropped"], dropped),
+                              f"moe {arch} {case} f32: the routes and drop sets are equal")
+                        check(torch.allclose(got, want, **F32_TOL),
+                              f"moe {arch} {case} f32: within {F32_TOL} of the plain version")
+                        errs.append(float((got - want).abs().max()))
+                    else:
+                        g, w = got[agree].float(), want[agree].float()
+                        check(torch.allclose(g, w, **BF16_TOL), f"moe {arch} {case} bf16: within "
+                              f"{BF16_TOL} of the plain version where the routes agree")
+                        errs.append(float((g - w).abs().max()))
+                    agree_all += int(agree.sum())
+                    dropped_n += int(dropped.sum())
+                drops[case] = dropped_n
+                row[f"{tag}_{case}"] = {"max_abs_err": max(errs), "dropped": dropped_n,
+                                        "choices": sum(t.shape[0] * t.shape[1] for t in inputs)
+                                        * cfg.moe_top_k,
+                                        "tokens_routes_agree": agree_all}
+            check(drops["decode8"] > 0, f"moe {arch} {tag}: the decode-sized groups drop")
+            row[f"{tag}_ms"] = cuda_ms(lambda: moe_mlp(p, cfg, x), reps=5)
+            row[f"{tag}_plain_ms"] = cuda_ms(lambda: moe_plain(p, cfg, x), reps=5)
+        emit(row)
+        rows.append(row)
+        del p, x, steps
+        torch.cuda.empty_cache()
+    return rows
+
+
 def lm_kernel_checks(seed: int, dev: torch.device, x_values: torch.Tensor,
-                     launches: dict) -> list[dict]:
+                     launches: dict, by_run: dict) -> list[dict]:
     """The serving path's kernels (and the value histogram) at their main
-    paths' shapes, against their plain versions."""
+    paths' shapes, against their plain versions.  ``launches`` holds each
+    kernel's launches summed over the serve runs, ``by_run`` each run's."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -900,7 +1374,8 @@ def lm_kernel_checks(seed: int, dev: torch.device, x_values: torch.Tensor,
     cases = []
     for label, (lq, hq, hk, dh) in {"d64": (l, h, hkv, 64), "d32": (l, h, hkv, 32),
                                     "ragged_lq500": (500, h, hkv, d),
-                                    "group1": (l, hkv, hkv, d)}.items():
+                                    "group1": (l, hkv, hkv, d),
+                                    "mixtral_jamba_heads32_kv8": (l, 32, 8, d)}.items():
         qc, kc, vc = normal(b, lq, hq, dh), normal(b, lq, hk, dh), normal(b, lq, hk, dh)
         gotc = fa.flash_attention(qc, kc, vc, causal=True)
         wantc = fa.flash_attention_ref(qc, kc, vc, causal=True)
@@ -981,8 +1456,10 @@ def lm_kernel_checks(seed: int, dev: torch.device, x_values: torch.Tensor,
     split_kv_bound_ms, _ = bound(4 * 2 * k32.numel() + 6 * 2 * k32.numel(), 0)
     split_route = {
         "route": "split", "dtype": "float32", "launches": launches["flash_attention_split"],
-        "launches_per_call": launches["flash_attention_split"],
+        "launches_per_call": by_run["qwen3-32b/f32"]["flash_attention_split"],
         "split_kv_launches": launches["split_kv"],
+        "launches_by_run": {run: n["flash_attention_split"] for run, n in by_run.items()
+                            if n.get("flash_attention_split")},
         "per_call_of": "qwen3-32b f32 prefill (8 layers)", "max_abs_err": err32,
         "tolerance": f"allclose {F32_TOL} (tests/test_kernels.py TOL[float32])",
         "qk_scales": list(scores.values()),
@@ -1008,8 +1485,10 @@ def lm_kernel_checks(seed: int, dev: torch.device, x_values: torch.Tensor,
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:101",
         "launches": launches["flash_attention"], "max_abs_err": err,
-        "launches_per_call": launches["flash_attention"],
+        "launches_per_call": by_run["qwen3-32b"]["flash_attention"],
         "per_call_of": "qwen3-32b prefill (8 layers)",
+        "launches_by_run": {run: n["flash_attention"] for run, n in by_run.items()
+                            if n.get("flash_attention")},
         "tolerance": f"allclose {BF16_TOL} (bf16 output)",
         **kernel_times(lambda: fa.flash_attention(q, k, v, causal=True)),
         "plain_ms": cuda_ms(lambda: fa.flash_attention_ref(q, k, v, causal=True)),
@@ -1074,7 +1553,9 @@ def lm_kernel_checks(seed: int, dev: torch.device, x_values: torch.Tensor,
         "name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:93",
         "launches": launches["ssd_scan"], "max_abs_err": err,
-        "launches_per_call": launches["ssd_scan"], "per_call_of": "mamba2-1.3b prefill (48 layers)",
+        "launches_per_call": by_run["mamba2-1.3b"]["ssd_scan"],
+        "per_call_of": "mamba2-1.3b prefill (48 layers)",
+        "launches_by_run": {run: n["ssd_scan"] for run, n in by_run.items() if n.get("ssd_scan")},
         "f32_not_bf16_max_abs_err": f32_raw_err,
         "tolerance": f"f32 on upcast inputs, allclose {SSD_TOL}; bf16 in/out: y allclose "
                      f"{BF16_TOL}, state allclose {SSD_TOL}",
@@ -1088,6 +1569,39 @@ def lm_kernel_checks(seed: int, dev: torch.device, x_values: torch.Tensor,
         "y_max_abs": float(ry.abs().max()), "y_mean_abs": float(ry.abs().mean()),
         "shape_x": [b, l, nh, p], "state": n,
     })
+    del inputs, up, y32, h32, ry, rh, ybf, hbf
+    # one jamba-v0.1-52b prefill layer: 128 heads, state 16 (the kernel pads
+    # the state to its 128 columns)
+    nh, n = 128, 16
+    x = normal(b, l, nh, p)
+    dt = (torch.rand((b, l, nh), generator=gen, device=dev) * 0.8 + 0.1).to(torch.bfloat16)
+    a = (-(torch.rand((nh,), generator=gen, device=dev) + 0.5)).to(torch.bfloat16)
+    inputs = (x, dt, a, normal(b, l, n), normal(b, l, n))
+    up = tuple(t.float() for t in inputs)
+    y32, h32 = ss.ssd_scan(*up, chunk=256)
+    ry, rh = ss.ssd_chunked(*up, chunk=256)
+    err32 = max(float((y32 - ry).abs().max()), float((h32 - rh).abs().max()))
+    check(torch.allclose(y32, ry, **SSD_TOL) and torch.allclose(h32, rh, **SSD_TOL),
+          f"ssd_scan at jamba's layer (f32) within {SSD_TOL} of its plain version ({err32})")
+    ybf, hbf = ss.ssd_scan(*inputs, chunk=256)
+    bf16_err = float((ybf.float() - ry).abs().max())
+    bf16_state_err = float((hbf - rh).abs().max())
+    check(torch.allclose(ybf.float(), ry, **BF16_TOL) and torch.allclose(hbf, rh, **SSD_TOL),
+          f"ssd_scan at jamba's layer (bf16 in) y within {BF16_TOL} ({bf16_err}), the state "
+          f"within {SSD_TOL} ({bf16_state_err}) of the f32 plain version")
+    mac = b * (l // qc) * (tri * n + nh * 2 * (tri * p + 2 * qc * p * n))
+    jamba_bound_ms, jamba_bound_by = bound(
+        sum(t.numel() * t.element_size() for t in inputs) + ybf.numel() * 2 + hbf.numel() * 4,
+        2 * mac, BF16_FLOPS_PER_S)
+    out[-1]["jamba_case"] = {
+        "shape_x": [b, l, nh, p], "state": n, "max_abs_err": err32,
+        "bf16_max_abs_err_vs_f32_plain": bf16_err,
+        "bf16_state_max_abs_err_vs_f32_plain": bf16_state_err,
+        **kernel_times(lambda: ss.ssd_scan(*inputs, chunk=256)),
+        "plain_ms": cuda_ms(lambda: ss.ssd_chunked(*inputs, chunk=256)),
+        "ms_f32": cuda_ms(lambda: ss.ssd_scan(*up, chunk=256)),
+        "bound_ms": jamba_bound_ms, "bound_by": jamba_bound_by,
+    }
     del inputs, up, y32, h32, ry, rh, ybf, hbf
 
     # ---- partition_histogram: one partition of the value-histogram path ----
@@ -2320,12 +2834,18 @@ def service_phase(x_hist, x_km, seed: int, repeats: int) -> dict:
                 (_, encode_s) = synced(lambda: JobServer._encode_payload(plan.spec))
                 srv = engine("server", server_backend=backend, devices=mesh, root=root,
                              fsync=fsync)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                job = srv.submit(plan, tenant="t")
-                submit_s = time.perf_counter() - t0
-                value, run_s = synced(lambda: counted(
-                    lambda: srv.wait(job, SERVICE_WATCHDOG_S).value))
+
+                def submit_and_wait():
+                    # the scheduler may run units before submit returns:
+                    # the count spans both
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    job = srv.submit(plan, tenant="t")
+                    submit_s = time.perf_counter() - t0
+                    value, run_s = synced(lambda: srv.wait(job, SERVICE_WATCHDOG_S).value)
+                    return job, submit_s, value, run_s
+
+                job, submit_s, value, run_s = counted(submit_and_wait)
                 journal_bytes = os.path.getsize(os.path.join(root, "journal.bin"))
                 srv.close()
             check(torch.equal(value, ref_h), f"service/{backend} fsync={fsync}: value exact")
@@ -2373,10 +2893,11 @@ def service_phase(x_hist, x_km, seed: int, repeats: int) -> dict:
           f"({resumed_launches} for {job2.recomputed_units - 1} task units)")
     emit({"phase": "service", "service_launches": launched})
     counts = read_launches()
-    check(counts == {**{k: launched[k] + direct[k] for k in launched},
-                     "partition_histogram": 0, "flash_attention": 0, "ssd_scan": 0},
+    want = {**{k: launched[k] + direct[k] for k in launched},
+            "partition_histogram": 0, "flash_attention": 0, "ssd_scan": 0}
+    check(counts == want,
           f"service: the counters, set to 0 at the phase's start, equal the server runs' "
-          f"and the direct calls' launches ({counts})")
+          f"and the direct calls' launches ({counts}; server runs {launched}, direct {direct})")
     check(all(n > 0 for n in launched.values()),
           f"both partition kernels launched through the service: {launched}")
     return launched
@@ -2649,20 +3170,35 @@ def main(argv=None) -> int:
     del hist, km, means, label_counts, x_hist, x_km
     torch.cuda.empty_cache()
 
+    by_run = {}  # each serve run's prefill launches (its f32 prefill's apart)
+
+    def count(run: str, row: dict) -> None:
+        by_run[run] = {k: row["launches"][k] for k in ("flash_attention", "ssd_scan")}
+        if "f32_prefill_flash_split_launches" in row:
+            by_run[f"{run}/f32"] = {
+                "flash_attention_split": row["f32_prefill_flash_split_launches"],
+                "split_kv": row["f32_prefill_split_kv_launches"]}
+
     for name, spec in SERVE.items():
         result = serve_phase(name, args.seed, dev)
         if not spec.get("depth_check"):
-            launches[spec["kernel"]] = result["launches"][spec["kernel"]]
-            if spec["kernel"] == "flash_attention":
-                launches["flash_attention_split"] = result["f32_prefill_flash_split_launches"]
-                launches["split_kv"] = result["f32_prefill_split_kv_launches"]
+            count(name, result)
         torch.cuda.empty_cache()
+    for name in MOE_SERVE:
+        rows = moe_serve_phase(name, args.seed, dev)
+        count(name, rows["dropless"])
+        count(f"{name}/published", rows["published"])
+        torch.cuda.empty_cache()
+    for k in ("flash_attention", "ssd_scan", "flash_attention_split", "split_kv"):
+        launches[k] = sum(n.get(k, 0) for n in by_run.values())
     sampled_serve_phase(args.seed, dev)
     torch.cuda.empty_cache()
     knn_phase(args.seed, dev)
     svm_phase(args.seed, dev)
     torch.cuda.empty_cache()
-    kernels += lm_kernel_checks(args.seed, dev, x_values, launches)
+    moe_phase(args.seed, dev)
+    torch.cuda.empty_cache()
+    kernels += lm_kernel_checks(args.seed, dev, x_values, launches, by_run)
     for k in kernels:  # launches on the mesh and service paths (None: not on them)
         k["mesh_launches"] = mesh_launches.get(k["name"])
         k["service_launches"] = service_launches.get(k["name"])

@@ -1311,18 +1311,24 @@ class _PlanExecutor:
         state = _SchedulerState(units, report=report)
         state.merge_key = graph.merge.key if graph.merge is not None else None
         if merge_unit is not None:
+            # The closures reach the state through a weak reference: the
+            # state holds the units that hold them, and a strong reference
+            # would make a reference cycle that keeps every partial alive
+            # until the garbage collector runs.  The caller holds the state
+            # for as long as the units run.
+            state_ref = weakref.ref(state)
             for fu in fold_units:
                 # The driver-side run (the JobServer's path, and the
                 # cluster's fallback): the chain a worker-side fold runs.
                 def run_fold(members=fu.fold_group):
-                    partials = [state.results[i] for i in members]
+                    partials = [state_ref().results[i] for i in members]
                     return _merge_partials(self.engine, graph.merge, partials)
 
                 fu.run = run_fold
             deps = merge_unit.deps
 
             def run_merge():
-                partials = [state.results[i] for i in deps]
+                partials = [state_ref().results[i] for i in deps]
                 return _merge_partials(
                     self.engine, graph.merge, partials, plan=merge_plan
                 )
@@ -1452,6 +1458,7 @@ class _LocationWorker:
             if job is None:
                 return
             job()
+            del job  # not held, with the unit's partials, until the next job
 
     def submit(self, job: Callable[[], None]) -> None:
         self._jobs.put(job)
@@ -1514,7 +1521,9 @@ class ThreadedExecutor(_PlanExecutor):
 
     def _on_pool_thread(self) -> bool:
         cur = threading.current_thread()
-        return any(w._thread is cur for w in self._workers.values())
+        # A snapshot: a worker asks this from its unit while the caller may
+        # still be spawning the other locations' workers into the dict.
+        return any(w._thread is cur for w in tuple(self._workers.values()))
 
     def _drain(self, state: _SchedulerState) -> None:
         locations = {u.location for u in state.units if u.location >= 0}

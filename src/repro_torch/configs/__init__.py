@@ -19,6 +19,9 @@ _MODULES: dict[str, str] = {
     "qwen3-32b": "repro_torch.configs.qwen3_32b",
     "deepseek-7b": "repro_torch.configs.deepseek_7b",
     "mamba2-1.3b": "repro_torch.configs.mamba2_1p3b",
+    "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
+    "jamba-v0.1-52b": "repro_torch.configs.jamba_v01_52b",
+    "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
 }
 
 ARCH_IDS: tuple[str, ...] = tuple(_MODULES)

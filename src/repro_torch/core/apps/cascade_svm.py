@@ -17,7 +17,7 @@ projected gradient ascent on the dual (O(n² d) kernel matrix, O(n²) per
 step), and the "support vectors" are the top ``num_sv`` points by dual
 coefficient.  Projected ascent clips many coefficients to exactly 0 or
 ``c``, so the choice among equal coefficients decides which points are
-kept: :func:`_top_k` keeps the lower index first, as ``lax.top_k`` does.
+kept: :func:`repro_torch._topk.top_k` keeps the lower index first, as ``lax.top_k`` does.
 """
 
 from __future__ import annotations
@@ -26,9 +26,9 @@ import dataclasses
 
 import torch
 
+from repro_torch._topk import top_k
 from repro_torch.api import Collection, Executor, ExecutionPolicy, SplIter, as_policy
 from repro_torch.api.executors import _default_local, _synchronize
-from repro_torch.core.apps.knn import _top_k
 from repro_torch.core.blocked import BlockedArray
 from repro_torch.core.engine import EngineReport
 
@@ -66,7 +66,7 @@ def svc_train(
     for _ in range(steps):
         g = 1.0 - q @ alpha
         alpha = torch.clamp(alpha + eta * g, 0.0, c)
-    _, top = _top_k(alpha, min(num_sv, n))
+    _, top = top_k(alpha, min(num_sv, n))
     return x[top], y[top], alpha[top]
 
 

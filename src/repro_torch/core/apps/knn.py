@@ -21,7 +21,8 @@ float32 matmul precision ``"highest"``, PyTorch's defaults).
 Order sensitivity: returned neighbor ids are **global** row ids of the fit
 dataset — exactly what ``PartitionView.item_indexes`` provides (§4.1) —
 and equal distances keep the lower id first, as ``lax.top_k`` orders ties
-(:func:`_top_k` sorts stably; ``torch.topk`` promises no tie order).
+(:func:`repro_torch._topk.top_k` sorts stably; ``torch.topk`` promises no
+tie order).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import dataclasses
 
 import torch
 
+from repro_torch._topk import top_k
 from repro_torch.api import Collection, Executor, ExecutionPolicy, SplIter, as_policy
 from repro_torch.api.executors import _default_local, _synchronize
 from repro_torch.core.blocked import BlockedArray
@@ -45,13 +47,6 @@ class KNNResult:
     report: EngineReport
 
 
-def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """``lax.top_k`` over the last axis: the ``k`` largest values in
-    descending order, the lower index first among equal values."""
-    values, positions = torch.sort(x, dim=-1, descending=True, stable=True)
-    return values[..., :k], positions[..., :k]
-
-
 def _lookup(fit_x: torch.Tensor, fit_ids: torch.Tensor, q: torch.Tensor, k: int):
     """Distances of ``q`` against one structure → per-query top-k (d², id)."""
     d2 = (
@@ -59,7 +54,7 @@ def _lookup(fit_x: torch.Tensor, fit_ids: torch.Tensor, q: torch.Tensor, k: int)
         - 2.0 * q @ fit_x.T
         + torch.sum(fit_x * fit_x, 1)[None, :]
     )
-    neg, pos = _top_k(-d2, k)  # smallest distances
+    neg, pos = top_k(-d2, k)  # smallest distances
     return -neg, fit_ids[pos]
 
 
@@ -67,7 +62,7 @@ def _merge(d1, i1, d2, i2, k: int):
     """Merge two top-k candidate sets (the paper's _merge_kqueries)."""
     d = torch.cat([d1, d2], dim=1)
     i = torch.cat([i1, i2], dim=1)
-    neg, pos = _top_k(-d, k)
+    neg, pos = top_k(-d, k)
     return -neg, torch.take_along_dim(i, pos, dim=1)
 
 

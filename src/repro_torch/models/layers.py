@@ -234,7 +234,8 @@ def attention(
     """
     if memory is not None or (cache is not None and "k_mem" in cache):
         raise NotImplementedError(
-            "cross-attention is not ported yet (audio/vlm families, ROADMAP Queue 1 item 12)"
+            "cross-attention is not ported yet "
+            "(ROADMAP Queue 1: cross-attention and the audio/vlm families)"
         )
     dh = cfg.resolved_head_dim
     dt = x.dtype

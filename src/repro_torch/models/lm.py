@@ -1,7 +1,8 @@
 """Model assembly: LayerSpec segments → init / forward / prefill / decode_step.
 
-Port of ``repro/models/lm.py`` for the decoder-only families whose layers
-are ported (dense attention and Mamba2, with dense MLPs).  The parameter
+Port of ``repro/models/lm.py`` for the decoder-only families: attention,
+multi-head latent attention and Mamba2 mixers, dense and MoE MLPs, in one
+segment or several (deepseek-v2's dense first layer).  The parameter
 tree has the JAX package's names and layout: a segment of ``repeats > 1``
 periods holds each leaf stacked as ``(repeats, ...)``.  Where the reference
 scans a segment with ``lax.scan``, the port loops over the repeats and
@@ -32,6 +33,8 @@ from repro_torch._pytree import tree_map
 from repro_torch.configs.base import LayerSpec, ModelConfig, Segment
 from repro_torch.core.blocked import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models.mla import init_mla, mla_attention
+from repro_torch.models.moe import init_moe, moe_mlp
 from repro_torch.models.ssm import init_mamba, mamba_block
 
 Params = dict[str, Any]
@@ -42,26 +45,25 @@ CAST_LEAVES = frozenset({
     "w_gate", "w_up", "w_down",
     "w_in_z", "w_in_x", "w_in_b", "w_in_c", "w_in_dt", "conv_x", "conv_b", "conv_c",
     "ssm_D", "w_out",
+    "router", "experts_gate", "experts_up", "experts_down",
+    "wq_a", "wq_b", "wkv_a", "wk_b", "wv_b",
 })
 
-_NOT_PORTED = {  # each arrives with ROADMAP Queue 1 item 12
-    "mla": "the MLA mixer (models/mla.py, deepseek-v2) is not ported yet",
+_NOT_PORTED = {
     "cross_attn": "cross-attention (audio/vlm families) is not ported yet",
     "enc_attn": "the encoder (audio family) is not ported yet",
-    "moe": "the MoE MLP (models/moe.py, mixtral/jamba) is not ported yet",
 }
+_WAITS_FOR = "ROADMAP Queue 1: cross-attention and the audio/vlm families"
 
 
 def _check_ported(cfg: ModelConfig) -> None:
     for seg in cfg.segments():
         for spec in seg.period:
-            for part in (spec.mixer, spec.mlp):
-                if part in _NOT_PORTED:
-                    raise NotImplementedError(
-                        f"{cfg.name}: {_NOT_PORTED[part]} (ROADMAP Queue 1 item 12)")
+            if spec.mixer in _NOT_PORTED:
+                raise NotImplementedError(
+                    f"{cfg.name}: {_NOT_PORTED[spec.mixer]} ({_WAITS_FOR})")
     if cfg.encoder_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: {_NOT_PORTED['enc_attn']} (ROADMAP Queue 1 item 12)")
+        raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED['enc_attn']} ({_WAITS_FOR})")
 
 
 # ---------------------------------------------------------------------------
@@ -77,6 +79,8 @@ def _init_layer(spec: LayerSpec, cfg: ModelConfig, *, generator, device, dtype) 
         p["ln1_b"] = norm["b"]
     if spec.mixer == "attn":
         p["mixer"] = L.init_attention(cfg, generator=generator, device=device, dtype=dtype)
+    elif spec.mixer == "mla":
+        p["mixer"] = init_mla(cfg, generator=generator, device=device, dtype=dtype)
     elif spec.mixer == "mamba2":
         p["mixer"] = init_mamba(cfg, generator=generator, device=device, dtype=dtype)
     else:  # pragma: no cover - Model rejects unported configs
@@ -88,7 +92,13 @@ def _init_layer(spec: LayerSpec, cfg: ModelConfig, *, generator, device, dtype) 
     if spec.mlp == "dense":
         ff = cfg.dense_d_ff or cfg.d_ff
         p["mlp"] = L.init_mlp(cfg, ff, generator=generator, device=device, dtype=dtype)
+    elif spec.mlp == "moe":
+        p["mlp"] = init_moe(cfg, generator=generator, device=device, dtype=dtype)
     return p
+
+
+def _mlp(p: Params, spec: LayerSpec, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    return L.mlp(p, x) if spec.mlp == "dense" else moe_mlp(p, cfg, x)
 
 
 def _apply_layer(
@@ -108,6 +118,11 @@ def _apply_layer(
             positions=ctx["positions"], causal=True, cache=cache,
             cache_pos=ctx.get("cache_pos"),
         )
+    elif spec.mixer == "mla":
+        mix, _ = mla_attention(
+            p["mixer"], cfg, h,
+            positions=ctx["positions"], cache=cache, cache_pos=ctx.get("cache_pos"),
+        )
     elif spec.mixer == "mamba2":
         mix, _ = mamba_block(p["mixer"], cfg, h, cache=cache)
     else:  # pragma: no cover - Model rejects unported configs
@@ -115,12 +130,12 @@ def _apply_layer(
 
     if cfg.parallel_block and spec.mlp != "none":
         # command-r: x + attn(norm(x)) + mlp(norm(x))
-        return x + mix + L.mlp(p["mlp"], h)
+        return x + mix + _mlp(p["mlp"], spec, cfg, h)
 
     x = x + mix
     if spec.mlp != "none":
         h2 = L.apply_norm(x, p, "ln2", cfg)
-        x = x + L.mlp(p["mlp"], h2)
+        x = x + _mlp(p["mlp"], spec, cfg, h2)
     return x
 
 
@@ -139,6 +154,13 @@ def _init_layer_cache(
         shp = (*lead, batch, s, cfg.num_kv_heads, dh)
         return {"k": torch.zeros(shp, dtype=dtype, device=device),
                 "v": torch.zeros(shp, dtype=dtype, device=device)}
+    if spec.mixer == "mla":
+        return {
+            "ckv": torch.zeros((*lead, batch, max_len, cfg.kv_lora_rank), dtype=dtype,
+                               device=device),
+            "krope": torch.zeros((*lead, batch, max_len, cfg.rope_head_dim), dtype=dtype,
+                                 device=device),
+        }
     if spec.mixer == "mamba2":
         din = cfg.ssm_expand * cfg.d_model
         nh = din // cfg.ssm_head_dim
@@ -171,7 +193,8 @@ def params_from_numpy(
     Leaves in :data:`CAST_LEAVES` are stored in ``cfg.dtype`` — every use
     casts them to it, so the values the model computes with are the same
     and the memory is halved; the others (norm weights, ``q_norm``,
-    ``k_norm``, ``A_log``, ``dt_bias``) stay f32.
+    ``k_norm``, MLA's ``q_norm_a`` and ``kv_norm_a``, ``A_log``, ``dt_bias``)
+    stay f32.
     """
     _check_ported(cfg)
     dev = resolve_device(device)

@@ -293,7 +293,7 @@ def test_svm_top_k_keeps_lower_index_first_on_ties():
     lower positions among equals, as ``lax.top_k`` picks them."""
     alpha = np.array([0.0, 1.0, 0.5, 1.0, 0.0, 1.0, 0.5, 0.0], np.float32)
     want = np.asarray(jax.lax.top_k(jnp.asarray(alpha), 6)[1])
-    got = importlib.import_module("repro_torch.core.apps.knn")._top_k(torch.tensor(alpha), 6)[1]
+    got = importlib.import_module("repro_torch._topk").top_k(torch.tensor(alpha), 6)[1]
     np.testing.assert_array_equal(got.numpy(), want)
 
 

@@ -93,6 +93,8 @@ def _ssd_inputs(gen, dev, b, l, nh, p, n, dtype):
     (2, 64, 2, 16, 32),     # narrow head and state
     (1, 130, 2, 20, 36),    # widths that take the element-by-element loads
     (8, 512, 64, 64, 128),  # one mamba2-1.3b prefill layer
+    (8, 512, 128, 64, 16),  # one jamba-v0.1-52b prefill layer: state 16, 128 heads
+    (1, 100, 3, 64, 16),    # state 16 with a ragged last chunk
 ])
 def test_ssd_f32_matches_plain(dev, b, l, nh, p, n):
     """f32 inputs that are not bf16 values: the three-product route."""
@@ -105,7 +107,8 @@ def test_ssd_f32_matches_plain(dev, b, l, nh, p, n):
     torch.testing.assert_close(h, rh, **SSD_TOL)
 
 
-@pytest.mark.parametrize("b,l,nh,p,n", [(2, 256, 4, 64, 128), (1, 100, 3, 64, 128)])
+@pytest.mark.parametrize("b,l,nh,p,n", [(2, 256, 4, 64, 128), (1, 100, 3, 64, 128),
+                                       (8, 512, 128, 64, 16), (1, 100, 3, 64, 16)])
 def test_ssd_bf16_matches_f32_plain(dev, b, l, nh, p, n):
     gen = torch.Generator(device=dev).manual_seed(l + 7)
     inputs = _ssd_inputs(gen, dev, b, l, nh, p, n, torch.bfloat16)
@@ -528,14 +531,14 @@ def test_flash_rejects_what_no_route_takes(dev):
 
 
 def test_top_k_tie_order_on_the_card(dev):
-    """``_top_k`` keeps the lower index first among equal values on the card
+    """``top_k`` keeps the lower index first among equal values on the card
     as on the CPU: values with many exact ties, rows long enough for the
     card's segmented sort."""
-    from repro_torch.core.apps.knn import _top_k
+    from repro_torch._topk import top_k
 
     x = torch.from_numpy(np.random.default_rng(0).integers(0, 6, (64, 70_000)).astype(np.float32))
-    cv, ci = _top_k(x, 40)
-    gv, gi = _top_k(x.to(dev), 40)
+    cv, ci = top_k(x, 40)
+    gv, gi = top_k(x.to(dev), 40)
     assert torch.equal(gv.cpu(), cv) and torch.equal(gi.cpu(), ci)
     # lower index first among equals
     assert bool(((cv[:, 1:] < cv[:, :-1]) | (ci[:, 1:] > ci[:, :-1])).all())

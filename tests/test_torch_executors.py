@@ -511,3 +511,33 @@ def test_map_chains_and_caches():
     v1, v2 = d.resolve(), d.resolve()
     assert v1 is v2  # single-flight, cached
     assert torch.equal(v1, _ratio(fut.result().value) * 2.0)
+
+
+@pytest.mark.parametrize("backend", ["local", "mesh", "stream"])
+def test_pass_frees_its_partials_without_the_collector(backend):
+    """A pass's partials are freed when the call returns, with the garbage
+    collector off: the merge closures hold the scheduler state weakly, so
+    no reference cycle keeps them (on the card, their memory) alive."""
+    import gc
+    import weakref
+
+    refs = []
+
+    def block(b):
+        out = b.sum(0)
+        refs.append(weakref.ref(out))
+        return out
+
+    _, _, x = _pair(96, 8, 4, "round_robin_placement")
+    kw = {"devices": (torch.device("cpu"),) * 4} if backend == "mesh" else {}
+    with tapi.engine(backend, **kw) as ex:
+        plan = tapi.Collection.from_blocked(x).split(tapi.Baseline()).map_blocks(block)
+        gc.collect()
+        gc.disable()
+        try:
+            value = plan.reduce(lambda a, b: a + b).compute(executor=ex).value
+            alive = sum(r() is not None for r in refs)
+        finally:
+            gc.enable()
+    assert len(refs) == 12 and alive == 0
+    assert torch.allclose(value, x.collect().sum(0))

@@ -1,6 +1,6 @@
 """The port's models on the CPU vs the JAX package's, on the same weights.
 
-Smoke configs of both ported architectures in float32; the JAX model's
+Smoke configs of every ported architecture in float32; the JAX model's
 weights (``Model.init``) go to the port through ``params_from_numpy``.
 Tolerances are the reference's serving contract (``tests/test_arch_smoke.py``):
 3e-4 for the forward and prefill logits, 5e-4 for each decode step.  On the
@@ -158,7 +158,9 @@ def test_params_from_numpy_stores_cast_leaves_in_model_dtype(arch):
     walk(tparams, "")
     assert {"embed", "final_norm"} <= seen
     assert ("lm_head" in seen) != cfg.tie_embeddings  # a tied head is the embedding
-    assert ("wq" in seen) == (cfg.family == "dense") and ("A_log" in seen) == (cfg.family == "ssm")
+    mixers = {spec.mixer for seg in cfg.segments() for spec in seg.period}
+    assert ("wq" in seen) == ("attn" in mixers) and ("A_log" in seen) == ("mamba2" in mixers)
+    assert ("router" in seen) == bool(cfg.moe_experts) and ("wkv_a" in seen) == cfg.mla
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
@@ -186,12 +188,41 @@ def test_full_configs_match_reference():
         assert get_config(arch).param_counts() == j_config(arch).param_counts()
 
 
-@pytest.mark.parametrize("arch,part", [("mixtral-8x7b", "moe"), ("deepseek-v2-236b", "MLA")])
+@pytest.mark.parametrize("arch,part", [("whisper-tiny", "cross-attention"),
+                                       ("llama-3.2-vision-11b", "cross-attention")])
 def test_unported_families_raise(arch, part):
     from repro.configs import get_config as j_config
 
     with pytest.raises(NotImplementedError, match=part):
         build_model(j_config(arch))
+
+
+def test_swa_ring_buffer_beyond_window_matches_reference():
+    """mixtral with a window of 8 and a 20-token prompt: the prefill writes
+    the last window into the ring through ``torch.roll`` and each decode
+    step writes slot ``pos % 8``; every step's logits equal the JAX model's
+    and the full forward's (``tests/test_arch_smoke.py``'s ring case)."""
+    jm, jparams, tm, tparams = _pair("mixtral-8x7b", seed=2, sliding_window=8)
+    toks = np.random.default_rng(3).integers(0, tm.cfg.vocab_size, (B, S)).astype(np.int32)
+    full = tm.forward(tparams, {"tokens": _t(toks)})
+    p = 20
+    jcache = jm.init_cache(B, S, dtype=jnp.float32)
+    jlog, jcache = jax.jit(jm.prefill)(jparams, {"tokens": jnp.asarray(toks[:, :p])}, jcache)
+    tcache = tm.init_cache(B, S, dtype=torch.float32, device="cpu")
+    assert tcache["seg0"][0]["k"].shape[2] == 8  # (repeats, B, window, Hkv, Dh)
+    tlog, tcache = tm.prefill(tparams, {"tokens": _t(toks[:, :p])}, tcache)
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **PREFILL_TOL)
+    np.testing.assert_allclose(tlog.numpy(), full[:, p - 1].numpy(), **DECODE_TOL)
+    jdecode = jax.jit(jm.decode_step)
+    for t in range(p, S):
+        jlog, jcache = jdecode(
+            jparams, jcache, jnp.asarray(toks[:, t:t + 1]), jnp.asarray(t, jnp.int32)
+        )
+        tlog, tcache = tm.decode_step(tparams, tcache, _t(toks[:, t:t + 1]), t)
+        np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **DECODE_TOL)
+        np.testing.assert_allclose(tlog.numpy(), full[:, t].numpy(), **DECODE_TOL)
+    for jleaf, tleaf in zip(jax.tree.leaves(jcache), _leaves(tcache), strict=True):
+        np.testing.assert_allclose(tleaf.numpy(), np.asarray(jleaf), **DECODE_TOL)
 
 
 def test_model_defaults_to_the_card():

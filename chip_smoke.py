@@ -198,6 +198,26 @@ read just after:
   prefill and decode times, the bounds, the onehot path's expert work at its
   capacity, the dropped (token, choice) pairs of the prefill and of each
   decode step, memory; checked: finite logits, dispatches, launches.
+* ``serve`` for the cross-attention configs at full width, batch 8,
+  512-token prompts, 8 decode steps, bf16, ``attn_impl="flash"``, every
+  cross layer's gate set to 1 (``CROSS_SERVE``): whisper-tiny whole (4
+  encoder and 4 decoder layers, frames 8×1500×384) and
+  llama-3.2-vision-11b cut to two periods (10 of 40 layers: 8 self- and 2
+  cross-attention layers; image embeddings 8×1600×4096, passed again at
+  every decode step), through ``Server.generate(extras=...)``.  The prefill
+  must launch ``flash_attention`` once per attention layer, the encoder's
+  and cross-attention's included (12 and 10), and its f32 prefill the
+  split route and ``split_kv`` as often.  Checks as the other serve rows:
+  finite logits, the prefill and every decode step against the recurrence
+  handed the same memory (the encoder's output, or the image embeddings),
+  the flash route against the ref route, the served tokens the
+  recurrence's argmax except at near-ties, all within the row's tolerance;
+  f32 within ``F32_LOGIT_TOL``; and the same prefill with every gate at 0
+  must differ by more than the tolerance.  The prefill's matrix-product
+  bound counts ``wk_mem``/``wv_mem`` over the memory tokens and the
+  encoder's parameters over the frames; the decode bytes bound leaves out
+  the encoder; the vlm's re-projection of its memory at every step is
+  printed beside it.
 * ``sampled_serve``: mamba2-1.3b cut to 2 layers, ``greedy=False``, 8
   steps: each token after the first is ``_threefry.categorical`` (the
   reference's ``jax.random.categorical`` bits) of its step's served
@@ -232,8 +252,10 @@ serving path's shapes: ``flash_attention`` (q 8×512×64×128, k/v
 8×512×8×128, bf16, causal; also a fully masked-row case, a 4096 window on
 6144 tokens, head dims 64 and 32, a ragged Lq = 500, group 1 and mixtral's
 and jamba's 32 / 8 heads, each timed
-beside ``scaled_dot_product_attention``; and its split route in f32 at the
-same shapes within ``F32_TOL``; with q and k at 1, 2, 3, 4 and 6 times the
+beside ``scaled_dot_product_attention``; the encoder's and cross-attention's
+calls, not causal, Lk 1500 or 1600 (``CROSS_FLASH_SHAPES``), in bf16 and
+in f32, each with its bound, plain version and SDPA; and its split route in
+f32 at the same shapes within ``F32_TOL``; with q and k at 1, 2, 3, 4 and 6 times the
 scale beside the plain version in f64 and the kernel's arithmetic emulated
 with f32 products, within ``F32_TOL`` of the f32 plain version at 2 and of
 the f64 one at 3; and in bf16 at head dim 16), ``ssd_scan`` (x 8×512×64×64, B/C
@@ -336,6 +358,39 @@ MOE_SERVE = {
     "deepseek-v2-236b": {"layers": 2, "flash": False, "logit_tol": 0.2},
 }
 MOE_STEPS = 8
+#: the cross-attention configs at full width through ``Server.generate`` with
+#: ``extras``, batch 8, 512-token prompts, 8 decode steps, attn_impl "flash":
+#: whisper-tiny whole (4 encoder and 4 decoder layers; memory: the encoder's
+#: output over 1500 frames of 384) and llama-3.2-vision-11b cut to two
+#: periods (10 of 40 layers: 8 self- and 2 cross-attention layers, so that
+#: the cross cache is stacked over the repeats; memory: 1600 image tokens of
+#: 4096, passed again at every decode step as the reference's server does).
+#: Every cross layer's gate is set to CROSS_GATE after ``Model.init``: the
+#: reference draws it 0, and tanh(0) would hide the whole cross path.  The
+#: image embeddings are normal rows plus one shared normal row per image (the
+#: patch embeddings of one image share a part): over 1600 independent rows
+#: attention averages the memory to about 0, and the prefill with every gate
+#: at 0 then moved the logits by only 0.197 on an H100, below the tolerance,
+#: so the check could not tell a memory that reaches the logits from one
+#: that does not (with the shared row: 3.53).  The encoder's output,
+#: whisper's memory, has such a part of its own (4.63).  The bf16 logit
+#: tolerance is two to three times the yardstick
+#: ("bf16_recurrence_vs_f32_recurrence") measured on an H100 (700 W): 0.079
+#: for whisper-tiny, 0.070 for llama-3.2-vision-11b.
+CROSS_SERVE = {
+    "whisper-tiny": {"overrides": {}, "logit_tol": 0.2},
+    "llama-3.2-vision-11b": {"overrides": {"num_layers": 10}, "logit_tol": 0.2},
+}
+CROSS_STEPS = 8
+CROSS_GATE = 1.0
+#: the flash kernel at the encoder's and cross-attention's shapes (not
+#: causal; Lk 1500 and 1600 are not multiples of the kernel's 128-row
+#: tiles): label -> (Lq, Lk, H, Hkv, D), batch 8
+CROSS_FLASH_SHAPES = {
+    "whisper_encoder": (1500, 1500, 6, 6, 64),
+    "whisper_cross": (512, 1500, 6, 6, 64),
+    "vlm_cross": (512, 1600, 32, 8, 128),
+}
 #: in bf16 a near-tie of router probabilities sends a token to another
 #: expert in the prefill than in the recurrence (an O(1) change of its
 #: output); such positions are printed and left out of the bf16 logit
@@ -769,26 +824,30 @@ def value_histogram_phase(x_hist) -> int:
     return launches["partition_histogram"]
 
 
-def recurrence_logits(model, params, prompts: torch.Tensor, served: torch.Tensor) -> torch.Tensor:
+def recurrence_logits(model, params, prompts: torch.Tensor, served: torch.Tensor,
+                      memory: torch.Tensor | None = None) -> torch.Tensor:
     """Logits predicting each served token, from the prompt and the served
-    tokens fed one at a time through ``decode_step`` from an empty cache."""
+    tokens fed one at a time through ``decode_step`` from an empty cache;
+    ``memory`` (cross-attention's) is handed to every step, which projects
+    it into the cache."""
     cache = model.init_cache(SERVE_BATCH, SERVE_MAX_LEN, dtype=getattr(torch, model.cfg.dtype),
                              device=prompts.device)
     seq = torch.cat([prompts, served[:, :-1]], dim=1)
     out = []
     with torch.no_grad():
         for pos in range(seq.shape[1]):
-            logits, cache = model.decode_step(params, cache, seq[:, pos:pos + 1], pos)
+            logits, cache = model.decode_step(params, cache, seq[:, pos:pos + 1], pos, memory)
             if pos >= prompts.shape[1] - 1:
                 out.append(logits)
     return torch.stack(out, dim=1)  # (B, steps, Vp)
 
 
-def f32_reference(cfg, params, prompts: torch.Tensor):
+def f32_reference(cfg, params, prompts: torch.Tensor, extras: dict | None = None):
     """Last-prompt-position logits of the prefill and of the recurrence, both
-    in f32 on the same weights upcast, the prefill through the model's own
-    route (mamba2's SSD kernel in f32; qwen3's flash kernel on its split
-    route).  Also the prefill's ms and its split-route and split-kernel
+    in f32 on the same weights (and ``extras``) upcast, the prefill through
+    the model's own route (mamba2's SSD kernel in f32; the flash kernel on
+    its split route), the recurrence handed the f32 model's cross-attention
+    memory.  Also the prefill's ms and its split-route and split-kernel
     launches."""
     import dataclasses
 
@@ -797,23 +856,27 @@ def f32_reference(cfg, params, prompts: torch.Tensor):
 
     model = build_model(dataclasses.replace(cfg, dtype="float32"))
     params32 = tree_map(lambda t: t.float(), params)
+    extras32 = {k: t.float() for k, t in (extras or {}).items()}
     cache = model.init_cache(SERVE_BATCH, SERVE_MAX_LEN, dtype=torch.float32, device=prompts.device)
     torch.cuda.synchronize()
     split0, t0 = split_launches(), time.perf_counter()
     with torch.no_grad():
-        prefill, _ = model.prefill(params32, {"tokens": prompts}, cache)
+        prefill, _ = model.prefill(params32, {"tokens": prompts, **extras32}, cache)
     torch.cuda.synchronize()
     prefill_ms = 1e3 * (time.perf_counter() - t0)
     split = tuple(n - n0 for n, n0 in zip(split_launches(), split0))
-    rec = recurrence_logits(model, params32, prompts, prompts[:, :1])[:, 0]
+    with torch.no_grad():
+        memory = model._memory(params32, extras32)
+    rec = recurrence_logits(model, params32, prompts, prompts[:, :1], memory)[:, 0]
     v = cfg.vocab_size
     return prefill[:, :v], rec[:, :v], prefill_ms, split
 
 
 def layer_counts(cfg) -> dict:
-    """How many layers of the config's segments take each mixer and MLP."""
+    """How many layers of the config's segments (the encoder's too) take
+    each mixer and MLP."""
     counts: dict = {}
-    for seg in cfg.segments():
+    for seg in (*cfg.segments(), *cfg.encoder_segments()):
         for spec in seg.period:
             for part in (spec.mixer, spec.mlp):
                 counts[part] = counts.get(part, 0) + seg.repeats
@@ -822,27 +885,51 @@ def layer_counts(cfg) -> dict:
 
 def expected_launches(cfg, launches: dict) -> dict:
     """Each LM kernel's launches in one prefill, counted from the segments:
-    ``flash_attention`` once per attention layer under ``attn_impl="flash"``,
+    ``flash_attention`` once per attention layer under ``attn_impl="flash"``
+    (causal self-attention, the encoder's and cross-attention),
     ``ssd_scan`` once per Mamba2 layer; the partition kernels none."""
     counts = layer_counts(cfg)
     want = {k: 0 for k in launches}
-    want["flash_attention"] = counts.get("attn", 0) if cfg.attn_impl == "flash" else 0
+    attention = sum(counts.get(m, 0) for m in ("attn", "enc_attn", "cross_attn"))
+    want["flash_attention"] = attention if cfg.attn_impl == "flash" else 0
     want["ssd_scan"] = counts.get("mamba2", 0)
     return want
 
 
-def prefill_matmul_bound_ms(cfg, params) -> float:
-    """Least time of a prefill's layer products for all 4096 tokens in bf16
-    on an H100 SXM: two operations per parameter of every segment and token,
-    with an MoE layer's experts counted as a token uses them (top-k of E,
-    ``ModelConfig.param_counts()["active"]``)."""
-    from repro_torch._pytree import tree_leaves
+def _numel(tree, names=None) -> int:
+    """Elements of a params tree's leaves (of the leaves named ``names``)."""
+    if isinstance(tree, dict):
+        return sum(_numel(v, names) if isinstance(v, (dict, tuple, list))
+                   else (v.numel() if names is None or k in names else 0) for k, v in tree.items())
+    if isinstance(tree, (tuple, list)):
+        return sum(_numel(v, names) for v in tree)
+    return tree.numel() if names is None else 0
 
-    trunk = sum(t.numel() for key, seg in params.items() if key.startswith("seg")
-                for t in tree_leaves(seg))
+
+def memory_tokens(cfg) -> int:
+    """Cross-attention's memory per sequence: the encoder's frames or the
+    image tokens."""
+    return cfg.encoder_seq if cfg.family == "audio" else cfg.image_tokens
+
+
+def prefill_matmul_bound_ms(cfg, params) -> float:
+    """Least time of a prefill's layer products in bf16 on an H100 SXM: two
+    operations per parameter and token, over all 4096 prompt tokens for
+    every segment's parameters, with an MoE layer's experts counted as a
+    token uses them (top-k of E, ``ModelConfig.param_counts()["active"]``);
+    over the batch's memory tokens for cross-attention's ``wk_mem`` and
+    ``wv_mem``, and over its frames for the encoder's parameters."""
+    trunk = sum(_numel(seg) for key, seg in params.items() if key.startswith("seg"))
+    mem = sum(_numel(seg, {"wk_mem", "wv_mem"}) for key, seg in params.items()
+              if key.startswith("seg"))
     counts = cfg.param_counts()
-    active = trunk - (counts["total"] - counts["active"])  # the experts a token skips
-    return 1e3 * 2 * active * SERVE_BATCH * SERVE_PROMPT / BF16_FLOPS_PER_S
+    active = trunk - mem - (counts["total"] - counts["active"])  # the experts a token skips
+    work = active * SERVE_PROMPT
+    if mem:
+        work += mem * memory_tokens(cfg)
+    if "enc_seg0" in params:
+        work += _numel(params["enc_seg0"]) * cfg.encoder_seq
+    return 1e3 * 2 * work * SERVE_BATCH / BF16_FLOPS_PER_S
 
 
 def serve_phase(name: str, seed: int, dev: torch.device) -> dict:
@@ -1255,6 +1342,165 @@ def published_row(name: str, full, cfg, params, prompts, dev: torch.device,
     return row
 
 
+def set_gates(tree, value: float) -> None:
+    """Every cross-attention ``gate`` leaf of a params tree filled with
+    ``value``, in place."""
+    for key, node in (tree.items() if isinstance(tree, dict) else enumerate(tree)):
+        if isinstance(node, (dict, tuple, list)):
+            set_gates(node, value)
+        elif key == "gate":
+            node.fill_(value)
+
+
+def cross_serve_phase(name: str, seed: int, dev: torch.device) -> dict:
+    """A cross-attention config at full width through ``Server.generate``
+    with its stubbed frontend's output as ``extras``, checked against the
+    recurrence handed the same memory, the ref route, and the same prefill
+    with every gate at 0."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch._pytree import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.runtime import Server
+
+    spec = CROSS_SERVE[name]
+    tol, steps = spec["logit_tol"], CROSS_STEPS
+    full = get_config(name)
+    cfg = dataclasses.replace(full, attn_impl="flash", **spec["overrides"])
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+    set_gates(params, CROSS_GATE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    m = memory_tokens(cfg)
+    if cfg.family == "audio":
+        key, shape = "frames", (SERVE_BATCH, m, cfg.d_model)
+    else:
+        key, shape = "image_embeds", (SERVE_BATCH, m, cfg.image_embed_dim)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    memory_in = torch.randn(shape, generator=gen, device=dev)
+    if cfg.family == "vlm":  # one shared row per image (CROSS_SERVE)
+        memory_in += torch.randn((SERVE_BATCH, 1, shape[2]), generator=gen, device=dev)
+    extras = {key: memory_in.to(torch.bfloat16)}
+    del memory_in
+    param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    param_count = _numel(params)
+    # a decode step reads every weight but the encoder's and the embedding's
+    # (of which it gathers 8 rows; a tied head reads it whole)
+    encoder_bytes = sum(t.numel() * t.element_size() for k, v in params.items()
+                        if k.startswith("enc_") for t in tree_leaves(v))
+    embed = params["embed"]
+    gathered = 0 if cfg.tie_embeddings else embed.numel() * embed.element_size()
+    decode_bound_ms = 1e3 * (param_bytes - gathered - encoder_bytes) / HBM_BYTES_PER_S
+    prefill_bound_ms = prefill_matmul_bound_ms(cfg, params)
+    # the vlm's decode step projects its memory again in every cross layer
+    mem_params = sum(_numel(v, {"wk_mem", "wv_mem"}) for k, v in params.items()
+                     if k.startswith("seg"))
+    reproject_flop = 2 * SERVE_BATCH * m * mem_params if cfg.family == "vlm" else 0
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), dtype=np.int32)
+    prompt_t = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
+    batch = {"tokens": prompt_t, **extras}
+    v = cfg.vocab_size
+
+    server = Server(cfg, max_len=SERVE_MAX_LEN, device=dev)
+    server.load(params)
+    server.generate(prompts, steps=2, extras=extras)  # warm-up
+    reset_launches()
+    tokens, stats, logits = server.generate(prompts, steps=steps, extras=extras,
+                                            return_logits=True)
+    launches = read_launches()
+    bf16_split = split_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    served = torch.as_tensor(tokens, dtype=torch.int64, device=dev)
+    lf = logits[:, :steps, :v].float()
+    del logits, server
+    with torch.no_grad():
+        memory = model._memory(params, extras)  # the encoder's output, or the image embeddings
+    rf = recurrence_logits(model, params, prompt_t, served, memory)[..., :v].float()
+    del memory
+    prefill_err = float((lf[:, 0] - rf[:, 0]).abs().max())
+    decode_err = float((lf[:, 1:] - rf[:, 1:]).abs().max())
+    ref_argmax = rf.argmax(-1)
+    mismatch = (ref_argmax != served).nonzero().tolist()
+    gaps = [float(rf[b, t, ref_argmax[b, t]] - rf[b, t, served[b, t]]) for b, t in mismatch]
+    ref_model = build_model(dataclasses.replace(cfg, attn_impl="ref"))
+    cache = ref_model.init_cache(SERVE_BATCH, SERVE_MAX_LEN, dtype=torch.bfloat16, device=dev)
+    with torch.no_grad():
+        ref_logits, _ = ref_model.prefill(params, batch, cache)
+    route_err = float((ref_logits[:, :v].float() - lf[:, 0]).abs().max())
+    # the same prefill with every gate at 0: the memory must reach the logits
+    set_gates(params, 0.0)
+    cache = model.init_cache(SERVE_BATCH, SERVE_MAX_LEN, dtype=torch.bfloat16, device=dev)
+    with torch.no_grad():
+        ungated, _ = model.prefill(params, batch, cache)
+    set_gates(params, CROSS_GATE)
+    gate_diff = float((ungated[:, :v].float() - lf[:, 0]).abs().max())
+    del cache, ref_logits, ungated
+    torch.cuda.reset_peak_memory_stats(dev)
+    prefill32, rec32, f32_prefill_ms, f32_split = f32_reference(cfg, params, prompt_t, extras)
+    peak_f32 = torch.cuda.max_memory_allocated(dev)
+    f32_err = float((prefill32 - rec32).abs().max())
+    bf16_self_err = float((rf[:, 0] - rec32).abs().max())
+    served_vs_f32 = float((lf[:, 0] - rec32).abs().max())
+    del prefill32, rec32, params
+    result = {
+        "phase": "serve", "run": name, "arch": name, "d_model": cfg.d_model,
+        "layers": cfg.num_layers, "layers_full": full.num_layers,
+        "encoder_layers": cfg.encoder_layers, "layer_counts": layer_counts(cfg),
+        "attn_impl": cfg.attn_impl, "memory": {key: list(shape)}, "gate": CROSS_GATE,
+        "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "steps": steps,
+        "max_len": SERVE_MAX_LEN, "dtype": cfg.dtype,
+        "prefill_ms": stats.prefill_s * 1e3, "prefill_matmul_bound_ms": prefill_bound_ms,
+        "decode_ms_per_token": stats.decode_s / steps * 1e3,
+        "decode_bytes_bound_ms": decode_bound_ms,
+        "decode_memory_reprojection_tflop": reproject_flop / 1e12,
+        "decode_memory_reprojection_ms_at_peak": 1e3 * reproject_flop / BF16_FLOPS_PER_S,
+        "decode_tokens_per_s": stats.tokens_out / stats.decode_s,
+        "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT / stats.prefill_s,
+        "dispatches": stats.dispatches, "launches": launches,
+        "max_memory_allocated": peak, "f32_max_memory_allocated": peak_f32,
+        "param_bytes": param_bytes, "encoder_param_bytes": encoder_bytes,
+        "param_count": param_count, "init_s": init_s,
+        "logit_max_abs": float(lf.abs().max()), "logit_std": float(lf.std()),
+        "logit_tol": tol, "prefill_vs_recurrence": prefill_err,
+        "decode_vs_recurrence": decode_err, "flash_vs_ref_prefill": route_err,
+        "zero_gate_prefill_diff": gate_diff,
+        "f32_prefill_vs_f32_recurrence": f32_err, "f32_prefill_ms": f32_prefill_ms,
+        "f32_prefill_flash_split_launches": f32_split[0],
+        "f32_prefill_split_kv_launches": f32_split[1],
+        "bf16_recurrence_vs_f32_recurrence": bf16_self_err,
+        "prefill_vs_f32_recurrence": served_vs_f32, "argmax_mismatches": len(mismatch),
+        "mismatch_gaps": gaps,
+    }
+    emit(result)
+    check(stats.dispatches == 1 + steps, f"{name}: dispatches {stats.dispatches}")
+    want = expected_launches(cfg, launches)
+    check(launches == want, f"{name}: prefill launches {launches} != {want} (one flash "
+          f"launch per self-, encoder and cross-attention layer)")
+    check(bf16_split == (0, 0), f"{name}: the bf16 prefill takes no split-route flash launch "
+          f"({bf16_split})")
+    check(f32_split == (want["flash_attention"],) * 2, f"{name}: the f32 prefill launches the "
+          f"flash kernel's split route and its split kernel once per attention layer: "
+          f"{f32_split}")
+    check(bool(torch.isfinite(lf).all()), f"{name}: every logit is finite")
+    check(prefill_err <= tol, f"{name}: prefill vs recurrence {prefill_err} > {tol}")
+    check(decode_err <= tol, f"{name}: decode vs recurrence {decode_err} > {tol}")
+    check(route_err <= tol, f"{name}: flash vs ref route {route_err} > {tol}")
+    check(gate_diff > tol, f"{name}: the prefill with every gate at 0 differs from the served "
+          f"one by {gate_diff}, not more than {tol}: the memory does not reach the logits")
+    check(f32_err <= F32_LOGIT_TOL, f"{name}: f32 prefill vs f32 recurrence {f32_err}")
+    check(all(g <= tol for g in gaps), f"{name}: served tokens are the recurrence's argmax "
+          f"except at near-ties: gaps {gaps}")
+    return result
+
+
 def moe_phase(seed: int, dev: torch.device) -> list[dict]:
     """One MoE layer of mixtral (virtual split 2) and of jamba at full width
     and the published capacity factor, ``moe_mlp`` against the plain
@@ -1326,6 +1572,48 @@ def moe_phase(seed: int, dev: torch.device) -> list[dict]:
     return rows
 
 
+def flash_cross_cases(normal) -> list[dict]:
+    """The flash kernel at the encoder's and cross-attention's shapes
+    (``CROSS_FLASH_SHAPES``: not causal, Lk not a multiple of the 128-row
+    tile), in bf16 (the wgmma route) and f32 (the split route), each beside
+    its plain version and SDPA, with its bound; ``normal(*shape, dtype=)``
+    draws the inputs."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    b = SERVE_BATCH
+    cross_cases = []
+    for label, (lq, lk, hq, hk, dh) in CROSS_FLASH_SHAPES.items():
+        row = {"case": label, "shape_q": [b, lq, hq, dh], "shape_kv": [b, lk, hk, dh],
+               "causal": False}
+        for dtype, tol, tag in ((torch.bfloat16, BF16_TOL, ""), (torch.float32, F32_TOL, "f32_")):
+            qc, kc, vc = (normal(b, n, hh, dh, dtype=dtype) for n, hh in ((lq, hq), (lk, hk),
+                                                                          (lk, hk)))
+            gotc = fa.flash_attention(qc, kc, vc, causal=False)
+            wantc = fa.flash_attention_ref(qc, kc, vc, causal=False)
+            errc = float((gotc.float() - wantc.float()).abs().max())
+            check(torch.allclose(gotc.float(), wantc.float(), **tol),
+                  f"flash_attention {label} ({dtype}) within {tol} of its plain version ({errc})")
+            sdpa_c = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qc.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2), enable_gqa=True)
+            size = 2 if dtype == torch.bfloat16 else 4
+            bound_c, bound_c_by = bound(size * (2 * qc.numel() + kc.numel() + vc.numel()),
+                                        4 * dh * lq * lk * b * hq, BF16_FLOPS_PER_S)
+            times = kernel_times(lambda: fa.flash_attention(qc, kc, vc, causal=False))
+            row.update({f"{tag}{k}": t for k, t in times.items()})
+            row.update({f"{tag}max_abs_err": errc,
+                        f"{tag}plain_ms": cuda_ms(lambda: fa.flash_attention_ref(
+                            qc, kc, vc, causal=False)),
+                        f"{tag}bound_ms": bound_c, f"{tag}bound_by": bound_c_by,
+                        f"{tag}library_ms": cuda_ms(sdpa_c),
+                        f"{tag}library_max_abs_diff": float(
+                            (sdpa_c().transpose(1, 2).float() - gotc.float()).abs().max())})
+            del qc, kc, vc, gotc, wantc
+        cross_cases.append(row)
+    return cross_cases
+
+
 def lm_kernel_checks(seed: int, dev: torch.device, x_values: torch.Tensor,
                      launches: dict, by_run: dict) -> list[dict]:
     """The serving path's kernels (and the value histogram) at their main
@@ -1390,6 +1678,7 @@ def lm_kernel_checks(seed: int, dev: torch.device, x_values: torch.Tensor,
                       "ms": cuda_ms(lambda: fa.flash_attention(qc, kc, vc, causal=True)),
                       "library_ms": cuda_ms(sdpa_c)})
         del qc, kc, vc, gotc, wantc
+    cross_cases = flash_cross_cases(normal)
     pairs = l * (l + 1) // 2  # causal (q, k) pairs per (batch, head)
     bound_ms, bound_by = bound(2 * (q.numel() + k.numel() + v.numel() + got.numel()),
                                4 * d * pairs * b * h, BF16_FLOPS_PER_S)
@@ -1496,7 +1785,8 @@ def lm_kernel_checks(seed: int, dev: torch.device, x_values: torch.Tensor,
         "library": "torch.nn.functional.scaled_dot_product_attention(is_causal, enable_gqa)",
         "library_max_abs_diff": lib_err, "shape_q": [b, l, h, d], "shape_kv": [b, l, hkv, d],
         "window4096_shape_q": [1, 6144, 8, d], "window4096_max_abs_err": win_err,
-        "window4096_ms": win_ms, "cases": cases, "split_route": split_route,
+        "window4096_ms": win_ms, "cases": cases, "cross_cases": cross_cases,
+        "split_route": split_route,
     })
     del q, k, v, got, want
 
@@ -3188,6 +3478,9 @@ def main(argv=None) -> int:
         rows = moe_serve_phase(name, args.seed, dev)
         count(name, rows["dropless"])
         count(f"{name}/published", rows["published"])
+        torch.cuda.empty_cache()
+    for name in CROSS_SERVE:
+        count(name, cross_serve_phase(name, args.seed, dev))
         torch.cuda.empty_cache()
     for k in ("flash_attention", "ssd_scan", "flash_attention_split", "split_kv"):
         launches[k] = sum(n.get(k, 0) for n in by_run.values())

@@ -2,13 +2,16 @@
 
 Draws random weights for a smoke-sized architecture on the device and
 serves batched generation requests: prefill once, then one decode step per
-token for the whole batch.  Port of ``repro/launch/serve.py`` for the
-architectures the port runs (``repro_torch.configs.ARCH_IDS``).
+token for the whole batch.  Port of ``repro/launch/serve.py``.  The audio
+family is served stubbed frame embeddings (B, encoder_seq, d_model), the
+vlm family stubbed image embeddings (B, image_tokens, image_embed_dim),
+both drawn from ``--seed`` and served in bf16, as in the reference.
 
 Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-32b \
         --batch 8 --prompt-len 16 --steps 32 [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny --steps 16
 """
 
 from __future__ import annotations
@@ -57,9 +60,19 @@ def main(argv=None) -> None:
 
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len), dtype=np.int32)
+    extras: dict[str, torch.Tensor] = {}
+    if cfg.family == "audio":
+        extras["frames"] = torch.from_numpy(
+            rng.standard_normal((args.batch, cfg.encoder_seq, cfg.d_model))
+        ).to(device=device, dtype=torch.bfloat16)
+    if cfg.family == "vlm":
+        extras["image_embeds"] = torch.from_numpy(
+            rng.standard_normal((args.batch, cfg.image_tokens, cfg.image_embed_dim))
+        ).to(device=device, dtype=torch.bfloat16)
 
     t0 = time.perf_counter()
-    tokens, stats = server.generate(prompts, steps=args.steps, greedy=not args.sample)
+    tokens, stats = server.generate(prompts, steps=args.steps, greedy=not args.sample,
+                                    extras=extras)
     wall = time.perf_counter() - t0
     print(f"prefill {stats.prefill_s * 1e3:.1f} ms   "
           f"decode {stats.decode_s * 1e3:.1f} ms "

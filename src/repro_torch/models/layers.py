@@ -8,11 +8,19 @@ params dict with the JAX package's names and layouts (attention weights
 * the decode cache is updated in place: a one-row write at the slot into the
   caller's cache tensors, where the reference's masked select reads and
   rewrites the whole cache every step.  The values are the same;
-* with ``cfg.attn_impl == "flash"`` the prefill self-attention runs the
-  hand-written kernel (``repro_torch.kernels.ops.flash_attention``); with
-  ``"ref"`` it runs the plain :func:`_sdpa_auto`.  Decode (one query row
-  against ``kv_len`` cached rows) is plain PyTorch on both routes;
-* cross-attention (``memory``) is not ported yet.
+* with ``cfg.attn_impl == "flash"`` attention over a whole prompt runs the
+  hand-written kernel (``repro_torch.kernels.ops.flash_attention``): causal
+  self-attention, the encoder's bidirectional self-attention, and
+  cross-attention from the prompt to the memory (``causal=False``).  With
+  ``"ref"`` they run the plain :func:`_sdpa_auto` (the reference's cross
+  branch calls :func:`_sdpa`, which computes the same values).  Decode (one
+  query row against the cache or the memory) is plain PyTorch on both
+  routes;
+* cross-attention's operands are cast to their promoted type before each
+  product (``torch.promote_types``), where ``jnp.einsum`` promotes mixed
+  types itself: a bf16 model decoding with f32 ``image_embeds`` computes
+  the cross layer, and the residual stream after it, in f32, as the
+  reference does.
 """
 
 from __future__ import annotations
@@ -108,27 +116,36 @@ def draw_normal(shape, scale: float, dtype, device, generator) -> torch.Tensor:
 
 
 def init_attention(
-    cfg: ModelConfig, *, generator: torch.Generator, device, dtype: torch.dtype
+    cfg: ModelConfig, *, generator: torch.Generator, device, dtype: torch.dtype,
+    cross: bool = False,
 ) -> Params:
-    """Self-attention weights from the reference's distributions; the
-    projections are drawn in ``dtype`` (every use casts them to it), the
-    biases and qk-norm weights in f32."""
+    """Self- or cross-attention weights from the reference's distributions;
+    the projections (and a cross layer's ``gate``) are stored in ``dtype``
+    (every use casts them to it), the biases in it too, the qk-norm weights
+    in f32.  A cross layer projects the memory with ``wk_mem``/``wv_mem``,
+    from ``image_embed_dim`` for the vlm family and ``d_model`` otherwise,
+    has no QKV bias, and scales its output by ``tanh(gate)``, with ``gate``
+    0 as the reference draws it."""
     d, dh = cfg.d_model, cfg.resolved_head_dim
     h, hkv = cfg.num_heads, cfg.num_kv_heads
     f32 = torch.float32
+    mem_d = cfg.image_embed_dim if (cross and cfg.family == "vlm") else d
+    kname, vname = ("wk_mem", "wv_mem") if cross else ("wk", "wv")
     p: Params = {
         "wq": draw_normal((d, h, dh), 1.0 / np.sqrt(d), dtype, device, generator),
         "wo": draw_normal((h, dh, d), 1.0 / np.sqrt(h * dh), dtype, device, generator),
-        "wk": draw_normal((d, hkv, dh), 1.0 / np.sqrt(d), dtype, device, generator),
-        "wv": draw_normal((d, hkv, dh), 1.0 / np.sqrt(d), dtype, device, generator),
+        kname: draw_normal((mem_d, hkv, dh), 1.0 / np.sqrt(mem_d), dtype, device, generator),
+        vname: draw_normal((mem_d, hkv, dh), 1.0 / np.sqrt(mem_d), dtype, device, generator),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["bq"] = torch.zeros((h, dh), dtype=dtype, device=device)
         p["bk"] = torch.zeros((hkv, dh), dtype=dtype, device=device)
         p["bv"] = torch.zeros((hkv, dh), dtype=dtype, device=device)
     if cfg.qk_norm:
         p["q_norm"] = torch.zeros((dh,), dtype=f32, device=device)
         p["k_norm"] = torch.zeros((dh,), dtype=f32, device=device)
+    if cross:
+        p["gate"] = torch.zeros((), dtype=dtype, device=device)  # llama-vision tanh gate
     return p
 
 
@@ -205,12 +222,62 @@ def _sdpa_auto(q, k, v, *, causal, window=0, kv_len=None):
     return _sdpa(q, k, v, causal=causal, window=window, kv_len=kv_len)
 
 
-def _prefill_attention(q, k, v, *, causal: bool, cfg: ModelConfig) -> torch.Tensor:
-    """Full self-attention over a prompt: the kernel under ``attn_impl="flash"``."""
+def _prefill_attention(q, k, v, *, causal: bool, window: int, cfg: ModelConfig) -> torch.Tensor:
+    """Attention of a whole prompt over itself or over the memory: the
+    kernel under ``attn_impl="flash"``."""
     if cfg.attn_impl == "flash":
         return ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                   causal=causal, window=cfg.sliding_window)
-    return _sdpa_auto(q, k, v, causal=causal, window=cfg.sliding_window)
+                                   causal=causal, window=window)
+    return _sdpa_auto(q, k, v, causal=causal, window=window)
+
+
+def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` on both operands cast to their promoted type, as
+    ``jnp.einsum`` promotes mixed types (``torch.einsum`` rejects them)."""
+    t = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(t), b.to(t))
+
+
+def cross_attention(
+    p: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,                     # (B, L, D)
+    *,
+    cache: Params | None = None,         # {"k_mem","v_mem"} (B, M, Hkv, Dh)
+    memory: torch.Tensor | None = None,  # (B, M, Dm)
+) -> tuple[torch.Tensor, Params | None]:
+    """Attention from ``x`` to a static memory (the reference's cross branch).
+
+    With ``memory`` its projections are computed and, into a cache, written
+    in place (prefill; a vlm decode step re-projects and rewrites them, as
+    the reference does); without it they are read from the cache (decode).
+    qk-norm applies to q and the projected memory; there is no RoPE; the
+    output is scaled by ``tanh(gate)``.
+    """
+    dt = x.dtype
+    q = torch.einsum("bld,dhk->blhk", x, p["wq"].to(dt))
+    if memory is not None:
+        kk = _einsum("bmd,dhk->bmhk", memory, p["wk_mem"].to(dt))
+        vv = _einsum("bmd,dhk->bmhk", memory, p["wv_mem"].to(dt))
+        if cache is not None:
+            for name, t in (("k_mem", kk), ("v_mem", vv)):
+                if cache[name].shape != t.shape:
+                    raise ValueError(f"cross_attention: memory gives {name} {tuple(t.shape)}, "
+                                     f"the cache holds {tuple(cache[name].shape)}")
+                cache[name].copy_(t)
+    else:
+        kk, vv = cache["k_mem"].to(dt), cache["v_mem"].to(dt)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        kk = rms_norm(kk, p["k_norm"])
+    t = torch.promote_types(q.dtype, kk.dtype)
+    q, kk, vv = q.to(t), kk.to(t), vv.to(t)
+    if q.shape[1] == 1 and cache is not None:  # decode: one row against the memory
+        out = _sdpa(q, kk, vv, causal=False)
+    else:
+        out = _prefill_attention(q, kk, vv, causal=False, window=0, cfg=cfg)
+    out = _einsum("blhk,hkd->bld", out, p["wo"].to(dt))
+    return torch.tanh(p["gate"].to(dt)) * out, cache
 
 
 def attention(
@@ -224,19 +291,18 @@ def attention(
     cache_pos: int | None = None,    # #tokens already cached
     memory: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, Params | None]:
-    """Self-attention.  Returns (out (B,L,D), the cache or None).
+    """Self/cross attention.  Returns (out (B,L,D), the cache or None).
 
     Modes:
       * train/prefill: ``cache is None`` → full self-attention; prefill into
         a cache writes k/v into ``cache`` (in place) with ``cache_pos=0``.
       * decode: L == 1, ``cache_pos`` = current length; k/v written in place
         at ``cache_pos`` (ring position for SWA).
+      * cross: ``memory``, or a cache holding ``k_mem``, supplies K/V
+        (:func:`cross_attention`).
     """
     if memory is not None or (cache is not None and "k_mem" in cache):
-        raise NotImplementedError(
-            "cross-attention is not ported yet "
-            "(ROADMAP Queue 1: cross-attention and the audio/vlm families)"
-        )
+        return cross_attention(p, cfg, x, cache=cache, memory=memory)
     dh = cfg.resolved_head_dim
     dt = x.dtype
     q = torch.einsum("bld,dhk->blhk", x, p["wq"].to(dt))
@@ -256,7 +322,7 @@ def attention(
     k = apply_rope(k, cos, sin)
 
     if cache is None:
-        out = _prefill_attention(q, k, v, causal=causal, cfg=cfg)
+        out = _prefill_attention(q, k, v, causal=causal, window=cfg.sliding_window, cfg=cfg)
     else:
         ck, cv = cache["k"], cache["v"]
         s_max = ck.shape[1]
@@ -281,7 +347,7 @@ def attention(
             else:
                 ck[:, :lq] = k.to(ck.dtype)
                 cv[:, :lq] = v.to(cv.dtype)
-            out = _prefill_attention(q, k, v, causal=causal, cfg=cfg)
+            out = _prefill_attention(q, k, v, causal=causal, window=cfg.sliding_window, cfg=cfg)
 
     out = torch.einsum("blhk,hkd->bld", out, p["wo"].to(dt))
     return out, cache

@@ -1,13 +1,16 @@
 """Model assembly: LayerSpec segments → init / forward / prefill / decode_step.
 
-Port of ``repro/models/lm.py`` for the decoder-only families: attention,
-multi-head latent attention and Mamba2 mixers, dense and MoE MLPs, in one
-segment or several (deepseek-v2's dense first layer).  The parameter
-tree has the JAX package's names and layout: a segment of ``repeats > 1``
-periods holds each leaf stacked as ``(repeats, ...)``.  Where the reference
-scans a segment with ``lax.scan``, the port loops over the repeats and
-indexes views of the same stacked tensors; the decode cache keeps the same
-stacked layout and each layer updates its views of it in place.
+Port of ``repro/models/lm.py`` for every family: attention, multi-head
+latent attention, Mamba2 and cross-attention mixers, dense and MoE MLPs,
+in one segment or several (deepseek-v2's dense first layer), and the
+audio family's encoder (whisper), whose output is the decoder's
+cross-attention memory; the vlm family attends to stubbed image
+embeddings.  The parameter tree has the JAX package's names and layout: a
+segment of ``repeats > 1`` periods holds each leaf stacked as
+``(repeats, ...)``.  Where the reference scans a segment with ``lax.scan``,
+the port loops over the repeats and indexes views of the same stacked
+tensors; the decode cache keeps the same stacked layout and each layer
+updates its views of it in place.
 
 Entry points:
 
@@ -17,7 +20,11 @@ Entry points:
 * ``model.forward(params, batch)``          → logits (B, S, Vp)
 * ``model.init_cache(batch, max_len, ...)`` → cache (decode state)
 * ``model.prefill(params, batch, cache)``   → (last_logits, cache)
-* ``model.decode_step(params, cache, token, pos)`` → (logits, cache)
+* ``model.decode_step(params, cache, token, pos, memory=None)`` → (logits, cache)
+
+``batch`` holds ``tokens`` and, for the audio family, ``frames`` (B,
+encoder_seq, d_model), for the vlm family ``image_embeds`` (B, image_tokens,
+image_embed_dim): the stubbed frontends' outputs, as in the reference.
 """
 
 from __future__ import annotations
@@ -47,23 +54,8 @@ CAST_LEAVES = frozenset({
     "ssm_D", "w_out",
     "router", "experts_gate", "experts_up", "experts_down",
     "wq_a", "wq_b", "wkv_a", "wk_b", "wv_b",
+    "wk_mem", "wv_mem", "gate",
 })
-
-_NOT_PORTED = {
-    "cross_attn": "cross-attention (audio/vlm families) is not ported yet",
-    "enc_attn": "the encoder (audio family) is not ported yet",
-}
-_WAITS_FOR = "ROADMAP Queue 1: cross-attention and the audio/vlm families"
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    for seg in cfg.segments():
-        for spec in seg.period:
-            if spec.mixer in _NOT_PORTED:
-                raise NotImplementedError(
-                    f"{cfg.name}: {_NOT_PORTED[spec.mixer]} ({_WAITS_FOR})")
-    if cfg.encoder_layers:
-        raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED['enc_attn']} ({_WAITS_FOR})")
 
 
 # ---------------------------------------------------------------------------
@@ -77,13 +69,14 @@ def _init_layer(spec: LayerSpec, cfg: ModelConfig, *, generator, device, dtype) 
     p["ln1"] = norm["w"]
     if "b" in norm:
         p["ln1_b"] = norm["b"]
-    if spec.mixer == "attn":
-        p["mixer"] = L.init_attention(cfg, generator=generator, device=device, dtype=dtype)
+    if spec.mixer in ("attn", "enc_attn", "cross_attn"):
+        p["mixer"] = L.init_attention(cfg, generator=generator, device=device, dtype=dtype,
+                                      cross=spec.mixer == "cross_attn")
     elif spec.mixer == "mla":
         p["mixer"] = init_mla(cfg, generator=generator, device=device, dtype=dtype)
     elif spec.mixer == "mamba2":
         p["mixer"] = init_mamba(cfg, generator=generator, device=device, dtype=dtype)
-    else:  # pragma: no cover - Model rejects unported configs
+    else:  # pragma: no cover
         raise ValueError(spec.mixer)
     if spec.mlp != "none" and not cfg.parallel_block:
         p["ln2"] = L.init_norm(cfg, device=device)["w"]
@@ -112,12 +105,14 @@ def _apply_layer(
     """Pre-norm residual block; command-r runs attn ∥ mlp off one norm.
     A layer's cache (views into the stacked cache) is updated in place."""
     h = L.apply_norm(x, p, "ln1", cfg)
-    if spec.mixer == "attn":
+    if spec.mixer in ("attn", "enc_attn"):
         mix, _ = L.attention(
             p["mixer"], cfg, h,
-            positions=ctx["positions"], causal=True, cache=cache,
+            positions=ctx["positions"], causal=spec.mixer == "attn", cache=cache,
             cache_pos=ctx.get("cache_pos"),
         )
+    elif spec.mixer == "cross_attn":
+        mix, _ = L.cross_attention(p["mixer"], cfg, h, cache=cache, memory=ctx.get("memory"))
     elif spec.mixer == "mla":
         mix, _ = mla_attention(
             p["mixer"], cfg, h,
@@ -125,7 +120,7 @@ def _apply_layer(
         )
     elif spec.mixer == "mamba2":
         mix, _ = mamba_block(p["mixer"], cfg, h, cache=cache)
-    else:  # pragma: no cover - Model rejects unported configs
+    else:  # pragma: no cover
         raise ValueError(spec.mixer)
 
     if cfg.parallel_block and spec.mlp != "none":
@@ -147,13 +142,20 @@ def _apply_layer(
 def _init_layer_cache(
     spec: LayerSpec, cfg: ModelConfig, batch: int, max_len: int, dtype, device, lead=()
 ) -> Params | None:
-    """One layer's zeroed cache; ``lead`` prepends the segment's repeats."""
-    if spec.mixer == "attn":
+    """One layer's zeroed cache; ``lead`` prepends the segment's repeats.  A
+    cross layer's holds the projected memory, ``(B, M, Hkv, Dh)`` with M the
+    encoder's frames or the image tokens, whatever ``max_len``."""
+    if spec.mixer in ("attn", "enc_attn"):
         dh = cfg.resolved_head_dim
         s = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
         shp = (*lead, batch, s, cfg.num_kv_heads, dh)
         return {"k": torch.zeros(shp, dtype=dtype, device=device),
                 "v": torch.zeros(shp, dtype=dtype, device=device)}
+    if spec.mixer == "cross_attn":
+        m = cfg.encoder_seq if cfg.family == "audio" else cfg.image_tokens
+        shp = (*lead, batch, m, cfg.num_kv_heads, cfg.resolved_head_dim)
+        return {"k_mem": torch.zeros(shp, dtype=dtype, device=device),
+                "v_mem": torch.zeros(shp, dtype=dtype, device=device)}
     if spec.mixer == "mla":
         return {
             "ckv": torch.zeros((*lead, batch, max_len, cfg.kv_lora_rank), dtype=dtype,
@@ -172,7 +174,7 @@ def _init_layer_cache(
             "h": torch.zeros((*lead, batch, nh, cfg.ssm_head_dim, cfg.ssm_state),
                              dtype=torch.float32, device=device),
         }
-    raise ValueError(spec.mixer)  # pragma: no cover - Model rejects unported configs
+    raise ValueError(spec.mixer)  # pragma: no cover
 
 
 # ---------------------------------------------------------------------------
@@ -196,7 +198,6 @@ def params_from_numpy(
     ``k_norm``, MLA's ``q_norm_a`` and ``kv_norm_a``, ``A_log``, ``dt_bias``)
     stay f32.
     """
-    _check_ported(cfg)
     dev = resolve_device(device)
 
     def convert(node, name):
@@ -215,9 +216,6 @@ def params_from_numpy(
 class Model:
     cfg: ModelConfig
 
-    def __post_init__(self):
-        _check_ported(self.cfg)
-
     # ---------------- init ----------------
 
     def init(self, generator: torch.Generator, *, device: str | torch.device = "cuda") -> Params:
@@ -233,6 +231,12 @@ class Model:
         }
         for si, seg in enumerate(cfg.segments()):
             params[f"seg{si}"] = self._init_segment(seg, generator, dev, dtype)
+        if cfg.encoder_layers:
+            params["enc_seg0"] = self._init_segment(cfg.encoder_segments()[0], generator, dev,
+                                                    dtype)
+            params["enc_final_norm"] = L.init_norm(cfg, device=dev)["w"]
+            if cfg.norm == "layernorm":
+                params["enc_final_norm_b"] = L.init_norm(cfg, device=dev)["b"]
         params["final_norm"] = L.init_norm(cfg, device=dev)["w"]
         if cfg.norm == "layernorm":
             params["final_norm_b"] = L.init_norm(cfg, device=dev)["b"]
@@ -280,6 +284,28 @@ class Model:
             x = period_body(x, tree_map(pick, seg_params), period_caches)
         return x
 
+    def _encode(self, params: Params, frames: torch.Tensor) -> torch.Tensor:
+        """Whisper encoder over stubbed frame embeddings (B, M, D):
+        bidirectional self-attention, no cache."""
+        cfg = self.cfg
+        b, m, _ = frames.shape
+        ctx = {"positions": torch.arange(m, device=frames.device).expand(b, m)}
+        x = self._run_segment(params["enc_seg0"], cfg.encoder_segments()[0],
+                              frames.to(getattr(torch, cfg.dtype)), ctx, None)
+        if cfg.norm == "layernorm":
+            return L.layer_norm(x, params["enc_final_norm"], params["enc_final_norm_b"])
+        return L.rms_norm(x, params["enc_final_norm"])
+
+    def _memory(self, params: Params, batch: dict[str, torch.Tensor]) -> torch.Tensor | None:
+        """Cross-attention's memory: the encoder's output over ``frames``
+        (audio), ``image_embeds`` in ``cfg.dtype`` (vlm), else None."""
+        cfg = self.cfg
+        if cfg.family == "audio":
+            return self._encode(params, batch["frames"])
+        if cfg.family == "vlm":
+            return batch["image_embeds"].to(getattr(torch, cfg.dtype))
+        return None
+
     def _trunk(self, params: Params, x, ctx, caches) -> torch.Tensor:
         for si, seg in enumerate(self.cfg.segments()):
             c = None if caches is None else caches[f"seg{si}"]
@@ -310,8 +336,9 @@ class Model:
         tokens = batch["tokens"]
         b, s = tokens.shape
         x = self._embed(params, tokens)
-        pos = torch.arange(s, device=tokens.device).expand(b, s)
-        return self._logits(params, self._trunk(params, x, {"positions": pos}, None))
+        ctx = {"positions": torch.arange(s, device=tokens.device).expand(b, s),
+               "memory": self._memory(params, batch)}
+        return self._logits(params, self._trunk(params, x, ctx, None))
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, *,
                    device: str | torch.device = "cuda") -> Params:
@@ -332,7 +359,8 @@ class Model:
         tokens = batch["tokens"]
         b, s = tokens.shape
         x = self._embed(params, tokens)
-        ctx = {"positions": torch.arange(s, device=tokens.device).expand(b, s), "cache_pos": 0}
+        ctx = {"positions": torch.arange(s, device=tokens.device).expand(b, s), "cache_pos": 0,
+               "memory": self._memory(params, batch)}
         x = self._trunk(params, x, ctx, cache)
         return self._logits(params, x[:, -1:, :])[:, 0], cache
 
@@ -342,12 +370,17 @@ class Model:
         cache: Params,
         token: torch.Tensor,  # (B, 1) int
         pos: int,             # #tokens already in cache
+        memory: torch.Tensor | None = None,
     ) -> tuple[torch.Tensor, Params]:
-        """One token for every sequence; the cache is updated in place."""
+        """One token for every sequence; the cache is updated in place.
+        Cross layers read the memory the prefill projected into the cache,
+        or, given ``memory`` (as the reference's server passes a vlm's
+        ``image_embeds`` every step, uncast), project it again and rewrite
+        the cache with it."""
         b = token.shape[0]
         x = self._embed(params, token)
         ctx = {"positions": torch.full((b, 1), pos, dtype=torch.int64, device=token.device),
-               "cache_pos": int(pos)}
+               "cache_pos": int(pos), "memory": memory}
         x = self._trunk(params, x, ctx, cache)
         return self._logits(params, x)[:, 0], cache
 

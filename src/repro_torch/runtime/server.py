@@ -13,6 +13,12 @@ Threefry bits on the device (:func:`repro_torch._threefry.categorical`),
 in the logits' type as the reference draws it, so a seed gives the same
 tokens in both packages.  As in the reference, the first token is the
 prefill's argmax.  Generated tokens stay on the device until the loop ends.
+
+``extras`` (the stubbed frontends' outputs: ``frames`` for the audio
+family, ``image_embeds`` for the vlm) go into the prefill's batch, and
+``image_embeds`` is every decode step's cross-attention memory, as the
+reference passes it; the audio family decodes from the memory its prefill
+projected into the cache.
 """
 
 from __future__ import annotations
@@ -60,12 +66,15 @@ class Server:
         *,
         steps: int = 32,
         greedy: bool = True,
+        extras: dict[str, Any] | None = None,
         return_logits: bool = False,
     ):
         """Serve ``steps`` tokens for each prompt → ``(tokens (B, steps), stats)``.
 
-        ``return_logits`` adds a third result: the logits of the prefill and
-        of every decode step, ``(B, 1 + steps, Vp)`` on the device.
+        ``extras`` maps batch keys to arrays or tensors, moved to the device
+        in their own type.  ``return_logits`` adds a third result: the
+        logits of the prefill and of every decode step, ``(B, 1 + steps,
+        Vp)`` on the device.
         """
         b, p = prompts.shape
         if p + steps > self.max_len:
@@ -74,11 +83,14 @@ class Server:
         cache = self.model.init_cache(b, self.max_len, dtype=getattr(torch, self.cfg.dtype),
                                       device=self.device)
         tokens = torch.as_tensor(np.asarray(prompts, np.int64), device=self.device)
+        extras = {k: torch.as_tensor(v, device=self.device) for k, v in (extras or {}).items()}
         self._sync()
         t0 = time.perf_counter()
-        logits, cache = self.model.prefill(self.params, {"tokens": tokens}, cache)
+        logits, cache = self.model.prefill(self.params, {"tokens": tokens, **extras}, cache)
         self._sync()
         t_prefill = time.perf_counter() - t0
+
+        memory = extras.get("image_embeds")
 
         kept = [logits] if return_logits else None
         out = []
@@ -87,7 +99,7 @@ class Server:
         t0 = time.perf_counter()
         for i in range(steps):
             out.append(tok[:, 0])
-            logits, cache = self.model.decode_step(self.params, cache, tok, p + i)
+            logits, cache = self.model.decode_step(self.params, cache, tok, p + i, memory)
             dispatches += 1
             if return_logits:
                 kept.append(logits)

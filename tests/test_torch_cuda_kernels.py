@@ -50,6 +50,9 @@ def _normal(gen, dev, *shape, dtype=torch.bfloat16):
     (1, 200, 328, 4, 2, 64, False, 0),   # cross length, not causal
     (1, 300, 300, 4, 2, 128, True, 100), # window edge tiles
     (8, 512, 512, 64, 8, 128, True, 0),  # one qwen3-32b prefill layer
+    (8, 1500, 1500, 6, 6, 64, False, 0),   # whisper-tiny's encoder self-attention
+    (8, 512, 1500, 6, 6, 64, False, 0),    # whisper-tiny's cross-attention prefill
+    (8, 512, 1600, 32, 8, 128, False, 0),  # llama-3.2-vision's cross-attention prefill
 ])
 def test_flash_matches_plain(dev, b, lq, lk, h, hkv, d, causal, window):
     gen = torch.Generator(device=dev).manual_seed(lq + d + h)
@@ -441,6 +444,9 @@ def test_flash_split_block_shape_invariance(dev, bq, bk):
     (2, 300, 300, 4, 2, 96, True, 100),   # window edge tiles, D = 96
     (1, 200, 200, 8, 2, 128, True, 0),    # D = 128
     (8, 512, 512, 64, 8, 128, True, 0),   # one f32 qwen3-32b prefill layer
+    (8, 1500, 1500, 6, 6, 64, False, 0),   # whisper-tiny's encoder, f32
+    (8, 512, 1500, 6, 6, 64, False, 0),    # whisper-tiny's cross-attention prefill, f32
+    (8, 512, 1600, 32, 8, 128, False, 0),  # llama-3.2-vision's cross-attention prefill, f32
 ])
 def test_flash_split_f32_other_shapes(dev, b, lq, lk, h, hkv, d, causal, window):
     q, k, v = _flash_case(dev, lq + h, b, lq, lk, h, hkv, d)

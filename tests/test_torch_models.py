@@ -1,7 +1,11 @@
 """The port's models on the CPU vs the JAX package's, on the same weights.
 
-Smoke configs of every ported architecture in float32; the JAX model's
-weights (``Model.init``) go to the port through ``params_from_numpy``.
+Smoke configs of every architecture in float32; the JAX model's weights
+(``Model.init``) go to the port through ``params_from_numpy``, with every
+cross-attention gate set to a seeded value in [0.5, 1.5] (the reference
+draws them 0, and ``tanh(0)`` would hide the whole cross path).  The audio
+family gets frame embeddings and the vlm image embeddings drawn with numpy;
+the vlm decodes with them as memory, as ``tests/test_arch_smoke.py`` does.
 Tolerances are the reference's serving contract (``tests/test_arch_smoke.py``):
 3e-4 for the forward and prefill logits, 5e-4 for each decode step.  On the
 CPU the flash route runs the kernel's plain version and the SSD chunked
@@ -29,13 +33,30 @@ PREFILL_TOL = dict(rtol=3e-4, atol=3e-4)
 DECODE_TOL = dict(rtol=5e-4, atol=5e-4)
 
 
+def set_gates(tree, seed):
+    """A copy of a numpy params tree with every cross-attention ``gate`` at a
+    seeded value in [0.5, 1.5]."""
+    rng = np.random.default_rng(seed)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: rng.uniform(0.5, 1.5, np.shape(v)).astype(np.float32) if k == "gate"
+                    else walk(v) for k, v in node.items()}
+        if isinstance(node, (tuple, list)):
+            return type(node)(walk(v) for v in node)
+        return node
+
+    return walk(tree)
+
+
 def _pair(arch, seed=1, **overrides):
-    """(JAX model, its params, port model, the same params in the port)."""
+    """(JAX model, its params, port model, the same params in the port), the
+    cross-attention gates set by :func:`set_gates`."""
     cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32", **overrides)
     jcfg = dataclasses.replace(j_smoke(arch), dtype="float32", **overrides)
     jm = j_build(jcfg)
-    jparams = jm.init(jax.random.key(seed))
-    tree = jax.tree.map(np.asarray, jparams)
+    tree = set_gates(jax.tree.map(np.asarray, jm.init(jax.random.key(seed))), seed)
+    jparams = jax.tree.map(jnp.asarray, tree)
     return jm, jparams, build_model(cfg), params_from_numpy(tree, cfg, device="cpu")
 
 
@@ -51,35 +72,61 @@ def _t(tokens):
     return torch.from_numpy(tokens.astype(np.int64))
 
 
+def extras(cfg, seed):
+    """The stubbed frontends' outputs as numpy f32: ``frames`` (audio) or
+    ``image_embeds`` (vlm); empty for the other families."""
+    rng = np.random.default_rng(seed)
+    if cfg.family == "audio":
+        return {"frames": rng.normal(size=(B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)}
+    if cfg.family == "vlm":
+        return {"image_embeds": rng.normal(size=(B, cfg.image_tokens, cfg.image_embed_dim))
+                .astype(np.float32)}
+    return {}
+
+
+def batches(cfg, tokens, seed):
+    """The same batch for both packages: ``(JAX batch, port batch)``."""
+    ex = extras(cfg, seed)
+    return ({"tokens": jnp.asarray(tokens), **{k: jnp.asarray(v) for k, v in ex.items()}},
+            {"tokens": _t(tokens), **{k: torch.from_numpy(v) for k, v in ex.items()}})
+
+
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_forward_logits_match_reference(arch):
     jm, jparams, tm, tparams = _pair(arch)
-    toks = _tokens(tm.cfg, 2)
-    want = np.asarray(_jforward(jm)(jparams, {"tokens": jnp.asarray(toks)}))
-    got = tm.forward(tparams, {"tokens": _t(toks)})
+    jbatch, tbatch = batches(tm.cfg, _tokens(tm.cfg, 2), 7)
+    want = np.asarray(_jforward(jm)(jparams, jbatch))
+    got = tm.forward(tparams, tbatch)
     assert tuple(got.shape) == (B, S, tm.cfg.padded_vocab)
     np.testing.assert_allclose(got.numpy(), want, **PREFILL_TOL)
+
+
+def prefill_and_decode_match(jm, jparams, tm, tparams, toks, seed, p):
+    """Prefill ``toks[:, :p]`` and decode the rest token by token in both
+    packages, the vlm with its image embeddings as each step's memory: the
+    logits of every step and the caches' end state agree."""
+    jbatch, tbatch = batches(tm.cfg, toks[:, :p], seed)
+    jmem, tmem = jbatch.get("image_embeds"), tbatch.get("image_embeds")
+    jcache = jm.init_cache(B, S, dtype=jnp.float32)
+    jlog, jcache = jax.jit(jm.prefill)(jparams, jbatch, jcache)
+    tcache = tm.init_cache(B, S, dtype=torch.float32, device="cpu")
+    tlog, tcache = tm.prefill(tparams, tbatch, tcache)
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **PREFILL_TOL)
+    jdecode = jax.jit(jm.decode_step)
+    for t in range(p, S):
+        jlog, jcache = jdecode(
+            jparams, jcache, jnp.asarray(toks[:, t:t + 1]), jnp.asarray(t, jnp.int32), jmem
+        )
+        tlog, tcache = tm.decode_step(tparams, tcache, _t(toks[:, t:t + 1]), t, tmem)
+        np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **DECODE_TOL)
+    for jleaf, tleaf in zip(jax.tree.leaves(jcache), _leaves(tcache), strict=True):
+        np.testing.assert_allclose(tleaf.numpy(), np.asarray(jleaf), **DECODE_TOL)
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_prefill_and_each_decode_step_match_reference(arch):
     jm, jparams, tm, tparams = _pair(arch)
-    toks = _tokens(tm.cfg, 3)
-    p = S - 4
-    jcache = jm.init_cache(B, S, dtype=jnp.float32)
-    jlog, jcache = jax.jit(jm.prefill)(jparams, {"tokens": jnp.asarray(toks[:, :p])}, jcache)
-    tcache = tm.init_cache(B, S, dtype=torch.float32, device="cpu")
-    tlog, tcache = tm.prefill(tparams, {"tokens": _t(toks[:, :p])}, tcache)
-    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **PREFILL_TOL)
-    jdecode = jax.jit(jm.decode_step)
-    for t in range(p, S):
-        jlog, jcache = jdecode(
-            jparams, jcache, jnp.asarray(toks[:, t:t + 1]), jnp.asarray(t, jnp.int32)
-        )
-        tlog, tcache = tm.decode_step(tparams, tcache, _t(toks[:, t:t + 1]), t)
-        np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **DECODE_TOL)
-    for jleaf, tleaf in zip(jax.tree.leaves(jcache), _leaves(tcache), strict=True):
-        np.testing.assert_allclose(tleaf.numpy(), np.asarray(jleaf), **DECODE_TOL)
+    prefill_and_decode_match(jm, jparams, tm, tparams, _tokens(tm.cfg, 3), 8, S - 4)
 
 
 def _leaves(tree):
@@ -186,15 +233,6 @@ def test_full_configs_match_reference():
     for arch in ARCH_IDS:
         assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(j_config(arch))
         assert get_config(arch).param_counts() == j_config(arch).param_counts()
-
-
-@pytest.mark.parametrize("arch,part", [("whisper-tiny", "cross-attention"),
-                                       ("llama-3.2-vision-11b", "cross-attention")])
-def test_unported_families_raise(arch, part):
-    from repro.configs import get_config as j_config
-
-    with pytest.raises(NotImplementedError, match=part):
-        build_model(j_config(arch))
 
 
 def test_swa_ring_buffer_beyond_window_matches_reference():

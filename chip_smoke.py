@@ -275,6 +275,37 @@ The kernels line gives each kernel's launches on the mesh, service and
 cluster runs as ``mesh_launches``, ``service_launches`` and
 ``cluster_launches`` (null for a kernel not on those paths).
 
+* ``train``: the SplIter trainer (``repro_torch.runtime.Trainer``) on the
+  card, bf16 compute over f32 master weights and moments, every launch count
+  set to 0 before the phase and read after it.  lm100m whole (the
+  reference's ~100M preset: 12 layers, d 768, vocab 32000, 162.4M
+  parameters, remat none, ``attn_impl="flash"``): global batch 32 in 4
+  blocks of 8 sequences of 1024, peak lr 1e-3 after 2 warm-up steps, 12
+  steps in each of ``spliter``, ``per_block`` and ``materialized`` from the
+  same params; per mode ms per step (median of the last 10), tokens/s,
+  dispatches per step (1 / 5 / 1), peak memory, first and last losses and
+  the step's matmul-FLOP bound, and one more step under ``torch.profiler``
+  (the card's busy time, the idle share of the unprofiled step, the top
+  kernels, and the launch sites of the top six);
+  the loss falls (mean of the last 4 below
+  the first 4), the first-step losses agree within 1e-3 relative and the
+  three modes' f32 gradients of step 1 within ``TRAIN_GRAD_TOL``.  lm20m
+  whole preempted at step 6 (``PreemptionGuard.request_stop``), restored
+  and finished: params, moments and loss tail bit-identical to an
+  uninterrupted run.  mamba2-1.3b whole (48 layers, 1.447B parameters,
+  remat full), global batch 8 in 2 blocks of 512 tokens, so that the
+  chunked SSD route carries the gradient: 3 ``spliter`` steps at peak lr
+  1e-4, loss and every gradient finite; then, as a witness for a step at
+  peak lr 1e-3, mamba2-1.3b cut to 2 layers at full width in f32: step 1's
+  gradients and 4 steps' losses on the card against the CPU port's from the
+  same params.  Every ``ARCH_IDS`` smoke config: one f32
+  ``spliter`` step's loss and gradients on the card against the same step
+  on the CPU from the same params, gates at 0.75.  Checks of the repair:
+  ``ops.flash_attention`` and ``ops.ssd_scan`` raise on an operand that
+  requires a gradient, and neither kernel launches in the whole phase (the
+  model takes the plain attention and SSD under autograd).  The kernels
+  line gives ``train_launches`` (0 for every kernel).
+
 Output: the card's name and power limit (``nvidia-smi``) on the first line,
 the compiler's registers, stack, spills and shared memory per kernel (a
 ``ptxas`` line), one JSON line per run and check, a ``{"kernels": [...]}``
@@ -3375,6 +3406,384 @@ def svm_phase(seed: int, dev: torch.device) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# train: the SplIter trainer on the card
+# ---------------------------------------------------------------------------
+
+#: lm100m's step: global batch 32 in 4 blocks of 8 × 1024 tokens, 12 steps
+TRAIN_BATCH, TRAIN_BLOCKS, TRAIN_SEQ, TRAIN_STEPS = 32, 4, 1024, 12
+TRAIN_MODES = ("spliter", "per_block", "materialized")
+#: the three modes' f32 gradients of step 1 (bf16 compute): a leaf's largest
+#: difference from ``spliter``'s over the leaf's largest magnitude.
+#: ``per_block`` sums the same block gradients in the same order;
+#: ``materialized`` runs each product over 4× the rows, whose bf16 sums
+#: round apart
+TRAIN_GRAD_TOL = {"per_block": 1e-6, "materialized": 5e-2}
+#: the first-step losses of the three modes, relative
+TRAIN_LOSS_RTOL = 1e-3
+#: every smoke config's f32 step on the card against the CPU: the loss,
+#: relative, and a gradient leaf's largest difference over its largest
+#: magnitude (f32 sums in another order; no TF32)
+SMOKE_LOSS_RTOL, SMOKE_GRAD_TOL = 1e-5, 1e-3
+#: mamba2-1.3b at 2 layers of full width, f32, peak lr 1e-3: steps on the
+#: card and on the CPU from the same params, each step's loss relative
+#: (AdamW's early updates are about lr·sign(g), so a gradient that rounds to
+#: the other sign moves its weight by up to 2·lr: held by losses)
+WITNESS_STEPS, WITNESS_LOSS_RTOL = 4, 1e-3
+
+
+def _train_counters() -> dict:
+    """Every kernel's launch count, and the flash kernel's split route's."""
+    split, kv = split_launches()
+    return {**read_launches(), "flash_attention_split": split, "split_kv": kv}
+
+
+def train_step_bound_ms(cfg, params, tokens: int, seq: int, remat: bool) -> float:
+    """Least time of one step's matrix products in bf16 on an H100 SXM: two
+    operations per weight of a product and token forward, twice that
+    backward (three times forward in all; four with full recomputation),
+    the causal attention's two products over half the square per layer, and
+    the head over the padded vocabulary (the embedding is a gather)."""
+    trunk = sum(_numel(seg) for key, seg in params.items() if key.startswith("seg"))
+    head = cfg.d_model * cfg.padded_vocab
+    flops = 2 * (trunk + head) * tokens
+    attn_layers = sum(seg.repeats * sum(spec.mixer == "attn" for spec in seg.period)
+                      for seg in cfg.segments())
+    flops += attn_layers * 2 * 2 * (seq * seq // 2) * cfg.num_heads * cfg.resolved_head_dim \
+        * (tokens // seq)
+    return 1e3 * flops * (4 if remat else 3) / BF16_FLOPS_PER_S
+
+
+def _grad_gap(a, b) -> float:
+    """A leaf's largest difference over the leaf's largest magnitude (b's),
+    the largest over the tree."""
+    from repro_torch._pytree import tree_leaves
+
+    worst = 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        scale = float(y.abs().max()) if y.numel() else 0.0
+        gap = float((x.float() - y.float()).abs().max()) if y.numel() else 0.0
+        worst = max(worst, gap / scale if scale else gap)
+    return worst
+
+
+def _timed_steps(trainer, params, opt, steps: int, dev) -> tuple:
+    """``steps`` train steps from ``params``/``opt`` (consumed): per-step
+    host ms (each ends reading the loss), losses, dispatches per step."""
+    ms, losses, dispatches = [], [], set()
+    for s in range(steps):
+        blocks = trainer.pipeline.peek(s)
+        t0 = time.perf_counter()
+        params, opt, loss, nd = trainer.train_step(params, opt, blocks)
+        losses.append(float(loss))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        dispatches.add(nd)
+    return params, opt, ms, losses, dispatches
+
+
+def _launch_site(event) -> str:
+    """Where a kernel was launched from: the backward function that ran it
+    (or ``forward``) and the outermost aten op around the launching op,
+    with its input shapes."""
+    chain, e = [], event
+    while e is not None:
+        chain.append(e)
+        e = e.cpu_parent
+    i = next((j for j, c in enumerate(chain)
+              if c.name.startswith("autograd::engine::evaluate_function")), len(chain))
+    grad_fn = chain[i].name.split(": ")[-1] if i < len(chain) else "forward"
+    aten = [c for c in chain[:i] if c.name.startswith("aten::")]
+    outer = aten[-1] if aten else event
+    return f"{grad_fn} | {outer.name}{[list(s) for s in (outer.input_shapes or []) if s]}"
+
+
+def profile_step(trainer, params, opt, blocks: dict, step_ms: float) -> dict:
+    """One train step under ``torch.profiler``: the card's busy time (the
+    kernels' summed self time), the span from the first kernel's start to
+    the last one's end, the idle share of the unprofiled step
+    (``1 - busy / step_ms``, ``step_ms`` the same run's median step: the
+    profiled wall holds the profiler's own host work, so it is reported
+    apart and not divided by), the kernels' launches, the 8 kernels of most
+    device time, and for the first 6 of them their 5 largest launch sites
+    (``_launch_site``) by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        _, _, loss, _ = trainer.train_step(params, opt, blocks)
+        float(loss)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    events = prof.events()
+    on_card = [e for e in events if e.device_type == DeviceType.CUDA]
+    span_ms = ((max(e.time_range.end for e in on_card) - min(e.time_range.start for e in on_card))
+               / 1e3 if on_card else None)
+    named = {e.key: {} for e in kernels[:6]}
+    for e in events:
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        for k in e.kernels:
+            if k.name in named:
+                site = named[k.name].setdefault(_launch_site(e), [0.0, 0])
+                site[0] += k.duration / 1e3
+                site[1] += 1
+    return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "kernel_span_ms": span_ms, "step_ms": step_ms,
+            "device_idle_share": 1 - busy_ms / step_ms,
+            "kernel_launches": sum(e.count for e in kernels),
+            "top_kernels": [{"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
+                             "calls": e.count} for e in kernels[:8]],
+            "launch_sites": [
+                {"kernel": name[:90], "ms": sum(v[0] for v in found.values()),
+                 "sites": [{"site": site, "ms": v[0], "calls": v[1]} for site, v in
+                           sorted(found.items(), key=lambda kv: -kv[1][0])[:5]]}
+                for name, found in named.items()]}
+
+
+def train_phase(seed: int, dev: torch.device, card: str) -> dict:
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch._pytree import tree_leaves, tree_map
+    from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import _preset
+    from repro_torch.models import build_model
+    from repro_torch.optim import accumulate_gradients, adamw_init, adamw_update
+    from repro_torch.runtime import TrainConfig, Trainer
+    from repro_torch.runtime.ft import PreemptionGuard
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launches()
+    before = _train_counters()
+    t_phase = time.perf_counter()
+
+    # ---- the repair: the kernels refuse a gradient ----
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((2, 128, 4, 64), generator=g, device=dev, dtype=torch.bfloat16)
+    refused = {}
+    for name, call in (
+        ("flash_attention", lambda: ops.flash_attention(q.clone().requires_grad_(), q, q)),
+        ("ssd_scan", lambda: ops.ssd_scan(
+            torch.randn((1, 128, 2, 16), device=dev).requires_grad_(),
+            torch.rand((1, 128, 2), device=dev), -torch.rand((2,), device=dev),
+            torch.randn((1, 128, 8), device=dev), torch.randn((1, 128, 8), device=dev),
+            chunk=64)),
+    ):
+        try:
+            call()
+            refused[name] = False
+        except RuntimeError as err:
+            refused[name] = "no backward" in str(err)
+    emit({"phase": "train", "run": "refusal", "card": card, "raised": refused})
+    check(all(refused.values()), f"kernels refuse an operand that requires a gradient: {refused}")
+
+    # ---- lm100m whole in the three modes ----
+    mc = dataclasses.replace(_preset("lm100m"), attn_impl="flash")
+    kw = dict(global_batch=TRAIN_BATCH, num_blocks=TRAIN_BLOCKS, seq_len=TRAIN_SEQ,
+              steps=TRAIN_STEPS, peak_lr=1e-3, warmup_steps=2, seed=seed)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    first_losses, grads = {}, {}
+    for mode in TRAIN_MODES:
+        tr = Trainer(mc, TrainConfig(accum_mode=mode, **kw), device=dev)
+        params, opt = tr.init_state()
+        if mode == TRAIN_MODES[0]:
+            n_params = sum(t.numel() for t in tree_leaves(params))
+            bound_ms = train_step_bound_ms(mc, params, tokens, TRAIN_SEQ, remat=False)
+        blocks = {k: torch.as_tensor(v).to(dev) for k, v in tr.pipeline.peek(0).items()}
+        loss, grads[mode], _ = tr.gradients(params, blocks)
+        first_losses[mode] = float(loss)
+        if mode != TRAIN_MODES[0]:
+            gap = _grad_gap(grads[mode], grads[TRAIN_MODES[0]])
+            del grads[mode]
+        else:
+            gap = 0.0
+        del blocks, loss
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        params, opt, ms, losses, dispatches = _timed_steps(tr, params, opt, TRAIN_STEPS, dev)
+        peak = torch.cuda.max_memory_allocated(dev)
+        step_ms = statistics.median(ms[2:])
+        row = {"phase": "train", "run": f"lm100m/{mode}", "card": card, "params": n_params,
+               "tokens_per_step": tokens, "ms_per_step": step_ms,
+               "tokens_per_s": tokens / step_ms * 1e3, "dispatches_per_step": sorted(dispatches),
+               "peak_memory_gb": peak / 1e9, "first_loss": losses[0], "last_loss": losses[-1],
+               "losses": losses, "step_matmul_bound_ms": bound_ms,
+               "bound_share": bound_ms / step_ms, "first_step_loss": first_losses[mode],
+               "grad_gap_vs_spliter": gap, "step_ms": ms}
+        row["profile"] = profile_step(tr, params, opt, tr.pipeline.peek(TRAIN_STEPS), step_ms)
+        emit(row)
+        want = {"spliter": 1, "per_block": TRAIN_BLOCKS + 1, "materialized": 1}[mode]
+        check(dispatches == {want}, f"lm100m/{mode}: dispatches {dispatches}, expected {want}")
+        check(all(math.isfinite(x) for x in losses), f"lm100m/{mode}: finite losses")
+        check(statistics.mean(losses[-4:]) < statistics.mean(losses[:4]),
+              f"lm100m/{mode}: the loss falls ({losses})")
+        if mode != TRAIN_MODES[0]:
+            check(gap <= TRAIN_GRAD_TOL[mode],
+                  f"lm100m/{mode}: gradient gap {gap} > {TRAIN_GRAD_TOL[mode]}")
+        del params, opt, tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    del grads
+    ref = first_losses[TRAIN_MODES[0]]
+    check(all(abs(v - ref) <= TRAIN_LOSS_RTOL * abs(ref) for v in first_losses.values()),
+          f"lm100m: first-step losses agree within {TRAIN_LOSS_RTOL}: {first_losses}")
+
+    # ---- resume on the card: lm20m preempted at step 6, restored, finished ----
+    m20 = dataclasses.replace(_preset("lm20m"), attn_impl="flash")
+    kw20 = dict(global_batch=16, num_blocks=4, seq_len=256, steps=12, peak_lr=1e-3,
+                warmup_steps=2, seed=seed)
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="train_ckpt_", dir=ROOT / "build")
+    try:
+        t0 = time.perf_counter()
+        full = Trainer(m20, TrainConfig(**kw20), device=dev).run(resume=False)
+        guard = PreemptionGuard(install=False)
+
+        def stop_at_6(step, loss):
+            if step == 5:
+                guard.request_stop()
+
+        first = Trainer(m20, TrainConfig(ckpt_dir=ckpt, **kw20), device=dev).run(
+            guard=guard, on_step=stop_at_6)
+        resumed = Trainer(m20, TrainConfig(ckpt_dir=ckpt, **kw20), device=dev).run(resume=True)
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves((full["params"], full["opt"])),
+            tree_leaves((resumed["params"], resumed["opt"]))))
+        row = {"phase": "train", "run": "lm20m/resume", "card": card,
+               "stopped_at": first["stopped_at"], "finished_at": resumed["stopped_at"],
+               "bit_identical_params_and_moments": same,
+               "loss_tail_equal": full["losses"][6:] == resumed["losses"],
+               "losses": full["losses"], "seconds": time.perf_counter() - t0}
+        emit(row)
+        check(first["preempted"] and first["stopped_at"] == 6 and resumed["stopped_at"] == 12,
+              "lm20m: preempted at 6, finished at 12")
+        check(same and row["loss_tail_equal"], "lm20m: resume bit-identical on the card")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    del full, first, resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- mamba2-1.3b whole: the chunked SSD route carries the gradient ----
+    mamba = get_config("mamba2-1.3b")
+    check(mamba.remat == "full" and 512 % mamba.ssm_chunk == 0 and 512 > mamba.ssm_chunk,
+          f"mamba2-1.3b: remat full and the chunked route at 512 ({mamba.remat}, "
+          f"{mamba.ssm_chunk})")
+    tr = Trainer(mamba, TrainConfig(global_batch=8, num_blocks=2, seq_len=512, steps=3,
+                                    peak_lr=1e-4, warmup_steps=2, seed=seed), device=dev)
+    params, opt = tr.init_state()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    torch.cuda.reset_peak_memory_stats(dev)
+    blocks = {k: torch.as_tensor(v).to(dev) for k, v in tr.pipeline.peek(0).items()}
+    loss, mgrads, _ = tr.gradients(params, blocks)
+    finite = bool(math.isfinite(float(loss))) and all(
+        bool(torch.isfinite(t).all()) for t in tree_leaves(mgrads))
+    nonzero = sum(bool(torch.any(t != 0)) for t in tree_leaves(mgrads))
+    n_leaves = len(tree_leaves(mgrads))
+    del mgrads, blocks, loss
+    params, opt, ms, losses, _ = _timed_steps(tr, params, opt, 3, dev)
+    row = {"phase": "train", "run": "mamba2-1.3b", "card": card, "params": n_params,
+           "tokens_per_step": 8 * 512, "ms_per_step": ms, "losses": losses,
+           "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "finite_loss_and_gradients": finite, "nonzero_gradient_leaves": [nonzero, n_leaves],
+           "step_matmul_bound_ms": train_step_bound_ms(mamba, params, 8 * 512, 512, True),
+           "ssd_scan_launches": read_launches()["ssd_scan"] - before["ssd_scan"]}
+    emit(row)
+    check(finite and all(math.isfinite(x) for x in losses), "mamba2-1.3b: finite loss and grads")
+    check(nonzero == n_leaves, f"mamba2-1.3b: every gradient leaf non-zero ({nonzero}/{n_leaves})")
+    del params, opt, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- a witness for mamba2's step at peak lr 1e-3: 2 layers at full width, f32,
+    # the card's trajectory against the CPU port's from the same params ----
+    m2 = dataclasses.replace(mamba, num_layers=2, dtype="float32")
+    kw2 = dict(global_batch=2, num_blocks=2, seq_len=512, steps=WITNESS_STEPS, peak_lr=1e-3,
+               warmup_steps=2, seed=seed)
+    t0 = time.perf_counter()
+    cpu_tr = Trainer(m2, TrainConfig(**kw2), device="cpu")
+    card_tr = Trainer(m2, TrainConfig(**kw2), device=dev)
+    cpu_p, cpu_o = cpu_tr.init_state()
+    card_p, card_o = tree_map(lambda t: t.to(dev), (cpu_p, cpu_o))
+    host0 = {k: torch.as_tensor(v) for k, v in cpu_tr.pipeline.peek(0).items()}
+    _, cg, _ = cpu_tr.gradients(cpu_p, host0)
+    _, gg, _ = card_tr.gradients(card_p, {k: v.to(dev) for k, v in host0.items()})
+    grad_gap = _grad_gap(tree_map(lambda t: t.cpu(), gg), cg)
+    del cg, gg, host0
+    cpu_losses, card_losses = [], []
+    for s in range(WITNESS_STEPS):
+        cpu_p, cpu_o, loss, _ = cpu_tr.train_step(cpu_p, cpu_o, cpu_tr.pipeline.peek(s))
+        cpu_losses.append(float(loss))
+        card_p, card_o, loss, _ = card_tr.train_step(card_p, card_o, card_tr.pipeline.peek(s))
+        card_losses.append(float(loss))
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
+    emit({"phase": "train", "run": "mamba2-1.3b/2-layers/lr-1e-3", "card": card,
+          "layers": m2.num_layers, "dtype": m2.dtype, "tokens_per_step": 2 * 512,
+          "card_losses": card_losses, "cpu_losses": cpu_losses, "loss_rel_gap": loss_gap,
+          "step1_grad_gap": grad_gap, "loss_rtol": WITNESS_LOSS_RTOL,
+          "grad_tol": SMOKE_GRAD_TOL, "seconds": time.perf_counter() - t0})
+    check(all(math.isfinite(x) for x in card_losses + cpu_losses)
+          and loss_gap <= WITNESS_LOSS_RTOL and grad_gap <= SMOKE_GRAD_TOL,
+          f"mamba2-1.3b at 2 layers, lr 1e-3: the card's steps against the CPU's "
+          f"(losses {card_losses} / {cpu_losses}, gradient gap {grad_gap})")
+    del cpu_tr, card_tr, cpu_p, cpu_o, card_p, card_o
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- every smoke config: one f32 step on the card against the CPU ----
+    worst = {}
+    for arch in ARCH_IDS:
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32", attn_impl="flash")
+        model = build_model(cfg)
+        cpu_params = model.init(torch.Generator().manual_seed(seed), device="cpu", master=True)
+        set_gates(cpu_params, 0.75)
+        rng = np.random.default_rng(seed)
+        toks = rng.integers(0, cfg.vocab_size, (2, 2, 33)).astype(np.int64)
+        blocks = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+        if cfg.family == "audio":
+            blocks["frames"] = rng.normal(size=(2, 2, cfg.encoder_seq, cfg.d_model))
+        if cfg.family == "vlm":
+            blocks["image_embeds"] = rng.normal(size=(2, 2, cfg.image_tokens, cfg.image_embed_dim))
+        host = {k: torch.from_numpy(np.asarray(v, np.float32) if v.dtype == np.float64 else v)
+                for k, v in blocks.items()}
+        cl, cg = accumulate_gradients(model.loss, cpu_params, host)
+        card_params = tree_map(lambda t: t.to(dev), cpu_params)
+        gl, gg = accumulate_gradients(model.loss, card_params, {k: v.to(dev) for k, v in host.items()})
+        opt = adamw_init(card_params)
+        card_params, opt = adamw_update(card_params, gg, opt, lr=1e-3)
+        loss_gap = abs(float(gl) - float(cl)) / abs(float(cl))
+        grad_gap = _grad_gap(tree_map(lambda t: t.cpu(), gg), cg)
+        worst[arch] = {"loss_rel": loss_gap, "grad_gap": grad_gap,
+                       "finite_step": all(bool(torch.isfinite(t).all())
+                                          for t in tree_leaves(card_params))}
+        check(loss_gap <= SMOKE_LOSS_RTOL and grad_gap <= SMOKE_GRAD_TOL
+              and worst[arch]["finite_step"],
+              f"{arch}: the card's f32 step against the CPU's {worst[arch]}")
+    emit({"phase": "train", "run": "smoke_configs", "card": card, "f32_vs_cpu": worst,
+          "loss_rtol": SMOKE_LOSS_RTOL, "grad_tol": SMOKE_GRAD_TOL})
+
+    after = _train_counters()
+    launches = {k: after[k] - before[k] for k in after}
+    emit({"phase": "train", "run": "launches", "card": card, "launches": launches,
+          "route_under_autograd": "plain attention (layers._sdpa_auto) and ssd_chunked: "
+                                  "neither kernel has a backward",
+          "seconds": time.perf_counter() - t_phase})
+    check(all(v == 0 for v in launches.values()),
+          f"no kernel launches on the training path: {launches}")
+    return launches
+
+
 SAMPLED_STEPS = 8
 
 
@@ -3425,7 +3834,8 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     )
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' products in f32
     torch.backends.cudnn.allow_tf32 = False
 
@@ -3491,11 +3901,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     moe_phase(args.seed, dev)
     torch.cuda.empty_cache()
+    train_launches = train_phase(args.seed, dev, card)
     kernels += lm_kernel_checks(args.seed, dev, x_values, launches, by_run)
     for k in kernels:  # launches on the mesh and service paths (None: not on them)
         k["mesh_launches"] = mesh_launches.get(k["name"])
         k["service_launches"] = service_launches.get(k["name"])
         k["cluster_launches"] = cluster_launches.get(k["name"])
+        k["train_launches"] = train_launches[k["name"]]
     check(len(kernels) == 5 and all(k["launches"] > 0 for k in kernels),
           f"every kernel launched on its path: {launches}")
     check(launches["flash_attention_split"] > 0 and launches["split_kv"] > 0,

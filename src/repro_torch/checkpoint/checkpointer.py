@@ -16,10 +16,13 @@ Layout of one checkpoint step directory (the JAX package's, file for file)::
   (a copy to the CPU waits for the card's queued work on it) before it
   returns and hands the file IO to a writer thread; ``wait()`` joins
   before the next save or exit.
-* **trees** — nested dicts, lists and tuples of tensors (the port's
-  :mod:`repro_torch._pytree`).  Leaves flatten in the JAX package's order:
-  dict keys sorted, sequences in order, so leaf ``i`` of a step is the same
-  leaf whichever package wrote it.
+* **trees** — nested dicts, lists, tuples and registered dataclasses of
+  tensors (the port's :mod:`repro_torch._pytree`; the optimizer's
+  ``AdamWState``).  Leaves flatten in the JAX package's order: dict keys
+  sorted, sequences in order, a dataclass's fields in declaration order,
+  so leaf ``i`` of a step is the same leaf whichever package wrote it; a
+  field's path element is ``.<name>``, as ``jax.tree_util`` names it
+  (``1/.m/embed`` for ``(params, opt)``).
 * **bf16** — numpy has no bfloat16.  A bf16 leaf is stored as its 16-bit
   patterns in a two-byte void array (``'<V2'``), with the manifest's
   ``dtype`` saying ``bfloat16``: the bytes the JAX package's ``np.save``
@@ -48,6 +51,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch._pytree import dataclass_fields
+
 __all__ = ["Checkpointer"]
 
 _COMMIT_SUFFIX = ".COMMITTED"
@@ -55,6 +60,13 @@ _COMMIT_SUFFIX = ".COMMITTED"
 
 def _flatten_with_paths(tree: Any, prefix: tuple = ()) -> list[tuple[tuple, Any]]:
     """``[(path, leaf), ...]`` in the JAX package's leaf order."""
+    names = dataclass_fields(tree)
+    if names is not None:
+        return [
+            item
+            for n in names
+            for item in _flatten_with_paths(getattr(tree, n), prefix + (f".{n}",))
+        ]
     if isinstance(tree, dict):
         return [
             item
@@ -72,6 +84,9 @@ def _flatten_with_paths(tree: Any, prefix: tuple = ()) -> list[tuple[tuple, Any]
 
 def _unflatten(template: Any, leaves) -> Any:
     """Rebuild ``template``'s structure from ``leaves`` (an iterator)."""
+    names = dataclass_fields(template)
+    if names is not None:
+        return type(template)(**{n: _unflatten(getattr(template, n), leaves) for n in names})
     if isinstance(template, dict):
         out = {k: _unflatten(template[k], leaves) for k in sorted(template)}
         return {k: out[k] for k in template}
@@ -219,8 +234,10 @@ class Checkpointer:
     ) -> tuple[Any, dict[str, Any], int]:
         """Restore into the structure of ``template`` (shapes must match).
 
-        Each leaf goes onto the template leaf's device and dtype.  Returns
-        ``(tree, extras, step)``.
+        Each leaf goes onto the template leaf's device and dtype; a leaf
+        whose template lies on the ``meta`` device (a shape-only template,
+        as ``jax.eval_shape`` gives the JAX package) goes onto the host.
+        Returns ``(tree, extras, step)``.
         """
         self.wait()
         step = step if step is not None else self.latest_step()
@@ -241,9 +258,8 @@ class Checkpointer:
                 arr.shape,
                 tmpl.shape,
             )
-            out_leaves.append(
-                _from_host(arr, meta["dtype"]).to(device=tmpl.device, dtype=tmpl.dtype)
-            )
+            device = "cpu" if tmpl.device.type == "meta" else tmpl.device
+            out_leaves.append(_from_host(arr, meta["dtype"]).to(device=device, dtype=tmpl.dtype))
         tree = _unflatten(template, iter(out_leaves))
         return tree, manifest["extras"], step
 

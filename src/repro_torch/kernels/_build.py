@@ -21,7 +21,10 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["REPORTS", "SOURCES", "build", "count_launch", "kernel_function"]
+import torch
+
+__all__ = ["REPORTS", "SOURCES", "build", "count_launch", "kernel_function", "records_grad",
+           "refuse_grad"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -126,3 +129,30 @@ def count_launch(fn, counter: str = "launches") -> None:
     """
     with _count_lock:
         setattr(fn, counter, getattr(fn, counter) + 1)
+
+
+def records_grad(*tensors) -> bool:
+    """Whether autograd records an operation on ``tensors``: grad mode is on
+    and one of them requires a gradient."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors
+    )
+
+
+def refuse_grad(name: str, *operands) -> None:
+    """Raise where a kernel wrapper would take part in a gradient.
+
+    A wrapper fills its output through ctypes, so the output has no
+    ``grad_fn`` and autograd would take it for a constant: every weight
+    upstream would get a zero gradient without a word.  No backward kernel
+    exists, in this package or in the JAX package (whose Pallas kernels
+    have no ``custom_vjp``), so the caller must take the plain route
+    (``repro_torch.models`` does so whenever autograd records).  Both the
+    CUDA and the CPU route raise, so a CPU run sees what a card run would.
+    """
+    if records_grad(*operands):
+        raise RuntimeError(
+            f"{name}: an operand requires a gradient, and the kernel has no backward "
+            "(none exists in either package); call it under torch.no_grad() or take "
+            "the plain route"
+        )

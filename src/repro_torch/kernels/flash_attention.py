@@ -34,7 +34,10 @@ kernel's ``max(l, 1e-30)`` denominator), where the JAX package's
 ``attention_ref`` oracle averages ``v`` instead.
 
 The wrapper sends CUDA tensors to their route and raises for any other
-type or head dim; it runs the plain version for CPU tensors.  ``block_q``
+type or head dim; it runs the plain version for CPU tensors.  On either
+device it raises where an operand requires a gradient under grad mode: no
+backward kernel exists (nor in the JAX package), and an output filled
+through ctypes would drop the gradient without a word.  ``block_q``
 and ``block_k`` are accepted for the JAX signature and change nothing.
 ``flash_attention.launches`` counts the launches of both routes,
 ``flash_attention.split_launches`` those of the split route, and
@@ -49,7 +52,7 @@ import math
 import torch
 
 from repro_torch.api.kernels import pallas_interpret
-from repro_torch.kernels._build import count_launch, kernel_function
+from repro_torch.kernels._build import count_launch, kernel_function, refuse_grad
 
 __all__ = ["flash_attention", "flash_attention_emulated", "flash_attention_ref", "split_kv",
            "split_terms_ref"]
@@ -226,8 +229,11 @@ def flash_attention(
     block_q: int = 128,
     block_k: int = 128,
 ) -> torch.Tensor:
-    """Blocked attention; returns (B, Lq, H, D) in ``q.dtype``."""
+    """Blocked attention; returns (B, Lq, H, D) in ``q.dtype``.  Raises
+    ``RuntimeError`` where autograd would record it: there is no backward
+    kernel (``_build.refuse_grad``)."""
     del block_q, block_k  # the kernel's tiles are its own; results do not depend on them
+    refuse_grad("flash_attention", q, k, v)
     if pallas_interpret(q):
         return flash_attention_ref(q, k, v, causal=causal, window=window)
     _check_shapes(q, k, v)

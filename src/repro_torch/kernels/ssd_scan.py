@@ -13,7 +13,10 @@ Algorithm 1, as ``repro.models.ssm.ssd_chunked``), which the model's CPU
 route and the CPU tests run and ``chip_smoke.py`` compares with the kernel.
 
 The wrapper takes ``chunk`` for the JAX signature: the plain version chunks
-by it, the kernel by its own 64 rows; the results do not depend on it.
+by it, the kernel by its own 64 rows; the results do not depend on it.  On
+either device it raises where an operand requires a gradient under grad
+mode: no backward kernel exists (nor in the JAX package), and an output
+filled through ctypes would drop the gradient without a word.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import ctypes
 import torch
 
 from repro_torch.api.kernels import pallas_interpret
-from repro_torch.kernels._build import count_launch, kernel_function
+from repro_torch.kernels._build import count_launch, kernel_function, refuse_grad
 
 __all__ = ["ssd_chunked", "ssd_scan"]
 
@@ -92,7 +95,10 @@ def ssd_scan(
     *,
     chunk: int = 256,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Chunked SSD; returns (y (B,L,NH,P) in ``x.dtype``, final state (B,NH,P,N) f32)."""
+    """Chunked SSD; returns (y (B,L,NH,P) in ``x.dtype``, final state (B,NH,P,N) f32).
+    Raises ``RuntimeError`` where autograd would record it: there is no
+    backward kernel (``_build.refuse_grad``)."""
+    refuse_grad("ssd_scan", x, dt, a, bm, cm)
     b, l, nh, p = x.shape
     n = bm.shape[-1]
     q = min(chunk, l)

@@ -1,8 +1,10 @@
 """Batched serving from the command line.
 
-Draws random weights for a smoke-sized architecture on the device and
-serves batched generation requests: prefill once, then one decode step per
-token for the whole batch.  Port of ``repro/launch/serve.py``.  The audio
+Draws random weights for a smoke-sized architecture on the device, or
+restores a trainer's checkpoint (``--ckpt-dir``: the params of ``(params,
+opt)``, in f32 as the trainer keeps them), and serves batched generation
+requests: prefill once, then one decode step per token for the whole
+batch.  Port of ``repro/launch/serve.py``.  The audio
 family is served stubbed frame embeddings (B, encoder_seq, d_model), the
 vlm family stubbed image embeddings (B, image_tokens, image_embed_dim),
 both drawn from ``--seed`` and served in bf16, as in the reference.
@@ -12,6 +14,7 @@ Usage::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-32b \
         --batch 8 --prompt-len 16 --steps 32 [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny --steps 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-32b --ckpt-dir ckpt
 """
 
 from __future__ import annotations
@@ -22,10 +25,27 @@ import time
 import numpy as np
 import torch
 
+from repro_torch._pytree import tree_map
+from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import ARCH_IDS, get_smoke_config
 from repro_torch.core.blocked import resolve_device
 from repro_torch.models import build_model
+from repro_torch.optim import adamw_init
 from repro_torch.runtime.server import Server
+
+
+def restore_params(ckpt_dir: str, params):
+    """The params of the newest checkpoint under ``ckpt_dir``, restored as
+    the reference restores them: ``(params, opt)`` against a template of
+    ``(params, adamw_init(params))``.  The moments' template lies on the
+    ``meta`` device (no memory, as ``jax.eval_shape`` gives), so they are
+    read to the host and dropped.  ``params`` is the template: a trainer's
+    checkpoint holds f32 master weights, so pass f32 leaves
+    (``Model.init(master=True)``) to restore them unrounded.  Returns
+    ``(params, step)``."""
+    opt_tmpl = adamw_init(tree_map(lambda p: torch.empty_like(p, device="meta"), params))
+    (params, _opt), _extras, step = Checkpointer(ckpt_dir).restore((params, opt_tmpl))
+    return params, step
 
 
 def main(argv=None) -> None:
@@ -41,14 +61,13 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    if args.ckpt_dir:
-        raise NotImplementedError(
-            "--ckpt-dir: checkpoint restore is not ported yet (ROADMAP Queue 1, checkpointing)"
-        )
     cfg = get_smoke_config(args.arch)
     device = resolve_device(args.device)
     params = build_model(cfg).init(torch.Generator(device=device).manual_seed(args.seed),
-                                   device=device)
+                                   device=device, master=bool(args.ckpt_dir))
+    if args.ckpt_dir:
+        params, step = restore_params(args.ckpt_dir, params)
+        print(f"restored step {step} from {args.ckpt_dir}")
 
     n_params = cfg.param_counts()["total"]
     print(f"serving {cfg.name} ({n_params / 1e6:.1f}M params) "

@@ -16,6 +16,14 @@ params dict with the JAX package's names and layouts (attention weights
   branch calls :func:`_sdpa`, which computes the same values).  Decode (one
   query row against the cache or the memory) is plain PyTorch on both
   routes;
+* **the route under autograd:** where autograd records the attention (grad
+  mode on and q, k or v requiring a gradient, as in ``Model.loss``), it
+  runs :func:`_sdpa_auto` whatever ``attn_impl`` says.  The kernel has no
+  backward (nor has the JAX package's), and its wrapper raises rather than
+  return an output without a ``grad_fn``.  The reference's model never
+  calls its Pallas kernel (``attn_impl`` is read nowhere in its
+  ``models/``), so its loss and gradient are those of the plain attention,
+  as the port's are.  The entry point chooses the route, never a failure;
 * cross-attention's operands are cast to their promoted type before each
   product (``torch.promote_types``), where ``jnp.einsum`` promotes mixed
   types itself: a bf16 model decoding with f32 ``image_embeds`` computes
@@ -224,8 +232,9 @@ def _sdpa_auto(q, k, v, *, causal, window=0, kv_len=None):
 
 def _prefill_attention(q, k, v, *, causal: bool, window: int, cfg: ModelConfig) -> torch.Tensor:
     """Attention of a whole prompt over itself or over the memory: the
-    kernel under ``attn_impl="flash"``."""
-    if cfg.attn_impl == "flash":
+    kernel under ``attn_impl="flash"``, unless autograd records it (the
+    module's docstring: the kernel has no backward)."""
+    if cfg.attn_impl == "flash" and not ops.records_grad(q, k, v):
         return ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                    causal=causal, window=window)
     return _sdpa_auto(q, k, v, causal=causal, window=window)

@@ -14,10 +14,12 @@ updates its views of it in place.
 
 Entry points:
 
-* ``model.init(generator, device=...)``     → params (random, on ``device``)
-* ``params_from_numpy(tree, cfg, device=...)`` → params from the JAX package's
-  tree as numpy arrays
-* ``model.forward(params, batch)``          → logits (B, S, Vp)
+* ``model.init(generator, device=..., master=False)`` → params (random, on
+  ``device``)
+* ``params_from_numpy(tree, cfg, device=..., master=False)`` → params from
+  the JAX package's tree as numpy arrays
+* ``model.forward(params, batch, remat=False)`` → logits (B, S, Vp)
+* ``model.loss(params, batch)``             → mean next-token cross-entropy
 * ``model.init_cache(batch, max_len, ...)`` → cache (decode state)
 * ``model.prefill(params, batch, cache)``   → (last_logits, cache)
 * ``model.decode_step(params, cache, token, pos, memory=None)`` → (logits, cache)
@@ -25,23 +27,48 @@ Entry points:
 ``batch`` holds ``tokens`` and, for the audio family, ``frames`` (B,
 encoder_seq, d_model), for the vlm family ``image_embeds`` (B, image_tokens,
 image_embed_dim): the stubbed frontends' outputs, as in the reference.
+
+**Storage.**  For serving, the leaves in :data:`CAST_LEAVES` are stored in
+``cfg.dtype`` (every use casts them to it) and the rest in f32.  For
+training, ``master=True`` stores every leaf in ``cfg.param_dtype`` (f32,
+the reference's storage): the model still computes in ``cfg.dtype``, the
+casts at each use carry the gradient back to the f32 leaf, and AdamW
+updates f32 master weights, where a bf16 leaf would round every update.
+
+**Recomputation.**  ``forward(..., remat=True)`` (which ``loss`` uses, as
+the reference's does) checkpoints each period of the decoder's segments by
+``cfg.remat``: ``"none"`` keeps every activation; ``"full"`` keeps only the
+period's input (``torch.utils.checkpoint``, non-reentrant) and runs the
+period again in the backward; ``"dots"`` keeps the outputs of the matrix
+products without batch dimensions (the reference's
+``dots_with_no_batch_dims_saveable``) and recomputes the rest.  The values
+are the same under all three; only memory differs.  The recomputation does
+not record MoE routes a second time (``moe_mlp.routes``), and it launches no
+kernel: under autograd the model takes the plain attention and SSD routes
+(``layers.py``, ``ssm.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch._pytree import tree_map
 from repro_torch.configs.base import LayerSpec, ModelConfig, Segment
 from repro_torch.core.blocked import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.mla import init_mla, mla_attention
-from repro_torch.models.moe import init_moe, moe_mlp
+from repro_torch.models.moe import init_moe, moe_mlp, routes_paused
 from repro_torch.models.ssm import init_mamba, mamba_block
 
 Params = dict[str, Any]
@@ -182,12 +209,14 @@ def _init_layer_cache(
 # ---------------------------------------------------------------------------
 
 
-def _leaf_dtype(name: str, cfg: ModelConfig) -> torch.dtype:
+def _leaf_dtype(name: str, cfg: ModelConfig, master: bool = False) -> torch.dtype:
+    if master:
+        return getattr(torch, cfg.param_dtype)
     return getattr(torch, cfg.dtype) if name in CAST_LEAVES else torch.float32
 
 
 def params_from_numpy(
-    tree: Any, cfg: ModelConfig, *, device: str | torch.device = "cuda"
+    tree: Any, cfg: ModelConfig, *, device: str | torch.device = "cuda", master: bool = False
 ) -> Params:
     """The JAX package's parameter tree (numpy leaves, same names, stacked
     ``(repeats, ...)`` segment leaves) as the port's params on ``device``.
@@ -196,7 +225,8 @@ def params_from_numpy(
     casts them to it, so the values the model computes with are the same
     and the memory is halved; the others (norm weights, ``q_norm``,
     ``k_norm``, MLA's ``q_norm_a`` and ``kv_norm_a``, ``A_log``, ``dt_bias``)
-    stay f32.
+    stay f32.  ``master=True`` stores every leaf in ``cfg.param_dtype``
+    instead: the master weights a trainer updates.
     """
     dev = resolve_device(device)
 
@@ -206,10 +236,40 @@ def params_from_numpy(
         if isinstance(node, (tuple, list)):
             return type(node)(convert(v, name) for v in node)
         return torch.from_numpy(np.array(node, dtype=np.float32)).to(
-            device=dev, dtype=_leaf_dtype(name, cfg)
+            device=dev, dtype=_leaf_dtype(name, cfg, master)
         )
 
     return convert(tree, "")
+
+
+def _saves_dots(ctx, op, *args, **kwargs):
+    """``"dots"``: keep the outputs of matrix products without batch
+    dimensions (``mm``, ``addmm``, and the batch-1 ``bmm`` that ``einsum``
+    makes of a projection), recompute everything else."""
+    plain = op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default) or (
+        op is torch.ops.aten.bmm.default and args[0].shape[0] == 1
+    )
+    return CheckpointPolicy.MUST_SAVE if plain else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _rematerialized(body, policy: str):
+    """``body(x)`` under ``torch.utils.checkpoint`` by ``policy`` (``"full"``
+    or ``"dots"``).  The recomputation in the backward runs with the MoE
+    route recorder paused, so a forward records its routes once."""
+    ran = False
+
+    def run(x):
+        nonlocal ran
+        if ran:
+            with routes_paused():
+                return body(x)
+        ran = True
+        return body(x)
+
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _saves_dots)
+    return lambda x: checkpoint(run, x, use_reentrant=False, preserve_rng_state=False, **kw)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -218,13 +278,15 @@ class Model:
 
     # ---------------- init ----------------
 
-    def init(self, generator: torch.Generator, *, device: str | torch.device = "cuda") -> Params:
+    def init(self, generator: torch.Generator, *, device: str | torch.device = "cuda",
+             master: bool = False) -> Params:
         """Random weights from the reference's distributions, drawn on
         ``device`` (where ``generator`` lives) each leaf directly in the type
-        it is stored in (:data:`CAST_LEAVES` in ``cfg.dtype``)."""
+        it is stored in (:data:`CAST_LEAVES` in ``cfg.dtype``; with
+        ``master=True`` every leaf in ``cfg.param_dtype``)."""
         cfg = self.cfg
         dev = resolve_device(device)
-        dtype = getattr(torch, cfg.dtype)
+        dtype = getattr(torch, cfg.param_dtype if master else cfg.dtype)
         params: Params = {
             "embed": L.draw_normal((cfg.padded_vocab, cfg.d_model), 1.0 / math.sqrt(cfg.d_model),
                                dtype, dev, generator)
@@ -267,7 +329,8 @@ class Model:
 
     # ---------------- trunk ----------------
 
-    def _run_segment(self, seg_params: Any, seg: Segment, x, ctx, caches) -> torch.Tensor:
+    def _run_segment(self, seg_params: Any, seg: Segment, x, ctx, caches, *,
+                     remat: bool = False) -> torch.Tensor:
         cfg = self.cfg
 
         def period_body(x, period_params, period_caches):
@@ -276,12 +339,19 @@ class Model:
                 x = _apply_layer(period_params[i], spec, cfg, x, ctx, c)
             return x
 
+        def run_period(x, period_params, period_caches):
+            if remat and cfg.remat != "none":
+                body = functools.partial(period_body, period_params=period_params,
+                                         period_caches=period_caches)
+                return _rematerialized(body, cfg.remat)(x)
+            return period_body(x, period_params, period_caches)
+
         if seg.repeats == 1:
-            return period_body(x, seg_params, caches)
+            return run_period(x, seg_params, caches)
         for r in range(seg.repeats):  # the reference's lax.scan over stacked leaves
             pick = lambda l, r=r: l[r]  # noqa: E731
             period_caches = None if caches is None else tree_map(pick, caches)
-            x = period_body(x, tree_map(pick, seg_params), period_caches)
+            x = run_period(x, tree_map(pick, seg_params), period_caches)
         return x
 
     def _encode(self, params: Params, frames: torch.Tensor) -> torch.Tensor:
@@ -306,10 +376,10 @@ class Model:
             return batch["image_embeds"].to(getattr(torch, cfg.dtype))
         return None
 
-    def _trunk(self, params: Params, x, ctx, caches) -> torch.Tensor:
+    def _trunk(self, params: Params, x, ctx, caches, *, remat: bool = False) -> torch.Tensor:
         for si, seg in enumerate(self.cfg.segments()):
             c = None if caches is None else caches[f"seg{si}"]
-            x = self._run_segment(params[f"seg{si}"], seg, x, ctx, c)
+            x = self._run_segment(params[f"seg{si}"], seg, x, ctx, c, remat=remat)
         return x
 
     def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -331,14 +401,30 @@ class Model:
 
     # ---------------- entry points ----------------
 
-    def forward(self, params: Params, batch: dict[str, torch.Tensor]) -> torch.Tensor:
-        """Scoring forward → logits (B, S, Vp)."""
+    def forward(self, params: Params, batch: dict[str, torch.Tensor], *,
+                remat: bool = False) -> torch.Tensor:
+        """Training/scoring forward → logits (B, S, Vp).  ``remat``
+        checkpoints each decoder period by ``cfg.remat`` (the module's
+        docstring); the encoder is never rematerialized, as in the
+        reference."""
         tokens = batch["tokens"]
         b, s = tokens.shape
         x = self._embed(params, tokens)
         ctx = {"positions": torch.arange(s, device=tokens.device).expand(b, s),
                "memory": self._memory(params, batch)}
-        return self._logits(params, self._trunk(params, x, ctx, None))
+        return self._logits(params, self._trunk(params, x, ctx, None, remat=remat))
+
+    def loss(self, params: Params, batch: dict[str, torch.Tensor]) -> torch.Tensor:
+        """Mean next-token cross-entropy over the ``labels >= 0`` positions,
+        in f32, with the forward rematerialized (``remat=True``) as the
+        reference's loss is."""
+        logits = self.forward(params, batch, remat=True)
+        labels = batch["labels"]
+        mask = labels >= 0
+        lab = labels.clamp(min=0).to(torch.int64)
+        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        ll = torch.gather(logp, -1, lab[..., None])[..., 0]
+        return -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1)
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, *,
                    device: str | torch.device = "cuda") -> Params:

@@ -46,11 +46,13 @@ Routes can be recorded: with :attr:`moe_mlp.routes` set to a list (it is
 ``{"experts": (B, L, k) int64, "dropped": (B, L, k) bool}`` — the real
 experts each token chose, in choice order, and which choices the capacity
 dropped (a virtual split's slices drop together).  The tensors stay on the
-device.
+device.  A forward records once: the recomputation of a rematerialized
+period in the backward runs inside :func:`routes_paused`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -60,7 +62,7 @@ from repro_torch._topk import top_k
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import Params, draw_normal, init_mlp, mlp
 
-__all__ = ["init_moe", "moe_mlp"]
+__all__ = ["init_moe", "moe_mlp", "routes_paused"]
 
 
 def init_moe(cfg: ModelConfig, *, generator: torch.Generator, device,
@@ -217,3 +219,15 @@ def moe_mlp(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 #: route recorder: ``None`` (off) or a list each call appends to
 moe_mlp.routes = None
+
+
+@contextlib.contextmanager
+def routes_paused():
+    """Record no routes inside the block: a rematerialized period's
+    recomputation in the backward (``models/lm.py``) routes the same tokens
+    again, and a forward records its routes once."""
+    saved, moe_mlp.routes = moe_mlp.routes, None
+    try:
+        yield
+    finally:
+        moe_mlp.routes = saved

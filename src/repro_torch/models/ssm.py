@@ -8,7 +8,13 @@ Port of ``repro/models/ssm.py``.  The chunked algorithm (``ssd_chunked``) is
 the plain version of the hand-written kernel and lives beside it in
 ``repro_torch.kernels.ssd_scan``; the block's chunked route calls
 ``repro_torch.kernels.ops.ssd_scan``, which launches the kernel for CUDA
-tensors and runs ``ssd_chunked`` for CPU tensors.  :func:`ssd_reference` is
+tensors and runs ``ssd_chunked`` for CPU tensors.  Where autograd records
+the block (grad mode on and an SSD operand requiring a gradient, as in
+``Model.loss``), the chunked route calls ``ssd_chunked`` directly: the
+kernel has no backward (nor has the JAX package's), its wrapper raises
+rather than return an output without a ``grad_fn``, and the reference's
+block runs the jnp ``ssd_chunked`` on every route, so its gradient is that
+of the plain function, as the port's is.  :func:`ssd_reference` is
 the naive sequential recurrence.  The block's cache is updated in place.
 
 Single B/C group (n_groups=1), as in the assigned configs.
@@ -157,7 +163,8 @@ def mamba_block(
         )
         y = y[:, None]                                # (B,1,NH,P)
     elif use_chunked and l % cfg.ssm_chunk == 0 and l > cfg.ssm_chunk:
-        y, h = ops.ssd_scan(
+        ssd = ssd_chunked if ops.records_grad(xh, dt, a, bm, cm) else ops.ssd_scan
+        y, h = ssd(
             xh.contiguous(), dt.contiguous(), a, bm.contiguous(), cm.contiguous(),
             chunk=cfg.ssm_chunk,
         )

@@ -115,6 +115,7 @@ DOCTEST_MODULES = [
     "repro_torch.api.shm",
     "repro_torch.api.stream_executor",
     "repro_torch.checkpoint.checkpointer",
+    "repro_torch.optim.schedule",
 ]
 
 

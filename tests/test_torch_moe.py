@@ -1,9 +1,9 @@
 """The port's MoE MLP on the CPU vs the JAX package's, on the same weights.
 
-Every case of ``tests/test_moe.py`` and ``tests/test_moe_properties.py``
-but the gradient one (it waits for the training slice), each run through
-both packages on the same numpy inputs in float32 and held to the
-reference's 2e-5.  The onehot dispatch's kept/dropped (token, expert) sets
+Every case of ``tests/test_moe.py`` and ``tests/test_moe_properties.py``,
+each run through both packages on the same numpy inputs in float32 and
+held to the reference's 2e-5; the gradient case (``test_onehot_grads_finite``)
+also holds the port's gradients to ``jax.grad``'s.  The onehot dispatch's kept/dropped (token, expert) sets
 must be equal exactly: the JAX side's are read from its dispatch tensor
 (captured where the reference hands it to ``shard``), the port's from its
 route recorder (``moe_mlp.routes``).  The places where a faithful port most
@@ -399,3 +399,60 @@ def test_plain_version_matches_reference(cf, vs, shared, tokens):
     assert torch.equal(experts, rec["experts"]) and torch.equal(dropped, rec["dropped"])
     if cf != 1.25:  # 0.5 drops, E/k cannot
         assert bool(dropped.any()) == (cf < 1)
+
+
+# ---------------------------------------------------------------------------
+# gradients (tests/test_moe.py::test_onehot_grads_finite)
+# ---------------------------------------------------------------------------
+
+
+def _grads(tp, tcfg, tx, impl):
+    diff = {k: v.clone().requires_grad_() if torch.is_tensor(v) else
+            {kk: vv.clone().requires_grad_() for kk, vv in v.items()} for k, v in tp.items()}
+    x = tx.clone().requires_grad_()
+    fn = tmoe._moe_onehot if impl == "onehot" else tmoe._moe_ragged
+    out = fn(diff, tcfg, x) if "shared" not in diff else tmoe.moe_mlp(diff, tcfg, x)
+    torch.sum(out ** 2).backward()
+    return diff, x
+
+
+def test_onehot_grads_finite():
+    jcfg, tcfg = _cfgs(moe_impl="onehot", moe_capacity_factor=1.25)
+    _, tp = _params(jcfg, 8)
+    _, tx = _x(32, b=2, l=64, seed=9)
+    diff, _ = _grads(tp, tcfg, tx, "onehot")
+    grads = [v.grad for v in diff.values()]
+    assert all(torch.isfinite(g).all() for g in grads)
+    assert sum(float(g.abs().sum()) for g in grads) > 0
+
+
+@pytest.mark.parametrize("impl,cf,vs,shared", [
+    ("onehot", 1.25, 1, 0), ("onehot", 0.5, 1, 0), ("onehot", 1.0, 2, 0),
+    ("onehot", 1.25, 1, 1), ("ragged", 1.25, 1, 0),
+])
+def test_grads_match_reference(impl, cf, vs, shared):
+    """The gradient of ``sum(moe(x)²)`` with respect to every weight and to
+    ``x`` against ``jax.grad``'s, with tokens dropped (cf 0.5, 1.25), a
+    virtual split and shared experts: the drop mask and the gate carry the
+    gradient alike."""
+    jcfg, tcfg = _cfgs(moe_impl=impl, moe_capacity_factor=cf, moe_virtual_split=vs,
+                       moe_shared_experts=shared)
+    jp, tp = _params(jcfg, 10)
+    jx, tx = _x(32, b=2, l=32, seed=11)
+    fn = {"onehot": jmoe._moe_onehot, "ragged": jmoe._moe_ragged}[impl]
+
+    def jloss(p, x):
+        return jnp.sum((jmoe.moe_mlp(p, jcfg, x) if shared else fn(p, jcfg, x)) ** 2)
+
+    jg, jgx = jax.grad(jloss, argnums=(0, 1))(jp, jx)
+    diff, x = _grads(tp, tcfg, tx, impl)
+    for name, leaf in diff.items():
+        pairs = [(leaf, jg[name])] if torch.is_tensor(leaf) else [
+            (v, jg[name][k]) for k, v in leaf.items()]
+        for got, want in pairs:
+            np.testing.assert_allclose(got.grad.numpy(), np.asarray(want), **GRAD_TOL)
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(jgx), **GRAD_TOL)
+
+
+#: the backward sums over every token and slot: the forward's 2e-5, loosened
+GRAD_TOL = dict(rtol=1e-4, atol=1e-4)

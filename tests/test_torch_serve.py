@@ -85,6 +85,10 @@ def test_serve_cli_serves_frames_and_images(capsys, arch):
     assert "dispatches=5" in out and "first request's tokens:" in out
 
 
-def test_serve_cli_checkpoint_restore_not_ported():
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        serve_cli.main(["--arch", "qwen3-32b", "--device", "cpu", "--ckpt-dir", "x"])
+def test_serve_cli_checkpoint_restore_not_ported(tmp_path):
+    """``--ckpt-dir`` restores now (``tests/test_torch_runtime.py``); a
+    directory without a committed checkpoint raises rather than serve
+    random weights."""
+    with pytest.raises(AssertionError, match="no committed checkpoint"):
+        serve_cli.main(["--arch", "qwen3-32b", "--device", "cpu", "--ckpt-dir",
+                        str(tmp_path)])

@@ -305,6 +305,29 @@ cluster runs as ``mesh_launches``, ``service_launches`` and
   requires a gradient, and neither kernel launches in the whole phase (the
   model takes the plain attention and SSD under autograd).  The kernels
   line gives ``train_launches`` (0 for every kernel).
+* ``distributed``: the distribution substrate (``repro_torch.distributed``,
+  ``launch/mesh.py``), every rank a position on the card.  ``rank_threads``
+  times 400 small operations launched by one thread, by 8 threads at once
+  and by 8 ``shard_map`` ranks in turn, and an empty 8-rank call against
+  starting 8 threads.  ``sharded_train``: lm100m whole, one
+  ``sharded_train_step`` on a (2, 2, 2) ``(pod, data, model)`` mesh (params
+  placed by ``params_shardings``, data-parallel over ``(pod, data)``)
+  against the unsharded step, loss within 5e-3, the gradient gap printed.
+  ``collectives``: its f32 gradient tree through ``psum_pod_hierarchical``
+  and a flat ``psum`` on (2, 4) ``(pod, data)``: within 1e-6 of each other
+  and 1e-5 of 8× the input, two runs bit-identical, GB/s beside a clone's;
+  ``compressed_psum_pod`` on the largest leaf within the int8 bound.
+  ``elastic_restore``: params and AdamW moments saved from an (8,)
+  placement, restored onto (2,), bit-equal.  ``gpipe``: the 12 layers as 4
+  stages of 3 on (4, 2) ``(pipe, data)``, 8 microbatches of 8 × 1024 bf16
+  hidden states, against the layers in order (``BF16_TOL``), the flash
+  kernel launched 8 ranks × 11 ticks × 3 layers = 264 times.  Decode:
+  qwen3-32b at 8 layers, 64 steps, under ``"decomposed"`` (bf16 and f32,
+  against the default path) and ``"sharded_dus"`` on (2, 4) ``(data,
+  model)``; deepseek-7b (2 layers) under ``decode_rules_headsharded`` and
+  deepseek-v2-236b (2 layers) under ``"sharded_dus"``, 16 steps: logits and
+  caches bit-equal to the default path; ms per step beside it.  The kernels
+  line gives ``distributed_launches``.
 
 Output: the card's name and power limit (``nvidia-smi``) on the first line,
 the compiler's registers, stack, spills and shared memory per kernel (a
@@ -325,6 +348,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -3784,6 +3808,407 @@ def train_phase(seed: int, dev: torch.device, card: str) -> dict:
     return launches
 
 
+#: the distributed phase (single-controller ranks, all on cuda:0).  lm100m's
+#: train-phase batch for the sharded step on a (2, 2, 2) mesh, held to the
+#: reference's 5e-3 on the loss (tests/_dist_child.py:139); its f32 gradient
+#: tree for the collectives on a (2, 4) mesh, the hierarchical psum against
+#: the flat one within 1e-6 and 8× the input within 1e-5 (relative, element
+#: by element; tests/_dist_child.py:52-55); gpipe over lm100m's 12 layers as
+#: 4 stages of 3 on a (4, 2) mesh, 8 microbatches of 8 × 1024 bf16 hidden
+#: states, against the layers applied in order within BF16_TOL; the decode
+#: paths on qwen3-32b at 8 layers (the serve row's config).  The decomposed
+#: path against the default one: f32 within F32_LOGIT_TOL (the two differ
+#: only in the softmax's association; the reference's smoke test holds 2e-5
+#: at width 64), bf16 within the qwen3 serve row's 0.25 (each attention
+#: output rounds to bf16 once more: two products summed)
+DIST_STEPS, DIST_DECOMPOSED_BF16_TOL = 64, 0.25
+DIST_PIPE_STAGES, DIST_MICRO, DIST_MB = 4, 8, 8
+DIST_MLA_STEPS = 16
+
+
+def _wall_ms(fn) -> tuple[float, object]:
+    """``fn()``'s result and its wall time ending in a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0), out
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch._pytree import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _leading_data_shardings(tree, mesh):
+    """Every leaf over ``data`` on its first dim that the axis divides
+    (replicated where none does)."""
+    from repro_torch._pytree import tree_map
+    from repro_torch.distributed import NamedSharding, P
+
+    n = mesh.shape["data"]
+
+    def one(t):
+        for d, size in enumerate(t.shape):
+            if size % n == 0:
+                return NamedSharding(mesh, P(*([None] * d), "data"))
+        return NamedSharding(mesh, P())
+
+    return tree_map(one, tree)
+
+
+def _decode_run(model, params, tokens, cache, rules) -> tuple:
+    """One decode step per column of ``tokens`` (B, steps) from the
+    prefilled ``cache`` (a copy of it is written), the same tokens on every
+    path, under ``rules``: the logits (B, steps, V), the ms per step and the
+    final cache."""
+    from repro_torch._pytree import tree_map
+    from repro_torch.distributed.sharding import use_rules
+
+    cache = tree_map(torch.clone, cache)
+    out = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad(), use_rules(rules):
+        for t in range(tokens.shape[1]):
+            logits, cache = model.decode_step(params, cache, tokens[:, t:t + 1],
+                                              SERVE_PROMPT + t)
+            out.append(logits)
+    torch.cuda.synchronize()
+    return torch.stack(out, 1), 1e3 * (time.perf_counter() - t0) / tokens.shape[1], cache
+
+
+def _prefilled(arch: str, overrides: dict, dtype: str, seed: int, dev, steps: int) -> tuple:
+    """The config at full width (``overrides`` cut depth), random params from
+    ``seed`` in ``dtype``, a cache holding the prefill of a batch of
+    SERVE_PROMPT-token prompts, and the (B, steps) tokens every decode path
+    is fed."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config(arch), dtype=dtype, **overrides)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+    toks = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT + steps), dtype=np.int64), device=dev)
+    cache = model.init_cache(SERVE_BATCH, SERVE_PROMPT + steps, dtype=getattr(torch, dtype),
+                             device=dev)
+    with torch.no_grad():
+        model.prefill(params, {"tokens": toks[:, :SERVE_PROMPT]}, cache)
+    return model, params, toks[:, SERVE_PROMPT:], cache
+
+
+def distributed_phase(seed: int, dev: torch.device, card: str) -> dict:
+    """The distribution substrate on the card (``repro_torch.distributed``,
+    ``launch/mesh.py``): every rank a position on ``dev``."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch._pytree import tree_leaves, tree_map
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.distributed import (
+        P,
+        compressed_psum_pod,
+        data_parallel_gradients,
+        decode_rules,
+        decode_rules_headsharded,
+        device_put,
+        gpipe,
+        params_shardings,
+        psum,
+        psum_pod_hierarchical,
+        shard_map,
+        sharded_train_step,
+    )
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.launch.train import _preset
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import _apply_layer
+    from repro_torch.optim import accumulate_gradients, adamw_update
+    from repro_torch.runtime import TrainConfig, Trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launches()
+    t_phase = time.perf_counter()
+    mesh_of = lambda shape, axes: compat_make_mesh(shape, axes, devices=(dev,))  # noqa: E731
+
+    # ---- rank threads: why the ranks take turns and the threads are kept ----
+    cache_row = torch.zeros((SERVE_BATCH, 8, 128), device=dev, dtype=torch.bfloat16)
+
+    def ops(n=50):
+        for _ in range(n):
+            cache_row[:, 3].fill_(1)
+
+    def threads_of(target):
+        threads = [threading.Thread(target=target) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+
+    mesh_8 = mesh_of((8,), ("data",))
+    turns = shard_map(lambda: ops(), mesh=mesh_8, in_specs=(), out_specs=None)
+    empty = shard_map(lambda: None, mesh=mesh_8, in_specs=(), out_specs=None)
+    rows = {}
+    for name, fn in (("one_thread_ms", lambda: ops(400)),
+                     ("eight_threads_at_once_ms", lambda: threads_of(ops)),
+                     ("shard_map_turns_ms", turns), ("shard_map_empty_ms", empty),
+                     ("start_8_threads_ms", lambda: threads_of(lambda: None))):
+        fn()
+        rows[name] = statistics.median(_wall_ms(fn)[0] for _ in range(20))
+    emit({"phase": "distributed", "run": "rank_threads", "card": card,
+          "ops": "400 one-row fills of a bf16 (8, 8, 128) tensor: by one thread, by 8 "
+                 "threads at once (50 each), by 8 shard_map ranks in turn (50 each)",
+          **rows})
+
+    # ---- sharded_train: lm100m whole, one step on (pod, data, model) = (2, 2, 2) ----
+    mc = dataclasses.replace(_preset("lm100m"), attn_impl="flash")
+    tr = Trainer(mc, TrainConfig(global_batch=TRAIN_BATCH, num_blocks=TRAIN_BLOCKS,
+                                 seq_len=TRAIN_SEQ, steps=TRAIN_STEPS, seed=seed), device=dev)
+    params, opt = tr.init_state()
+    blocks = {k: torch.as_tensor(v).to(dev) for k, v in tr.pipeline.peek(0).items()}
+    loss_fn = tr.model.loss
+    accumulate_gradients(loss_fn, params, blocks)  # warm-up
+    p_copy, o_copy = tree_map(torch.clone, params), tree_map(torch.clone, opt)
+
+    def unsharded_step():
+        loss, grads = accumulate_gradients(loss_fn, params, blocks)
+        adamw_update(p_copy, grads, o_copy, lr=1e-3)
+        return loss, grads
+
+    plain_ms, (loss_ref, grads_ref) = _wall_ms(unsharded_step)
+    del p_copy, o_copy
+    mesh3 = mesh_of((2, 2, 2), ("pod", "data", "model"))
+    placed = device_put(params, params_shardings(params, mesh3))
+    torch.cuda.reset_peak_memory_stats(dev)
+    dp_ms, (loss_dp, grads_dp) = _wall_ms(lambda: data_parallel_gradients(
+        loss_fn, placed, blocks, mesh=mesh3))
+    dp_peak = torch.cuda.max_memory_allocated(dev)
+    grad_gap = _grad_gap(grads_dp, grads_ref)
+    del grads_dp
+    sharded_ms, (placed, opt, loss) = _wall_ms(lambda: sharded_train_step(
+        loss_fn, placed, opt, blocks, mesh=mesh3, lr=1e-3))
+    loss_gap = abs(float(loss) - float(loss_ref))
+    emit({"phase": "distributed", "run": "sharded_train", "card": card, "mesh": mesh3.shape,
+          "params": sum(t.numel() for t in tree_leaves(params)),
+          "tokens": TRAIN_BATCH * TRAIN_SEQ, "loss": float(loss),
+          "unsharded_loss": float(loss_ref), "loss_gap": loss_gap,
+          "loss_gap_dp_grads_only": abs(float(loss_dp) - float(loss_ref)),
+          "grad_gap_vs_unsharded": grad_gap, "ms_per_step": sharded_ms,
+          "dp_gradients_first_call_ms": dp_ms, "dp_peak_memory_gb": dp_peak / 1e9,
+          "unsharded_step_ms": plain_ms,
+          "tensor_parallel": "not emulated: the model ranks of a (pod, data) position "
+                             "compute the same gradients"})
+    check(loss_gap <= 5e-3, f"sharded_train: loss {float(loss)} vs unsharded "
+          f"{float(loss_ref)}")
+    check(all(a.sharding == b.sharding for a, b in zip(
+        tree_leaves(placed), tree_leaves(device_put(params, params_shardings(params, mesh3))))),
+        "sharded_train: the params keep their layouts")
+
+    # ---- collectives: the f32 gradient tree on (pod, data) = (2, 4) ----
+    mesh24 = mesh_of((2, 4), ("pod", "data"))
+    grads = grads_ref
+    nbytes = _tree_bytes(grads)
+    flat_psum = shard_map(lambda t: psum(t, ("pod", "data")), mesh=mesh24, in_specs=(P(),),
+                          out_specs=P(), check_vma=False)
+    psum_pod_hierarchical(grads, mesh24)  # warm-up
+    copy_ms, copies = _wall_ms(lambda: tree_map(torch.clone, grads))
+    del copies
+    hier_ms, hier = _wall_ms(lambda: psum_pod_hierarchical(grads, mesh24))
+    hier_again_ms, hier_again = _wall_ms(lambda: psum_pod_hierarchical(grads, mesh24))
+    flat_ms, flat = _wall_ms(lambda: flat_psum(grads))
+    identical = all(torch.equal(a, b) for a, b in zip(tree_leaves(hier), tree_leaves(hier_again)))
+    vs_flat = max(float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+                  for a, b in zip(tree_leaves(hier), tree_leaves(flat)) if b.numel())
+    vs_8x = max(float(((a - 8 * g).abs() / (8 * g).abs().clamp(min=1e-30)).max())
+                for a, g in zip(tree_leaves(hier), tree_leaves(grads)) if g.numel())
+    del hier, hier_again, flat
+    big = max(tree_leaves(grads), key=lambda t: t.numel())
+    comp = shard_map(lambda v: compressed_psum_pod(v, fast_axis="data", slow_axis="pod"),
+                     mesh=mesh24, in_specs=(P(),), out_specs=P(), check_vma=False)
+    comp(big)
+    comp_ms, got = _wall_ms(lambda: comp(big))
+    want = 8 * big
+    # the bound of tests/_dist_child.py:65 over the quantization's rows: one
+    # scale per index of the leading dim (per row of a 2-d leaf)
+    rows = want.reshape(want.shape[0], -1)
+    bound_rows = 2 * (rows.abs().amax(-1, keepdim=True) / 127.0) * 1.01 + 1e-6
+    comp_ok = bool(((got.reshape(rows.shape) - rows).abs() <= bound_rows).all())
+    comp_err = float((got - want).abs().max())
+    emit({"phase": "distributed", "run": "collectives", "card": card, "mesh": mesh24.shape,
+          "leaves": len(tree_leaves(grads)), "bytes": nbytes,
+          "hierarchical_ms": hier_ms, "hierarchical_again_ms": hier_again_ms,
+          "flat_ms": flat_ms, "clone_ms": copy_ms,
+          "hierarchical_GBps": nbytes / hier_ms / 1e6, "flat_GBps": nbytes / flat_ms / 1e6,
+          "clone_GBps": nbytes / copy_ms / 1e6,
+          "hierarchical_vs_flat_rel": vs_flat, "hierarchical_vs_8x_rel": vs_8x,
+          "runs_bit_identical": identical, "compressed_leaf": list(big.shape),
+          "compressed_ms": comp_ms, "compressed_GBps": big.numel() * 4 / comp_ms / 1e6,
+          "compressed_max_err": comp_err, "compressed_within_int8_bound": comp_ok})
+    check(vs_flat <= 1e-6, f"collectives: hierarchical vs flat psum {vs_flat} > 1e-6")
+    check(vs_8x <= 1e-5, f"collectives: hierarchical vs 8x the input {vs_8x} > 1e-5")
+    check(identical, "collectives: two hierarchical runs are bit-identical")
+    check(comp_ok, f"collectives: compressed psum within the int8 bound ({comp_err})")
+    del got, want, rows, bound_rows, grads, grads_ref
+
+    # ---- elastic_restore: params and AdamW moments saved from (8,), restored onto (2,) ----
+    mesh8, mesh2 = mesh_of((8,), ("data",)), mesh_of((2,), ("data",))
+    state = (params, opt)
+    saved = device_put(state, _leading_data_shardings(state, mesh8))
+    with tempfile.TemporaryDirectory() as d:
+        ck = Checkpointer(d)
+        save_ms, _ = _wall_ms(lambda: ck.save(1, saved, blocking=True))
+        del saved
+        template = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), state)
+        restore_ms, (restored, _, step) = _wall_ms(lambda: ck.restore(
+            template, shardings=_leading_data_shardings(state, mesh2)))
+    equal = all(torch.equal(r.full(), t) for r, t in zip(tree_leaves(restored),
+                                                           tree_leaves(state)))
+    devices = {r.sharding.num_devices for r in tree_leaves(restored)}
+    emit({"phase": "distributed", "run": "elastic_restore", "card": card,
+          "bytes": _tree_bytes(state), "leaves": len(tree_leaves(state)),
+          "save_s": save_ms / 1e3, "restore_s": restore_ms / 1e3, "bit_equal": equal,
+          "num_devices": sorted(devices)})
+    check(step == 1 and equal, "elastic_restore: the restored params and moments are bit-equal")
+    check(devices == {2}, f"elastic_restore: restored onto 2 ranks ({devices})")
+    del restored, state, params, opt, placed, tr, blocks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- gpipe: lm100m's 12 layers as 4 stages of 3 on (pipe, data) = (4, 2) ----
+    cfg = dataclasses.replace(mc, dtype="bfloat16")
+    lm = build_model(cfg)
+    weights = lm.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+    ((spec,),) = (seg.period for seg in cfg.segments())
+    per = cfg.num_layers // DIST_PIPE_STAGES
+    stages = tree_map(lambda t: t.reshape(DIST_PIPE_STAGES, per, *t.shape[1:]), weights["seg0"])
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    xs = torch.randn((DIST_MICRO, DIST_MB, TRAIN_SEQ, cfg.d_model), generator=g, device=dev,
+                     dtype=torch.bfloat16)
+    ctx = {"positions": torch.arange(TRAIN_SEQ, device=dev).expand(DIST_MB, TRAIN_SEQ)}
+
+    def stage_fn(p, x):
+        for i in range(per):
+            x = _apply_layer(tree_map(lambda t: t[i], p)[0], spec, cfg, x, ctx, None)
+        return x
+
+    mesh_pipe = mesh_of((DIST_PIPE_STAGES, 2), ("pipe", "data"))
+    before = read_launches()["flash_attention"]
+    with torch.no_grad():
+        gpipe_ms, piped = _wall_ms(lambda: gpipe(stage_fn, stages, xs, mesh=mesh_pipe))
+    gpipe_launches = read_launches()["flash_attention"] - before
+    saved_counts = read_launches()
+    with torch.no_grad():  # the comparison run launches off the count
+        seq_ms, sequential = _wall_ms(lambda: torch.stack(
+            [_layers_in_order(stage_fn, stages, x) for x in xs]))
+    for name, fn in kernel_counters().items():
+        fn.launches = saved_counts[name]
+    gap = float((piped.float() - sequential.float()).abs().max())
+    ticks = DIST_MICRO + DIST_PIPE_STAGES - 1
+    want_launches = mesh_pipe.size * ticks * per
+    emit({"phase": "distributed", "run": "gpipe", "card": card, "mesh": mesh_pipe.shape,
+          "stages": DIST_PIPE_STAGES, "layers_per_stage": per, "microbatches": DIST_MICRO,
+          "microbatch": [DIST_MB, TRAIN_SEQ, cfg.d_model], "dtype": "bfloat16",
+          "ms": gpipe_ms, "sequential_ms": seq_ms,
+          "ticks_over_microbatches": ticks / DIST_MICRO,
+          "flash_launches": gpipe_launches, "flash_launches_expected": want_launches,
+          "max_abs_err_vs_sequential": gap, "bit_identical": bool(torch.equal(piped, sequential)),
+          "tol": BF16_TOL})
+    check(gpipe_launches == want_launches,
+          f"gpipe: flash_attention launches {gpipe_launches} != {want_launches}")
+    check(bool(torch.allclose(piped.float(), sequential.float(), **BF16_TOL)),
+          f"gpipe: the pipeline against the layers in order ({gap})")
+    del lm, weights, stages, xs, piped, sequential
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- decode paths ----
+    qwen = SERVE["qwen3-32b"]["overrides"]
+    mesh11 = mesh_of((1, 1), ("data", "model"))
+    mesh_dm = mesh_of((2, 4), ("data", "model"))
+    for dtype in ("bfloat16", "float32"):
+        model, params, toks, cache = _prefilled("qwen3-32b", qwen, dtype, seed, dev, DIST_STEPS)
+        _decode_run(model, params, toks[:, :2], cache, None)  # warm-up
+        base, base_ms, base_cache = _decode_run(model, params, toks, cache, None)
+        rules = dataclasses.replace(decode_rules(mesh11), cache_impl="decomposed")
+        dec, dec_ms, _ = _decode_run(model, params, toks, cache, rules)
+        v = model.cfg.vocab_size
+        err = float((dec[..., :v].float() - base[..., :v].float()).abs().max())
+        tol = DIST_DECOMPOSED_BF16_TOL if dtype == "bfloat16" else F32_LOGIT_TOL
+        emit({"phase": "distributed", "run": f"decode/decomposed/{dtype}", "card": card,
+              "arch": "qwen3-32b", "layers": model.cfg.num_layers, "batch": SERVE_BATCH,
+              "prompt": SERVE_PROMPT, "steps": DIST_STEPS, "mesh": mesh11.shape,
+              "decode_ms_per_step": dec_ms, "default_decode_ms_per_step": base_ms,
+              "max_abs_err_vs_default": err,
+              "logit_max_abs": float(base[..., :v].float().abs().max()), "tol": tol})
+        check(err <= tol, f"decode/decomposed/{dtype}: {err} > {tol}")
+        if dtype == "bfloat16":
+            _sharded_decode_row("qwen3-32b", model, params, toks, cache, base, base_ms,
+                                base_cache, dataclasses.replace(decode_rules(mesh_dm),
+                                                                cache_impl="sharded_dus"), card)
+        del model, params, cache, base, dec, base_cache
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch, layers, rules in (
+        ("deepseek-7b", 2, decode_rules_headsharded(mesh_dm)),
+        ("deepseek-v2-236b", 2, dataclasses.replace(decode_rules(mesh_dm),
+                                                    cache_impl="sharded_dus")),
+    ):
+        over = {"num_layers": layers, "attn_impl": "flash" if arch == "deepseek-7b" else "ref"}
+        model, params, toks, cache = _prefilled(arch, over, "bfloat16", seed, dev, DIST_MLA_STEPS)
+        _decode_run(model, params, toks[:, :2], cache, None)  # warm-up
+        base, base_ms, base_cache = _decode_run(model, params, toks, cache, None)
+        _sharded_decode_row(arch, model, params, toks, cache, base, base_ms, base_cache,
+                            rules, card)
+        del model, params, cache, base, base_cache
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    launches = read_launches()
+    emit({"phase": "distributed", "run": "launches", "card": card, "launches": launches,
+          "gpipe_flash_launches": gpipe_launches, "seconds": time.perf_counter() - t_phase})
+    check(launches["flash_attention"] > 0, f"distributed: flash_attention launched ({launches})")
+    return launches
+
+
+def _layers_in_order(stage_fn, stages, x):
+    """The stages' layers applied to ``x`` one stage after another."""
+    from repro_torch._pytree import tree_leaves, tree_map
+
+    for s in range(tree_leaves(stages)[0].shape[0]):
+        x = stage_fn(tree_map(lambda t: t[s], stages), x)
+    return x
+
+
+def _sharded_decode_row(arch, model, params, toks, cache, base, base_ms, base_cache, rules,
+                        card: str) -> None:
+    """The decode under ``rules`` (a (2, 4) mesh) against the default path's
+    ``base`` logits and final cache: bit-equal."""
+    from repro_torch._pytree import tree_leaves
+
+    steps = toks.shape[1]
+    got, ms, got_cache = _decode_run(model, params, toks, cache, rules)
+    same_logits = bool(torch.equal(got, base))
+    same_cache = all(torch.equal(a, b) for a, b in zip(tree_leaves(got_cache),
+                                                        tree_leaves(base_cache)))
+    writes = 2 * model.cfg.num_layers * steps if rules.cache_impl == "sharded_dus" else 0
+    emit({"phase": "distributed", "run": f"decode/{rules.cache_impl}/{arch}", "card": card,
+          "layers": model.cfg.num_layers, "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
+          "steps": steps, "mesh": rules.mesh.shape, "cache_impl": rules.cache_impl,
+          "decode_ms_per_step": ms, "default_decode_ms_per_step": base_ms,
+          "shard_map_writes": writes,
+          "overhead_ms_per_shard_map_write": (ms - base_ms) * steps / writes if writes else None,
+          "logits_bit_equal": same_logits, "caches_bit_equal": same_cache})
+    check(same_logits and same_cache,
+          f"decode/{rules.cache_impl}/{arch}: logits and caches bit-equal to the default path")
+
+
 SAMPLED_STEPS = 8
 
 
@@ -3902,12 +4327,15 @@ def main(argv=None) -> int:
     moe_phase(args.seed, dev)
     torch.cuda.empty_cache()
     train_launches = train_phase(args.seed, dev, card)
+    torch.cuda.empty_cache()
+    distributed_launches = distributed_phase(args.seed, dev, card)
     kernels += lm_kernel_checks(args.seed, dev, x_values, launches, by_run)
     for k in kernels:  # launches on the mesh and service paths (None: not on them)
         k["mesh_launches"] = mesh_launches.get(k["name"])
         k["service_launches"] = service_launches.get(k["name"])
         k["cluster_launches"] = cluster_launches.get(k["name"])
         k["train_launches"] = train_launches[k["name"]]
+        k["distributed_launches"] = distributed_launches[k["name"]]
     check(len(kernels) == 5 and all(k["launches"] > 0 for k in kernels),
           f"every kernel launched on its path: {launches}")
     check(launches["flash_attention_split"] > 0 and launches["split_kv"] > 0,

@@ -30,6 +30,10 @@ Layout of one checkpoint step directory (the JAX package's, file for file)::
 * **self-describing** — :meth:`load_manifest` reads a step without a
   template; :meth:`restore` rebuilds the template's structure and puts each
   leaf on the template leaf's device and dtype.
+* **elastic** — a :class:`~repro_torch.distributed.spmd.ShardedTensor`
+  leaf is saved as its full value, and ``restore(..., shardings=...)``
+  places each leaf by its sharding on the current mesh, whatever layout
+  it was saved from (8 ranks restore onto 2).
 
 >>> import tempfile, torch
 >>> ckpt = Checkpointer(tempfile.mkdtemp())
@@ -52,6 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch._pytree import dataclass_fields
+from repro_torch.distributed.spmd import ShardedTensor
 
 __all__ = ["Checkpointer"]
 
@@ -102,6 +107,8 @@ def _dtype_name(dtype) -> str:
 def _host(leaf) -> np.ndarray:
     """A leaf's host copy as the array the leaf file holds (a copy even of a
     CPU tensor: the caller may mutate its tensors once ``save`` returns)."""
+    if isinstance(leaf, ShardedTensor):
+        leaf = leaf.full("cpu")
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -160,7 +167,7 @@ class Checkpointer:
                 {
                     "shape": list(h.shape),
                     "dtype": _dtype_name(leaf.dtype)
-                    if isinstance(leaf, torch.Tensor)
+                    if isinstance(leaf, (torch.Tensor, ShardedTensor))
                     else str(h.dtype),
                 }
                 for (_, leaf), h in zip(flat, host_leaves)
@@ -230,14 +237,19 @@ class Checkpointer:
             return json.load(f), step
 
     def restore(
-        self, template: Any, *, step: int | None = None
+        self, template: Any, *, step: int | None = None, shardings: Any | None = None
     ) -> tuple[Any, dict[str, Any], int]:
         """Restore into the structure of ``template`` (shapes must match).
 
-        Each leaf goes onto the template leaf's device and dtype; a leaf
-        whose template lies on the ``meta`` device (a shape-only template,
-        as ``jax.eval_shape`` gives the JAX package) goes onto the host.
-        Returns ``(tree, extras, step)``.
+        Each leaf takes the template leaf's dtype and goes onto its device;
+        a leaf whose template lies on the ``meta`` device (a shape-only
+        template, as ``jax.eval_shape`` gives the JAX package) goes onto the
+        host.  ``shardings`` (a tree like ``template`` of
+        :class:`~repro_torch.distributed.spmd.NamedSharding`, ``None``
+        leaves left to the template) places every leaf as a
+        :class:`~repro_torch.distributed.spmd.ShardedTensor` on the current
+        mesh — the elastic-restart path; a ``ShardedTensor`` template leaf
+        without one keeps its own sharding.  Returns ``(tree, extras, step)``.
         """
         self.wait()
         step = step if step is not None else self.latest_step()
@@ -249,6 +261,12 @@ class Checkpointer:
 
         flat = _flatten_with_paths(template)
         assert len(flat) == len(manifest["leaves"]), (len(flat), len(manifest["leaves"]))
+        placements = (
+            [s for _, s in _flatten_with_paths(shardings)]
+            if shardings is not None
+            else [None] * len(flat)
+        )
+        assert len(placements) == len(flat), (len(placements), len(flat))
         out_leaves = []
         for i, ((_, tmpl), meta) in enumerate(zip(flat, manifest["leaves"])):
             arr = np.load(os.path.join(d, f"leaf_{i:05d}.npy"))
@@ -258,8 +276,15 @@ class Checkpointer:
                 arr.shape,
                 tmpl.shape,
             )
+            value = _from_host(arr, meta["dtype"]).to(dtype=tmpl.dtype)
+            placement = placements[i]
+            if placement is None and isinstance(tmpl, ShardedTensor):
+                placement = tmpl.sharding
+            if placement is not None:
+                out_leaves.append(ShardedTensor.from_global(value, placement))
+                continue
             device = "cpu" if tmpl.device.type == "meta" else tmpl.device
-            out_leaves.append(_from_host(arr, meta["dtype"]).to(device=device, dtype=tmpl.dtype))
+            out_leaves.append(value.to(device=device))
         tree = _unflatten(template, iter(out_leaves))
         return tree, manifest["extras"], step
 

@@ -1,0 +1,781 @@
+"""Single-controller SPMD over a mesh of device positions.
+
+The port's stand-in for what ``jax.sharding`` and ``shard_map`` give the
+JAX package: a :class:`Mesh`, :class:`PartitionSpec` (``P``),
+:class:`NamedSharding`, a :class:`ShardedTensor` that holds one local
+tensor per rank, :func:`device_put`, :func:`shard_map` with collectives
+inside its body, and the data-parallel train step built on them.
+
+**Why one process.**  The JAX package is single-controller: one process
+drives every device of a mesh, and its tests force 8 host devices.
+``torch.distributed`` runs one process per rank, NCCL refuses two ranks on
+one card, and a host may have one card or none.  So the port keeps the
+reference's model, as :class:`~repro_torch.api.mesh_executor.MeshExecutor`
+does: one process drives every rank, and a rank is a position of a device
+array that may repeat a device (8 ranks on ``cuda:0``, or on ``cpu``).
+
+**shard_map.**  The body runs once per rank, in one thread per rank (a
+one-rank mesh runs it in the caller's thread; the threads are kept and
+reused across calls).  The ranks take turns: rank *r* runs until its next
+collective and hands over to rank *r + 1*, so one rank thread runs at a
+time, in rank order between collectives (:class:`_Rendezvous` says why).
+Each thread runs with the caller's grad mode and, on a card, the caller's
+current stream of that device, so the ranks of one card queue their work
+on one stream in the order the host queues it: a collective reads the
+tensors other ranks queued before they reached it.  Inputs are split into rank-local shards by
+``in_specs``; a rank whose device holds the input gets a *view* of it, so
+an in-place write in the body lands in the caller's tensor (the decode
+cache's sharded write relies on this).  Outputs are assembled by
+``out_specs`` into global tensors on rank 0's device; a replicated output
+axis takes rank 0 of that axis, as JAX does with ``check_vma=False``.
+``check_vma`` is accepted for the reference's signature and checks
+nothing.
+
+**Collectives** (:func:`psum`, :func:`psum_scatter`, :func:`all_gather`,
+:func:`ppermute`, :func:`axis_index`, :func:`axis_size`) are rendezvous of
+the rank threads: every rank of the mesh deposits its operand, and once all
+have, each computes its result with torch ops on its own device.
+
+* Reductions fold in rank order (position order within the group), never
+  arrival order, so a result does not depend on thread timing.
+* ``psum`` and ``all_gather`` are computed once per group and device, and
+  the group's ranks on that device receive the same tensor: treat a
+  collective's result as read-only, as JAX's values are.
+* ``ppermute`` gives zeros to a rank that no pair targets.
+* A rank that raises wakes the others into ``BrokenBarrierError``, and
+  the caller gets the raising rank's exception.  Ranks that call different
+  collectives (or one rank returns while another waits in one) raise
+  ``RuntimeError`` rather than hang.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import functools
+import math
+import queue
+import threading
+from typing import Any, Callable, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch._pytree import dataclass_fields, tree_leaves, tree_map
+
+__all__ = [
+    "Mesh",
+    "PartitionSpec",
+    "P",
+    "NamedSharding",
+    "ShardedTensor",
+    "device_put",
+    "shard_map",
+    "psum",
+    "psum_scatter",
+    "all_gather",
+    "ppermute",
+    "axis_index",
+    "axis_size",
+    "data_parallel_gradients",
+    "sharded_train_step",
+]
+
+
+# ---------------------------------------------------------------------------
+# mesh, specs, shardings
+# ---------------------------------------------------------------------------
+
+
+def _device(d) -> torch.device:
+    """``d`` as a torch.device with an index on CUDA (``cuda`` means the
+    current card), so that two spellings of one card compare equal."""
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def _axes(axis_name) -> tuple[str, ...]:
+    return tuple(axis_name) if isinstance(axis_name, (tuple, list)) else (axis_name,)
+
+
+class Mesh:
+    """An n-d array of device positions with named axes.
+
+    ``devices`` is an array (or nested sequence) of devices whose shape is
+    the mesh's; a device may appear more than once.  Rank *r* is position
+    *r* of ``devices`` in row-major order.  ``shape`` maps each axis name to
+    its size, as ``jax.sharding.Mesh.shape`` does.
+    """
+
+    def __init__(self, devices, axis_names: Sequence[str]):
+        arr = np.asarray(devices, dtype=object)
+        axis_names = tuple(axis_names)
+        if arr.ndim != len(axis_names):
+            raise ValueError(f"a {arr.ndim}-d device array for axes {axis_names}")
+        if len(set(axis_names)) != len(axis_names):
+            raise ValueError(f"repeated mesh axis in {axis_names}")
+        self._devices = np.empty(arr.shape, dtype=object)
+        for idx in np.ndindex(arr.shape):
+            self._devices[idx] = _device(arr[idx])
+        self.axis_names = axis_names
+        self.shape = dict(zip(axis_names, arr.shape))
+        self.device_list = tuple(self._devices.flat)
+        self._coords = [tuple(int(c) for c in np.unravel_index(r, arr.shape))
+                        for r in range(arr.size)] if arr.size else []
+        self._group_cache: dict[tuple[str, ...], dict] = {}
+        self._lock = threading.Lock()
+
+    @property
+    def devices(self) -> np.ndarray:
+        return self._devices
+
+    @property
+    def size(self) -> int:
+        return len(self.device_list)
+
+    def coords(self, rank: int) -> tuple[int, ...]:
+        return self._coords[rank]
+
+    def axis_size(self, axis_name) -> int:
+        return math.prod(self.shape[a] for a in _axes(axis_name))
+
+    def position(self, rank: int, axes: tuple[str, ...]) -> int:
+        """The rank's index along ``axes`` (row-major over them, in the
+        order given)."""
+        c = self._coords[rank]
+        pos = 0
+        for a in axes:
+            i = self.axis_names.index(a)
+            pos = pos * self.shape[a] + c[i]
+        return pos
+
+    def groups(self, axes: tuple[str, ...]) -> dict[int, tuple[tuple[int, ...], int]]:
+        """rank -> (its group's ranks in position order, its position), for
+        collectives over ``axes``: a group is the ranks that share their
+        coordinates on every other axis."""
+        with self._lock:
+            hit = self._group_cache.get(axes)
+            if hit is not None:
+                return hit
+            for a in axes:
+                if a not in self.shape:
+                    raise ValueError(f"axis {a!r} is not in the mesh's axes {self.axis_names}")
+            others = [i for i, a in enumerate(self.axis_names) if a not in axes]
+            by_key: dict[tuple, list[int]] = {}
+            for r, c in enumerate(self._coords):
+                by_key.setdefault(tuple(c[i] for i in others), []).append(r)
+            groups = [tuple(sorted(rs, key=lambda r: self.position(r, axes)))
+                      for rs in by_key.values()]
+            of = {r: (g, g.index(r)) for g in groups for r in g}
+            self._group_cache[axes] = of
+            return of
+
+    def _key(self):
+        return self.axis_names, tuple(self.shape.values()), self.device_list
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, Mesh) and self._key() == other._key()
+
+    def __hash__(self) -> int:
+        return hash(self._key())
+
+    def __repr__(self) -> str:
+        devs = sorted({str(d) for d in self.device_list})
+        return f"Mesh({self.shape}, devices={devs})"
+
+
+def _entry(e):
+    """A spec entry as JAX normalizes it: a one-axis tuple is the axis."""
+    if isinstance(e, (tuple, list)):
+        return e[0] if len(e) == 1 else tuple(e)
+    return e
+
+
+class PartitionSpec(tuple):
+    """Per-dimension mesh axes: ``None`` (replicated), an axis name, or a
+    tuple of axis names (the dim split over their product, row-major in the
+    order given; a one-axis tuple is that axis, as in JAX).  Dims past the
+    spec's length are replicated."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, tuple(_entry(e) for e in entries))
+
+    def __repr__(self) -> str:
+        return "P" + (tuple.__repr__(self) if len(self) != 1 else f"({self[0]!r})")
+
+
+P = PartitionSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A :class:`PartitionSpec` over a :class:`Mesh`."""
+
+    mesh: Mesh
+    spec: PartitionSpec
+
+    def __post_init__(self):
+        object.__setattr__(self, "spec", PartitionSpec(*self.spec))
+        seen: list[str] = []
+        for e in self.spec:
+            for a in _axes(e) if e is not None else ():
+                if a not in self.mesh.shape:
+                    raise ValueError(f"spec {self.spec}: no axis {a!r} in {self.mesh}")
+                if a in seen:
+                    raise ValueError(f"spec {self.spec} names axis {a!r} twice")
+                seen.append(a)
+
+    @property
+    def num_devices(self) -> int:
+        """The mesh's rank count, as ``jax.sharding.NamedSharding.num_devices``."""
+        return self.mesh.size
+
+    def _entry(self, d: int):
+        return self.spec[d] if d < len(self.spec) else None
+
+    def shard_shape(self, shape: Sequence[int]) -> tuple[int, ...]:
+        out = []
+        for d, n in enumerate(shape):
+            e = self._entry(d)
+            parts = 1 if e is None else self.mesh.axis_size(e)
+            if n % parts:
+                raise ValueError(f"dim {d} of {tuple(shape)} does not divide over {e} ({parts})")
+            out.append(n // parts)
+        return tuple(out)
+
+    def index(self, rank: int, shape: Sequence[int]) -> tuple[slice, ...]:
+        """The slices of a global tensor of ``shape`` that rank ``rank`` holds."""
+        local = self.shard_shape(shape)
+        out = []
+        for d, n in enumerate(local):
+            e = self._entry(d)
+            i = 0 if e is None else self.mesh.position(rank, _axes(e))
+            out.append(slice(i * n, (i + 1) * n))
+        return tuple(out)
+
+    def owners(self) -> list[int]:
+        """One rank per distinct shard: the ranks at coordinate 0 of every
+        axis the spec does not name."""
+        named = {a for e in self.spec if e is not None for a in _axes(e)}
+        free = [i for i, a in enumerate(self.mesh.axis_names) if a not in named]
+        return [r for r in range(self.mesh.size)
+                if all(self.mesh.coords(r)[i] == 0 for i in free)]
+
+
+def _assemble(shape, sharding: NamedSharding, locals_: Sequence[torch.Tensor],
+              device=None, *, copy: bool = False) -> torch.Tensor:
+    """The global tensor whose rank shards are ``locals_`` (by ``sharding``);
+    a replicated one is rank 0's tensor itself unless ``copy``."""
+    device = _device(device) if device is not None else sharding.mesh.device_list[0]
+    owners = sharding.owners()
+    if len(owners) == 1:  # every dim replicated
+        return locals_[owners[0]].to(device, copy=copy)
+    out = torch.empty(tuple(shape), dtype=locals_[0].dtype, device=device)
+    for r in owners:
+        out[sharding.index(r, shape)] = locals_[r].to(device)
+    return out
+
+
+class ShardedTensor:
+    """A global tensor laid out by a :class:`NamedSharding`: one local
+    tensor per rank, on that rank's device (``shards[r]``)."""
+
+    def __init__(self, shape, sharding: NamedSharding, shards: Sequence[torch.Tensor]):
+        self.shape = torch.Size(shape)
+        self.sharding = sharding
+        self.shards = tuple(shards)
+        if len(self.shards) != sharding.mesh.size:
+            raise ValueError(f"{len(self.shards)} shards for a mesh of {sharding.mesh.size}")
+
+    @classmethod
+    def from_global(cls, x: torch.Tensor, sharding: NamedSharding) -> "ShardedTensor":
+        """``x`` split by ``sharding``, each rank's shard a copy on its device."""
+        shards = [x[sharding.index(r, x.shape)].to(dev, copy=True)
+                  for r, dev in enumerate(sharding.mesh.device_list)]
+        return cls(x.shape, sharding, shards)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards[0].dtype
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def full(self, device=None) -> torch.Tensor:
+        """The global value on ``device`` (default: rank 0's)."""
+        return _assemble(self.shape, self.sharding, self.shards, device, copy=True)
+
+    def __repr__(self) -> str:
+        return (f"ShardedTensor(shape={tuple(self.shape)}, dtype={self.dtype}, "
+                f"spec={self.sharding.spec}, mesh={self.sharding.mesh})")
+
+
+def device_put(tree: Any, shardings: Any) -> Any:
+    """Place every tensor leaf of ``tree`` by its sharding (a tree like
+    ``tree``, or one :class:`NamedSharding` for every leaf) as a
+    :class:`ShardedTensor`; a ``ShardedTensor`` leaf is gathered first."""
+
+    def put(x, s):
+        if s is None:
+            return x
+        if isinstance(x, ShardedTensor):
+            x = x.full()
+        return ShardedTensor.from_global(x, s)
+
+    if isinstance(shardings, NamedSharding):
+        return tree_map(lambda x: put(x, shardings), tree)
+    return tree_map(put, tree, shardings)
+
+
+# ---------------------------------------------------------------------------
+# the rank threads and their rendezvous
+# ---------------------------------------------------------------------------
+
+
+class _Rendezvous:
+    """The collectives' meeting point for one ``shard_map`` call, and the
+    turn that lets one rank thread run at a time.
+
+    Rank *r* runs until its next collective, deposits its operand, and
+    hands the turn to rank *r + 1*; the last rank's deposit completes the
+    collective (it checks that every rank called the same one) and hands
+    the turn back to rank 0, which reads the result and runs on to the next
+    collective.  So the ranks run one at a time, in rank order, between
+    collectives: each reads a collective only after every rank deposited
+    into it, the host queues their work in the same order on every run,
+    and no two rank threads contend for the interpreter lock: on an H100's
+    host, 8 threads launching 50 small operations each at once took 45.6 ms,
+    one thread launching the 400 4.19 ms, and 8 ranks taking turns 6.55 ms
+    (``chip_smoke.py``, the ``distributed`` phase's ``rank_threads`` row).  Collective *k* uses slot buffer ``k % 2``: a rank
+    deposits into collective *k + 1* only after every rank has read
+    collective *k − 1* from that buffer.
+    """
+
+    def __init__(self, mesh: Mesh):
+        n = mesh.size
+        self.mesh = mesh
+        self._slots = ([None] * n, [None] * n)
+        self._memo: tuple[dict, dict] = ({}, {})
+        self._mismatch: list[list[str] | None] = [None, None]
+        self._calls = [0] * n
+        self._go = [threading.Semaphore(1 if r == 0 else 0) for r in range(n)]
+        self._broken = False
+
+    def wait_turn(self, rank: int) -> None:
+        self._go[rank].acquire()
+        if self._broken:
+            raise threading.BrokenBarrierError
+
+    def pass_turn(self, rank: int) -> None:
+        self._go[(rank + 1) % len(self._go)].release()
+
+    def abort(self) -> None:
+        """Wake every waiting rank into ``BrokenBarrierError``."""
+        self._broken = True
+        for go in self._go:
+            go.release()
+
+    def exchange(self, rank: int, tag: tuple, value: Any) -> tuple[list, dict]:
+        """Deposit ``value``; wait until every rank has; return every rank's
+        value (rank order) and this collective's shared results."""
+        k = self._calls[rank]
+        self._calls[rank] += 1
+        buf = k % 2
+        self._slots[buf][rank] = (tag, value)
+        if rank == len(self._go) - 1:  # the collective is complete
+            tags = {slot[0] for slot in self._slots[buf]}
+            self._mismatch[buf] = None if len(tags) == 1 else sorted(map(repr, tags))
+            self._memo[buf].clear()
+        self.pass_turn(rank)
+        self.wait_turn(rank)
+        if self._mismatch[buf] is not None:
+            raise RuntimeError(f"shard_map ranks disagree on collective #{k}: "
+                               f"{', '.join(self._mismatch[buf])}")
+        return [slot[1] for slot in self._slots[buf]], self._memo[buf]
+
+
+class _RankThreads:
+    """Idle threads that run rank jobs, reused across ``shard_map`` calls
+    (starting 8 threads took 2.54 ms on an H100's host, an 8-rank call with
+    an empty body 1.22 ms with the threads kept: the ``rank_threads`` row).  A call that finds too few idle
+    threads starts more, so a ``shard_map`` inside a rank's body gets its
+    own.  The threads are daemons blocked on their queues when idle."""
+
+    def __init__(self):
+        self._idle: list[queue.SimpleQueue] = []
+        self._lock = threading.Lock()
+
+    def run(self, jobs: Sequence[Callable[[], None]]) -> None:
+        """Run every job (each catches its own exceptions), one thread
+        each; return when all have finished."""
+        with self._lock:
+            take = min(len(jobs), len(self._idle))
+            queues = [self._idle.pop() for _ in range(take)]
+        while len(queues) < len(jobs):
+            q: queue.SimpleQueue = queue.SimpleQueue()
+            threading.Thread(target=self._serve, args=(q,), name="shard_map-rank",
+                             daemon=True).start()
+            queues.append(q)
+        done: queue.SimpleQueue = queue.SimpleQueue()
+        for q, job in zip(queues, jobs):
+            q.put((job, done))
+        for _ in jobs:
+            done.get()
+
+    def _serve(self, q: queue.SimpleQueue) -> None:
+        while True:
+            job, done = q.get()
+            try:
+                job()
+            finally:
+                with self._lock:
+                    self._idle.append(q)
+                done.put(None)
+
+
+_THREADS = _RankThreads()
+
+
+@dataclasses.dataclass
+class _RankContext:
+    rendezvous: _Rendezvous
+    rank: int
+
+    @property
+    def mesh(self) -> Mesh:
+        return self.rendezvous.mesh
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.device_list[self.rank]
+
+
+_TLS = threading.local()
+
+
+def _context() -> _RankContext:
+    ctx = getattr(_TLS, "ctx", None)
+    if ctx is None:
+        raise RuntimeError("collectives run only inside a shard_map body")
+    return ctx
+
+
+def _on_device(device: torch.device, streams: dict):
+    stack = contextlib.ExitStack()
+    if device.type == "cuda":
+        stack.enter_context(torch.cuda.device(device))
+        stack.enter_context(torch.cuda.stream(streams[device]))
+    return stack
+
+
+def _run_ranks(mesh: Mesh, body: Callable, rank_args: Sequence[tuple]) -> list:
+    """``body(*rank_args[r])`` for every rank, one thread per rank, the
+    ranks taking turns (:class:`_Rendezvous`); the per-rank results.
+    Re-raises the lowest raising rank's exception."""
+    n = mesh.size
+    rv = _Rendezvous(mesh)
+    results: list = [None] * n
+    errors: list[BaseException | None] = [None] * n
+    grad = torch.is_grad_enabled()
+    streams = {d: torch.cuda.current_stream(d) for d in set(mesh.device_list)
+               if d.type == "cuda"}
+
+    def one(r: int) -> None:
+        outer = getattr(_TLS, "ctx", None)
+        _TLS.ctx = _RankContext(rv, r)
+        try:
+            rv.wait_turn(r)
+            with torch.set_grad_enabled(grad), _on_device(mesh.device_list[r], streams):
+                results[r] = body(*rank_args[r])
+            rv.exchange(r, ("return",), None)
+            rv.pass_turn(r)  # let the next rank return too
+        except BaseException as err:  # handed to the caller below
+            errors[r] = err
+            rv.abort()
+        finally:
+            _TLS.ctx = outer
+
+    if n == 1:
+        one(0)
+    else:
+        _THREADS.run([functools.partial(one, r) for r in range(n)])
+    raised = [(r, e) for r, e in enumerate(errors) if e is not None]
+    if raised:
+        first = [(r, e) for r, e in raised if not isinstance(e, threading.BrokenBarrierError)]
+        r, err = (first or raised)[0]
+        err.add_note(f"raised by rank {r} of {n} of a shard_map over {mesh}")
+        raise err
+    return results
+
+
+# ---------------------------------------------------------------------------
+# shard_map
+# ---------------------------------------------------------------------------
+
+
+def _is_spec(s) -> bool:
+    return isinstance(s, PartitionSpec) or s is None
+
+
+def _spec_tree(specs: Any, tree: Any) -> Any:
+    """``specs`` (a prefix of ``tree``) broadcast to ``tree``'s leaves."""
+    if _is_spec(specs):
+        return tree_map(lambda _: specs, tree)
+    names = dataclass_fields(tree)
+    if names is not None:
+        return type(tree)(**{n: _spec_tree(getattr(specs, n), getattr(tree, n)) for n in names})
+    if isinstance(tree, (tuple, list)):
+        if len(specs) != len(tree):
+            raise ValueError(f"{len(specs)} specs for {len(tree)} subtrees")
+        return type(tree)(_spec_tree(s, t) for s, t in zip(specs, tree))
+    if isinstance(tree, dict):
+        return {k: _spec_tree(specs[k], tree[k]) for k in tree}
+    raise ValueError(f"spec tree {specs!r} does not match {type(tree).__name__}")
+
+
+def _local_args(mesh: Mesh, args: tuple, in_specs: Any) -> list[tuple]:
+    """Every rank's arguments: each tensor leaf split by its spec (a view
+    where the rank's device holds it), other leaves as they are."""
+    specs = _spec_tree(in_specs if _is_spec(in_specs) else tuple(in_specs), args)
+    per_leaf: list[list] = []  # one list of rank values per leaf, in tree order
+
+    def split(x, spec) -> None:
+        if spec is None or not isinstance(x, (torch.Tensor, ShardedTensor)):
+            per_leaf.append([x] * mesh.size)
+            return
+        sh = NamedSharding(mesh, spec)
+        if isinstance(x, ShardedTensor):
+            if x.sharding.mesh == mesh and x.sharding.spec == sh.spec:
+                per_leaf.append(list(x.shards))
+                return
+            x = x.full()
+        per_leaf.append([x[sh.index(r, x.shape)].to(dev)
+                         for r, dev in enumerate(mesh.device_list)])
+
+    tree_map(split, args, specs)
+    out = []
+    for r in range(mesh.size):
+        it = iter(values[r] for values in per_leaf)
+        out.append(tree_map(lambda _: next(it), args))
+    return out
+
+
+def _global_outputs(mesh: Mesh, outs: list, out_specs: Any) -> Any:
+    """The ranks' outputs assembled by ``out_specs`` (non-tensor leaves:
+    rank 0's)."""
+    its = [iter(tree_leaves(o)) for o in outs]
+
+    def one(_, spec):
+        locals_ = [next(i) for i in its]
+        if not isinstance(locals_[0], torch.Tensor):
+            return locals_[0]
+        sh = NamedSharding(mesh, spec if spec is not None else P())
+        shape = [n if sh._entry(d) is None else n * mesh.axis_size(sh._entry(d))
+                 for d, n in enumerate(locals_[0].shape)]
+        return _assemble(shape, sh, locals_)
+
+    return tree_map(one, outs[0], _spec_tree(out_specs, outs[0]))
+
+
+def shard_map(f: Callable, *, mesh: Mesh, in_specs: Any, out_specs: Any,
+              check_vma: bool = True) -> Callable:
+    """``jax.shard_map`` for the port (the module's docstring): ``f`` runs
+    once per rank, on rank-local shards of the global arguments (tensors or
+    :class:`ShardedTensor`s) split by ``in_specs``, and the outputs are
+    assembled by ``out_specs`` (prefix trees of :class:`PartitionSpec`)."""
+    del check_vma  # the reference's signature; nothing is checked
+
+    @functools.wraps(f)
+    def call(*args):
+        outs = _run_ranks(mesh, f, _local_args(mesh, args, in_specs))
+        return _global_outputs(mesh, outs, out_specs)
+
+    return call
+
+
+# ---------------------------------------------------------------------------
+# collectives (inside a shard_map body)
+# ---------------------------------------------------------------------------
+
+
+def _group(axis_name) -> tuple[_RankContext, tuple[str, ...], tuple[int, ...], int]:
+    ctx = _context()
+    axes = _axes(axis_name)
+    members, pos = ctx.mesh.groups(axes)[ctx.rank]
+    return ctx, axes, members, pos
+
+
+def _fold(tensors: Sequence[torch.Tensor], device: torch.device) -> torch.Tensor:
+    """The sum of ``tensors`` on ``device``, added in the order given."""
+    acc = tensors[0].to(device, copy=True)
+    for t in tensors[1:]:
+        acc.add_(t.to(device))
+    return acc
+
+
+def _shared(memo: dict, key, compute: Callable) -> Any:
+    """``compute()`` once per ``key`` among the ranks of this collective
+    (the ranks take turns, so no two compute at once)."""
+    if key not in memo:
+        memo[key] = compute()
+    return memo[key]
+
+
+def axis_size(axis_name) -> int:
+    """The product of the named axes' sizes (inside a shard_map body)."""
+    return _context().mesh.axis_size(axis_name)
+
+
+def axis_index(axis_name) -> int:
+    """This rank's index along the named axis (row-major over a tuple)."""
+    ctx = _context()
+    return ctx.mesh.position(ctx.rank, _axes(axis_name))
+
+
+def psum(x: Any, axis_name) -> Any:
+    """Sum of ``x`` (a tensor or a tree of tensors) over the named axes'
+    group, folded in rank order.  A Python number is multiplied by the
+    group's size without a rendezvous (the reference's ``psum(1, axis)``)."""
+    if isinstance(x, (int, float)):
+        return x * axis_size(axis_name)
+    ctx, axes, members, _ = _group(axis_name)
+    vals, memo = ctx.rendezvous.exchange(ctx.rank, ("psum", axes), x)
+    return _shared(memo, (members, ctx.device), lambda: tree_map(
+        lambda *leaves: _fold(leaves, ctx.device), *[vals[r] for r in members]))
+
+
+def psum_scatter(x: torch.Tensor, axis_name, *, scatter_dimension: int = 0,
+                 tiled: bool = False) -> torch.Tensor:
+    """The group's sum, of which the rank at position *i* keeps part *i*
+    along ``scatter_dimension``: with ``tiled=False`` that dim's size must
+    equal the group's and is removed; with ``tiled=True`` it is split into
+    equal parts and kept."""
+    ctx, axes, members, pos = _group(axis_name)
+    vals, _ = ctx.rendezvous.exchange(ctx.rank, ("psum_scatter", axes, scatter_dimension,
+                                                 tiled), x)
+    n, d = len(members), scatter_dimension
+    size = x.shape[d]
+    if tiled and size % n:
+        raise ValueError(f"psum_scatter: dim {d} of size {size} over {n} ranks")
+    if not tiled and size != n:
+        raise ValueError(f"psum_scatter(tiled=False): dim {d} has size {size}, the group {n}")
+
+    def part(t):
+        return t.narrow(d, pos * (size // n), size // n) if tiled else t.select(d, pos)
+
+    return _fold([part(vals[r]) for r in members], ctx.device)
+
+
+def all_gather(x: torch.Tensor, axis_name, *, axis: int = 0, tiled: bool = False) -> torch.Tensor:
+    """The group's operands in position order, stacked along a new dim
+    ``axis`` (``tiled=False``) or concatenated along ``axis`` (``tiled=True``)."""
+    ctx, axes, members, _ = _group(axis_name)
+    vals, memo = ctx.rendezvous.exchange(ctx.rank, ("all_gather", axes, axis, tiled), x)
+    join = torch.cat if tiled else torch.stack
+    return _shared(memo, (members, ctx.device),
+                   lambda: join([vals[r].to(ctx.device) for r in members], dim=axis))
+
+
+def ppermute(x: Any, axis_name, perm: Sequence[tuple[int, int]]) -> Any:
+    """Send ``x`` (a tensor or a tree) along ``(source, destination)``
+    position pairs of the named axis; a rank that no pair targets gets
+    zeros like its own operand."""
+    perm = [(int(s), int(d)) for s, d in perm]
+    if len({s for s, _ in perm}) != len(perm) or len({d for _, d in perm}) != len(perm):
+        raise ValueError(f"ppermute: a position sends or receives twice in {perm}")
+    ctx, axes, members, pos = _group(axis_name)
+    vals, _ = ctx.rendezvous.exchange(ctx.rank, ("ppermute", axes, tuple(perm)), x)
+    src = [s for s, d in perm if d == pos]
+    if not src:
+        return tree_map(torch.zeros_like, x)
+    return tree_map(lambda t: t.to(ctx.device, copy=True), vals[members[src[0]]])
+
+
+# ---------------------------------------------------------------------------
+# the data-parallel train step
+# ---------------------------------------------------------------------------
+
+
+def _dp_axes(mesh: Mesh) -> tuple[str, ...]:
+    return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+
+
+def _gathered(x: torch.Tensor, spec: PartitionSpec) -> torch.Tensor:
+    """A rank's shard gathered to the global value inside a body (the
+    reference's FSDP all-gather): one tiled ``all_gather`` per sharded dim."""
+    for d, e in enumerate(spec):
+        if e is not None:
+            x = all_gather(x, e, axis=d, tiled=True)
+    return x
+
+
+def _spec_of(x) -> PartitionSpec:
+    return x.sharding.spec if isinstance(x, ShardedTensor) else P()
+
+
+def data_parallel_gradients(loss_fn: Callable, params: Any, blocks: dict[str, torch.Tensor], *,
+                            mesh: Mesh) -> tuple[torch.Tensor, Any]:
+    """Mean loss and mean f32 gradients of ``loss_fn`` over ``blocks``
+    (leaves ``(nblocks, mb, ...)``), data-parallel over the mesh's ``pod``
+    and ``data`` axes.
+
+    PyTorch has no GSPMD, so this is the port's counterpart of
+    ``jax.jit(step, in_shardings=...)`` under ``train_rules``, by data
+    parallelism only: every rank takes its share of every block's rows
+    (``mb`` split over ``(pod, data)``), gathers the params it needs from
+    their layouts (:class:`ShardedTensor` leaves, e.g. by
+    ``params_shardings``; a plain tensor is replicated) and runs
+    :func:`repro_torch.optim.accumulate_gradients` (``spliter``).  The ranks' losses and
+    gradients are summed over ``(pod, data)`` by
+    :func:`~repro_torch.distributed.collectives.psum_pod_hierarchical`
+    (a flat ``psum`` on a mesh without a ``pod`` axis) and divided by the
+    data-parallel rank count.  Tensor-parallel compute over ``model`` is
+    not emulated: the ranks of one ``(pod, data)`` position compute the
+    same gradients.  Returns the loss and the gradients as global tensors
+    on rank 0's device.
+    """
+    from repro_torch.distributed.collectives import psum_pod_hierarchical
+    from repro_torch.optim import accumulate_gradients
+
+    dp = _dp_axes(mesh)
+    n_dp = mesh.axis_size(dp)
+    p_specs = tree_map(_spec_of, params)
+    b_specs = {k: P(None, dp) for k in blocks}
+
+    def body(local_params, local_blocks):
+        full = tree_map(_gathered, local_params, p_specs)
+        loss, grads = accumulate_gradients(loss_fn, full, local_blocks)
+        return loss.reshape(1), grads
+
+    outs = _run_ranks(mesh, body, _local_args(mesh, (params, blocks), (p_specs, b_specs)))
+    replicated = NamedSharding(mesh, P())
+    it = [iter(tree_leaves(o)) for o in outs]
+    per_rank = tree_map(lambda leaf: ShardedTensor(leaf.shape, replicated,
+                                                   [next(i) for i in it]), outs[0])
+    if "pod" in dp and "data" in dp:
+        total = psum_pod_hierarchical(per_rank, mesh)
+    else:
+        total = shard_map(lambda t: psum(t, dp), mesh=mesh, in_specs=(P(),), out_specs=P(),
+                          check_vma=False)(per_rank)
+    loss, grads = tree_map(
+        lambda t: t / torch.full((), n_dp, dtype=t.dtype, device=t.device), total)
+    return loss.reshape(()), grads
+
+
+def sharded_train_step(loss_fn: Callable, params: Any, opt: Any, blocks: dict[str, torch.Tensor],
+                       *, mesh: Mesh, lr) -> tuple[Any, Any, torch.Tensor]:
+    """One data-parallel optimizer step: :func:`data_parallel_gradients`,
+    then :func:`repro_torch.optim.adamw_update` on the gathered params, which
+    go back to the layouts they came in (a plain tensor stays plain).
+    Returns ``(params, opt, loss)``."""
+    from repro_torch.optim import adamw_update
+
+    loss, grads = data_parallel_gradients(loss_fn, params, blocks, mesh=mesh)
+    full = tree_map(lambda p: p.full() if isinstance(p, ShardedTensor) else p, params)
+    full, opt = adamw_update(full, grads, opt, lr=lr)
+    new = tree_map(lambda p, f: ShardedTensor.from_global(f, p.sharding)
+                   if isinstance(p, ShardedTensor) else f, params, full)
+    return new, opt, loss

@@ -4,7 +4,13 @@ Ports of ``repro/models/layers.py``, function for function, over an explicit
 params dict with the JAX package's names and layouts (attention weights
 ``(d, heads, head_dim)``, activations ``(B, L, H, Dh)``).  What differs:
 
-* no sharding annotations (the port runs on one card);
+* no sharding annotations: the reference's ``shard(...)`` constraints
+  change no value, and the port's values are global tensors (the rules and
+  ``shard`` are ported, :mod:`repro_torch.distributed.sharding`); what the
+  active rules select here is the decode path, by ``cache_impl``:
+  ``"sharded_dus"`` writes the cache row in a ``shard_map`` on the rank
+  that owns the slot, ``"decomposed"`` attends to the old cache and the new
+  token before writing (:func:`cache_write`, :func:`attention`);
 * the decode cache is updated in place: a one-row write at the slot into the
   caller's cache tensors, where the reference's masked select reads and
   rewrites the whole cache every step.  The values are the same;
@@ -41,6 +47,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import active_rules
+from repro_torch.distributed.spmd import P, axis_index, shard_map
 from repro_torch.kernels import ops
 
 Params = dict[str, Any]
@@ -109,8 +117,60 @@ def cache_write(cache: torch.Tensor, new: torch.Tensor, pos: int) -> None:
     One row is written.  The reference's baseline path selects with a
     one-hot mask instead, reading and rewriting the whole cache every step
     (``repro/models/layers.py:113-115``); the values are the same.
+
+    Under active rules whose ``cache_impl`` says ``"sharded_dus"``, the
+    write runs as the reference's does: a ``shard_map`` over the cache laid
+    out by the rules (batch over ``batch``, the sequence over ``kv_seq``) in
+    which only the rank that owns slot ``pos`` writes its one local row,
+    into its view of the caller's cache (:func:`_cache_write_sharded`).
+    ``"heads_dus"`` (a head-sharded cache, the sequence whole on every rank)
+    is the one-row write.
     """
+    r = active_rules()
+    if r is not None and "sharded_dus" in r.cache_impl and _cache_write_sharded(
+        cache, new, pos, r
+    ):
+        return
     cache[:, pos] = new[:, 0].to(cache.dtype)
+
+
+def _cache_write_sharded(cache: torch.Tensor, new: torch.Tensor, pos: int, rules) -> bool:
+    """The one-row write on the rank owning the slot (see :func:`cache_write`).
+
+    Returns False, writing nothing, when the layout does not qualify (the
+    seq axis unsharded or not dividing the cache's length, as the
+    reference's returns None) or when a rank's device does not hold the
+    cache (its shard would be a copy, and the write would not land); the
+    caller then writes the row itself.
+    """
+    seq_ax = rules.logical.get("kv_seq")
+    if not seq_ax:
+        return False
+    mesh = rules.mesh
+    n_seq = mesh.axis_size(seq_ax)
+    if n_seq <= 1 or cache.shape[1] % n_seq:
+        return False
+    if any(d != cache.device for d in mesh.device_list):
+        return False
+    batch_ax = rules.logical.get("batch")
+    if batch_ax and cache.shape[0] % mesh.axis_size(batch_ax):
+        batch_ax = None
+    trail = (None,) * (cache.ndim - 2)
+
+    def body(c, n):
+        local = pos - axis_index(seq_ax) * c.shape[1]
+        if 0 <= local < c.shape[1]:
+            c[:, local] = n[:, 0]
+        return ()
+
+    shard_map(
+        body,
+        mesh=mesh,
+        in_specs=(P(batch_ax, seq_ax, *trail), P(batch_ax, None, *trail)),
+        out_specs=(),
+        check_vma=False,
+    )(cache, new.to(cache.dtype))
+    return True
 
 
 # ---------------------------------------------------------------------------
@@ -230,6 +290,43 @@ def _sdpa_auto(q, k, v, *, causal, window=0, kv_len=None):
     return _sdpa(q, k, v, causal=causal, window=window, kv_len=kv_len)
 
 
+def _sdpa_decode_decomposed(
+    q: torch.Tensor,    # (B, 1, H, Dh)
+    kc: torch.Tensor,   # (B, S, Hkv, Dh) cache BEFORE this token's write
+    vc: torch.Tensor,
+    kn: torch.Tensor,   # (B, 1, Hkv, Dh) this token's k/v
+    vn: torch.Tensor,
+    *,
+    valid_len: int,     # number of valid cache rows (= pos, or window fill)
+    slot: int,          # ring slot this token will occupy (masked out)
+) -> torch.Tensor:
+    """Decode attention over (old cache ⊕ new token) with a joint softmax.
+
+    Mathematically identical to write-then-attend, but nothing reads the
+    *updated* cache.  The ring ``slot`` is masked from the old cache (it
+    holds the evicted token once the window wraps).  The caller writes the
+    new row after this returns: with the port's in-place cache, writing
+    first would count the new token twice.
+    """
+    b, lq, h, dh = q.shape
+    hkv = kc.shape[2]
+    g = h // hkv
+    qg = q.reshape(b, lq, hkv, g, dh)
+    scale = 1.0 / np.sqrt(dh)
+    s_old = torch.einsum("bqhgd,bkhd->bhgqk", qg, kc).to(torch.float32) * scale
+    kpos = torch.arange(kc.shape[1], device=q.device)
+    mask = (kpos < valid_len) & (kpos != slot)
+    s_old = torch.where(mask, s_old, -1e30)
+    s_new = torch.einsum("bqhgd,bkhd->bhgqk", qg, kn).to(torch.float32) * scale
+    probs = torch.softmax(torch.cat([s_old, s_new], -1), dim=-1)
+    p_old = probs[..., :-1].to(vc.dtype)
+    p_new = probs[..., -1:].to(vn.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p_old, vc) + torch.einsum(
+        "bhgqk,bkhd->bqhgd", p_new, vn
+    )
+    return out.reshape(b, lq, h, dh)
+
+
 def _prefill_attention(q, k, v, *, causal: bool, window: int, cfg: ModelConfig) -> torch.Tensor:
     """Attention of a whole prompt over itself or over the memory: the
     kernel under ``attn_impl="flash"``, unless autograd records it (the
@@ -338,14 +435,20 @@ def attention(
         if q.shape[1] == 1:  # -------- decode step --------
             # ring index under SWA, linear otherwise; one row written in place
             slot = cache_pos % s_max if cfg.sliding_window else cache_pos
-            cache_write(ck, k, slot)
-            cache_write(cv, v, slot)
-            if cfg.sliding_window:
-                # every live slot is in-window; mask only unwritten rows
-                valid = min(cache_pos + 1, s_max)
+            r = active_rules()
+            if r is not None and "decomposed" in r.cache_impl:
+                # attend (old cache ⊕ new token), then write: the updated
+                # cache is only written, never read
+                valid = min(cache_pos, s_max) if cfg.sliding_window else cache_pos
+                out = _sdpa_decode_decomposed(q, ck, cv, k, v, valid_len=valid, slot=slot)
+                cache_write(ck, k, slot)
+                cache_write(cv, v, slot)
             else:
-                valid = cache_pos + 1
-            out = _sdpa(q, ck, cv, causal=False, kv_len=valid)
+                cache_write(ck, k, slot)
+                cache_write(cv, v, slot)
+                # under SWA every live slot is in-window; mask only unwritten rows
+                valid = min(cache_pos + 1, s_max) if cfg.sliding_window else cache_pos + 1
+                out = _sdpa(q, ck, cv, causal=False, kv_len=valid)
         else:  # -------- prefill into cache --------
             lq = q.shape[1]
             if cfg.sliding_window and lq > s_max:

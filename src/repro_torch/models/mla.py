@@ -11,8 +11,11 @@ Shapes:  q_nope (B,L,H,Dh), q_rope (B,L,H,Rh), c_kv (B,L,Kr), k_rope (B,L,Rh).
 
 The reference attends with its own products, not with its flash kernel,
 and so does the port: this module launches no kernel.  What differs from
-the reference, not in value: no sharding annotations; the decode step
-writes its one cache row in place (:func:`repro_torch.models.layers.cache_write`);
+the reference, not in value: no sharding annotations (the port's values
+are global tensors); the decode step writes its one latent and rope row in
+place through :func:`repro_torch.models.layers.cache_write`, so the active
+rules' ``cache_impl`` selects that write (``"sharded_dus"``: on the rank
+that owns the slot, in a ``shard_map``), as in the reference;
 the prefill fills the caller's cache in place; the query chunks of a long
 prefill (the reference's ``lax.scan``) are a loop.
 """

@@ -25,7 +25,9 @@ slice of its chosen expert with the same gate.  Exact, because
 
 What differs from the reference, not in value:
 
-* no sharding annotations (the port runs on one card);
+* no sharding annotations: the reference's ``shard(...)`` constraints
+  (expert and group axes) change no value, and the port's values are
+  global tensors (:mod:`repro_torch.distributed.sharding`);
 * the onehot path runs the dispatch, the experts and the combine one group
   at a time: groups are independent (the reference's products are batched
   over them), and one group's buffers (``(E·vs, capacity, D)``) are all

@@ -1,0 +1,229 @@
+"""Reference side of ``tests/test_torch_distributed.py``, run in one child
+process on 8 forced host devices.
+
+The parent sets ``XLA_FLAGS=--xla_force_host_platform_device_count=8`` so
+that its own process keeps one device; this child runs every mode of
+``tests/_dist_child.py`` that the port mirrors (not ``mesh_exec``) and the
+``jax.lax`` collectives on the same mesh shapes, and saves what each
+produced to ``out.npz`` in the directory given as its one argument (and
+the train step's params, as a checkpoint, under ``params/`` there).  The inputs are
+drawn here exactly as the parent draws them for the port (numpy
+generators, fixed seeds).  Not collected by pytest (no ``test_`` prefix).
+"""
+
+import dataclasses
+import os
+import sys
+import tempfile
+
+import numpy as np
+
+
+def _mesh(shape, axes):
+    from repro.launch.mesh import compat_make_mesh
+
+    return compat_make_mesh(shape, axes)
+
+
+def hier_and_compressed(out: dict) -> None:
+    import jax
+    from jax.sharding import PartitionSpec as P
+
+    from repro.distributed.collectives import compressed_psum_pod, hierarchical_psum
+    from repro.distributed.compat import shard_map
+
+    mesh = _mesh((2, 4), ("pod", "data"))
+    sm = lambda f: shard_map(f, mesh=mesh, in_specs=(P(),), out_specs=P(), check_vma=False)  # noqa: E731
+    x = np.random.default_rng(0).standard_normal((16, 8)).astype(np.float32)
+    out["hier_psum/hier"] = sm(lambda v: hierarchical_psum(v, fast_axis="data", slow_axis="pod"))(x)
+    out["hier_psum/flat"] = sm(lambda v: jax.lax.psum(v, ("data", "pod")))(x)
+    x = np.random.default_rng(1).standard_normal((16, 32)).astype(np.float32)
+    out["compressed_psum"] = sm(
+        lambda v: compressed_psum_pod(v, fast_axis="data", slow_axis="pod"))(x)
+
+
+def gpipe_case(out: dict) -> None:
+    import jax.numpy as jnp
+
+    from repro.distributed.pipeline_par import gpipe
+
+    mesh = _mesh((4, 2), ("pipe", "data"))
+    s, t, mb, d = 4, 6, 8, 16
+    rng = np.random.default_rng(2)
+    w = (rng.standard_normal((s, d, d)) / np.sqrt(d)).astype(np.float32)
+    b = (rng.standard_normal((s, d)) * 0.1).astype(np.float32)
+    xs = rng.standard_normal((t, mb, d)).astype(np.float32)
+    out["gpipe"] = gpipe(lambda p, x: jnp.tanh(x @ p["w"] + p["b"]),
+                         {"w": jnp.asarray(w), "b": jnp.asarray(b)}, jnp.asarray(xs),
+                         mesh=mesh, axis="pipe")
+
+
+def sharded_train(out: dict) -> None:
+    """``_dist_child.check_sharded_train_step``: the sharded loss and the
+    unsharded one."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from repro.checkpoint import Checkpointer
+    from repro.configs import get_smoke_config
+    from repro.distributed.sharding import params_shardings, train_rules, use_rules
+    from repro.models import build_model
+    from repro.optim import accumulate_gradients, adamw_init, adamw_update
+
+    mesh = _mesh((2, 2, 2), ("pod", "data", "model"))
+    model = build_model(get_smoke_config("qwen3-32b"))
+    params = model.init(jax.random.key(0))
+    opt = adamw_init(params)
+    rng = np.random.default_rng(3)
+    vocab = model.cfg.vocab_size
+    blocks = {k: jnp.asarray(rng.integers(0, vocab, (2, 8, 16)), jnp.int32)
+              for k in ("tokens", "labels")}
+
+    def step(params, opt, blocks):
+        loss, grads = accumulate_gradients(model.loss, params, blocks, mode="spliter")
+        p2, o2 = adamw_update(params, grads, opt, lr=1e-3)
+        return p2, o2, loss
+
+    Checkpointer(os.path.join(OUT, "params")).save(0, params)  # the port restores these
+    p_sh = params_shardings(params, mesh)
+    b_sh = {k: NamedSharding(mesh, P(None, ("pod", "data"), None)) for k in blocks}
+    params = jax.device_put(params, p_sh)
+    blocks = jax.device_put(blocks, b_sh)
+    with use_rules(train_rules(mesh)):
+        _, _, loss = jax.jit(step, in_shardings=(p_sh, None, b_sh))(params, opt, blocks)
+    loss_ref, _ = accumulate_gradients(
+        model.loss, jax.device_get(params), jax.device_get(blocks), mode="spliter")
+    out["sharded_train/loss"] = np.float32(loss)
+    out["sharded_train/loss_ref"] = np.float32(loss_ref)
+
+
+def elastic_restore(out: dict) -> None:
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from repro.checkpoint import Checkpointer
+
+    mesh8 = _mesh((8,), ("data",))
+    x = jnp.arange(64, dtype=jnp.float32).reshape(8, 8)
+    tree = {"w": jax.device_put(x, NamedSharding(mesh8, P("data"))),
+            "b": jnp.ones((3,), jnp.float32)}
+    with tempfile.TemporaryDirectory() as d:
+        ck = Checkpointer(d)
+        ck.save(7, tree, extras={"note": "elastic"}, blocking=True)
+        mesh2 = _mesh((2,), ("data",))
+        sh2 = {"w": NamedSharding(mesh2, P("data")), "b": NamedSharding(mesh2, P())}
+        got, extras, step = ck.restore(
+            {"w": jnp.zeros_like(x), "b": jnp.zeros((3,), jnp.float32)}, shardings=sh2)
+    assert step == 7 and extras["note"] == "elastic"
+    out["elastic_restore/w"] = got["w"]
+    out["elastic_restore/b"] = got["b"]
+    out["elastic_restore/num_devices"] = np.int32(got["w"].sharding.num_devices)
+
+
+def cache_writes(out: dict) -> None:
+    """``check_sharded_cache_write`` and ``check_heads_dus_cache_write``."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from repro.distributed.sharding import decode_rules, decode_rules_headsharded, use_rules
+    from repro.models.layers import cache_write
+
+    mesh = _mesh((2, 4), ("data", "model"))
+    for mode, seed, h, rules, spec in (
+        ("cache_write", 5, 2, dataclasses.replace(decode_rules(mesh), cache_impl="sharded_dus"),
+         P(("data",), "model", None, None)),
+        ("heads_cache", 7, 4, decode_rules_headsharded(mesh), P(("data",), None, "model", None)),
+    ):
+        rng = np.random.default_rng(seed)
+        b, s, d = 4, 16, 8
+        masked = jnp.zeros((b, s, h, d), jnp.float32)
+        sharded = jax.device_put(masked, NamedSharding(mesh, spec))
+
+        def write(c, n, p, rules=rules):
+            with use_rules(rules):
+                return cache_write(c, n, p)
+
+        js = jax.jit(write, donate_argnums=(0,))
+        for pos in range(s):
+            new = jnp.asarray(rng.standard_normal((b, 1, h, d)), jnp.float32)
+            masked = cache_write(masked, new, jnp.asarray(pos, jnp.int32))
+            sharded = js(sharded, new, jnp.asarray(pos, jnp.int32))
+        out[f"{mode}/masked"] = masked
+        out[f"{mode}/rules"] = sharded
+
+
+def primitive_inputs() -> dict[str, np.ndarray]:
+    """The collectives' operands, shared with the parent."""
+    rng = np.random.default_rng(11)
+    return {
+        "rows": rng.standard_normal((8, 6)).astype(np.float32),
+        "blocks": rng.standard_normal((8 * 4, 3)).astype(np.float32),
+        "tiles": rng.standard_normal((8 * 8, 3)).astype(np.float32),
+        "ones": rng.standard_normal((8, 3)).astype(np.float32),
+    }
+
+
+#: name -> (input key, body over (lax-like namespace, local value)): each runs
+#: on a (2, 4) ("pod", "data") mesh with in_specs and out_specs
+#: P(("pod", "data")), so every rank's result comes back in rank order
+PRIMITIVES = {
+    "psum/data": ("rows", lambda lx, v: lx.psum(v, "data")),
+    "psum/pod": ("rows", lambda lx, v: lx.psum(v, "pod")),
+    "psum/pod_data": ("rows", lambda lx, v: lx.psum(v, ("data", "pod"))),
+    "psum_scatter/untiled": ("blocks", lambda lx, v: lx.psum_scatter(
+        v, "data", scatter_dimension=0, tiled=False)[None]),
+    "psum_scatter/tiled": ("tiles", lambda lx, v: lx.psum_scatter(
+        v, "data", scatter_dimension=0, tiled=True)),
+    "psum_scatter/dim1": ("tiles", lambda lx, v: lx.psum_scatter(
+        v.reshape(2, 4, 3), "data", scatter_dimension=1, tiled=False)),
+    "all_gather/untiled": ("ones", lambda lx, v: lx.all_gather(v, "data", axis=1, tiled=False)),
+    "all_gather/tiled": ("ones", lambda lx, v: lx.all_gather(v, "data", axis=1, tiled=True)),
+    "all_gather/pod_data": ("ones", lambda lx, v: lx.all_gather(
+        v, ("pod", "data"), axis=0, tiled=True)[None]),
+    "ppermute/shift": ("rows", lambda lx, v: lx.ppermute(v, "data", [(0, 1), (1, 2), (2, 3)])),
+    "ppermute/swap_pod": ("rows", lambda lx, v: lx.ppermute(v, "pod", [(0, 1), (1, 0)])),
+    "axis_index": ("ones", lambda lx, v: v * 0 + lx.axis_index("data")
+                   + 10 * lx.axis_index(("pod", "data"))),
+    "axis_size": ("ones", lambda lx, v: v * 0 + lx.axis_size(("pod", "data"))
+                  + 100 * lx.axis_size("data")),
+}
+
+
+def primitives(out: dict) -> None:
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+
+    from repro.distributed.compat import axis_size, shard_map
+
+    class Lax:
+        psum = staticmethod(jax.lax.psum)
+        psum_scatter = staticmethod(jax.lax.psum_scatter)
+        all_gather = staticmethod(jax.lax.all_gather)
+        ppermute = staticmethod(jax.lax.ppermute)
+        axis_index = staticmethod(jax.lax.axis_index)
+
+    Lax.axis_size = staticmethod(axis_size)
+    mesh = _mesh((2, 4), ("pod", "data"))
+    spec = P(("pod", "data"))
+    inputs = primitive_inputs()
+    for name, (key, body) in PRIMITIVES.items():
+        f = shard_map(lambda v, body=body: body(Lax, v), mesh=mesh, in_specs=(spec,),
+                      out_specs=spec, check_vma=False)
+        out[f"primitive/{name}"] = f(jnp.asarray(inputs[key]))
+
+
+if __name__ == "__main__":
+    import jax
+
+    assert jax.device_count() == 8, jax.device_count()
+    OUT = sys.argv[1]
+    results: dict = {}
+    for run in (hier_and_compressed, gpipe_case, sharded_train, elastic_restore, cache_writes,
+                primitives):
+        run(results)
+    np.savez(os.path.join(OUT, "out.npz"), **{k: np.asarray(v) for k, v in results.items()})
+    print(f"RESULT {OUT}")

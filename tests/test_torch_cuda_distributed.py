@@ -1,0 +1,178 @@
+"""The distribution substrate on the card: ranks as positions on ``cuda:0``.
+
+Every test here needs an NVIDIA GPU; on a host without one each skips with
+that reason.  Run them on the card:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_distributed.py
+
+* Each collective on 8 card ranks equals the same collective on 8 CPU
+  ranks bit for bit (an f32 sum folded in rank order is the same IEEE sum
+  on both), and the hierarchical psum equals the flat one within 1e-6.
+* The rank threads queue on the caller's current stream of the card.
+* The sharded cache write lands in the caller's card tensor.
+* gpipe over attention layers on the card launches the flash kernel once
+  per layer, per rank, per tick, and equals the layers applied in order.
+* The data-parallel gradients of lm1m on the card equal the unsharded ones'
+  loss, and a checkpoint saved from 8 card ranks restores onto 2.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch._pytree import tree_leaves, tree_map
+from repro_torch.checkpoint import Checkpointer
+from repro_torch.distributed import (
+    NamedSharding,
+    P,
+    all_gather,
+    data_parallel_gradients,
+    decode_rules,
+    device_put,
+    gpipe,
+    hierarchical_psum,
+    params_shardings,
+    ppermute,
+    psum,
+    psum_scatter,
+    shard_map,
+    use_rules,
+)
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.launch.mesh import compat_make_mesh
+from repro_torch.launch.train import _preset
+from repro_torch.models.layers import cache_write
+from repro_torch.models.lm import _apply_layer, build_model
+from repro_torch.optim import accumulate_gradients
+
+pytestmark = pytest.mark.cuda
+
+CPU = torch.device("cpu")
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (sm_90a) and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _body(v):
+    a = psum(v, "data")
+    b = psum_scatter(v, "pod", scatter_dimension=1, tiled=True)
+    c = all_gather(b, "pod", axis=1, tiled=True)
+    d = ppermute(v, "data", [(0, 1), (1, 2), (2, 3)])
+    return a, c, d
+
+
+def test_collectives_on_card_ranks_equal_cpu_ranks(dev):
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((8, 4096)).astype(np.float32))
+    spec = P(("pod", "data"))
+    outs = {}
+    for d in (CPU, dev):
+        f = shard_map(_body, mesh=compat_make_mesh((2, 4), ("pod", "data"), devices=(d,)),
+                      in_specs=(spec,), out_specs=(spec, spec, spec))
+        outs[d.type] = f(x.to(d))
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        assert got.device == dev
+        assert torch.equal(got.cpu(), want)
+
+
+def test_hierarchical_psum_on_the_card(dev):
+    mesh = compat_make_mesh((2, 4), ("pod", "data"), devices=(dev,))
+    x = torch.randn((1024, 256), device=dev)
+    sm = lambda f: shard_map(f, mesh=mesh, in_specs=(P(),), out_specs=P(),  # noqa: E731
+                             check_vma=False)
+    hier = sm(lambda v: hierarchical_psum(v, fast_axis="data", slow_axis="pod"))(x)
+    flat = sm(lambda v: psum(v, ("data", "pod")))(x)
+    assert torch.allclose(hier, flat, rtol=1e-6, atol=0)
+    assert torch.allclose(hier, 8 * x, rtol=1e-5, atol=0)
+    assert torch.equal(hier, sm(lambda v: hierarchical_psum(v, fast_axis="data",
+                                                            slow_axis="pod"))(x))
+
+
+def test_rank_threads_use_the_callers_stream(dev):
+    mesh = compat_make_mesh((2, 4), ("pod", "data"), devices=(dev,))
+    side = torch.cuda.Stream(dev)
+    seen = []
+
+    def body(v):
+        seen.append(torch.cuda.current_stream(dev))
+        return psum(v * 2, ("pod", "data"))
+
+    with torch.cuda.stream(side):
+        x = torch.ones((4, 1024), device=dev)
+        out = shard_map(body, mesh=mesh, in_specs=(P(),), out_specs=P())(x)
+    side.synchronize()
+    assert len(seen) == 8 and all(s == side for s in seen)
+    assert torch.equal(out, torch.full_like(out, 16.0))
+
+
+def test_sharded_cache_write_lands_in_the_card_tensor(dev):
+    mesh = compat_make_mesh((2, 4), ("data", "model"), devices=(dev,))
+    rules = dataclasses.replace(decode_rules(mesh), cache_impl="sharded_dus")
+    plain = torch.zeros((4, 16, 2, 8), device=dev)
+    sharded = torch.zeros_like(plain)
+    for pos in range(16):
+        new = torch.randn((4, 1, 2, 8), device=dev)
+        cache_write(plain, new, pos)
+        with use_rules(rules):
+            cache_write(sharded, new, pos)
+    assert torch.equal(plain, sharded) and bool((sharded != 0).any())
+
+
+def test_gpipe_launches_flash_per_rank_tick_and_layer(dev):
+    cfg = dataclasses.replace(_preset("lm1m"), num_layers=4, attn_impl="flash",
+                              dtype="bfloat16")
+    weights = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    ((spec,),) = (seg.period for seg in cfg.segments())
+    stages = tree_map(lambda t: t.reshape(2, 2, *t.shape[1:]), weights["seg0"])
+    ctx = {"positions": torch.arange(128, device=dev).expand(2, 128)}
+
+    def stage_fn(p, x):
+        for i in range(2):
+            x = _apply_layer(tree_map(lambda t: t[i], p)[0], spec, cfg, x, ctx, None)
+        return x
+
+    xs = torch.randn((3, 2, 128, cfg.d_model), device=dev, dtype=torch.bfloat16)
+    mesh = compat_make_mesh((2, 2), ("pipe", "data"), devices=(dev,))
+    fa.flash_attention.launches = 0
+    with torch.no_grad():
+        got = gpipe(stage_fn, stages, xs, mesh=mesh)
+        launches = fa.flash_attention.launches
+        want = torch.stack([stage_fn(tree_map(lambda t: t[1], stages),
+                                     stage_fn(tree_map(lambda t: t[0], stages), x)) for x in xs])
+    assert launches == mesh.size * (3 + 2 - 1) * 2
+    assert torch.equal(got, want)
+
+
+def test_data_parallel_gradients_on_the_card(dev):
+    cfg = _preset("lm1m")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev, master=True)
+    blocks = {k: torch.randint(0, cfg.vocab_size, (2, 8, 32), device=dev)
+              for k in ("tokens", "labels")}
+    mesh = compat_make_mesh((2, 2, 2), ("pod", "data", "model"), devices=(dev,))
+    loss, grads = data_parallel_gradients(model.loss, device_put(
+        params, params_shardings(params, mesh)), blocks, mesh=mesh)
+    loss_ref, grads_ref = accumulate_gradients(model.loss, params, blocks)
+    assert abs(float(loss) - float(loss_ref)) <= 5e-3
+    for g, r in zip(tree_leaves(grads), tree_leaves(grads_ref)):
+        assert g.device == dev
+        assert float((g - r).abs().max()) <= 2e-2 * (float(r.abs().max()) or 1.0)
+
+
+def test_checkpoint_from_8_card_ranks_restores_onto_2(dev, tmp_path):
+    x = torch.randn((8, 64), device=dev)
+    mesh8 = compat_make_mesh((8,), ("data",), devices=(dev,))
+    mesh2 = compat_make_mesh((2,), ("data",), devices=(dev,))
+    ck = Checkpointer(str(tmp_path))
+    ck.save(3, {"w": device_put(x, NamedSharding(mesh8, P("data")))})
+    got, _, step = ck.restore({"w": torch.empty((8, 64), device="meta")},
+                              shardings={"w": NamedSharding(mesh2, P("data"))})
+    assert step == 3 and got["w"].sharding.num_devices == 2
+    assert all(s.device == dev for s in got["w"].shards)
+    assert torch.equal(got["w"].full(), x)

@@ -1,7 +1,12 @@
 #!/usr/bin/env python3
 """chip_smoke — drive the PyTorch port's main path on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--repeats N]
+    python3 chip_smoke.py [--seed N] [--repeats N] [--wrapper-host-ms]
+
+``--wrapper-host-ms`` only builds the kernels and prints the flash and SSD
+wrappers' ``host_ms`` (below), three rounds each, for the ``src`` beside
+the script: a copy of the script beside another checkout's ``src`` times
+that checkout's wrappers, so two checkouts compare on one machine.
 
 Runs the paper's two memory-bound apps through the port's entry points
 (``repro_torch.core.apps.histogram`` / ``kmeans``) at the benchmarks' full
@@ -328,6 +333,27 @@ cluster runs as ``mesh_launches``, ``service_launches`` and
   deepseek-v2-236b (2 layers) under ``"sharded_dus"``, 16 steps: logits and
   caches bit-equal to the default path; ms per step beside it.  The kernels
   line gives ``distributed_launches``.
+* ``dryrun``: the shape-only dry-run (``repro_torch.launch.dryrun_lib``)
+  held against the card.  qwen3-32b's prefill as the serve phase runs it
+  (8 layers, 8 × 512 tokens, flash, bf16) and the train phase's lm100m
+  ``spliter`` step (gradients and the AdamW update) are each counted by
+  ``count_cost`` on ``meta`` and on ``cuda:0``: FLOPs, bytes and the
+  kernels' formulas equal, the prefill's flash kernel launched once a
+  layer with its formula in the count.  Each step's time is the median of
+  3 warm runs between CUDA events; the H100 SXM compute term of its count
+  must not exceed it (the memory term and the roofline fraction are
+  printed).  The dry-run's ``argument_bytes`` for the prefill's params
+  (bf16, as it lays them out), cache and tokens on a one-position mesh
+  must be within 1 % of the rise of ``torch.cuda.memory_allocated`` after
+  placing them.  ``run_matrix`` and ``run_probe_matrix`` (the depth fit)
+  over every ``ARCH_IDS`` × ``SHAPES`` cell of both production meshes run
+  in spawned worker processes beside those checks: no FAIL, every SKIP
+  ``cell_skip_reason``'s.  ``wrapper_host_ms`` gives the flash and SSD
+  wrappers' ``host_ms`` at the kernels line's shapes, three rounds each
+  with no cost sink and with one open.  The phase prints its seconds (41–45
+  s on an H100's host).  The kernels line's ``dryrun_launches`` are the two
+  counted runs' launches; the ``launches`` line adds the phase's total
+  (the timed runs and the wrapper timing too).
 
 Output: the card's name and power limit (``nvidia-smi``) on the first line,
 the compiler's registers, stack, spills and shared memory per kernel (a
@@ -748,6 +774,14 @@ def kernel_checks(x_hist, x_km, seed: int, launches: dict, per_call: dict) -> li
     big_ms = cuda_ms(lambda: pr.partition_histogramdd(blocks, bins=16))
     big_device_ms, _ = device_and_host_ms(lambda: pr.partition_histogramdd(blocks, bins=16))
     cluster, slice_log2, tile_rows, stage_bytes, smem, grid = pr._histdd_plan(d, HIST_BINS, 0)
+    # the one PyTorch call for a d-dim histogram, tried on the card's rows
+    flat = st.reshape(-1, d)
+    try:
+        library = {"call": "torch.histogramdd", "ms": cuda_ms(
+            lambda: torch.histogramdd(flat, bins=HIST_BINS, range=[0.0, 1.0] * d))}
+    except (RuntimeError, NotImplementedError) as err:
+        library = {"call": "torch.histogramdd", "error": f"{type(err).__name__}: {err}"[:400]}
+    del flat
     # per value a subtract and a multiply, per row one index multiply-add per value
     bound_ms, bound_by = bound(st.numel() * 4 + HIST_BINS**d * 4, 3 * st.numel())
     out.append({
@@ -759,7 +793,7 @@ def kernel_checks(x_hist, x_km, seed: int, launches: dict, per_call: dict) -> li
         "per_call_of": per_call["partition_histogramdd"][1],
         "max_abs_err": int((got - want).abs().max()), "tolerance": "bit-exact",
         **times, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None, "library": "none: no single PyTorch call computes it",
+        "library_ms": library.get("ms"), "library": library,
         "shape": [nb, rows, d], "bins": HIST_BINS, "in_place": True,
         "stack_ms": stack_ms,
         "design": {
@@ -4212,6 +4246,245 @@ def _sharded_decode_row(arch, model, params, toks, cache, base, base_ms, base_ca
 SAMPLED_STEPS = 8
 
 
+# ---------------------------------------------------------------------------
+# dryrun: the shape-only dry-run held against the card
+# ---------------------------------------------------------------------------
+
+DRYRUN_MESHES = ("single_pod", "multi_pod")
+#: the measured step must take no less than the count's compute term; a
+#: phase over this many seconds is reported (it overlaps the matrix, traced
+#: in worker processes, with the card's checks)
+DRYRUN_PHASE_S = 60.0
+#: the archs whose cells take the workers longest (MoE dispatch groups)
+DRYRUN_SLOW = ("jamba-v0.1-52b", "mixtral-8x7b", "deepseek-v2-236b")
+
+
+def dryrun_cells(label: str, arch: str, shape: str) -> tuple[list, list]:
+    """``run_matrix`` and ``run_probe_matrix`` (the depth fit) of one cell,
+    on a production mesh of ``meta`` positions: a worker process's task."""
+    from repro_torch.launch.dryrun_lib import run_matrix, run_probe_matrix
+    from repro_torch.launch.mesh import make_production_mesh
+
+    mesh = make_production_mesh(multi_pod=label == "multi_pod", devices=(torch.device("meta"),))
+    cells = [(label, mesh)]
+    return (run_matrix([arch], [shape], cells, verbose=False),
+            run_probe_matrix([arch], [shape], cells, verbose=False))
+
+
+def _median_event_ms(fn, runs: int = 3) -> float:
+    """Median of ``runs`` warm runs of ``fn``, each between two CUDA events."""
+    fn()
+    times = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _meta_against_card(name: str, meta_step, card_step, card: str) -> dict:
+    """One step counted on ``meta`` and on the card (equal), timed on the
+    card, and its H100 roofline terms beside the time.  ``launches`` are the
+    counted run's, ``timed_launches`` the timed runs' (warm-up included)."""
+    from repro_torch.analysis.roofline import H100_SXM
+    from repro_torch.launch.dryrun_lib import count_cost
+
+    _, meta = count_cost(meta_step)
+    before = read_launches()
+    _, on_card = count_cost(card_step)
+    torch.cuda.synchronize()
+    counted = read_launches()
+    ms = _median_event_ms(card_step)
+    timed = read_launches()
+    compute_ms = 1e3 * on_card.flops / H100_SXM.peak_flops
+    memory_ms = 1e3 * on_card.bytes_accessed / H100_SXM.hbm_bw
+    row = {"phase": "dryrun", "run": name, "card": card,
+           "flops": on_card.flops, "bytes_accessed": on_card.bytes_accessed,
+           "meta_flops": meta.flops, "meta_bytes_accessed": meta.bytes_accessed,
+           "kernels": on_card.kernels, "meta_kernels": meta.kernels, "ops": on_card.ops,
+           "launches": {k: counted[k] - before[k] for k in counted},
+           "timed_launches": {k: timed[k] - counted[k] for k in timed},
+           "ms": ms, "compute_ms": compute_ms,
+           "memory_ms": memory_ms, "roofline_fraction": max(compute_ms, memory_ms) / ms}
+    emit(row)
+    check((meta.flops, meta.bytes_accessed, meta.kernels)
+          == (on_card.flops, on_card.bytes_accessed, on_card.kernels),
+          f"dryrun {name}: the meta count equals the card's ({row})")
+    check(compute_ms <= ms, f"dryrun {name}: the H100 compute term {compute_ms} ms is at most "
+                            f"the measured {ms} ms")
+    return row
+
+
+WRAPPER_HOST_ROUNDS = 3
+
+
+def wrapper_host_ms(seed: int, dev: torch.device, sinks=(False,)) -> dict:
+    """``host_ms`` (``device_and_host_ms``) of the flash and SSD wrappers at
+    the kernels line's shapes, ``WRAPPER_HOST_ROUNDS`` times each, with no
+    cost sink (``False``) and with one open (``True``), the order turned
+    each round.  Also ``--wrapper-host-ms``, which times a checkout's own
+    wrappers without a sink."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    b, l = SERVE_BATCH, SERVE_PROMPT
+    q, k, v = normal(b, l, 64, 128), normal(b, l, 8, 128), normal(b, l, 8, 128)
+    nh, p, n = 64, 64, 128
+    dt = (torch.rand((b, l, nh), generator=gen, device=dev) * 0.8 + 0.1).to(torch.bfloat16)
+    a = (-(torch.rand((nh,), generator=gen, device=dev) + 0.5)).to(torch.bfloat16)
+    ssd = (normal(b, l, nh, p), dt, a, normal(b, l, n), normal(b, l, n))
+    calls = {"flash_attention": lambda: fa.flash_attention(q, k, v, causal=True),
+             "ssd_scan": lambda: ss.ssd_scan(*ssd, chunk=256)}
+    out = {name: {("sink" if s else "none"): [] for s in sinks} for name in calls}
+    for r in range(WRAPPER_HOST_ROUNDS):
+        for s in (sinks if r % 2 == 0 else sinks[::-1]):
+            for name, fn in calls.items():
+                if s:
+                    from repro_torch.kernels._build import recording_costs
+
+                    with recording_costs():
+                        host = device_and_host_ms(fn)[1]
+                else:
+                    host = device_and_host_ms(fn)[1]
+                out[name]["sink" if s else "none"].append(host)
+    return {"rounds": WRAPPER_HOST_ROUNDS, "host_ms": out}
+
+
+def dryrun_phase(seed: int, dev: torch.device, card: str) -> dict:
+    """The dry-run (``repro_torch.launch.dryrun_lib``) held against the card:
+    counts on ``meta`` and on the card, its compute term below the measured
+    step, its argument bytes against the allocator, and the whole matrix."""
+    import dataclasses
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch._pytree import tree_leaves, tree_map
+    from repro_torch.configs import ARCH_IDS, SHAPES, get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch.dryrun_lib import cell_skip_reason, lower_cell
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.launch.train import _preset
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime import TrainConfig, Trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launches()  # the phase's launches: counted from 0, read at its end
+    t_phase = time.perf_counter()
+    meta = torch.device("meta")
+    workers = max(1, min(8, (os.cpu_count() or 2) - 1))
+    pool = ProcessPoolExecutor(max_workers=workers, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        # the slowest cells first: the MoE and hybrid trains
+        order = sorted(((label, arch, shape) for label in DRYRUN_MESHES for arch in ARCH_IDS
+                        for shape in SHAPES),
+                       key=lambda c: (c[2] != "train_4k", c[1] not in DRYRUN_SLOW, c))
+        tasks = {cell: pool.submit(dryrun_cells, *cell) for cell in order}
+
+        # ---- the serve phase's qwen3-32b prefill: meta against card ----
+        spec = SERVE["qwen3-32b"]
+        cfg = dataclasses.replace(get_config(spec["arch"]), **spec["overrides"])
+        model = build_model(cfg)
+        shape = ShapeCell("serve_prefill", "prefill", SERVE_PROMPT, SERVE_BATCH)
+
+        def prefill_on(device, params):
+            cache = model.init_cache(SERVE_BATCH, SERVE_PROMPT, torch.bfloat16, device=device)
+            toks = torch.zeros((SERVE_BATCH, SERVE_PROMPT), dtype=torch.int32, device=device)
+            return torch.no_grad()(lambda: model.prefill(params, {"tokens": toks}, cache))
+
+        params = model.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+        prefill = _meta_against_card("qwen3-32b_prefill",
+                                     prefill_on(meta, model.init(None, device=meta)),
+                                     prefill_on(dev, params), card)
+        check(prefill["launches"]["flash_attention"] == cfg.num_layers
+              and prefill["kernels"]["flash_attention"]["calls"] == cfg.num_layers,
+              f"dryrun: the counted prefill launched flash once a layer with its formula "
+              f"counted ({prefill['launches']}, {prefill['kernels']})")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- memory: the dry-run's argument bytes against the allocator ----
+        one = compat_make_mesh((1, 1), ("data", "model"), devices=(meta,))
+        argument_bytes = lower_cell(cfg, one, shape).memory["argument_bytes"]
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+        params = tree_map(lambda t: t.to(torch.bfloat16), params)  # the dry-run's bf16 layout
+        placed = (params, model.init_cache(SERVE_BATCH, SERVE_PROMPT, torch.bfloat16, device=dev),
+                  torch.empty_like(model.input_specs(shape)["tokens"], device=dev))
+        gc.collect()
+        torch.cuda.synchronize()
+        rise = torch.cuda.memory_allocated(dev) - before
+        mem = {"phase": "dryrun", "run": "argument_bytes", "card": card,
+               "argument_bytes": argument_bytes, "allocated_rise": rise,
+               "leaves": len(tree_leaves(placed)), "rel_err": abs(rise - argument_bytes)
+               / argument_bytes}
+        emit(mem)
+        check(mem["rel_err"] <= 0.01,
+              f"dryrun: argument bytes within 1 % of the allocator's rise ({mem})")
+        del params, placed
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- the train phase's lm100m spliter step: meta against card ----
+        mc = dataclasses.replace(_preset("lm100m"), attn_impl="flash")
+        tr = Trainer(mc, TrainConfig(accum_mode="spliter", global_batch=TRAIN_BATCH,
+                                     num_blocks=TRAIN_BLOCKS, seq_len=TRAIN_SEQ,
+                                     steps=TRAIN_STEPS, peak_lr=1e-3, warmup_steps=2,
+                                     seed=seed), device=dev)
+        host_blocks = tr.pipeline.peek(0)
+
+        def step_on(device, params):
+            opt = adamw_init(params)
+            blocks = {k: torch.as_tensor(v).to(device) for k, v in host_blocks.items()}
+            return lambda: tr._update(params, opt, tr.gradients(params, blocks)[1])
+
+        train = _meta_against_card(
+            "lm100m_spliter_step",
+            step_on(meta, tr.model.init(None, device=meta, master=True)),
+            step_on(dev, tr.init_state()[0]), card)
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- the flash and SSD wrappers' host work with no cost sink and
+        # with one open ----
+        emit({"phase": "dryrun", "run": "wrapper_host_ms", "card": card,
+              **wrapper_host_ms(seed, dev, sinks=(False, True))})
+
+        # ---- the matrix, traced in the workers meanwhile ----
+        counts = {}
+        for (label, arch, _), task in tasks.items():
+            for kind, records in zip(("run", "probe"), task.result()):
+                c = counts.setdefault(f"{label}/{kind}", {"OK": 0, "SKIP": 0, "FAIL": 0})
+                for rec in records:
+                    c[rec["status"]] += 1
+                    want = cell_skip_reason(get_config(arch), SHAPES[rec["shape"]])
+                    check(rec["status"] == ("SKIP" if want else "OK")
+                          and rec.get("reason") == want,
+                          f"dryrun {label}/{kind} {arch} {rec['shape']}: {rec['status']} "
+                          f"{rec.get('reason') or rec.get('error', '')}")
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "dryrun", "run": "matrix", "card": card, "counts": counts,
+          "workers": workers, "seconds": seconds, "under_limit": seconds < DRYRUN_PHASE_S})
+    counted = {k: prefill["launches"][k] + train["launches"][k] for k in prefill["launches"]}
+    emit({"phase": "dryrun", "run": "launches", "counted": counted,
+          "phase_total": read_launches()})
+    return counted
+
+
 def sampled_serve_phase(seed: int, dev: torch.device) -> dict:
     """mamba2-1.3b cut to 2 layers, sampling: the reference's Threefry draws."""
     import dataclasses
@@ -4251,6 +4524,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--repeats", type=int, default=3, help="timed runs after one warm-up")
+    ap.add_argument("--wrapper-host-ms", action="store_true",
+                    help="only build the kernels and time the flash and SSD wrappers' host work "
+                         "(no cost sink), for comparing two checkouts")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4274,6 +4550,10 @@ def main(argv=None) -> int:
     emit({"phase": "ptxas", "kernels": ptxas_line(_build.REPORTS)})
 
     dev = torch.device("cuda", 0)
+    if args.wrapper_host_ms:
+        emit({"phase": "wrapper_host_ms", "card": card, "src": str(ROOT / "src"),
+              **wrapper_host_ms(args.seed, dev)})
+        return 0
     hist, km, means, label_counts = make_data(args.seed, dev)
     x_hist, x_km = (
         BlockedArray.from_array(a, BLOCK_ROWS, num_locations=LOCATIONS,
@@ -4329,6 +4609,8 @@ def main(argv=None) -> int:
     train_launches = train_phase(args.seed, dev, card)
     torch.cuda.empty_cache()
     distributed_launches = distributed_phase(args.seed, dev, card)
+    torch.cuda.empty_cache()
+    dryrun_launches = dryrun_phase(args.seed, dev, card)
     kernels += lm_kernel_checks(args.seed, dev, x_values, launches, by_run)
     for k in kernels:  # launches on the mesh and service paths (None: not on them)
         k["mesh_launches"] = mesh_launches.get(k["name"])
@@ -4336,6 +4618,7 @@ def main(argv=None) -> int:
         k["cluster_launches"] = cluster_launches.get(k["name"])
         k["train_launches"] = train_launches[k["name"]]
         k["distributed_launches"] = distributed_launches[k["name"]]
+        k["dryrun_launches"] = dryrun_launches[k["name"]]
     check(len(kernels) == 5 and all(k["launches"] > 0 for k in kernels),
           f"every kernel launched on its path: {launches}")
     check(launches["flash_attention_split"] > 0 and launches["split_kv"] > 0,

@@ -46,6 +46,21 @@ have, each computes its result with torch ops on its own device.
   the caller gets the raising rank's exception.  Ranks that call different
   collectives (or one rank returns while another waits in one) raise
   ``RuntimeError`` rather than hang.
+
+**A mesh of ``meta`` positions is shape-only** (the dry-run's production
+meshes: one ``meta`` device over 256 or 512 positions).  There is no value
+to compute, so ``shard_map`` runs one representative rank, rank 0, in the
+caller's thread, and each collective returns an empty tensor of its
+result's shape without a rendezvous; the other ranks are taken to run the
+same program, as the ranks of a data-parallel step do.  An operation
+counter entered in the caller's thread therefore sees the whole rank
+program (a counter sees only its own thread's operations).
+
+**Census.**  Inside :func:`collective_census` every collective that rank 0
+calls adds one to its kind's count and its operand and result bytes to its
+kind's sums, under XLA's kind names (``all-reduce``, ``reduce-scatter``,
+``all-gather``, ``collective-permute``).  A call over a tree of tensors is
+one collective.
 """
 
 from __future__ import annotations
@@ -77,6 +92,8 @@ __all__ = [
     "ppermute",
     "axis_index",
     "axis_size",
+    "collective_census",
+    "gathered",
     "data_parallel_gradients",
     "sharded_train_step",
 ]
@@ -122,6 +139,9 @@ class Mesh:
         self.axis_names = axis_names
         self.shape = dict(zip(axis_names, arr.shape))
         self.device_list = tuple(self._devices.flat)
+        #: every position on ``meta``: shard_map runs one representative rank
+        self.shape_only = bool(self.device_list) and all(
+            d.type == "meta" for d in self.device_list)
         self._coords = [tuple(int(c) for c in np.unravel_index(r, arr.shape))
                         for r in range(arr.size)] if arr.size else []
         self._group_cache: dict[tuple[str, ...], dict] = {}
@@ -441,12 +461,9 @@ _THREADS = _RankThreads()
 
 @dataclasses.dataclass
 class _RankContext:
-    rendezvous: _Rendezvous
+    mesh: Mesh
+    rendezvous: _Rendezvous | None  # None: the shape-only representative rank
     rank: int
-
-    @property
-    def mesh(self) -> Mesh:
-        return self.rendezvous.mesh
 
     @property
     def device(self) -> torch.device:
@@ -476,6 +493,13 @@ def _run_ranks(mesh: Mesh, body: Callable, rank_args: Sequence[tuple]) -> list:
     ranks taking turns (:class:`_Rendezvous`); the per-rank results.
     Re-raises the lowest raising rank's exception."""
     n = mesh.size
+    if mesh.shape_only:  # the module's docstring: one representative rank
+        outer = getattr(_TLS, "ctx", None)
+        _TLS.ctx = _RankContext(mesh, None, 0)
+        try:
+            return [body(*rank_args[0])] * n
+        finally:
+            _TLS.ctx = outer
     rv = _Rendezvous(mesh)
     results: list = [None] * n
     errors: list[BaseException | None] = [None] * n
@@ -485,7 +509,7 @@ def _run_ranks(mesh: Mesh, body: Callable, rank_args: Sequence[tuple]) -> list:
 
     def one(r: int) -> None:
         outer = getattr(_TLS, "ctx", None)
-        _TLS.ctx = _RankContext(rv, r)
+        _TLS.ctx = _RankContext(mesh, rv, r)
         try:
             rv.wait_turn(r)
             with torch.set_grad_enabled(grad), _on_device(mesh.device_list[r], streams):
@@ -541,10 +565,11 @@ def _local_args(mesh: Mesh, args: tuple, in_specs: Any) -> list[tuple]:
     where the rank's device holds it), other leaves as they are."""
     specs = _spec_tree(in_specs if _is_spec(in_specs) else tuple(in_specs), args)
     per_leaf: list[list] = []  # one list of rank values per leaf, in tree order
+    ranks = range(1 if mesh.shape_only else mesh.size)  # shape-only: rank 0's alone
 
     def split(x, spec) -> None:
         if spec is None or not isinstance(x, (torch.Tensor, ShardedTensor)):
-            per_leaf.append([x] * mesh.size)
+            per_leaf.append([x] * len(ranks))
             return
         sh = NamedSharding(mesh, spec)
         if isinstance(x, ShardedTensor):
@@ -552,12 +577,11 @@ def _local_args(mesh: Mesh, args: tuple, in_specs: Any) -> list[tuple]:
                 per_leaf.append(list(x.shards))
                 return
             x = x.full()
-        per_leaf.append([x[sh.index(r, x.shape)].to(dev)
-                         for r, dev in enumerate(mesh.device_list)])
+        per_leaf.append([x[sh.index(r, x.shape)].to(mesh.device_list[r]) for r in ranks])
 
     tree_map(split, args, specs)
     out = []
-    for r in range(mesh.size):
+    for r in ranks:
         it = iter(values[r] for values in per_leaf)
         out.append(tree_map(lambda _: next(it), args))
     return out
@@ -575,6 +599,8 @@ def _global_outputs(mesh: Mesh, outs: list, out_specs: Any) -> Any:
         sh = NamedSharding(mesh, spec if spec is not None else P())
         shape = [n if sh._entry(d) is None else n * mesh.axis_size(sh._entry(d))
                  for d, n in enumerate(locals_[0].shape)]
+        if mesh.shape_only:
+            return torch.empty(shape, dtype=locals_[0].dtype, device="meta")
         return _assemble(shape, sh, locals_)
 
     return tree_map(one, outs[0], _spec_tree(out_specs, outs[0]))
@@ -599,6 +625,41 @@ def shard_map(f: Callable, *, mesh: Mesh, in_specs: Any, out_specs: Any,
 # ---------------------------------------------------------------------------
 # collectives (inside a shard_map body)
 # ---------------------------------------------------------------------------
+
+
+_CENSUS: list[dict[str, dict[str, int]]] = []
+_census_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def collective_census():
+    """Count the collectives rank 0 calls inside the block (the module's
+    docstring) into the dict it yields: ``counts``, ``operand_bytes`` and
+    ``result_bytes``, each by kind; nests."""
+    stats: dict[str, dict[str, int]] = {"counts": {}, "operand_bytes": {}, "result_bytes": {}}
+    with _census_lock:
+        _CENSUS.append(stats)
+    try:
+        yield stats
+    finally:
+        with _census_lock:
+            _CENSUS.remove(stats)
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def _noted(ctx: _RankContext, kind: str, x, result):
+    """``result``, after adding the collective to the open censuses (rank 0's)."""
+    if _CENSUS and ctx.rank == 0:
+        operand, out = _nbytes(x), _nbytes(result)
+        with _census_lock:
+            for st in _CENSUS:
+                for key, n in (("counts", 1), ("operand_bytes", operand), ("result_bytes", out)):
+                    st[key][kind] = st[key].get(kind, 0) + n
+    return result
 
 
 def _group(axis_name) -> tuple[_RankContext, tuple[str, ...], tuple[int, ...], int]:
@@ -642,9 +703,11 @@ def psum(x: Any, axis_name) -> Any:
     if isinstance(x, (int, float)):
         return x * axis_size(axis_name)
     ctx, axes, members, _ = _group(axis_name)
+    if ctx.rendezvous is None:
+        return _noted(ctx, "all-reduce", x, tree_map(torch.empty_like, x))
     vals, memo = ctx.rendezvous.exchange(ctx.rank, ("psum", axes), x)
-    return _shared(memo, (members, ctx.device), lambda: tree_map(
-        lambda *leaves: _fold(leaves, ctx.device), *[vals[r] for r in members]))
+    return _noted(ctx, "all-reduce", x, _shared(memo, (members, ctx.device), lambda: tree_map(
+        lambda *leaves: _fold(leaves, ctx.device), *[vals[r] for r in members])))
 
 
 def psum_scatter(x: torch.Tensor, axis_name, *, scatter_dimension: int = 0,
@@ -654,8 +717,9 @@ def psum_scatter(x: torch.Tensor, axis_name, *, scatter_dimension: int = 0,
     equal the group's and is removed; with ``tiled=True`` it is split into
     equal parts and kept."""
     ctx, axes, members, pos = _group(axis_name)
-    vals, _ = ctx.rendezvous.exchange(ctx.rank, ("psum_scatter", axes, scatter_dimension,
-                                                 tiled), x)
+    if ctx.rendezvous is not None:
+        vals, _ = ctx.rendezvous.exchange(ctx.rank, ("psum_scatter", axes, scatter_dimension,
+                                                     tiled), x)
     n, d = len(members), scatter_dimension
     size = x.shape[d]
     if tiled and size % n:
@@ -666,17 +730,27 @@ def psum_scatter(x: torch.Tensor, axis_name, *, scatter_dimension: int = 0,
     def part(t):
         return t.narrow(d, pos * (size // n), size // n) if tiled else t.select(d, pos)
 
-    return _fold([part(vals[r]) for r in members], ctx.device)
+    if ctx.rendezvous is None:
+        return _noted(ctx, "reduce-scatter", x, torch.empty_like(part(x)))
+    return _noted(ctx, "reduce-scatter", x, _fold([part(vals[r]) for r in members], ctx.device))
 
 
 def all_gather(x: torch.Tensor, axis_name, *, axis: int = 0, tiled: bool = False) -> torch.Tensor:
     """The group's operands in position order, stacked along a new dim
     ``axis`` (``tiled=False``) or concatenated along ``axis`` (``tiled=True``)."""
     ctx, axes, members, _ = _group(axis_name)
+    if ctx.rendezvous is None:
+        shape = list(x.shape)
+        if tiled:
+            shape[axis] *= len(members)
+        else:
+            shape.insert(axis if axis >= 0 else len(shape) + 1 + axis, len(members))
+        return _noted(ctx, "all-gather", x, x.new_empty(shape))
     vals, memo = ctx.rendezvous.exchange(ctx.rank, ("all_gather", axes, axis, tiled), x)
     join = torch.cat if tiled else torch.stack
-    return _shared(memo, (members, ctx.device),
-                   lambda: join([vals[r].to(ctx.device) for r in members], dim=axis))
+    return _noted(ctx, "all-gather", x, _shared(
+        memo, (members, ctx.device),
+        lambda: join([vals[r].to(ctx.device) for r in members], dim=axis)))
 
 
 def ppermute(x: Any, axis_name, perm: Sequence[tuple[int, int]]) -> Any:
@@ -687,11 +761,14 @@ def ppermute(x: Any, axis_name, perm: Sequence[tuple[int, int]]) -> Any:
     if len({s for s, _ in perm}) != len(perm) or len({d for _, d in perm}) != len(perm):
         raise ValueError(f"ppermute: a position sends or receives twice in {perm}")
     ctx, axes, members, pos = _group(axis_name)
+    if ctx.rendezvous is None:
+        return _noted(ctx, "collective-permute", x, tree_map(torch.empty_like, x))
     vals, _ = ctx.rendezvous.exchange(ctx.rank, ("ppermute", axes, tuple(perm)), x)
     src = [s for s, d in perm if d == pos]
     if not src:
-        return tree_map(torch.zeros_like, x)
-    return tree_map(lambda t: t.to(ctx.device, copy=True), vals[members[src[0]]])
+        return _noted(ctx, "collective-permute", x, tree_map(torch.zeros_like, x))
+    return _noted(ctx, "collective-permute", x,
+                  tree_map(lambda t: t.to(ctx.device, copy=True), vals[members[src[0]]]))
 
 
 # ---------------------------------------------------------------------------
@@ -703,7 +780,7 @@ def _dp_axes(mesh: Mesh) -> tuple[str, ...]:
     return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
 
 
-def _gathered(x: torch.Tensor, spec: PartitionSpec) -> torch.Tensor:
+def gathered(x: torch.Tensor, spec: PartitionSpec) -> torch.Tensor:
     """A rank's shard gathered to the global value inside a body (the
     reference's FSDP all-gather): one tiled ``all_gather`` per sharded dim."""
     for d, e in enumerate(spec):
@@ -746,7 +823,7 @@ def data_parallel_gradients(loss_fn: Callable, params: Any, blocks: dict[str, to
     b_specs = {k: P(None, dp) for k in blocks}
 
     def body(local_params, local_blocks):
-        full = tree_map(_gathered, local_params, p_specs)
+        full = tree_map(gathered, local_params, p_specs)
         loss, grads = accumulate_gradients(loss_fn, full, local_blocks)
         return loss.reshape(1), grads
 

@@ -9,10 +9,19 @@ rebuilds and an unchanged one is reused.  Nothing is
 built when a module is imported: the first launch of a kernel builds it,
 and :func:`build` compiles several sources at once (one ``nvcc`` process
 each, all started together).
+
+A kernel launched through ctypes is invisible to PyTorch's dispatcher, so
+an operation counter (``torch.utils.flop_counter``, the dry-run's
+``count_cost``) would count a step without it.  :func:`recording_costs`
+collects, per thread, the ``(name, flops, bytes)`` that each kernel wrapper
+reports for a launch on the card or a call on ``meta`` (the wrappers'
+shape-only route); outside it a wrapper's only extra work is the check of
+:func:`cost_sink`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -23,8 +32,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["REPORTS", "SOURCES", "build", "count_launch", "kernel_function", "records_grad",
-           "refuse_grad"]
+__all__ = ["REPORTS", "SOURCES", "build", "cost_sink", "count_launch", "kernel_function",
+           "records_grad", "recording_costs", "refuse_grad"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -40,6 +49,7 @@ NVCC_FLAGS = (
 _lock = threading.Lock()
 _count_lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_costs = threading.local()
 #: The compiler's report (``-Xptxas -v``: registers, spills, stack per
 #: kernel) of each library that :func:`build` compiled with ``verbose``.
 REPORTS: dict[str, str] = {}
@@ -129,6 +139,23 @@ def count_launch(fn, counter: str = "launches") -> None:
     """
     with _count_lock:
         setattr(fn, counter, getattr(fn, counter) + 1)
+
+
+def cost_sink() -> list | None:
+    """The list this thread's kernel wrappers append their ``(name, flops,
+    bytes)`` to, or None outside :func:`recording_costs`."""
+    return getattr(_costs, "sink", None)
+
+
+@contextlib.contextmanager
+def recording_costs():
+    """Collect the costs the kernel wrappers of this thread report (the
+    module's docstring) into the list it yields; nests."""
+    outer, _costs.sink = cost_sink(), []
+    try:
+        yield _costs.sink
+    finally:
+        _costs.sink = outer
 
 
 def records_grad(*tensors) -> bool:

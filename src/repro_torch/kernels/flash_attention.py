@@ -42,6 +42,14 @@ and ``block_k`` are accepted for the JAX signature and change nothing.
 ``flash_attention.launches`` counts the launches of both routes,
 ``flash_attention.split_launches`` those of the split route, and
 ``split_kv.launches`` those of the split kernel.
+
+**Seen by an operation counter.**  Given ``meta`` tensors, both wrappers
+check their operands as for the card (the same routes, the same errors) and
+return outputs of the kernel's shape and type, launching nothing.  On the
+card and on ``meta`` each call reports its work to the thread's cost sink
+(``_build.recording_costs``), which the dry-run's counter adds: see
+:func:`flash_cost` and :func:`split_kv_cost`.  The CPU route reports
+nothing: a counter sees its plain PyTorch operations themselves.
 """
 
 from __future__ import annotations
@@ -49,13 +57,14 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.api.kernels import pallas_interpret
-from repro_torch.kernels._build import count_launch, kernel_function, refuse_grad
+from repro_torch.kernels._build import cost_sink, count_launch, kernel_function, refuse_grad
 
-__all__ = ["flash_attention", "flash_attention_emulated", "flash_attention_ref", "split_kv",
-           "split_terms_ref"]
+__all__ = ["attended_pairs", "flash_attention", "flash_attention_emulated", "flash_attention_ref",
+           "flash_cost", "split_kv", "split_kv_cost", "split_terms_ref"]
 
 NEG_INF = -1e30
 _WGMMA_HEAD_DIMS = (32, 64, 128)
@@ -93,6 +102,35 @@ def split_terms_ref(x: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(torch.stack(out), (0, _padded_head_dim(d) - d))
 
 
+def attended_pairs(lq: int, lk: int, *, causal: bool, window: int) -> int:
+    """The (query, key) pairs the mask keeps, per batch row and head: key
+    ``j`` reaches query ``i`` iff ``j <= i`` (causal) and ``j > i - window``
+    (a window), positions counted from 0 on both sides."""
+    i = np.arange(lq, dtype=np.int64)
+    hi = np.minimum(lk, i + 1) if causal else np.full(lq, lk, dtype=np.int64)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros(lq, dtype=np.int64)
+    return int(np.clip(hi - lo, 0, None).sum())
+
+
+def flash_cost(q: torch.Tensor, k: torch.Tensor, *, causal: bool, window: int
+               ) -> tuple[str, int, int]:
+    """``("flash_attention", flops, bytes)`` of one call: two products of
+    ``2·D`` operations for every pair the mask keeps (masked tiles skipped;
+    the kernel's partly masked tiles are counted at their kept pairs), and
+    q, k and v read once and the output written once."""
+    b, lq, h, d = q.shape
+    pairs = attended_pairs(lq, k.shape[1], causal=causal, window=window)
+    return ("flash_attention", 4 * b * h * d * pairs,
+            (2 * q.numel() + 2 * k.numel()) * q.element_size())
+
+
+def split_kv_cost(k: torch.Tensor) -> tuple[str, int, int]:
+    """``("split_kv", 0, bytes)`` of one call: f32 K and V read once, their
+    three bf16 terms at the padded head dim written once."""
+    terms = 3 * k.numel() // k.shape[-1] * _padded_head_dim(k.shape[-1])
+    return "split_kv", 0, 2 * (k.numel() * 4 + terms * 2)
+
+
 def _check_operand(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
     if t.device != like.device or t.dtype != like.dtype or not t.is_contiguous():
         raise ValueError(f"flash_attention: {name} must be a contiguous {like.dtype} tensor "
@@ -112,13 +150,18 @@ def split_kv(k: torch.Tensor, v: torch.Tensor) -> tuple[torch.Tensor, torch.Tens
     d = k.shape[-1]
     if d % 8 or not 8 <= d <= 128:
         raise ValueError(f"split_kv: head dim {d} is not taken (a multiple of 8 up to 128)")
-    if pallas_interpret(k):
+    if k.device.type != "meta" and pallas_interpret(k):
         return split_terms_ref(k), split_terms_ref(v)
     for name, t in (("k", k), ("v", v)):
         _check_operand(name, t, k)
     dp = _padded_head_dim(d)
     kt = torch.empty((3, *k.shape[:-1], dp), dtype=torch.bfloat16, device=k.device)
     vt = torch.empty_like(kt)
+    sink = cost_sink()
+    if sink is not None:
+        sink.append(split_kv_cost(k))
+    if k.device.type == "meta":
+        return kt, vt
     fn = kernel_function("flash_attention", "repro_flash_split_kv",
                          [_VOID] * 4 + [ctypes.c_longlong, _INT, _INT, _VOID])
     with torch.cuda.device(k.device):
@@ -234,12 +277,13 @@ def flash_attention(
     kernel (``_build.refuse_grad``)."""
     del block_q, block_k  # the kernel's tiles are its own; results do not depend on them
     refuse_grad("flash_attention", q, k, v)
-    if pallas_interpret(q):
+    meta = q.device.type == "meta"
+    if not meta and pallas_interpret(q):
         return flash_attention_ref(q, k, v, causal=causal, window=window)
     _check_shapes(q, k, v)
     b, lq, h, d = q.shape
     lk, hkv = k.shape[1], k.shape[2]
-    if q.device.type != "cuda":
+    if q.device.type != "cuda" and not meta:
         raise ValueError(f"flash_attention: q lies on {q.device}; the kernel takes CUDA tensors")
     route = _route(q.dtype, d)
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -252,22 +296,27 @@ def flash_attention(
     if route == "split":
         # f32 K and V as their terms; bf16 K and V as they are
         kt, vt = split_kv(k, v) if q.dtype == torch.float32 else (k, v)
-        fn = kernel_function("flash_attention", "repro_flash_attention_split",
-                             [_VOID] * 4 + [_INT] * 7 + tail_types + [_INT, _VOID])
+        symbol = "repro_flash_attention_split"
+        argtypes = [_VOID] * 4 + [_INT] * 7 + tail_types + [_INT, _VOID]
         args = [q.data_ptr(), kt.data_ptr(), vt.data_ptr(), out.data_ptr(), b, lq, lk, h, hkv, d,
                 _padded_head_dim(d), *tail, int(q.dtype == torch.bfloat16)]
     else:
-        fn = kernel_function("flash_attention", "repro_flash_attention",
-                             [_VOID] * 4 + [_INT] * 6 + tail_types + [_VOID])
+        symbol = "repro_flash_attention"
+        argtypes = [_VOID] * 4 + [_INT] * 6 + tail_types + [_VOID]
         args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, lq, lk, h, hkv, d,
                 *tail]
-    with torch.cuda.device(q.device):
-        err = fn(*args, torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention: CUDA launch failed with error {err}")
-    count_launch(flash_attention)
-    if route == "split":
-        count_launch(flash_attention, "split_launches")
+    if not meta:  # meta is shape-only: what the card route returns, nothing launched
+        fn = kernel_function("flash_attention", symbol, argtypes)
+        with torch.cuda.device(q.device):
+            err = fn(*args, torch.cuda.current_stream(q.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"flash_attention: CUDA launch failed with error {err}")
+        count_launch(flash_attention)
+        if route == "split":
+            count_launch(flash_attention, "split_launches")
+    sink = cost_sink()
+    if sink is not None:
+        sink.append(flash_cost(q, k, causal=causal, window=window))
     return out
 
 

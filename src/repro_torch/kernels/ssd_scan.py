@@ -17,22 +17,46 @@ by it, the kernel by its own 64 rows; the results do not depend on it.  On
 either device it raises where an operand requires a gradient under grad
 mode: no backward kernel exists (nor in the JAX package), and an output
 filled through ctypes would drop the gradient without a word.
+
+Given ``meta`` tensors the wrapper checks its operands as for the card and
+returns outputs of the kernel's shapes and types, launching nothing; on the
+card and on ``meta`` each call reports :func:`ssd_cost` to the thread's cost
+sink (``_build.recording_costs``), which the dry-run's counter adds.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from repro_torch.api.kernels import pallas_interpret
-from repro_torch.kernels._build import count_launch, kernel_function, refuse_grad
+from repro_torch.kernels._build import cost_sink, count_launch, kernel_function, refuse_grad
 
-__all__ = ["ssd_chunked", "ssd_scan"]
+__all__ = ["ssd_chunked", "ssd_cost", "ssd_scan"]
 
 _VOID = ctypes.c_void_p
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_P, _MAX_N = 64, 128
+_KERNEL_CHUNK = 64  # the kernel's rows per chunk
+
+
+def ssd_cost(x: torch.Tensor, bm: torch.Tensor) -> tuple[str, int, int]:
+    """``("ssd_scan", flops, bytes)`` of one call, the function's work at
+    the kernel's 64-row chunks: ``C·Bᵀ`` once per batch row and chunk (every
+    head shares it), then per head the decayed ``(C·Bᵀ)·x``, ``C·h`` and the
+    state update, causal halves of the chunk's square only, each product
+    taking an f32 factor split into bf16 hi + lo (two products); x, dt, a,
+    B and C read once, y (x's type) and the f32 state written once."""
+    b, l, nh, p = x.shape
+    n = bm.shape[-1]
+    q = _KERNEL_CHUNK
+    tri = q * (q + 1) // 2
+    mac = b * math.ceil(l / q) * (tri * n + nh * 2 * (tri * p + 2 * q * p * n))
+    size = x.element_size()
+    nbytes = (2 * x.numel() + b * l * nh + nh + 2 * b * l * n) * size + b * nh * p * n * 4
+    return "ssd_scan", 2 * mac, nbytes
 
 
 def ssd_chunked(x, dt, a, bm, cm, *, chunk: int):
@@ -104,7 +128,8 @@ def ssd_scan(
     q = min(chunk, l)
     if l % q:  # the JAX signature's contract, kept on both routes
         raise ValueError(f"sequence length {l} is not a multiple of chunk {q}")
-    if pallas_interpret(x):
+    meta = x.device.type == "meta"
+    if not meta and pallas_interpret(x):
         y, h = ssd_chunked(x, dt, a, bm, cm, chunk=q)
         return y, h.to(torch.float32)
     shapes = {"dt": (b, l, nh), "a": (nh,), "bm": (b, l, n), "cm": (b, l, n)}
@@ -120,6 +145,11 @@ def ssd_scan(
         raise ValueError(f"ssd_scan: head dim {p} (max {_MAX_P}) or state {n} (max {_MAX_N})")
     y = torch.empty_like(x)
     h = torch.empty((b, nh, p, n), dtype=torch.float32, device=x.device)
+    sink = cost_sink()
+    if sink is not None:
+        sink.append(ssd_cost(x, bm))
+    if meta:  # shape-only: what the card route returns, nothing launched
+        return y, h
     fn = kernel_function(
         "ssd_scan", "repro_ssd_scan", [_VOID] * 7 + [ctypes.c_int] * 6 + [_VOID],
     )

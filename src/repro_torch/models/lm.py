@@ -23,6 +23,7 @@ Entry points:
 * ``model.init_cache(batch, max_len, ...)`` → cache (decode state)
 * ``model.prefill(params, batch, cache)``   → (last_logits, cache)
 * ``model.decode_step(params, cache, token, pos, memory=None)`` → (logits, cache)
+* ``model.input_specs(shape)``             → ``meta`` inputs of a dry-run cell
 
 ``batch`` holds ``tokens`` and, for the audio family, ``frames`` (B,
 encoder_seq, d_model), for the vlm family ``image_embeds`` (B, image_tokens,
@@ -64,7 +65,7 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch._pytree import tree_map
-from repro_torch.configs.base import LayerSpec, ModelConfig, Segment
+from repro_torch.configs.base import LayerSpec, ModelConfig, Segment, ShapeCell
 from repro_torch.core.blocked import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.mla import init_mla, mla_attention
@@ -469,6 +470,34 @@ class Model:
                "cache_pos": int(pos), "memory": memory}
         x = self._trunk(params, x, ctx, cache)
         return self._logits(params, x)[:, 0], cache
+
+    # ---------------- dry-run input specs ----------------
+
+    def input_specs(self, shape: ShapeCell) -> dict[str, torch.Tensor]:
+        """``meta`` stand-ins for every model input of this cell (the
+        reference's ``ShapeDtypeStruct``s: same shapes, same types).
+
+        Modality frontends are stubbed as in the reference: whisper gets
+        precomputed frame embeddings, the VLM patch embeddings.
+        """
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+
+        def spec(*dims, dtype=torch.int32):
+            return torch.empty(dims, dtype=dtype, device="meta")
+
+        if shape.kind == "train":
+            specs = {"tokens": spec(b, s), "labels": spec(b, s)}
+        elif shape.kind == "prefill":
+            specs = {"tokens": spec(b, s)}
+        else:  # decode: one new token against a cache of length s
+            specs = {"token": spec(b, 1)}
+        f = getattr(torch, cfg.dtype)
+        if cfg.family == "audio" and shape.kind != "decode":
+            specs["frames"] = spec(b, cfg.encoder_seq, cfg.d_model, dtype=f)
+        if cfg.family == "vlm" and shape.kind != "decode":
+            specs["image_embeds"] = spec(b, cfg.image_tokens, cfg.image_embed_dim, dtype=f)
+        return specs
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -90,6 +90,33 @@ def _ssd_inputs(gen, dev, b, l, nh, p, n, dtype):
     return tuple(t.to(dtype) for t in (x, dt, a, bm, cm))
 
 
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128), (torch.float32, 64),
+                                     (torch.bfloat16, 48)])
+def test_lm_kernel_costs_equal_on_the_card_and_on_meta(dev, dtype, d):
+    """A launch reports the same formula to the dry-run's counter as the
+    ``meta`` route does, and the counter counts the same around it."""
+    from repro_torch.launch.dryrun_lib import count_cost
+
+    gen = torch.Generator(device=dev).manual_seed(d)
+    q, k, v = (_normal(gen, dev, 2, 96, 4, d, dtype=dtype) for _ in range(3))
+    before = fa.flash_attention.launches
+    _, card = count_cost(fa.flash_attention, q, k, v, causal=True, window=40)
+    _, meta = count_cost(fa.flash_attention, *(t.to("meta") for t in (q, k, v)), causal=True,
+                         window=40)
+    assert fa.flash_attention.launches == before + 1
+    assert (card.flops, card.bytes_accessed, card.kernels) == \
+        (meta.flops, meta.bytes_accessed, meta.kernels)
+    x = _normal(gen, dev, 2, 128, 4, 32, dtype=dtype)
+    dt = (torch.rand((2, 128, 4), generator=gen, device=dev) * 0.5).to(dtype)
+    a = -(torch.rand((4,), generator=gen, device=dev) + 0.5).to(dtype)
+    bm, cm = (_normal(gen, dev, 2, 128, 16, dtype=dtype) for _ in range(2))
+    _, card = count_cost(ss.ssd_scan, x, dt, a, bm, cm, chunk=64)
+    _, meta = count_cost(ss.ssd_scan, *(t.to("meta") for t in (x, dt, a, bm, cm)), chunk=64)
+    assert card.kernels == meta.kernels == {"ssd_scan": dict(zip(
+        ("calls", "flops", "bytes"), (1, *ss.ssd_cost(x, bm)[1:])))}
+    assert (card.flops, card.bytes_accessed) == (meta.flops, meta.bytes_accessed)
+
+
 @pytest.mark.parametrize("b,l,nh,p,n", [
     (2, 256, 4, 64, 128),   # the mamba2 widths, 4 chunks
     (1, 100, 3, 64, 128),   # ragged last chunk, odd head count

@@ -51,7 +51,7 @@ from repro_torch.distributed import spmd
 from repro_torch.launch.mesh import compat_make_mesh, make_production_mesh, make_test_mesh
 from repro_torch.models import build_model, layers
 from repro_torch.models.layers import _cache_write_sharded, cache_write
-from repro_torch.optim import accumulate_gradients, adamw_init
+from repro_torch.optim import accumulate_gradients, adamw_init, adamw_update
 
 SRC = os.path.join(os.path.dirname(__file__), os.pardir, "src")
 CHILD = os.path.join(os.path.dirname(__file__), "_torch_dist_ref.py")
@@ -173,6 +173,19 @@ def test_sharded_train_step_matches_reference(reference, monkeypatch):
     assert new["embed"].sharding == placed["embed"].sharding
     assert int(opt.step) == 1
     assert not torch.equal(new["embed"].full(), params["embed"])
+    # the update equals an unsharded AdamW step from the same gradients, bit
+    # for bit: the sharded step gathers the params (a copy), runs the same
+    # adamw_update on the same device and splits the result
+    want_p, want_opt = adamw_update(jax.tree.map(torch.clone, params), grads_dp,
+                                    adamw_init(params), lr=1e-3)
+    got_p = jax.tree.map(lambda p: p.full() if isinstance(p, ShardedTensor) else p, new,
+                         is_leaf=lambda x: isinstance(x, ShardedTensor))
+    assert int(want_opt.step) == int(opt.step)
+    for got_tree, want_tree in ((got_p, want_p), (opt.m, want_opt.m), (opt.v, want_opt.v)):
+        got_leaves, want_leaves = jax.tree.leaves(got_tree), jax.tree.leaves(want_tree)
+        assert len(got_leaves) == len(want_leaves) == len(jax.tree.leaves(params))
+        for g, w in zip(got_leaves, want_leaves):
+            assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 def test_elastic_restore_matches_reference(reference, tmp_path):

@@ -1,0 +1,460 @@
+"""The port's dry-run (``repro_torch.launch.dryrun_lib``, ``Model.input_specs``,
+``launch/perf.py``) and the LM kernels' shape-only routes, against the JAX
+package's.
+
+The reference's compiled records come from one child process on 8 forced
+host devices (``tests/_torch_dryrun_ref.py``, ~35 s): ``run_cell`` and
+``probe_cell`` for qwen3-32b's and mamba2-1.3b's smoke configs in a train,
+a prefill and a decode cell (no probe of mamba2's train) on a (2, 4)
+("data", "model") mesh, and ``run_cell`` with the compiled module's matrix
+products on a data-parallel (2, 1) mesh.  The port traces the same cells
+on meshes of ``meta`` positions in this process.
+Everything else compares the two packages' pure functions in-process, or
+holds the port to itself: the depth fit against the full-depth count, the
+kernels' formulas against closed forms counted another way, and the
+``meta`` routes against the CPU routes.
+"""
+
+import dataclasses
+import json
+import math
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import _torch_dryrun_ref as ref_child
+from repro.configs import SHAPES as REF_SHAPES
+from repro.configs import get_config as ref_get_config
+from repro.launch import dryrun_lib as ref_lib
+from repro.models import build_model as ref_build_model
+from repro_torch._pytree import tree_leaves
+from repro_torch.configs import ARCH_IDS, SHAPES, get_config, get_smoke_config
+from repro_torch.configs.base import ShapeCell
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops
+from repro_torch.kernels import ssd_scan as ss
+from repro_torch.launch import dryrun_lib as lib
+from repro_torch.launch import perf
+from repro_torch.launch.mesh import compat_make_mesh
+from repro_torch.models import build_model
+
+# the reference's perf module sets XLA_FLAGS to 512 host devices when it is
+# imported; a JAX backend started later in this process (another test file
+# of the same worker) would see them, so the variable is put back
+_xla_flags = os.environ.get("XLA_FLAGS")
+from repro.launch import perf as ref_perf  # noqa: E402
+
+if _xla_flags is None:
+    os.environ.pop("XLA_FLAGS", None)
+else:
+    os.environ["XLA_FLAGS"] = _xla_flags
+
+SRC = os.path.join(os.path.dirname(__file__), os.pardir, "src")
+CHILD = os.path.join(os.path.dirname(__file__), "_torch_dryrun_ref.py")
+META = torch.device("meta")
+CELLS = [(a, s) for a in ARCH_IDS for s in SHAPES]
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    """The child's records, keyed by (arch, shape, "run" | "probe")."""
+    path = str(tmp_path_factory.mktemp("dryrun_ref") / "records.json")
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=8",
+               JAX_PLATFORMS="cpu")
+    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, CHILD, path], env=env, capture_output=True,
+                         text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert f"RESULT {path}" in out.stdout
+    with open(path) as f:
+        records = iter(json.load(f))
+    got = {(a, s, kind): next(records) for a in ref_child.ARCHES
+           for s in ref_child.SHAPE_NAMES for kind in ("run", "probe")
+           if kind == "run" or (a, s) not in ref_child.NO_PROBE}
+    got.update({(a, s, "data"): next(records) for a in ref_child.ARCHES
+                for s in ref_child.SHAPE_NAMES})
+    assert next(records, None) is None
+    return got
+
+
+@pytest.fixture
+def small_shapes(monkeypatch):
+    """The child's small shape cells under the real names, in the port."""
+    for name, (kind, seq, batch) in ref_child.SMALL_SHAPES.items():
+        monkeypatch.setitem(SHAPES, name, ShapeCell(name, kind, seq, batch))
+
+
+def _meta_mesh(shape=ref_child.MESH[0], axes=ref_child.MESH[1]):
+    return compat_make_mesh(shape, axes, devices=(META,))
+
+
+# ---------------------------------------------------------------------------
+# pure functions: exact equality with the reference
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch,shape", CELLS)
+def test_input_specs_match_reference(arch, shape):
+    got = build_model(get_config(arch)).input_specs(SHAPES[shape])
+    want = ref_build_model(ref_get_config(arch)).input_specs(REF_SHAPES[shape])
+    assert list(got) == list(want)
+    for k, t in got.items():
+        assert t.device == META
+        assert tuple(t.shape) == tuple(want[k].shape)
+        assert str(t.dtype).removeprefix("torch.") == str(want[k].dtype)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_cell_rules_match_reference(arch):
+    cfg, rcfg = get_config(arch), ref_get_config(arch)
+    for shape in SHAPES:
+        assert lib.cell_skip_reason(cfg, SHAPES[shape]) == ref_lib.cell_skip_reason(
+            rcfg, REF_SHAPES[shape])
+    assert lib._serving_fsdp(cfg) == ref_lib._serving_fsdp(rcfg)
+    for k in (1, 2, 3):
+        got, r = lib.probe_config(cfg, k)
+        want, rr = ref_lib.probe_config(rcfg, k)
+        assert r == rr
+        for field in ("num_layers", "encoder_layers", "moe_first_dense", "unroll_layers"):
+            assert getattr(got, field) == getattr(want, field)
+        assert [(tuple((x.mixer, x.mlp) for x in s.period), s.repeats)
+                for s in got.segments()] == [
+            (tuple((x.mixer, x.mlp) for x in s.period), s.repeats) for s in want.segments()]
+
+
+VARIANTS = ["baseline", "nb16", "sp", "dus", "hdus", "dec", "dus+dec", "hoist", "pb4",
+            "remat_dots", "moeg512", "cf1.5", "flash", "sp+nb16+hoist+pb2+remat_none"]
+
+
+@pytest.mark.parametrize("name", VARIANTS + ["bogus"])
+def test_variant_kwargs_match_reference(name):
+    if name == "bogus":
+        with pytest.raises(KeyError):
+            ref_perf.variant_kwargs(name)
+        with pytest.raises(KeyError):
+            perf.variant_kwargs(name)
+        return
+    assert perf.variant_kwargs(name) == ref_perf.variant_kwargs(name)
+
+
+# ---------------------------------------------------------------------------
+# records held to the reference's compiled ones
+# ---------------------------------------------------------------------------
+
+#: output leaves of each cell's step: XLA's output buffer is a tuple whose
+#: index table holds 8 bytes per leaf, counted in ``output_size_in_bytes``
+TUPLE_ENTRY = 8
+
+
+def _output_leaves(arch: str, kind: str) -> int:
+    model = build_model(get_smoke_config(arch))
+    cache = model.init_cache(1, 8, device=META)
+    params = tree_leaves(model.init(None, device=META))
+    if kind == "train":  # params, AdamW's step and two moments, the loss
+        return 3 * len(params) + 2
+    return 1 + len(tree_leaves(cache))  # logits and the cache
+
+
+@pytest.mark.parametrize("arch", ref_child.ARCHES)
+@pytest.mark.parametrize("shape", ref_child.SHAPE_NAMES)
+def test_memory_matches_reference(reference, small_shapes, arch, shape):
+    rec = lib.run_cell(arch, shape, _meta_mesh(), mesh_label="test",
+                       overrides=ref_child.overrides(get_smoke_config(arch)))
+    want = reference[(arch, shape, "run")]["memory"]
+    got = rec["memory"]
+    kind = SHAPES[shape].kind
+    # XLA's tuple table: the port's outputs are the leaves themselves
+    assert got["output_bytes"] + TUPLE_ENTRY * _output_leaves(arch, kind) == want["output_bytes"]
+    arg, alias = got["argument_bytes"], got["alias_bytes"]
+    if arch == "mamba2-1.3b" and kind == "prefill":
+        # the reference's prefill never reads the SSM state it is given (h is
+        # computed from zeros) and XLA drops that unused donated parameter:
+        # its shard leaves both the arguments and the aliases
+        model = build_model(get_smoke_config(arch))
+        cache = model.init_cache(SHAPES[shape].global_batch, SHAPES[shape].seq_len,
+                                 device=META)
+        h = cache["seg0"][0]["h"]
+        h_shard = h.numel() * 4 // 8  # batch over data (2), heads over model (4)
+        arg, alias = arg - h_shard, alias - h_shard
+    if arch == "mamba2-1.3b" and kind == "decode":
+        arg -= 4  # no mamba2 layer reads the decode position: XLA drops the int32 scalar
+    assert arg == want["argument_bytes"]
+    assert alias == want["alias_bytes"]
+    assert got["temp_bytes"] == 0 and got["temp_bytes_counted"] is False
+    assert got["peak_live_bytes"] == got["argument_bytes"] + got["output_bytes"] - got[
+        "alias_bytes"]
+
+
+#: The port's FLOPs are matrix products (FlopCounterMode's formulas) and its
+#: kernels' formulas; XLA's ``cost_analysis`` adds a FLOP per element of
+#: every elementwise operation and reduction, so the two are not comparable.
+#: The products themselves are: the child sums ``2·M·N·K`` over the ``dot``
+#: instructions of each compiled module (``dot_flops``).  On the (2, 4) mesh
+#: XLA repeats some products on every model position (the smoke configs'
+#: two KV heads over four), so the comparison runs on the data-parallel
+#: ``DATA_MESH``, the port's own layout, where a device's products are one
+#: rank's.  They are equal in every cell but mamba2's train step, where XLA
+#: forms four of the SSD einsums' gradient contractions (16384 FLOPs each at
+#: these widths, 0.29 % of the step) as dots and PyTorch's autograd as
+#: products and sums.  1 %: a lost LM head, layer or batch share is far more.
+DOT_RTOL = 0.01
+
+
+@pytest.mark.parametrize("arch", ref_child.ARCHES)
+@pytest.mark.parametrize("shape", ref_child.SHAPE_NAMES)
+def test_flops_held_to_reference(reference, small_shapes, monkeypatch, arch, shape):
+    """The port's matrix-product FLOPs of a cell's step equal the products
+    of the reference's compiled module, within :data:`DOT_RTOL`.  The SSD
+    kernel's formula counts the kernel's own work (64-row chunks, products
+    split in two; held to a closed form below), so here the port's plain
+    chunked SSD, the reference model's own algorithm, takes its place."""
+    monkeypatch.setattr(ops, "ssd_scan", ss.ssd_chunked)
+    mesh = compat_make_mesh(*ref_child.DATA_MESH, devices=(META,))
+    rec = lib.run_cell(arch, shape, mesh, mesh_label="data",
+                       overrides=ref_child.overrides(get_smoke_config(arch)))
+    assert rec["cost"]["kernels"] == {}
+    want = reference[(arch, shape, "data")]["cost"]["dot_flops"]
+    assert want > 0
+    assert rec["cost"]["flops"] == pytest.approx(want, rel=DOT_RTOL)
+
+
+def test_dot_flops_counts_a_compiled_module():
+    """The child's census of a module's products: a batched product and a
+    plain one, counted by hand."""
+    import jax
+    import jax.numpy as jnp
+
+    f = jax.jit(lambda a, b, c: jnp.einsum("bij,bjk->bik", a, b).sum() + (a[0] @ c).sum())
+    text = f.lower(jnp.ones((3, 4, 5)), jnp.ones((3, 5, 6)), jnp.ones((5, 7))).compile().as_text()
+    assert ref_child.dot_flops(text) == 2 * 3 * 4 * 6 * 5 + 2 * 4 * 7 * 5
+
+
+@pytest.mark.parametrize("arch", ref_child.ARCHES)
+@pytest.mark.parametrize("shape", ref_child.SHAPE_NAMES)
+def test_probe_keeps_the_reference_keys(reference, small_shapes, arch, shape):
+    ref_probe = reference.get((arch, shape, "probe"))
+    prb = lib.probe_cell(arch, shape, _meta_mesh(), mesh_label="test",
+                         overrides=ref_child.overrides(get_smoke_config(arch)))
+    assert set(prb) >= {"depths", "repeats", "extrapolated", "probe_s"}
+    if ref_probe is not None:
+        assert prb["repeats"] == ref_probe["repeats"]
+        assert set(prb["extrapolated"]) == set(ref_probe["extrapolated"])
+
+
+def _split(records):
+    """(the run records, the probe records), as roofline.analyze takes them."""
+    return ([r for r in records if "memory" in r or r["status"] == "SKIP"],
+            [r for r in records if "extrapolated" in r])
+
+
+def test_roofline_reads_the_reference_records_as_the_reference(reference):
+    from repro.analysis.roofline import analyze as ref_analyze
+    from repro.analysis.roofline import to_markdown as ref_to_markdown
+    from repro_torch.analysis.roofline import TPU_V5E, analyze, to_markdown
+
+    # model_flops reads the registry's configs and SHAPES (unpatched here) in
+    # both packages, so both analyses see the same model terms
+    rows = analyze(*_split(list(reference.values())), TPU_V5E)
+    assert rows == ref_analyze(*_split(list(reference.values())))
+    assert to_markdown(rows) == ref_to_markdown(rows)
+
+
+def test_roofline_reads_the_port_records(small_shapes):
+    from repro_torch.analysis.roofline import analyze
+
+    mesh = _meta_mesh()
+    mine = []
+    for arch in ref_child.ARCHES:
+        ov = ref_child.overrides(get_smoke_config(arch))
+        mine.append(lib.run_cell(arch, "decode_32k", mesh, mesh_label="test", overrides=ov))
+        mine.append(lib.probe_cell(arch, "decode_32k", mesh, mesh_label="test", overrides=ov))
+    rows = analyze(*_split(mine))
+    assert [r["status"] for r in rows] == ["OK", "OK"]
+    assert all(r["dominant"] in ("compute", "memory", "collective") for r in rows)
+
+
+# ---------------------------------------------------------------------------
+# the port against itself
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", ref_child.SHAPE_NAMES)
+def test_depth_fit_equals_full_depth_count(small_shapes, shape):
+    """qwen3's smoke config at 5 layers: the k = 1, 2 fit of the unrolled
+    traces equals the full unrolled depth counted directly."""
+    ov = dict(ref_child.overrides(get_smoke_config("qwen3-32b")), num_layers=5)
+    mesh = _meta_mesh()
+    prb = lib.probe_cell("qwen3-32b", shape, mesh, mesh_label="test", overrides=ov)
+    assert prb["repeats"] == 5
+    cfg = dataclasses.replace(get_smoke_config("qwen3-32b"), **ov)
+    full = lib._probe_metrics(lib.probe_config(cfg, 5)[0], mesh, SHAPES[shape])
+    fit = prb["extrapolated"]
+    for key in ("flops", "bytes_accessed", "collective_bytes"):
+        assert fit[key] == full[key], key
+    assert fit["collective_by_kind"] == full["collective_by_kind"]
+    assert full["flops"] > prb["depths"]["2"]["flops"] > prb["depths"]["1"]["flops"] > 0
+
+
+def test_train_census_counts_the_gathers_and_the_gradient_sum(small_shapes):
+    """qwen3's smoke train cell: one all-gather per sharded dim of every
+    param leaf (shard bytes in, the gathered dim's bytes out) and one psum
+    of the loss and the f32 gradients, by hand from the layouts."""
+    mesh = _meta_mesh()
+    cfg = get_smoke_config("qwen3-32b")
+    rec = lib.run_cell("qwen3-32b", "train_4k", mesh, mesh_label="test",
+                       overrides=ref_child.overrides(cfg))
+    params = build_model(lib._scan_bodies(cfg)).init(None, device=META, master=True)
+    shardings = lib.params_shardings(params, mesh, fsdp_axis="data")
+    gathers = operand = result = 0
+    for leaf, sh in zip(tree_leaves(params), tree_leaves(shardings)):
+        shape = list(sh.shard_shape(tuple(leaf.shape)))
+        for d, e in enumerate(sh.spec):
+            if e is not None:
+                gathers += 1
+                operand += math.prod(shape) * 4
+                shape[d] = leaf.shape[d]
+                result += math.prod(shape) * 4
+    grads = 4 + sum(leaf.numel() * 4 for leaf in tree_leaves(params))
+    assert rec["collectives"]["counts"] == {"all-gather": gathers, "all-reduce": 1}
+    assert rec["collectives"]["operand_bytes"] == {"all-gather": operand, "all-reduce": grads}
+    assert rec["collectives"]["result_bytes"] == {"all-gather": result, "all-reduce": grads}
+
+
+@pytest.mark.parametrize("name", VARIANTS)
+def test_every_variant_component_runs(small_shapes, monkeypatch, name):
+    """Each variant runs through the port's run_cell and probe_cell as the
+    perf script calls them, on the smoke configs that exercise it (16
+    blocks: 64 rows, two for each of the 2 data-parallel ranks)."""
+    monkeypatch.setitem(SHAPES, "train_4k", ShapeCell("train_4k", "train", 32, 64))
+    kw, probe_only = perf.variant_kwargs(name)
+    arch = "mixtral-8x7b" if {"moeg512", "cf1.5"} & set(name.split("+")) else "qwen3-32b"
+    shape = "decode_32k" if {"dus", "hdus", "dec"} & set(name.split("+")) else "train_4k"
+    if name == "flash":
+        shape = "prefill_32k"
+    ov = dict(ref_child.overrides(get_smoke_config(arch)), **kw.pop("overrides", {}))
+    mesh = _meta_mesh()
+    rec = lib.run_cell(arch, shape, mesh, mesh_label="test", overrides=ov, **kw)
+    pkw = {k: v for k, v in kw.items() if k != "num_blocks"}
+    prb = lib.probe_cell(arch, shape, mesh, mesh_label="test", overrides=ov, **pkw,
+                         **probe_only)
+    assert rec["status"] == prb["status"] == "OK"
+    assert prb["extrapolated"]["flops"] > 0
+    if name == "flash":
+        assert rec["cost"]["kernels"]["flash_attention"]["calls"] == 1
+
+
+def _flash_inputs(dtype, d, lq=40, lk=40, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((2, lq, 4, d), generator=g).to(dtype)
+    k = torch.randn((2, lk, 2, d), generator=g).to(dtype)
+    return q, k, torch.randn((2, lk, 2, d), generator=g).to(dtype)
+
+
+@pytest.mark.parametrize("causal,window,lq,lk", [(True, 0, 40, 40), (False, 0, 24, 56),
+                                                 (True, 9, 40, 40), (False, 7, 33, 40),
+                                                 (True, 0, 56, 24)])
+def test_flash_formula_equals_counted_mask(causal, window, lq, lk):
+    """4·D per kept pair: the kept pairs counted from the plain version's
+    own mask rule."""
+    q, k, v = _flash_inputs(torch.float32, 16, lq, lk)
+    qpos, kpos = np.arange(lq)[:, None], np.arange(lk)[None, :]
+    mask = np.ones((lq, lk), dtype=bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    name, flops, nbytes = fa.flash_cost(q, k, causal=causal, window=window)
+    b, _, h, d = q.shape
+    assert name == "flash_attention"
+    assert flops == 4 * b * h * d * int(mask.sum())
+    assert nbytes == sum(t.numel() * 4 for t in (q, k, v, q))
+
+
+def test_ssd_formula_equals_chunk_products():
+    """The kernel's work counted product by product over its 64-row chunks."""
+    b, l, nh, p, n = 2, 192, 4, 16, 8
+    x = torch.zeros((b, l, nh, p), dtype=torch.bfloat16, device=META)
+    bm = torch.zeros((b, l, n), dtype=torch.bfloat16, device=META)
+    macs = 0
+    for _ in range(b):
+        for c in range(l // 64):
+            pairs = sum(i + 1 for i in range(64))  # causal half of the chunk
+            macs += pairs * n  # C·Bᵀ, shared by the heads
+            for _ in range(nh):  # each product's f32 factor as bf16 hi + lo
+                macs += 2 * pairs * p          # (decayed C·Bᵀ)·x
+                macs += 2 * 64 * n * p         # C·h
+                macs += 2 * 64 * p * n         # the state update
+    name, flops, nbytes = ss.ssd_cost(x, bm)
+    assert (name, flops) == ("ssd_scan", 2 * macs)
+    inputs = 2 * (b * l * nh * p + b * l * nh + nh + 2 * b * l * n)
+    assert nbytes == inputs + 2 * b * l * nh * p + 4 * b * nh * p * n
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64), (torch.float32, 64),
+                                     (torch.bfloat16, 48), (torch.float32, 24)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 8)])
+def test_flash_meta_route_matches_cpu_route(dtype, d, causal, window):
+    q, k, v = _flash_inputs(dtype, d)
+    want = fa.flash_attention(q, k, v, causal=causal, window=window)
+    _, cpu = lib.count_cost(fa.flash_attention, q, k, v, causal=causal, window=window)
+    got, cost = lib.count_cost(fa.flash_attention, q.to(META), k.to(META), v.to(META),
+                               causal=causal, window=window)
+    assert got.device == META and got.shape == want.shape and got.dtype == want.dtype
+    assert got.stride() == want.stride()
+    assert cpu.kernels == {}  # the CPU route's own operations are counted instead
+    assert cpu.flops > 0
+    calls = {"flash_attention": 1, **({"split_kv": 1} if dtype == torch.float32 else {})}
+    assert {k: v["calls"] for k, v in cost.kernels.items()} == calls
+    assert cost.flops == fa.flash_cost(q, k, causal=causal, window=window)[1]
+    assert fa.flash_attention.launches == 0
+
+
+def test_ssd_meta_route_matches_cpu_route():
+    b, l, nh, p, n = 2, 128, 4, 16, 8
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((b, l, nh, p), generator=g)
+    dt = torch.rand((b, l, nh), generator=g) * 0.5
+    a = -torch.rand((nh,), generator=g) - 0.5
+    bm, cm = (torch.randn((b, l, n), generator=g) for _ in range(2))
+    y, h = ss.ssd_scan(x, dt, a, bm, cm, chunk=32)
+    (ym, hm), cost = lib.count_cost(ss.ssd_scan, *(t.to(META) for t in (x, dt, a, bm, cm)),
+                                    chunk=32)
+    for got, want in ((ym, y), (hm, h)):
+        assert got.device == META and got.shape == want.shape and got.dtype == want.dtype
+    assert cost.kernels == {"ssd_scan": dict(zip(("calls", "flops", "bytes"),
+                                                 (1, *ss.ssd_cost(x, bm)[1:])))}
+    assert ss.ssd_scan.launches == 0
+
+
+def test_meta_routes_refuse_what_the_card_refuses():
+    q, k, v = (t.to(META) for t in _flash_inputs(torch.float64, 64))
+    with pytest.raises(ValueError, match="not taken on the card"):
+        fa.flash_attention(q, k, v)
+    q, k, v = (t.to(META) for t in _flash_inputs(torch.bfloat16, 12))
+    with pytest.raises(ValueError, match="not taken on the card"):
+        fa.flash_attention(q, k, v)
+    x = torch.empty((1, 64, 2, 80), device=META)  # head dim past the kernel's 64
+    with pytest.raises(ValueError, match="head dim"):
+        ss.ssd_scan(x, torch.empty((1, 64, 2), device=META), torch.empty((2,), device=META),
+                    torch.empty((1, 64, 8), device=META), torch.empty((1, 64, 8), device=META),
+                    chunk=64)
+    w = torch.zeros((2, 8, 4, 16), device=META, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa.flash_attention(w, w[:, :, :2], w[:, :, :2])
+
+
+def test_dryrun_cli_writes_every_cell(tmp_path):
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "mamba2-1.3b",
+         "--mesh", "multi_pod", "--out", str(tmp_path)],
+        env=dict(os.environ, PYTHONPATH=SRC), capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "== multi_pod: 4 OK / 0 SKIP / 0 FAIL ==" in out.stdout
+    with open(tmp_path / "multi_pod.json") as f:
+        records = json.load(f)
+    assert [r["devices"] for r in records] == [512] * 4
+    assert all(r["memory"]["argument_bytes"] > 0 and r["cost"]["flops"] > 0 for r in records)

@@ -3,7 +3,8 @@
 An AST scan of every module of ``src/repro_torch`` and of ``chip_smoke.py``
 finds no import of ``jax`` or ``repro``, and a fresh interpreter in which
 both names are unimportable imports the port and runs a histogram on the
-CPU; a spawned cluster worker imports neither.  The port's docstring
+CPU, and the dry-run of one cell with its roofline; a spawned cluster
+worker imports neither.  The port's docstring
 examples run here too.
 """
 
@@ -68,6 +69,36 @@ def test_runs_with_jax_unimportable():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["ok", "3"]
+
+
+def test_dryrun_runs_with_jax_unimportable():
+    """The dry-run, its roofline and the perf script's variants run in an
+    interpreter where ``jax`` and ``repro`` cannot be imported: one cell
+    traced on the single-pod mesh of ``meta`` positions and analyzed."""
+    code = "\n".join([
+        "import sys",
+        "sys.modules['jax'] = None",
+        "sys.modules['repro'] = None",
+        "import torch",
+        "from repro_torch.analysis.roofline import analyze",
+        "from repro_torch.launch.dryrun_lib import probe_cell, run_cell",
+        "from repro_torch.launch.mesh import make_production_mesh",
+        "from repro_torch.launch.perf import variant_kwargs",
+        "mesh = make_production_mesh(devices=(torch.device('meta'),))",
+        "kw, _ = variant_kwargs('dec')",
+        "run = run_cell('mamba2-1.3b', 'decode_32k', mesh, mesh_label='single_pod', **kw)",
+        "probe = probe_cell('mamba2-1.3b', 'decode_32k', mesh, mesh_label='single_pod', **kw)",
+        "(row,) = analyze([run], [probe])",
+        "assert 'jax' not in {m.split('.')[0] for m in sys.modules if sys.modules[m]}",
+        "print(row['status'], row['devices'], row['dominant'])",
+    ])
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    status, devices, dominant = out.stdout.split()
+    assert (status, devices) == ("OK", "256") and dominant in ("compute", "memory", "collective")
 
 
 def test_spawned_cluster_worker_imports_no_jax():

@@ -17,6 +17,7 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as j_flash
 from repro.kernels.partition_reduce import partition_histogram as j_hist
 from repro.kernels.ssd_scan import ssd_scan as j_ssd
+from repro_torch.api.kernels import pallas_interpret
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_emulated,
@@ -326,11 +327,17 @@ def test_flash_routes_by_type_and_head_dim(dtype, d, route):
 
 
 def test_other_devices_raise():
+    """No silent fallback off the CPU and the card: ``pallas_interpret``
+    raises for ``meta`` and the partition kernels with it, while the LM
+    kernels take ``meta`` as their shape-only route, launching nothing."""
     x = torch.empty((1, 8, 2, 8), device="meta")
     with pytest.raises(ValueError, match="meta"):
-        ops.flash_attention(x, x, x)
+        pallas_interpret(x)
     with pytest.raises(ValueError, match="meta"):
         ops.partition_histogram(torch.empty((2, 4, 3), device="meta"))
+    out = ops.flash_attention(x, x, x)
+    assert out.device == x.device and out.shape == x.shape and out.dtype == x.dtype
+    assert ops.flash_attention.launches == 0
 
 
 # ---------------------------------------------------------------------------

@@ -333,6 +333,26 @@ cluster runs as ``mesh_launches``, ``service_launches`` and
   deepseek-v2-236b (2 layers) under ``"sharded_dus"``, 16 steps: logits and
   caches bit-equal to the default path; ms per step beside it.  The kernels
   line gives ``distributed_launches``.
+* ``tensor_parallel``: the dense serving path split over ``model``
+  (``repro_torch.distributed.sharded_prefill`` / ``sharded_decode_step``),
+  every rank a position on the card: qwen3-32b at full width (bf16, flash,
+  random weights from the seed) at 8 layers on a (1, 4) ``(data, model)``
+  mesh and at 2 layers on (1, 16), the production model axis, where the 8
+  kv heads do not divide 16 and ``wk``/``wv`` stay whole.  Per mesh, the
+  prefill of 8 512-token prompts and 16 greedy decode steps under
+  ``decode_rules`` (the cache's sequence over model, context-parallel
+  decode) and ``decode_rules_headsharded`` (``"heads_dus"``), fed the
+  unsharded model's greedy tokens: the logits and the cache within
+  ``TP_BF16_TOL`` of the unsharded ``Model.prefill``/``decode_step`` on the
+  same weights, the greedy tokens equal wherever the unsharded top-2 margin
+  exceeds it, the flash kernel launched ranks × layers = 32 times a prefill,
+  a rank's parameter bytes equal to the closed form
+  (``_tp_rank_param_bytes``); the prefill's peak memory rise (whole and per
+  rank) and the prefill and decode times beside the unsharded ones,
+  printed, not judged (the ranks take turns on one card).  The flash entry
+  of the kernels line gives ``tensor_parallel_cases``, the kernel at the
+  ranks' shapes (``TP_FLASH_SHAPES``) beside its plain version, and every
+  entry ``tensor_parallel_launches``.
 * ``dryrun``: the shape-only dry-run (``repro_torch.launch.dryrun_lib``)
   held against the card.  qwen3-32b's prefill as the serve phase runs it
   (8 layers, 8 × 512 tokens, flash, bf16) and the train phase's lm100m
@@ -1703,6 +1723,41 @@ def flash_cross_cases(normal) -> list[dict]:
     return cross_cases
 
 
+def flash_tensor_parallel_cases(normal) -> list[dict]:
+    """The flash kernel at the shapes a tensor-parallel rank of the
+    ``tensor_parallel`` phase launches it (``TP_FLASH_SHAPES``: qwen3-32b's
+    heads over 4 and 16 ranks, the second with one kv head), causal, bf16,
+    each beside its plain version and SDPA, with its bound;
+    ``normal(*shape)`` draws the inputs."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    b, l, d = SERVE_BATCH, SERVE_PROMPT, 128
+    rows = []
+    for label, (h, hkv) in TP_FLASH_SHAPES.items():
+        q, k, v = normal(b, l, h, d), normal(b, l, hkv, d), normal(b, l, hkv, d)
+        got = fa.flash_attention(q, k, v, causal=True)
+        want = fa.flash_attention_ref(q, k, v, causal=True)
+        err = float((got.float() - want.float()).abs().max())
+        check(torch.allclose(got.float(), want.float(), **BF16_TOL),
+              f"flash_attention {label} within {BF16_TOL} of its plain version ({err})")
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+            enable_gqa=True)
+        bound_ms, bound_by = bound(2 * (2 * q.numel() + k.numel() + v.numel()),
+                                   4 * d * (l * (l + 1) // 2) * b * h, BF16_FLOPS_PER_S)
+        rows.append({"case": label, "shape_q": [b, l, h, d], "shape_kv": [b, l, hkv, d],
+                     "causal": True, "max_abs_err": err, "tolerance": f"allclose {BF16_TOL}",
+                     **kernel_times(lambda: fa.flash_attention(q, k, v, causal=True)),
+                     "plain_ms": cuda_ms(lambda: fa.flash_attention_ref(q, k, v, causal=True)),
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": cuda_ms(sdpa),
+                     "library_max_abs_diff": float(
+                         (sdpa().transpose(1, 2).float() - got.float()).abs().max())})
+        del q, k, v, got, want
+    return rows
+
+
 def lm_kernel_checks(seed: int, dev: torch.device, x_values: torch.Tensor,
                      launches: dict, by_run: dict) -> list[dict]:
     """The serving path's kernels (and the value histogram) at their main
@@ -1768,6 +1823,7 @@ def lm_kernel_checks(seed: int, dev: torch.device, x_values: torch.Tensor,
                       "library_ms": cuda_ms(sdpa_c)})
         del qc, kc, vc, gotc, wantc
     cross_cases = flash_cross_cases(normal)
+    tp_cases = flash_tensor_parallel_cases(normal)
     pairs = l * (l + 1) // 2  # causal (q, k) pairs per (batch, head)
     bound_ms, bound_by = bound(2 * (q.numel() + k.numel() + v.numel() + got.numel()),
                                4 * d * pairs * b * h, BF16_FLOPS_PER_S)
@@ -1875,6 +1931,7 @@ def lm_kernel_checks(seed: int, dev: torch.device, x_values: torch.Tensor,
         "library_max_abs_diff": lib_err, "shape_q": [b, l, h, d], "shape_kv": [b, l, hkv, d],
         "window4096_shape_q": [1, 6144, 8, d], "window4096_max_abs_err": win_err,
         "window4096_ms": win_ms, "cases": cases, "cross_cases": cross_cases,
+        "tensor_parallel_cases": tp_cases,
         "split_route": split_route,
     })
     del q, k, v, got, want
@@ -4243,6 +4300,195 @@ def _sharded_decode_row(arch, model, params, toks, cache, base, base_ms, base_ca
           f"decode/{rules.cache_impl}/{arch}: logits and caches bit-equal to the default path")
 
 
+# ---------------------------------------------------------------------------
+# tensor_parallel: the dense serving path split over model
+# ---------------------------------------------------------------------------
+
+#: qwen3-32b at full width (bf16, flash), random weights from the seed; per
+#: mesh of (data, model) positions on the card, the layers it keeps: (1, 4)
+#: at 8 layers (the 8 kv heads split 2 a rank) and (1, 16) at 2 layers, the
+#: production model axis (make_production_mesh), where 8 kv heads do not
+#: divide 16 and wk/wv stay replicated.  Each mesh runs the prefill of 8
+#: 512-token prompts and TP_STEPS greedy decode steps under decode_rules
+#: (the cache's sequence over model: context-parallel decode) and
+#: decode_rules_headsharded (cache_impl "heads_dus": its kv heads over
+#: model), against the unsharded Model.prefill / decode_step on the same
+#: weights, fed the unsharded run's greedy tokens.  The bf16 logits differ by
+#: rounding only: each rank's partial products of wo and w_down round to
+#: bf16 before the ranks sum them, and the decode combine sums in f32 where
+#: the unsharded softmax rounds its probabilities to bf16; the tolerance is
+#: the qwen3 serve row's (0.25 at 8 layers), as for the decomposed decode.
+#: The card holds every rank's activations, so the prefill's peak memory
+#: rise counts the residual stream once a rank (each card of a real mesh
+#: would hold one); the rows print it whole and per rank.
+TP_MESHES = {(1, 4): 8, (1, 16): 2}
+TP_STEPS = 16
+TP_BF16_TOL = 0.25
+#: the flash kernel at the shapes a tensor-parallel rank launches it:
+#: label -> (H, Hkv) of q and k/v, (8, 512, H, 128), causal
+TP_FLASH_SHAPES = {"rank_of_4": (16, 2), "rank_of_16": (4, 1)}
+
+
+def _tp_rank_param_bytes(cfg, n: int) -> int:
+    """Closed form of one rank's parameter bytes (bf16 products, f32 norms)
+    on a model axis of ``n``: the vocabulary, heads and MLP columns split n
+    ways, wk/wv split where the kv heads divide n, else whole."""
+    d, dh, h, hkv, f, vp = (cfg.d_model, cfg.resolved_head_dim, cfg.num_heads,
+                            cfg.num_kv_heads, cfg.d_ff, cfg.padded_vocab)
+    kv = hkv // n if hkv % n == 0 else hkv
+    layer = 2 * d * h * dh // n + 2 * d * kv * dh + 3 * d * f // n
+    norms = d + cfg.num_layers * (2 * d + 2 * dh)
+    return 2 * (2 * vp * d // n + cfg.num_layers * layer) + 4 * norms
+
+
+def _greedy_run(prefill, decode, toks, steps: int) -> tuple:
+    """``prefill()``'s logits, then ``steps`` decode steps ``decode(token,
+    pos)`` fed ``toks`` (B, steps) or, where ``toks`` is None, each step's
+    own argmax: the logits (B, 1 + steps, Vp), the fed tokens, the
+    prefill's ms and its peak memory rise, and the ms per decode step."""
+    (prefill_ms, logits), rise = _peak_rise(lambda: _wall_ms(prefill))
+    out, fed = [logits], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(steps):
+        tok = out[-1].argmax(-1, keepdim=True) if toks is None else toks[:, t:t + 1]
+        fed.append(tok)
+        out.append(decode(tok, SERVE_PROMPT + t))
+    torch.cuda.synchronize()
+    decode_ms = 1e3 * (time.perf_counter() - t0) / steps
+    return torch.stack(out, 1), torch.cat(fed, 1), prefill_ms, rise, decode_ms
+
+
+def tensor_parallel_phase(seed: int, dev: torch.device, card: str) -> dict:
+    """The dense serving path tensor-parallel over ``model``
+    (``repro_torch.distributed.sharded_prefill`` / ``sharded_decode_step``),
+    every rank a position on ``dev``, against the unsharded model."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch._pytree import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import (
+        cache_shardings,
+        decode_rules,
+        decode_rules_headsharded,
+        device_put,
+        params_shardings,
+        sharded_decode_step,
+        sharded_prefill,
+    )
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models import build_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    totals = {k: 0 for k in read_launches()}
+    max_len = SERVE_PROMPT + TP_STEPS
+    for shape, layers in TP_MESHES.items():
+        n = shape[1]
+        cfg = dataclasses.replace(get_config("qwen3-32b"), num_layers=layers, attn_impl="flash")
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+        prompts = torch.as_tensor(np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), dtype=np.int64), device=dev)
+        v = cfg.vocab_size
+
+        def unsharded():
+            cache = model.init_cache(SERVE_BATCH, max_len, dtype=torch.bfloat16, device=dev)
+            with torch.no_grad():
+                return _greedy_run(lambda: model.prefill(params, {"tokens": prompts}, cache)[0],
+                                   lambda tok, pos: model.decode_step(params, cache, tok, pos)[0],
+                                   None, TP_STEPS) + (cache,)
+
+        unsharded()  # warm-up
+        base, toks, base_prefill_ms, base_rise, base_decode_ms, base_cache = unsharded()
+        top2 = base[..., :v].float().topk(2, dim=-1).values
+        margin = top2[..., 0] - top2[..., 1]  # the unsharded top-2 margin at each position
+        mesh = compat_make_mesh(shape, ("data", "model"), devices=(dev,))
+        placed = device_put(params, params_shardings(params, mesh, fsdp_axis=None))
+        rank_bytes = [sum(t.shards[r].numel() * t.shards[r].element_size()
+                          for t in tree_leaves(placed)) for r in range(mesh.size)]
+        want_bytes = _tp_rank_param_bytes(cfg, n)
+        whole_bytes = _tree_bytes(params)
+        for layout, rules in (("seq", decode_rules(mesh)),
+                              ("heads", decode_rules_headsharded(mesh))):
+
+            def sharded():
+                c0 = model.init_cache(SERVE_BATCH, max_len, dtype=torch.bfloat16, device=dev)
+                cache = device_put(c0, cache_shardings(c0, mesh, layout=layout))
+                del c0
+                with torch.no_grad():
+                    return _greedy_run(
+                        lambda: sharded_prefill(model, placed, {"tokens": prompts}, cache,
+                                                mesh=mesh, rules=rules)[0],
+                        lambda tok, pos: sharded_decode_step(model, placed, cache, tok, pos,
+                                                             mesh=mesh, rules=rules)[0],
+                        toks, TP_STEPS) + (cache,)
+
+            sharded()  # warm-up: the rank threads, the library handles
+            reset_launches()
+            got, _, prefill_ms, rise, decode_ms, cache = sharded()
+            torch.cuda.synchronize()
+            launches = read_launches()
+            for k, c in launches.items():
+                totals[k] += c
+            gf, bf = got[..., :v].float(), base[..., :v].float()
+            prefill_err = float((gf[:, 0] - bf[:, 0]).abs().max())
+            decode_err = float((gf[:, 1:] - bf[:, 1:]).abs().max())
+            picked, unsharded_pick = gf.argmax(-1), bf.argmax(-1)
+            clear = margin > TP_BF16_TOL
+            disagree = int(((picked != unsharded_pick) & clear).sum())
+            cache_err = max(float((a.full().float() - b.float()).abs().max())
+                            for a, b in zip(tree_leaves(cache), tree_leaves(base_cache)))
+            name = f"qwen3-32b/{shape[0]}x{shape[1]}/{layout}"
+            emit({"phase": "tensor_parallel", "run": name, "card": card, "mesh": mesh.shape,
+                  "layers": layers, "layout": layout, "cache_impl": rules.cache_impl,
+                  "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "steps": TP_STEPS,
+                  "kv_heads_split": cfg.num_kv_heads % n == 0,
+                  "prefill_ms": prefill_ms, "unsharded_prefill_ms": base_prefill_ms,
+                  "decode_ms_per_step": decode_ms,
+                  "unsharded_decode_ms_per_step": base_decode_ms,
+                  "prefill_peak_rise_gb": rise / 1e9,
+                  "unsharded_prefill_peak_rise_gb": base_rise / 1e9,
+                  "rank_param_bytes": rank_bytes[0], "rank_param_bytes_closed_form": want_bytes,
+                  "unsharded_param_bytes": whole_bytes,
+                  "rank_share_of_unsharded": rank_bytes[0] / whole_bytes,
+                  "launches": launches, "flash_launches_expected": mesh.size * layers,
+                  "logit_tol": TP_BF16_TOL, "prefill_vs_unsharded": prefill_err,
+                  "decode_vs_unsharded": decode_err, "cache_vs_unsharded": cache_err,
+                  "greedy_positions": int(picked.numel()),
+                  "greedy_positions_past_margin": int(clear.sum()),
+                  "greedy_disagreements": int((picked != unsharded_pick).sum()),
+                  "greedy_disagreements_past_margin": disagree,
+                  "logit_max_abs": float(bf.abs().max())})
+            check(bool(torch.isfinite(gf).all()), f"tensor_parallel {name}: finite logits")
+            check(prefill_err <= TP_BF16_TOL and decode_err <= TP_BF16_TOL,
+                  f"tensor_parallel {name}: logits vs unsharded {prefill_err}, {decode_err} > "
+                  f"{TP_BF16_TOL}")
+            check(cache_err <= TP_BF16_TOL,
+                  f"tensor_parallel {name}: cache vs unsharded {cache_err} > {TP_BF16_TOL}")
+            check(disagree == 0, f"tensor_parallel {name}: {disagree} greedy tokens differ where "
+                  f"the unsharded top-2 margin exceeds {TP_BF16_TOL}")
+            check(launches["flash_attention"] == mesh.size * layers,
+                  f"tensor_parallel {name}: flash launches {launches['flash_attention']} != "
+                  f"{mesh.size} ranks x {layers} layers in one prefill")
+            check(all(b == want_bytes for b in rank_bytes),
+                  f"tensor_parallel {name}: rank param bytes {sorted(set(rank_bytes))} != "
+                  f"{want_bytes}")
+            del got, cache
+            gc.collect()
+            torch.cuda.empty_cache()
+        del model, params, placed, base, base_cache
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "tensor_parallel", "run": "launches", "card": card, "launches": totals,
+          "seconds": time.perf_counter() - t_phase})
+    check(totals["flash_attention"] > 0, f"tensor_parallel: flash_attention launched ({totals})")
+    return totals
+
+
 SAMPLED_STEPS = 8
 
 
@@ -4610,6 +4856,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     distributed_launches = distributed_phase(args.seed, dev, card)
     torch.cuda.empty_cache()
+    tensor_parallel_launches = tensor_parallel_phase(args.seed, dev, card)
+    torch.cuda.empty_cache()
     dryrun_launches = dryrun_phase(args.seed, dev, card)
     kernels += lm_kernel_checks(args.seed, dev, x_values, launches, by_run)
     for k in kernels:  # launches on the mesh and service paths (None: not on them)
@@ -4618,6 +4866,7 @@ def main(argv=None) -> int:
         k["cluster_launches"] = cluster_launches.get(k["name"])
         k["train_launches"] = train_launches[k["name"]]
         k["distributed_launches"] = distributed_launches[k["name"]]
+        k["tensor_parallel_launches"] = tensor_parallel_launches[k["name"]]
         k["dryrun_launches"] = dryrun_launches[k["name"]]
     check(len(kernels) == 5 and all(k["launches"] > 0 for k in kernels),
           f"every kernel launched on its path: {launches}")

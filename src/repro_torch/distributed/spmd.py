@@ -4,7 +4,9 @@ The port's stand-in for what ``jax.sharding`` and ``shard_map`` give the
 JAX package: a :class:`Mesh`, :class:`PartitionSpec` (``P``),
 :class:`NamedSharding`, a :class:`ShardedTensor` that holds one local
 tensor per rank, :func:`device_put`, :func:`shard_map` with collectives
-inside its body, and the data-parallel train step built on them.
+inside its body, the data-parallel train step built on them, and the
+tensor-parallel serving steps (:func:`sharded_prefill`,
+:func:`sharded_decode_step`).
 
 **Why one process.**  The JAX package is single-controller: one process
 drives every device of a mesh, and its tests force 8 host devices.
@@ -31,10 +33,11 @@ axis takes rank 0 of that axis, as JAX does with ``check_vma=False``.
 ``check_vma`` is accepted for the reference's signature and checks
 nothing.
 
-**Collectives** (:func:`psum`, :func:`psum_scatter`, :func:`all_gather`,
-:func:`ppermute`, :func:`axis_index`, :func:`axis_size`) are rendezvous of
-the rank threads: every rank of the mesh deposits its operand, and once all
-have, each computes its result with torch ops on its own device.
+**Collectives** (:func:`psum`, :func:`pmax`, :func:`psum_scatter`,
+:func:`all_gather`, :func:`ppermute`, :func:`axis_index`, :func:`axis_size`)
+are rendezvous of the rank threads: every rank of the mesh deposits its
+operand, and once all have, each computes its result with torch ops on its
+own device.
 
 * Reductions fold in rank order (position order within the group), never
   arrival order, so a result does not depend on thread timing.
@@ -55,6 +58,16 @@ result's shape without a rendezvous; the other ranks are taken to run the
 same program, as the ranks of a data-parallel step do.  An operation
 counter entered in the caller's thread therefore sees the whole rank
 program (a counter sees only its own thread's operations).
+
+**Tensor-parallel serving.**  PyTorch has no GSPMD to partition a step by
+its shardings, so the serving steps are rank programs written out: each
+rank keeps its ``model`` shards of the params (heads, MLP columns,
+vocabulary rows, as ``params_shardings`` places them) and its block of the
+cache, gathers only the ``fsdp`` dims, and runs ``Model.prefill`` or
+``decode_step`` with :class:`TensorParallel` set for its thread
+(:func:`tensor_parallel`), which the model's layers read to call the
+``model`` collectives (``models/layers.py``).  The dry-run traces the
+same body (:func:`serving_body`).
 
 **Census.**  Inside :func:`collective_census` every collective that rank 0
 calls adds one to its kind's count and its operand and result bytes to its
@@ -87,6 +100,7 @@ __all__ = [
     "device_put",
     "shard_map",
     "psum",
+    "pmax",
     "psum_scatter",
     "all_gather",
     "ppermute",
@@ -96,6 +110,11 @@ __all__ = [
     "gathered",
     "data_parallel_gradients",
     "sharded_train_step",
+    "MODEL_AXIS",
+    "TensorParallel",
+    "tensor_parallel",
+    "sharded_prefill",
+    "sharded_decode_step",
 ]
 
 
@@ -669,11 +688,13 @@ def _group(axis_name) -> tuple[_RankContext, tuple[str, ...], tuple[int, ...], i
     return ctx, axes, members, pos
 
 
-def _fold(tensors: Sequence[torch.Tensor], device: torch.device) -> torch.Tensor:
-    """The sum of ``tensors`` on ``device``, added in the order given."""
+def _fold(tensors: Sequence[torch.Tensor], device: torch.device,
+          combine: Callable = torch.add) -> torch.Tensor:
+    """``tensors`` combined on ``device`` (summed, or by ``combine``, e.g.
+    ``torch.maximum``) in the order given."""
     acc = tensors[0].to(device, copy=True)
     for t in tensors[1:]:
-        acc.add_(t.to(device))
+        combine(acc, t.to(device), out=acc)
     return acc
 
 
@@ -708,6 +729,17 @@ def psum(x: Any, axis_name) -> Any:
     vals, memo = ctx.rendezvous.exchange(ctx.rank, ("psum", axes), x)
     return _noted(ctx, "all-reduce", x, _shared(memo, (members, ctx.device), lambda: tree_map(
         lambda *leaves: _fold(leaves, ctx.device), *[vals[r] for r in members])))
+
+
+def pmax(x: Any, axis_name) -> Any:
+    """Elementwise maximum of ``x`` (a tensor or a tree of tensors) over the
+    named axes' group (``jax.lax.pmax``; an ``all-reduce`` in the census)."""
+    ctx, axes, members, _ = _group(axis_name)
+    if ctx.rendezvous is None:
+        return _noted(ctx, "all-reduce", x, tree_map(torch.empty_like, x))
+    vals, memo = ctx.rendezvous.exchange(ctx.rank, ("pmax", axes), x)
+    return _noted(ctx, "all-reduce", x, _shared(memo, (members, ctx.device), lambda: tree_map(
+        lambda *leaves: _fold(leaves, ctx.device, torch.maximum), *[vals[r] for r in members])))
 
 
 def psum_scatter(x: torch.Tensor, axis_name, *, scatter_dimension: int = 0,
@@ -809,10 +841,10 @@ def data_parallel_gradients(loss_fn: Callable, params: Any, blocks: dict[str, to
     gradients are summed over ``(pod, data)`` by
     :func:`~repro_torch.distributed.collectives.psum_pod_hierarchical`
     (a flat ``psum`` on a mesh without a ``pod`` axis) and divided by the
-    data-parallel rank count.  Tensor-parallel compute over ``model`` is
-    not emulated: the ranks of one ``(pod, data)`` position compute the
-    same gradients.  Returns the loss and the gradients as global tensors
-    on rank 0's device.
+    data-parallel rank count.  Tensor-parallel training over ``model`` is
+    not ported (serving is: :func:`sharded_prefill`): the ranks of one
+    ``(pod, data)`` position compute the same gradients.  Returns the loss
+    and the gradients as global tensors on rank 0's device.
     """
     from repro_torch.distributed.collectives import psum_pod_hierarchical
     from repro_torch.optim import accumulate_gradients
@@ -856,3 +888,180 @@ def sharded_train_step(loss_fn: Callable, params: Any, opt: Any, blocks: dict[st
     new = tree_map(lambda p, f: ShardedTensor.from_global(f, p.sharding)
                    if isinstance(p, ShardedTensor) else f, params, full)
     return new, opt, loss
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel serving
+# ---------------------------------------------------------------------------
+
+
+#: the mesh axis that tensor-parallel serving splits heads, MLP columns and
+#: vocabulary rows over, as the sharding rules name it
+MODEL_AXIS = "model"
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """A serving rank's tensor-parallel context, which the model's layers
+    read inside the body of :func:`sharded_prefill` and
+    :func:`sharded_decode_step` (``models/layers.py``, ``models/lm.py``):
+    how the decode cache lies over :data:`MODEL_AXIS`: ``kv_seq_split``,
+    its sequence (``cache_shardings(layout="seq")``, context parallelism),
+    or ``kv_heads_split``, its kv heads (``layout="heads"``)."""
+
+    kv_seq_split: bool = False
+    kv_heads_split: bool = False
+
+
+def tensor_parallel() -> TensorParallel | None:
+    """The calling rank thread's :class:`TensorParallel`; None outside a
+    tensor-parallel body, where the layers compute as they always do."""
+    return getattr(_TLS, "tp", None)
+
+
+@contextlib.contextmanager
+def _tensor_parallel_scope(tp: TensorParallel):
+    outer = getattr(_TLS, "tp", None)
+    _TLS.tp = tp
+    try:
+        yield
+    finally:
+        _TLS.tp = outer
+
+
+def _gather_spec(spec: PartitionSpec, keep: tuple[str, ...] = ()) -> PartitionSpec:
+    """The dims a tensor-parallel rank all-gathers of a leaf laid out by
+    ``spec``: every axis but :data:`MODEL_AXIS` (the rank keeps its part)
+    and those of ``keep`` (a cache's batch rows).  A dim that the model axis
+    does not divide was already replicated by ``param_pspec`` and
+    ``cache_shardings``, as the reference drops the axis."""
+    gather = []
+    for d, e in enumerate(spec):
+        axes = () if e is None else (e if isinstance(e, tuple) else (e,))
+        if MODEL_AXIS in axes and len(axes) > 1:
+            raise ValueError(f"dim {d} of {spec} splits the model axis with {axes}: a rank "
+                             f"cannot keep its model part alone")
+        gathered_axes = tuple(a for a in axes if a not in keep and a != MODEL_AXIS)
+        if gathered_axes and len(gathered_axes) != len(axes):
+            raise ValueError(f"dim {d} of {spec} mixes kept and gathered axes")
+        gather.append(gathered_axes or None)
+    return P(*gather)
+
+
+def _kv_cache_layout(cache: Any, cache_specs: Any) -> tuple[bool, bool]:
+    """(sequence split, kv heads split) over the model axis of the
+    attention layers' ``k`` leaves (``(.., B, S, Hkv, Dh)``) laid out by
+    ``cache_specs``; (False, False) for a cache with none."""
+    from repro_torch.distributed.sharding import _map_with_path
+
+    found: list[tuple[bool, bool]] = []
+    specs: list = []
+    tree_map(lambda _, spec: specs.append(spec), cache, cache_specs)
+    it = iter(specs)
+
+    def one(path, leaf):
+        spec = next(it)
+        if path and path[-1] == "k":
+            nb = len(leaf.shape) - 4
+            entry = lambda d: spec[d] if d < len(spec) else None  # noqa: E731
+            found.append((entry(nb + 1) == MODEL_AXIS, entry(nb + 2) == MODEL_AXIS))
+
+    _map_with_path(one, cache)
+    if len(set(found)) > 1:
+        raise ValueError(f"the attention layers' caches lie differently over the model axis: "
+                         f"{found}")
+    return found[0] if found else (False, False)
+
+
+def serving_body(model: Any, mesh: Mesh, params: Any, param_specs: Any, cache: Any,
+                 cache_specs: Any, step: Callable, rules: Any) -> Callable:
+    """The body of a tensor-parallel serving rank of ``model`` on ``mesh``,
+    its ``params`` and ``cache`` laid out by ``param_specs`` and
+    ``cache_specs``; raises for what it does not run.
+
+    ``body(params, batch, cache) -> (logits, cache)`` takes the rank's
+    shards: it gathers each param over its axes other than
+    :data:`MODEL_AXIS` (the ``fsdp`` dims), keeps it split over the model
+    axis, keeps the cache block the rank's own, and runs
+    ``step(params, batch, cache)`` under ``rules`` with a
+    :class:`TensorParallel` as the thread's :func:`tensor_parallel`.  The
+    logits are the rank's rows and vocabulary columns, ``P(dp, "model")``."""
+    from repro_torch.distributed.sharding import use_rules
+
+    if not model.tensor_parallel_serving:
+        raise NotImplementedError(
+            f"{model.cfg.name}: tensor-parallel serving runs dense attention and SwiGLU "
+            f"layers only (the {model.cfg.family} family's splits are not ported)")
+    if MODEL_AXIS not in mesh.shape:
+        raise ValueError(f"tensor-parallel serving needs a {MODEL_AXIS!r} axis in {mesh}")
+    if rules.logical.get("kv_seq") not in (None, MODEL_AXIS):
+        raise NotImplementedError(f"the KV sequence over {rules.logical['kv_seq']!r} "
+                                  f"(long_decode_rules) is not ported")
+
+    gather = tree_map(lambda _, s: _gather_spec(s), params, param_specs)
+    dp = _dp_axes(mesh)
+    if any(tree_leaves(tree_map(lambda _, s: any(_gather_spec(s, dp)), cache, cache_specs))):
+        raise ValueError("a tensor-parallel rank writes its own cache block: the cache may be "
+                         "split over the model and batch axes only")
+    seq_split, heads_split = _kv_cache_layout(cache, cache_specs)
+    if mesh.shape[MODEL_AXIS] == 1:  # one rank holds everything: the layers call no collective
+        seq_split = heads_split = False
+    tp = TensorParallel(seq_split, heads_split)
+
+    def body(params_l, batch_l, cache_l):
+        full = tree_map(gathered, params_l, gather)
+        with _tensor_parallel_scope(tp), use_rules(rules):
+            logits, _ = step(full, batch_l, cache_l)
+        return logits, cache_l
+
+    return body
+
+
+def _serve(model: Any, params: Any, batch: dict, cache: Any, step: Callable, *, mesh: Mesh,
+           rules: Any) -> tuple[torch.Tensor, Any]:
+    for leaf in tree_leaves(cache):
+        if not (isinstance(leaf, ShardedTensor) and leaf.sharding.mesh == mesh):
+            raise ValueError("the cache must be placed on the mesh (device_put with "
+                             "cache_shardings), so that each rank writes its own block")
+    dp = _dp_axes(mesh)
+    p_specs = tree_map(_spec_of, params)
+    c_specs = tree_map(_spec_of, cache)
+    b_specs = {k: P(dp) for k in batch}
+    body = serving_body(model, mesh, params, p_specs, cache, c_specs, step, rules)
+    outs = _run_ranks(mesh, body, _local_args(mesh, (params, batch, cache),
+                                              (p_specs, b_specs, c_specs)))
+    return _global_outputs(mesh, [o[0] for o in outs], P(dp, MODEL_AXIS)), cache
+
+
+def sharded_prefill(model: Any, params: Any, batch: dict[str, torch.Tensor], cache: Any, *,
+                    mesh: Mesh, rules: Any) -> tuple[torch.Tensor, Any]:
+    """``model.prefill`` tensor-parallel over the mesh's ``model`` axis: the
+    port's counterpart of the reference's ``jax.jit(model.prefill,
+    in_shardings=..., out_shardings=(P(dp, "model"), ...))`` under
+    ``rules`` (``decode_rules`` or ``decode_rules_headsharded``).
+
+    ``params`` are :class:`ShardedTensor` leaves placed by
+    ``params_shardings`` (a plain tensor is replicated), ``cache`` is placed
+    by ``cache_shardings(layout="seq" | "heads")`` on ``mesh``, and the
+    batch's leaves are split over ``(pod, data)``.  Each rank gathers only
+    the ``fsdp`` dims of its params and runs the model on its shards: its
+    heads, its MLP columns and its vocabulary rows, with the ``model``
+    collectives in the layers (``models/layers.py``), and writes its own
+    block of the cache in place.  Returns the last position's logits,
+    assembled from the ranks' ``P(dp, "model")`` blocks on rank 0's device,
+    and the cache.
+    """
+    return _serve(model, params, batch, cache, lambda p, b, c: model.prefill(p, b, c),
+                  mesh=mesh, rules=rules)
+
+
+def sharded_decode_step(model: Any, params: Any, cache: Any, token: torch.Tensor, pos: int, *,
+                        mesh: Mesh, rules: Any) -> tuple[torch.Tensor, Any]:
+    """``model.decode_step`` tensor-parallel over the mesh's ``model``
+    axis, as :func:`sharded_prefill` runs the prefill: the token ``(B, 1)``
+    split over ``(pod, data)``, the cache updated in place.  Under the
+    ``seq`` layout decode attention is context-parallel (each rank attends
+    to its own cache rows and the ranks combine their softmax partials);
+    under ``heads`` each rank attends with its own heads."""
+    return _serve(model, params, {"token": token}, cache,
+                  lambda p, b, c: model.decode_step(p, c, b["token"], pos), mesh=mesh, rules=rules)

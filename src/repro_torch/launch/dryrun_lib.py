@@ -9,22 +9,30 @@ each record says what it counts.  The record keys are the reference's, so
 ``repro_torch.analysis.roofline.analyze`` reads the port's records and the
 reference's alike.
 
-**The rank program** (:func:`lower_cell`).  The port computes data-parallel
-only: tensor parallelism over ``model`` is not emulated.  So a rank holds
-its shards of the params, the optimizer state, the cache and the batch as
-the reference places them (``params_shardings``, ``cache_shardings``, the
-batch over ``(pod, data)``), gathers with ``all_gather`` what the port's
-model needs whole, and runs the port's step on its share of the batch:
+**The rank program** (:func:`lower_cell`).  A rank holds its shards of
+the params, the optimizer state, the cache and the batch as the reference
+places them (``params_shardings``, ``cache_shardings``, the batch over
+``(pod, data)``) and runs the port's step on its share of the batch.  The
+serving cells of the dense family (``Model.tensor_parallel_serving``; not
+under ``long_decode_rules``) run the tensor-parallel rank program of ``spmd.sharded_prefill`` and
+``sharded_decode_step`` (``spmd.serving_body``): the rank keeps its heads,
+MLP columns and vocabulary rows split over ``model`` and its own cache
+block, gathers only the ``fsdp`` dims, and the layers call the ``model``
+collectives.  Every other cell is data-parallel: the rank gathers with
+``all_gather`` what the port's model needs whole.
 
 * train — the params gathered, :func:`~repro_torch.optim.accumulate_gradients`
   (SplIter over the microbatch blocks) on the rank's rows, the loss and
   gradients summed over ``(pod, data)`` (hierarchically where the mesh has
   both) and divided by their count, then AdamW on the rank's own shards (the
   clip factor from the whole gradient's norm, which every rank holds);
-* prefill — params and cache gathered (the cache's batch rows stay local),
-  ``Model.prefill`` of the rank's prompts under ``decode_rules``;
-* decode — the same with one ``Model.decode_step`` at the cache's last slot
-  under the cell's rules and ``cache_impl``.
+* prefill — ``Model.prefill`` of the rank's prompts under ``decode_rules``
+  (data-parallel: params and cache gathered, the cache's batch rows local);
+* decode — one ``Model.decode_step`` at the cache's last slot under the
+  cell's rules and ``cache_impl`` (the tensor-parallel body writes the row
+  on the rank whose block holds it, whether ``cache_impl`` says
+  ``"masked"`` or ``"sharded_dus"``; ``"decomposed"`` attends before the
+  write there too).
 
 The production meshes are one ``meta`` device over 256 or 512 positions
 (``make_production_mesh(devices=(torch.device("meta"),))``); on such a mesh
@@ -51,9 +59,13 @@ results' shapes without a rendezvous.  Every figure is one rank's.
   segment (``probe_config(cfg, 1)``) and one microbatch block.
 * ``collectives`` — the census of the collectives rank 0's program calls
   (``spmd.collective_census``, read into a
-  :class:`~repro_torch.analysis.hlo.CollectiveStats`).  It lacks the
-  all-reduces GSPMD inserts for tensor parallelism, and holds the gathers
-  the port needs instead.
+  :class:`~repro_torch.analysis.hlo.CollectiveStats`): in a tensor-parallel
+  cell the ``model`` all-reduces and all-gathers the layers call, in a
+  data-parallel one the gathers the port needs where GSPMD would insert
+  tensor-parallel all-reduces.
+* ``cost_basis`` and ``collectives_basis`` say which rank program the cell
+  ran (:data:`COST_BASIS`, :data:`COLLECTIVES_BASIS`, keyed by
+  ``Lowered.rank_program``).
 
 **Probes** (:func:`probe_cell`): the cell at two unrolled depths and the
 linear fit to the full depth, as in the reference.  The counter sees every
@@ -90,6 +102,7 @@ from repro_torch.distributed.sharding import (
     use_rules,
 )
 from repro_torch.distributed.spmd import (
+    MODEL_AXIS,
     Mesh,
     NamedSharding,
     P,
@@ -98,6 +111,7 @@ from repro_torch.distributed.spmd import (
     collective_census,
     gathered,
     psum,
+    serving_body,
     shard_map,
 )
 from repro_torch.kernels._build import recording_costs
@@ -105,17 +119,32 @@ from repro_torch.models import build_model
 from repro_torch.optim import accumulate_gradients, adamw_init, adamw_update
 from repro_torch.optim.adamw import global_norm
 
-COST_BASIS = (
-    "one rank's program at its shard shapes (data-parallel: the batch split over "
-    "(pod, data), params and cache gathered whole; no tensor parallelism over model); "
+_COUNTS = (
     "flops: matrix products by torch.utils.flop_counter's formulas plus the flash and SSD "
     "kernels' formulas (no elementwise or reduction flops); bytes_accessed: every "
     "operation's operands and results once, unfused eager traffic"
 )
-COLLECTIVES_BASIS = (
-    "census of the collectives rank 0's program calls (the params' and cache's gathers, "
-    "the gradients' sum); lacks the all-reduces GSPMD inserts for tensor parallelism"
-)
+COST_BASIS = {
+    "data_parallel": (
+        "one rank's program at its shard shapes (data-parallel: the batch split over "
+        "(pod, data), params and cache gathered whole; no tensor parallelism over model); "
+        + _COUNTS),
+    "tensor_parallel": (
+        "one rank's tensor-parallel program at its shard shapes (the batch split over "
+        "(pod, data); heads, MLP columns and vocabulary rows split over model as "
+        "params_shardings places them, only fsdp dims gathered; the rank's own cache block); "
+        + _COUNTS),
+}
+COLLECTIVES_BASIS = {
+    "data_parallel": (
+        "census of the collectives rank 0's program calls (the params' and cache's gathers, "
+        "the gradients' sum); lacks the all-reduces GSPMD inserts for tensor parallelism"),
+    "tensor_parallel": (
+        "census of the collectives rank 0's program calls: the model all-reduces after the "
+        "row-split products (attention output, MLP down) and of the vocabulary-split "
+        "embedding, the all-gathers of the kv rows or heads, in decode the q heads' "
+        "all-gather and the context-parallel combine (a max and a sum); the fsdp gathers"),
+}
 MEMORY_BASIS = (
     "per-rank shard shapes of the arguments and outputs as the reference places them; "
     "temporaries are not counted, so peak_live_bytes is a lower bound"
@@ -268,6 +297,8 @@ class Lowered:
 
     program: Callable[[], Any]
     memory: dict[str, Any]
+    #: the key of :data:`COST_BASIS` and :data:`COLLECTIVES_BASIS`
+    rank_program: str = "data_parallel"
 
     def trace(self) -> dict[str, Any]:
         """Run the program once on ``meta``: its ``cost`` and
@@ -368,12 +399,22 @@ def _batch_dims(model, cache):
 
 
 def _serve_program(model, mesh: Mesh, params, p_sh, batch, b_sh, cache, c_sh, step: Callable,
-                   rules, batch_axes) -> Callable[[], Any]:
-    """The serving rank program: params gathered, the cache gathered but for
-    its batch rows (over ``batch_axes``), ``step(params, batch, cache)``
-    under ``rules``, the logits of the rank's rows and its blocks of the
-    cache returned."""
+                   rules, batch_axes, memory: dict, tensor_parallel: bool) -> Lowered:
+    """The serving cell lowered.  With ``tensor_parallel`` (the dense
+    family, not under ``long_decode_rules``): ``spmd.serving_body``, the
+    rank's shards of the params (gathered over ``fsdp`` only) and its block
+    of the cache, the logits of its rows and vocabulary columns.  Otherwise
+    data-parallel: params gathered, the cache gathered but for its batch
+    rows (over ``batch_axes``), ``step(params, batch, cache)`` under
+    ``rules``, the logits of the rank's rows and its blocks of the cache
+    returned."""
     p_specs, c_specs = _specs(p_sh), _specs(c_sh)
+    in_specs = (p_specs, _specs(b_sh), c_specs)
+    if tensor_parallel:
+        body = serving_body(model, mesh, params, p_specs, cache, c_specs, step, rules)
+        return Lowered(_rank_program(mesh, body, (params, batch, cache), in_specs,
+                                     (P(batch_axes, MODEL_AXIS), c_specs)),
+                       memory, "tensor_parallel")
     gather_specs = tree_map(lambda sh, b: P(*(None if d == b else e
                                              for d, e in enumerate(sh.spec))),
                             c_sh, _batch_dims(model, cache))
@@ -385,8 +426,8 @@ def _serve_program(model, mesh: Mesh, params, p_sh, batch, b_sh, cache, c_sh, st
             logits, new_cache = step(full, batch_l, whole_rows)
         return logits, tree_map(lambda c, spec: _shard_of(c, spec), new_cache, gather_specs)
 
-    return _rank_program(mesh, body, (params, batch, cache), (p_specs, _specs(b_sh), c_specs),
-                         (P(batch_axes), c_specs))
+    return Lowered(_rank_program(mesh, body, (params, batch, cache), in_specs,
+                                 (P(batch_axes), c_specs)), memory)
 
 
 def _lower_prefill(cfg: ModelConfig, mesh: Mesh, shape: ShapeCell) -> Lowered:
@@ -403,9 +444,8 @@ def _lower_prefill(cfg: ModelConfig, mesh: Mesh, shape: ShapeCell) -> Lowered:
     memory = _memory(args=[(params, p_sh), (specs, b_sh), (cache, c_sh)],
                      out=[(logits, NamedSharding(mesh, P(dp, "model"))), (cache, c_sh)],
                      donated=[(cache, c_sh)])
-    program = _serve_program(model, mesh, params, p_sh, specs, b_sh, cache, c_sh,
-                             model.prefill, decode_rules(mesh), dp)
-    return Lowered(program, memory)
+    return _serve_program(model, mesh, params, p_sh, specs, b_sh, cache, c_sh, model.prefill,
+                          decode_rules(mesh), dp, memory, model.tensor_parallel_serving)
 
 
 def _lower_decode(
@@ -443,8 +483,8 @@ def _lower_decode(
     def step(p, batch, c):
         return model.decode_step(p, c, batch["token"], last)
 
-    return Lowered(_serve_program(model, mesh, params, p_sh, token, t_sh, cache, c_sh, step,
-                                  rules, batch_ax), memory)
+    return _serve_program(model, mesh, params, p_sh, token, t_sh, cache, c_sh, step, rules,
+                          batch_ax, memory, model.tensor_parallel_serving and not long_ctx)
 
 
 def lower_cell(
@@ -527,9 +567,10 @@ def run_cell(
         compile_s=round(t_trace, 2),
         memory=whole.memory,
         **traced,
-        cost_basis=COST_BASIS + "; each repeated body once: one period of every layer "
-                                "segment and one microbatch block",
-        collectives_basis=COLLECTIVES_BASIS,
+        cost_basis=COST_BASIS[bodies.rank_program] + "; each repeated body once: one period "
+                                                     "of every layer segment and one "
+                                                     "microbatch block",
+        collectives_basis=COLLECTIVES_BASIS[bodies.rank_program],
         memory_basis=MEMORY_BASIS,
     )
     return rec
@@ -577,7 +618,7 @@ def probe_config(cfg: ModelConfig, k: int) -> tuple[ModelConfig, int]:
     return cfg_k, R
 
 
-def _probe_metrics(
+def _probe_lowered(
     cfg: ModelConfig,
     mesh: Mesh,
     shape: ShapeCell,
@@ -586,19 +627,21 @@ def _probe_metrics(
     cache_impl: str = "masked",
     hoist: bool = False,
     probe_blocks: int = 1,
-) -> dict[str, float]:
+) -> Lowered:
     if shape.kind == "train":
-        lowered = _lower_train(
+        return _lower_train(
             cfg, mesh, shape,
             num_blocks=probe_blocks,
             accum_mode="materialized" if probe_blocks == 1 else "spliter_unrolled",
             sp=sp,
             hoist=hoist,
         )
-    elif shape.kind == "prefill":
-        lowered = _lower_prefill(cfg, mesh, shape)
-    else:
-        lowered = _lower_decode(cfg, mesh, shape, cache_impl=cache_impl)
+    if shape.kind == "prefill":
+        return _lower_prefill(cfg, mesh, shape)
+    return _lower_decode(cfg, mesh, shape, cache_impl=cache_impl)
+
+
+def _metrics(lowered: Lowered) -> dict[str, float]:
     traced = lowered.trace()
     coll = traced["collectives"]
     return {
@@ -607,6 +650,10 @@ def _probe_metrics(
         "collective_bytes": float(coll["total_operand_bytes"]),
         "collective_by_kind": {k: float(v) for k, v in coll["operand_bytes"].items()},
     }
+
+
+def _probe_metrics(cfg: ModelConfig, mesh: Mesh, shape: ShapeCell, **kw) -> dict[str, float]:
+    return _metrics(_probe_lowered(cfg, mesh, shape, **kw))
 
 
 def probe_cell(
@@ -638,8 +685,8 @@ def probe_cell(
     cfg1, R = probe_config(cfg, k1)
     cfg2, _ = probe_config(cfg, k2)
     kw = dict(sp=sp, cache_impl=cache_impl, hoist=hoist, probe_blocks=probe_blocks)
-    m1 = _probe_metrics(cfg1, mesh, shape, **kw)
-    m2 = _probe_metrics(cfg2, mesh, shape, **kw)
+    low1 = _probe_lowered(cfg1, mesh, shape, **kw)
+    m1, m2 = _metrics(low1), _probe_metrics(cfg2, mesh, shape, **kw)
 
     def fit(v1: float, v2: float) -> float:
         slope = max((v2 - v1) / (k2 - k1), 0.0)
@@ -660,8 +707,8 @@ def probe_cell(
                 for k in sorted(kinds)
             },
         },
-        cost_basis=COST_BASIS,
-        collectives_basis=COLLECTIVES_BASIS,
+        cost_basis=COST_BASIS[low1.rank_program],
+        collectives_basis=COLLECTIVES_BASIS[low1.rank_program],
     )
     rec["probe_s"] = round(time.perf_counter() - t0, 2)
     return rec

@@ -11,6 +11,15 @@ params dict with the JAX package's names and layouts (attention weights
   ``"sharded_dus"`` writes the cache row in a ``shard_map`` on the rank
   that owns the slot, ``"decomposed"`` attends to the old cache and the new
   token before writing (:func:`cache_write`, :func:`attention`);
+* **tensor parallelism:** inside the body of
+  ``repro_torch.distributed.spmd.sharded_prefill`` or
+  ``sharded_decode_step`` (``spmd.tensor_parallel()`` is set) a rank holds
+  its shards of the params, and :func:`attention` and :func:`mlp` compute
+  on them with the ``model`` collectives where the reference's GSPMD
+  partition puts them: a ``psum`` after the row-split ``wo`` and ``w_down``
+  products (:func:`_attention_tp`).  Outside such a body nothing here calls
+  a collective, as the reference's ``shard(...)`` is the identity outside a
+  rules context;
 * the decode cache is updated in place: a one-row write at the slot into the
   caller's cache tensors, where the reference's masked select reads and
   rewrites the whole cache every step.  The values are the same;
@@ -48,7 +57,17 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import active_rules
-from repro_torch.distributed.spmd import P, axis_index, shard_map
+from repro_torch.distributed.spmd import (
+    MODEL_AXIS,
+    P,
+    all_gather,
+    axis_index,
+    axis_size,
+    pmax,
+    psum,
+    shard_map,
+    tensor_parallel,
+)
 from repro_torch.kernels import ops
 
 Params = dict[str, Any]
@@ -386,6 +405,23 @@ def cross_attention(
     return torch.tanh(p["gate"].to(dt)) * out, cache
 
 
+def _project(p: Params, cfg: ModelConfig, x: torch.Tensor, w: str, cos: torch.Tensor,
+             sin: torch.Tensor) -> torch.Tensor:
+    """``x`` (B, L, D) through the projection ``w`` (``"wq"``, ``"wk"`` or
+    ``"wv"``) onto whatever heads ``p[w]`` holds, with its bias; q and k
+    also take the qk-norm and RoPE at ``cos``/``sin`` (B, L, Dh/2)."""
+    dt = x.dtype
+    t = torch.einsum("bld,dhk->blhk", x, p[w].to(dt))
+    bias = "b" + w[1:]
+    if bias in p:
+        t = t + p[bias].to(dt)
+    if w == "wv":
+        return t
+    if cfg.qk_norm:
+        t = rms_norm(t, p["q_norm" if w == "wq" else "k_norm"])
+    return apply_rope(t, cos, sin)
+
+
 def attention(
     p: Params,
     cfg: ModelConfig,
@@ -409,23 +445,13 @@ def attention(
     """
     if memory is not None or (cache is not None and "k_mem" in cache):
         return cross_attention(p, cfg, x, cache=cache, memory=memory)
-    dh = cfg.resolved_head_dim
     dt = x.dtype
-    q = torch.einsum("bld,dhk->blhk", x, p["wq"].to(dt))
-    if "bq" in p:
-        q = q + p["bq"].to(dt)
-    k = torch.einsum("bld,dhk->blhk", x, p["wk"].to(dt))
-    v = torch.einsum("bld,dhk->blhk", x, p["wv"].to(dt))
-    if "bk" in p:
-        k = k + p["bk"].to(dt)
-        v = v + p["bv"].to(dt)
-    if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"])
-        k = rms_norm(k, p["k_norm"])
-
-    cos, sin = rope_cos_sin(positions, dh, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    cos, sin = rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    tp = tensor_parallel()
+    if tp is not None:
+        return _attention_tp(p, cfg, x, tp, cos, sin, causal=causal, cache=cache,
+                             cache_pos=cache_pos), cache
+    q, k, v = (_project(p, cfg, x, w, cos, sin) for w in ("wq", "wk", "wv"))
 
     if cache is None:
         out = _prefill_attention(q, k, v, causal=causal, window=cfg.sliding_window, cfg=cfg)
@@ -481,7 +507,170 @@ def init_mlp(
     }
 
 
-def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+def mlp(p: Params, x: torch.Tensor, *, d_ff: int | None = None) -> torch.Tensor:
+    """SwiGLU.  In a tensor-parallel body a rank holding its columns of
+    ``w_gate``/``w_up`` and rows of ``w_down`` (fewer than ``d_ff``) sums
+    its partial output over the model axis."""
     dt = x.dtype
     h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
-    return h @ p["w_down"].to(dt)
+    out = h @ p["w_down"].to(dt)
+    tp = tensor_parallel()
+    if tp is None:
+        return out
+    if d_ff is None:
+        raise ValueError("mlp in a tensor-parallel body needs the global d_ff")
+    return psum(out, MODEL_AXIS) if p["w_down"].shape[0] != d_ff else out
+
+
+# ---------------------------------------------------------------------------
+# attention on a rank of a tensor-parallel body
+# ---------------------------------------------------------------------------
+
+
+def _kv_for_heads(t: torch.Tensor, q0: int, hq: int, group: int) -> torch.Tensor:
+    """The kv heads that q heads ``[q0, q0 + hq)`` read (q head ``i`` reads
+    kv head ``i // group``), of ``t`` (B, L, Hkv, Dh) holding every kv head:
+    a slice where those q heads form whole groups or lie in one, else one kv
+    head per q head."""
+    if hq % group == 0 or group % hq == 0:
+        return t[:, :, q0 // group:(q0 + hq - 1) // group + 1]
+    return t.index_select(2, torch.arange(q0, q0 + hq, device=t.device) // group)
+
+
+def _sdpa_context_parallel(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor, *, rows0: int,
+                           kv_len: int, new: tuple[torch.Tensor, torch.Tensor] | None = None
+                           ) -> torch.Tensor:
+    """Decode attention of ``q`` (B, 1, H, Dh) over a cache whose rows are
+    split over the model axis: this rank's block ``kc``/``vc`` (B, S_l,
+    Hkv, Dh) holds global rows ``[rows0, rows0 + S_l)``, of which rows below
+    ``kv_len`` are attended.  Each rank keeps its row maximum, its sum of
+    exponentials and its unnormalised output (f32); the ranks take the
+    maximum (``pmax``) and sum the sums and outputs rescaled to it (one
+    ``psum``).  ``new``, the new token's k/v row (B, 1, Hkv, Dh) not yet in
+    the cache (the ``"decomposed"`` cache), then joins the softmax on every
+    rank, as the reference's replicated score of the new token does."""
+    b, lq, h, dh = q.shape
+    hkv = kc.shape[2]
+    qg = q.reshape(b, lq, hkv, h // hkv, dh)
+    scale = 1.0 / np.sqrt(dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kc).to(torch.float32) * scale
+    mask = torch.arange(rows0, rows0 + kc.shape[1], device=q.device) < kv_len
+    s = torch.where(mask, s, -1e30)
+    mx = s.amax(dim=-1, keepdim=True)                          # (B, Hkv, G, 1, 1)
+    p = torch.exp(s - mx).masked_fill(~mask, 0.0)
+    total = pmax(mx, MODEL_AXIS)
+    rescale = torch.exp(mx - total)
+    o = torch.einsum("bhgqk,bkhd->bhgqd", p, vc.to(torch.float32))
+    lsum, o = psum(((p.sum(dim=-1, keepdim=True) * rescale), o * rescale), MODEL_AXIS)
+    if new is not None:
+        s_new = torch.einsum("bqhgd,bkhd->bhgqk", qg, new[0]).to(torch.float32) * scale
+        top = torch.maximum(total, s_new)
+        old, fresh = torch.exp(total - top), torch.exp(s_new - top)
+        lsum = lsum * old + fresh
+        o = o * old + torch.einsum("bhgqk,bkhd->bhgqd", fresh, new[1].to(torch.float32))
+    out = (o / lsum).permute(0, 3, 1, 2, 4)                    # (B, 1, Hkv, G, Dh)
+    return out.reshape(b, lq, h, dh).to(q.dtype)
+
+
+def _attention_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, tp, cos: torch.Tensor,
+                  sin: torch.Tensor, *, causal: bool, cache: Params | None,
+                  cache_pos: int | None) -> torch.Tensor:
+    """:func:`attention` on a rank of a tensor-parallel serving body
+    (``repro_torch.distributed.spmd.serving_body``), on the rank's shards,
+    with RoPE at ``cos``/``sin``.
+
+    The rank's q heads come from its slice of ``wq`` (its part of the
+    heads, the weight's shape says which), and ``wo``'s matching rows give
+    a partial output that is summed over the model axis.  Its kv heads:
+    with ``wk``/``wv`` split, its own; replicated (the kv heads do not
+    divide the axis), the slice its q heads read.  A replicated ``wk``/``wv``
+    projects the prompt's rows sequence-parallel: each rank projects its
+    share of the rows (the rows of its cache block under the ``seq``
+    layout) with every kv head, and the ranks all-gather them.
+
+    The cache (``tp.kv_seq_split``: the rank's rows, every kv head;
+    ``tp.kv_heads_split``: every row, the rank's kv heads; neither: the
+    whole cache) is written in place, the rank's block only.  Decode under
+    the ``seq`` layout is context-parallel: the q heads and the new row's
+    kv heads are all-gathered, the rank that owns the slot writes the row,
+    and every rank attends to its own rows (:func:`_sdpa_context_parallel`).
+    Under a ``"decomposed"`` ``cache_impl`` decode attends to the old rows
+    and joins the new one, then writes, as :func:`attention` does.
+    """
+    heads, kv_heads = cfg.num_heads, cfg.num_kv_heads
+    group = heads // kv_heads
+    n, rank = axis_size(MODEL_AXIS), axis_index(MODEL_AXIS)
+    hq = p["wq"].shape[1]
+    q_split, kv_split = hq != heads, p["wk"].shape[1] != kv_heads
+    o_split = p["wo"].shape[0] != heads
+    if q_split != o_split or (kv_split and not q_split) or (tp.kv_heads_split and not kv_split):
+        raise ValueError(f"attention: wq {tuple(p['wq'].shape)}, wk {tuple(p['wk'].shape)}, "
+                         f"wo {tuple(p['wo'].shape)} and the cache's heads are split unlike "
+                         f"params_shardings and cache_shardings split them")
+    q0 = rank * hq if q_split else 0
+
+    def project(w: str, rows: slice = slice(None)) -> torch.Tensor:
+        return _project(p, cfg, x[:, rows], w, cos[:, rows], sin[:, rows])
+
+    def all_heads(t: torch.Tensor) -> torch.Tensor:
+        return all_gather(t, MODEL_AXIS, axis=2, tiled=True) if kv_split else t
+
+    def mine(t: torch.Tensor) -> torch.Tensor:
+        return t if tp.kv_heads_split else _kv_for_heads(t, q0, hq, group)
+
+    q = project("wq")
+    lq = x.shape[1]
+    ck, cv = (None, None) if cache is None else (cache["k"], cache["v"])
+    if lq == 1 and cache is not None:  # -------- decode step --------
+        r = active_rules()
+        decomposed = r is not None and "decomposed" in r.cache_impl
+        k, v = project("wk"), project("wv")
+        if not tp.kv_heads_split:
+            k, v = all_heads(k), all_heads(v)
+        row = cache_pos - rank * ck.shape[1] if tp.kv_seq_split else cache_pos
+        owner = 0 <= row < ck.shape[1]  # the rank whose block holds the slot writes the row
+
+        def write():
+            if owner:
+                ck[:, row] = k[:, 0].to(ck.dtype)
+                cv[:, row] = v[:, 0].to(cv.dtype)
+
+        if not decomposed:
+            write()
+        if tp.kv_seq_split:
+            q_all = all_gather(q, MODEL_AXIS, axis=2, tiled=True) if q_split else q
+            out = _sdpa_context_parallel(
+                q_all, ck, cv, rows0=rank * ck.shape[1], kv_len=cache_pos + (not decomposed),
+                new=(k, v) if decomposed else None)[:, :, q0:q0 + hq]
+        elif decomposed:
+            out = _sdpa_decode_decomposed(q, mine(ck), mine(cv), mine(k), mine(v),
+                                          valid_len=cache_pos, slot=cache_pos)
+        else:
+            out = _sdpa(q, mine(ck), mine(cv), causal=False, kv_len=cache_pos + 1)
+        if decomposed:
+            write()
+    else:  # -------- a prompt, into the cache if there is one --------
+        if kv_split or n == 1:
+            k, v = project("wk"), project("wv")
+            if ck is not None:
+                kw, vw = (k, v) if tp.kv_heads_split else (all_heads(k), all_heads(v))
+                lo = rank * ck.shape[1] if tp.kv_seq_split else 0
+                hi = min(lo + ck.shape[1], lq)
+                ck[:, :max(hi - lo, 0)] = kw[:, lo:hi].to(ck.dtype)
+                cv[:, :max(hi - lo, 0)] = vw[:, lo:hi].to(cv.dtype)
+        else:  # sequence-parallel projection of every kv head, then gathered
+            chunk = ck.shape[1] if ck is not None and tp.kv_seq_split else -(-lq // n)
+            lo, hi = min(rank * chunk, lq), min((rank + 1) * chunk, lq)
+            kr, vr = project("wk", slice(lo, hi)), project("wv", slice(lo, hi))
+            if ck is not None and tp.kv_seq_split:
+                ck[:, :hi - lo] = kr.to(ck.dtype)
+                cv[:, :hi - lo] = vr.to(cv.dtype)
+            k, v = (all_gather(F.pad(t, (0, 0, 0, 0, 0, chunk - (hi - lo))), MODEL_AXIS, axis=1,
+                               tiled=True)[:, :lq] for t in (kr, vr))
+            if ck is not None and not tp.kv_seq_split:
+                ck[:, :lq] = k.to(ck.dtype)
+                cv[:, :lq] = v.to(cv.dtype)
+            k, v = _kv_for_heads(k, q0, hq, group), _kv_for_heads(v, q0, hq, group)
+        out = _prefill_attention(q, k, v, causal=causal, window=0, cfg=cfg)
+    out = torch.einsum("blhk,hkd->bld", out, p["wo"].to(x.dtype))
+    return psum(out, MODEL_AXIS) if o_split else out

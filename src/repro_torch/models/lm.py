@@ -36,6 +36,14 @@ the reference's storage): the model still computes in ``cfg.dtype``, the
 casts at each use carry the gradient back to the f32 leaf, and AdamW
 updates f32 master weights, where a bf16 leaf would round every update.
 
+**Tensor parallelism.**  Inside the serving body of
+``repro_torch.distributed.spmd.sharded_prefill`` and ``sharded_decode_step``
+(for the models whose ``tensor_parallel_serving`` holds) a rank looks its
+tokens up in its rows of a vocabulary-split ``embed`` and sums the
+embeddings over ``model``, and computes the logits of its vocabulary
+columns, the padding masked by global column; ``layers.py`` splits the
+heads and the MLP.  Outside such a body nothing changes.
+
 **Recomputation.**  ``forward(..., remat=True)`` (which ``loss`` uses, as
 the reference's does) checkpoints each period of the decoder's segments by
 ``cfg.remat``: ``"none"`` keeps every activation; ``"full"`` keeps only the
@@ -67,6 +75,7 @@ from torch.utils.checkpoint import (
 from repro_torch._pytree import tree_map
 from repro_torch.configs.base import LayerSpec, ModelConfig, Segment, ShapeCell
 from repro_torch.core.blocked import resolve_device
+from repro_torch.distributed.spmd import MODEL_AXIS, axis_index, axis_size, psum, tensor_parallel
 from repro_torch.models import layers as L
 from repro_torch.models.mla import init_mla, mla_attention
 from repro_torch.models.moe import init_moe, moe_mlp, routes_paused
@@ -119,7 +128,9 @@ def _init_layer(spec: LayerSpec, cfg: ModelConfig, *, generator, device, dtype) 
 
 
 def _mlp(p: Params, spec: LayerSpec, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    return L.mlp(p, x) if spec.mlp == "dense" else moe_mlp(p, cfg, x)
+    if spec.mlp == "dense":
+        return L.mlp(p, x, d_ff=cfg.dense_d_ff or cfg.d_ff)
+    return moe_mlp(p, cfg, x)
 
 
 def _apply_layer(
@@ -277,6 +288,16 @@ def _rematerialized(body, policy: str):
 class Model:
     cfg: ModelConfig
 
+    @property
+    def tensor_parallel_serving(self) -> bool:
+        """Whether the tensor-parallel serving body runs this model
+        (``repro_torch.distributed.spmd.sharded_prefill``): every layer
+        dense attention and a SwiGLU MLP, with no sliding window."""
+        cfg = self.cfg
+        return (not cfg.encoder_layers and not cfg.sliding_window
+                and all(s.mixer == "attn" and s.mlp == "dense"
+                        for seg in cfg.segments() for s in seg.period))
+
     # ---------------- init ----------------
 
     def init(self, generator: torch.Generator, *, device: str | torch.device = "cuda",
@@ -390,15 +411,44 @@ class Model:
         else:
             x = L.rms_norm(x, params["final_norm"])
         head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"]).to(x.dtype)
+        first, head = self._vocab_block(head)
         logits = x @ head
-        # mask Megatron-style vocab padding
+        # mask Megatron-style vocab padding (global column indices)
         if cfg.padded_vocab != cfg.vocab_size:
-            valid = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size
+            valid = torch.arange(first, first + head.shape[1], device=x.device) < cfg.vocab_size
             logits = torch.where(valid, logits, -1e30)
         return logits
 
+    def _vocab_block(self, head: torch.Tensor) -> tuple[int, torch.Tensor]:
+        """(the first vocabulary column, the head's columns) this rank
+        computes: every column outside a tensor-parallel body; in one, the
+        rank's block over the model axis (the columns of a split head, or
+        its part of a replicated one, as ``P(dp, "model")`` places the
+        logits)."""
+        if tensor_parallel() is None:
+            return 0, head
+        n, rank = axis_size(MODEL_AXIS), axis_index(MODEL_AXIS)
+        held = head.shape[1]
+        if held != self.cfg.padded_vocab:
+            return rank * held, head
+        if held % n:
+            raise ValueError(f"{held} vocabulary columns over {n} ranks")
+        width = held // n
+        return rank * width, head[:, rank * width:(rank + 1) * width]
+
     def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embed"][tokens].to(getattr(torch, self.cfg.dtype))
+        """The token embeddings in ``cfg.dtype``.  In a tensor-parallel body
+        a rank holding its rows of a split table looks up the tokens that
+        fall in them, zero elsewhere, and the ranks sum over the model axis."""
+        table, dt = params["embed"], getattr(torch, self.cfg.dtype)
+        if tensor_parallel() is None or table.shape[0] == self.cfg.padded_vocab:
+            return table[tokens].to(dt)
+        held = table.shape[0]
+        local = tokens - axis_index(MODEL_AXIS) * held
+        inside = (local >= 0) & (local < held)
+        rows = table[local.clamp(0, held - 1)].to(dt)
+        zero = torch.zeros((), dtype=dt, device=rows.device)
+        return psum(torch.where(inside[..., None], rows, zero), MODEL_AXIS)
 
     # ---------------- entry points ----------------
 

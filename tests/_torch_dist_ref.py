@@ -1,14 +1,18 @@
-"""Reference side of ``tests/test_torch_distributed.py``, run in one child
-process on 8 forced host devices.
+"""Reference side of ``tests/test_torch_distributed.py`` and
+``tests/test_torch_tensor_parallel.py``, run in a child process on 8 forced
+host devices.
 
 The parent sets ``XLA_FLAGS=--xla_force_host_platform_device_count=8`` so
-that its own process keeps one device; this child runs every mode of
-``tests/_dist_child.py`` that the port mirrors (not ``mesh_exec``) and the
-``jax.lax`` collectives on the same mesh shapes, and saves what each
-produced to ``out.npz`` in the directory given as its one argument (and
-the train step's params, as a checkpoint, under ``params/`` there).  The inputs are
-drawn here exactly as the parent draws them for the port (numpy
-generators, fixed seeds).  Not collected by pytest (no ``test_`` prefix).
+that its own process keeps one device.  This child takes the output
+directory and then the names of the cases to run: by default every case of
+:data:`CASES` (every mode of ``tests/_dist_child.py`` that the port mirrors,
+not ``mesh_exec``, and the ``jax.lax`` collectives on the same mesh
+shapes); ``tensor_parallel`` (the reference's serving steps under GSPMD)
+is the tensor-parallel test's.  It saves what each produced to ``out.npz``
+in the directory (and the train step's params, as a checkpoint, under
+``params/`` there).  The inputs are drawn here exactly as the parent draws
+them for the port (numpy generators, fixed seeds).  Not collected by pytest
+(no ``test_`` prefix).
 """
 
 import dataclasses
@@ -173,6 +177,8 @@ PRIMITIVES = {
     "psum/data": ("rows", lambda lx, v: lx.psum(v, "data")),
     "psum/pod": ("rows", lambda lx, v: lx.psum(v, "pod")),
     "psum/pod_data": ("rows", lambda lx, v: lx.psum(v, ("data", "pod"))),
+    "pmax/data": ("rows", lambda lx, v: lx.pmax(v, "data")),
+    "pmax/pod_data": ("rows", lambda lx, v: lx.pmax(v, ("data", "pod"))),
     "psum_scatter/untiled": ("blocks", lambda lx, v: lx.psum_scatter(
         v, "data", scatter_dimension=0, tiled=False)[None]),
     "psum_scatter/tiled": ("tiles", lambda lx, v: lx.psum_scatter(
@@ -201,6 +207,7 @@ def primitives(out: dict) -> None:
 
     class Lax:
         psum = staticmethod(jax.lax.psum)
+        pmax = staticmethod(jax.lax.pmax)
         psum_scatter = staticmethod(jax.lax.psum_scatter)
         all_gather = staticmethod(jax.lax.all_gather)
         ppermute = staticmethod(jax.lax.ppermute)
@@ -216,14 +223,97 @@ def primitives(out: dict) -> None:
         out[f"primitive/{name}"] = f(jnp.asarray(inputs[key]))
 
 
+#: the tensor-parallel serving case: the dense smoke configs in f32 (qwen3's
+#: 2 kv heads do not divide the 4-way model axis, deepseek's 4 do), a batch
+#: of TP_BATCH TP_PROMPT-token prompts, then TP_STEPS decode steps, the
+#: cache TP_MAX_LEN long; the reference's init at key 0
+TP_ARCHES = ("qwen3-32b", "deepseek-7b")
+TP_BATCH, TP_PROMPT, TP_STEPS, TP_MAX_LEN = 4, 8, 3, 16
+TP_LAYOUTS = ("seq", "heads")
+
+
+def tp_tokens(vocab: int) -> np.ndarray:
+    """The prompts and the decode steps' tokens (B, TP_PROMPT + TP_STEPS)."""
+    return np.random.default_rng(13).integers(
+        0, vocab, (TP_BATCH, TP_PROMPT + TP_STEPS)).astype(np.int32)
+
+
+def tp_path(path) -> str:
+    """A cache leaf's path as ``seg0/0/k``: dict keys and sequence indices."""
+    return "/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path)
+
+
+def tensor_parallel(out: dict) -> None:
+    """``jax.jit(model.prefill)`` and ``jax.jit(model.decode_step)`` on a
+    (2, 4) ("data", "model") mesh, params by ``params_shardings`` (no
+    ``fsdp``, as ``_serving_fsdp`` keeps the smoke configs), the cache by
+    ``cache_shardings`` under ``decode_rules`` (``layout="seq"``) and
+    ``decode_rules_headsharded`` (``"heads"``), the logits out as
+    ``P("data", "model")`` (``repro/launch/dryrun_lib.py:145-212``): the
+    logits after the prefill and each decode step, and every rank's block
+    of the final cache (rank order)."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from repro.configs import get_smoke_config
+    from repro.distributed.sharding import (
+        cache_shardings,
+        decode_rules,
+        decode_rules_headsharded,
+        params_shardings,
+        use_rules,
+    )
+    from repro.models import build_model
+
+    mesh = _mesh((2, 4), ("data", "model"))
+    for arch in TP_ARCHES:
+        model = build_model(dataclasses.replace(get_smoke_config(arch), dtype="float32"))
+        params = model.init(jax.random.key(0))
+        toks = jnp.asarray(tp_tokens(model.cfg.vocab_size))
+        p_sh = params_shardings(params, mesh, fsdp_axis=None)
+        rows = NamedSharding(mesh, P("data", None))
+        logits_sh = NamedSharding(mesh, P("data", "model"))
+        for layout, rules in zip(TP_LAYOUTS, (decode_rules(mesh), decode_rules_headsharded(mesh))):
+            cache = model.init_cache(TP_BATCH, TP_MAX_LEN, jnp.float32)
+            c_sh = cache_shardings(cache, mesh, layout=layout)
+            with use_rules(rules):  # read while the steps trace
+                prefill = jax.jit(model.prefill, in_shardings=(p_sh, {"tokens": rows}, c_sh),
+                                  out_shardings=(logits_sh, c_sh))
+                decode = jax.jit(model.decode_step,
+                                 in_shardings=(p_sh, c_sh, rows, NamedSharding(mesh, P())),
+                                 out_shardings=(logits_sh, c_sh))
+                placed = jax.device_put(params, p_sh)
+                logits, cache = prefill(placed, {"tokens": toks[:, :TP_PROMPT]},
+                                        jax.device_put(cache, c_sh))
+                outs = [logits]
+                for t in range(TP_STEPS):
+                    logits, cache = decode(placed, cache, toks[:, TP_PROMPT + t:TP_PROMPT + t + 1],
+                                           jnp.asarray(TP_PROMPT + t, jnp.int32))
+                    outs.append(logits)
+            key = f"tensor_parallel/{arch}/{layout}"
+            out[f"{key}/logits"] = np.stack([np.asarray(o) for o in outs], 1)
+            for path, leaf in jax.tree_util.tree_flatten_with_path(cache)[0]:
+                blocks = {s.device: np.asarray(s.data) for s in leaf.addressable_shards}
+                out[f"{key}/cache/{tp_path(path)}"] = np.stack(
+                    [blocks[d] for d in mesh.devices.flat])
+
+
+#: the child's cases by name; the parent names the ones it needs after the
+#: output directory (all of CASES by default)
+CASES = {"hier_and_compressed": hier_and_compressed, "gpipe": gpipe_case,
+         "sharded_train": sharded_train, "elastic_restore": elastic_restore,
+         "cache_writes": cache_writes, "primitives": primitives}
+EXTRA_CASES = {"tensor_parallel": tensor_parallel}
+
+
 if __name__ == "__main__":
     import jax
 
     assert jax.device_count() == 8, jax.device_count()
     OUT = sys.argv[1]
     results: dict = {}
-    for run in (hier_and_compressed, gpipe_case, sharded_train, elastic_restore, cache_writes,
-                primitives):
-        run(results)
+    for name in sys.argv[2:] or list(CASES):
+        {**CASES, **EXTRA_CASES}[name](results)
     np.savez(os.path.join(OUT, "out.npz"), **{k: np.asarray(v) for k, v in results.items()})
     print(f"RESULT {OUT}")

@@ -6,7 +6,8 @@ that its own process keeps one device.  This child runs the JAX package's
 ``run_cell`` and ``probe_cell`` (but for :data:`NO_PROBE`) for every cell
 of :data:`ARCHES` × :data:`SHAPE_NAMES` on a (2, 4) ("data", "model") mesh,
 then ``run_cell`` for the same cells on the data-parallel
-:data:`DATA_MESH`, at the smoke configs' widths (passed as ``overrides``)
+:data:`DATA_MESH`, and for :data:`TP_CELLS` on the (2, 4) mesh, at the smoke
+configs' widths (passed as ``overrides``)
 and the small shape cells of :data:`SMALL_SHAPES` (patched into the shared
 ``SHAPES`` dict, which only this process sees), and writes the records as
 JSON to the path given as its one argument.  Each run record's ``cost``
@@ -35,6 +36,9 @@ MESH = ((2, 4), ("data", "model"))
 DATA_MESH = ((2, 1), ("data", "model"))
 #: cells without a probe: mamba2's train probe alone compiles for 12 s
 NO_PROBE = {("mamba2-1.3b", "train_4k")}
+#: serving cells run on MESH alone (no probe, no DATA_MESH run): the dense
+#: config whose kv heads divide the model axis, beside qwen3's that do not
+TP_CELLS = (("deepseek-7b", "prefill_32k"), ("deepseek-7b", "decode_32k"))
 
 
 def overrides(cfg) -> dict:
@@ -99,6 +103,9 @@ if __name__ == "__main__":
         for shape in SHAPE_NAMES:
             records.append(dryrun_lib.run_cell(arch, shape, data_mesh, mesh_label="data",
                                                overrides=ov))
+    for arch, shape in TP_CELLS:
+        records.append(dryrun_lib.run_cell(arch, shape, mesh, mesh_label="test",
+                                           overrides=overrides(get_smoke_config(arch))))
     with open(sys.argv[1], "w") as f:
         json.dump(records, f)
     print(f"RESULT {sys.argv[1]}")

@@ -14,6 +14,9 @@ that reason.  Run them on the card:
   per layer, per rank, per tick, and equals the layers applied in order.
 * The data-parallel gradients of lm1m on the card equal the unsharded ones'
   loss, and a checkpoint saved from 8 card ranks restores onto 2.
+* Tensor-parallel serving on 4 card ranks launches the flash kernel once
+  per rank and layer at the rank's heads, its placed shards are the
+  ranks' own (no copy), and its logits equal the unsharded model's.
 """
 
 import dataclasses
@@ -29,7 +32,9 @@ from repro_torch.distributed import (
     P,
     all_gather,
     data_parallel_gradients,
+    cache_shardings,
     decode_rules,
+    decode_rules_headsharded,
     device_put,
     gpipe,
     hierarchical_psum,
@@ -38,6 +43,8 @@ from repro_torch.distributed import (
     psum,
     psum_scatter,
     shard_map,
+    sharded_decode_step,
+    sharded_prefill,
     use_rules,
 )
 from repro_torch.kernels import flash_attention as fa
@@ -176,3 +183,64 @@ def test_checkpoint_from_8_card_ranks_restores_onto_2(dev, tmp_path):
     assert step == 3 and got["w"].sharding.num_devices == 2
     assert all(s.device == dev for s in got["w"].shards)
     assert torch.equal(got["w"].full(), x)
+
+
+def _serve_on_ranks(model, params, toks, mesh, layout, dtype):
+    """The tensor-parallel prefill of 128 tokens and 4 decode steps on
+    ``mesh``, and the unsharded model's on the same weights: both runs'
+    logits (B, 5, Vp), the prefill's flash launches, and whether the cache
+    was written into the placed shards themselves."""
+    rules = (decode_rules if layout == "seq" else decode_rules_headsharded)(mesh)
+    placed = device_put(params, params_shardings(params, mesh, fsdp_axis=None))
+    c0 = model.init_cache(4, 136, dtype=dtype, device=toks.device)
+    cache = device_put(c0, cache_shardings(c0, mesh, layout=layout))
+    blocks = [s.data_ptr() for leaf in tree_leaves(cache) for s in leaf.shards]
+    base = fa.flash_attention.launches
+    with torch.no_grad():
+        got = [sharded_prefill(model, placed, {"tokens": toks[:, :128]}, cache, mesh=mesh,
+                               rules=rules)[0]]
+        launches = fa.flash_attention.launches - base
+        want = [model.prefill(params, {"tokens": toks[:, :128]}, c0)[0]]
+        for t in range(128, 132):
+            got.append(sharded_decode_step(model, placed, cache, toks[:, t:t + 1], t, mesh=mesh,
+                                           rules=rules)[0])
+            want.append(model.decode_step(params, c0, toks[:, t:t + 1], t)[0])
+    in_place = [s.data_ptr() for leaf in tree_leaves(cache) for s in leaf.shards] == blocks
+    return torch.stack(got, 1).float(), torch.stack(want, 1).float(), launches, in_place
+
+
+@pytest.mark.parametrize("layout", ["seq", "heads"])
+def test_tensor_parallel_serving_on_card_ranks(dev, layout):
+    """qwen3's smoke config at 8 heads of 64 on 4 card ranks, in bf16 (the
+    flash kernel's wgmma route) and f32 (its split route), on the same
+    weights: the flash kernel launched 4 ranks × 2 layers in each prefill,
+    the cache written into the placed shards themselves, and the logits
+    after the prefill and 4 decode steps against the unsharded model's.
+    In f32 the two differ only in the order of their sums (1e-4); in bf16
+    each rank's partial products round before the ranks sum them, so the
+    tensor-parallel logits may stand from the unsharded ones at most twice
+    as far as the unsharded bf16 logits stand from the f32 ones."""
+    from repro_torch.configs import get_smoke_config
+
+    cfg = dataclasses.replace(get_smoke_config("qwen3-32b"), head_dim=64, num_heads=8,
+                              num_kv_heads=4, attn_impl="flash")
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 132)),
+                           device=dev)
+    mesh = compat_make_mesh((1, 4), ("data", "model"), devices=(dev,))
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    got, want, launches, in_place = _serve_on_ranks(model, params, toks, mesh, layout,
+                                                    torch.bfloat16)
+    assert launches == 4 * cfg.num_layers and in_place
+    f32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    params32 = tree_map(lambda t: t.float(), params)
+    got32, want32, launches, in_place = _serve_on_ranks(f32, params32, toks, mesh, layout,
+                                                        torch.float32)
+    assert launches == 4 * cfg.num_layers and in_place
+    v = cfg.vocab_size
+    err32 = float((got32[..., :v] - want32[..., :v]).abs().max())
+    yardstick = float((want[..., :v] - want32[..., :v]).abs().max())
+    err = float((got[..., :v] - want[..., :v]).abs().max())
+    print(f"tensor-parallel {layout}: bf16 {err} (yardstick {yardstick}), f32 {err32}")
+    torch.testing.assert_close(got32[..., :v], want32[..., :v], rtol=1e-4, atol=1e-4)
+    assert err <= 2 * yardstick, (err, yardstick)

@@ -263,6 +263,7 @@ def test_sharded_write_lands_on_the_owning_rank_only(monkeypatch):
 
 class _Port:
     psum = staticmethod(psum)
+    pmax = staticmethod(spmd.pmax)
     psum_scatter = staticmethod(psum_scatter)
     all_gather = staticmethod(all_gather)
     ppermute = staticmethod(ppermute)

@@ -77,6 +77,7 @@ def reference(tmp_path_factory):
            if kind == "run" or (a, s) not in ref_child.NO_PROBE}
     got.update({(a, s, "data"): next(records) for a in ref_child.ARCHES
                 for s in ref_child.SHAPE_NAMES})
+    got.update({(a, s, "run"): next(records) for a, s in ref_child.TP_CELLS})
     assert next(records, None) is None
     return got
 
@@ -193,12 +194,17 @@ def test_memory_matches_reference(reference, small_shapes, arch, shape):
 #: kernels' formulas; XLA's ``cost_analysis`` adds a FLOP per element of
 #: every elementwise operation and reduction, so the two are not comparable.
 #: The products themselves are: the child sums ``2·M·N·K`` over the ``dot``
-#: instructions of each compiled module (``dot_flops``).  On the (2, 4) mesh
-#: XLA repeats some products on every model position (the smoke configs'
-#: two KV heads over four), so the comparison runs on the data-parallel
-#: ``DATA_MESH``, the port's own layout, where a device's products are one
-#: rank's.  They are equal in every cell but mamba2's train step, where XLA
-#: forms four of the SSD einsums' gradient contractions (16384 FLOPs each at
+#: instructions of each compiled module (``dot_flops``).  Every cell is
+#: compared on the data-parallel ``DATA_MESH``, where a device's products
+#: are one rank's; and the cells that run the tensor-parallel rank program
+#: (qwen3's prefill and decode) on the (2, 4) mesh too, where XLA's GSPMD
+#: partition and the port's rank program split the same products four ways
+#: and repeat the same one on every model position: the decode step's k and
+#: v projections of the new token, whose 2 kv heads do not divide 4.  The
+#: other cells stay data-parallel (the train step, the SSM family) and are
+#: not compared on (2, 4), where XLA splits products the port computes whole.
+#: They are equal in every cell but mamba2's train step, where XLA forms
+#: four of the SSD einsums' gradient contractions (16384 FLOPs each at
 #: these widths, 0.29 % of the step) as dots and PyTorch's autograd as
 #: products and sums.  1 %: a lost LM head, layer or batch share is far more.
 DOT_RTOL = 0.01
@@ -220,6 +226,89 @@ def test_flops_held_to_reference(reference, small_shapes, monkeypatch, arch, sha
     want = reference[(arch, shape, "data")]["cost"]["dot_flops"]
     assert want > 0
     assert rec["cost"]["flops"] == pytest.approx(want, rel=DOT_RTOL)
+
+
+TP_CELLS = [("qwen3-32b", "prefill_32k"), ("qwen3-32b", "decode_32k"), *ref_child.TP_CELLS]
+
+
+@pytest.mark.parametrize("arch,shape", TP_CELLS)
+def test_tensor_parallel_flops_held_to_reference(reference, small_shapes, arch, shape):
+    """The tensor-parallel rank program's matrix-product FLOPs on the (2, 4)
+    mesh equal the products of one device's GSPMD-partitioned module
+    (``mesh_label="test"``), within :data:`DOT_RTOL`: every product split
+    four ways (heads, MLP columns, vocabulary, the prompt's k/v rows or kv
+    heads, the context-parallel decode attention); qwen3's new-token k/v
+    projections of its 2 replicated kv heads whole on both sides."""
+    mesh = _meta_mesh()
+    cfg = get_smoke_config(arch)
+    rec = lib.run_cell(arch, shape, mesh, mesh_label="test", overrides=ref_child.overrides(cfg))
+    assert rec["cost_basis"].startswith(lib.COST_BASIS["tensor_parallel"])
+    assert rec["collectives_basis"] == lib.COLLECTIVES_BASIS["tensor_parallel"]
+    want = reference[(arch, shape, "run")]["cost"]["dot_flops"]
+    assert want > 0
+    assert rec["cost"]["flops"] == pytest.approx(want, rel=DOT_RTOL)
+
+
+@pytest.mark.parametrize("impls,heads_attended", [(("masked", "decomposed"), 4),
+                                                   (("heads_dus", "heads_dus+decomposed"), 1)])
+def test_decomposed_decode_cell_counts_the_new_row(small_shapes, impls, heads_attended):
+    """The ``dec`` variant of qwen3's tensor-parallel decode cell is not the
+    baseline's program: beside the same cache attention every rank scores
+    the new token, a product of 2·B/2·H·Dh FLOPs over the q heads it
+    attends with (every head under the ``seq`` cache's context-parallel
+    combine, its quarter under ``heads``; weighing the new value contracts
+    one row, an elementwise product the counter leaves out), and reads more
+    bytes; its collectives are the baseline's."""
+    mesh = _meta_mesh()
+    cfg = get_smoke_config("qwen3-32b")
+    ov = ref_child.overrides(cfg)
+    base, dec = (lib.run_cell("qwen3-32b", "decode_32k", mesh, mesh_label="test", overrides=ov,
+                              cache_impl=impl)
+                 for impl in impls)
+    assert dec["cost_basis"] == base["cost_basis"]
+    assert base["cost_basis"].startswith(lib.COST_BASIS["tensor_parallel"])
+    rows = SHAPES["decode_32k"].global_batch // 2
+    new_row = 2 * rows * heads_attended * cfg.resolved_head_dim
+    assert dec["cost"]["flops"] - base["cost"]["flops"] == new_row
+    assert dec["cost"]["bytes_accessed"] > base["cost"]["bytes_accessed"]
+    assert dec["collectives"] == base["collectives"]
+
+
+def _serving_census(shape_name: str, layers: int) -> dict:
+    cfg = lib.probe_config(get_smoke_config("qwen3-32b"), layers)[0]
+    return lib.lower_cell(cfg, _meta_mesh(), SHAPES[shape_name]).trace()["collectives"]
+
+
+@pytest.mark.parametrize("shape_name", ["prefill_32k", "decode_32k"])
+def test_serving_census_holds_the_model_all_reduces(small_shapes, shape_name):
+    """qwen3's serving census on the (2, 4) mesh at 1, 2 and 5 unrolled
+    layers, against a closed form in the layer count L (bf16 activations
+    of the rank's B/2 rows, f32 softmax partials): the embedding's psum,
+    then per layer the psums after wo and w_down; the prefill all-gathers
+    the replicated kv heads' k and v rows (the cache's S/4 rows each
+    rank projects); a decode step all-gathers the q heads and combines the
+    context-parallel attention with a pmax and one psum."""
+    cfg = get_smoke_config("qwen3-32b")
+    shape = SHAPES[shape_name]
+    rows = shape.global_batch // 2
+    d, dh, hkv = cfg.d_model, cfg.resolved_head_dim, cfg.num_kv_heads
+    h = cfg.num_heads
+    for layers in (1, 2, 5):
+        census = _serving_census(shape_name, layers)
+        if shape.kind == "prefill":
+            act = rows * shape.seq_len * d * 2
+            reduces, reduce_bytes = 1 + 2 * layers, (1 + 2 * layers) * act
+            gathers = 2 * layers
+            gather_bytes = gathers * rows * (shape.seq_len // 4) * hkv * dh * 2
+        else:
+            act = rows * d * 2
+            partials = rows * h * 4 * (1 + 1 + dh)  # the max, the sum and the output
+            reduces = 1 + 4 * layers
+            reduce_bytes = (1 + 2 * layers) * act + layers * partials
+            gathers, gather_bytes = layers, layers * rows * (h // 4) * dh * 2
+        assert census["counts"] == {"all-reduce": reduces, "all-gather": gathers}
+        assert census["operand_bytes"] == {"all-reduce": reduce_bytes,
+                                           "all-gather": gather_bytes}
 
 
 def test_dot_flops_counts_a_compiled_module():

@@ -333,26 +333,40 @@ cluster runs as ``mesh_launches``, ``service_launches`` and
   deepseek-v2-236b (2 layers) under ``"sharded_dus"``, 16 steps: logits and
   caches bit-equal to the default path; ms per step beside it.  The kernels
   line gives ``distributed_launches``.
-* ``tensor_parallel``: the dense serving path split over ``model``
+* ``tensor_parallel``: the serving path split over ``model``
   (``repro_torch.distributed.sharded_prefill`` / ``sharded_decode_step``),
-  every rank a position on the card: qwen3-32b at full width (bf16, flash,
-  random weights from the seed) at 8 layers on a (1, 4) ``(data, model)``
-  mesh and at 2 layers on (1, 16), the production model axis, where the 8
-  kv heads do not divide 16 and ``wk``/``wv`` stay whole.  Per mesh, the
-  prefill of 8 512-token prompts and 16 greedy decode steps under
+  every rank a position on the card, at full width (bf16, flash, random
+  weights from the seed) on (1, 4) and (1, 16) ``(data, model)`` meshes,
+  the second the production model axis (``TP_RUNS``): qwen3-32b at 8 and 2
+  layers (its 8 kv heads whole at 16), mamba2-1.3b whole and at 16 layers
+  (its 64 SSM heads 16 and 4 a rank), jamba-v0.1-52b's first period (7
+  mamba2 layers, one attention layer, 4 MoE layers of 16 experts: 4 and 1
+  a rank) and mixtral-8x7b at 2 layers (16 virtual experts).  Per mesh the
+  unsharded model runs first in bf16 and on the same weights upcast to f32,
+  then its params are placed leaf by leaf, freeing each whole leaf (one
+  copy on the card).  The tensor-parallel f32 runs, the prefill of 8
+  512-token prompts and ``TP_F32_STEPS`` decode steps under
   ``decode_rules`` (the cache's sequence over model, context-parallel
   decode) and ``decode_rules_headsharded`` (``"heads_dus"``), fed the
-  unsharded model's greedy tokens: the logits and the cache within
-  ``TP_BF16_TOL`` of the unsharded ``Model.prefill``/``decode_step`` on the
-  same weights, the greedy tokens equal wherever the unsharded top-2 margin
-  exceeds it, the flash kernel launched ranks × layers = 32 times a prefill,
-  a rank's parameter bytes equal to the closed form
-  (``_tp_rank_param_bytes``); the prefill's peak memory rise (whole and per
-  rank) and the prefill and decode times beside the unsharded ones,
-  printed, not judged (the ranks take turns on one card).  The flash entry
-  of the kernels line gives ``tensor_parallel_cases``, the kernel at the
-  ranks' shapes (``TP_FLASH_SHAPES``) beside its plain version, and every
-  entry ``tensor_parallel_launches``.
+  unsharded model's greedy tokens, hold every config: logits within
+  ``F32_LOGIT_TOL`` of the unsharded f32 run, its cache within it
+  relatively, and the MoE routes the unsharded f32 run's but at most
+  ``F32_ROUTE_FLIPS`` (layer, token) pairs.  Then the bf16 runs under both
+  rule sets, 16 greedy steps (4 for the SSM and MoE configs at (1, 16)):
+  for the dense config the logits and the cache within ``TP_BF16_TOL`` of
+  the unsharded model on the same weights and the greedy tokens equal
+  wherever the unsharded top-2 margin exceeds it; with SSM or MoE layers
+  the bf16 errors are printed, not judged (the unsharded bf16 model is
+  itself about as far from its f32 run as the logits are large).  In every
+  bf16 run the flash and
+  SSD kernels launched ranks × attention and mamba2 layers a prefill, a
+  rank's parameter bytes equal to the closed form
+  (``_tp_rank_param_bytes``); the prefill's peak memory rise and the
+  prefill and decode times beside the unsharded ones, printed, not judged
+  (the ranks take turns on one card).  The flash and ``ssd_scan`` entries
+  of the kernels line give ``tensor_parallel_cases``, each kernel at the
+  ranks' shapes (``TP_FLASH_SHAPES``, ``TP_SSD_SHAPES``) beside its plain
+  version, and every entry ``tensor_parallel_launches``.
 * ``dryrun``: the shape-only dry-run (``repro_torch.launch.dryrun_lib``)
   held against the card.  qwen3-32b's prefill as the serve phase runs it
   (8 layers, 8 × 512 tokens, flash, bf16) and the train phase's lm100m
@@ -1725,36 +1739,78 @@ def flash_cross_cases(normal) -> list[dict]:
 
 def flash_tensor_parallel_cases(normal) -> list[dict]:
     """The flash kernel at the shapes a tensor-parallel rank of the
-    ``tensor_parallel`` phase launches it (``TP_FLASH_SHAPES``: qwen3-32b's
-    heads over 4 and 16 ranks, the second with one kv head), causal, bf16,
-    each beside its plain version and SDPA, with its bound;
-    ``normal(*shape)`` draws the inputs."""
+    ``tensor_parallel`` phase launches it (``TP_FLASH_SHAPES``: qwen3-32b's,
+    mixtral's and jamba's heads over 4 and 16 ranks, with one kv head at
+    16), causal (mixtral's with its window), bf16, each beside its plain
+    version and SDPA, with its bound; ``normal(*shape)`` draws the inputs."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
 
     b, l, d = SERVE_BATCH, SERVE_PROMPT, 128
     rows = []
-    for label, (h, hkv) in TP_FLASH_SHAPES.items():
+    for label, (h, hkv, window) in TP_FLASH_SHAPES.items():
         q, k, v = normal(b, l, h, d), normal(b, l, hkv, d), normal(b, l, hkv, d)
-        got = fa.flash_attention(q, k, v, causal=True)
-        want = fa.flash_attention_ref(q, k, v, causal=True)
+        got = fa.flash_attention(q, k, v, causal=True, window=window)
+        want = fa.flash_attention_ref(q, k, v, causal=True, window=window)
         err = float((got.float() - want.float()).abs().max())
         check(torch.allclose(got.float(), want.float(), **BF16_TOL),
               f"flash_attention {label} within {BF16_TOL} of its plain version ({err})")
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
             enable_gqa=True)
+        pairs = sum(min(i + 1, window or i + 1) for i in range(l))  # kept (q, k) pairs
         bound_ms, bound_by = bound(2 * (2 * q.numel() + k.numel() + v.numel()),
-                                   4 * d * (l * (l + 1) // 2) * b * h, BF16_FLOPS_PER_S)
+                                   4 * d * pairs * b * h, BF16_FLOPS_PER_S)
         rows.append({"case": label, "shape_q": [b, l, h, d], "shape_kv": [b, l, hkv, d],
-                     "causal": True, "max_abs_err": err, "tolerance": f"allclose {BF16_TOL}",
-                     **kernel_times(lambda: fa.flash_attention(q, k, v, causal=True)),
-                     "plain_ms": cuda_ms(lambda: fa.flash_attention_ref(q, k, v, causal=True)),
+                     "causal": True, "window": window, "max_abs_err": err,
+                     "tolerance": f"allclose {BF16_TOL}",
+                     **kernel_times(lambda: fa.flash_attention(q, k, v, causal=True,
+                                                               window=window)),
+                     "plain_ms": cuda_ms(lambda: fa.flash_attention_ref(q, k, v, causal=True,
+                                                                        window=window)),
                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": cuda_ms(sdpa),
                      "library_max_abs_diff": float(
                          (sdpa().transpose(1, 2).float() - got.float()).abs().max())})
         del q, k, v, got, want
+    return rows
+
+
+def ssd_tensor_parallel_cases(normal, gen) -> list[dict]:
+    """The SSD kernel at the shapes a tensor-parallel rank of the
+    ``tensor_parallel`` phase launches it (``TP_SSD_SHAPES``: mamba2-1.3b's
+    and jamba's heads over 4 and 16 ranks), bf16 in as the served route
+    takes it, each against its plain version (``ssd_chunked``) on the same
+    inputs upcast, with its bound (the formula of the ``ssd_scan`` row);
+    ``normal(*shape)`` and ``gen`` draw the inputs."""
+    from repro_torch.kernels import ssd_scan as ss
+
+    b, l, p, qc = SERVE_BATCH, SERVE_PROMPT, 64, 64
+    dev = gen.device
+    rows = []
+    for label, (nh, n) in TP_SSD_SHAPES.items():
+        dt = (torch.rand((b, l, nh), generator=gen, device=dev) * 0.8 + 0.1).to(torch.bfloat16)
+        a = (-(torch.rand((nh,), generator=gen, device=dev) + 0.5)).to(torch.bfloat16)
+        inputs = (normal(b, l, nh, p), dt, a, normal(b, l, n), normal(b, l, n))
+        ry, rh = ss.ssd_chunked(*(t.float() for t in inputs), chunk=256)
+        y, h = ss.ssd_scan(*inputs, chunk=256)
+        y_err, h_err = float((y.float() - ry).abs().max()), float((h - rh).abs().max())
+        check(torch.allclose(y.float(), ry, **BF16_TOL) and torch.allclose(h, rh, **SSD_TOL),
+              f"ssd_scan {label} (bf16 in) y within {BF16_TOL} ({y_err}), the state within "
+              f"{SSD_TOL} ({h_err}) of its plain version")
+        tri = qc * (qc + 1) // 2
+        mac = b * (l // qc) * (tri * n + nh * 2 * (tri * p + 2 * qc * p * n))
+        bound_ms, bound_by = bound(
+            sum(t.numel() * t.element_size() for t in inputs) + y.numel() * 2 + h.numel() * 4,
+            2 * mac, BF16_FLOPS_PER_S)
+        rows.append({"case": label, "shape_x": [b, l, nh, p], "state": n,
+                     "max_abs_err": y_err, "state_max_abs_err": h_err,
+                     "tolerance": f"y allclose {BF16_TOL}, state allclose {SSD_TOL} of the f32 "
+                                  f"plain version",
+                     **kernel_times(lambda: ss.ssd_scan(*inputs, chunk=256)),
+                     "plain_ms": cuda_ms(lambda: ss.ssd_chunked(*inputs, chunk=256)),
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+        del inputs, ry, rh, y, h
     return rows
 
 
@@ -2039,6 +2095,7 @@ def lm_kernel_checks(seed: int, dev: torch.device, x_values: torch.Tensor,
         "bound_ms": jamba_bound_ms, "bound_by": jamba_bound_by,
     }
     del inputs, up, y32, h32, ry, rh, ybf, hbf
+    out[-1]["tensor_parallel_cases"] = ssd_tensor_parallel_cases(normal, gen)
 
     # ---- partition_histogram: one partition of the value-histogram path ----
     st = x_values
@@ -4301,44 +4358,122 @@ def _sharded_decode_row(arch, model, params, toks, cache, base, base_ms, base_ca
 
 
 # ---------------------------------------------------------------------------
-# tensor_parallel: the dense serving path split over model
+# tensor_parallel: the serving path split over model
 # ---------------------------------------------------------------------------
 
-#: qwen3-32b at full width (bf16, flash), random weights from the seed; per
-#: mesh of (data, model) positions on the card, the layers it keeps: (1, 4)
-#: at 8 layers (the 8 kv heads split 2 a rank) and (1, 16) at 2 layers, the
-#: production model axis (make_production_mesh), where 8 kv heads do not
-#: divide 16 and wk/wv stay replicated.  Each mesh runs the prefill of 8
-#: 512-token prompts and TP_STEPS greedy decode steps under decode_rules
-#: (the cache's sequence over model: context-parallel decode) and
-#: decode_rules_headsharded (cache_impl "heads_dus": its kv heads over
-#: model), against the unsharded Model.prefill / decode_step on the same
-#: weights, fed the unsharded run's greedy tokens.  The bf16 logits differ by
-#: rounding only: each rank's partial products of wo and w_down round to
-#: bf16 before the ranks sum them, and the decode combine sums in f32 where
-#: the unsharded softmax rounds its probabilities to bf16; the tolerance is
-#: the qwen3 serve row's (0.25 at 8 layers), as for the decomposed decode.
-#: The card holds every rank's activations, so the prefill's peak memory
-#: rise counts the residual stream once a rank (each card of a real mesh
-#: would hold one); the rows print it whole and per rank.
-TP_MESHES = {(1, 4): 8, (1, 16): 2}
-TP_STEPS = 16
+#: the configs at full width (bf16, flash), random weights from the seed; per
+#: mesh of (data, model) positions on the card, the layers each keeps and the
+#: bf16 run's greedy decode steps.  qwen3-32b: (1, 4) at 8 layers (the 8 kv
+#: heads split 2 a rank) and (1, 16) at 2 layers, the production model axis
+#: (make_production_mesh), where 8 kv heads do not divide 16 and wk/wv stay
+#: replicated.  mamba2-1.3b: whole at (1, 4) (its 64 SSM heads 16 a rank),
+#: cut to 16 layers at (1, 16) (4 a rank).  jamba-v0.1-52b: one period at
+#: both (7 mamba2 layers of 128 heads, one attention layer, 4 MoE layers of
+#: 16 experts: 4 a rank, then 1).  mixtral-8x7b: 2 layers (16 virtual
+#: half-width experts: 4 a rank, then 1; its 4096-token window wider than
+#: the cached tokens).  At (1, 16) the SSM and MoE configs take 4 decode
+#: steps, not 16: each step's host work grows with ranks × layers (the ranks
+#: take turns on one card), and the prefill and a few steps already run
+#: every collective.  Each mesh runs the prefill of 8 512-token prompts and
+#: the steps under decode_rules (the cache's sequence over model:
+#: context-parallel decode) and decode_rules_headsharded (cache_impl
+#: "heads_dus": its kv heads over model), against the unsharded
+#: Model.prefill / decode_step on the same weights, fed the unsharded run's
+#: greedy tokens: first in f32 (TP_F32_STEPS steps), the correctness check
+#: of every config, logits and cache within F32_LOGIT_TOL and the MoE routes
+#: the unsharded f32 run's but for at most F32_ROUTE_FLIPS (layer, token)
+#: pairs; then in bf16.  The unsharded runs come first; their params are then
+#: placed leaf by leaf, each whole leaf freed as its shards are made, so that
+#: the card holds one copy (jamba's 26.5 GB in bf16, 53 GB in f32).  The bf16
+#: logits of the dense config differ by rounding only: each rank's partial
+#: products of wo and w_down round to bf16 before the ranks sum them, and
+#: the decode combine sums in f32 where the unsharded softmax rounds its
+#: probabilities to bf16; the tolerance is the qwen3 serve row's (0.25 at 8
+#: layers), as for the decomposed decode.  With SSM or MoE layers the bf16
+#: errors are printed, not judged: the unsharded bf16 model is itself 1.47
+#: (mamba2-1.3b, 48 layers) to 2.30 (mixtral-8x7b, routes flipped at earlier
+#: positions) from its f32 run on an H100 (700 W), of logits of about 5, so
+#: no bf16 bound there could tell a wrong program from rounding; their f32
+#: check is the one that decides.  The card holds every rank's activations,
+#: so the prefill's peak memory rise counts the residual stream once a rank
+#: (each card of a real mesh would hold one); the rows print it whole.
+TP_RUNS = {
+    "qwen3-32b": {(1, 4): (8, 16), (1, 16): (2, 16)},
+    "mamba2-1.3b": {(1, 4): (48, 16), (1, 16): (16, 4)},
+    "jamba-v0.1-52b": {(1, 4): (8, 16), (1, 16): (8, 4)},
+    "mixtral-8x7b": {(1, 4): (2, 16), (1, 16): (2, 4)},
+}
+TP_F32_STEPS = 4
+#: the MoE routes of a tensor-parallel f32 run may differ from the
+#: unsharded f32 run's at this many (layer, token) pairs in all: a near-tie
+#: of router logits that float reassociation tips (jamba-v0.1-52b showed one
+#: of 16,896 on an H100); a wrong dispatch would move far more
+F32_ROUTE_FLIPS = 4
 TP_BF16_TOL = 0.25
 #: the flash kernel at the shapes a tensor-parallel rank launches it:
-#: label -> (H, Hkv) of q and k/v, (8, 512, H, 128), causal
-TP_FLASH_SHAPES = {"rank_of_4": (16, 2), "rank_of_16": (4, 1)}
+#: label -> (H, Hkv, window) of q and k/v, (8, 512, H, 128), causal.
+#: mixtral's and jamba's 32 q heads and 8 kv heads give the same shapes
+#: (mixtral's window of 4096 masks nothing of a 512-token prompt)
+TP_FLASH_SHAPES = {"rank_of_4": (16, 2, 0), "rank_of_16": (4, 1, 0),
+                   "mixtral_jamba_rank_of_4": (8, 2, 4096),
+                   "mixtral_jamba_rank_of_16": (2, 1, 4096)}
+#: the SSD kernel at a rank's heads: label -> (heads, state), x (8, 512,
+#: heads, 64): mamba2-1.3b's 64 heads over 4 and 16 ranks, jamba's 128
+TP_SSD_SHAPES = {"mamba2_rank_of_4": (16, 128), "mamba2_rank_of_16": (4, 128),
+                 "jamba_rank_of_4": (32, 16), "jamba_rank_of_16": (8, 16)}
 
 
 def _tp_rank_param_bytes(cfg, n: int) -> int:
-    """Closed form of one rank's parameter bytes (bf16 products, f32 norms)
-    on a model axis of ``n``: the vocabulary, heads and MLP columns split n
-    ways, wk/wv split where the kv heads divide n, else whole."""
-    d, dh, h, hkv, f, vp = (cfg.d_model, cfg.resolved_head_dim, cfg.num_heads,
-                            cfg.num_kv_heads, cfg.d_ff, cfg.padded_vocab)
-    kv = hkv // n if hkv % n == 0 else hkv
-    layer = 2 * d * h * dh // n + 2 * d * kv * dh + 3 * d * f // n
-    norms = d + cfg.num_layers * (2 * d + 2 * dh)
-    return 2 * (2 * vp * d // n + cfg.num_layers * layer) + 4 * norms
+    """Closed form of one rank's parameter bytes (bf16 products, f32 norms,
+    ``A_log`` and ``dt_bias``) on a model axis of ``n``, as
+    ``params_shardings`` lays them out: the vocabulary, the q heads, the
+    MLP columns, the SSM heads and the (virtual) experts split n ways where
+    n divides them, else whole, as are the kv heads; the SSM's B/C
+    projections and convolutions and the router whole."""
+    d, dh, h, hkv = cfg.d_model, cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+
+    def part(width: int) -> int:  # a dim split n ways where n divides it
+        return width // n if width % n == 0 else width
+
+    bf16 = part(cfg.padded_vocab) * d * (1 if cfg.tie_embeddings else 2)  # embed, lm_head
+    f32 = d  # the final norm
+    for seg in cfg.segments():
+        for spec in seg.period:
+            r = seg.repeats
+            f32 += r * d * (1 if spec.mlp == "none" else 2)  # ln1, ln2
+            if spec.mixer == "attn":
+                bf16 += r * 2 * d * part(h) * dh + r * 2 * d * part(hkv) * dh
+                f32 += r * 2 * dh if cfg.qk_norm else 0
+            else:  # mamba2
+                din, nn, w = cfg.ssm_expand * d, cfg.ssm_state, cfg.ssm_conv_width
+                nh = din // cfg.ssm_head_dim
+                bf16 += r * (3 * d * part(din) + 2 * d * nn + d * part(nh) + w * part(din)
+                             + 2 * w * nn + part(nh))
+                f32 += r * (2 * part(nh) + part(din))
+            if spec.mlp == "dense":
+                bf16 += r * 3 * d * part(cfg.dense_d_ff or cfg.d_ff)
+            elif spec.mlp == "moe":
+                vs = cfg.moe_virtual_split
+                bf16 += r * (d * cfg.moe_experts
+                             + 3 * part(cfg.moe_experts * vs) * d * (cfg.moe_d_ff // vs))
+    return 2 * bf16 + 4 * f32
+
+
+def _place_consuming(tree, shardings):
+    """``tree``'s tensor leaves placed by ``shardings`` in its own dicts,
+    each whole leaf dropped as soon as its shards are made (a leaf is freed
+    then if nothing else holds it); returns ``tree``."""
+    from repro_torch.distributed import ShardedTensor
+
+    for key in (tree.keys() if isinstance(tree, dict) else range(len(tree))):
+        leaf, sh = tree[key], shardings[key]
+        if isinstance(leaf, torch.Tensor):
+            tree[key] = None
+            tree[key] = ShardedTensor.from_global(leaf, sh)
+            del leaf
+        else:
+            _place_consuming(leaf, sh)
+    return tree
 
 
 def _greedy_run(prefill, decode, toks, steps: int) -> tuple:
@@ -4360,9 +4495,36 @@ def _greedy_run(prefill, decode, toks, steps: int) -> tuple:
 
 
 def tensor_parallel_phase(seed: int, dev: torch.device, card: str) -> dict:
-    """The dense serving path tensor-parallel over ``model``
+    """The serving path tensor-parallel over ``model``
     (``repro_torch.distributed.sharded_prefill`` / ``sharded_decode_step``),
-    every rank a position on ``dev``, against the unsharded model."""
+    every rank a position on ``dev``, against the unsharded model: every
+    config and mesh of ``TP_RUNS``."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    totals = {k: 0 for k in read_launches()}
+    seconds = {}
+    for arch, meshes in TP_RUNS.items():
+        for shape, (layers, steps) in meshes.items():
+            t0 = time.perf_counter()
+            for k, c in _tensor_parallel_rows(arch, shape, layers, steps, seed, dev,
+                                              card).items():
+                totals[k] += c
+            seconds[f"{arch}/{shape[0]}x{shape[1]}"] = time.perf_counter() - t0
+    emit({"phase": "tensor_parallel", "run": "launches", "card": card, "launches": totals,
+          "seconds": time.perf_counter() - t_phase, "seconds_by_run": seconds})
+    check(totals["flash_attention"] > 0 and totals["ssd_scan"] > 0,
+          f"tensor_parallel: flash_attention and ssd_scan launched ({totals})")
+    return totals
+
+
+def _tensor_parallel_rows(arch: str, shape: tuple, layers: int, steps: int, seed: int,
+                          dev: torch.device, card: str) -> dict:
+    """One config on one mesh (``tensor_parallel_phase``): the unsharded
+    model in bf16 and on the same weights upcast to f32, then the
+    tensor-parallel f32 runs and the bf16 runs under both rule sets; emits
+    a row per run, checks it, and returns the kernels' launches of the bf16
+    runs."""
     import dataclasses
 
     import numpy as np
@@ -4381,111 +4543,193 @@ def tensor_parallel_phase(seed: int, dev: torch.device, card: str) -> dict:
     from repro_torch.launch.mesh import compat_make_mesh
     from repro_torch.models import build_model
 
-    gc.collect()
-    torch.cuda.empty_cache()
-    t_phase = time.perf_counter()
-    totals = {k: 0 for k in read_launches()}
-    max_len = SERVE_PROMPT + TP_STEPS
-    for shape, layers in TP_MESHES.items():
-        n = shape[1]
-        cfg = dataclasses.replace(get_config("qwen3-32b"), num_layers=layers, attn_impl="flash")
-        model = build_model(cfg)
-        params = model.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
-        prompts = torch.as_tensor(np.random.default_rng(seed).integers(
-            0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), dtype=np.int64), device=dev)
-        v = cfg.vocab_size
+    n = shape[1]
+    max_len = SERVE_PROMPT + steps
+    f32_steps = min(TP_F32_STEPS, steps)
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers, attn_impl="flash")
+    counts = layer_counts(cfg)
+    moe_layers = counts.get("moe", 0)
+    dense_only = not moe_layers and not counts.get("mamba2")
+    models = {"bf16": build_model(cfg), "f32": build_model(dataclasses.replace(cfg,
+                                                                                dtype="float32"))}
+    cache_dtype = {"bf16": torch.bfloat16, "f32": torch.float32}
+    prompts = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), dtype=np.int64), device=dev)
+    v = cfg.vocab_size
+    mesh = compat_make_mesh(shape, ("data", "model"), devices=(dev,))
+    layouts = (("seq", decode_rules(mesh)), ("heads", decode_rules_headsharded(mesh)))
+    name = f"{arch}/{shape[0]}x{shape[1]}"
+    expected = {"flash_attention": mesh.size * counts.get("attn", 0),
+                "ssd_scan": mesh.size * counts.get("mamba2", 0)}
 
-        def unsharded():
-            cache = model.init_cache(SERVE_BATCH, max_len, dtype=torch.bfloat16, device=dev)
-            with torch.no_grad():
-                return _greedy_run(lambda: model.prefill(params, {"tokens": prompts}, cache)[0],
-                                   lambda tok, pos: model.decode_step(params, cache, tok, pos)[0],
-                                   None, TP_STEPS) + (cache,)
+    def init():
+        return models["bf16"].init(torch.Generator(device=dev).manual_seed(seed), device=dev)
 
-        unsharded()  # warm-up
-        base, toks, base_prefill_ms, base_rise, base_decode_ms, base_cache = unsharded()
-        top2 = base[..., :v].float().topk(2, dim=-1).values
-        margin = top2[..., 0] - top2[..., 1]  # the unsharded top-2 margin at each position
-        mesh = compat_make_mesh(shape, ("data", "model"), devices=(dev,))
-        placed = device_put(params, params_shardings(params, mesh, fsdp_axis=None))
-        rank_bytes = [sum(t.shards[r].numel() * t.shards[r].element_size()
-                          for t in tree_leaves(placed)) for r in range(mesh.size)]
-        want_bytes = _tp_rank_param_bytes(cfg, n)
-        whole_bytes = _tree_bytes(params)
-        for layout, rules in (("seq", decode_rules(mesh)),
-                              ("heads", decode_rules_headsharded(mesh))):
+    def recorded(fn):  # fn()'s result and the MoE routes it recorded (None: no MoE)
+        return _recording_routes(fn) if moe_layers else (fn(), None)
 
-            def sharded():
-                c0 = model.init_cache(SERVE_BATCH, max_len, dtype=torch.bfloat16, device=dev)
-                cache = device_put(c0, cache_shardings(c0, mesh, layout=layout))
-                del c0
-                with torch.no_grad():
-                    return _greedy_run(
-                        lambda: sharded_prefill(model, placed, {"tokens": prompts}, cache,
-                                                mesh=mesh, rules=rules)[0],
-                        lambda tok, pos: sharded_decode_step(model, placed, cache, tok, pos,
-                                                             mesh=mesh, rules=rules)[0],
-                        toks, TP_STEPS) + (cache,)
+    def unsharded(params, kind, toks, steps=steps):
+        model = models[kind]
+        cache = model.init_cache(SERVE_BATCH, max_len, dtype=cache_dtype[kind], device=dev)
+        with torch.no_grad():
+            return _greedy_run(lambda: model.prefill(params, {"tokens": prompts}, cache)[0],
+                               lambda tok, pos: model.decode_step(params, cache, tok, pos)[0],
+                               toks, steps) + (cache,)
 
-            sharded()  # warm-up: the rank threads, the library handles
-            reset_launches()
-            got, _, prefill_ms, rise, decode_ms, cache = sharded()
-            torch.cuda.synchronize()
-            launches = read_launches()
-            for k, c in launches.items():
-                totals[k] += c
-            gf, bf = got[..., :v].float(), base[..., :v].float()
-            prefill_err = float((gf[:, 0] - bf[:, 0]).abs().max())
-            decode_err = float((gf[:, 1:] - bf[:, 1:]).abs().max())
-            picked, unsharded_pick = gf.argmax(-1), bf.argmax(-1)
-            clear = margin > TP_BF16_TOL
-            disagree = int(((picked != unsharded_pick) & clear).sum())
-            cache_err = max(float((a.full().float() - b.float()).abs().max())
-                            for a, b in zip(tree_leaves(cache), tree_leaves(base_cache)))
-            name = f"qwen3-32b/{shape[0]}x{shape[1]}/{layout}"
-            emit({"phase": "tensor_parallel", "run": name, "card": card, "mesh": mesh.shape,
-                  "layers": layers, "layout": layout, "cache_impl": rules.cache_impl,
-                  "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "steps": TP_STEPS,
-                  "kv_heads_split": cfg.num_kv_heads % n == 0,
-                  "prefill_ms": prefill_ms, "unsharded_prefill_ms": base_prefill_ms,
-                  "decode_ms_per_step": decode_ms,
-                  "unsharded_decode_ms_per_step": base_decode_ms,
-                  "prefill_peak_rise_gb": rise / 1e9,
-                  "unsharded_prefill_peak_rise_gb": base_rise / 1e9,
-                  "rank_param_bytes": rank_bytes[0], "rank_param_bytes_closed_form": want_bytes,
-                  "unsharded_param_bytes": whole_bytes,
-                  "rank_share_of_unsharded": rank_bytes[0] / whole_bytes,
-                  "launches": launches, "flash_launches_expected": mesh.size * layers,
-                  "logit_tol": TP_BF16_TOL, "prefill_vs_unsharded": prefill_err,
-                  "decode_vs_unsharded": decode_err, "cache_vs_unsharded": cache_err,
-                  "greedy_positions": int(picked.numel()),
-                  "greedy_positions_past_margin": int(clear.sum()),
-                  "greedy_disagreements": int((picked != unsharded_pick).sum()),
-                  "greedy_disagreements_past_margin": disagree,
-                  "logit_max_abs": float(bf.abs().max())})
-            check(bool(torch.isfinite(gf).all()), f"tensor_parallel {name}: finite logits")
-            check(prefill_err <= TP_BF16_TOL and decode_err <= TP_BF16_TOL,
-                  f"tensor_parallel {name}: logits vs unsharded {prefill_err}, {decode_err} > "
-                  f"{TP_BF16_TOL}")
-            check(cache_err <= TP_BF16_TOL,
-                  f"tensor_parallel {name}: cache vs unsharded {cache_err} > {TP_BF16_TOL}")
-            check(disagree == 0, f"tensor_parallel {name}: {disagree} greedy tokens differ where "
-                  f"the unsharded top-2 margin exceeds {TP_BF16_TOL}")
-            check(launches["flash_attention"] == mesh.size * layers,
-                  f"tensor_parallel {name}: flash launches {launches['flash_attention']} != "
-                  f"{mesh.size} ranks x {layers} layers in one prefill")
-            check(all(b == want_bytes for b in rank_bytes),
-                  f"tensor_parallel {name}: rank param bytes {sorted(set(rank_bytes))} != "
-                  f"{want_bytes}")
-            del got, cache
-            gc.collect()
-            torch.cuda.empty_cache()
-        del model, params, placed, base, base_cache
+    def sharded(placed, kind, rules, layout, toks, steps=steps):
+        model = models[kind]
+        c0 = model.init_cache(SERVE_BATCH, max_len, dtype=cache_dtype[kind], device=dev)
+        cache = device_put(c0, cache_shardings(c0, mesh, layout=layout))
+        del c0
+        with torch.no_grad():
+            return _greedy_run(
+                lambda: sharded_prefill(model, placed, {"tokens": prompts}, cache, mesh=mesh,
+                                        rules=rules)[0],
+                lambda tok, pos: sharded_decode_step(model, placed, cache, tok, pos, mesh=mesh,
+                                                     rules=rules)[0],
+                toks, steps) + (cache,)
+
+    def compare(got, base, got_routes, base_routes):
+        """(B, 1 + steps) errors of the logits, the positions held (their
+        routes agree in every MoE layer) and the routes' mismatches a layer."""
+        err = (got[..., :v].float() - base[..., :v].float()).abs().amax(-1)
+        if not moe_layers:
+            return err, torch.ones_like(err, dtype=torch.bool), None
+        flips = _route_flips(_per_layer(base_routes, moe_layers),
+                             _per_layer(got_routes, moe_layers))  # (layers, B, positions)
+        at = SERVE_PROMPT - 1 + torch.arange(got.shape[1], device=dev)  # the logits' positions
+        return err, ~flips[:, :, at].any(0), [int(f.sum()) for f in flips]
+
+    def held_max(err, held):
+        return float(err[held].max()) if held.any() else None
+
+    def free():
         gc.collect()
         torch.cuda.empty_cache()
-    emit({"phase": "tensor_parallel", "run": "launches", "card": card, "launches": totals,
-          "seconds": time.perf_counter() - t_phase})
-    check(totals["flash_attention"] > 0, f"tensor_parallel: flash_attention launched ({totals})")
+
+    # ---- the unsharded model: bf16, then f32 on the same weights upcast ----
+    params = init()
+    whole_bytes = _tree_bytes(params)
+    unsharded(params, "bf16", None, steps=1)  # warm-up
+    reset_launches()
+    (base, toks, base_prefill_ms, base_rise, base_decode_ms, base_cache), base_routes = \
+        recorded(lambda: unsharded(params, "bf16", None))
+    torch.cuda.synchronize()
+    base_launches = read_launches()
+    upcast_in_place(params)
+    free()
+    (base32, _, _, _, _, base32_cache), base32_routes = recorded(
+        lambda: unsharded(params, "f32", toks, steps=f32_steps))
+
+    # ---- tensor-parallel f32 under both rule sets: the correctness check ----
+    placed = _place_consuming(params, params_shardings(params, mesh, fsdp_axis=None))
+    del params
+    for layout, rules in layouts:
+        (got32, _, _, _, _, cache32), routes32 = recorded(
+            lambda: sharded(placed, "f32", rules, layout, toks, steps=f32_steps))
+        err32, held32, flips32 = compare(got32, base32, routes32, base32_routes)
+        logit_err = held_max(err32, held32)
+        cache32_err = max(float((a.full() - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                          for a, b in zip(tree_leaves(cache32), tree_leaves(base32_cache)))
+        emit({"phase": "tensor_parallel", "run": f"{name}/{layout}/f32", "card": card,
+              "mesh": mesh.shape, "layers": layers, "layer_counts": counts, "layout": layout,
+              "cache_impl": rules.cache_impl, "dtype": "float32", "steps": f32_steps,
+              "logit_tol": F32_LOGIT_TOL,
+              "prefill_vs_unsharded": held_max(err32[:, :1], held32[:, :1]),
+              "decode_vs_unsharded": held_max(err32[:, 1:], held32[:, 1:]),
+              "cache_vs_unsharded_relative": cache32_err,
+              "held_positions": int(held32.sum()), "compared_positions": int(held32.numel()),
+              "route_mismatches_by_layer": flips32, "route_mismatches_allowed": F32_ROUTE_FLIPS,
+              "logit_max_abs": float(base32[..., :v].abs().max())})
+        del got32, cache32, routes32
+        free()
+        check(sum(flips32 or [0]) <= F32_ROUTE_FLIPS,
+              f"tensor_parallel {name}/{layout}/f32: routes apart from the unsharded f32 run at "
+              f"{flips32} (layer, token) pairs, more than {F32_ROUTE_FLIPS}")
+        check(logit_err is not None and logit_err <= F32_LOGIT_TOL,
+              f"tensor_parallel {name}/{layout}/f32: logits vs unsharded f32 {logit_err} > "
+              f"{F32_LOGIT_TOL}")
+        check(cache32_err <= F32_LOGIT_TOL,
+              f"tensor_parallel {name}/{layout}/f32: cache vs unsharded f32 {cache32_err} "
+              f"(relative) > {F32_LOGIT_TOL}")
+    del placed, base32, base32_cache, base32_routes
+    free()
+
+    # ---- tensor-parallel bf16 under both rule sets ----
+    top2 = base[..., :v].float().topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]  # the unsharded top-2 margin at each position
+    params = init()  # the same bf16 weights again
+    placed = _place_consuming(params, params_shardings(params, mesh, fsdp_axis=None))
+    del params
+    free()
+    rank_bytes = [sum(t.shards[r].numel() * t.shards[r].element_size()
+                      for t in tree_leaves(placed)) for r in range(mesh.size)]
+    want_bytes = _tp_rank_param_bytes(cfg, n)
+    totals: dict = {}
+    for layout, rules in layouts:
+        sharded(placed, "bf16", rules, layout, toks, steps=1)  # warm-up: threads, handles
+        reset_launches()
+        (got, _, prefill_ms, rise, decode_ms, cache), routes = recorded(
+            lambda: sharded(placed, "bf16", rules, layout, toks))
+        torch.cuda.synchronize()
+        launches = read_launches()
+        for k, c in launches.items():
+            totals[k] = totals.get(k, 0) + c
+        err, held, route_mismatches = compare(got, base, routes, base_routes)
+        gf, bf = got[..., :v].float(), base[..., :v].float()
+        prefill_err, decode_err = held_max(err[:, :1], held[:, :1]), held_max(err[:, 1:],
+                                                                             held[:, 1:])
+        picked, unsharded_pick = gf.argmax(-1), bf.argmax(-1)
+        clear = (margin > TP_BF16_TOL) & held
+        disagree = int(((picked != unsharded_pick) & clear).sum())
+        cache_err = max(float((a.full().float() - b.float()).abs().max())
+                        for a, b in zip(tree_leaves(cache), tree_leaves(base_cache)))
+        emit({"phase": "tensor_parallel", "run": f"{name}/{layout}", "card": card,
+              "mesh": mesh.shape, "layers": layers, "layer_counts": counts, "layout": layout,
+              "cache_impl": rules.cache_impl, "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
+              "steps": steps, "kv_heads_split": bool(cfg.num_kv_heads)
+              and cfg.num_kv_heads % n == 0,
+              "prefill_ms": prefill_ms, "unsharded_prefill_ms": base_prefill_ms,
+              "decode_ms_per_step": decode_ms, "unsharded_decode_ms_per_step": base_decode_ms,
+              "prefill_peak_rise_gb": rise / 1e9,
+              "unsharded_prefill_peak_rise_gb": base_rise / 1e9,
+              "rank_param_bytes": rank_bytes[0], "rank_param_bytes_closed_form": want_bytes,
+              "unsharded_param_bytes": whole_bytes,
+              "rank_share_of_unsharded": rank_bytes[0] / whole_bytes,
+              "launches": launches, "launches_expected": expected,
+              "unsharded_launches": base_launches,
+              "logit_tol": TP_BF16_TOL if dense_only else None,
+              "prefill_vs_unsharded": prefill_err, "decode_vs_unsharded": decode_err,
+              "cache_vs_unsharded": cache_err,
+              "held_positions": int(held.sum()), "compared_positions": int(held.numel()),
+              "route_mismatches_by_layer": route_mismatches,
+              "greedy_positions": int(picked.numel()),
+              "greedy_positions_past_margin": int(clear.sum()),
+              "greedy_disagreements": int((picked != unsharded_pick).sum()),
+              "greedy_disagreements_past_margin": disagree,
+              "logit_max_abs": float(bf.abs().max()),
+              "max_memory_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9})
+        check(bool(torch.isfinite(gf).all()), f"tensor_parallel {name}/{layout}: finite logits")
+        if dense_only:  # else printed only: the f32 runs above decide
+            check(prefill_err <= TP_BF16_TOL and decode_err <= TP_BF16_TOL,
+                  f"tensor_parallel {name}/{layout}: logits vs unsharded {prefill_err}, "
+                  f"{decode_err} > {TP_BF16_TOL}")
+            check(cache_err <= TP_BF16_TOL, f"tensor_parallel {name}/{layout}: cache vs "
+                  f"unsharded {cache_err} > {TP_BF16_TOL}")
+            check(disagree == 0, f"tensor_parallel {name}/{layout}: {disagree} greedy tokens "
+                  f"differ where the unsharded top-2 margin exceeds {TP_BF16_TOL}")
+        for k, want in expected.items():
+            check(launches[k] == want and base_launches[k] == want // mesh.size,
+                  f"tensor_parallel {name}/{layout}: {k} launches {launches[k]} (unsharded "
+                  f"{base_launches[k]}) != {mesh.size} ranks x {want // mesh.size} layers "
+                  f"in one prefill")
+        check(all(b == want_bytes for b in rank_bytes),
+              f"tensor_parallel {name}/{layout}: rank param bytes {sorted(set(rank_bytes))} "
+              f"!= {want_bytes}")
+        del got, cache, routes
+        free()
+    del placed, base, base_cache, base_routes
+    free()
     return totals
 
 

@@ -470,6 +470,7 @@ class _RankThreads:
             try:
                 job()
             finally:
+                job = None  # an idle thread keeps no call's arguments alive
                 with self._lock:
                     self._idle.append(q)
                 done.put(None)
@@ -904,13 +905,18 @@ MODEL_AXIS = "model"
 class TensorParallel:
     """A serving rank's tensor-parallel context, which the model's layers
     read inside the body of :func:`sharded_prefill` and
-    :func:`sharded_decode_step` (``models/layers.py``, ``models/lm.py``):
-    how the decode cache lies over :data:`MODEL_AXIS`: ``kv_seq_split``,
-    its sequence (``cache_shardings(layout="seq")``, context parallelism),
-    or ``kv_heads_split``, its kv heads (``layout="heads"``)."""
+    :func:`sharded_decode_step` (``models/layers.py``, ``models/ssm.py``,
+    ``models/moe.py``, ``models/lm.py``): how the attention layers' decode
+    cache lies over :data:`MODEL_AXIS`: ``kv_seq_split``, its sequence
+    (``cache_shardings(layout="seq")``, context parallelism), or
+    ``kv_heads_split``, its kv heads (``layout="heads"``); and
+    ``data_axes``, the axes the batch rows are split over (the MoE layer
+    groups the tokens of the whole batch, as the reference's ``jax.jit``
+    does)."""
 
     kv_seq_split: bool = False
     kv_heads_split: bool = False
+    data_axes: tuple[str, ...] = ()
 
 
 def tensor_parallel() -> TensorParallel | None:
@@ -985,13 +991,18 @@ def serving_body(model: Any, mesh: Mesh, params: Any, param_specs: Any, cache: A
     axis, keeps the cache block the rank's own, and runs
     ``step(params, batch, cache)`` under ``rules`` with a
     :class:`TensorParallel` as the thread's :func:`tensor_parallel`.  The
-    logits are the rank's rows and vocabulary columns, ``P(dp, "model")``."""
+    logits are the rank's rows and vocabulary columns, ``P(dp, "model")``.
+
+    It runs the models ``Model.tensor_parallel_refusal`` admits: attention
+    (windowed or not) and Mamba2 mixers, with SwiGLU, capacity-bucketed
+    MoE (``moe_impl="onehot"``) or no MLPs (the refusal names what else it
+    refuses), under ``decode_rules`` or
+    ``decode_rules_headsharded``; not under ``long_decode_rules``."""
     from repro_torch.distributed.sharding import use_rules
 
-    if not model.tensor_parallel_serving:
-        raise NotImplementedError(
-            f"{model.cfg.name}: tensor-parallel serving runs dense attention and SwiGLU "
-            f"layers only (the {model.cfg.family} family's splits are not ported)")
+    refusal = model.tensor_parallel_refusal()
+    if refusal is not None:
+        raise NotImplementedError(f"{model.cfg.name}: {refusal}")
     if MODEL_AXIS not in mesh.shape:
         raise ValueError(f"tensor-parallel serving needs a {MODEL_AXIS!r} axis in {mesh}")
     if rules.logical.get("kv_seq") not in (None, MODEL_AXIS):
@@ -1006,7 +1017,7 @@ def serving_body(model: Any, mesh: Mesh, params: Any, param_specs: Any, cache: A
     seq_split, heads_split = _kv_cache_layout(cache, cache_specs)
     if mesh.shape[MODEL_AXIS] == 1:  # one rank holds everything: the layers call no collective
         seq_split = heads_split = False
-    tp = TensorParallel(seq_split, heads_split)
+    tp = TensorParallel(seq_split, heads_split, dp)
 
     def body(params_l, batch_l, cache_l):
         full = tree_map(gathered, params_l, gather)

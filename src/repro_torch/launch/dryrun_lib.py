@@ -13,13 +13,15 @@ reference's alike.
 the params, the optimizer state, the cache and the batch as the reference
 places them (``params_shardings``, ``cache_shardings``, the batch over
 ``(pod, data)``) and runs the port's step on its share of the batch.  The
-serving cells of the dense family (``Model.tensor_parallel_serving``; not
-under ``long_decode_rules``) run the tensor-parallel rank program of ``spmd.sharded_prefill`` and
+serving cells of the models ``Model.tensor_parallel_refusal`` admits (the
+dense, SSM, hybrid and MoE families: every config but MLA, whisper's
+encoder and cross-attention; not under ``long_decode_rules``) run the
+tensor-parallel rank program of ``spmd.sharded_prefill`` and
 ``sharded_decode_step`` (``spmd.serving_body``): the rank keeps its heads,
-MLP columns and vocabulary rows split over ``model`` and its own cache
-block, gathers only the ``fsdp`` dims, and the layers call the ``model``
-collectives.  Every other cell is data-parallel: the rank gathers with
-``all_gather`` what the port's model needs whole.
+SSM heads, MLP columns, experts and vocabulary rows split over ``model``
+and its own cache block, gathers only the ``fsdp`` dims, and the layers
+call the ``model`` collectives.  Every other cell is data-parallel: the
+rank gathers with ``all_gather`` what the port's model needs whole.
 
 * train — the params gathered, :func:`~repro_torch.optim.accumulate_gradients`
   (SplIter over the microbatch blocks) on the rank's rows, the loss and
@@ -131,9 +133,10 @@ COST_BASIS = {
         + _COUNTS),
     "tensor_parallel": (
         "one rank's tensor-parallel program at its shard shapes (the batch split over "
-        "(pod, data); heads, MLP columns and vocabulary rows split over model as "
-        "params_shardings places them, only fsdp dims gathered; the rank's own cache block); "
-        + _COUNTS),
+        "(pod, data); heads, SSM heads, MLP columns, experts and vocabulary rows split over "
+        "model as params_shardings places them, only fsdp dims gathered; the rank's own cache "
+        "block; the SSD kernel's formula at the rank's heads; the mamba2 B/C projections and "
+        "C·Bᵀ and the MoE router whole on every rank); " + _COUNTS),
 }
 COLLECTIVES_BASIS = {
     "data_parallel": (
@@ -141,8 +144,11 @@ COLLECTIVES_BASIS = {
         "the gradients' sum); lacks the all-reduces GSPMD inserts for tensor parallelism"),
     "tensor_parallel": (
         "census of the collectives rank 0's program calls: the model all-reduces after the "
-        "row-split products (attention output, MLP down) and of the vocabulary-split "
-        "embedding, the all-gathers of the kv rows or heads, in decode the q heads' "
+        "row-split products (attention output, MLP down, mamba2 w_out, the experts' partial "
+        "combine), of the mamba2 gated norm's sum of squares and of the vocabulary-split "
+        "embedding, the all-gathers of the kv rows or heads and of the mamba2 conv cache "
+        "blocks with the ranks' last x inputs, the MoE token rows' all-gather over the data "
+        "axes where a rank's rows are not whole dispatch groups, in decode the q heads' "
         "all-gather and the context-parallel combine (a max and a sum); the fsdp gathers"),
 }
 MEMORY_BASIS = (
@@ -400,8 +406,9 @@ def _batch_dims(model, cache):
 
 def _serve_program(model, mesh: Mesh, params, p_sh, batch, b_sh, cache, c_sh, step: Callable,
                    rules, batch_axes, memory: dict, tensor_parallel: bool) -> Lowered:
-    """The serving cell lowered.  With ``tensor_parallel`` (the dense
-    family, not under ``long_decode_rules``): ``spmd.serving_body``, the
+    """The serving cell lowered.  With ``tensor_parallel``
+    (``Model.tensor_parallel_refusal`` is None, not under ``long_decode_rules``):
+    ``spmd.serving_body``, the
     rank's shards of the params (gathered over ``fsdp`` only) and its block
     of the cache, the logits of its rows and vocabulary columns.  Otherwise
     data-parallel: params gathered, the cache gathered but for its batch
@@ -445,7 +452,8 @@ def _lower_prefill(cfg: ModelConfig, mesh: Mesh, shape: ShapeCell) -> Lowered:
                      out=[(logits, NamedSharding(mesh, P(dp, "model"))), (cache, c_sh)],
                      donated=[(cache, c_sh)])
     return _serve_program(model, mesh, params, p_sh, specs, b_sh, cache, c_sh, model.prefill,
-                          decode_rules(mesh), dp, memory, model.tensor_parallel_serving)
+                          decode_rules(mesh), dp, memory,
+                          model.tensor_parallel_refusal() is None)
 
 
 def _lower_decode(
@@ -484,7 +492,8 @@ def _lower_decode(
         return model.decode_step(p, c, batch["token"], last)
 
     return _serve_program(model, mesh, params, p_sh, token, t_sh, cache, c_sh, step, rules,
-                          batch_ax, memory, model.tensor_parallel_serving and not long_ctx)
+                          batch_ax, memory,
+                          model.tensor_parallel_refusal() is None and not long_ctx)
 
 
 def lower_cell(

@@ -17,9 +17,9 @@ params dict with the JAX package's names and layouts (attention weights
   its shards of the params, and :func:`attention` and :func:`mlp` compute
   on them with the ``model`` collectives where the reference's GSPMD
   partition puts them: a ``psum`` after the row-split ``wo`` and ``w_down``
-  products (:func:`_attention_tp`).  Outside such a body nothing here calls
-  a collective, as the reference's ``shard(...)`` is the identity outside a
-  rules context;
+  products (:func:`_attention_tp`, the sliding window's ring included).
+  Outside such a body nothing here calls a collective, as the reference's
+  ``shard(...)`` is the identity outside a rules context;
 * the decode cache is updated in place: a one-row write at the slot into the
   caller's cache tensors, where the reference's masked select reads and
   rewrites the whole cache every step.  The values are the same;
@@ -77,11 +77,18 @@ Params = dict[str, Any]
 # ---------------------------------------------------------------------------
 
 
-def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6, *,
+             axis: str | None = None) -> torch.Tensor:
+    """RMS norm over the last dim.  With ``axis`` (a tensor-parallel rank)
+    ``x`` and ``w`` hold the rank's block of that dim, split evenly over the
+    mesh axis ``axis``: the f32 sum of squares is summed over it."""
     dt = x.dtype
     x = x.to(torch.float32)
-    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
-    return (x * (1.0 + w)).to(dt)
+    if axis is None:
+        ms = torch.mean(x * x, dim=-1, keepdim=True)
+    else:
+        ms = psum(torch.sum(x * x, dim=-1, keepdim=True), axis) / (x.shape[-1] * axis_size(axis))
+    return (x * torch.rsqrt(ms + eps) * (1.0 + w)).to(dt)
 
 
 def layer_norm(
@@ -538,23 +545,28 @@ def _kv_for_heads(t: torch.Tensor, q0: int, hq: int, group: int) -> torch.Tensor
 
 
 def _sdpa_context_parallel(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor, *, rows0: int,
-                           kv_len: int, new: tuple[torch.Tensor, torch.Tensor] | None = None
-                           ) -> torch.Tensor:
+                           kv_len: int, new: tuple[torch.Tensor, torch.Tensor] | None = None,
+                           slot: int = -1) -> torch.Tensor:
     """Decode attention of ``q`` (B, 1, H, Dh) over a cache whose rows are
     split over the model axis: this rank's block ``kc``/``vc`` (B, S_l,
     Hkv, Dh) holds global rows ``[rows0, rows0 + S_l)``, of which rows below
-    ``kv_len`` are attended.  Each rank keeps its row maximum, its sum of
-    exponentials and its unnormalised output (f32); the ranks take the
-    maximum (``pmax``) and sum the sums and outputs rescaled to it (one
-    ``psum``).  ``new``, the new token's k/v row (B, 1, Hkv, Dh) not yet in
-    the cache (the ``"decomposed"`` cache), then joins the softmax on every
-    rank, as the reference's replicated score of the new token does."""
+    ``kv_len`` but row ``slot`` are attended.  Each rank keeps its row
+    maximum, its sum of exponentials and its unnormalised output (f32); the
+    ranks take the maximum (``pmax``) and sum the sums and outputs rescaled
+    to it (one ``psum``).  ``new``, the new token's k/v row (B, 1, Hkv, Dh)
+    not yet in the cache (the ``"decomposed"`` cache, which passes the ring
+    ``slot`` the row will take: it holds the evicted token once a window
+    wraps), then joins the softmax on every rank, as the reference's
+    replicated score of the new token does."""
     b, lq, h, dh = q.shape
     hkv = kc.shape[2]
     qg = q.reshape(b, lq, hkv, h // hkv, dh)
     scale = 1.0 / np.sqrt(dh)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kc).to(torch.float32) * scale
-    mask = torch.arange(rows0, rows0 + kc.shape[1], device=q.device) < kv_len
+    rows = torch.arange(rows0, rows0 + kc.shape[1], device=q.device)
+    mask = rows < kv_len
+    if slot >= 0:
+        mask &= rows != slot
     s = torch.where(mask, s, -1e30)
     mx = s.amax(dim=-1, keepdim=True)                          # (B, Hkv, G, 1, 1)
     p = torch.exp(s - mx).masked_fill(~mask, 0.0)
@@ -596,6 +608,15 @@ def _attention_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, tp, cos: torch.T
     and every rank attends to its own rows (:func:`_sdpa_context_parallel`).
     Under a ``"decomposed"`` ``cache_impl`` decode attends to the old rows
     and joins the new one, then writes, as :func:`attention` does.
+
+    With a sliding window the cache is the ring :func:`attention` keeps
+    (``S = min(max_len, window)`` slots, token *t* in slot ``t % S``): a
+    prompt longer than the ring writes its last ``S`` tokens rolled into
+    place, each rank its block of the ring; a decode step writes slot
+    ``pos % S`` on the rank whose block holds it and attends to every
+    written slot (the decomposed step to every one but that slot).  A
+    prompt that wraps the ring projects its k/v rows sequence-parallel in
+    equal shares of the prompt, not by cache block.
     """
     heads, kv_heads = cfg.num_heads, cfg.num_kv_heads
     group = heads // kv_heads
@@ -608,6 +629,7 @@ def _attention_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, tp, cos: torch.T
                          f"wo {tuple(p['wo'].shape)} and the cache's heads are split unlike "
                          f"params_shardings and cache_shardings split them")
     q0 = rank * hq if q_split else 0
+    window = cfg.sliding_window
 
     def project(w: str, rows: slice = slice(None)) -> torch.Tensor:
         return _project(p, cfg, x[:, rows], w, cos[:, rows], sin[:, rows])
@@ -621,14 +643,22 @@ def _attention_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, tp, cos: torch.T
     q = project("wq")
     lq = x.shape[1]
     ck, cv = (None, None) if cache is None else (cache["k"], cache["v"])
+    if ck is not None:  # the rank's block: global slots [rows0, rows0 + ck.shape[1])
+        slots = ck.shape[1] * n if tp.kv_seq_split else ck.shape[1]
+        rows0 = rank * ck.shape[1] if tp.kv_seq_split else 0
     if lq == 1 and cache is not None:  # -------- decode step --------
         r = active_rules()
         decomposed = r is not None and "decomposed" in r.cache_impl
         k, v = project("wk"), project("wv")
         if not tp.kv_heads_split:
             k, v = all_heads(k), all_heads(v)
-        row = cache_pos - rank * ck.shape[1] if tp.kv_seq_split else cache_pos
+        slot = cache_pos % slots if window else cache_pos
+        row = slot - rows0
         owner = 0 <= row < ck.shape[1]  # the rank whose block holds the slot writes the row
+        # the written slots attended: under a window every live one
+        valid = cache_pos + (not decomposed)
+        if window:
+            valid = min(valid, slots)
 
         def write():
             if owner:
@@ -640,37 +670,44 @@ def _attention_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, tp, cos: torch.T
         if tp.kv_seq_split:
             q_all = all_gather(q, MODEL_AXIS, axis=2, tiled=True) if q_split else q
             out = _sdpa_context_parallel(
-                q_all, ck, cv, rows0=rank * ck.shape[1], kv_len=cache_pos + (not decomposed),
-                new=(k, v) if decomposed else None)[:, :, q0:q0 + hq]
+                q_all, ck, cv, rows0=rows0, kv_len=valid,
+                new=(k, v) if decomposed else None, slot=slot if decomposed else -1
+            )[:, :, q0:q0 + hq]
         elif decomposed:
             out = _sdpa_decode_decomposed(q, mine(ck), mine(cv), mine(k), mine(v),
-                                          valid_len=cache_pos, slot=cache_pos)
+                                          valid_len=valid, slot=slot)
         else:
-            out = _sdpa(q, mine(ck), mine(cv), causal=False, kv_len=cache_pos + 1)
+            out = _sdpa(q, mine(ck), mine(cv), causal=False, kv_len=valid)
         if decomposed:
             write()
     else:  # -------- a prompt, into the cache if there is one --------
+
+        def write_ring(kw: torch.Tensor, vw: torch.Tensor) -> None:
+            """The rank's block of the cache from every prompt row ``kw``/``vw``."""
+            if window and lq > slots:  # the last window, token t at slot t % slots
+                kw, vw = (torch.roll(t[:, -slots:], lq % slots, dims=1) for t in (kw, vw))
+            hi = min(rows0 + ck.shape[1], kw.shape[1])
+            ck[:, :max(hi - rows0, 0)] = kw[:, rows0:hi].to(ck.dtype)
+            cv[:, :max(hi - rows0, 0)] = vw[:, rows0:hi].to(cv.dtype)
+
         if kv_split or n == 1:
             k, v = project("wk"), project("wv")
             if ck is not None:
-                kw, vw = (k, v) if tp.kv_heads_split else (all_heads(k), all_heads(v))
-                lo = rank * ck.shape[1] if tp.kv_seq_split else 0
-                hi = min(lo + ck.shape[1], lq)
-                ck[:, :max(hi - lo, 0)] = kw[:, lo:hi].to(ck.dtype)
-                cv[:, :max(hi - lo, 0)] = vw[:, lo:hi].to(cv.dtype)
+                write_ring(*((k, v) if tp.kv_heads_split else (all_heads(k), all_heads(v))))
         else:  # sequence-parallel projection of every kv head, then gathered
-            chunk = ck.shape[1] if ck is not None and tp.kv_seq_split else -(-lq // n)
+            # the rows of the rank's cache block, where they are prompt rows [rows0, ..)
+            by_block = ck is not None and tp.kv_seq_split and not (window and lq > slots)
+            chunk = ck.shape[1] if by_block else -(-lq // n)
             lo, hi = min(rank * chunk, lq), min((rank + 1) * chunk, lq)
             kr, vr = project("wk", slice(lo, hi)), project("wv", slice(lo, hi))
-            if ck is not None and tp.kv_seq_split:
+            if by_block:
                 ck[:, :hi - lo] = kr.to(ck.dtype)
                 cv[:, :hi - lo] = vr.to(cv.dtype)
             k, v = (all_gather(F.pad(t, (0, 0, 0, 0, 0, chunk - (hi - lo))), MODEL_AXIS, axis=1,
                                tiled=True)[:, :lq] for t in (kr, vr))
-            if ck is not None and not tp.kv_seq_split:
-                ck[:, :lq] = k.to(ck.dtype)
-                cv[:, :lq] = v.to(cv.dtype)
+            if ck is not None and not by_block:
+                write_ring(k, v)
             k, v = _kv_for_heads(k, q0, hq, group), _kv_for_heads(v, q0, hq, group)
-        out = _prefill_attention(q, k, v, causal=causal, window=0, cfg=cfg)
+        out = _prefill_attention(q, k, v, causal=causal, window=window, cfg=cfg)
     out = torch.einsum("blhk,hkd->bld", out, p["wo"].to(x.dtype))
     return psum(out, MODEL_AXIS) if o_split else out

@@ -38,11 +38,13 @@ updates f32 master weights, where a bf16 leaf would round every update.
 
 **Tensor parallelism.**  Inside the serving body of
 ``repro_torch.distributed.spmd.sharded_prefill`` and ``sharded_decode_step``
-(for the models whose ``tensor_parallel_serving`` holds) a rank looks its
-tokens up in its rows of a vocabulary-split ``embed`` and sums the
+(for the models ``Model.tensor_parallel_refusal`` admits: attention, windowed
+or not, and Mamba2 mixers with SwiGLU, onehot MoE or no MLPs) a rank looks
+its tokens up in its rows of a vocabulary-split ``embed`` and sums the
 embeddings over ``model``, and computes the logits of its vocabulary
 columns, the padding masked by global column; ``layers.py`` splits the
-heads and the MLP.  Outside such a body nothing changes.
+attention heads and the MLP, ``ssm.py`` the SSM heads, ``moe.py`` the
+experts.  Outside such a body nothing changes.
 
 **Recomputation.**  ``forward(..., remat=True)`` (which ``loss`` uses, as
 the reference's does) checkpoints each period of the decoder's segments by
@@ -288,15 +290,25 @@ def _rematerialized(body, policy: str):
 class Model:
     cfg: ModelConfig
 
-    @property
-    def tensor_parallel_serving(self) -> bool:
-        """Whether the tensor-parallel serving body runs this model
-        (``repro_torch.distributed.spmd.sharded_prefill``): every layer
-        dense attention and a SwiGLU MLP, with no sliding window."""
+    def tensor_parallel_refusal(self) -> str | None:
+        """Why the tensor-parallel serving body
+        (``repro_torch.distributed.spmd.sharded_prefill``) does not run this
+        model, or None where it does: every layer's mixer self-attention
+        (windowed or not) or Mamba2, and its MLP SwiGLU, capacity-bucketed
+        MoE or none."""
         cfg = self.cfg
-        return (not cfg.encoder_layers and not cfg.sliding_window
-                and all(s.mixer == "attn" and s.mlp == "dense"
-                        for seg in cfg.segments() for s in seg.period))
+        runs = ("tensor-parallel serving runs attention (windowed or not) and mamba2 "
+                "mixers with SwiGLU, onehot MoE or no MLPs")
+        if cfg.encoder_layers:
+            return f"{runs}; the encoder's layers are not ported"
+        for seg in cfg.segments():
+            for s in seg.period:
+                if s.mixer not in ("attn", "mamba2"):
+                    return f"{runs}; {s.mixer} layers are not ported"
+                if s.mlp == "moe" and cfg.moe_impl != "onehot":
+                    return (f"{runs}; moe_impl={cfg.moe_impl!r} is the data-parallel "
+                            f"dropless reference, not ported over the model axis")
+        return None
 
     # ---------------- init ----------------
 

@@ -43,13 +43,26 @@ The router's product feeds that top-k and the dispatch products must carry
 values exactly, so no product here may run in TF32: PyTorch's default
 (``torch.backends.cuda.matmul.allow_tf32`` False) is what this module needs.
 
+**Tensor parallelism** (the onehot path inside a tensor-parallel serving
+body, ``repro_torch.distributed.spmd.serving_body``): a rank holds its
+contiguous slice of the ``E·vs`` (virtual) experts, as
+``params_shardings`` splits ``experts_*`` over ``model``, and the router
+whole.  The tokens are replicated over ``model``, so no token moves: every
+rank routes every token of its groups, computes the capacity slots over
+all experts as above, dispatches to its own experts' columns only, and the
+ranks sum their partial combines (a ``psum``).  The groups are the
+reference's: ``jax.jit`` groups the tokens of the whole batch, so where a
+rank's batch rows do not tile whole groups it all-gathers the token rows
+over the batch's data axes first and keeps its own rows of the output.
+
 Routes can be recorded: with :attr:`moe_mlp.routes` set to a list (it is
 ``None``, off, by default), every call appends
 ``{"experts": (B, L, k) int64, "dropped": (B, L, k) bool}`` — the real
 experts each token chose, in choice order, and which choices the capacity
 dropped (a virtual split's slices drop together).  The tensors stay on the
 device.  A forward records once: the recomputation of a rematerialized
-period in the backward runs inside :func:`routes_paused`.
+period in the backward runs inside :func:`routes_paused`, and of the
+ranks of a tensor-parallel body one records the whole batch's routes.
 """
 
 from __future__ import annotations
@@ -62,6 +75,14 @@ import torch.nn.functional as F
 
 from repro_torch._topk import top_k
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.spmd import (
+    MODEL_AXIS,
+    all_gather,
+    axis_index,
+    axis_size,
+    psum,
+    tensor_parallel,
+)
 from repro_torch.models.layers import Params, draw_normal, init_mlp, mlp
 
 __all__ = ["init_moe", "moe_mlp", "routes_paused"]
@@ -104,6 +125,16 @@ def _record(shape, experts: torch.Tensor, dropped: torch.Tensor) -> None:
                                "dropped": dropped.reshape(*shape, -1)})
 
 
+def _groups(cfg: ModelConfig, t: int) -> tuple[int, int]:
+    """(group size, per-expert capacity) of the onehot dispatch over ``t``
+    tokens."""
+    g = min(cfg.moe_group, t)
+    while t % g:  # groups must tile the token axis exactly
+        g //= 2
+    cap = max(int(math.ceil(g * cfg.moe_top_k / cfg.moe_experts * cfg.moe_capacity_factor)), 1)
+    return g, min(cap, g)  # an expert can never hold more than the whole group
+
+
 # ---------------------------------------------------------------------------
 # onehot path (capacity-bucketed; virtual splitting)
 # ---------------------------------------------------------------------------
@@ -114,15 +145,17 @@ def _moe_onehot(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     b, l, d = x.shape
     e, k, vs = cfg.moe_experts, cfg.moe_top_k, cfg.moe_virtual_split
     ev = e * vs
-    t = b * l
-    g = min(cfg.moe_group, t)
-    while t % g:  # groups must tile the token axis exactly
-        g //= 2
-    n = t // g
-    cap = max(int(math.ceil(g * k / e * cfg.moe_capacity_factor)), 1)
-    cap = min(cap, g)  # an expert can never hold more than the whole group
+    tp = tensor_parallel()
+    dp = () if tp is None else tp.data_axes
+    ndp = axis_size(dp) if dp else 1
+    g, cap = _groups(cfg, b * l * ndp)  # the whole batch's groups
+    gather = (b * l) % g != 0  # the rank's rows are not whole groups: route the batch's
+    xs = all_gather(x, dp, axis=0, tiled=True) if gather else x
+    n = xs.shape[0] * l // g
+    held = p["experts_gate"].shape[0]  # the rank's experts: [e0, e0 + held)
+    e0 = axis_index(MODEL_AXIS) * held if held != ev else 0
 
-    xg = x.reshape(n, g, d)
+    xg = xs.reshape(n, g, d)
     gates, idx = _route(p, cfg, xg)                       # (n,g,k) ×2
     experts = idx
 
@@ -140,21 +173,42 @@ def _moe_onehot(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     pos_of = torch.sum(pos * m, dim=-1)                   # (n,g,k)
     kept = pos_of < cap                                   # capacity drop mask
     keep = kept.to(dt)
-    _record((b, l), experts, ~kept.reshape(n, g, k // vs, vs)[..., 0])
+    if moe_mlp.routes is not None:
+        _record_routes(tp, dp, ndp, gather, l, experts, ~kept.reshape(n, g, k // vs, vs)[..., 0])
 
-    oh_e = m.to(dt)                                       # (n,g,k,ev)
+    oh_e = m[..., e0:e0 + held].to(dt)                    # (n,g,k,held)
     oh_c = F.one_hot(pos_of.clamp(max=cap - 1), cap).to(dt)  # (n,g,k,cap)
     wg, wu, wd = (p[name].to(dt) for name in ("experts_gate", "experts_up", "experts_down"))
-    out = torch.empty_like(xg)
+    # the tokens returned: the rank's own [lo, hi) of the batch's routed ones
+    lo = axis_index(dp) * b * l if gather else 0
+    hi = lo + b * l
+    out = torch.empty((b * l, d), dtype=x.dtype, device=x.device)
     for i in range(n):  # one group's buffers live at a time
+        r0, r1 = max(lo, i * g), min(hi, (i + 1) * g)
+        if r0 >= r1:
+            continue
         disp = torch.einsum("gke,gkc->gec", oh_e[i], oh_c[i] * keep[i, ..., None])
         comb = torch.einsum("gke,gkc->gec", oh_e[i], oh_c[i] * (gates[i] * keep[i])[..., None])
-        xin = torch.einsum("gec,gd->ecd", disp, xg[i])   # (ev,cap,d)
+        xin = torch.einsum("gec,gd->ecd", disp, xg[i])   # (held,cap,d)
         h = torch.bmm(xin, wg)
         u = torch.bmm(xin, wu)
-        y = torch.bmm(F.silu(h) * u, wd)                 # (ev,cap,d)
-        out[i] = torch.einsum("gec,ecd->gd", comb, y)   # gate-weighted return
-    return out.reshape(b, l, d)
+        y = torch.bmm(F.silu(h) * u, wd)                 # (held,cap,d)
+        # gate-weighted return
+        out[r0 - lo:r1 - lo] = torch.einsum("gec,ecd->gd", comb[r0 - i * g:r1 - i * g], y)
+    out = out.reshape(b, l, d)
+    return psum(out, MODEL_AXIS) if held != ev else out
+
+
+def _record_routes(tp, dp: tuple[str, ...], ndp: int, gathered: bool, l: int,
+                   experts: torch.Tensor, dropped: torch.Tensor) -> None:
+    """Record one call's routes (``(n, g, k)`` over the tokens routed); in
+    a tensor-parallel body once for the whole batch: the ranks' rows are
+    all-gathered over the data axes if they were routed apart, and the
+    first rank records."""
+    if tp is not None and ndp > 1 and not gathered:
+        experts, dropped = (all_gather(t, dp, axis=0, tiled=True) for t in (experts, dropped))
+    if tp is None or (axis_index(MODEL_AXIS) == 0 and (not dp or axis_index(dp) == 0)):
+        _record((experts.shape[0] * experts.shape[1] // l, l), experts, dropped)
 
 
 # ---------------------------------------------------------------------------
@@ -214,8 +268,8 @@ def moe_mlp(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     else:  # pragma: no cover
         raise ValueError(cfg.moe_impl)
 
-    if "shared" in p:
-        out = out + mlp(p["shared"], x)  # shared experts: dense path (B,L,D)
+    if "shared" in p:  # shared experts: dense path (B,L,D)
+        out = out + mlp(p["shared"], x, d_ff=cfg.moe_shared_experts * cfg.moe_d_ff)
     return out
 
 

@@ -17,6 +17,13 @@ block runs the jnp ``ssd_chunked`` on every route, so its gradient is that
 of the plain function, as the port's is.  :func:`ssd_reference` is
 the naive sequential recurrence.  The block's cache is updated in place.
 
+**Tensor parallelism.**  Inside a tensor-parallel serving body
+(``repro_torch.distributed.spmd.serving_body``) a rank holds its heads of
+``w_in_z``, ``w_in_x``, ``w_in_dt``, ``conv_x``, ``A_log``, ``ssm_D``,
+``dt_bias`` and ``ssm_norm`` and its rows of ``w_out`` (as
+``params_shardings`` splits them), ``w_in_b``, ``w_in_c``, ``conv_b`` and
+``conv_c`` whole, and its block of the cache (:func:`_mamba_block_tp`).
+
 Single B/C group (n_groups=1), as in the assigned configs.
 """
 
@@ -28,6 +35,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.spmd import (
+    MODEL_AXIS,
+    all_gather,
+    axis_index,
+    axis_size,
+    psum,
+    tensor_parallel,
+)
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_scan import ssd_chunked
 from repro_torch.models.layers import Params, draw_normal, rms_norm
@@ -125,6 +140,51 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, state: torch.Tensor | None = 
     return F.silu(out), new_state
 
 
+def _ssd_prompt(cfg: ModelConfig, xh, dt, a, bm, cm, use_chunked: bool):
+    """The SSD over a prompt at whatever heads ``xh`` holds: the chunked
+    route (the kernel, or ``ssd_chunked`` under autograd) where the prompt
+    tiles into more than one chunk, else the sequential recurrence."""
+    l = xh.shape[1]
+    if use_chunked and l % cfg.ssm_chunk == 0 and l > cfg.ssm_chunk:
+        ssd = ssd_chunked if ops.records_grad(xh, dt, a, bm, cm) else ops.ssd_scan
+        return ssd(xh.contiguous(), dt.contiguous(), a, bm.contiguous(), cm.contiguous(),
+                   chunk=cfg.ssm_chunk)
+    return ssd_reference(xh, dt, a, bm, cm)
+
+
+def _mamba_in(p: Params, x: torch.Tensor):
+    """The block's input projections at whatever width ``p`` holds: the gate
+    ``z``, the conv input ``[x | B | C]`` and ``dt`` before its softplus."""
+    dt_ = x.dtype
+    conv_in = torch.cat([x @ p[k].to(dt_) for k in ("w_in_x", "w_in_b", "w_in_c")], dim=-1)
+    return x @ p["w_in_z"].to(dt_), conv_in, x @ p["w_in_dt"].to(dt_)
+
+
+def _mamba_mix(p: Params, cfg: ModelConfig, z, conv_in, dt, conv_state, h, use_chunked: bool):
+    """Conv, SSD, D skip and gate at the heads ``p`` holds (``conv_in``'s
+    ``x`` channels): with ``h`` (the SSD state) one decode step, else the
+    prompt's route.  Returns the gated ``y`` (B, L, heads·P) for the norm,
+    the conv's new state and the SSD's final state."""
+    dt_ = conv_in.dtype
+    ph, n = cfg.ssm_head_dim, cfg.ssm_state
+    b, l, c = conv_in.shape
+    dl = c - 2 * n
+    conv_w = torch.cat([p["conv_x"], p["conv_b"], p["conv_c"]], dim=-1).to(dt_)
+    conv_out, new_conv = _causal_conv(conv_in, conv_w, conv_state)
+    xin, bm, cm = torch.split(conv_out, [dl, n, n], dim=-1)
+
+    dt = F.softplus(dt.to(torch.float32) + p["dt_bias"]).to(dt_)
+    a = (-torch.exp(p["A_log"])).to(dt_)              # (NH,)
+    xh = xin.reshape(b, l, dl // ph, ph)
+    if h is not None:
+        y, h = ssd_decode_step(h.to(dt_), xh[:, 0], dt[:, 0], a, bm[:, 0], cm[:, 0])
+        y = y[:, None]                                # (B,1,NH,P)
+    else:
+        y, h = _ssd_prompt(cfg, xh, dt, a, bm, cm, use_chunked)
+    y = y + p["ssm_D"].to(dt_)[None, None, :, None] * xh
+    return y.reshape(b, l, dl) * F.silu(z), new_conv, h
+
+
 def mamba_block(
     p: Params,
     cfg: ModelConfig,
@@ -133,50 +193,83 @@ def mamba_block(
     cache: Params | None = None,          # {"conv": (B,W-1,Cin), "h": (B,NH,P,N)}
     use_chunked: bool = True,
 ) -> tuple[torch.Tensor, Params | None]:
-    dt_ = x.dtype
-    d = cfg.d_model
-    din = cfg.ssm_expand * d
-    ph = cfg.ssm_head_dim
-    nh = din // ph
-    n = cfg.ssm_state
-    b, l, _ = x.shape
-
-    z = x @ p["w_in_z"].to(dt_)
-    xin = x @ p["w_in_x"].to(dt_)
-    bm = x @ p["w_in_b"].to(dt_)
-    cm = x @ p["w_in_c"].to(dt_)
-    dt = x @ p["w_in_dt"].to(dt_)
-
-    conv_in = torch.cat([xin, bm, cm], dim=-1)
-    conv_w = torch.cat([p["conv_x"], p["conv_b"], p["conv_c"]], dim=-1).to(dt_)
-    conv_state = cache["conv"] if cache is not None else None
-    conv_out, new_conv = _causal_conv(conv_in, conv_w, conv_state)
-    xin, bm, cm = torch.split(conv_out, [din, n, n], dim=-1)
-
-    dt = F.softplus(dt.to(torch.float32) + p["dt_bias"]).to(dt_)
-    a = (-torch.exp(p["A_log"])).to(dt_)              # (NH,)
-    xh = xin.reshape(b, l, nh, ph)
-
-    if cache is not None and l == 1:
-        y, h = ssd_decode_step(
-            cache["h"].to(dt_), xh[:, 0], dt[:, 0], a, bm[:, 0], cm[:, 0]
-        )
-        y = y[:, None]                                # (B,1,NH,P)
-    elif use_chunked and l % cfg.ssm_chunk == 0 and l > cfg.ssm_chunk:
-        ssd = ssd_chunked if ops.records_grad(xh, dt, a, bm, cm) else ops.ssd_scan
-        y, h = ssd(
-            xh.contiguous(), dt.contiguous(), a, bm.contiguous(), cm.contiguous(),
-            chunk=cfg.ssm_chunk,
-        )
-    else:
-        y, h = ssd_reference(xh, dt, a, bm, cm)
-
-    y = y + p["ssm_D"].to(dt_)[None, None, :, None] * xh
-    y = y.reshape(b, l, din)
-    y = rms_norm(y * F.silu(z), p["ssm_norm"])
-    out = y @ p["w_out"].to(dt_)
+    if tensor_parallel() is not None:
+        return _mamba_block_tp(p, cfg, x, cache=cache, use_chunked=use_chunked), cache
+    z, conv_in, dt = _mamba_in(p, x)
+    decode = cache is not None and x.shape[1] == 1
+    y, new_conv, h = _mamba_mix(p, cfg, z, conv_in, dt,
+                                cache["conv"] if cache is not None else None,
+                                cache["h"] if decode else None, use_chunked)
+    out = rms_norm(y, p["ssm_norm"]) @ p["w_out"].to(x.dtype)
 
     if cache is not None:
         cache["conv"].copy_(new_conv)
         cache["h"].copy_(h)
     return out, cache
+
+
+def _mamba_block_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, *, cache: Params | None,
+                    use_chunked: bool) -> torch.Tensor:
+    """:func:`mamba_block` on a rank of a tensor-parallel serving body, on
+    the rank's shards (the module's docstring); the cache block is written
+    in place.
+
+    The rank's heads are contiguous: its ``dl`` channels of ``w_in_x`` are
+    heads ``[h0, h0 + dl / P)``, the ones its ``w_in_dt`` columns give.  It
+    projects them and the whole ``B``/``C`` rows, runs the conv and the
+    SSD (``ops.ssd_scan`` at its heads) on them, and the gated norm's f32
+    sum of squares and ``w_out``'s partial output are summed over the model
+    axis.  The conv cache ``(B, W-1, din + 2N)`` holds the concatenated
+    ``[x | B | C]`` channels, and ``cache_shardings`` splits that last dim
+    in equal blocks that are not the rank's ``x`` channels: so each rank
+    all-gathers its cache block with its last ``W-1`` ``x`` inputs (one
+    ``all_gather``), takes the old state of its channels from the whole,
+    and writes its block of the new state.  A dim the model axis does not
+    divide is whole on every rank (``param_pspec``, ``cache_shardings``),
+    and the rank computes it whole."""
+    dt_ = x.dtype
+    din = cfg.ssm_expand * cfg.d_model
+    ph, n, w1 = cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_conv_width - 1
+    b, l, _ = x.shape
+    m, rank = axis_size(MODEL_AXIS), axis_index(MODEL_AXIS)
+    dl, nhl = p["w_in_x"].shape[1], p["w_in_dt"].shape[1]
+    split = dl != din
+    channels = {k: p[k].shape[-1] for k in ("w_in_z", "conv_x", "ssm_norm")}
+    channels["w_out"] = p["w_out"].shape[0]
+    heads = {k: p[k].shape[0] for k in ("A_log", "ssm_D", "dt_bias")}
+    if cache is not None:
+        heads["h"] = cache["h"].shape[1]
+    if nhl * ph != dl or set(channels.values()) != {dl} or set(heads.values()) != {nhl}:
+        raise ValueError(f"mamba2: the rank holds {dl} x channels of w_in_x, {nhl} heads of "
+                         f"w_in_dt, {channels} and {heads}: split unlike params_shardings and "
+                         f"cache_shardings split them")
+    x0 = rank * dl if split else 0
+
+    z, conv_in, dt = _mamba_in(p, x)                    # conv_in (B, L, dl + 2N)
+    state = None
+    if cache is not None:
+        block = cache["conv"]                            # (B, W-1, Cb) of C = din + 2N
+        cb, c = block.shape[-1], din + 2 * n
+        tail = min(l, w1)                                # new x rows the new state keeps
+        x_tail = F.pad(conv_in[:, l - tail:, :dl], (0, 0, w1 - tail, 0)).to(block.dtype)
+        if split or cb != c:  # every rank's block and x tail, in one gather
+            both = all_gather(torch.cat([block, x_tail], -1), MODEL_AXIS, axis=2, tiled=True)
+            both = both.reshape(b, w1, m, cb + dl)
+            old = both[..., :cb].reshape(b, w1, m * cb) if cb != c else block
+            x_tail = both[..., cb:].reshape(b, w1, m * dl) if split else x_tail
+        else:
+            old = block
+        state = torch.cat([old[..., x0:x0 + dl], old[..., din:]], -1)
+        new_in = torch.cat([x_tail[:, w1 - tail:].to(dt_), conv_in[:, l - tail:, dl:]], -1)
+        new_state = torch.cat([old.to(dt_), new_in], 1)[:, -w1:]  # (B, W-1, C)
+        c0 = rank * cb if cb != c else 0
+    decode = cache is not None and l == 1
+    y, _, h = _mamba_mix(p, cfg, z, conv_in, dt, state, cache["h"] if decode else None,
+                         use_chunked)
+    # rms_norm over the whole din: the squares summed over the ranks
+    y = rms_norm(y, p["ssm_norm"], axis=MODEL_AXIS if split else None)
+    out = y @ p["w_out"].to(dt_)
+    if cache is not None:
+        cache["conv"].copy_(new_state[..., c0:c0 + cb])
+        cache["h"].copy_(h)
+    return psum(out, MODEL_AXIS) if split else out

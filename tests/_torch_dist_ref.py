@@ -223,19 +223,42 @@ def primitives(out: dict) -> None:
         out[f"primitive/{name}"] = f(jnp.asarray(inputs[key]))
 
 
-#: the tensor-parallel serving case: the dense smoke configs in f32 (qwen3's
-#: 2 kv heads do not divide the 4-way model axis, deepseek's 4 do), a batch
-#: of TP_BATCH TP_PROMPT-token prompts, then TP_STEPS decode steps, the
-#: cache TP_MAX_LEN long; the reference's init at key 0
-TP_ARCHES = ("qwen3-32b", "deepseek-7b")
+#: the tensor-parallel serving case: the smoke configs in f32 (qwen3's and
+#: mixtral's 2 kv heads do not divide the 4-way model axis, deepseek's 4 do;
+#: mamba2's and jamba's 8 SSM heads split 2 a rank, jamba's and mixtral's 4
+#: experts 1 a rank), a batch of TP_BATCH TP_PROMPT-token prompts, then
+#: TP_STEPS decode steps, the cache TP_MAX_LEN long; the reference's init at
+#: key 0
+TP_ARCHES = ("qwen3-32b", "deepseek-7b", "mamba2-1.3b", "jamba-v0.1-52b", "mixtral-8x7b")
 TP_BATCH, TP_PROMPT, TP_STEPS, TP_MAX_LEN = 4, 8, 3, 16
 TP_LAYOUTS = ("seq", "heads")
+#: the reference cases beside TP_ARCHES: name -> (arch, config overrides,
+#: prompt, steps).  ``chunked``: a prompt of 2 × ssm_chunk (16) tokens, the
+#: SSD's chunked route; ``cf1.25``: the published capacity factor, where the
+#: groups drop choices (the smoke configs' 2.0 = E/k drops none); ``roll``: a
+#: window of 4 below the 8-token prompt, which the prefill rolls into the
+#: 4-slot ring; ``wrap``: a 12-slot ring that the decode steps at positions
+#: 12 and 13 wrap
+TP_CASES = {
+    "mamba2-1.3b/chunked": ("mamba2-1.3b", {}, 32, TP_STEPS),
+    "mixtral-8x7b/cf1.25": ("mixtral-8x7b", {"moe_capacity_factor": 1.25}, TP_PROMPT, TP_STEPS),
+    "jamba-v0.1-52b/cf1.25": ("jamba-v0.1-52b", {"moe_capacity_factor": 1.25}, TP_PROMPT,
+                              TP_STEPS),
+    "mixtral-8x7b/roll": ("mixtral-8x7b", {"sliding_window": 4}, TP_PROMPT, TP_STEPS),
+    "mixtral-8x7b/wrap": ("mixtral-8x7b", {"sliding_window": 12}, TP_PROMPT, 6),
+}
 
 
-def tp_tokens(vocab: int) -> np.ndarray:
-    """The prompts and the decode steps' tokens (B, TP_PROMPT + TP_STEPS)."""
-    return np.random.default_rng(13).integers(
-        0, vocab, (TP_BATCH, TP_PROMPT + TP_STEPS)).astype(np.int32)
+def tp_case(name: str) -> tuple[str, dict, int, int, int]:
+    """(arch, overrides, prompt, steps, max_len) of a TP_ARCHES arch or a
+    TP_CASES case; the cache holds the prompt and the steps."""
+    arch, ov, prompt, steps = TP_CASES.get(name, (name, {}, TP_PROMPT, TP_STEPS))
+    return arch, ov, prompt, steps, max(TP_MAX_LEN, prompt + steps)
+
+
+def tp_tokens(vocab: int, length: int = TP_PROMPT + TP_STEPS) -> np.ndarray:
+    """The prompts and the decode steps' tokens (B, length)."""
+    return np.random.default_rng(13).integers(0, vocab, (TP_BATCH, length)).astype(np.int32)
 
 
 def tp_path(path) -> str:
@@ -267,15 +290,19 @@ def tensor_parallel(out: dict) -> None:
     from repro.models import build_model
 
     mesh = _mesh((2, 4), ("data", "model"))
-    for arch in TP_ARCHES:
-        model = build_model(dataclasses.replace(get_smoke_config(arch), dtype="float32"))
+    for name in (*TP_ARCHES, *TP_CASES):
+        arch, ov, prompt, steps, max_len = tp_case(name)
+        model = build_model(dataclasses.replace(get_smoke_config(arch), dtype="float32", **ov))
         params = model.init(jax.random.key(0))
-        toks = jnp.asarray(tp_tokens(model.cfg.vocab_size))
+        toks = jnp.asarray(tp_tokens(model.cfg.vocab_size, prompt + steps))
         p_sh = params_shardings(params, mesh, fsdp_axis=None)
         rows = NamedSharding(mesh, P("data", None))
         logits_sh = NamedSharding(mesh, P("data", "model"))
+        if model.cfg.moe_capacity_factor < model.cfg.moe_experts / max(model.cfg.moe_top_k, 1):
+            out[f"tensor_parallel/{name}/drops"] = moe_drops(model, params, toks, prompt, steps,
+                                                             max_len)
         for layout, rules in zip(TP_LAYOUTS, (decode_rules(mesh), decode_rules_headsharded(mesh))):
-            cache = model.init_cache(TP_BATCH, TP_MAX_LEN, jnp.float32)
+            cache = model.init_cache(TP_BATCH, max_len, jnp.float32)
             c_sh = cache_shardings(cache, mesh, layout=layout)
             with use_rules(rules):  # read while the steps trace
                 prefill = jax.jit(model.prefill, in_shardings=(p_sh, {"tokens": rows}, c_sh),
@@ -284,19 +311,61 @@ def tensor_parallel(out: dict) -> None:
                                  in_shardings=(p_sh, c_sh, rows, NamedSharding(mesh, P())),
                                  out_shardings=(logits_sh, c_sh))
                 placed = jax.device_put(params, p_sh)
-                logits, cache = prefill(placed, {"tokens": toks[:, :TP_PROMPT]},
+                logits, cache = prefill(placed, {"tokens": toks[:, :prompt]},
                                         jax.device_put(cache, c_sh))
                 outs = [logits]
-                for t in range(TP_STEPS):
-                    logits, cache = decode(placed, cache, toks[:, TP_PROMPT + t:TP_PROMPT + t + 1],
-                                           jnp.asarray(TP_PROMPT + t, jnp.int32))
+                for t in range(steps):
+                    logits, cache = decode(placed, cache, toks[:, prompt + t:prompt + t + 1],
+                                           jnp.asarray(prompt + t, jnp.int32))
                     outs.append(logits)
-            key = f"tensor_parallel/{arch}/{layout}"
+            key = f"tensor_parallel/{name}/{layout}"
             out[f"{key}/logits"] = np.stack([np.asarray(o) for o in outs], 1)
             for path, leaf in jax.tree_util.tree_flatten_with_path(cache)[0]:
                 blocks = {s.device: np.asarray(s.data) for s in leaf.addressable_shards}
                 out[f"{key}/cache/{tp_path(path)}"] = np.stack(
                     [blocks[d] for d in mesh.devices.flat])
+
+
+def moe_drops(model, params, toks, prompt: int, steps: int, max_len: int) -> np.ndarray:
+    """The choices the MoE layers drop at capacity in the prefill and in
+    each decode step ``(1 + steps,)``, from the same steps run op by op
+    (``jax.disable_jit``, so that the scanned layers run as a loop) with
+    the dispatch tensor read where ``_moe_onehot`` hands it to ``shard``:
+    ``disp (n, g, E·vs, capacity)`` holds a 1 for each kept choice's slice."""
+    import jax
+    import jax.numpy as jnp
+
+    import repro.models.moe as jmoe
+
+    cfg = model.cfg
+    seen: list = []
+
+    def record(x, *names):
+        if names == ("batch", None, "expert", None):  # disp, then comb
+            seen.append(x)
+        return x
+
+    real, jmoe.shard = jmoe.shard, record
+    drops = []
+    try:
+        with jax.disable_jit():
+            cache = model.init_cache(TP_BATCH, max_len, jnp.float32)
+            for t in range(1 + steps):
+                seen.clear()
+                if t == 0:
+                    _, cache = model.prefill(params, {"tokens": toks[:, :prompt]}, cache)
+                    tokens = TP_BATCH * prompt
+                else:
+                    pos = prompt + t - 1
+                    _, cache = model.decode_step(params, cache, toks[:, pos:pos + 1],
+                                                 jnp.asarray(pos, jnp.int32))
+                    tokens = TP_BATCH
+                kept = sum(float(np.asarray(d).sum()) for d in seen[0::2])
+                choices = len(seen) // 2 * tokens * cfg.moe_top_k
+                drops.append(choices - kept / cfg.moe_virtual_split)
+    finally:
+        jmoe.shard = real
+    return np.asarray(drops, np.float32)
 
 
 #: the child's cases by name; the parent names the ones it needs after the

@@ -16,7 +16,9 @@ that reason.  Run them on the card:
   loss, and a checkpoint saved from 8 card ranks restores onto 2.
 * Tensor-parallel serving on 4 card ranks launches the flash kernel once
   per rank and layer at the rank's heads, its placed shards are the
-  ranks' own (no copy), and its logits equal the unsharded model's.
+  ranks' own (no copy), and its logits equal the unsharded model's; the
+  SSM, hybrid and MoE smoke configs launch the SSD kernel once per rank
+  and mamba2 layer and equal the unsharded model in f32.
 """
 
 import dataclasses
@@ -244,3 +246,35 @@ def test_tensor_parallel_serving_on_card_ranks(dev, layout):
     print(f"tensor-parallel {layout}: bf16 {err} (yardstick {yardstick}), f32 {err32}")
     torch.testing.assert_close(got32[..., :v], want32[..., :v], rtol=1e-4, atol=1e-4)
     assert err <= 2 * yardstick, (err, yardstick)
+
+
+@pytest.mark.parametrize("layout", ["seq", "heads"])
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "jamba-v0.1-52b", "mixtral-8x7b"])
+def test_tensor_parallel_families_on_card_ranks(dev, arch, layout):
+    """The smoke configs in f32 on 4 card ranks under ``decode_rules``
+    (``"seq"``) and ``decode_rules_headsharded`` (``"heads"``): a
+    128-token prompt (the SSD's chunked route) launches ``ssd_scan`` once
+    per rank and mamba2 layer and flash once per rank and attention layer,
+    and the logits after the prefill and 4 decode steps equal the
+    unsharded model's on the same weights within 1e-4 (the order of the
+    sums)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ssd_scan as ss
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32", attn_impl="flash")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 132)),
+                           device=dev)
+    mesh = compat_make_mesh((1, 4), ("data", "model"), devices=(dev,))
+    base = ss.ssd_scan.launches
+    got, want, flash, in_place = _serve_on_ranks(model, params, toks, mesh, layout,
+                                                 torch.float32)
+    mamba = sum(seg.repeats for seg in cfg.segments() for s in seg.period
+                if s.mixer == "mamba2")
+    attn = sum(seg.repeats for seg in cfg.segments() for s in seg.period if s.mixer == "attn")
+    # the unsharded prefill launches the SSD kernel once per mamba2 layer too
+    assert ss.ssd_scan.launches - base == 4 * mamba + mamba
+    assert flash == 4 * attn and in_place
+    v = cfg.vocab_size
+    torch.testing.assert_close(got[..., :v], want[..., :v], rtol=1e-4, atol=1e-4)

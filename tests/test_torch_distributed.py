@@ -404,6 +404,24 @@ def test_many_rank_threads_keep_exact_sums():
     assert torch.equal(box["value"].reshape(8, 8, 8), want)
 
 
+def test_idle_rank_threads_keep_no_arguments_alive():
+    """Once a ``shard_map`` call returns, its arguments (the rank shards of
+    a model's params) are freed when the caller drops them: no idle rank
+    thread still holds its last call's job."""
+    import gc
+    import weakref
+
+    mesh = _mesh((2, 4), ("data", "model"))
+    x = torch.ones((8, 16))
+    seen = weakref.ref(x)
+    out = shard_map(lambda v: psum(v, "model"), mesh=mesh, in_specs=(P("data", "model"),),
+                    out_specs=P("data", None))(x)
+    assert torch.equal(out, torch.full((8, 4), 4.0))
+    del x
+    gc.collect()
+    assert seen() is None
+
+
 # ---------------------------------------------------------------------------
 # mesh construction and placement
 # ---------------------------------------------------------------------------

@@ -3,11 +3,12 @@
 package's.
 
 The reference's compiled records come from one child process on 8 forced
-host devices (``tests/_torch_dryrun_ref.py``, ~35 s): ``run_cell`` and
+host devices (``tests/_torch_dryrun_ref.py``, ~65 s): ``run_cell`` and
 ``probe_cell`` for qwen3-32b's and mamba2-1.3b's smoke configs in a train,
 a prefill and a decode cell (no probe of mamba2's train) on a (2, 4)
 ("data", "model") mesh, and ``run_cell`` with the compiled module's matrix
-products on a data-parallel (2, 1) mesh.  The port traces the same cells
+products on a data-parallel (2, 1) mesh, and the serving cells of
+deepseek-7b, jamba-v0.1-52b and mixtral-8x7b on (2, 4).  The port traces the same cells
 on meshes of ``meta`` positions in this process.
 Everything else compares the two packages' pure functions in-process, or
 holds the port to itself: the depth fit against the full-depth count, the
@@ -197,12 +198,13 @@ def test_memory_matches_reference(reference, small_shapes, arch, shape):
 #: instructions of each compiled module (``dot_flops``).  Every cell is
 #: compared on the data-parallel ``DATA_MESH``, where a device's products
 #: are one rank's; and the cells that run the tensor-parallel rank program
-#: (qwen3's prefill and decode) on the (2, 4) mesh too, where XLA's GSPMD
-#: partition and the port's rank program split the same products four ways
-#: and repeat the same one on every model position: the decode step's k and
-#: v projections of the new token, whose 2 kv heads do not divide 4.  The
-#: other cells stay data-parallel (the train step, the SSM family) and are
-#: not compared on (2, 4), where XLA splits products the port computes whole.
+#: (the serving cells) on the (2, 4) mesh too, where XLA's GSPMD partition
+#: and the port's rank program split the same products four ways and repeat
+#: the same one on every model position: the decode step's k and v
+#: projections of the new token, whose 2 kv heads do not divide 4; mamba2's
+#: B/C products XLA splits and the rank program does not, by a closed form.
+#: The train cells stay data-parallel and are not compared on (2, 4), where
+#: XLA splits products the port computes whole.
 #: They are equal in every cell but mamba2's train step, where XLA forms
 #: four of the SSD einsums' gradient contractions (16384 FLOPs each at
 #: these widths, 0.29 % of the step) as dots and PyTorch's autograd as
@@ -228,17 +230,44 @@ def test_flops_held_to_reference(reference, small_shapes, monkeypatch, arch, sha
     assert rec["cost"]["flops"] == pytest.approx(want, rel=DOT_RTOL)
 
 
-TP_CELLS = [("qwen3-32b", "prefill_32k"), ("qwen3-32b", "decode_32k"), *ref_child.TP_CELLS]
+TP_CELLS = [("qwen3-32b", "prefill_32k"), ("qwen3-32b", "decode_32k"),
+            ("mamba2-1.3b", "prefill_32k"), ("mamba2-1.3b", "decode_32k"), *ref_child.TP_CELLS]
+
+
+def _whole_on_every_rank(cfg, shape: ShapeCell, model_ranks: int = 4) -> int:
+    """The products GSPMD splits over ``model`` and the rank program
+    computes whole, beyond XLA's share of them, in one scan body of a cell
+    on the (2, 4) mesh: per mamba2 layer the B and C projections of the
+    replicated ``w_in_b``/``w_in_c`` (``2·rows·L·D·N`` each) and, on the
+    chunked route, the ``C·Bᵀ`` that every head shares (``2·rows·L·q·N``),
+    of which XLA computes a quarter on each device.  The MoE router, whole
+    on both sides, is not among them."""
+    rows = shape.global_batch // 2
+    tokens = rows * (shape.seq_len if shape.kind == "prefill" else 1)
+    layers = sum(s.mixer == "mamba2" for seg in lib._scan_bodies(cfg).segments()
+                 for s in seg.period)
+    chunked = shape.kind == "prefill" and shape.seq_len > cfg.ssm_chunk
+    per_layer = 2 * 2 * tokens * cfg.d_model * cfg.ssm_state
+    per_layer += 2 * tokens * cfg.ssm_chunk * cfg.ssm_state if chunked else 0
+    return layers * per_layer * (model_ranks - 1) // model_ranks
 
 
 @pytest.mark.parametrize("arch,shape", TP_CELLS)
-def test_tensor_parallel_flops_held_to_reference(reference, small_shapes, arch, shape):
+def test_tensor_parallel_flops_held_to_reference(reference, small_shapes, monkeypatch, arch,
+                                                 shape):
     """The tensor-parallel rank program's matrix-product FLOPs on the (2, 4)
     mesh equal the products of one device's GSPMD-partitioned module
-    (``mesh_label="test"``), within :data:`DOT_RTOL`: every product split
-    four ways (heads, MLP columns, vocabulary, the prompt's k/v rows or kv
-    heads, the context-parallel decode attention); qwen3's new-token k/v
-    projections of its 2 replicated kv heads whole on both sides."""
+    (``mesh_label="test"``): every product split four ways (heads, SSM
+    heads, MLP columns, experts, vocabulary, the prompt's k/v rows or kv
+    heads, the context-parallel decode attention); qwen3's and mixtral's
+    new-token k/v projections of their 2 replicated kv heads whole on both
+    sides, and the MoE layers' router and dispatch over the batch's one
+    group on both sides, each returning its own rows.  Where the two
+    partition a product differently, the difference is its closed form:
+    mamba2's replicated B/C products (:func:`_whole_on_every_rank`).  As in
+    the data-parallel comparison, the plain chunked SSD takes the kernel's
+    place."""
+    monkeypatch.setattr(ops, "ssd_scan", ss.ssd_chunked)
     mesh = _meta_mesh()
     cfg = get_smoke_config(arch)
     rec = lib.run_cell(arch, shape, mesh, mesh_label="test", overrides=ref_child.overrides(cfg))
@@ -246,7 +275,32 @@ def test_tensor_parallel_flops_held_to_reference(reference, small_shapes, arch, 
     assert rec["collectives_basis"] == lib.COLLECTIVES_BASIS["tensor_parallel"]
     want = reference[(arch, shape, "run")]["cost"]["dot_flops"]
     assert want > 0
-    assert rec["cost"]["flops"] == pytest.approx(want, rel=DOT_RTOL)
+    assert rec["cost"]["flops"] - _whole_on_every_rank(cfg, SHAPES[shape]) == want
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "jamba-v0.1-52b"])
+def test_tensor_parallel_ssd_cost_counts_the_ranks_heads(small_shapes, arch):
+    """The SSD kernel's formula in a tensor-parallel prefill cell: one call
+    per mamba2 layer of the scan body, at the rank's rows and its quarter of
+    the heads; the long-context cell stays data-parallel
+    (``long_decode_rules``)."""
+    cfg = get_smoke_config(arch)
+    ov = ref_child.overrides(cfg)
+    mesh = _meta_mesh()
+    rec = lib.run_cell(arch, "prefill_32k", mesh, mesh_label="test", overrides=ov)
+    shape = SHAPES["prefill_32k"]
+    nh = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+    x = torch.empty((shape.global_batch // 2, shape.seq_len, nh // 4, cfg.ssm_head_dim),
+                    dtype=torch.bfloat16, device=META)
+    bm = torch.empty((x.shape[0], shape.seq_len, cfg.ssm_state), dtype=torch.bfloat16,
+                     device=META)
+    _, flops, nbytes = ss.ssd_cost(x, bm)
+    layers = sum(s.mixer == "mamba2" for seg in lib._scan_bodies(cfg).segments()
+                 for s in seg.period)
+    assert rec["cost"]["kernels"]["ssd_scan"] == {"calls": layers, "flops": layers * flops,
+                                                  "bytes": layers * nbytes}
+    long = lib.run_cell(arch, "long_500k", mesh, mesh_label="test", overrides=ov)
+    assert long["cost_basis"].startswith(lib.COST_BASIS["data_parallel"])
 
 
 @pytest.mark.parametrize("impls,heads_attended", [(("masked", "decomposed"), 4),

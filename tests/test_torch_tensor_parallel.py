@@ -2,21 +2,28 @@
 ``sharded_decode_step``) against the JAX package's GSPMD-partitioned steps.
 
 The reference side runs once, in one child process on 8 forced host
-devices (``tests/_torch_dist_ref.py``'s ``tensor_parallel`` case, ~20 s):
+devices (``tests/_torch_dist_ref.py``'s ``tensor_parallel`` case, ~90 s):
 ``jax.jit(model.prefill)`` and ``jax.jit(model.decode_step)`` on a (2, 4)
 ("data", "model") mesh under ``decode_rules`` (the cache's sequence over
 model) and ``decode_rules_headsharded`` (its kv heads), for the qwen3-32b
-smoke config (2 kv heads over 4 ranks: ``wk``/``wv`` replicated) and
-deepseek-7b's (4 over 4), in f32.  The port runs the same steps on a (2, 4)
-mesh of repeated ``cpu`` positions in this process, on the reference's
-weights: the logits within the reference's serving tolerances
-(``tests/test_arch_smoke.py``: 3e-4 after the prefill, 5e-4 a decode step)
-and every rank's block of the cache equal to the reference's placed cache
-within the prefill's tolerance.  Beside the parity, the port's
-tensor-parallel route is held to its own unsharded model on more meshes and
-configs (the other dense configs, a padded vocabulary, ``fsdp`` over data),
-and its structure is checked: the flash calls at the ranks' head counts,
-its collectives per layer, the layouts, and what it refuses.
+smoke config (2 kv heads over 4 ranks: ``wk``/``wv`` replicated),
+deepseek-7b's (4 over 4), mamba2-1.3b's (8 SSM heads, 2 a rank),
+jamba-v0.1-52b's (Mamba2, attention and MoE layers) and mixtral-8x7b's
+(windowed attention, 4 experts, 1 a rank), in f32, and the cases of
+``TP_CASES``: a prompt that takes the chunked SSD route, both MoE configs
+at capacity factor 1.25 (where the reference drops choices in decode), and
+mixtral's window rolled by the prompt and wrapped by the decode steps.
+The port runs the same steps on a (2, 4) mesh of repeated ``cpu``
+positions in this process, on the reference's weights: the logits within
+the reference's serving tolerances (``tests/test_arch_smoke.py``: 3e-4
+after the prefill, 5e-4 a decode step) and every rank's block of the cache
+(``conv`` and ``h`` included) equal to the reference's placed cache within
+the prefill's tolerance.  Beside the parity, the port's tensor-parallel
+route is held to its own unsharded model on more meshes and configs (the
+other dense configs, a padded vocabulary, ``fsdp`` over data, the SSM,
+hybrid and MoE families where the heads or experts split 1 a rank or not at
+all), and its structure is checked: the flash and SSD calls at the ranks'
+head counts, its collectives per layer, the layouts, and what it refuses.
 """
 
 import dataclasses
@@ -65,6 +72,8 @@ DECODE_TOL = dict(rtol=5e-4, atol=5e-4)
 SELF_TOL = dict(rtol=2e-5, atol=2e-5)
 RULES = {"seq": decode_rules, "heads": decode_rules_headsharded}
 DENSE = ("qwen3-32b", "deepseek-7b", "qwen2-72b", "command-r-35b")
+#: the families beyond the dense one that tensor-parallel serving runs
+FAMILIES = ("mamba2-1.3b", "jamba-v0.1-52b", "mixtral-8x7b")
 
 
 def _mesh(shape=(2, 4), axes=("data", "model")):
@@ -127,8 +136,37 @@ def _unsharded(model, params, toks, *, batch=ref.TP_BATCH, prompt=ref.TP_PROMPT,
     return torch.stack(outs, 1), cache
 
 
-def _tokens(model):
-    return torch.from_numpy(ref.tp_tokens(model.cfg.vocab_size).astype(np.int64))
+def _tokens(model, length=ref.TP_PROMPT + ref.TP_STEPS):
+    return torch.from_numpy(ref.tp_tokens(model.cfg.vocab_size, length).astype(np.int64))
+
+
+def _layers(cfg, mixer=None, mlp=None) -> int:
+    """The config's layers with this mixer and/or MLP."""
+    return sum(seg.repeats for seg in cfg.segments() for s in seg.period
+               if mixer in (None, s.mixer) and mlp in (None, s.mlp))
+
+
+def _held_to_reference(reference, key, got, cache) -> int:
+    """The logits (prefill, then each decode step) and every rank's block of
+    every cache leaf against the reference's under ``key``; returns the
+    number of leaves, each checked to be written."""
+    want = reference[f"{key}/logits"]
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got[:, 0].numpy(), want[:, 0], **PREFILL_TOL)
+    for t in range(1, want.shape[1]):
+        np.testing.assert_allclose(got[:, t].numpy(), want[:, t], **DECODE_TOL)
+    seen = []
+
+    def one(path, leaf):
+        want = reference[f"{key}/cache/" + ref.tp_path(path)]
+        blocks = np.stack([s.numpy() for s in leaf.shards])
+        assert blocks.shape == want.shape, path
+        np.testing.assert_allclose(blocks, want, **PREFILL_TOL)
+        seen.append(float(np.abs(blocks).max()))
+
+    _map_with_path(one, cache)
+    assert min(seen) > 0  # every leaf written
+    return len(seen)
 
 
 # ---------------------------------------------------------------------------
@@ -153,7 +191,8 @@ def test_logits_match_reference(reference, arch, layout):
 def test_cache_blocks_match_reference(reference, arch, layout):
     """Every rank's block of the cache after the prefill and the decode
     steps is the block the reference's placed cache holds on that device
-    (the replicated kv heads of qwen3 under ``heads`` too)."""
+    (the replicated kv heads of qwen3 under ``heads`` too; the SSM layers'
+    ``conv`` blocks, which are not the rank's own channels, and ``h``)."""
     model, params = _reference_params(arch)
     _, cache = _serve(model, params, _tokens(model), mesh=_mesh(), layout=layout)
     seen = []
@@ -166,7 +205,59 @@ def test_cache_blocks_match_reference(reference, arch, layout):
         seen.append(float(np.abs(got).max()))
 
     _map_with_path(one, cache)
-    assert len(seen) == 2 and min(seen) > 0  # k and v, each written
+    # k and v of each attention layer, conv and h of each mamba2 layer (a
+    # stacked segment's layers are one leaf), each written
+    leaves = {("k", "v"): 0, ("conv", "h"): 0}
+    for seg in model.cfg.segments():
+        for spec in seg.period:
+            leaves[("conv", "h") if spec.mixer == "mamba2" else ("k", "v")] += 1
+    assert len(seen) == 2 * sum(leaves.values()) and min(seen) > 0
+
+
+@pytest.mark.parametrize("layout", ref.TP_LAYOUTS)
+@pytest.mark.parametrize("case", list(ref.TP_CASES))
+def test_case_matches_reference(reference, monkeypatch, case, layout):
+    """The cases no smoke config reaches, each held to the reference as
+    above and checked to reach what it is for: the chunked SSD route at
+    the ranks' 2 heads; choices dropped at capacity in decode (by the
+    reference, counted from its dispatch tensor), the port's routes
+    recorded once a forward with the same drops; the window's ring rolled
+    by the prompt or wrapped by the decode steps."""
+    from repro_torch.models.moe import moe_mlp
+
+    arch, ov, prompt, steps, max_len = ref.tp_case(case)
+    model, params = _reference_params(arch, **ov)
+    cfg = model.cfg
+    ssd_heads = []
+    real_ssd = ops.ssd_scan
+    monkeypatch.setattr(ops, "ssd_scan", lambda x, *a, **kw: (
+        ssd_heads.append(x.shape[2]), real_ssd(x, *a, **kw))[1])
+    monkeypatch.setattr(moe_mlp, "routes", [] if cfg.moe_experts else None)
+    got, cache = _serve(model, params, _tokens(model, prompt + steps), mesh=_mesh(),
+                        layout=layout, prompt=prompt, steps=steps, max_len=max_len)
+    routes = moe_mlp.routes
+    monkeypatch.setattr(moe_mlp, "routes", None)
+    _held_to_reference(reference, f"tensor_parallel/{case}/{layout}", got, cache)
+    if case.endswith("/chunked"):
+        assert prompt == 2 * cfg.ssm_chunk
+        assert ssd_heads == [2] * 8 * _layers(cfg, mixer="mamba2")
+    if case.endswith("/cf1.25"):
+        drops = reference[f"tensor_parallel/{case}/drops"]
+        assert drops[1:].sum() > 0  # the reference dropped in decode
+        moe = _layers(cfg, mlp="moe")
+        assert len(routes) == moe * (1 + steps)  # once a forward, not once a rank
+        assert all(r["experts"].shape == (ref.TP_BATCH, prompt if i < moe else 1,
+                                          cfg.moe_top_k) for i, r in enumerate(routes))
+        port_drops = [sum(int(r["dropped"].sum()) for r in routes[i:i + moe])
+                      for i in range(0, len(routes), moe)]
+        assert port_drops == [int(d) for d in drops]
+    if case.endswith(("/roll", "/wrap")):
+        ring = min(max_len, cfg.sliding_window)
+        k = cache["seg0"][0]["k"]
+        assert k.shape[2] == ring
+        assert (ring < prompt) if case.endswith("/roll") else (prompt < ring < prompt + steps)
+        if layout == "seq":
+            assert k.sharding.spec[2] == "model"  # the ring's slots split over the ranks
 
 
 def test_qwen3_smoke_keeps_its_kv_heads_whole(reference):
@@ -216,15 +307,38 @@ def test_matches_the_unsharded_model(arch, layout, shape):
         torch.testing.assert_close(a.full(), b, **SELF_TOL)
 
 
+@pytest.mark.parametrize("shape", [(2, 4), (1, 8), (2, 2), (1, 1)])
+@pytest.mark.parametrize("layout", ref.TP_LAYOUTS)
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_families_match_the_unsharded_model(arch, layout, shape):
+    """The SSM, hybrid and MoE families on meshes where the SSM heads split
+    2 a rank, 1 a rank or 4, and the experts 1 a rank, not at all (4
+    experts over 8: whole on every rank) or 2; at capacity factor 1.25, so
+    that the groups drop choices, and mixtral with a window the decode
+    steps wrap."""
+    ov = {"moe_capacity_factor": 1.25} if arch != "mamba2-1.3b" else {}
+    if arch == "mixtral-8x7b":
+        ov["sliding_window"] = 8
+    model = build_model(dataclasses.replace(get_smoke_config(arch), dtype="float32", **ov))
+    params = model.init(torch.Generator().manual_seed(11), device="cpu")
+    toks = _tokens(model)
+    want, want_cache = _unsharded(model, params, toks)
+    got, cache = _serve(model, params, toks, mesh=_mesh(shape), layout=layout)
+    torch.testing.assert_close(got, want, **SELF_TOL)
+    for a, b in zip(tree_leaves(cache), tree_leaves(want_cache)):
+        torch.testing.assert_close(a.full(), b, **SELF_TOL)
+
+
 @pytest.mark.parametrize("shape", [(2, 4), (1, 2)])
 @pytest.mark.parametrize("layout", ref.TP_LAYOUTS)
-@pytest.mark.parametrize("arch", ref.TP_ARCHES)
+@pytest.mark.parametrize("arch", [*ref.TP_ARCHES[:2], "mixtral-8x7b"])
 def test_decomposed_decode_matches_the_unsharded_model(monkeypatch, arch, layout, shape):
     """``cache_impl="decomposed"`` (the dry-run's ``dec`` variant): each
     decode step attends to the old rows and the new one, then writes; under
     the ``seq`` layout every rank joins the new row to the combined old
     rows.  The logits and the cache stay the unsharded model's."""
-    model = build_model(dataclasses.replace(get_smoke_config(arch), dtype="float32"))
+    ov = {"sliding_window": 8} if arch == "mixtral-8x7b" else {}  # wrapped at 8, 9, 10
+    model = build_model(dataclasses.replace(get_smoke_config(arch), dtype="float32", **ov))
     params = model.init(torch.Generator().manual_seed(10), device="cpu")
     toks = _tokens(model)
     want, want_cache = _unsharded(model, params, toks)
@@ -332,6 +446,38 @@ def test_flash_runs_once_a_rank_and_layer_at_the_ranks_heads(monkeypatch, arch, 
     torch.testing.assert_close(got, want, **SELF_TOL)
 
 
+@pytest.mark.parametrize("arch,shape", [("mamba2-1.3b", (2, 4)), ("mamba2-1.3b", (1, 8)),
+                                        ("jamba-v0.1-52b", (1, 4)), ("mixtral-8x7b", (2, 4))])
+def test_kernels_run_once_a_rank_and_layer_at_the_ranks_heads(monkeypatch, arch, shape):
+    """A 32-token prompt (2 × ``ssm_chunk``) under ``attn_impl="flash"``:
+    the SSD's chunked route (``ops.ssd_scan``, the kernel on the card) once
+    per rank and mamba2 layer at the rank's heads (8 over the model axis),
+    flash once per rank and attention layer at its q heads and the kv heads
+    they read (4 q heads, 2 kv heads: 1 and 1 over 4 ranks); decode calls
+    neither.  The logits stay the unsharded model's."""
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32", attn_impl="flash")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(12), device="cpu")
+    calls = {"ssd": [], "flash": []}
+    real_ssd, real_flash = ops.ssd_scan, ops.flash_attention
+    monkeypatch.setattr(ops, "ssd_scan", lambda x, *a, **kw: (
+        calls["ssd"].append(x.shape[2]), real_ssd(x, *a, **kw))[1])
+    monkeypatch.setattr(ops, "flash_attention", lambda q, k, v, **kw: (
+        calls["flash"].append((q.shape[2], k.shape[2])), real_flash(q, k, v, **kw))[1])
+    prompt, steps = 2 * cfg.ssm_chunk, 2
+    toks = _tokens(model, prompt + steps)
+    got, _ = _serve(model, params, toks, mesh=_mesh(shape), layout="seq", prompt=prompt,
+                    steps=steps, max_len=prompt + steps)
+    ranks, m = shape[0] * shape[1], shape[1]
+    nh = cfg.ssm_expand * cfg.d_model // max(cfg.ssm_head_dim, 1)
+    assert calls["ssd"] == [nh // m] * ranks * _layers(cfg, mixer="mamba2")
+    assert calls["flash"] == [(cfg.num_heads // m, 1)] * ranks * _layers(cfg, mixer="attn")
+    monkeypatch.setattr(ops, "ssd_scan", real_ssd)
+    monkeypatch.setattr(ops, "flash_attention", real_flash)
+    want, _ = _unsharded(model, params, toks, prompt=prompt, steps=steps, max_len=prompt + steps)
+    torch.testing.assert_close(got, want, **SELF_TOL)
+
+
 def _layer_census(arch, layout, layers, decode):
     cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32", num_layers=layers)
     model = build_model(cfg)
@@ -358,17 +504,28 @@ def _layer_census(arch, layout, layers, decode):
 #: their sequence-parallel rows (k, v), deepseek's split ones gather their
 #: heads for a seq-layout cache.  Decode: under seq the q heads (and split
 #: kv heads' new row) are gathered and the combine takes a pmax and a psum.
+#: A mamba2 layer, in either step and layout: the gated norm's sum of
+#: squares and w_out's partial are summed (2), and the conv cache blocks
+#: are gathered with the ranks' last x inputs (1).  A mixtral layer is
+#: qwen3's attention (2 kv heads over 4: replicated) and an MoE layer: its
+#: experts' partial combine summed (1, where qwen3 sums w_down), and the
+#: token rows gathered over data (1): the rank's 2 rows of 8 tokens (or of
+#: one) are half of the batch's one group of 32 (or 4).
 PER_LAYER = {
     ("qwen3-32b", "seq", False): (2, 2), ("qwen3-32b", "heads", False): (2, 2),
     ("deepseek-7b", "seq", False): (2, 2), ("deepseek-7b", "heads", False): (2, 0),
     ("qwen3-32b", "seq", True): (4, 1), ("qwen3-32b", "heads", True): (2, 0),
     ("deepseek-7b", "seq", True): (4, 3), ("deepseek-7b", "heads", True): (2, 0),
+    ("mamba2-1.3b", "seq", False): (2, 1), ("mamba2-1.3b", "heads", False): (2, 1),
+    ("mamba2-1.3b", "seq", True): (2, 1), ("mamba2-1.3b", "heads", True): (2, 1),
+    ("mixtral-8x7b", "seq", False): (2, 3), ("mixtral-8x7b", "heads", False): (2, 3),
+    ("mixtral-8x7b", "seq", True): (4, 2), ("mixtral-8x7b", "heads", True): (2, 1),
 }
 
 
 @pytest.mark.parametrize("decode", [False, True])
 @pytest.mark.parametrize("layout", ref.TP_LAYOUTS)
-@pytest.mark.parametrize("arch", ref.TP_ARCHES)
+@pytest.mark.parametrize("arch", [*ref.TP_ARCHES[:2], "mamba2-1.3b", "mixtral-8x7b"])
 def test_collectives_per_layer(arch, layout, decode):
     reduces, gathers = PER_LAYER[(arch, layout, decode)]
     for layers in (1, 3):
@@ -387,15 +544,31 @@ def test_outside_a_body_the_hooks_do_nothing():
 
 
 def test_refuses_what_it_does_not_run():
+    """MLA (deepseek-v2), the encoder and cross-attention (whisper, the
+    vlm), the ragged MoE dispatch and ``long_decode_rules`` are refused;
+    the other seven configs run."""
+    from repro_torch.configs import ARCH_IDS
+
+    refused = {"deepseek-v2-236b": "mla layers", "whisper-tiny": "encoder",
+               "llama-3.2-vision-11b": "cross_attn layers"}
+    assert {a for a in ARCH_IDS
+            if build_model(get_smoke_config(a)).tensor_parallel_refusal() is not None} == set(refused)
     mesh = _mesh()
-    for arch in ("mixtral-8x7b", "mamba2-1.3b", "whisper-tiny"):
+    batch = {"tokens": torch.zeros((2, 4), dtype=torch.int64)}
+    for arch, why in refused.items():
         model = build_model(get_smoke_config(arch))
         params = model.init(torch.Generator().manual_seed(0), device="cpu")
         c0 = model.init_cache(2, 8, dtype=torch.float32, device="cpu")
         cache = device_put(c0, cache_shardings(c0, mesh))
-        with pytest.raises(NotImplementedError, match="dense attention"):
-            sharded_prefill(model, params, {"tokens": torch.zeros((2, 4), dtype=torch.int64)},
-                            cache, mesh=mesh, rules=decode_rules(mesh))
+        with pytest.raises(NotImplementedError, match=f"tensor-parallel serving runs .*{why}"):
+            sharded_prefill(model, params, batch, cache, mesh=mesh, rules=decode_rules(mesh))
+    model = build_model(dataclasses.replace(get_smoke_config("jamba-v0.1-52b"),
+                                            moe_impl="ragged"))
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    c0 = model.init_cache(2, 8, dtype=torch.float32, device="cpu")
+    with pytest.raises(NotImplementedError, match="'ragged' is the data-parallel dropless"):
+        sharded_prefill(model, params, batch, device_put(c0, cache_shardings(c0, mesh)),
+                        mesh=mesh, rules=decode_rules(mesh))
     model = build_model(dataclasses.replace(get_smoke_config("qwen3-32b"), dtype="float32"))
     params = model.init(torch.Generator().manual_seed(0), device="cpu")
     c0 = model.init_cache(2, 8, dtype=torch.float32, device="cpu")

@@ -1475,6 +1475,25 @@ def set_gates(tree, value: float) -> None:
             node.fill_(value)
 
 
+def cross_extras(cfg, seed: int, dev: torch.device) -> dict:
+    """The stubbed frontend's output for a batch of ``SERVE_BATCH`` prompts,
+    bf16, drawn from ``seed``: whisper's ``frames``, the vlm's
+    ``image_embeds`` (normal rows plus one shared normal row per image,
+    ``CROSS_SERVE``); empty for the other families."""
+    m = memory_tokens(cfg)
+    if cfg.family == "audio":
+        key, shape = "frames", (SERVE_BATCH, m, cfg.d_model)
+    elif cfg.family == "vlm":
+        key, shape = "image_embeds", (SERVE_BATCH, m, cfg.image_embed_dim)
+    else:
+        return {}
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    memory_in = torch.randn(shape, generator=gen, device=dev)
+    if cfg.family == "vlm":  # one shared row per image (CROSS_SERVE)
+        memory_in += torch.randn((SERVE_BATCH, 1, shape[2]), generator=gen, device=dev)
+    return {key: memory_in.to(torch.bfloat16)}
+
+
 def cross_serve_phase(name: str, seed: int, dev: torch.device) -> dict:
     """A cross-attention config at full width through ``Server.generate``
     with its stubbed frontend's output as ``extras``, checked against the
@@ -1502,16 +1521,8 @@ def cross_serve_phase(name: str, seed: int, dev: torch.device) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     m = memory_tokens(cfg)
-    if cfg.family == "audio":
-        key, shape = "frames", (SERVE_BATCH, m, cfg.d_model)
-    else:
-        key, shape = "image_embeds", (SERVE_BATCH, m, cfg.image_embed_dim)
-    gen = torch.Generator(device=dev).manual_seed(seed + 1)
-    memory_in = torch.randn(shape, generator=gen, device=dev)
-    if cfg.family == "vlm":  # one shared row per image (CROSS_SERVE)
-        memory_in += torch.randn((SERVE_BATCH, 1, shape[2]), generator=gen, device=dev)
-    extras = {key: memory_in.to(torch.bfloat16)}
-    del memory_in
+    extras = cross_extras(cfg, seed, dev)
+    key, shape = next(iter(extras)), tuple(next(iter(extras.values())).shape)
     param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     param_count = _numel(params)
     # a decode step reads every weight but the encoder's and the embedding's
@@ -1741,33 +1752,37 @@ def flash_tensor_parallel_cases(normal) -> list[dict]:
     """The flash kernel at the shapes a tensor-parallel rank of the
     ``tensor_parallel`` phase launches it (``TP_FLASH_SHAPES``: qwen3-32b's,
     mixtral's and jamba's heads over 4 and 16 ranks, with one kv head at
-    16), causal (mixtral's with its window), bf16, each beside its plain
-    version and SDPA, with its bound; ``normal(*shape)`` draws the inputs."""
+    16, causal over the prompt (mixtral's with its window); the vlm's cross
+    layer, not causal over its memory of 1600 image tokens), bf16, each
+    beside its plain version and SDPA, with its bound; ``normal(*shape)``
+    draws the inputs."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
 
     b, l, d = SERVE_BATCH, SERVE_PROMPT, 128
     rows = []
-    for label, (h, hkv, window) in TP_FLASH_SHAPES.items():
-        q, k, v = normal(b, l, h, d), normal(b, l, hkv, d), normal(b, l, hkv, d)
-        got = fa.flash_attention(q, k, v, causal=True, window=window)
-        want = fa.flash_attention_ref(q, k, v, causal=True, window=window)
+    for label, (h, hkv, window, memory) in TP_FLASH_SHAPES.items():
+        causal, lk = not memory, memory or l
+        q, k, v = normal(b, l, h, d), normal(b, lk, hkv, d), normal(b, lk, hkv, d)
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        want = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
         err = float((got.float() - want.float()).abs().max())
         check(torch.allclose(got.float(), want.float(), **BF16_TOL),
               f"flash_attention {label} within {BF16_TOL} of its plain version ({err})")
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=causal,
             enable_gqa=True)
-        pairs = sum(min(i + 1, window or i + 1) for i in range(l))  # kept (q, k) pairs
+        pairs = (sum(min(i + 1, window or i + 1) for i in range(l)) if causal
+                 else l * lk)  # kept (q, k) pairs
         bound_ms, bound_by = bound(2 * (2 * q.numel() + k.numel() + v.numel()),
                                    4 * d * pairs * b * h, BF16_FLOPS_PER_S)
-        rows.append({"case": label, "shape_q": [b, l, h, d], "shape_kv": [b, l, hkv, d],
-                     "causal": True, "window": window, "max_abs_err": err,
+        rows.append({"case": label, "shape_q": [b, l, h, d], "shape_kv": [b, lk, hkv, d],
+                     "causal": causal, "window": window, "max_abs_err": err,
                      "tolerance": f"allclose {BF16_TOL}",
-                     **kernel_times(lambda: fa.flash_attention(q, k, v, causal=True,
+                     **kernel_times(lambda: fa.flash_attention(q, k, v, causal=causal,
                                                                window=window)),
-                     "plain_ms": cuda_ms(lambda: fa.flash_attention_ref(q, k, v, causal=True,
+                     "plain_ms": cuda_ms(lambda: fa.flash_attention_ref(q, k, v, causal=causal,
                                                                         window=window)),
                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": cuda_ms(sdpa),
                      "library_max_abs_diff": float(
@@ -4371,25 +4386,37 @@ def _sharded_decode_row(arch, model, params, toks, cache, base, base_ms, base_ca
 #: both (7 mamba2 layers of 128 heads, one attention layer, 4 MoE layers of
 #: 16 experts: 4 a rank, then 1).  mixtral-8x7b: 2 layers (16 virtual
 #: half-width experts: 4 a rank, then 1; its 4096-token window wider than
-#: the cached tokens).  At (1, 16) the SSM and MoE configs take 4 decode
-#: steps, not 16: each step's host work grows with ranks × layers (the ranks
-#: take turns on one card), and the prefill and a few steps already run
-#: every collective.  Each mesh runs the prefill of 8 512-token prompts and
-#: the steps under decode_rules (the cache's sequence over model:
+#: the cached tokens).  deepseek-v2-236b: 2 layers, the dense first and one
+#: MoE layer (its 128 MLA heads 32 a rank, then 8; the latent cache's 512
+#: columns 128 and 32 a rank under the heads layout; 160 experts 40, then
+#: 10).  whisper-tiny whole (4 encoder and 4 decoder layers; 6 heads divide
+#: neither axis: every rank computes the attention whole, its MLP columns
+#: split), fed 8 × 1500 frames.  llama-3.2-vision-11b: one period of 5
+#: layers (4 self-attention, 1 cross-attention to 1600 image tokens of
+#: 4096, which every decode step gets again, as the reference's server
+#: passes them; 8 kv heads 2 a rank, replicated at 16).  Every cross
+#: layer's gate is CROSS_GATE.  At (1, 16) the SSM, MoE, MLA and
+#: cross-attention configs take 4 decode steps, not 16: each step's host
+#: work grows with ranks × layers (the ranks take turns on one card), and
+#: the prefill and a few steps already run every collective.  Each mesh
+#: runs the prefill of 8 512-token prompts and the steps under
+#: decode_rules (the cache's sequence over model:
 #: context-parallel decode) and decode_rules_headsharded (cache_impl
 #: "heads_dus": its kv heads over model), against the unsharded
 #: Model.prefill / decode_step on the same weights, fed the unsharded run's
 #: greedy tokens: first in f32 (TP_F32_STEPS steps), the correctness check
 #: of every config, logits and cache within F32_LOGIT_TOL and the MoE routes
 #: the unsharded f32 run's but for at most F32_ROUTE_FLIPS (layer, token)
-#: pairs; then in bf16.  The unsharded runs come first; their params are then
-#: placed leaf by leaf, each whole leaf freed as its shards are made, so that
+#: pairs; then in bf16 (each row prints the unsharded bf16 run's distance
+#: from the unsharded f32 run).  The unsharded runs come first; their
+#: params are then placed leaf by leaf, each whole leaf freed as its shards are made, so that
 #: the card holds one copy (jamba's 26.5 GB in bf16, 53 GB in f32).  The bf16
 #: logits of the dense config differ by rounding only: each rank's partial
 #: products of wo and w_down round to bf16 before the ranks sum them, and
 #: the decode combine sums in f32 where the unsharded softmax rounds its
 #: probabilities to bf16; the tolerance is the qwen3 serve row's (0.25 at 8
-#: layers), as for the decomposed decode.  With SSM or MoE layers the bf16
+#: layers), as for the decomposed decode.  The same holds for whisper's and
+#: the vlm's attention, MLA-free and MoE-free.  With SSM or MoE layers the bf16
 #: errors are printed, not judged: the unsharded bf16 model is itself 1.47
 #: (mamba2-1.3b, 48 layers) to 2.30 (mixtral-8x7b, routes flipped at earlier
 #: positions) from its f32 run on an H100 (700 W), of logits of about 5, so
@@ -4402,6 +4429,9 @@ TP_RUNS = {
     "mamba2-1.3b": {(1, 4): (48, 16), (1, 16): (16, 4)},
     "jamba-v0.1-52b": {(1, 4): (8, 16), (1, 16): (8, 4)},
     "mixtral-8x7b": {(1, 4): (2, 16), (1, 16): (2, 4)},
+    "deepseek-v2-236b": {(1, 4): (2, 16), (1, 16): (2, 4)},
+    "whisper-tiny": {(1, 4): (4, 16), (1, 16): (4, 4)},
+    "llama-3.2-vision-11b": {(1, 4): (5, 16), (1, 16): (5, 4)},
 }
 TP_F32_STEPS = 4
 #: the MoE routes of a tensor-parallel f32 run may differ from the
@@ -4411,12 +4441,19 @@ TP_F32_STEPS = 4
 F32_ROUTE_FLIPS = 4
 TP_BF16_TOL = 0.25
 #: the flash kernel at the shapes a tensor-parallel rank launches it:
-#: label -> (H, Hkv, window) of q and k/v, (8, 512, H, 128), causal.
-#: mixtral's and jamba's 32 q heads and 8 kv heads give the same shapes
-#: (mixtral's window of 4096 masks nothing of a 512-token prompt)
-TP_FLASH_SHAPES = {"rank_of_4": (16, 2, 0), "rank_of_16": (4, 1, 0),
-                   "mixtral_jamba_rank_of_4": (8, 2, 4096),
-                   "mixtral_jamba_rank_of_16": (2, 1, 4096)}
+#: label -> (H, Hkv, window, memory) of q (8, 512, H, 128) and k/v (8, L,
+#: Hkv, 128): causal over the prompt (L 512) where memory is 0, else not
+#: causal over L = memory rows.  mixtral's and jamba's 32 q heads and 8 kv
+#: heads give the same shapes (mixtral's window of 4096 masks nothing of a
+#: 512-token prompt), as does the vlm's self-attention; the vlm's cross
+#: layer reads 2 of its 8 kv heads at (1, 4) and 1 of the 8, replicated,
+#: at (1, 16).  Whisper's 6 heads divide neither axis: its ranks launch the
+#: kernel at the whole layer's shapes (CROSS_FLASH_SHAPES)
+TP_FLASH_SHAPES = {"rank_of_4": (16, 2, 0, 0), "rank_of_16": (4, 1, 0, 0),
+                   "mixtral_jamba_rank_of_4": (8, 2, 4096, 0),
+                   "mixtral_jamba_rank_of_16": (2, 1, 4096, 0),
+                   "vlm_cross_rank_of_4": (8, 2, 0, 1600),
+                   "vlm_cross_rank_of_16": (2, 1, 0, 1600)}
 #: the SSD kernel at a rank's heads: label -> (heads, state), x (8, 512,
 #: heads, 64): mamba2-1.3b's 64 heads over 4 and 16 ranks, jamba's 128
 TP_SSD_SHAPES = {"mamba2_rank_of_4": (16, 128), "mamba2_rank_of_16": (4, 128),
@@ -4424,26 +4461,42 @@ TP_SSD_SHAPES = {"mamba2_rank_of_4": (16, 128), "mamba2_rank_of_16": (4, 128),
 
 
 def _tp_rank_param_bytes(cfg, n: int) -> int:
-    """Closed form of one rank's parameter bytes (bf16 products, f32 norms,
-    ``A_log`` and ``dt_bias``) on a model axis of ``n``, as
-    ``params_shardings`` lays them out: the vocabulary, the q heads, the
-    MLP columns, the SSM heads and the (virtual) experts split n ways where
-    n divides them, else whole, as are the kv heads; the SSM's B/C
-    projections and convolutions and the router whole."""
+    """Closed form of one rank's parameter bytes (bf16 products, biases,
+    gates; f32 norms, ``A_log`` and ``dt_bias``) on a model axis of ``n``,
+    as ``params_shardings`` lays them out: the vocabulary (a tied head's
+    ``embed`` once), the q heads (MLA's ``wq_b``, ``wk_b`` and ``wv_b`` by
+    heads), the MLP columns (``dense_d_ff`` in deepseek-v2's dense layer,
+    the shared experts' ``s·F``), the SSM heads and the (virtual) experts
+    split n ways where n divides them, else whole, as are the kv heads
+    (cross-attention's ``wk_mem``/``wv_mem`` too); the SSM's B/C
+    projections and convolutions, MLA's ``wq_a`` and ``wkv_a``, the router
+    and every norm whole; the encoder's layers as the decoder's."""
     d, dh, h, hkv = cfg.d_model, cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    norm = 2 if cfg.norm == "layernorm" else 1  # a weight, and a bias for layernorm
 
     def part(width: int) -> int:  # a dim split n ways where n divides it
         return width // n if width % n == 0 else width
 
     bf16 = part(cfg.padded_vocab) * d * (1 if cfg.tie_embeddings else 2)  # embed, lm_head
-    f32 = d  # the final norm
-    for seg in cfg.segments():
+    f32 = norm * d * (2 if cfg.encoder_layers else 1)  # the final norms
+    for seg in (*cfg.segments(), *cfg.encoder_segments()):
         for spec in seg.period:
             r = seg.repeats
-            f32 += r * d * (1 if spec.mlp == "none" else 2)  # ln1, ln2
-            if spec.mixer == "attn":
-                bf16 += r * 2 * d * part(h) * dh + r * 2 * d * part(hkv) * dh
+            ln2 = spec.mlp != "none" and not cfg.parallel_block
+            f32 += r * norm * d * (2 if ln2 else 1)  # ln1, ln2
+            if spec.mixer in ("attn", "enc_attn", "cross_attn"):
+                mem_d = cfg.image_embed_dim if (spec.mixer == "cross_attn"
+                                                and cfg.family == "vlm") else d
+                bf16 += r * (2 * d * part(h) * dh + 2 * mem_d * part(hkv) * dh)
+                if cfg.qkv_bias and spec.mixer != "cross_attn":
+                    bf16 += r * (part(h) + 2 * part(hkv)) * dh
+                bf16 += r if spec.mixer == "cross_attn" else 0  # the gate
                 f32 += r * 2 * dh if cfg.qk_norm else 0
+            elif spec.mixer == "mla":
+                kr, qr, rh = cfg.kv_lora_rank, cfg.q_lora_rank, cfg.rope_head_dim
+                bf16 += r * ((d * qr if qr else 0) + (qr or d) * part(h) * (dh + rh)
+                             + d * (kr + rh) + 2 * kr * part(h) * dh + part(h) * dh * d)
+                f32 += r * (qr + kr)  # q_norm_a, kv_norm_a
             else:  # mamba2
                 din, nn, w = cfg.ssm_expand * d, cfg.ssm_state, cfg.ssm_conv_width
                 nh = din // cfg.ssm_head_dim
@@ -4456,6 +4509,8 @@ def _tp_rank_param_bytes(cfg, n: int) -> int:
                 vs = cfg.moe_virtual_split
                 bf16 += r * (d * cfg.moe_experts
                              + 3 * part(cfg.moe_experts * vs) * d * (cfg.moe_d_ff // vs))
+                if cfg.moe_shared_experts:
+                    bf16 += r * 3 * d * part(cfg.moe_shared_experts * cfg.moe_d_ff)
     return 2 * bf16 + 4 * f32
 
 
@@ -4544,7 +4599,8 @@ def _tensor_parallel_rows(arch: str, shape: tuple, layers: int, steps: int, seed
     from repro_torch.models import build_model
 
     n = shape[1]
-    max_len = SERVE_PROMPT + steps
+    # the cache's rows a multiple of the model axis, so that the seq layout splits them
+    max_len = -(-(SERVE_PROMPT + steps) // n) * n
     f32_steps = min(TP_F32_STEPS, steps)
     cfg = dataclasses.replace(get_config(arch), num_layers=layers, attn_impl="flash")
     counts = layer_counts(cfg)
@@ -4559,34 +4615,41 @@ def _tensor_parallel_rows(arch: str, shape: tuple, layers: int, steps: int, seed
     mesh = compat_make_mesh(shape, ("data", "model"), devices=(dev,))
     layouts = (("seq", decode_rules(mesh)), ("heads", decode_rules_headsharded(mesh)))
     name = f"{arch}/{shape[0]}x{shape[1]}"
-    expected = {"flash_attention": mesh.size * counts.get("attn", 0),
+    prompt_attention = sum(counts.get(m, 0) for m in ("attn", "enc_attn", "cross_attn"))
+    expected = {"flash_attention": mesh.size * prompt_attention,
                 "ssd_scan": mesh.size * counts.get("mamba2", 0)}
+    # whisper's frames or the vlm's image embeddings, and the vlm's decode steps' memory
+    extras = {"bf16": cross_extras(cfg, seed, dev)}
+    extras["f32"] = {k: t.float() for k, t in extras["bf16"].items()}
+    memory = {kind: ex.get("image_embeds") for kind, ex in extras.items()}
 
     def init():
-        return models["bf16"].init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+        params = models["bf16"].init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+        set_gates(params, CROSS_GATE)
+        return params
 
     def recorded(fn):  # fn()'s result and the MoE routes it recorded (None: no MoE)
         return _recording_routes(fn) if moe_layers else (fn(), None)
 
     def unsharded(params, kind, toks, steps=steps):
-        model = models[kind]
+        model, batch, mem = models[kind], {"tokens": prompts, **extras[kind]}, memory[kind]
         cache = model.init_cache(SERVE_BATCH, max_len, dtype=cache_dtype[kind], device=dev)
         with torch.no_grad():
-            return _greedy_run(lambda: model.prefill(params, {"tokens": prompts}, cache)[0],
-                               lambda tok, pos: model.decode_step(params, cache, tok, pos)[0],
+            return _greedy_run(lambda: model.prefill(params, batch, cache)[0],
+                               lambda tok, pos: model.decode_step(params, cache, tok, pos,
+                                                                  mem)[0],
                                toks, steps) + (cache,)
 
     def sharded(placed, kind, rules, layout, toks, steps=steps):
-        model = models[kind]
+        model, batch, mem = models[kind], {"tokens": prompts, **extras[kind]}, memory[kind]
         c0 = model.init_cache(SERVE_BATCH, max_len, dtype=cache_dtype[kind], device=dev)
         cache = device_put(c0, cache_shardings(c0, mesh, layout=layout))
         del c0
         with torch.no_grad():
             return _greedy_run(
-                lambda: sharded_prefill(model, placed, {"tokens": prompts}, cache, mesh=mesh,
-                                        rules=rules)[0],
-                lambda tok, pos: sharded_decode_step(model, placed, cache, tok, pos, mesh=mesh,
-                                                     rules=rules)[0],
+                lambda: sharded_prefill(model, placed, batch, cache, mesh=mesh, rules=rules)[0],
+                lambda tok, pos: sharded_decode_step(model, placed, cache, tok, pos, mem,
+                                                     mesh=mesh, rules=rules)[0],
                 toks, steps) + (cache,)
 
     def compare(got, base, got_routes, base_routes):
@@ -4620,6 +4683,8 @@ def _tensor_parallel_rows(arch: str, shape: tuple, layers: int, steps: int, seed
     free()
     (base32, _, _, _, _, base32_cache), base32_routes = recorded(
         lambda: unsharded(params, "f32", toks, steps=f32_steps))
+    # how far rounding alone moves the unsharded model: its bf16 logits from its f32 ones
+    bf16_vs_f32 = float((base[:, :f32_steps + 1, :v].float() - base32[..., :v]).abs().max())
 
     # ---- tensor-parallel f32 under both rule sets: the correctness check ----
     placed = _place_consuming(params, params_shardings(params, mesh, fsdp_axis=None))
@@ -4640,7 +4705,8 @@ def _tensor_parallel_rows(arch: str, shape: tuple, layers: int, steps: int, seed
               "cache_vs_unsharded_relative": cache32_err,
               "held_positions": int(held32.sum()), "compared_positions": int(held32.numel()),
               "route_mismatches_by_layer": flips32, "route_mismatches_allowed": F32_ROUTE_FLIPS,
-              "logit_max_abs": float(base32[..., :v].abs().max())})
+              "logit_max_abs": float(base32[..., :v].abs().max()),
+              "unsharded_bf16_vs_f32": bf16_vs_f32})
         del got32, cache32, routes32
         free()
         check(sum(flips32 or [0]) <= F32_ROUTE_FLIPS,
@@ -4699,6 +4765,7 @@ def _tensor_parallel_rows(arch: str, shape: tuple, layers: int, steps: int, seed
               "launches": launches, "launches_expected": expected,
               "unsharded_launches": base_launches,
               "logit_tol": TP_BF16_TOL if dense_only else None,
+              "unsharded_bf16_vs_f32": bf16_vs_f32,
               "prefill_vs_unsharded": prefill_err, "decode_vs_unsharded": decode_err,
               "cache_vs_unsharded": cache_err,
               "held_positions": int(held.sum()), "compared_positions": int(held.numel()),

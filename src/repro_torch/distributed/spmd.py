@@ -905,11 +905,13 @@ MODEL_AXIS = "model"
 class TensorParallel:
     """A serving rank's tensor-parallel context, which the model's layers
     read inside the body of :func:`sharded_prefill` and
-    :func:`sharded_decode_step` (``models/layers.py``, ``models/ssm.py``,
-    ``models/moe.py``, ``models/lm.py``): how the attention layers' decode
-    cache lies over :data:`MODEL_AXIS`: ``kv_seq_split``, its sequence
-    (``cache_shardings(layout="seq")``, context parallelism), or
-    ``kv_heads_split``, its kv heads (``layout="heads"``); and
+    :func:`sharded_decode_step` (``models/layers.py``, ``models/mla.py``,
+    ``models/ssm.py``, ``models/moe.py``, ``models/lm.py``): how the
+    attention layers' decode cache lies over :data:`MODEL_AXIS`:
+    ``kv_seq_split``, its sequence (``cache_shardings(layout="seq")``,
+    context parallelism), or, under ``layout="heads"``,
+    ``kv_heads_split``, the kv heads of ``k``/``v``, and ``latent_split``,
+    the latent (and rope) dim of MLA's ``ckv``/``krope``; and
     ``data_axes``, the axes the batch rows are split over (the MoE layer
     groups the tokens of the whole batch, as the reference's ``jax.jit``
     does)."""
@@ -917,6 +919,7 @@ class TensorParallel:
     kv_seq_split: bool = False
     kv_heads_split: bool = False
     data_axes: tuple[str, ...] = ()
+    latent_split: bool = False
 
 
 def tensor_parallel() -> TensorParallel | None:
@@ -954,29 +957,40 @@ def _gather_spec(spec: PartitionSpec, keep: tuple[str, ...] = ()) -> PartitionSp
     return P(*gather)
 
 
-def _kv_cache_layout(cache: Any, cache_specs: Any) -> tuple[bool, bool]:
-    """(sequence split, kv heads split) over the model axis of the
-    attention layers' ``k`` leaves (``(.., B, S, Hkv, Dh)``) laid out by
-    ``cache_specs``; (False, False) for a cache with none."""
+def _kv_cache_layout(cache: Any, cache_specs: Any) -> tuple[bool, bool, bool]:
+    """(sequence split, kv heads split, latent split) over the model axis
+    of the attention layers' ``k`` leaves (``(.., B, S, Hkv, Dh)``) and the
+    MLA layers' ``ckv``/``krope`` leaves (``(.., B, S, R)``: the sequence,
+    or the latent and rope dim under ``layout="heads"``) laid out by
+    ``cache_specs``; all False for a cache with none.  The leaves must all
+    lie alike: a layer whose cache is whole beside one whose cache is split,
+    or a latent split beside a rope dim kept whole, is refused."""
     from repro_torch.distributed.sharding import _map_with_path
 
-    found: list[tuple[bool, bool]] = []
+    found: dict[tuple[bool, bool], list[str]] = {}
+    kinds: set[str] = set()
     specs: list = []
     tree_map(lambda _, spec: specs.append(spec), cache, cache_specs)
     it = iter(specs)
 
     def one(path, leaf):
         spec = next(it)
-        if path and path[-1] == "k":
-            nb = len(leaf.shape) - 4
-            entry = lambda d: spec[d] if d < len(spec) else None  # noqa: E731
-            found.append((entry(nb + 1) == MODEL_AXIS, entry(nb + 2) == MODEL_AXIS))
+        name = path[-1] if path else None
+        base = {"k": 4, "ckv": 3, "krope": 3}.get(name)
+        if base is None:
+            return
+        kinds.add("k" if name == "k" else "latent")
+        nb = len(leaf.shape) - base
+        entry = lambda d: spec[d] if d < len(spec) else None  # noqa: E731
+        split = (entry(nb + 1) == MODEL_AXIS, entry(nb + 2) == MODEL_AXIS)
+        found.setdefault(split, []).append("/".join(map(str, path)))
 
     _map_with_path(one, cache)
-    if len(set(found)) > 1:
-        raise ValueError(f"the attention layers' caches lie differently over the model axis: "
-                         f"{found}")
-    return found[0] if found else (False, False)
+    if len(found) > 1:
+        raise ValueError(f"the attention layers' caches lie differently over the model axis "
+                         f"(sequence, heads or latent split: leaves): {found}")
+    seq, heads = next(iter(found)) if found else (False, False)
+    return seq, heads and "k" in kinds, heads and "latent" in kinds
 
 
 def serving_body(model: Any, mesh: Mesh, params: Any, param_specs: Any, cache: Any,
@@ -994,10 +1008,11 @@ def serving_body(model: Any, mesh: Mesh, params: Any, param_specs: Any, cache: A
     logits are the rank's rows and vocabulary columns, ``P(dp, "model")``.
 
     It runs the models ``Model.tensor_parallel_refusal`` admits: attention
-    (windowed or not) and Mamba2 mixers, with SwiGLU, capacity-bucketed
-    MoE (``moe_impl="onehot"``) or no MLPs (the refusal names what else it
-    refuses), under ``decode_rules`` or
-    ``decode_rules_headsharded``; not under ``long_decode_rules``."""
+    (windowed or not, the encoder's too), MLA, cross-attention and Mamba2
+    mixers, with SwiGLU, capacity-bucketed MoE (``moe_impl="onehot"``) or
+    no MLPs (the refusal names what else it refuses), under
+    ``decode_rules`` or ``decode_rules_headsharded``; not under
+    ``long_decode_rules``."""
     from repro_torch.distributed.sharding import use_rules
 
     refusal = model.tensor_parallel_refusal()
@@ -1014,10 +1029,10 @@ def serving_body(model: Any, mesh: Mesh, params: Any, param_specs: Any, cache: A
     if any(tree_leaves(tree_map(lambda _, s: any(_gather_spec(s, dp)), cache, cache_specs))):
         raise ValueError("a tensor-parallel rank writes its own cache block: the cache may be "
                          "split over the model and batch axes only")
-    seq_split, heads_split = _kv_cache_layout(cache, cache_specs)
+    seq_split, heads_split, latent_split = _kv_cache_layout(cache, cache_specs)
     if mesh.shape[MODEL_AXIS] == 1:  # one rank holds everything: the layers call no collective
-        seq_split = heads_split = False
-    tp = TensorParallel(seq_split, heads_split, dp)
+        seq_split = heads_split = latent_split = False
+    tp = TensorParallel(seq_split, heads_split, dp, latent_split)
 
     def body(params_l, batch_l, cache_l):
         full = tree_map(gathered, params_l, gather)
@@ -1054,11 +1069,13 @@ def sharded_prefill(model: Any, params: Any, batch: dict[str, torch.Tensor], cac
     ``params`` are :class:`ShardedTensor` leaves placed by
     ``params_shardings`` (a plain tensor is replicated), ``cache`` is placed
     by ``cache_shardings(layout="seq" | "heads")`` on ``mesh``, and the
-    batch's leaves are split over ``(pod, data)``.  Each rank gathers only
-    the ``fsdp`` dims of its params and runs the model on its shards: its
-    heads, its MLP columns and its vocabulary rows, with the ``model``
-    collectives in the layers (``models/layers.py``), and writes its own
-    block of the cache in place.  Returns the last position's logits,
+    batch's leaves (``tokens``, and whisper's ``frames`` or the vlm's
+    ``image_embeds``) are split over ``(pod, data)``.  Each rank gathers
+    only the ``fsdp`` dims of its params and runs the model on its shards:
+    its heads, its MLP columns, its experts and its vocabulary rows, with
+    the ``model`` collectives in the layers (``models/layers.py``,
+    ``mla.py``, ``ssm.py``, ``moe.py``), and writes its own block of the
+    cache in place.  Returns the last position's logits,
     assembled from the ranks' ``P(dp, "model")`` blocks on rank 0's device,
     and the cache.
     """
@@ -1066,13 +1083,18 @@ def sharded_prefill(model: Any, params: Any, batch: dict[str, torch.Tensor], cac
                   mesh=mesh, rules=rules)
 
 
-def sharded_decode_step(model: Any, params: Any, cache: Any, token: torch.Tensor, pos: int, *,
-                        mesh: Mesh, rules: Any) -> tuple[torch.Tensor, Any]:
+def sharded_decode_step(model: Any, params: Any, cache: Any, token: torch.Tensor, pos: int,
+                        memory: torch.Tensor | None = None, *, mesh: Mesh,
+                        rules: Any) -> tuple[torch.Tensor, Any]:
     """``model.decode_step`` tensor-parallel over the mesh's ``model``
     axis, as :func:`sharded_prefill` runs the prefill: the token ``(B, 1)``
-    split over ``(pod, data)``, the cache updated in place.  Under the
-    ``seq`` layout decode attention is context-parallel (each rank attends
-    to its own cache rows and the ranks combine their softmax partials);
-    under ``heads`` each rank attends with its own heads."""
-    return _serve(model, params, {"token": token}, cache,
-                  lambda p, b, c: model.decode_step(p, c, b["token"], pos), mesh=mesh, rules=rules)
+    and ``memory`` (B, M, Dm), the vlm's ``image_embeds`` that the
+    reference's server passes every step, split over ``(pod, data)``; the
+    cache updated in place.  Under the ``seq`` layout decode attention is
+    context-parallel (each rank attends to its own cache rows and the ranks
+    combine their softmax partials); under ``heads`` each rank attends with
+    its own heads (MLA: its heads over the latent all-gathered)."""
+    batch = {"token": token} if memory is None else {"token": token, "memory": memory}
+    return _serve(model, params, batch, cache,
+                  lambda p, b, c: model.decode_step(p, c, b["token"], pos, b.get("memory")),
+                  mesh=mesh, rules=rules)

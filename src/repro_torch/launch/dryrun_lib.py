@@ -13,14 +13,14 @@ reference's alike.
 the params, the optimizer state, the cache and the batch as the reference
 places them (``params_shardings``, ``cache_shardings``, the batch over
 ``(pod, data)``) and runs the port's step on its share of the batch.  The
-serving cells of the models ``Model.tensor_parallel_refusal`` admits (the
-dense, SSM, hybrid and MoE families: every config but MLA, whisper's
-encoder and cross-attention; not under ``long_decode_rules``) run the
-tensor-parallel rank program of ``spmd.sharded_prefill`` and
-``sharded_decode_step`` (``spmd.serving_body``): the rank keeps its heads,
-SSM heads, MLP columns, experts and vocabulary rows split over ``model``
-and its own cache block, gathers only the ``fsdp`` dims, and the layers
-call the ``model`` collectives.  Every other cell is data-parallel: the
+serving cells of the models ``Model.tensor_parallel_refusal`` admits
+(every config with the onehot MoE; not under ``long_decode_rules``) run
+the tensor-parallel rank program of ``spmd.sharded_prefill`` and
+``sharded_decode_step`` (``spmd.serving_body``): the rank keeps its heads
+(MLA's, the encoder's and cross-attention's too), SSM heads, MLP columns,
+experts and vocabulary rows split over ``model`` and its own cache block,
+gathers only the ``fsdp`` dims, and the layers call the ``model``
+collectives.  Every other cell is data-parallel: the
 rank gathers with ``all_gather`` what the port's model needs whole.
 
 * train — the params gathered, :func:`~repro_torch.optim.accumulate_gradients`
@@ -136,7 +136,9 @@ COST_BASIS = {
         "(pod, data); heads, SSM heads, MLP columns, experts and vocabulary rows split over "
         "model as params_shardings places them, only fsdp dims gathered; the rank's own cache "
         "block; the SSD kernel's formula at the rank's heads; the mamba2 B/C projections and "
-        "C·Bᵀ and the MoE router whole on every rank); " + _COUNTS),
+        "C·Bᵀ, the MoE router and a decode step's MLA down-projections whole on every rank; "
+        "a prompt's MLA down-projections and replicated k/v or memory projections by "
+        "sequence rows; MLA's K/V decompressed at the rank's heads); " + _COUNTS),
 }
 COLLECTIVES_BASIS = {
     "data_parallel": (
@@ -146,10 +148,12 @@ COLLECTIVES_BASIS = {
         "census of the collectives rank 0's program calls: the model all-reduces after the "
         "row-split products (attention output, MLP down, mamba2 w_out, the experts' partial "
         "combine), of the mamba2 gated norm's sum of squares and of the vocabulary-split "
-        "embedding, the all-gathers of the kv rows or heads and of the mamba2 conv cache "
-        "blocks with the ranks' last x inputs, the MoE token rows' all-gather over the data "
-        "axes where a rank's rows are not whole dispatch groups, in decode the q heads' "
-        "all-gather and the context-parallel combine (a max and a sum); the fsdp gathers"),
+        "embedding, the all-gathers of the kv rows or heads (the memory's too), of a prompt's "
+        "MLA latent rows and of the mamba2 conv cache blocks with the ranks' last x inputs, "
+        "the MoE token rows' all-gather over the data axes where a rank's rows are not whole "
+        "dispatch groups, in decode the q heads' (MLA: q_lat and q_rope) all-gather and the "
+        "context-parallel combine (a max and a sum), or the MLA latent's all-gather under "
+        "the heads layout; the fsdp gathers"),
 }
 MEMORY_BASIS = (
     "per-rank shard shapes of the arguments and outputs as the reference places them; "

@@ -18,6 +18,8 @@ params dict with the JAX package's names and layouts (attention weights
   on them with the ``model`` collectives where the reference's GSPMD
   partition puts them: a ``psum`` after the row-split ``wo`` and ``w_down``
   products (:func:`_attention_tp`, the sliding window's ring included).
+  :func:`cross_attention` splits its q heads and ``wo`` the same way and
+  projects the memory whole into the cache (:func:`_cross_attention_tp`).
   Outside such a body nothing here calls a collective, as the reference's
   ``shard(...)`` is the identity outside a rules context;
 * the decode cache is updated in place: a one-row write at the slot into the
@@ -384,8 +386,11 @@ def cross_attention(
     in place (prefill; a vlm decode step re-projects and rewrites them, as
     the reference does); without it they are read from the cache (decode).
     qk-norm applies to q and the projected memory; there is no RoPE; the
-    output is scaled by ``tanh(gate)``.
+    output is scaled by ``tanh(gate)``.  On a rank of a tensor-parallel
+    body: :func:`_cross_attention_tp`.
     """
+    if tensor_parallel() is not None:
+        return _cross_attention_tp(p, cfg, x, cache=cache, memory=memory), cache
     dt = x.dtype
     q = torch.einsum("bld,dhk->blhk", x, p["wq"].to(dt))
     if memory is not None:
@@ -544,20 +549,53 @@ def _kv_for_heads(t: torch.Tensor, q0: int, hq: int, group: int) -> torch.Tensor
     return t.index_select(2, torch.arange(q0, q0 + hq, device=t.device) // group)
 
 
+def combine_context_parallel(s: torch.Tensor, mask: torch.Tensor,
+                             value) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The softmax of scores whose keys are split over the model axis, from
+    this rank's f32 scores ``s`` (keys last) of its own keys, attended where
+    ``mask``: each rank keeps its row maximum, its sum of exponentials and
+    its unnormalised output ``value(p)`` for its weights ``p``; the ranks
+    take the maximum (``pmax``) and sum the sums and outputs rescaled to it
+    (one ``psum``).  Returns (the sum, the output, the maximum), each
+    keeping the keys' dim as 1."""
+    s = torch.where(mask, s, -1e30)
+    mx = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - mx).masked_fill(~mask, 0.0)
+    total = pmax(mx, MODEL_AXIS)
+    rescale = torch.exp(mx - total)
+    lsum, o = psum((p.sum(dim=-1, keepdim=True) * rescale, value(p) * rescale), MODEL_AXIS)
+    return lsum, o, total
+
+
+def sequence_parallel(f, *ts: torch.Tensor) -> torch.Tensor:
+    """``f(*ts)`` for a function ``f`` that maps tensors (B, L, ...) row by
+    row, on a rank of a tensor-parallel body: the rank maps its share of
+    the L rows (equal shares, the last padded) and the ranks all-gather
+    them; one rank maps them all."""
+    n, rank = axis_size(MODEL_AXIS), axis_index(MODEL_AXIS)
+    if n == 1:
+        return f(*ts)
+    l = ts[0].shape[1]
+    chunk = -(-l // n)
+    lo, hi = min(rank * chunk, l), min((rank + 1) * chunk, l)
+    t = f(*(u[:, lo:hi] for u in ts))
+    pad = t.new_zeros((t.shape[0], chunk - (hi - lo), *t.shape[2:]))
+    return all_gather(torch.cat([t, pad], 1), MODEL_AXIS, axis=1, tiled=True)[:, :l]
+
+
 def _sdpa_context_parallel(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor, *, rows0: int,
                            kv_len: int, new: tuple[torch.Tensor, torch.Tensor] | None = None,
                            slot: int = -1) -> torch.Tensor:
     """Decode attention of ``q`` (B, 1, H, Dh) over a cache whose rows are
     split over the model axis: this rank's block ``kc``/``vc`` (B, S_l,
     Hkv, Dh) holds global rows ``[rows0, rows0 + S_l)``, of which rows below
-    ``kv_len`` but row ``slot`` are attended.  Each rank keeps its row
-    maximum, its sum of exponentials and its unnormalised output (f32); the
-    ranks take the maximum (``pmax``) and sum the sums and outputs rescaled
-    to it (one ``psum``).  ``new``, the new token's k/v row (B, 1, Hkv, Dh)
-    not yet in the cache (the ``"decomposed"`` cache, which passes the ring
-    ``slot`` the row will take: it holds the evicted token once a window
-    wraps), then joins the softmax on every rank, as the reference's
-    replicated score of the new token does."""
+    ``kv_len`` but row ``slot`` are attended, their softmax partials
+    combined by :func:`combine_context_parallel` (f32).  ``new``, the new
+    token's k/v row (B, 1, Hkv, Dh) not yet in the cache (the
+    ``"decomposed"`` cache, which passes the ring ``slot`` the row will
+    take: it holds the evicted token once a window wraps), then joins the
+    softmax on every rank, as the reference's replicated score of the new
+    token does."""
     b, lq, h, dh = q.shape
     hkv = kc.shape[2]
     qg = q.reshape(b, lq, hkv, h // hkv, dh)
@@ -567,13 +605,8 @@ def _sdpa_context_parallel(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor, 
     mask = rows < kv_len
     if slot >= 0:
         mask &= rows != slot
-    s = torch.where(mask, s, -1e30)
-    mx = s.amax(dim=-1, keepdim=True)                          # (B, Hkv, G, 1, 1)
-    p = torch.exp(s - mx).masked_fill(~mask, 0.0)
-    total = pmax(mx, MODEL_AXIS)
-    rescale = torch.exp(mx - total)
-    o = torch.einsum("bhgqk,bkhd->bhgqd", p, vc.to(torch.float32))
-    lsum, o = psum(((p.sum(dim=-1, keepdim=True) * rescale), o * rescale), MODEL_AXIS)
+    lsum, o, total = combine_context_parallel(
+        s, mask, lambda w: torch.einsum("bhgqk,bkhd->bhgqd", w, vc.to(torch.float32)))
     if new is not None:
         s_new = torch.einsum("bqhgd,bkhd->bhgqk", qg, new[0]).to(torch.float32) * scale
         top = torch.maximum(total, s_new)
@@ -711,3 +744,63 @@ def _attention_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, tp, cos: torch.T
         out = _prefill_attention(q, k, v, causal=causal, window=window, cfg=cfg)
     out = torch.einsum("blhk,hkd->bld", out, p["wo"].to(x.dtype))
     return psum(out, MODEL_AXIS) if o_split else out
+
+
+def _cross_attention_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, *, cache: Params | None,
+                        memory: torch.Tensor | None) -> torch.Tensor:
+    """:func:`cross_attention` on a rank of a tensor-parallel serving body,
+    on the rank's shards.
+
+    The rank's q heads come from its slice of ``wq``, and ``wo``'s matching
+    rows give a partial output that is summed over the model axis, then
+    scaled by ``tanh(gate)``.  The cache's ``k_mem``/``v_mem`` hold every
+    head of the rank's batch rows (``cache_shardings`` splits them over the
+    batch only), so a projection of ``memory`` (a prompt's, or a vlm decode
+    step's ``image_embeds``) is made whole: ``wk_mem``/``wv_mem`` split by
+    kv heads project the rank's heads, which the ranks all-gather; kept
+    whole (the kv heads do not divide the axis), they project the rank's
+    share of the memory rows (:func:`sequence_parallel`).  The rank then attends with its q heads to the kv heads they
+    read (:func:`_kv_for_heads`), flash on a prompt."""
+    heads, kv_heads = cfg.num_heads, cfg.num_kv_heads
+    group = heads // kv_heads
+    hq = p["wq"].shape[1]
+    q_split, kv_split = hq != heads, p["wk_mem"].shape[1] != kv_heads
+    o_split = p["wo"].shape[0] != heads
+    if q_split != o_split or (kv_split and not q_split):
+        raise ValueError(f"cross_attention: wq {tuple(p['wq'].shape)}, wk_mem "
+                         f"{tuple(p['wk_mem'].shape)} and wo {tuple(p['wo'].shape)} are split "
+                         f"unlike params_shardings splits them")
+    q0 = axis_index(MODEL_AXIS) * hq if q_split else 0
+    dt = x.dtype
+    q = torch.einsum("bld,dhk->blhk", x, p["wq"].to(dt))
+    if memory is not None:
+
+        def project(w: str) -> torch.Tensor:
+            proj = lambda m: _einsum("bmd,dhk->bmhk", m, p[w].to(dt))  # noqa: E731
+            if kv_split:
+                return all_gather(proj(memory), MODEL_AXIS, axis=2, tiled=True)
+            return sequence_parallel(proj, memory)
+
+        kk, vv = project("wk_mem"), project("wv_mem")
+        if cache is not None:
+            for name, t in (("k_mem", kk), ("v_mem", vv)):
+                if cache[name].shape != t.shape:
+                    raise ValueError(f"cross_attention: memory gives {name} {tuple(t.shape)}, "
+                                     f"the rank's cache block holds {tuple(cache[name].shape)}")
+                cache[name].copy_(t)
+    else:
+        kk, vv = cache["k_mem"].to(dt), cache["v_mem"].to(dt)
+    kk, vv = _kv_for_heads(kk, q0, hq, group), _kv_for_heads(vv, q0, hq, group)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        kk = rms_norm(kk, p["k_norm"])
+    t = torch.promote_types(q.dtype, kk.dtype)
+    q, kk, vv = q.to(t), kk.to(t), vv.to(t)
+    if q.shape[1] == 1 and cache is not None:  # decode: one row against the memory
+        out = _sdpa(q, kk, vv, causal=False)
+    else:
+        out = _prefill_attention(q, kk, vv, causal=False, window=0, cfg=cfg)
+    out = _einsum("blhk,hkd->bld", out, p["wo"].to(dt))
+    if o_split:
+        out = psum(out, MODEL_AXIS)
+    return torch.tanh(p["gate"].to(dt)) * out

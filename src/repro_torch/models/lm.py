@@ -38,13 +38,17 @@ updates f32 master weights, where a bf16 leaf would round every update.
 
 **Tensor parallelism.**  Inside the serving body of
 ``repro_torch.distributed.spmd.sharded_prefill`` and ``sharded_decode_step``
-(for the models ``Model.tensor_parallel_refusal`` admits: attention, windowed
-or not, and Mamba2 mixers with SwiGLU, onehot MoE or no MLPs) a rank looks
-its tokens up in its rows of a vocabulary-split ``embed`` and sums the
-embeddings over ``model``, and computes the logits of its vocabulary
-columns, the padding masked by global column; ``layers.py`` splits the
-attention heads and the MLP, ``ssm.py`` the SSM heads, ``moe.py`` the
-experts.  Outside such a body nothing changes.
+(for the models ``Model.tensor_parallel_refusal`` admits: every config
+of the repo with the onehot MoE) a rank looks its tokens up in its rows of
+a vocabulary-split ``embed`` and sums the embeddings over ``model``, and
+computes the logits of its vocabulary columns (a tied head's are its rows
+of ``embed``), the padding masked by global column; ``layers.py`` splits
+the attention heads (the encoder's and cross-attention's too) and the MLP
+(``dense_d_ff`` for deepseek-v2's dense first layer), ``mla.py`` MLA's
+heads and latent cache, ``ssm.py`` the SSM heads, ``moe.py`` the experts.
+Whisper's encoder runs in the body: its layers sum their partials over
+``model``, so every rank ends with the whole memory of its batch rows.
+Outside such a body nothing changes.
 
 **Recomputation.**  ``forward(..., remat=True)`` (which ``loss`` uses, as
 the reference's does) checkpoints each period of the decoder's segments by
@@ -294,16 +298,14 @@ class Model:
         """Why the tensor-parallel serving body
         (``repro_torch.distributed.spmd.sharded_prefill``) does not run this
         model, or None where it does: every layer's mixer self-attention
-        (windowed or not) or Mamba2, and its MLP SwiGLU, capacity-bucketed
-        MoE or none."""
+        (windowed or not; the encoder's), MLA, cross-attention or Mamba2,
+        and its MLP SwiGLU, capacity-bucketed MoE or none."""
         cfg = self.cfg
-        runs = ("tensor-parallel serving runs attention (windowed or not) and mamba2 "
-                "mixers with SwiGLU, onehot MoE or no MLPs")
-        if cfg.encoder_layers:
-            return f"{runs}; the encoder's layers are not ported"
-        for seg in cfg.segments():
+        runs = ("tensor-parallel serving runs attention (windowed or not, the encoder's), "
+                "mla, cross_attn and mamba2 mixers with SwiGLU, onehot MoE or no MLPs")
+        for seg in (*cfg.segments(), *cfg.encoder_segments()):
             for s in seg.period:
-                if s.mixer not in ("attn", "mamba2"):
+                if s.mixer not in ("attn", "enc_attn", "mla", "cross_attn", "mamba2"):
                     return f"{runs}; {s.mixer} layers are not ported"
                 if s.mlp == "moe" and cfg.moe_impl != "onehot":
                     return (f"{runs}; moe_impl={cfg.moe_impl!r} is the data-parallel "

@@ -226,10 +226,18 @@ def primitives(out: dict) -> None:
 #: the tensor-parallel serving case: the smoke configs in f32 (qwen3's and
 #: mixtral's 2 kv heads do not divide the 4-way model axis, deepseek's 4 do;
 #: mamba2's and jamba's 8 SSM heads split 2 a rank, jamba's and mixtral's 4
-#: experts 1 a rank), a batch of TP_BATCH TP_PROMPT-token prompts, then
-#: TP_STEPS decode steps, the cache TP_MAX_LEN long; the reference's init at
-#: key 0
-TP_ARCHES = ("qwen3-32b", "deepseek-7b", "mamba2-1.3b", "jamba-v0.1-52b", "mixtral-8x7b")
+#: experts 1 a rank; deepseek-v2's MLA heads 1 a rank, its kv_lora_rank 32
+#: split 8 a rank under the heads layout, its 8 experts 2 a rank; whisper's
+#: 4 heads 1 a rank, in the encoder, the decoder's self- and cross-attention;
+#: the vlm's 4 q heads 1 a rank, its 2 kv heads replicated), a batch of
+#: TP_BATCH TP_PROMPT-token prompts with whisper's frames or the vlm's image
+#: embeddings (tp_extras, split over data), then TP_STEPS decode steps, the
+#: vlm's fed the image embeddings again, as the reference's server feeds
+#: them; the cache TP_MAX_LEN long; the reference's init at key 0 with the
+#: cross-attention gates drawn by tp_gates (the init's 0 would hide the
+#: cross path)
+TP_ARCHES = ("qwen3-32b", "deepseek-7b", "mamba2-1.3b", "jamba-v0.1-52b", "mixtral-8x7b",
+             "deepseek-v2-236b", "whisper-tiny", "llama-3.2-vision-11b")
 TP_BATCH, TP_PROMPT, TP_STEPS, TP_MAX_LEN = 4, 8, 3, 16
 TP_LAYOUTS = ("seq", "heads")
 #: the reference cases beside TP_ARCHES: name -> (arch, config overrides,
@@ -238,7 +246,9 @@ TP_LAYOUTS = ("seq", "heads")
 #: groups drop choices (the smoke configs' 2.0 = E/k drops none); ``roll``: a
 #: window of 4 below the 8-token prompt, which the prefill rolls into the
 #: 4-slot ring; ``wrap``: a 12-slot ring that the decode steps at positions
-#: 12 and 13 wrap
+#: 12 and 13 wrap; ``kv4``: the vlm's memory projection split by its 4 kv
+#: heads; ``h6``: whisper's 6 heads, which do not divide the 4-way axis, as
+#: its 6 at full width divide neither 4 nor 16
 TP_CASES = {
     "mamba2-1.3b/chunked": ("mamba2-1.3b", {}, 32, TP_STEPS),
     "mixtral-8x7b/cf1.25": ("mixtral-8x7b", {"moe_capacity_factor": 1.25}, TP_PROMPT, TP_STEPS),
@@ -246,6 +256,12 @@ TP_CASES = {
                               TP_STEPS),
     "mixtral-8x7b/roll": ("mixtral-8x7b", {"sliding_window": 4}, TP_PROMPT, TP_STEPS),
     "mixtral-8x7b/wrap": ("mixtral-8x7b", {"sliding_window": 12}, TP_PROMPT, 6),
+    "deepseek-v2-236b/cf1.25": ("deepseek-v2-236b", {"moe_capacity_factor": 1.25}, TP_PROMPT,
+                                TP_STEPS),
+    "llama-3.2-vision-11b/kv4": ("llama-3.2-vision-11b", {"num_kv_heads": 4}, TP_PROMPT,
+                                 TP_STEPS),
+    "whisper-tiny/h6": ("whisper-tiny", {"num_heads": 6, "num_kv_heads": 6}, TP_PROMPT,
+                        TP_STEPS),
 }
 
 
@@ -259,6 +275,36 @@ def tp_case(name: str) -> tuple[str, dict, int, int, int]:
 def tp_tokens(vocab: int, length: int = TP_PROMPT + TP_STEPS) -> np.ndarray:
     """The prompts and the decode steps' tokens (B, length)."""
     return np.random.default_rng(13).integers(0, vocab, (TP_BATCH, length)).astype(np.int32)
+
+
+def tp_extras(cfg) -> dict[str, np.ndarray]:
+    """The stubbed frontends' outputs for the prompts, numpy f32: whisper's
+    ``frames``, the vlm's ``image_embeds`` (the decode steps' memory too);
+    empty for the other families."""
+    rng = np.random.default_rng(17)
+    if cfg.family == "audio":
+        return {"frames": rng.normal(size=(TP_BATCH, cfg.encoder_seq, cfg.d_model))
+                .astype(np.float32)}
+    if cfg.family == "vlm":
+        return {"image_embeds": rng.normal(size=(TP_BATCH, cfg.image_tokens,
+                                                 cfg.image_embed_dim)).astype(np.float32)}
+    return {}
+
+
+def tp_gates(tree):
+    """A numpy params tree with every cross-attention ``gate`` at a seeded
+    value in [0.5, 1.5]."""
+    rng = np.random.default_rng(19)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: rng.uniform(0.5, 1.5, np.shape(v)).astype(np.float32) if k == "gate"
+                    else walk(v) for k, v in node.items()}
+        if isinstance(node, (tuple, list)):
+            return type(node)(walk(v) for v in node)
+        return node
+
+    return walk(tree)
 
 
 def tp_path(path) -> str:
@@ -293,10 +339,14 @@ def tensor_parallel(out: dict) -> None:
     for name in (*TP_ARCHES, *TP_CASES):
         arch, ov, prompt, steps, max_len = tp_case(name)
         model = build_model(dataclasses.replace(get_smoke_config(arch), dtype="float32", **ov))
-        params = model.init(jax.random.key(0))
+        params = jax.tree.map(jnp.asarray,
+                              tp_gates(jax.tree.map(np.asarray, model.init(jax.random.key(0)))))
         toks = jnp.asarray(tp_tokens(model.cfg.vocab_size, prompt + steps))
+        extras = {k: jnp.asarray(v) for k, v in tp_extras(model.cfg).items()}
+        memory = extras.get("image_embeds")  # every decode step's, as the server passes it
         p_sh = params_shardings(params, mesh, fsdp_axis=None)
         rows = NamedSharding(mesh, P("data", None))
+        e_sh = {k: NamedSharding(mesh, P("data", None, None)) for k in extras}
         logits_sh = NamedSharding(mesh, P("data", "model"))
         if model.cfg.moe_capacity_factor < model.cfg.moe_experts / max(model.cfg.moe_top_k, 1):
             out[f"tensor_parallel/{name}/drops"] = moe_drops(model, params, toks, prompt, steps,
@@ -305,18 +355,22 @@ def tensor_parallel(out: dict) -> None:
             cache = model.init_cache(TP_BATCH, max_len, jnp.float32)
             c_sh = cache_shardings(cache, mesh, layout=layout)
             with use_rules(rules):  # read while the steps trace
-                prefill = jax.jit(model.prefill, in_shardings=(p_sh, {"tokens": rows}, c_sh),
+                prefill = jax.jit(model.prefill,
+                                  in_shardings=(p_sh, {"tokens": rows, **e_sh}, c_sh),
                                   out_shardings=(logits_sh, c_sh))
+                scalar = NamedSharding(mesh, P())
                 decode = jax.jit(model.decode_step,
-                                 in_shardings=(p_sh, c_sh, rows, NamedSharding(mesh, P())),
+                                 in_shardings=(p_sh, c_sh, rows, scalar) + (
+                                     () if memory is None else (e_sh["image_embeds"],)),
                                  out_shardings=(logits_sh, c_sh))
                 placed = jax.device_put(params, p_sh)
-                logits, cache = prefill(placed, {"tokens": toks[:, :prompt]},
+                logits, cache = prefill(placed, {"tokens": toks[:, :prompt], **extras},
                                         jax.device_put(cache, c_sh))
                 outs = [logits]
                 for t in range(steps):
                     logits, cache = decode(placed, cache, toks[:, prompt + t:prompt + t + 1],
-                                           jnp.asarray(prompt + t, jnp.int32))
+                                           jnp.asarray(prompt + t, jnp.int32),
+                                           *(() if memory is None else (memory,)))
                     outs.append(logits)
             key = f"tensor_parallel/{name}/{layout}"
             out[f"{key}/logits"] = np.stack([np.asarray(o) for o in outs], 1)

@@ -38,10 +38,14 @@ DATA_MESH = ((2, 1), ("data", "model"))
 NO_PROBE = {("mamba2-1.3b", "train_4k")}
 #: serving cells run on MESH alone (no probe, no DATA_MESH run): the dense
 #: config whose kv heads divide the model axis, beside qwen3's that do not;
-#: the hybrid and MoE families (mamba2's cells are among ARCHES' runs)
+#: the hybrid and MoE families (mamba2's cells are among ARCHES' runs); MLA,
+#: the encoder and cross-attention
 TP_CELLS = (("deepseek-7b", "prefill_32k"), ("deepseek-7b", "decode_32k"),
             ("jamba-v0.1-52b", "prefill_32k"), ("jamba-v0.1-52b", "decode_32k"),
-            ("mixtral-8x7b", "prefill_32k"), ("mixtral-8x7b", "decode_32k"))
+            ("mixtral-8x7b", "prefill_32k"), ("mixtral-8x7b", "decode_32k"),
+            ("deepseek-v2-236b", "prefill_32k"), ("deepseek-v2-236b", "decode_32k"),
+            ("whisper-tiny", "prefill_32k"), ("whisper-tiny", "decode_32k"),
+            ("llama-3.2-vision-11b", "prefill_32k"), ("llama-3.2-vision-11b", "decode_32k"))
 
 
 def overrides(cfg) -> dict:

@@ -18,7 +18,9 @@ that reason.  Run them on the card:
   per rank and layer at the rank's heads, its placed shards are the
   ranks' own (no copy), and its logits equal the unsharded model's; the
   SSM, hybrid and MoE smoke configs launch the SSD kernel once per rank
-  and mamba2 layer and equal the unsharded model in f32.
+  and mamba2 layer and equal the unsharded model in f32; MLA, the encoder
+  and cross-attention equal it in f32, flash launched once per rank and
+  attention layer with a prompt.
 """
 
 import dataclasses
@@ -187,11 +189,15 @@ def test_checkpoint_from_8_card_ranks_restores_onto_2(dev, tmp_path):
     assert torch.equal(got["w"].full(), x)
 
 
-def _serve_on_ranks(model, params, toks, mesh, layout, dtype):
+def _serve_on_ranks(model, params, toks, mesh, layout, dtype, extras=None):
     """The tensor-parallel prefill of 128 tokens and 4 decode steps on
-    ``mesh``, and the unsharded model's on the same weights: both runs'
-    logits (B, 5, Vp), the prefill's flash launches, and whether the cache
-    was written into the placed shards themselves."""
+    ``mesh``, and the unsharded model's on the same weights, with the
+    prompts' ``extras`` (``frames`` or ``image_embeds``; the latter every
+    decode step's memory too): both runs' logits (B, 5, Vp), the prefill's
+    flash launches, and whether the cache was written into the placed
+    shards themselves."""
+    extras = extras or {}
+    memory = extras.get("image_embeds")
     rules = (decode_rules if layout == "seq" else decode_rules_headsharded)(mesh)
     placed = device_put(params, params_shardings(params, mesh, fsdp_axis=None))
     c0 = model.init_cache(4, 136, dtype=dtype, device=toks.device)
@@ -199,14 +205,14 @@ def _serve_on_ranks(model, params, toks, mesh, layout, dtype):
     blocks = [s.data_ptr() for leaf in tree_leaves(cache) for s in leaf.shards]
     base = fa.flash_attention.launches
     with torch.no_grad():
-        got = [sharded_prefill(model, placed, {"tokens": toks[:, :128]}, cache, mesh=mesh,
-                               rules=rules)[0]]
+        batch = {"tokens": toks[:, :128], **extras}
+        got = [sharded_prefill(model, placed, batch, cache, mesh=mesh, rules=rules)[0]]
         launches = fa.flash_attention.launches - base
-        want = [model.prefill(params, {"tokens": toks[:, :128]}, c0)[0]]
+        want = [model.prefill(params, batch, c0)[0]]
         for t in range(128, 132):
-            got.append(sharded_decode_step(model, placed, cache, toks[:, t:t + 1], t, mesh=mesh,
-                                           rules=rules)[0])
-            want.append(model.decode_step(params, c0, toks[:, t:t + 1], t)[0])
+            got.append(sharded_decode_step(model, placed, cache, toks[:, t:t + 1], t, memory,
+                                           mesh=mesh, rules=rules)[0])
+            want.append(model.decode_step(params, c0, toks[:, t:t + 1], t, memory)[0])
     in_place = [s.data_ptr() for leaf in tree_leaves(cache) for s in leaf.shards] == blocks
     return torch.stack(got, 1).float(), torch.stack(want, 1).float(), launches, in_place
 
@@ -276,5 +282,44 @@ def test_tensor_parallel_families_on_card_ranks(dev, arch, layout):
     # the unsharded prefill launches the SSD kernel once per mamba2 layer too
     assert ss.ssd_scan.launches - base == 4 * mamba + mamba
     assert flash == 4 * attn and in_place
+    v = cfg.vocab_size
+    torch.testing.assert_close(got[..., :v], want[..., :v], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("layout", ["seq", "heads"])
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "whisper-tiny", "llama-3.2-vision-11b"])
+def test_tensor_parallel_latent_and_cross_on_card_ranks(dev, arch, layout):
+    """MLA, the encoder and cross-attention: the smoke configs in f32 on 4
+    card ranks under both rule sets, every cross gate at 1, fed whisper's
+    frames or the vlm's image embeddings (every decode step's memory too):
+    the flash kernel launched once per rank and attention layer with a
+    prompt (whisper's encoder, self- and cross-attention; the vlm's; MLA
+    none), the cache written in place, and the logits after the prefill and
+    4 decode steps equal to the unsharded model's within 1e-4."""
+    from repro_torch.configs import get_smoke_config
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32", attn_impl="flash")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    for seg in (v for k, v in params.items() if k.startswith("seg")):
+        for layer in seg:
+            if "gate" in layer["mixer"]:
+                layer["mixer"]["gate"].fill_(1.0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    extras = {}
+    if cfg.family == "audio":
+        extras["frames"] = torch.randn((4, cfg.encoder_seq, cfg.d_model), generator=gen,
+                                       device=dev)
+    if cfg.family == "vlm":
+        extras["image_embeds"] = torch.randn((4, cfg.image_tokens, cfg.image_embed_dim),
+                                             generator=gen, device=dev)
+    toks = torch.as_tensor(np.random.default_rng(2).integers(0, cfg.vocab_size, (4, 132)),
+                           device=dev)
+    mesh = compat_make_mesh((1, 4), ("data", "model"), devices=(dev,))
+    got, want, flash, in_place = _serve_on_ranks(model, params, toks, mesh, layout,
+                                                 torch.float32, extras)
+    prompt_attention = sum(seg.repeats for seg in (*cfg.segments(), *cfg.encoder_segments())
+                           for s in seg.period if s.mixer in ("attn", "enc_attn", "cross_attn"))
+    assert flash == 4 * prompt_attention and in_place
     v = cfg.vocab_size
     torch.testing.assert_close(got[..., :v], want[..., :v], rtol=1e-4, atol=1e-4)

@@ -8,7 +8,8 @@ host devices (``tests/_torch_dryrun_ref.py``, ~65 s): ``run_cell`` and
 a prefill and a decode cell (no probe of mamba2's train) on a (2, 4)
 ("data", "model") mesh, and ``run_cell`` with the compiled module's matrix
 products on a data-parallel (2, 1) mesh, and the serving cells of
-deepseek-7b, jamba-v0.1-52b and mixtral-8x7b on (2, 4).  The port traces the same cells
+deepseek-7b, jamba-v0.1-52b, mixtral-8x7b, deepseek-v2-236b, whisper-tiny
+and llama-3.2-vision-11b on (2, 4).  The port traces the same cells
 on meshes of ``meta`` positions in this process.
 Everything else compares the two packages' pure functions in-process, or
 holds the port to itself: the depth fit against the full-depth count, the
@@ -202,7 +203,9 @@ def test_memory_matches_reference(reference, small_shapes, arch, shape):
 #: and the port's rank program split the same products four ways and repeat
 #: the same one on every model position: the decode step's k and v
 #: projections of the new token, whose 2 kv heads do not divide 4; mamba2's
-#: B/C products XLA splits and the rank program does not, by a closed form.
+#: B/C products XLA splits and the rank program does not, and MLA's K/V
+#: decompression and the vlm's memory projection, which the two split
+#: differently, by closed forms.
 #: The train cells stay data-parallel and are not compared on (2, 4), where
 #: XLA splits products the port computes whole.
 #: They are equal in every cell but mamba2's train step, where XLA forms
@@ -252,6 +255,32 @@ def _whole_on_every_rank(cfg, shape: ShapeCell, model_ranks: int = 4) -> int:
     return layers * per_layer * (model_ranks - 1) // model_ranks
 
 
+def _split_apart(cfg, shape: ShapeCell, model_ranks: int = 4) -> int:
+    """The products a device of GSPMD's partition computes beyond the rank
+    program's share of them, in one scan body of a prefill cell on the
+    (2, 4) mesh.  Per MLA layer the decompression of the latent into K and
+    V (``c_kv·wk_b`` and ``c_kv·wv_b``, ``2·rows·L·Kr·H·Dh`` each): XLA
+    forms them for every head on every device, the rank program for its
+    heads.  Per cross layer whose kv heads the model axis does not divide
+    (the vlm's 2 over 4), the memory projections (``memory·wk_mem`` and
+    ``memory·wv_mem``, ``2·rows·M·Dm·Hkv·Dh`` each): XLA splits them by
+    kv head (one of the 2 a device), the rank program by the memory rows
+    (a quarter each).  A decode step's products agree: the MLA layers'
+    down-projections and the new token's latent whole on both sides, the
+    cross layers' memory read from the cache."""
+    if shape.kind != "prefill":
+        return 0
+    rows = shape.global_batch // 2
+    body = [s.mixer for seg in lib._scan_bodies(cfg).segments() for s in seg.period]
+    h, dh, hkv = cfg.num_heads, cfg.resolved_head_dim, cfg.num_kv_heads
+    mla = 2 * 2 * rows * shape.seq_len * cfg.kv_lora_rank * h * dh
+    apart = body.count("mla") * mla * (model_ranks - 1) // model_ranks
+    if hkv % model_ranks:
+        mem = 2 * 2 * rows * cfg.image_tokens * cfg.image_embed_dim * hkv * dh
+        apart += body.count("cross_attn") * (mem // hkv - mem // model_ranks)
+    return apart
+
+
 @pytest.mark.parametrize("arch,shape", TP_CELLS)
 def test_tensor_parallel_flops_held_to_reference(reference, small_shapes, monkeypatch, arch,
                                                  shape):
@@ -264,9 +293,13 @@ def test_tensor_parallel_flops_held_to_reference(reference, small_shapes, monkey
     sides, and the MoE layers' router and dispatch over the batch's one
     group on both sides, each returning its own rows.  Where the two
     partition a product differently, the difference is its closed form:
-    mamba2's replicated B/C products (:func:`_whole_on_every_rank`).  As in
-    the data-parallel comparison, the plain chunked SSD takes the kernel's
-    place."""
+    mamba2's replicated B/C products (:func:`_whole_on_every_rank`), and
+    MLA's K/V decompression and the vlm's replicated memory projection
+    (:func:`_split_apart`).  Whisper's encoder, decoder and cross layers
+    (their heads split 1 a rank), deepseek-v2's MLA heads, its
+    down-projections by the prompt's rows, experts and shared experts and
+    the vlm's attention layers split alike.  As in the data-parallel
+    comparison, the plain chunked SSD takes the kernel's place."""
     monkeypatch.setattr(ops, "ssd_scan", ss.ssd_chunked)
     mesh = _meta_mesh()
     cfg = get_smoke_config(arch)
@@ -275,7 +308,8 @@ def test_tensor_parallel_flops_held_to_reference(reference, small_shapes, monkey
     assert rec["collectives_basis"] == lib.COLLECTIVES_BASIS["tensor_parallel"]
     want = reference[(arch, shape, "run")]["cost"]["dot_flops"]
     assert want > 0
-    assert rec["cost"]["flops"] - _whole_on_every_rank(cfg, SHAPES[shape]) == want
+    assert rec["cost"]["flops"] - _whole_on_every_rank(cfg, SHAPES[shape]) + _split_apart(
+        cfg, SHAPES[shape]) == want
 
 
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "jamba-v0.1-52b"])

@@ -2,28 +2,36 @@
 ``sharded_decode_step``) against the JAX package's GSPMD-partitioned steps.
 
 The reference side runs once, in one child process on 8 forced host
-devices (``tests/_torch_dist_ref.py``'s ``tensor_parallel`` case, ~90 s):
+devices (``tests/_torch_dist_ref.py``'s ``tensor_parallel`` case, ~130 s):
 ``jax.jit(model.prefill)`` and ``jax.jit(model.decode_step)`` on a (2, 4)
 ("data", "model") mesh under ``decode_rules`` (the cache's sequence over
-model) and ``decode_rules_headsharded`` (its kv heads), for the qwen3-32b
-smoke config (2 kv heads over 4 ranks: ``wk``/``wv`` replicated),
-deepseek-7b's (4 over 4), mamba2-1.3b's (8 SSM heads, 2 a rank),
-jamba-v0.1-52b's (Mamba2, attention and MoE layers) and mixtral-8x7b's
-(windowed attention, 4 experts, 1 a rank), in f32, and the cases of
-``TP_CASES``: a prompt that takes the chunked SSD route, both MoE configs
-at capacity factor 1.25 (where the reference drops choices in decode), and
-mixtral's window rolled by the prompt and wrapped by the decode steps.
-The port runs the same steps on a (2, 4) mesh of repeated ``cpu``
-positions in this process, on the reference's weights: the logits within
-the reference's serving tolerances (``tests/test_arch_smoke.py``: 3e-4
-after the prefill, 5e-4 a decode step) and every rank's block of the cache
-(``conv`` and ``h`` included) equal to the reference's placed cache within
-the prefill's tolerance.  Beside the parity, the port's tensor-parallel
-route is held to its own unsharded model on more meshes and configs (the
-other dense configs, a padded vocabulary, ``fsdp`` over data, the SSM,
-hybrid and MoE families where the heads or experts split 1 a rank or not at
-all), and its structure is checked: the flash and SSD calls at the ranks'
-head counts, its collectives per layer, the layouts, and what it refuses.
+model) and ``decode_rules_headsharded`` (its kv heads, or MLA's latent),
+for the qwen3-32b smoke config (2 kv heads over 4 ranks: ``wk``/``wv``
+replicated), deepseek-7b's (4 over 4), mamba2-1.3b's (8 SSM heads, 2 a
+rank), jamba-v0.1-52b's (Mamba2, attention and MoE layers),
+mixtral-8x7b's (windowed attention, 4 experts, 1 a rank),
+deepseek-v2-236b's (MLA, its latent cache, 8 experts and a shared
+expert), whisper-tiny's (the encoder, self- and cross-attention, fed
+frames) and llama-3.2-vision-11b's (cross-attention to image embeddings,
+which every decode step gets again), in f32, the cross gates drawn apart
+from 0 (``tp_gates``), and the cases of ``TP_CASES``: a prompt that takes
+the chunked SSD route, the MoE configs at capacity factor 1.25 (where the
+reference drops choices in decode), mixtral's window rolled by the prompt
+and wrapped by the decode steps, the vlm's memory projection split by kv
+heads and whisper's 6 heads, which do not divide the axis.  The port runs
+the same steps on a (2, 4) mesh of repeated ``cpu`` positions in this
+process, on the reference's weights: the logits within the reference's
+serving tolerances (``tests/test_arch_smoke.py``: 3e-4 after the prefill,
+5e-4 a decode step) and every rank's block of the cache (``conv``, ``h``,
+``ckv``, ``krope``, ``k_mem`` and ``v_mem`` included) equal to the
+reference's placed cache within the prefill's tolerance.  Beside the
+parity, the port's tensor-parallel route is held to its own unsharded
+model on more meshes and configs (the other dense configs, a padded
+vocabulary, ``fsdp`` over data, the SSM, hybrid, MoE, MLA and
+cross-attention families where the heads or experts split 1 a rank or not
+at all), and its structure is checked: the flash and SSD calls at the
+ranks' head counts, its collectives per layer, the layouts, and what it
+refuses.
 """
 
 import dataclasses
@@ -74,6 +82,8 @@ RULES = {"seq": decode_rules, "heads": decode_rules_headsharded}
 DENSE = ("qwen3-32b", "deepseek-7b", "qwen2-72b", "command-r-35b")
 #: the families beyond the dense one that tensor-parallel serving runs
 FAMILIES = ("mamba2-1.3b", "jamba-v0.1-52b", "mixtral-8x7b")
+#: MLA, the encoder and cross-attention
+LATENT_AND_CROSS = ("deepseek-v2-236b", "whisper-tiny", "llama-3.2-vision-11b")
 
 
 def _mesh(shape=(2, 4), axes=("data", "model")):
@@ -95,43 +105,64 @@ def reference(tmp_path_factory):
 
 
 def _reference_params(arch, **overrides):
-    """The port's model and the reference's key-0 weights in it (f32)."""
+    """The port's model and the reference's key-0 weights in it (f32), the
+    cross-attention gates drawn by ``tp_gates`` as the reference side's."""
     cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32", **overrides)
     jm = j_build(dataclasses.replace(j_smoke(arch), dtype="float32", **overrides))
-    tree = jax.tree.map(np.asarray, jm.init(jax.random.key(0)))
+    tree = ref.tp_gates(jax.tree.map(np.asarray, jm.init(jax.random.key(0))))
     return build_model(cfg), params_from_numpy(tree, cfg, device="cpu")
 
 
-def _serve(model, params, toks, *, mesh, layout, fsdp_axis=None, batch=ref.TP_BATCH,
-           prompt=ref.TP_PROMPT, steps=ref.TP_STEPS, max_len=ref.TP_MAX_LEN, decomposed=False):
+def _init(cfg, seed):
+    """The port's model of ``cfg`` and its random weights from ``seed``, the
+    cross-attention gates set apart from the init's 0 (which would hide the
+    cross path): ``tanh(gate)`` at 1."""
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(seed), device="cpu")
+    _map_with_path(lambda path, t: t.fill_(1.0) if path[-1] == "gate" else None, params)
+    return model, params
+
+
+def _extras(model):
+    """The prompts' ``frames`` or ``image_embeds`` (``ref.tp_extras``) as
+    tensors, and the decode steps' memory: the vlm's image embeddings again,
+    as the reference's server passes them every step."""
+    extras = {k: torch.from_numpy(v) for k, v in ref.tp_extras(model.cfg).items()}
+    return extras, extras.get("image_embeds")
+
+
+def _serve(model, params, toks, *, mesh, layout, fsdp_axis=None, prompt=ref.TP_PROMPT,
+           steps=ref.TP_STEPS, max_len=ref.TP_MAX_LEN, decomposed=False):
     """The tensor-parallel prefill and ``steps`` decode steps fed ``toks``
-    (under a ``"decomposed"`` ``cache_impl`` too with ``decomposed``): the
-    logits (B, 1 + steps, Vp) and the placed cache."""
+    (under a ``"decomposed"`` ``cache_impl`` too with ``decomposed``) and
+    :func:`_extras`: the logits (B, 1 + steps, Vp) and the placed cache."""
     rules = RULES[layout](mesh)
     if decomposed:
         rules = dataclasses.replace(rules, cache_impl=rules.cache_impl + "+decomposed")
+    extras, memory = _extras(model)
     placed = device_put(params, params_shardings(params, mesh, fsdp_axis=fsdp_axis))
-    c0 = model.init_cache(batch, max_len, dtype=torch.float32, device="cpu")
+    c0 = model.init_cache(ref.TP_BATCH, max_len, dtype=torch.float32, device="cpu")
     cache = device_put(c0, cache_shardings(c0, mesh, layout=layout))
-    logits, cache = sharded_prefill(model, placed, {"tokens": toks[:, :prompt]}, cache,
+    logits, cache = sharded_prefill(model, placed, {"tokens": toks[:, :prompt], **extras}, cache,
                                     mesh=mesh, rules=rules)
     outs = [logits]
     for t in range(steps):
         logits, cache = sharded_decode_step(model, placed, cache,
                                             toks[:, prompt + t:prompt + t + 1], prompt + t,
-                                            mesh=mesh, rules=rules)
+                                            memory, mesh=mesh, rules=rules)
         outs.append(logits)
     return torch.stack(outs, 1), cache
 
 
-def _unsharded(model, params, toks, *, batch=ref.TP_BATCH, prompt=ref.TP_PROMPT,
-               steps=ref.TP_STEPS, max_len=ref.TP_MAX_LEN):
-    cache = model.init_cache(batch, max_len, dtype=torch.float32, device="cpu")
-    logits, _ = model.prefill(params, {"tokens": toks[:, :prompt]}, cache)
+def _unsharded(model, params, toks, *, prompt=ref.TP_PROMPT, steps=ref.TP_STEPS,
+               max_len=ref.TP_MAX_LEN):
+    extras, memory = _extras(model)
+    cache = model.init_cache(ref.TP_BATCH, max_len, dtype=torch.float32, device="cpu")
+    logits, _ = model.prefill(params, {"tokens": toks[:, :prompt], **extras}, cache)
     outs = [logits]
     for t in range(steps):
         logits, _ = model.decode_step(params, cache, toks[:, prompt + t:prompt + t + 1],
-                                      prompt + t)
+                                      prompt + t, memory)
         outs.append(logits)
     return torch.stack(outs, 1), cache
 
@@ -192,7 +223,9 @@ def test_cache_blocks_match_reference(reference, arch, layout):
     """Every rank's block of the cache after the prefill and the decode
     steps is the block the reference's placed cache holds on that device
     (the replicated kv heads of qwen3 under ``heads`` too; the SSM layers'
-    ``conv`` blocks, which are not the rank's own channels, and ``h``)."""
+    ``conv`` blocks, which are not the rank's own channels, and ``h``; the
+    MLA layers' ``ckv``/``krope`` rows or latent columns; the cross layers'
+    ``k_mem``/``v_mem``, every head of the rank's batch rows)."""
     model, params = _reference_params(arch)
     _, cache = _serve(model, params, _tokens(model), mesh=_mesh(), layout=layout)
     seen = []
@@ -205,13 +238,17 @@ def test_cache_blocks_match_reference(reference, arch, layout):
         seen.append(float(np.abs(got).max()))
 
     _map_with_path(one, cache)
-    # k and v of each attention layer, conv and h of each mamba2 layer (a
-    # stacked segment's layers are one leaf), each written
-    leaves = {("k", "v"): 0, ("conv", "h"): 0}
-    for seg in model.cfg.segments():
-        for spec in seg.period:
-            leaves[("conv", "h") if spec.mixer == "mamba2" else ("k", "v")] += 1
-    assert len(seen) == 2 * sum(leaves.values()) and min(seen) > 0
+    # two leaves a layer of a period, each written (a stacked segment's
+    # layers are one leaf): k and v of an attention layer, conv and h of a
+    # mamba2 layer, ckv and krope of an MLA layer, k_mem and v_mem of a
+    # cross layer
+    want = {"attn": ("k", "v"), "mamba2": ("conv", "h"), "mla": ("ckv", "krope"),
+            "cross_attn": ("k_mem", "v_mem")}
+    names = []
+    _map_with_path(lambda path, _: names.append(path[-1]), cache)
+    assert names == [n for seg in model.cfg.segments() for spec in seg.period
+                     for n in want[spec.mixer]]
+    assert len(seen) == len(names) and min(seen) > 0
 
 
 @pytest.mark.parametrize("layout", ref.TP_LAYOUTS)
@@ -221,8 +258,11 @@ def test_case_matches_reference(reference, monkeypatch, case, layout):
     above and checked to reach what it is for: the chunked SSD route at
     the ranks' 2 heads; choices dropped at capacity in decode (by the
     reference, counted from its dispatch tensor), the port's routes
-    recorded once a forward with the same drops; the window's ring rolled
-    by the prompt or wrapped by the decode steps."""
+    recorded once a forward with the same drops (mixtral, jamba and
+    deepseek-v2, whose experts split 2 a rank beside its shared experts);
+    the window's ring rolled by the prompt or wrapped by the decode steps;
+    the vlm's memory projection split by its kv heads; whisper's heads
+    whole on every rank, as at full width."""
     from repro_torch.models.moe import moe_mlp
 
     arch, ov, prompt, steps, max_len = ref.tp_case(case)
@@ -251,6 +291,14 @@ def test_case_matches_reference(reference, monkeypatch, case, layout):
         port_drops = [sum(int(r["dropped"].sum()) for r in routes[i:i + moe])
                       for i in range(0, len(routes), moe)]
         assert port_drops == [int(d) for d in drops]
+    if case.endswith("/kv4"):  # the memory projection split by kv heads, 1 a rank
+        sh = params_shardings(params, _mesh(), fsdp_axis=None)["seg0"][4]["mixer"]
+        assert sh["wk_mem"].spec == sh["wv_mem"].spec == P(None, "model", None)
+        assert cache["seg0"][4]["k_mem"].sharding.spec == P("data", None, None, None)
+    if case.endswith("/h6"):  # 6 heads over 4 ranks: every head's weights whole on each
+        sh = params_shardings(params, _mesh(), fsdp_axis=None)
+        for mixer in (sh["enc_seg0"][0]["mixer"], sh["seg0"][0]["mixer"], sh["seg0"][1]["mixer"]):
+            assert all("model" not in t.spec for t in tree_leaves(mixer))
     if case.endswith(("/roll", "/wrap")):
         ring = min(max_len, cfg.sliding_window)
         k = cache["seg0"][0]["k"]
@@ -327,6 +375,49 @@ def test_families_match_the_unsharded_model(arch, layout, shape):
     torch.testing.assert_close(got, want, **SELF_TOL)
     for a, b in zip(tree_leaves(cache), tree_leaves(want_cache)):
         torch.testing.assert_close(a.full(), b, **SELF_TOL)
+
+
+@pytest.mark.parametrize("shape", [(2, 4), (1, 8), (2, 2), (1, 1)])
+@pytest.mark.parametrize("layout", ref.TP_LAYOUTS)
+@pytest.mark.parametrize("arch", LATENT_AND_CROSS)
+def test_latent_and_cross_match_the_unsharded_model(arch, layout, shape):
+    """MLA, the encoder and cross-attention on meshes where the heads
+    split 1 a rank, 2 a rank, not at all (4 over 8: ``wq``/``wq_b`` whole,
+    deepseek-v2's latent split 4 a rank under ``heads``, its experts 1 a
+    rank) and one rank, the cross gates at 1: deepseek-v2 at capacity
+    factor 1.25 (the groups drop choices), whisper's encoder and decoder,
+    the vlm's decode steps given the image embeddings again."""
+    ov = {"moe_capacity_factor": 1.25} if arch == "deepseek-v2-236b" else {}
+    model, params = _init(dataclasses.replace(get_smoke_config(arch), dtype="float32", **ov), 13)
+    toks = _tokens(model)
+    want, want_cache = _unsharded(model, params, toks)
+    got, cache = _serve(model, params, toks, mesh=_mesh(shape), layout=layout)
+    torch.testing.assert_close(got, want, **SELF_TOL)
+    for a, b in zip(tree_leaves(cache), tree_leaves(want_cache)):
+        torch.testing.assert_close(a.full(), b, **SELF_TOL)
+
+
+def test_the_encoder_leaves_every_rank_the_whole_memory(monkeypatch):
+    """Whisper's encoder runs in the serving body: its layers sum their
+    partials over ``model``, so every rank's memory is the whole encoder
+    output of its batch rows, as the unsharded encoder gives it."""
+    from repro_torch.models.lm import Model
+
+    model, params = _init(dataclasses.replace(get_smoke_config("whisper-tiny"),
+                                              dtype="float32"), 14)
+    frames = _extras(model)[0]["frames"]
+    want = model._encode(params, frames)
+    seen = []
+    real = Model._encode
+    monkeypatch.setattr(Model, "_encode", lambda self, p, f: (
+        lambda out: (seen.append((spmd.axis_index("data"), spmd.axis_index("model"), out)),
+                     out)[1])(real(self, p, f)))
+    _serve(model, params, _tokens(model), mesh=_mesh(), layout="seq", steps=0)
+    assert sorted((d, m) for d, m, _ in seen) == [(d, m) for d in range(2) for m in range(4)]
+    rows = ref.TP_BATCH // 2
+    for d, _, out in seen:
+        assert tuple(out.shape) == (rows, *want.shape[1:])
+        torch.testing.assert_close(out, want[d * rows:(d + 1) * rows], **SELF_TOL)
 
 
 @pytest.mark.parametrize("shape", [(2, 4), (1, 2)])
@@ -419,15 +510,22 @@ def test_local_layout_keeps_model_and_gathers_the_rest():
 
 @pytest.mark.parametrize("arch,shape,heads", [("qwen3-32b", (2, 4), (1, 1)),
                                               ("deepseek-7b", (1, 4), (1, 1)),
-                                              ("deepseek-7b", (2, 2), (2, 2))])
+                                              ("deepseek-7b", (2, 2), (2, 2)),
+                                              ("whisper-tiny", (2, 4), (1, 1)),
+                                              ("whisper-tiny", (1, 2), (2, 2)),
+                                              ("llama-3.2-vision-11b", (2, 4), (1, 1)),
+                                              ("llama-3.2-vision-11b", (1, 2), (2, 1)),
+                                              ("deepseek-v2-236b", (2, 4), None)])
 def test_flash_runs_once_a_rank_and_layer_at_the_ranks_heads(monkeypatch, arch, shape, heads):
     """Under ``attn_impl="flash"`` a tensor-parallel prefill calls the flash
-    route once per rank and layer with the rank's q heads and the kv heads
-    they read (qwen3: one q head and its one kv head of the replicated two,
-    contiguous); decode calls it never."""
+    route once per rank and attention layer with a prompt (self-attention,
+    whisper's encoder layers, cross-attention to the memory) with the
+    rank's q heads and the kv heads they read (qwen3: one q head and its one
+    kv head of the replicated two, contiguous; the vlm's cross layers the
+    same of its 2 replicated kv heads); MLA (deepseek-v2) never, as the
+    unsharded MLA never; decode calls it never."""
     cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32", attn_impl="flash")
-    model = build_model(cfg)
-    params = model.init(torch.Generator().manual_seed(6), device="cpu")
+    model, params = _init(cfg, 6)
     calls = []
     real = ops.flash_attention
 
@@ -440,7 +538,9 @@ def test_flash_runs_once_a_rank_and_layer_at_the_ranks_heads(monkeypatch, arch, 
     toks = _tokens(model)
     got, _ = _serve(model, params, toks, mesh=_mesh(shape), layout="seq")
     ranks = shape[0] * shape[1]
-    assert calls == [heads] * ranks * cfg.num_layers
+    prompt_layers = _layers(cfg, "attn") + _layers(cfg, "cross_attn") + cfg.encoder_layers
+    assert calls == [heads] * ranks * prompt_layers
+    assert bool(calls) == (heads is not None)
     monkeypatch.setattr(ops, "flash_attention", real)
     want, _ = _unsharded(model, params, toks)
     torch.testing.assert_close(got, want, **SELF_TOL)
@@ -480,20 +580,20 @@ def test_kernels_run_once_a_rank_and_layer_at_the_ranks_heads(monkeypatch, arch,
 
 def _layer_census(arch, layout, layers, decode):
     cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32", num_layers=layers)
-    model = build_model(cfg)
-    params = model.init(torch.Generator().manual_seed(7), device="cpu")
+    model, params = _init(cfg, 7)
     mesh = _mesh()
     rules = RULES[layout](mesh)
     placed = device_put(params, params_shardings(params, mesh, fsdp_axis=None))
     c0 = model.init_cache(ref.TP_BATCH, ref.TP_MAX_LEN, dtype=torch.float32, device="cpu")
     cache = device_put(c0, cache_shardings(c0, mesh, layout=layout))
     toks = _tokens(model)
+    extras, memory = _extras(model)
     with spmd.collective_census() as census:
         if decode:
-            sharded_decode_step(model, placed, cache, toks[:, :1], ref.TP_PROMPT, mesh=mesh,
-                                rules=rules)
+            sharded_decode_step(model, placed, cache, toks[:, :1], ref.TP_PROMPT, memory,
+                                mesh=mesh, rules=rules)
         else:
-            sharded_prefill(model, placed, {"tokens": toks[:, :ref.TP_PROMPT]}, cache,
+            sharded_prefill(model, placed, {"tokens": toks[:, :ref.TP_PROMPT], **extras}, cache,
                             mesh=mesh, rules=rules)
     return census["counts"]
 
@@ -520,18 +620,56 @@ PER_LAYER = {
     ("mamba2-1.3b", "seq", True): (2, 1), ("mamba2-1.3b", "heads", True): (2, 1),
     ("mixtral-8x7b", "seq", False): (2, 3), ("mixtral-8x7b", "heads", False): (2, 3),
     ("mixtral-8x7b", "seq", True): (4, 2), ("mixtral-8x7b", "heads", True): (2, 1),
+    # by the unit UNITS names.  deepseek-v2, an MLA and MoE layer: the psum
+    # after wo, the experts' and the shared experts' partials summed (3),
+    # the prompt's rows of the wq_a and wkv_a down-projections gathered (2)
+    # and the token rows gathered over data (1); a decode step under seq
+    # gathers the q_lat and q_rope heads (2) and combines (2 reduces), under
+    # heads gathers the ckv and krope latent (2).  whisper, a decoder layer
+    # (self-attention, then cross-attention and its MLP): 3 psums; the
+    # prompt's memory projection gathers its k and v heads (2) and, under
+    # seq, the self-attention's k and v heads for the cache (2); a seq decode
+    # step is deepseek-7b's self-attention without its MLP (3, 3) and the
+    # cross layer's 2 psums.  The vlm, a period (4 attention layers of
+    # qwen3's kind, 2 replicated kv heads over 4, and a cross layer): the
+    # prompt's replicated projections gather their sequence-parallel rows,
+    # k and v in each layer (10 gathers, 10 psums); a decode step
+    # re-projects the memory (2 gathers) beside the attention layers'
+    ("deepseek-v2-236b", "seq", False): (3, 3), ("deepseek-v2-236b", "heads", False): (3, 3),
+    ("deepseek-v2-236b", "seq", True): (5, 3), ("deepseek-v2-236b", "heads", True): (3, 3),
+    ("whisper-tiny", "seq", False): (3, 4), ("whisper-tiny", "heads", False): (3, 2),
+    ("whisper-tiny", "seq", True): (5, 3), ("whisper-tiny", "heads", True): (3, 0),
+    ("llama-3.2-vision-11b", "seq", False): (10, 10),
+    ("llama-3.2-vision-11b", "heads", False): (10, 10),
+    ("llama-3.2-vision-11b", "seq", True): (18, 6),
+    ("llama-3.2-vision-11b", "heads", True): (10, 2),
 }
+#: the configs whose depth repeats more than one layer: the depths the
+#: census runs at and the unit of PER_LAYER (its count at a depth)
+UNITS = {"deepseek-v2-236b": ((2, 4), lambda cfg: _layers(cfg, mlp="moe")),
+         "whisper-tiny": ((1, 3), lambda cfg: cfg.num_layers),
+         "llama-3.2-vision-11b": ((5, 10), lambda cfg: _layers(cfg, mixer="cross_attn"))}
+#: what runs once beside the units (reduces, gathers), the embedding's psum
+#: aside: deepseek-v2's dense first layer (an MLA layer and its MLP) and
+#: whisper's 2 encoder layers in a prefill (a psum after wo and w_down each)
+ONCE = {("deepseek-v2-236b", "seq", False): (2, 2), ("deepseek-v2-236b", "heads", False): (2, 2),
+        ("deepseek-v2-236b", "seq", True): (4, 2), ("deepseek-v2-236b", "heads", True): (2, 2),
+        ("whisper-tiny", "seq", False): (4, 0), ("whisper-tiny", "heads", False): (4, 0)}
 
 
 @pytest.mark.parametrize("decode", [False, True])
 @pytest.mark.parametrize("layout", ref.TP_LAYOUTS)
-@pytest.mark.parametrize("arch", [*ref.TP_ARCHES[:2], "mamba2-1.3b", "mixtral-8x7b"])
+@pytest.mark.parametrize("arch", [*ref.TP_ARCHES[:2], "mamba2-1.3b", "mixtral-8x7b",
+                                  *LATENT_AND_CROSS])
 def test_collectives_per_layer(arch, layout, decode):
     reduces, gathers = PER_LAYER[(arch, layout, decode)]
-    for layers in (1, 3):
+    once_r, once_g = ONCE.get((arch, layout, decode), (0, 0))
+    depths, units = UNITS.get(arch, ((1, 3), lambda cfg: cfg.num_layers))
+    for layers in depths:
+        n = units(dataclasses.replace(get_smoke_config(arch), num_layers=layers))
         counts = _layer_census(arch, layout, layers, decode)
-        assert counts.get("all-reduce", 0) == 1 + reduces * layers
-        assert counts.get("all-gather", 0) == gathers * layers
+        assert counts.get("all-reduce", 0) == 1 + once_r + reduces * n
+        assert counts.get("all-gather", 0) == once_g + gathers * n
 
 
 def test_outside_a_body_the_hooks_do_nothing():
@@ -543,45 +681,78 @@ def test_outside_a_body_the_hooks_do_nothing():
     assert census["counts"] == {}
 
 
-def test_refuses_what_it_does_not_run():
+def test_every_config_is_admitted():
     """MLA (deepseek-v2), the encoder and cross-attention (whisper, the
-    vlm), the ragged MoE dispatch and ``long_decode_rules`` are refused;
-    the other seven configs run."""
+    vlm) run since they were ported: every config of the repo is admitted
+    with the onehot MoE, and a prefill of each of the three under the
+    ``seq`` layout gives finite logits of the batch's rows and the padded
+    vocabulary."""
     from repro_torch.configs import ARCH_IDS
 
-    refused = {"deepseek-v2-236b": "mla layers", "whisper-tiny": "encoder",
-               "llama-3.2-vision-11b": "cross_attn layers"}
-    assert {a for a in ARCH_IDS
-            if build_model(get_smoke_config(a)).tensor_parallel_refusal() is not None} == set(refused)
+    assert [a for a in ARCH_IDS
+            if build_model(get_smoke_config(a)).tensor_parallel_refusal() is not None] == []
+    for arch in LATENT_AND_CROSS:
+        model, params = _init(dataclasses.replace(get_smoke_config(arch), dtype="float32"), 0)
+        got, _ = _serve(model, params, _tokens(model), mesh=_mesh(), layout="seq", steps=0)
+        assert tuple(got.shape) == (ref.TP_BATCH, 1, model.cfg.padded_vocab)
+        assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.parametrize("what", ["ragged", "long_decode_rules", "unplaced_cache",
+                                  "no_model_axis"])
+def test_refuses_what_it_does_not_run(what):
+    """The ragged MoE dispatch (jamba's and deepseek-v2's),
+    ``long_decode_rules``, a cache not placed on the mesh and a mesh
+    without a ``model`` axis are refused."""
     mesh = _mesh()
-    batch = {"tokens": torch.zeros((2, 4), dtype=torch.int64)}
-    for arch, why in refused.items():
-        model = build_model(get_smoke_config(arch))
-        params = model.init(torch.Generator().manual_seed(0), device="cpu")
-        c0 = model.init_cache(2, 8, dtype=torch.float32, device="cpu")
-        cache = device_put(c0, cache_shardings(c0, mesh))
-        with pytest.raises(NotImplementedError, match=f"tensor-parallel serving runs .*{why}"):
-            sharded_prefill(model, params, batch, cache, mesh=mesh, rules=decode_rules(mesh))
-    model = build_model(dataclasses.replace(get_smoke_config("jamba-v0.1-52b"),
-                                            moe_impl="ragged"))
-    params = model.init(torch.Generator().manual_seed(0), device="cpu")
-    c0 = model.init_cache(2, 8, dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="'ragged' is the data-parallel dropless"):
-        sharded_prefill(model, params, batch, device_put(c0, cache_shardings(c0, mesh)),
-                        mesh=mesh, rules=decode_rules(mesh))
+    tokens = {"tokens": torch.zeros((2, 4), dtype=torch.int64)}
+    if what == "ragged":
+        for arch in ("jamba-v0.1-52b", "deepseek-v2-236b"):
+            model = build_model(dataclasses.replace(get_smoke_config(arch), moe_impl="ragged"))
+            assert "'ragged' is the data-parallel dropless" in model.tensor_parallel_refusal()
+            params = model.init(torch.Generator().manual_seed(0), device="cpu")
+            c0 = model.init_cache(2, 8, dtype=torch.float32, device="cpu")
+            with pytest.raises(NotImplementedError,
+                               match="tensor-parallel serving runs .*'ragged' is the data-"):
+                sharded_prefill(model, params, tokens,
+                                device_put(c0, cache_shardings(c0, mesh)), mesh=mesh,
+                                rules=decode_rules(mesh))
+        return
     model = build_model(dataclasses.replace(get_smoke_config("qwen3-32b"), dtype="float32"))
     params = model.init(torch.Generator().manual_seed(0), device="cpu")
     c0 = model.init_cache(2, 8, dtype=torch.float32, device="cpu")
-    tokens = {"tokens": torch.zeros((2, 4), dtype=torch.int64)}
-    with pytest.raises(ValueError, match="placed on the mesh"):
-        sharded_prefill(model, params, tokens, c0, mesh=mesh, rules=decode_rules(mesh))
-    cache = device_put(c0, cache_shardings(c0, mesh))
-    with pytest.raises(NotImplementedError, match="long_decode_rules"):
-        sharded_prefill(model, params, tokens, cache, mesh=mesh, rules=long_decode_rules(mesh))
-    mesh2 = _mesh((8,), ("data",))
-    with pytest.raises(ValueError, match="'model' axis"):
-        sharded_prefill(model, params, tokens, device_put(c0, NamedSharding(mesh2, P())),
-                        mesh=mesh2, rules=decode_rules(mesh2))
+    if what == "unplaced_cache":
+        with pytest.raises(ValueError, match="placed on the mesh"):
+            sharded_prefill(model, params, tokens, c0, mesh=mesh, rules=decode_rules(mesh))
+    elif what == "long_decode_rules":
+        cache = device_put(c0, cache_shardings(c0, mesh))
+        with pytest.raises(NotImplementedError, match="long_decode_rules"):
+            sharded_prefill(model, params, tokens, cache, mesh=mesh,
+                            rules=long_decode_rules(mesh))
+    else:
+        mesh2 = _mesh((8,), ("data",))
+        with pytest.raises(ValueError, match="'model' axis"):
+            sharded_prefill(model, params, tokens, device_put(c0, NamedSharding(mesh2, P())),
+                            mesh=mesh2, rules=decode_rules(mesh2))
+
+
+def test_mixed_cache_layouts_are_refused():
+    """The MLA layers' ``ckv``/``krope`` set the layout as the attention
+    layers' ``k`` does (the sequence over ``model`` under ``seq``, the
+    latent and rope dims under ``heads``); a cache whose leaves lie
+    differently (a latent split beside a rope dim kept whole) is refused."""
+    model = build_model(dataclasses.replace(get_smoke_config("deepseek-v2-236b"),
+                                            dtype="float32"))
+    mesh = _mesh()
+    c0 = model.init_cache(ref.TP_BATCH, ref.TP_MAX_LEN, dtype=torch.float32, device="cpu")
+    specs = lambda layout: tree_map(lambda _, s: s.spec,  # noqa: E731
+                                    c0, cache_shardings(c0, mesh, layout=layout))
+    assert spmd._kv_cache_layout(c0, specs("seq")) == (True, False, False)
+    assert spmd._kv_cache_layout(c0, specs("heads")) == (False, False, True)
+    mixed = specs("heads")
+    mixed["seg1"][0]["krope"] = P(None, "data", None, None)
+    with pytest.raises(ValueError, match="lie differently"):
+        spmd._kv_cache_layout(c0, mixed)
 
 
 def test_a_replicated_placement_computes_whole_on_every_rank():

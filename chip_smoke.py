@@ -367,6 +367,34 @@ cluster runs as ``mesh_launches``, ``service_launches`` and
   of the kernels line give ``tensor_parallel_cases``, each kernel at the
   ranks' shapes (``TP_FLASH_SHAPES``, ``TP_SSD_SHAPES``) beside its plain
   version, and every entry ``tensor_parallel_launches``.
+* ``long_decode``: a batch of one at long context under
+  ``long_decode_rules`` (the cache's rows over ``data``, every kv head on
+  each rank; the heads over ``model``), ``sharded_prefill`` /
+  ``sharded_decode_step`` on a (2, 4) ``(data, model)`` mesh of positions
+  on the card, at full width with a cache of ``LD_MAX_LEN`` = 524,288
+  rows, the ``long_500k`` cell's (``LD_RUNS``): mamba2-1.3b whole and
+  jamba-v0.1-52b's first period with 4,096-token prompts, mixtral-8x7b at
+  2 layers with 8,192 (twice its 4,096-slot ring, which the prompt wraps).
+  The unsharded model runs in bf16 (16 greedy steps), then on the same
+  weights upcast to f32 (4 steps fed the bf16 run's tokens, then one step
+  at slot 524,287, the dry-run's, over seeded rows: the attention rows no
+  run wrote, all of mixtral's ring); the long-context f32 run does the same
+  on the params placed leaf by leaf and is held to it: logits within
+  ``F32_LOGIT_TOL`` where the MoE routes agree, every rank's cache block
+  within it relatively, the routes apart at no more than
+  ``F32_ROUTE_FLIPS`` near-ties (``ROUTE_NEAR_TIE``; the first flip at one,
+  the rows from it on and the SSM state then not held).  The bf16 run
+  prints its errors beside the unsharded model's (SSM and MoE configs, as
+  in ``tensor_parallel``), the flash and SSD kernels launched ranks ×
+  layers in its prefill, a rank's cache bytes against the closed form
+  (``_long_cache_bytes``: half the rows), a rank's parameter bytes, the
+  prefill's peak memory rise, prefill and decode times beside the
+  unsharded model's, and the collectives of one decode step.  The data
+  ranks' copies of a weight block and the model ranks' copies of a k/v
+  block share one tensor on the card (each card of a real mesh holds one).
+  The flash and ``ssd_scan`` entries of the kernels line give
+  ``long_decode_cases`` (``LD_FLASH_SHAPES``, ``LD_SSD_SHAPES``), every
+  entry ``long_decode_launches``.
 * ``dryrun``: the shape-only dry-run (``repro_torch.launch.dryrun_lib``)
   held against the card.  qwen3-32b's prefill as the serve phase runs it
   (8 layers, 8 × 512 tokens, flash, bf16) and the train phase's lm100m
@@ -1748,21 +1776,24 @@ def flash_cross_cases(normal) -> list[dict]:
     return cross_cases
 
 
-def flash_tensor_parallel_cases(normal) -> list[dict]:
+def flash_tensor_parallel_cases(normal, shapes: dict | None = None) -> list[dict]:
     """The flash kernel at the shapes a tensor-parallel rank of the
     ``tensor_parallel`` phase launches it (``TP_FLASH_SHAPES``: qwen3-32b's,
     mixtral's and jamba's heads over 4 and 16 ranks, with one kv head at
     16, causal over the prompt (mixtral's with its window); the vlm's cross
-    layer, not causal over its memory of 1600 image tokens), bf16, each
+    layer, not causal over its memory of 1600 image tokens), or of the
+    ``long_decode`` phase's prefill (``LD_FLASH_SHAPES``, whose entries add
+    the batch and the prompt's length to the serve phase's), bf16, each
     beside its plain version and SDPA, with its bound; ``normal(*shape)``
     draws the inputs."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
 
-    b, l, d = SERVE_BATCH, SERVE_PROMPT, 128
+    d = 128
     rows = []
-    for label, (h, hkv, window, memory) in TP_FLASH_SHAPES.items():
+    for label, (h, hkv, window, memory, *bl) in (shapes or TP_FLASH_SHAPES).items():
+        b, l = bl or (SERVE_BATCH, SERVE_PROMPT)
         causal, lk = not memory, memory or l
         q, k, v = normal(b, l, h, d), normal(b, lk, hkv, d), normal(b, lk, hkv, d)
         got = fa.flash_attention(q, k, v, causal=causal, window=window)
@@ -1770,9 +1801,13 @@ def flash_tensor_parallel_cases(normal) -> list[dict]:
         err = float((got.float() - want.float()).abs().max())
         check(torch.allclose(got.float(), want.float(), **BF16_TOL),
               f"flash_attention {label} within {BF16_TOL} of its plain version ({err})")
+        mask = None  # a window shorter than the prompt: SDPA takes the band as a mask
+        if causal and window and window < l:
+            at = torch.arange(l, device=q.device)
+            mask = (at[None, :] <= at[:, None]) & (at[None, :] > at[:, None] - window)
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=causal,
-            enable_gqa=True)
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+            is_causal=causal and mask is None, enable_gqa=True)
         pairs = (sum(min(i + 1, window or i + 1) for i in range(l)) if causal
                  else l * lk)  # kept (q, k) pairs
         bound_ms, bound_by = bound(2 * (2 * q.numel() + k.numel() + v.numel()),
@@ -1785,25 +1820,30 @@ def flash_tensor_parallel_cases(normal) -> list[dict]:
                      "plain_ms": cuda_ms(lambda: fa.flash_attention_ref(q, k, v, causal=causal,
                                                                         window=window)),
                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": cuda_ms(sdpa),
+                     "library": "scaled_dot_product_attention" + (
+                         "(attn_mask: the window's band)" if mask is not None else ""),
                      "library_max_abs_diff": float(
                          (sdpa().transpose(1, 2).float() - got.float()).abs().max())})
-        del q, k, v, got, want
+        del q, k, v, got, want, mask
     return rows
 
 
-def ssd_tensor_parallel_cases(normal, gen) -> list[dict]:
+def ssd_tensor_parallel_cases(normal, gen, shapes: dict | None = None) -> list[dict]:
     """The SSD kernel at the shapes a tensor-parallel rank of the
     ``tensor_parallel`` phase launches it (``TP_SSD_SHAPES``: mamba2-1.3b's
-    and jamba's heads over 4 and 16 ranks), bf16 in as the served route
-    takes it, each against its plain version (``ssd_chunked``) on the same
-    inputs upcast, with its bound (the formula of the ``ssd_scan`` row);
-    ``normal(*shape)`` and ``gen`` draw the inputs."""
+    and jamba's heads over 4 and 16 ranks) or of the ``long_decode``
+    phase's prefill (``LD_SSD_SHAPES``, with the batch and the prompt's
+    length), bf16 in as the served route takes it, each against its plain
+    version (``ssd_chunked``) on the same inputs upcast, with its bound (the
+    formula of the ``ssd_scan`` row); ``normal(*shape)`` and ``gen`` draw
+    the inputs."""
     from repro_torch.kernels import ssd_scan as ss
 
-    b, l, p, qc = SERVE_BATCH, SERVE_PROMPT, 64, 64
+    p, qc = 64, 64
     dev = gen.device
     rows = []
-    for label, (nh, n) in TP_SSD_SHAPES.items():
+    for label, (nh, n, *bl) in (shapes or TP_SSD_SHAPES).items():
+        b, l = bl or (SERVE_BATCH, SERVE_PROMPT)
         dt = (torch.rand((b, l, nh), generator=gen, device=dev) * 0.8 + 0.1).to(torch.bfloat16)
         a = (-(torch.rand((nh,), generator=gen, device=dev) + 0.5)).to(torch.bfloat16)
         inputs = (normal(b, l, nh, p), dt, a, normal(b, l, n), normal(b, l, n))
@@ -1895,6 +1935,7 @@ def lm_kernel_checks(seed: int, dev: torch.device, x_values: torch.Tensor,
         del qc, kc, vc, gotc, wantc
     cross_cases = flash_cross_cases(normal)
     tp_cases = flash_tensor_parallel_cases(normal)
+    long_cases = flash_tensor_parallel_cases(normal, LD_FLASH_SHAPES)
     pairs = l * (l + 1) // 2  # causal (q, k) pairs per (batch, head)
     bound_ms, bound_by = bound(2 * (q.numel() + k.numel() + v.numel() + got.numel()),
                                4 * d * pairs * b * h, BF16_FLOPS_PER_S)
@@ -2002,7 +2043,7 @@ def lm_kernel_checks(seed: int, dev: torch.device, x_values: torch.Tensor,
         "library_max_abs_diff": lib_err, "shape_q": [b, l, h, d], "shape_kv": [b, l, hkv, d],
         "window4096_shape_q": [1, 6144, 8, d], "window4096_max_abs_err": win_err,
         "window4096_ms": win_ms, "cases": cases, "cross_cases": cross_cases,
-        "tensor_parallel_cases": tp_cases,
+        "tensor_parallel_cases": tp_cases, "long_decode_cases": long_cases,
         "split_route": split_route,
     })
     del q, k, v, got, want
@@ -2111,6 +2152,7 @@ def lm_kernel_checks(seed: int, dev: torch.device, x_values: torch.Tensor,
     }
     del inputs, up, y32, h32, ry, rh, ybf, hbf
     out[-1]["tensor_parallel_cases"] = ssd_tensor_parallel_cases(normal, gen)
+    out[-1]["long_decode_cases"] = ssd_tensor_parallel_cases(normal, gen, LD_SSD_SHAPES)
 
     # ---- partition_histogram: one partition of the value-histogram path ----
     st = x_values
@@ -4439,6 +4481,13 @@ TP_F32_STEPS = 4
 #: of router logits that float reassociation tips (jamba-v0.1-52b showed one
 #: of 16,896 on an H100); a wrong dispatch would move far more
 F32_ROUTE_FLIPS = 4
+#: a route flip is at a near-tie where the unsharded f32 run's router margin
+#: there (the k-th minus the (k+1)-th router logit) is below this: ten times
+#: the distance of the two programs' f32 logits (1e-4).  The long_decode
+#: phase holds its f32 runs to F32_ROUTE_FLIPS near-ties, its first flip at
+#: one (a flip moves every later position through the SSM state and the
+#: attention rows, so the flips after it may be clear of a tie)
+ROUTE_NEAR_TIE = 1e-3
 TP_BF16_TOL = 0.25
 #: the flash kernel at the shapes a tensor-parallel rank launches it:
 #: label -> (H, Hkv, window, memory) of q (8, 512, H, 128) and k/v (8, L,
@@ -4517,25 +4566,36 @@ def _tp_rank_param_bytes(cfg, n: int) -> int:
 def _place_consuming(tree, shardings):
     """``tree``'s tensor leaves placed by ``shardings`` in its own dicts,
     each whole leaf dropped as soon as its shards are made (a leaf is freed
-    then if nothing else holds it); returns ``tree``."""
+    then if nothing else holds it); returns ``tree``.  The ranks that hold
+    the same block of a weight (its copies over ``data``) share one tensor
+    on the card, as each card of a real mesh holds one: the params are only
+    read."""
     from repro_torch.distributed import ShardedTensor
 
     for key in (tree.keys() if isinstance(tree, dict) else range(len(tree))):
         leaf, sh = tree[key], shardings[key]
         if isinstance(leaf, torch.Tensor):
             tree[key] = None
-            tree[key] = ShardedTensor.from_global(leaf, sh)
-            del leaf
+            blocks, shards = {}, []
+            for r, d in enumerate(sh.mesh.device_list):
+                index = sh.index(r, leaf.shape)
+                at = (tuple((i.start, i.stop) for i in index), d)
+                if at not in blocks:
+                    blocks[at] = leaf[index].to(d, copy=True)
+                shards.append(blocks[at])
+            tree[key] = ShardedTensor(leaf.shape, sh, shards)
+            del leaf, blocks
         else:
             _place_consuming(leaf, sh)
     return tree
 
 
-def _greedy_run(prefill, decode, toks, steps: int) -> tuple:
+def _greedy_run(prefill, decode, toks, steps: int, start: int = SERVE_PROMPT) -> tuple:
     """``prefill()``'s logits, then ``steps`` decode steps ``decode(token,
-    pos)`` fed ``toks`` (B, steps) or, where ``toks`` is None, each step's
-    own argmax: the logits (B, 1 + steps, Vp), the fed tokens, the
-    prefill's ms and its peak memory rise, and the ms per decode step."""
+    pos)`` at positions from ``start`` (the prompt's length) fed ``toks``
+    (B, steps) or, where ``toks`` is None, each step's own argmax: the
+    logits (B, 1 + steps, Vp), the fed tokens, the prefill's ms and its
+    peak memory rise, and the ms per decode step."""
     (prefill_ms, logits), rise = _peak_rise(lambda: _wall_ms(prefill))
     out, fed = [logits], []
     torch.cuda.synchronize()
@@ -4543,7 +4603,7 @@ def _greedy_run(prefill, decode, toks, steps: int) -> tuple:
     for t in range(steps):
         tok = out[-1].argmax(-1, keepdim=True) if toks is None else toks[:, t:t + 1]
         fed.append(tok)
-        out.append(decode(tok, SERVE_PROMPT + t))
+        out.append(decode(tok, start + t))
     torch.cuda.synchronize()
     decode_ms = 1e3 * (time.perf_counter() - t0) / steps
     return torch.stack(out, 1), torch.cat(fed, 1), prefill_ms, rise, decode_ms
@@ -4798,6 +4858,452 @@ def _tensor_parallel_rows(arch: str, shape: tuple, layers: int, steps: int, seed
     del placed, base, base_cache, base_routes
     free()
     return totals
+
+
+# ---------------------------------------------------------------------------
+# long_decode: a batch of one at long context under long_decode_rules
+# ---------------------------------------------------------------------------
+
+#: the long-context serving path (``long_decode_rules``: the cache's rows over
+#: ``data``, the heads over ``model``) at full width on a (2, 4) (data, model)
+#: mesh, a batch of one and a cache of ``LD_MAX_LEN`` rows, the ``long_500k``
+#: cell's ``seq_len``: arch -> (layers, prompt).  mamba2-1.3b whole;
+#: mixtral-8x7b at 2 of 32 layers, its prompt twice its 4096-slot ring, which
+#: the prompt wraps; jamba-v0.1-52b's first period (8 of 32 layers: 7 mamba2,
+#: 1 attention, 4 MoE), whose f32 weights (53 GB) leave room for its f32
+#: caches (4.3 GB a copy) and little more
+LD_RUNS = {"mamba2-1.3b": (48, 4096), "mixtral-8x7b": (2, 8192), "jamba-v0.1-52b": (8, 4096)}
+LD_MESH = (2, 4)
+LD_MAX_LEN = 524_288
+LD_BF16_STEPS, LD_F32_STEPS = 16, 4
+#: the flash kernel at the long prefill's rank shapes: label -> (H, Hkv,
+#: window, memory, B, L) of q (B, L, H, 128) and k/v (B, L, Hkv, 128): a
+#: rank's 8 of 32 q heads and its 2 of 8 kv heads (``wk``/``wv`` split 2 a
+#: rank), causal over the whole prompt (mixtral's with its window)
+LD_FLASH_SHAPES = {"mixtral_long_rank_of_2x4": (8, 2, 4096, 0, 1, 8192),
+                   "jamba_long_rank_of_2x4": (8, 2, 0, 0, 1, 4096)}
+#: the SSD kernel at the long prefill's rank shapes: label -> (heads, state,
+#: B, L) of x (B, L, heads, 64): mamba2-1.3b's 64 heads and jamba's 128 over 4
+LD_SSD_SHAPES = {"mamba2_long_rank_of_2x4": (16, 128, 1, 4096),
+                 "jamba_long_rank_of_2x4": (32, 16, 1, 4096)}
+
+
+def _map_named(fn, tree, *rest, name=None):
+    """``fn(name, leaf, *leaves)`` over the leaves of a cache tree (dicts and
+    tuples) and of trees like it, ``name`` the key that holds the leaf; the
+    tree of the results."""
+    if isinstance(tree, dict):
+        return {k: _map_named(fn, tree[k], *(r[k] for r in rest), name=k) for k in tree}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_named(fn, t, *(r[i] for r in rest), name=name)
+                          for i, t in enumerate(tree))
+    return fn(name, tree, *rest)
+
+
+def _long_cache(model, mesh, dtype: torch.dtype, dev: torch.device):
+    """A zeroed cache of ``LD_MAX_LEN`` rows for a batch of one, placed by
+    ``cache_shardings(long_context=True)`` block by block (no whole copy).
+    A ``k``/``v`` block lies on every model rank of its data rank (each
+    holds every kv head of its rows), and those ranks write the same values
+    into it: on one card they share one tensor, as each card of a real mesh
+    holds one.  Every other leaf is a copy a rank."""
+    from repro_torch.distributed import ShardedTensor, cache_shardings
+
+    meta = model.init_cache(1, LD_MAX_LEN, dtype=dtype, device="meta")
+
+    def place(name, leaf, sh):
+        blocks, shards = {}, []
+        for r in range(mesh.size):
+            index = tuple((i.start, i.stop) for i in sh.index(r, leaf.shape))
+            if name not in ("k", "v") or index not in blocks:
+                blocks[index] = torch.zeros(sh.shard_shape(leaf.shape), dtype=leaf.dtype,
+                                            device=dev)
+            shards.append(blocks[index])
+        return ShardedTensor(leaf.shape, sh, shards)
+
+    return _map_named(place, meta, cache_shardings(meta, mesh, long_context=True))
+
+
+def _max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| in f32, 65,536 slices of dim -3 at a time (a cache
+    block of 262,144 rows would need gigabytes of temporaries whole)."""
+    if a.ndim < 3:
+        return float((a.float() - b.float()).abs().max())
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(a.split(65_536, -3), b.split(65_536, -3)))
+
+
+def _cache_err(sharded, whole, *, relative: bool = True, skip=(), states: bool = True
+               ) -> float:
+    """The largest difference between every rank's block of each
+    ``sharded`` cache leaf and the same slice of ``whole`` (over the leaf's
+    largest magnitude where ``relative``).  A ``k``/``v`` leaf of ``whole``
+    may hold only the first rows (:func:`_written`): the block's rows past
+    them must be 0; its rows in a ``skip`` range ``(lo, hi)`` are not
+    compared, nor, without ``states``, any other leaf (the SSM state)."""
+    worst = 0.0
+
+    def one(name, st, w):
+        nonlocal worst
+        if name not in ("k", "v") and not states:
+            return
+        scale = float(w.abs().max().clamp(min=1e-30)) if relative else 1.0
+        for r in st.sharding.owners():
+            index, block = st.sharding.index(r, st.shape), st.shards[r]
+            if name not in ("k", "v"):
+                worst = max(worst, _max_abs_diff(block, w[index]) / scale)
+                continue
+            lo, n = index[-3].start, block.shape[-3]
+            cuts = sorted({lo, lo + n, *(min(max(x, lo), lo + n)
+                                         for x in (*sum(skip, ()), w.shape[-3]))})
+            for a, b in zip(cuts, cuts[1:]):
+                if any(s0 <= a < s1 for s0, s1 in skip):
+                    continue
+                mine = block[..., a - lo:b - lo, :, :]
+                want = (w[(*index[:-3], slice(a, b))] if a < w.shape[-3] else
+                        torch.zeros_like(mine[..., :1, :, :]).expand_as(mine))
+                worst = max(worst, _max_abs_diff(mine, want) / scale)
+
+    _map_named(one, sharded, whole)
+    return worst
+
+
+def _recording_margins(fn):
+    """``fn()`` with the MoE router's margin recorded: (its result, one
+    ``(tokens,)`` f32 tensor a router call of the k-th minus the (k+1)-th
+    router logit, computed as ``repro_torch.models.moe._route`` computes
+    the logits)."""
+    import repro_torch.models.moe as moe
+
+    real, margins = moe._route, []
+
+    def route(p, cfg, xt):
+        logits = (xt @ p["router"].to(xt.dtype)).to(torch.float32)
+        top = logits.topk(cfg.moe_top_k + 1, -1).values
+        margins.append((top[..., -2] - top[..., -1]).reshape(-1))
+        return real(p, cfg, xt)
+
+    moe._route = route
+    try:
+        return fn(), margins
+    finally:
+        moe._route = real
+
+
+def _seed_rows(cache, start: int, seed: int, dev: torch.device) -> None:
+    """Seeded draws (N(0, 1/4)) into rows ``[start, S)`` of every ``k``/``v``
+    leaf of ``cache`` (the rows no run wrote; all of a ring where ``start``
+    is 0), drawn on the card 65,536 rows at a time, so that an unsharded
+    cache and a placed one (every distinct block of a ``ShardedTensor``
+    leaf) get the same values from the same ``seed``."""
+    from repro_torch.distributed import ShardedTensor
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def one(name, leaf):
+        if name not in ("k", "v"):
+            return
+        blocks = ([(0, leaf)] if not isinstance(leaf, ShardedTensor) else list(
+            {id(t): (leaf.sharding.index(r, leaf.shape)[-3].start, t)
+             for r, t in enumerate(leaf.shards)}.values()))
+        rows, shape = leaf.shape[-3], tuple(leaf.shape)
+        for r0 in range(start, rows, 65_536):
+            r1 = min(r0 + 65_536, rows)
+            draw = torch.randn((*shape[:-3], r1 - r0, *shape[-2:]), generator=gen,
+                               device=dev).mul_(0.5)
+            for lo, t in blocks:
+                a, b = max(r0, lo), min(r1, lo + t.shape[-3])
+                if a < b:
+                    t[..., a - lo:b - lo, :, :] = draw[..., a - r0:b - r0, :, :].to(t.dtype)
+
+    _map_named(one, cache)
+
+
+def _written(cache, rows: int):
+    """A copy of ``cache`` with its ``k``/``v`` leaves cut to their first
+    ``rows`` rows: what a prompt and steps of ``rows`` tokens wrote."""
+    return _map_named(lambda name, leaf: (leaf[..., :rows, :, :] if name in ("k", "v")
+                                          else leaf).clone(), cache)
+
+
+def _long_cache_bytes(cfg, dtype: torch.dtype) -> int:
+    """Closed form of one rank's cache bytes on the (2, 4) mesh: each
+    attention layer's k and v for half the rows (of the ring where the
+    window is shorter) and every kv head; each mamba2 layer's conv
+    (``(W-1, din + 2N)``) and f32 ``h`` (``(NH, P, N)``) a quarter of their
+    channels and heads, the model axis dividing both."""
+    counts = layer_counts(cfg)
+    size = torch.tensor([], dtype=dtype).element_size()
+    ring = min(LD_MAX_LEN, cfg.sliding_window) if cfg.sliding_window else LD_MAX_LEN
+    kv = counts.get("attn", 0) * 2 * (ring // LD_MESH[0]) * cfg.num_kv_heads * \
+        cfg.resolved_head_dim * size
+    din, n = cfg.ssm_expand * cfg.d_model, cfg.ssm_state
+    ssm = counts.get("mamba2", 0) * (
+        (cfg.ssm_conv_width - 1) * (din + 2 * n) // LD_MESH[1] * size
+        + din // cfg.ssm_head_dim // LD_MESH[1] * cfg.ssm_head_dim * n * 4) if n else 0
+    return kv + ssm
+
+
+def long_decode_phase(seed: int, dev: torch.device, card: str) -> dict:
+    """The serving path at long context (``sharded_prefill`` /
+    ``sharded_decode_step`` under ``long_decode_rules``), every rank a
+    position on ``dev``, against the unsharded model: every config of
+    ``LD_RUNS``; returns the kernels' launches of the bf16 runs."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    totals = {k: 0 for k in read_launches()}
+    seconds = {}
+    for arch, (layers, prompt) in LD_RUNS.items():
+        t0 = time.perf_counter()
+        for k, c in _long_decode_rows(arch, layers, prompt, seed, dev, card).items():
+            totals[k] += c
+        seconds[arch] = time.perf_counter() - t0
+    emit({"phase": "long_decode", "run": "launches", "card": card, "launches": totals,
+          "seconds": time.perf_counter() - t_phase, "seconds_by_run": seconds})
+    check(totals["flash_attention"] > 0 and totals["ssd_scan"] > 0,
+          f"long_decode: flash_attention and ssd_scan launched ({totals})")
+    return totals
+
+
+def _long_decode_rows(arch: str, layers: int, prompt: int, seed: int, dev: torch.device,
+                      card: str) -> dict:
+    """One config of ``LD_RUNS`` (``long_decode_phase``).  The unsharded
+    model runs in bf16 (a prompt and ``LD_BF16_STEPS`` greedy steps), then
+    on the same weights upcast to f32 (the prompt, ``LD_F32_STEPS`` steps
+    fed the bf16 run's tokens, then one step at the last slot over seeded
+    rows); the long-context f32 run does the same and is held to it
+    (logits, every rank's cache block, the MoE routes); the long-context
+    bf16 run is printed beside the unsharded one.  Emits a row per run and
+    returns the kernels' launches of the bf16 run."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch._pytree import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import (
+        long_decode_rules,
+        params_shardings,
+        sharded_decode_step,
+        sharded_prefill,
+    )
+    from repro_torch.distributed.spmd import collective_census
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers, attn_impl="flash")
+    counts = layer_counts(cfg)
+    moe_layers = counts.get("moe", 0)
+    models = {"bf16": build_model(cfg),
+              "f32": build_model(dataclasses.replace(cfg, dtype="float32"))}
+    cache_dtype = {"bf16": torch.bfloat16, "f32": torch.float32}
+    prompts = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, prompt), dtype=np.int64), device=dev)
+    v = cfg.vocab_size
+    mesh = compat_make_mesh(LD_MESH, ("data", "model"), devices=(dev,))
+    rules = long_decode_rules(mesh)
+    expected = {"flash_attention": mesh.size * counts.get("attn", 0),
+                "ssd_scan": mesh.size * counts.get("mamba2", 0)}
+    last = LD_MAX_LEN - 1  # the dry-run's decode slot
+    ring = bool(cfg.sliding_window) and cfg.sliding_window < LD_MAX_LEN
+    runs_rows = prompt + LD_F32_STEPS  # the tokens the f32 runs wrote
+    seed_from = 0 if ring else runs_rows  # a ring's slots would hold tokens no run wrote
+
+    def recorded(fn):  # fn()'s result and the MoE routes it recorded (None: no MoE)
+        return _recording_routes(fn) if moe_layers else (fn(), None)
+
+    def unsharded(params, kind, toks, steps):
+        model = models[kind]
+        cache = model.init_cache(1, LD_MAX_LEN, dtype=cache_dtype[kind], device=dev)
+        with torch.no_grad():
+            return _greedy_run(lambda: model.prefill(params, {"tokens": prompts}, cache)[0],
+                               lambda tok, pos: model.decode_step(params, cache, tok, pos)[0],
+                               toks, steps, start=prompt) + (cache,)
+
+    def sharded(placed, kind, toks, steps):
+        model, cache = models[kind], _long_cache(models[kind], mesh, cache_dtype[kind], dev)
+        with torch.no_grad():
+            return _greedy_run(
+                lambda: sharded_prefill(model, placed, {"tokens": prompts}, cache, mesh=mesh,
+                                        rules=rules)[0],
+                lambda tok, pos: sharded_decode_step(model, placed, cache, tok, pos, mesh=mesh,
+                                                     rules=rules)[0],
+                toks, steps, start=prompt) + (cache,)
+
+    def held(got_routes, base_routes, n: int, first: int):
+        """(1, n) logits whose positions ``first + i`` route alike in every
+        MoE layer, and the flips a layer (None: no MoE)."""
+        if not moe_layers:
+            return torch.ones((1, n), dtype=torch.bool, device=dev), None
+        f = _route_flips(_per_layer(base_routes, moe_layers), _per_layer(got_routes, moe_layers))
+        return ~f[:, :, first + torch.arange(n, device=dev)].any(0), [int(x.sum()) for x in f]
+
+    def held_max(err, ok):
+        return float(err[ok].max()) if ok.any() else None
+
+    def route_flips(got_routes, base_routes, margins) -> list:
+        """[(position, layer, the unsharded run's router margin there)] of
+        every route flip, in position order."""
+        if not moe_layers:
+            return []
+        f = _route_flips(_per_layer(base_routes, moe_layers), _per_layer(got_routes, moe_layers))
+        m = [torch.cat(margins[i::moe_layers]) for i in range(moe_layers)]
+        return sorted((p, layer, float(m[layer][p])) for layer, _, p in f.nonzero().tolist())
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def init():
+        return models["bf16"].init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+
+    # ---- the unsharded model: bf16, then f32 on the same weights upcast ----
+    params = init()
+    whole_param_bytes = _tree_bytes(params)
+    unsharded(params, "bf16", None, 1)  # warm-up
+    free()
+    reset_launches()
+    (base, toks, base_prefill_ms, base_rise, base_decode_ms, base_cache), base_routes = \
+        recorded(lambda: unsharded(params, "bf16", None, LD_BF16_STEPS))
+    torch.cuda.synchronize()
+    base_launches = read_launches()
+    upcast_in_place(params)
+    free()
+    ((base32, _, _, _, _, base32_cache), base32_routes), margins32 = _recording_margins(
+        lambda: recorded(lambda: unsharded(params, "f32", toks, LD_F32_STEPS)))
+    bf16_vs_f32 = float((base[:, :LD_F32_STEPS + 1, :v].float() - base32[..., :v]).abs().max())
+    snap32 = _written(base32_cache, runs_rows)
+    _seed_rows(base32_cache, seed_from, seed + 1, dev)
+    last_tok = toks[:, LD_F32_STEPS:LD_F32_STEPS + 1]
+    with torch.no_grad():
+        ((want_last, _), want_last_routes), margins_last = _recording_margins(lambda: recorded(
+            lambda: models["f32"].decode_step(params, base32_cache, last_tok, last)))
+
+    # ---- long-context f32 on the same weights: the check that decides ----
+    placed = _place_consuming(params, params_shardings(params, mesh, fsdp_axis=None))
+    del params
+    free()
+    (got32, _, _, _, _, cache32), routes32 = recorded(
+        lambda: sharded(placed, "f32", toks, LD_F32_STEPS))
+    err32 = (got32[..., :v] - base32[..., :v]).abs().amax(-1)  # (1, 1 + steps)
+    held32, flips32 = held(routes32, base32_routes, err32.shape[1], prompt - 1)
+    flipped = route_flips(routes32, base32_routes, margins32)
+    # a flip moves every later position (the SSM state, the attention rows):
+    # the rows from the first flipped token on are not held, nor the state
+    skip = [(0, LD_MAX_LEN) if ring else (flipped[0][0], runs_rows)] if flipped else []
+    written_err = _cache_err(cache32, snap32, skip=skip, states=not flipped)
+    _seed_rows(cache32, seed_from, seed + 1, dev)
+    with torch.no_grad():
+        (got_last, _), got_last_routes = recorded(lambda: sharded_decode_step(
+            models["f32"], placed, cache32, last_tok, last, mesh=mesh, rules=rules))
+    held_last, flips_last = held(got_last_routes, want_last_routes, 1, 0)
+    flipped_last = route_flips(got_last_routes, want_last_routes, margins_last)
+    last_err = held_max((got_last[..., :v] - want_last[..., :v]).abs().amax(-1).reshape(1, 1),
+                        held_last)
+    slot = last % LD_MAX_LEN if not ring else last % cfg.sliding_window
+    last_cache_err = _cache_err(cache32, base32_cache,
+                                skip=skip + ([(slot, slot + 1)] if flipped_last else []),
+                                states=not (flipped or flipped_last))
+    near_ties = [f for f in flipped + flipped_last if f[2] < ROUTE_NEAR_TIE]
+    logit_err = held_max(err32, held32)
+    row = {"phase": "long_decode", "run": f"{arch}/f32", "card": card, "mesh": mesh.shape,
+           "layers": layers, "layer_counts": counts, "rules": "long_decode_rules",
+           "batch": 1, "prompt": prompt, "cache_rows": LD_MAX_LEN, "dtype": "float32",
+           "steps": LD_F32_STEPS, "logit_tol": F32_LOGIT_TOL,
+           "prefill_vs_unsharded": held_max(err32[:, :1], held32[:, :1]),
+           "decode_vs_unsharded": held_max(err32[:, 1:], held32[:, 1:]),
+           "cache_vs_unsharded_relative": written_err,
+           "last_slot": last, "last_slot_seeded_from": seed_from,
+           "last_slot_vs_unsharded": last_err,
+           "last_slot_cache_vs_unsharded_relative": last_cache_err,
+           "cache_rows_not_held": skip, "state_held": not (flipped or flipped_last),
+           "route_mismatches_by_layer": flips32,
+           "last_slot_route_mismatches_by_layer": flips_last,
+           "route_flips_position_layer_margin": flipped + [(last, l, m) for _, l, m in
+                                                           flipped_last],
+           "route_near_tie": ROUTE_NEAR_TIE, "route_near_ties": len(near_ties),
+           "route_near_ties_allowed": F32_ROUTE_FLIPS,
+           "held_positions": int(held32.sum()) + int(held_last.sum()),
+           "compared_positions": held32.numel() + 1,
+           "logit_max_abs": float(base32[..., :v].abs().max()),
+           "unsharded_bf16_vs_f32": bf16_vs_f32}
+    emit(row)
+    del got32, cache32, routes32, base32, base32_cache, base32_routes, snap32, placed
+    free()
+    name = f"long_decode {arch}/f32"
+    check(len(near_ties) <= F32_ROUTE_FLIPS,
+          f"{name}: routes apart from the unsharded f32 run at {len(near_ties)} near-ties, "
+          f"more than {F32_ROUTE_FLIPS}")
+    for what, flips in (("greedy", flipped), ("last-slot", flipped_last)):
+        check(not flips or flips[0][2] < ROUTE_NEAR_TIE,
+              f"{name}: the {what} run's first route flip {flips[:1]} is at a router margin "
+              f"past {ROUTE_NEAR_TIE}: no near-tie")
+    for key in ("prefill_vs_unsharded", "decode_vs_unsharded", "cache_vs_unsharded_relative",
+                "last_slot_vs_unsharded", "last_slot_cache_vs_unsharded_relative"):
+        check(row[key] is not None and row[key] <= F32_LOGIT_TOL,
+              f"{name}: {key} {row[key]} > {F32_LOGIT_TOL}")
+
+    # ---- long-context bf16 on the same bf16 weights: printed ----
+    params = init()
+    placed = _place_consuming(params, params_shardings(params, mesh, fsdp_axis=None))
+    del params
+    free()
+    rank_param_bytes = sum(t.shards[0].numel() * t.shards[0].element_size()
+                           for t in tree_leaves(placed))
+    want_param_bytes = _tp_rank_param_bytes(cfg, LD_MESH[1])
+    sharded(placed, "bf16", toks, 1)  # warm-up: threads, handles
+    free()
+    reset_launches()
+    (got, _, prefill_ms, rise, decode_ms, cache), routes = recorded(
+        lambda: sharded(placed, "bf16", toks, LD_BF16_STEPS))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    err = (got[..., :v].float() - base[..., :v].float()).abs().amax(-1)
+    ok, flips_bf16 = held(routes, base_routes, err.shape[1], prompt - 1)
+    cache_err = _cache_err(cache, base_cache, relative=False)
+    rank_cache_bytes = sum(t.shards[0].numel() * t.shards[0].element_size()
+                           for t in tree_leaves(cache))
+    want_cache_bytes = _long_cache_bytes(cfg, torch.bfloat16)
+    with collective_census() as census, torch.no_grad():
+        step_ms, _ = _wall_ms(lambda: sharded_decode_step(
+            models["bf16"], placed, cache, toks[:, -1:], prompt + LD_BF16_STEPS, mesh=mesh,
+            rules=rules))
+    emit({"phase": "long_decode", "run": arch, "card": card, "mesh": mesh.shape,
+          "layers": layers, "layer_counts": counts, "rules": "long_decode_rules",
+          "batch": 1, "prompt": prompt, "cache_rows": LD_MAX_LEN, "steps": LD_BF16_STEPS,
+          "prefill_ms": prefill_ms, "unsharded_prefill_ms": base_prefill_ms,
+          "decode_ms_per_step": decode_ms, "unsharded_decode_ms_per_step": base_decode_ms,
+          "prefill_peak_rise_gb": rise / 1e9, "unsharded_prefill_peak_rise_gb": base_rise / 1e9,
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+          "rank_cache_bytes": rank_cache_bytes, "rank_cache_bytes_closed_form": want_cache_bytes,
+          "unsharded_cache_bytes": _tree_bytes(base_cache),
+          "rank_param_bytes": rank_param_bytes, "rank_param_bytes_closed_form": want_param_bytes,
+          "unsharded_param_bytes": whole_param_bytes,
+          "launches": launches, "launches_expected": expected,
+          "unsharded_launches": base_launches,
+          "logit_tol": None, "unsharded_bf16_vs_f32": bf16_vs_f32,
+          "prefill_vs_unsharded": held_max(err[:, :1], ok[:, :1]),
+          "decode_vs_unsharded": held_max(err[:, 1:], ok[:, 1:]),
+          "cache_vs_unsharded": cache_err, "route_mismatches_by_layer": flips_bf16,
+          "held_positions": int(ok.sum()), "compared_positions": int(ok.numel()),
+          "greedy_disagreements": int((got[..., :v].argmax(-1) != base[..., :v].argmax(-1))
+                                      .sum()),
+          "logit_max_abs": float(base[..., :v].float().abs().max()),
+          "census_decode_step": census, "census_step_ms": step_ms})
+    check(bool(torch.isfinite(got[..., :v].float()).all()),
+          f"long_decode {arch}: finite logits")
+    for k, want in expected.items():
+        check(launches[k] == want and base_launches[k] == want // mesh.size,
+              f"long_decode {arch}: {k} launches {launches[k]} (unsharded {base_launches[k]}) "
+              f"!= {mesh.size} ranks x {want // mesh.size} layers in one prefill")
+    check(rank_cache_bytes == want_cache_bytes,
+          f"long_decode {arch}: rank cache bytes {rank_cache_bytes} != {want_cache_bytes}")
+    check(rank_param_bytes == want_param_bytes,
+          f"long_decode {arch}: rank param bytes {rank_param_bytes} != {want_param_bytes}")
+    del got, cache, routes, placed, base, base_cache, base_routes
+    free()
+    return launches
 
 
 SAMPLED_STEPS = 8
@@ -5169,6 +5675,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     tensor_parallel_launches = tensor_parallel_phase(args.seed, dev, card)
     torch.cuda.empty_cache()
+    long_decode_launches = long_decode_phase(args.seed, dev, card)
+    torch.cuda.empty_cache()
     dryrun_launches = dryrun_phase(args.seed, dev, card)
     kernels += lm_kernel_checks(args.seed, dev, x_values, launches, by_run)
     for k in kernels:  # launches on the mesh and service paths (None: not on them)
@@ -5178,6 +5686,7 @@ def main(argv=None) -> int:
         k["train_launches"] = train_launches[k["name"]]
         k["distributed_launches"] = distributed_launches[k["name"]]
         k["tensor_parallel_launches"] = tensor_parallel_launches[k["name"]]
+        k["long_decode_launches"] = long_decode_launches[k["name"]]
         k["dryrun_launches"] = dryrun_launches[k["name"]]
     check(len(kernels) == 5 and all(k["launches"] > 0 for k in kernels),
           f"every kernel launched on its path: {launches}")

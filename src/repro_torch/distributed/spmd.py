@@ -907,19 +907,30 @@ class TensorParallel:
     read inside the body of :func:`sharded_prefill` and
     :func:`sharded_decode_step` (``models/layers.py``, ``models/mla.py``,
     ``models/ssm.py``, ``models/moe.py``, ``models/lm.py``): how the
-    attention layers' decode cache lies over :data:`MODEL_AXIS`:
-    ``kv_seq_split``, its sequence (``cache_shardings(layout="seq")``,
-    context parallelism), or, under ``layout="heads"``,
-    ``kv_heads_split``, the kv heads of ``k``/``v``, and ``latent_split``,
-    the latent (and rope) dim of MLA's ``ckv``/``krope``; and
-    ``data_axes``, the axes the batch rows are split over (the MoE layer
+    attention layers' decode cache lies: ``kv_seq_axis``, the mesh axis its
+    sequence (and MLA's latent rows) is split over for context-parallel
+    decode, :data:`MODEL_AXIS` under ``decode_rules``
+    (``cache_shardings(layout="seq")``), ``"data"`` under
+    ``long_decode_rules`` (``cache_shardings(long_context=True)``, the heads
+    split over ``model`` beside it), None where every rank holds every row;
+    or, under ``layout="heads"``, ``kv_heads_split``, the kv heads of
+    ``k``/``v`` over ``model``, and ``latent_split``, the latent (and rope)
+    dim of MLA's ``ckv``/``krope``; and ``batch_axes``, the axes the batch
+    rows are split over, as the rules' ``batch`` names them (none under
+    ``long_decode_rules``, whose batch of one is replicated): the MoE layer
     groups the tokens of the whole batch, as the reference's ``jax.jit``
-    does)."""
+    does."""
 
-    kv_seq_split: bool = False
+    kv_seq_axis: str | None = None
     kv_heads_split: bool = False
-    data_axes: tuple[str, ...] = ()
+    batch_axes: tuple[str, ...] = ()
     latent_split: bool = False
+
+
+def first_rank() -> bool:
+    """Whether the calling rank is its mesh's first (every coordinate 0):
+    the one that records what the ranks computed alike."""
+    return _context().rank == 0
 
 
 def tensor_parallel() -> TensorParallel | None:
@@ -957,17 +968,19 @@ def _gather_spec(spec: PartitionSpec, keep: tuple[str, ...] = ()) -> PartitionSp
     return P(*gather)
 
 
-def _kv_cache_layout(cache: Any, cache_specs: Any) -> tuple[bool, bool, bool]:
-    """(sequence split, kv heads split, latent split) over the model axis
-    of the attention layers' ``k`` leaves (``(.., B, S, Hkv, Dh)``) and the
-    MLA layers' ``ckv``/``krope`` leaves (``(.., B, S, R)``: the sequence,
-    or the latent and rope dim under ``layout="heads"``) laid out by
-    ``cache_specs``; all False for a cache with none.  The leaves must all
-    lie alike: a layer whose cache is whole beside one whose cache is split,
-    or a latent split beside a rope dim kept whole, is refused."""
+def _kv_cache_layout(cache: Any, cache_specs: Any) -> tuple[str | None, bool, bool]:
+    """(the sequence's axis, kv heads split, latent split) of the attention
+    layers' ``k`` leaves (``(.., B, S, Hkv, Dh)``) and the MLA layers'
+    ``ckv``/``krope`` leaves (``(.., B, S, R)``) laid out by
+    ``cache_specs``: the mesh axis their sequence is split over (None where
+    it is whole), and whether the kv heads, or MLA's latent and rope dims
+    under ``layout="heads"``, are split over the model axis; (None, False,
+    False) for a cache with none.  The leaves must all lie alike: a layer
+    whose cache is whole beside one whose cache is split, or a latent split
+    beside a rope dim kept whole, is refused."""
     from repro_torch.distributed.sharding import _map_with_path
 
-    found: dict[tuple[bool, bool], list[str]] = {}
+    found: dict[tuple, list[str]] = {}
     kinds: set[str] = set()
     specs: list = []
     tree_map(lambda _, spec: specs.append(spec), cache, cache_specs)
@@ -982,14 +995,14 @@ def _kv_cache_layout(cache: Any, cache_specs: Any) -> tuple[bool, bool, bool]:
         kinds.add("k" if name == "k" else "latent")
         nb = len(leaf.shape) - base
         entry = lambda d: spec[d] if d < len(spec) else None  # noqa: E731
-        split = (entry(nb + 1) == MODEL_AXIS, entry(nb + 2) == MODEL_AXIS)
+        split = (entry(nb + 1), entry(nb + 2) == MODEL_AXIS)
         found.setdefault(split, []).append("/".join(map(str, path)))
 
     _map_with_path(one, cache)
     if len(found) > 1:
-        raise ValueError(f"the attention layers' caches lie differently over the model axis "
-                         f"(sequence, heads or latent split: leaves): {found}")
-    seq, heads = next(iter(found)) if found else (False, False)
+        raise ValueError(f"the attention layers' caches lie differently over the mesh "
+                         f"(sequence axis, heads or latent split: leaves): {found}")
+    seq, heads = next(iter(found)) if found else (None, False)
     return seq, heads and "k" in kinds, heads and "latent" in kinds
 
 
@@ -1005,14 +1018,22 @@ def serving_body(model: Any, mesh: Mesh, params: Any, param_specs: Any, cache: A
     axis, keeps the cache block the rank's own, and runs
     ``step(params, batch, cache)`` under ``rules`` with a
     :class:`TensorParallel` as the thread's :func:`tensor_parallel`.  The
-    logits are the rank's rows and vocabulary columns, ``P(dp, "model")``.
+    logits are the rank's rows and vocabulary columns, ``P(batch,
+    "model")`` for the rules' ``batch`` axes: ``P(None, "model")`` under
+    ``long_decode_rules``, whose batch of one every rank holds.
 
     It runs the models ``Model.tensor_parallel_refusal`` admits: attention
     (windowed or not, the encoder's too), MLA, cross-attention and Mamba2
     mixers, with SwiGLU, capacity-bucketed MoE (``moe_impl="onehot"``) or
     no MLPs (the refusal names what else it refuses), under
-    ``decode_rules`` or ``decode_rules_headsharded``; not under
-    ``long_decode_rules``."""
+    ``decode_rules``, ``decode_rules_headsharded`` or
+    ``long_decode_rules``.  The cache must lie as the rules say: the
+    sequence of the attention and MLA caches over the rules' ``kv_seq``
+    axis or whole, its other dims over ``model`` or the rules' ``batch``
+    axes (``cache_shardings``; with ``long_context=True`` under
+    ``long_decode_rules``: the sequence over ``data``, every kv head and
+    the whole latent on each rank).  A cache laid out for other rules is
+    refused."""
     from repro_torch.distributed.sharding import use_rules
 
     refusal = model.tensor_parallel_refusal()
@@ -1020,19 +1041,27 @@ def serving_body(model: Any, mesh: Mesh, params: Any, param_specs: Any, cache: A
         raise NotImplementedError(f"{model.cfg.name}: {refusal}")
     if MODEL_AXIS not in mesh.shape:
         raise ValueError(f"tensor-parallel serving needs a {MODEL_AXIS!r} axis in {mesh}")
-    if rules.logical.get("kv_seq") not in (None, MODEL_AXIS):
-        raise NotImplementedError(f"the KV sequence over {rules.logical['kv_seq']!r} "
-                                  f"(long_decode_rules) is not ported")
+    kv_seq = rules.logical.get("kv_seq")
+    long_context = kv_seq not in (None, MODEL_AXIS)  # the sequence over a batch axis
+    batch = _axes(rules.logical.get("batch") or ())
 
     gather = tree_map(lambda _, s: _gather_spec(s), params, param_specs)
-    dp = _dp_axes(mesh)
-    if any(tree_leaves(tree_map(lambda _, s: any(_gather_spec(s, dp)), cache, cache_specs))):
-        raise ValueError("a tensor-parallel rank writes its own cache block: the cache may be "
-                         "split over the model and batch axes only")
-    seq_split, heads_split, latent_split = _kv_cache_layout(cache, cache_specs)
-    if mesh.shape[MODEL_AXIS] == 1:  # one rank holds everything: the layers call no collective
-        seq_split = heads_split = latent_split = False
-    tp = TensorParallel(seq_split, heads_split, dp, latent_split)
+    keep = batch + ((kv_seq,) if long_context else ())
+    if any(tree_leaves(tree_map(lambda _, s: any(_gather_spec(s, keep)), cache, cache_specs))):
+        raise ValueError(f"a tensor-parallel rank writes its own cache block: under these "
+                         f"rules the cache may be split over {(MODEL_AXIS, *keep)} only")
+    seq_axis, heads_split, latent_split = _kv_cache_layout(cache, cache_specs)
+    if seq_axis not in (None, kv_seq) or (long_context and (heads_split or latent_split)):
+        laid = (f"its sequence over {seq_axis!r}" if seq_axis is not None
+                else "its heads or latent over 'model'")
+        raise ValueError(f"the cache is laid out for other rules ({laid}); these rules put the "
+                         f"KV sequence over {kv_seq!r}: lay it out by cache_shardings"
+                         f"{'(long_context=True)' if long_context else ''}")
+    if seq_axis is not None and mesh.shape[seq_axis] == 1:
+        seq_axis = None  # one block holds every row
+    if mesh.shape[MODEL_AXIS] == 1:  # one rank holds every head: no model collective
+        heads_split = latent_split = False
+    tp = TensorParallel(seq_axis, heads_split, batch, latent_split)
 
     def body(params_l, batch_l, cache_l):
         full = tree_map(gathered, params_l, gather)
@@ -1049,35 +1078,40 @@ def _serve(model: Any, params: Any, batch: dict, cache: Any, step: Callable, *, 
         if not (isinstance(leaf, ShardedTensor) and leaf.sharding.mesh == mesh):
             raise ValueError("the cache must be placed on the mesh (device_put with "
                              "cache_shardings), so that each rank writes its own block")
-    dp = _dp_axes(mesh)
+    rows = rules.logical.get("batch") or None  # the batch's axes; None: replicated
     p_specs = tree_map(_spec_of, params)
     c_specs = tree_map(_spec_of, cache)
-    b_specs = {k: P(dp) for k in batch}
+    b_specs = {k: P(rows) for k in batch}
     body = serving_body(model, mesh, params, p_specs, cache, c_specs, step, rules)
     outs = _run_ranks(mesh, body, _local_args(mesh, (params, batch, cache),
                                               (p_specs, b_specs, c_specs)))
-    return _global_outputs(mesh, [o[0] for o in outs], P(dp, MODEL_AXIS)), cache
+    return _global_outputs(mesh, [o[0] for o in outs], P(rows, MODEL_AXIS)), cache
 
 
 def sharded_prefill(model: Any, params: Any, batch: dict[str, torch.Tensor], cache: Any, *,
                     mesh: Mesh, rules: Any) -> tuple[torch.Tensor, Any]:
     """``model.prefill`` tensor-parallel over the mesh's ``model`` axis: the
     port's counterpart of the reference's ``jax.jit(model.prefill,
-    in_shardings=..., out_shardings=(P(dp, "model"), ...))`` under
-    ``rules`` (``decode_rules`` or ``decode_rules_headsharded``).
+    in_shardings=..., out_shardings=(P(batch, "model"), ...))`` under
+    ``rules`` (``decode_rules``, ``decode_rules_headsharded`` or
+    ``long_decode_rules``).
 
     ``params`` are :class:`ShardedTensor` leaves placed by
     ``params_shardings`` (a plain tensor is replicated), ``cache`` is placed
-    by ``cache_shardings(layout="seq" | "heads")`` on ``mesh``, and the
-    batch's leaves (``tokens``, and whisper's ``frames`` or the vlm's
-    ``image_embeds``) are split over ``(pod, data)``.  Each rank gathers
-    only the ``fsdp`` dims of its params and runs the model on its shards:
-    its heads, its MLP columns, its experts and its vocabulary rows, with
-    the ``model`` collectives in the layers (``models/layers.py``,
-    ``mla.py``, ``ssm.py``, ``moe.py``), and writes its own block of the
-    cache in place.  Returns the last position's logits,
-    assembled from the ranks' ``P(dp, "model")`` blocks on rank 0's device,
-    and the cache.
+    by ``cache_shardings(layout="seq" | "heads")`` on ``mesh`` (under
+    ``long_decode_rules`` by ``cache_shardings(long_context=True)``: its
+    rows over ``data``), and the batch's leaves (``tokens``, and whisper's
+    ``frames`` or the vlm's ``image_embeds``) are split over the rules'
+    ``batch`` axes, ``(pod, data)`` (replicated under
+    ``long_decode_rules``, a batch of one).  Each rank gathers only the
+    ``fsdp`` dims of its params and runs the model on its shards: its
+    heads, its MLP columns, its experts and its vocabulary rows, with the
+    ``model`` collectives in the layers (``models/layers.py``, ``mla.py``,
+    ``ssm.py``, ``moe.py``), and writes its own block of the cache in place
+    (under ``long_decode_rules`` every data rank runs the whole prompt and
+    writes its block of the rows).  Returns the last position's logits,
+    assembled from the ranks' ``P(batch, "model")`` blocks on rank 0's
+    device, and the cache.
     """
     return _serve(model, params, batch, cache, lambda p, b, c: model.prefill(p, b, c),
                   mesh=mesh, rules=rules)
@@ -1089,11 +1123,14 @@ def sharded_decode_step(model: Any, params: Any, cache: Any, token: torch.Tensor
     """``model.decode_step`` tensor-parallel over the mesh's ``model``
     axis, as :func:`sharded_prefill` runs the prefill: the token ``(B, 1)``
     and ``memory`` (B, M, Dm), the vlm's ``image_embeds`` that the
-    reference's server passes every step, split over ``(pod, data)``; the
-    cache updated in place.  Under the ``seq`` layout decode attention is
-    context-parallel (each rank attends to its own cache rows and the ranks
-    combine their softmax partials); under ``heads`` each rank attends with
-    its own heads (MLA: its heads over the latent all-gathered)."""
+    reference's server passes every step, split over the rules' ``batch``
+    axes; the cache updated in place.  Under the ``seq`` layout decode
+    attention is context-parallel over ``model`` (each rank attends with
+    every head to its own cache rows and the ranks combine their softmax
+    partials); under ``heads`` each rank attends with its own heads (MLA:
+    its heads over the latent all-gathered); under ``long_decode_rules``
+    each rank attends with its own heads to its own rows and the ``data``
+    ranks combine their partials."""
     batch = {"token": token} if memory is None else {"token": token, "memory": memory}
     return _serve(model, params, batch, cache,
                   lambda p, b, c: model.decode_step(p, c, b["token"], pos, b.get("memory")),

@@ -14,14 +14,19 @@ the params, the optimizer state, the cache and the batch as the reference
 places them (``params_shardings``, ``cache_shardings``, the batch over
 ``(pod, data)``) and runs the port's step on its share of the batch.  The
 serving cells of the models ``Model.tensor_parallel_refusal`` admits
-(every config with the onehot MoE; not under ``long_decode_rules``) run
-the tensor-parallel rank program of ``spmd.sharded_prefill`` and
-``sharded_decode_step`` (``spmd.serving_body``): the rank keeps its heads
-(MLA's, the encoder's and cross-attention's too), SSM heads, MLP columns,
-experts and vocabulary rows split over ``model`` and its own cache block,
-gathers only the ``fsdp`` dims, and the layers call the ``model``
-collectives.  Every other cell is data-parallel: the
-rank gathers with ``all_gather`` what the port's model needs whole.
+(every config with the onehot MoE) run the tensor-parallel rank program
+of ``spmd.sharded_prefill`` and ``sharded_decode_step``
+(``spmd.serving_body``): the rank keeps its heads (MLA's, the encoder's
+and cross-attention's too), SSM heads, MLP columns, experts and
+vocabulary rows split over ``model`` and its own cache block, gathers
+only the ``fsdp`` dims, and the layers call the ``model`` collectives.
+The ``long_500k`` cells (a batch of one under ``long_decode_rules``) run
+it too: the cache's rows over ``data`` (``cache_shardings(
+long_context=True)``), so a decode step's attention combines its
+softmax partials over ``data`` beside the ``model`` psums and the new
+row's gather of kv heads over ``model``.  Every other cell is
+data-parallel: the rank gathers with ``all_gather`` what the port's
+model needs whole.
 
 * train — the params gathered, :func:`~repro_torch.optim.accumulate_gradients`
   (SplIter over the microbatch blocks) on the rank's rows, the loss and
@@ -34,7 +39,8 @@ rank gathers with ``all_gather`` what the port's model needs whole.
   cell's rules and ``cache_impl`` (the tensor-parallel body writes the row
   on the rank whose block holds it, whether ``cache_impl`` says
   ``"masked"`` or ``"sharded_dus"``; ``"decomposed"`` attends before the
-  write there too).
+  write there too); the ``long_500k`` cell's under ``long_decode_rules``,
+  its batch of one and its logits ``P(None, "model")`` on every rank.
 
 The production meshes are one ``meta`` device over 256 or 512 positions
 (``make_production_mesh(devices=(torch.device("meta"),))``); on such a mesh
@@ -133,7 +139,9 @@ COST_BASIS = {
         + _COUNTS),
     "tensor_parallel": (
         "one rank's tensor-parallel program at its shard shapes (the batch split over "
-        "(pod, data); heads, SSM heads, MLP columns, experts and vocabulary rows split over "
+        "(pod, data), or a batch of one on every rank under long_decode_rules, its cache rows "
+        "over data and a prompt's attention whole on every data rank; heads, SSM heads, MLP "
+        "columns, experts and vocabulary rows split over "
         "model as params_shardings places them, only fsdp dims gathered; the rank's own cache "
         "block; the SSD kernel's formula at the rank's heads; the mamba2 B/C projections and "
         "C·Bᵀ, the MoE router and a decode step's MLA down-projections whole on every rank; "
@@ -151,9 +159,10 @@ COLLECTIVES_BASIS = {
         "embedding, the all-gathers of the kv rows or heads (the memory's too), of a prompt's "
         "MLA latent rows and of the mamba2 conv cache blocks with the ranks' last x inputs, "
         "the MoE token rows' all-gather over the data axes where a rank's rows are not whole "
-        "dispatch groups, in decode the q heads' (MLA: q_lat and q_rope) all-gather and the "
-        "context-parallel combine (a max and a sum), or the MLA latent's all-gather under "
-        "the heads layout; the fsdp gathers"),
+        "dispatch groups, in decode the context-parallel combine (a max and a sum) over the "
+        "cache rows' axis, model (after the q heads' all-gather; MLA: q_lat and q_rope) or "
+        "data under long_decode_rules (the rank's own heads), or the MLA latent's all-gather "
+        "under the heads layout; the fsdp gathers"),
 }
 MEMORY_BASIS = (
     "per-rank shard shapes of the arguments and outputs as the reference places them; "
@@ -411,10 +420,12 @@ def _batch_dims(model, cache):
 def _serve_program(model, mesh: Mesh, params, p_sh, batch, b_sh, cache, c_sh, step: Callable,
                    rules, batch_axes, memory: dict, tensor_parallel: bool) -> Lowered:
     """The serving cell lowered.  With ``tensor_parallel``
-    (``Model.tensor_parallel_refusal`` is None, not under ``long_decode_rules``):
-    ``spmd.serving_body``, the
-    rank's shards of the params (gathered over ``fsdp`` only) and its block
-    of the cache, the logits of its rows and vocabulary columns.  Otherwise
+    (``Model.tensor_parallel_refusal`` is None; under ``decode_rules``,
+    ``decode_rules_headsharded`` or ``long_decode_rules``):
+    ``spmd.serving_body``, the rank's shards of the params (gathered over
+    ``fsdp`` only) and its block of the cache, the logits of its rows
+    (``batch_axes``: None, every rank's, under ``long_decode_rules``) and
+    vocabulary columns.  Otherwise
     data-parallel: params gathered, the cache gathered but for its batch
     rows (over ``batch_axes``), ``step(params, batch, cache)`` under
     ``rules``, the logits of the rank's rows and its blocks of the cache
@@ -496,8 +507,7 @@ def _lower_decode(
         return model.decode_step(p, c, batch["token"], last)
 
     return _serve_program(model, mesh, params, p_sh, token, t_sh, cache, c_sh, step, rules,
-                          batch_ax, memory,
-                          model.tensor_parallel_refusal() is None and not long_ctx)
+                          batch_ax, memory, model.tensor_parallel_refusal() is None)
 
 
 def lower_cell(

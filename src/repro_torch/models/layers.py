@@ -549,21 +549,22 @@ def _kv_for_heads(t: torch.Tensor, q0: int, hq: int, group: int) -> torch.Tensor
     return t.index_select(2, torch.arange(q0, q0 + hq, device=t.device) // group)
 
 
-def combine_context_parallel(s: torch.Tensor, mask: torch.Tensor,
-                             value) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The softmax of scores whose keys are split over the model axis, from
-    this rank's f32 scores ``s`` (keys last) of its own keys, attended where
-    ``mask``: each rank keeps its row maximum, its sum of exponentials and
-    its unnormalised output ``value(p)`` for its weights ``p``; the ranks
-    take the maximum (``pmax``) and sum the sums and outputs rescaled to it
-    (one ``psum``).  Returns (the sum, the output, the maximum), each
-    keeping the keys' dim as 1."""
+def combine_context_parallel(s: torch.Tensor, mask: torch.Tensor, value,
+                             axis: str) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The softmax of scores whose keys are split over the mesh axis
+    ``axis`` (the cache's sequence axis), from this rank's f32 scores ``s``
+    (keys last) of its own keys, attended where ``mask``: each rank keeps
+    its row maximum, its sum of exponentials and its unnormalised output
+    ``value(p)`` for its weights ``p``; the ranks take the maximum
+    (``pmax``) and sum the sums and outputs rescaled to it (one ``psum``).
+    Returns (the sum, the output, the maximum), each keeping the keys' dim
+    as 1."""
     s = torch.where(mask, s, -1e30)
     mx = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - mx).masked_fill(~mask, 0.0)
-    total = pmax(mx, MODEL_AXIS)
+    total = pmax(mx, axis)
     rescale = torch.exp(mx - total)
-    lsum, o = psum((p.sum(dim=-1, keepdim=True) * rescale, value(p) * rescale), MODEL_AXIS)
+    lsum, o = psum((p.sum(dim=-1, keepdim=True) * rescale, value(p) * rescale), axis)
     return lsum, o, total
 
 
@@ -584,10 +585,11 @@ def sequence_parallel(f, *ts: torch.Tensor) -> torch.Tensor:
 
 
 def _sdpa_context_parallel(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor, *, rows0: int,
-                           kv_len: int, new: tuple[torch.Tensor, torch.Tensor] | None = None,
+                           kv_len: int, axis: str,
+                           new: tuple[torch.Tensor, torch.Tensor] | None = None,
                            slot: int = -1) -> torch.Tensor:
     """Decode attention of ``q`` (B, 1, H, Dh) over a cache whose rows are
-    split over the model axis: this rank's block ``kc``/``vc`` (B, S_l,
+    split over the mesh axis ``axis``: this rank's block ``kc``/``vc`` (B, S_l,
     Hkv, Dh) holds global rows ``[rows0, rows0 + S_l)``, of which rows below
     ``kv_len`` but row ``slot`` are attended, their softmax partials
     combined by :func:`combine_context_parallel` (f32).  ``new``, the new
@@ -606,7 +608,7 @@ def _sdpa_context_parallel(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor, 
     if slot >= 0:
         mask &= rows != slot
     lsum, o, total = combine_context_parallel(
-        s, mask, lambda w: torch.einsum("bhgqk,bkhd->bhgqd", w, vc.to(torch.float32)))
+        s, mask, lambda w: torch.einsum("bhgqk,bkhd->bhgqd", w, vc.to(torch.float32)), axis)
     if new is not None:
         s_new = torch.einsum("bqhgd,bkhd->bhgqk", qg, new[0]).to(torch.float32) * scale
         top = torch.maximum(total, s_new)
@@ -633,14 +635,23 @@ def _attention_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, tp, cos: torch.T
     share of the rows (the rows of its cache block under the ``seq``
     layout) with every kv head, and the ranks all-gather them.
 
-    The cache (``tp.kv_seq_split``: the rank's rows, every kv head;
-    ``tp.kv_heads_split``: every row, the rank's kv heads; neither: the
-    whole cache) is written in place, the rank's block only.  Decode under
-    the ``seq`` layout is context-parallel: the q heads and the new row's
-    kv heads are all-gathered, the rank that owns the slot writes the row,
-    and every rank attends to its own rows (:func:`_sdpa_context_parallel`).
-    Under a ``"decomposed"`` ``cache_impl`` decode attends to the old rows
-    and joins the new one, then writes, as :func:`attention` does.
+    The cache (``tp.kv_seq_axis``: the rank's rows, split over that axis,
+    every kv head; ``tp.kv_heads_split``: every row, the rank's kv heads;
+    neither: the whole cache) is written in place, the rank's block only.
+    Decode with the sequence split is context-parallel: the new row's kv
+    heads are all-gathered (the cache holds every kv head), the rank whose
+    block holds the slot writes the row, every rank attends to its own
+    rows, and the ranks combine their softmax partials over the sequence's
+    axis (:func:`_sdpa_context_parallel`).  Over ``model`` (the ``seq``
+    layout of ``decode_rules``) every rank's rows need every head: the q
+    heads are all-gathered first and the rank keeps its heads of the
+    output.  Over ``data`` (``long_decode_rules``: a batch of one, its
+    cache's sequence over ``data``, the heads over ``model``) the rank
+    attends with its own q heads to the kv heads they read; the ``data``
+    ranks combine, and ``wo``'s partial is summed over ``model`` as
+    everywhere.  Under a ``"decomposed"`` ``cache_impl`` decode attends to
+    the old rows and joins the new one, then writes, as :func:`attention`
+    does.
 
     With a sliding window the cache is the ring :func:`attention` keeps
     (``S = min(max_len, window)`` slots, token *t* in slot ``t % S``): a
@@ -649,7 +660,11 @@ def _attention_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, tp, cos: torch.T
     ``pos % S`` on the rank whose block holds it and attends to every
     written slot (the decomposed step to every one but that slot).  A
     prompt that wraps the ring projects its k/v rows sequence-parallel in
-    equal shares of the prompt, not by cache block.
+    equal shares of the prompt, not by cache block.  Under
+    ``long_decode_rules`` the prompt is every ``data`` rank's (the batch is
+    replicated): each computes its heads' attention over the whole prompt
+    and writes its block of the rows (of the ring, rolled, where the prompt
+    wraps it).
     """
     heads, kv_heads = cfg.num_heads, cfg.num_kv_heads
     group = heads // kv_heads
@@ -663,6 +678,7 @@ def _attention_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, tp, cos: torch.T
                          f"params_shardings and cache_shardings split them")
     q0 = rank * hq if q_split else 0
     window = cfg.sliding_window
+    seq_ax = tp.kv_seq_axis  # the axis the cache's rows are split over, or None
 
     def project(w: str, rows: slice = slice(None)) -> torch.Tensor:
         return _project(p, cfg, x[:, rows], w, cos[:, rows], sin[:, rows])
@@ -677,8 +693,8 @@ def _attention_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, tp, cos: torch.T
     lq = x.shape[1]
     ck, cv = (None, None) if cache is None else (cache["k"], cache["v"])
     if ck is not None:  # the rank's block: global slots [rows0, rows0 + ck.shape[1])
-        slots = ck.shape[1] * n if tp.kv_seq_split else ck.shape[1]
-        rows0 = rank * ck.shape[1] if tp.kv_seq_split else 0
+        slots = ck.shape[1] * (axis_size(seq_ax) if seq_ax else 1)
+        rows0 = axis_index(seq_ax) * ck.shape[1] if seq_ax else 0
     if lq == 1 and cache is not None:  # -------- decode step --------
         r = active_rules()
         decomposed = r is not None and "decomposed" in r.cache_impl
@@ -700,12 +716,16 @@ def _attention_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, tp, cos: torch.T
 
         if not decomposed:
             write()
-        if tp.kv_seq_split:
+        if seq_ax == MODEL_AXIS:  # every head over the rank's rows; its heads kept
             q_all = all_gather(q, MODEL_AXIS, axis=2, tiled=True) if q_split else q
             out = _sdpa_context_parallel(
-                q_all, ck, cv, rows0=rows0, kv_len=valid,
+                q_all, ck, cv, rows0=rows0, kv_len=valid, axis=seq_ax,
                 new=(k, v) if decomposed else None, slot=slot if decomposed else -1
             )[:, :, q0:q0 + hq]
+        elif seq_ax is not None:  # the rank's heads over its rows
+            out = _sdpa_context_parallel(
+                q, mine(ck), mine(cv), rows0=rows0, kv_len=valid, axis=seq_ax,
+                new=(mine(k), mine(v)) if decomposed else None, slot=slot if decomposed else -1)
         elif decomposed:
             out = _sdpa_decode_decomposed(q, mine(ck), mine(cv), mine(k), mine(v),
                                           valid_len=valid, slot=slot)
@@ -729,7 +749,7 @@ def _attention_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, tp, cos: torch.T
                 write_ring(*((k, v) if tp.kv_heads_split else (all_heads(k), all_heads(v))))
         else:  # sequence-parallel projection of every kv head, then gathered
             # the rows of the rank's cache block, where they are prompt rows [rows0, ..)
-            by_block = ck is not None and tp.kv_seq_split and not (window and lq > slots)
+            by_block = ck is not None and seq_ax == MODEL_AXIS and not (window and lq > slots)
             chunk = ck.shape[1] if by_block else -(-lq // n)
             lo, hi = min(rank * chunk, lq), min((rank + 1) * chunk, lq)
             kr, vr = project("wk", slice(lo, hi)), project("wv", slice(lo, hi))

@@ -220,18 +220,23 @@ def _mla_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, tp, *, positions: torc
     all-gather the rows (two all-gathers), so that every rank holds the
     latent ``c_kv`` and ``k_rope`` of every token of its batch rows.  The
     rank's heads attend to the K/V they decompress from the latent.  It
-    writes its block of the cache: its rows under the ``seq`` layout
-    (``tp.kv_seq_split``), its latent and rope columns under ``heads``
+    writes its block of the cache: its rows where the sequence is split
+    (``tp.kv_seq_axis``: over ``model`` under the ``seq`` layout, over
+    ``data`` under ``long_decode_rules``, whose batch of one every rank
+    holds), its latent and rope columns under ``heads``
     (``tp.latent_split``), all of it where neither splits.
 
     **Decode:** the rank projects its heads' ``q_lat`` (``W^UK`` absorbed)
-    and ``q_rope``.  Under ``seq`` it all-gathers the heads; the rank whose
-    rows hold the slot writes the new latent row, each rank attends in
-    latent space to its own rows with every head, and the ranks combine
-    their softmax partials (:func:`combine_context_parallel`: a ``pmax``
-    and a ``psum`` of ``(B, H, 1, Kr + 1)`` f32 values); each rank keeps its
-    heads of ``o_lat``.  Under ``heads`` each rank writes its columns of the
-    new row and all-gathers the latent: the scores sum over the latent and
+    and ``q_rope``.  Where the sequence is split the rank whose rows hold
+    the slot writes the new latent row, each rank attends in latent space
+    to its own rows, and the ranks combine their softmax partials over the
+    sequence's axis (:func:`combine_context_parallel`: a ``pmax`` and a
+    ``psum`` of ``(B, H, 1, Kr + 1)`` f32 values over the heads attended):
+    under ``seq`` (over ``model``) it all-gathers the heads first, attends
+    with every head and keeps its heads of ``o_lat``; under
+    ``long_decode_rules`` (over ``data``) it attends with its own heads.
+    Under ``heads`` each rank writes its columns of the new row and
+    all-gathers the latent: the scores sum over the latent and
     rope dims, and gathering them (each rank receives the other ranks'
     ``(n - 1) / n`` of its rows' ``B·S·(Kr + Rh)`` cache elements a layer
     and step: 8 × 528 × 576 × 15/16 bf16 values, 4.6 MB, at deepseek-v2's
@@ -263,7 +268,8 @@ def _mla_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, tp, *, positions: torc
     if cache is not None:
         ckv, krope = cache["ckv"], cache["krope"]
         # the rank's block: rows [rows0, rows0 + ckv.shape[1]), columns from c0 and r0
-        rows0 = rank * ckv.shape[1] if tp.kv_seq_split else 0
+        seq_ax = tp.kv_seq_axis
+        rows0 = axis_index(seq_ax) * ckv.shape[1] if seq_ax else 0
         c0, r0 = (rank * ckv.shape[2], rank * krope.shape[2]) if tp.latent_split else (0, 0)
 
         def write(src_c: torch.Tensor, src_r: torch.Tensor, at: int) -> None:
@@ -278,8 +284,9 @@ def _mla_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, tp, *, positions: torc
     if cache is not None and l == 1:  # -------- absorbed decode --------
         write(c_kv, k_rope, cache_pos)
         q_lat = torch.einsum("blhk,rhk->blhr", q_nope, p["wk_b"].to(dt))
-        if tp.kv_seq_split:
-            if split:
+        if seq_ax is not None:
+            every_head = split and seq_ax == MODEL_AXIS  # every rank's rows need every head
+            if every_head:
                 q_lat, q_rope = (all_gather(t, MODEL_AXIS, axis=2, tiled=True)
                                  for t in (q_lat, q_rope))
             s = (torch.einsum("blhr,bsr->bhls", q_lat, ckv.to(dt))
@@ -287,8 +294,9 @@ def _mla_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, tp, *, positions: torc
             kpos = torch.arange(rows0, rows0 + ckv.shape[1], device=x.device)
             lsum, o, _ = combine_context_parallel(
                 s * scale, kpos <= cache_pos,
-                lambda w: torch.einsum("bhls,bsr->bhlr", w, ckv.to(torch.float32)))
-            o_lat = (o / lsum).permute(0, 2, 1, 3)[:, :, q0:q0 + hq].to(dt)
+                lambda w: torch.einsum("bhls,bsr->bhlr", w, ckv.to(torch.float32)), seq_ax)
+            o_lat = (o / lsum).permute(0, 2, 1, 3)
+            o_lat = (o_lat[:, :, q0:q0 + hq] if every_head else o_lat).to(dt)
         else:
             if tp.latent_split:
                 ckv, krope = (all_gather(t, MODEL_AXIS, axis=2, tiled=True) for t in (ckv, krope))

@@ -54,6 +54,8 @@ ranks sum their partial combines (a ``psum``).  The groups are the
 reference's: ``jax.jit`` groups the tokens of the whole batch, so where a
 rank's batch rows do not tile whole groups it all-gathers the token rows
 over the batch's data axes first and keeps its own rows of the output.
+Under ``long_decode_rules`` the batch of one is replicated (its axes are
+none): every rank's rows are the whole batch, grouped as they are.
 
 Routes can be recorded: with :attr:`moe_mlp.routes` set to a list (it is
 ``None``, off, by default), every call appends
@@ -80,6 +82,7 @@ from repro_torch.distributed.spmd import (
     all_gather,
     axis_index,
     axis_size,
+    first_rank,
     psum,
     tensor_parallel,
 )
@@ -146,7 +149,7 @@ def _moe_onehot(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     e, k, vs = cfg.moe_experts, cfg.moe_top_k, cfg.moe_virtual_split
     ev = e * vs
     tp = tensor_parallel()
-    dp = () if tp is None else tp.data_axes
+    dp = () if tp is None else tp.batch_axes  # replicated under long_decode_rules: none
     ndp = axis_size(dp) if dp else 1
     g, cap = _groups(cfg, b * l * ndp)  # the whole batch's groups
     gather = (b * l) % g != 0  # the rank's rows are not whole groups: route the batch's
@@ -204,10 +207,10 @@ def _record_routes(tp, dp: tuple[str, ...], ndp: int, gathered: bool, l: int,
     """Record one call's routes (``(n, g, k)`` over the tokens routed); in
     a tensor-parallel body once for the whole batch: the ranks' rows are
     all-gathered over the data axes if they were routed apart, and the
-    first rank records."""
+    mesh's first rank records (every rank holds the whole batch's routes)."""
     if tp is not None and ndp > 1 and not gathered:
         experts, dropped = (all_gather(t, dp, axis=0, tiled=True) for t in (experts, dropped))
-    if tp is None or (axis_index(MODEL_AXIS) == 0 and (not dp or axis_index(dp) == 0)):
+    if tp is None or first_rank():
         _record((experts.shape[0] * experts.shape[1] // l, l), experts, dropped)
 
 

@@ -8,11 +8,12 @@ directory and then the names of the cases to run: by default every case of
 :data:`CASES` (every mode of ``tests/_dist_child.py`` that the port mirrors,
 not ``mesh_exec``, and the ``jax.lax`` collectives on the same mesh
 shapes); ``tensor_parallel`` (the reference's serving steps under GSPMD)
-is the tensor-parallel test's.  It saves what each produced to ``out.npz``
-in the directory (and the train step's params, as a checkpoint, under
-``params/`` there).  The inputs are drawn here exactly as the parent draws
-them for the port (numpy generators, fixed seeds).  Not collected by pytest
-(no ``test_`` prefix).
+is the tensor-parallel test's, ``long_decode`` (the same under
+``long_decode_rules``, a batch of one) the long-context test's.  It saves
+what each produced to ``out.npz`` in the directory (and the train step's
+params, as a checkpoint, under ``params/`` there).  The inputs are drawn
+here exactly as the parent draws them for the port (numpy generators,
+fixed seeds).  Not collected by pytest (no ``test_`` prefix).
 """
 
 import dataclasses
@@ -272,21 +273,22 @@ def tp_case(name: str) -> tuple[str, dict, int, int, int]:
     return arch, ov, prompt, steps, max(TP_MAX_LEN, prompt + steps)
 
 
-def tp_tokens(vocab: int, length: int = TP_PROMPT + TP_STEPS) -> np.ndarray:
-    """The prompts and the decode steps' tokens (B, length)."""
-    return np.random.default_rng(13).integers(0, vocab, (TP_BATCH, length)).astype(np.int32)
+def tp_tokens(vocab: int, length: int = TP_PROMPT + TP_STEPS, batch: int = TP_BATCH
+              ) -> np.ndarray:
+    """The prompts and the decode steps' tokens (batch, length)."""
+    return np.random.default_rng(13).integers(0, vocab, (batch, length)).astype(np.int32)
 
 
-def tp_extras(cfg) -> dict[str, np.ndarray]:
+def tp_extras(cfg, batch: int = TP_BATCH) -> dict[str, np.ndarray]:
     """The stubbed frontends' outputs for the prompts, numpy f32: whisper's
     ``frames``, the vlm's ``image_embeds`` (the decode steps' memory too);
     empty for the other families."""
     rng = np.random.default_rng(17)
     if cfg.family == "audio":
-        return {"frames": rng.normal(size=(TP_BATCH, cfg.encoder_seq, cfg.d_model))
+        return {"frames": rng.normal(size=(batch, cfg.encoder_seq, cfg.d_model))
                 .astype(np.float32)}
     if cfg.family == "vlm":
-        return {"image_embeds": rng.normal(size=(TP_BATCH, cfg.image_tokens,
+        return {"image_embeds": rng.normal(size=(batch, cfg.image_tokens,
                                                  cfg.image_embed_dim)).astype(np.float32)}
     return {}
 
@@ -331,7 +333,6 @@ def tensor_parallel(out: dict) -> None:
         decode_rules,
         decode_rules_headsharded,
         params_shardings,
-        use_rules,
     )
     from repro.models import build_model
 
@@ -343,7 +344,6 @@ def tensor_parallel(out: dict) -> None:
                               tp_gates(jax.tree.map(np.asarray, model.init(jax.random.key(0)))))
         toks = jnp.asarray(tp_tokens(model.cfg.vocab_size, prompt + steps))
         extras = {k: jnp.asarray(v) for k, v in tp_extras(model.cfg).items()}
-        memory = extras.get("image_embeds")  # every decode step's, as the server passes it
         p_sh = params_shardings(params, mesh, fsdp_axis=None)
         rows = NamedSharding(mesh, P("data", None))
         e_sh = {k: NamedSharding(mesh, P("data", None, None)) for k in extras}
@@ -354,33 +354,109 @@ def tensor_parallel(out: dict) -> None:
         for layout, rules in zip(TP_LAYOUTS, (decode_rules(mesh), decode_rules_headsharded(mesh))):
             cache = model.init_cache(TP_BATCH, max_len, jnp.float32)
             c_sh = cache_shardings(cache, mesh, layout=layout)
-            with use_rules(rules):  # read while the steps trace
-                prefill = jax.jit(model.prefill,
-                                  in_shardings=(p_sh, {"tokens": rows, **e_sh}, c_sh),
-                                  out_shardings=(logits_sh, c_sh))
-                scalar = NamedSharding(mesh, P())
-                decode = jax.jit(model.decode_step,
-                                 in_shardings=(p_sh, c_sh, rows, scalar) + (
-                                     () if memory is None else (e_sh["image_embeds"],)),
-                                 out_shardings=(logits_sh, c_sh))
-                placed = jax.device_put(params, p_sh)
-                logits, cache = prefill(placed, {"tokens": toks[:, :prompt], **extras},
-                                        jax.device_put(cache, c_sh))
-                outs = [logits]
-                for t in range(steps):
-                    logits, cache = decode(placed, cache, toks[:, prompt + t:prompt + t + 1],
-                                           jnp.asarray(prompt + t, jnp.int32),
-                                           *(() if memory is None else (memory,)))
-                    outs.append(logits)
-            key = f"tensor_parallel/{name}/{layout}"
-            out[f"{key}/logits"] = np.stack([np.asarray(o) for o in outs], 1)
-            for path, leaf in jax.tree_util.tree_flatten_with_path(cache)[0]:
-                blocks = {s.device: np.asarray(s.data) for s in leaf.addressable_shards}
-                out[f"{key}/cache/{tp_path(path)}"] = np.stack(
-                    [blocks[d] for d in mesh.devices.flat])
+            serve_jitted(out, f"tensor_parallel/{name}/{layout}", model, params, p_sh, toks,
+                         extras, cache, c_sh, rules, mesh, prompt, steps,
+                         (rows, e_sh, logits_sh))
 
 
-def moe_drops(model, params, toks, prompt: int, steps: int, max_len: int) -> np.ndarray:
+def serve_jitted(out: dict, key: str, model, params, p_sh, toks, extras: dict, cache, c_sh,
+                 rules, mesh, prompt: int, steps: int, shardings: tuple) -> None:
+    """``jax.jit(model.prefill)`` of ``toks[:, :prompt]`` (and ``extras``)
+    into ``cache`` placed by ``c_sh``, then ``steps`` ``jax.jit(model.decode_step)``
+    fed the next tokens (and the vlm's image embeddings), under ``rules``,
+    the tokens, the extras and the logits laid out by ``shardings``
+    ``(tokens, {extra: sharding}, logits)``: saves under ``key`` the logits
+    after the prefill and each step, and every rank's block of the final
+    cache (rank order)."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from repro.distributed.sharding import use_rules
+
+    rows, e_sh, logits_sh = shardings
+    memory = extras.get("image_embeds")  # every decode step's, as the server passes it
+    with use_rules(rules):  # read while the steps trace
+        prefill = jax.jit(model.prefill,
+                          in_shardings=(p_sh, {"tokens": rows, **e_sh}, c_sh),
+                          out_shardings=(logits_sh, c_sh))
+        scalar = NamedSharding(mesh, P())
+        decode = jax.jit(model.decode_step,
+                         in_shardings=(p_sh, c_sh, rows, scalar) + (
+                             () if memory is None else (e_sh["image_embeds"],)),
+                         out_shardings=(logits_sh, c_sh))
+        placed = jax.device_put(params, p_sh)
+        logits, cache = prefill(placed, {"tokens": toks[:, :prompt], **extras},
+                                jax.device_put(cache, c_sh))
+        outs = [logits]
+        for t in range(steps):
+            logits, cache = decode(placed, cache, toks[:, prompt + t:prompt + t + 1],
+                                   jnp.asarray(prompt + t, jnp.int32),
+                                   *(() if memory is None else (memory,)))
+            outs.append(logits)
+    out[f"{key}/logits"] = np.stack([np.asarray(o) for o in outs], 1)
+    for path, leaf in jax.tree_util.tree_flatten_with_path(cache)[0]:
+        blocks = {s.device: np.asarray(s.data) for s in leaf.addressable_shards}
+        out[f"{key}/cache/{tp_path(path)}"] = np.stack([blocks[d] for d in mesh.devices.flat])
+
+
+#: the long-context serving case (``long_decode_rules``): a batch of
+#: LD_BATCH, its cache's sequence over data (``cache_shardings(
+#: long_context=True)``: every kv head and the whole latent on each rank),
+#: every TP_ARCHES arch and the LD_CASES of TP_CASES; the cache's length
+#: rounded up to a multiple of the data axis (2), so that the sequence
+#: really splits
+LD_BATCH = 1
+LD_CASES = ("mamba2-1.3b/chunked", "mixtral-8x7b/cf1.25", "jamba-v0.1-52b/cf1.25",
+            "deepseek-v2-236b/cf1.25", "mixtral-8x7b/roll", "mixtral-8x7b/wrap")
+
+
+def ld_case(name: str) -> tuple[str, dict, int, int, int]:
+    """(arch, overrides, prompt, steps, max_len) of a long-context case."""
+    arch, ov, prompt, steps, max_len = tp_case(name)
+    return arch, ov, prompt, steps, -(-max_len // 2) * 2
+
+
+def long_decode(out: dict) -> None:
+    """``jax.jit(model.prefill)`` and ``jax.jit(model.decode_step)`` of a
+    batch of one on a (2, 4) ("data", "model") mesh under
+    ``long_decode_rules``: params by ``params_shardings`` (no ``fsdp``), the
+    cache by ``cache_shardings(long_context=True)``, the tokens and extras
+    replicated (``P(None, ...)``) and the logits out as ``P(None,
+    "model")`` (``repro/launch/dryrun_lib.py:180-212``); and, for a
+    capacity case, the choices dropped (:func:`moe_drops`)."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from repro.configs import get_smoke_config
+    from repro.distributed.sharding import cache_shardings, long_decode_rules, params_shardings
+    from repro.models import build_model
+
+    mesh = _mesh((2, 4), ("data", "model"))
+    rules = long_decode_rules(mesh)
+    for name in (*TP_ARCHES, *LD_CASES):
+        arch, ov, prompt, steps, max_len = ld_case(name)
+        model = build_model(dataclasses.replace(get_smoke_config(arch), dtype="float32", **ov))
+        params = jax.tree.map(jnp.asarray,
+                              tp_gates(jax.tree.map(np.asarray, model.init(jax.random.key(0)))))
+        toks = jnp.asarray(tp_tokens(model.cfg.vocab_size, prompt + steps, LD_BATCH))
+        extras = {k: jnp.asarray(v) for k, v in tp_extras(model.cfg, LD_BATCH).items()}
+        if model.cfg.moe_capacity_factor < model.cfg.moe_experts / max(model.cfg.moe_top_k, 1):
+            out[f"long_decode/{name}/drops"] = moe_drops(model, params, toks, prompt, steps,
+                                                         max_len, LD_BATCH)
+        cache = model.init_cache(LD_BATCH, max_len, jnp.float32)
+        shardings = (NamedSharding(mesh, P(None, None)),
+                     {k: NamedSharding(mesh, P(None, None, None)) for k in extras},
+                     NamedSharding(mesh, P(None, "model")))
+        serve_jitted(out, f"long_decode/{name}", model, params,
+                     params_shardings(params, mesh, fsdp_axis=None), toks, extras, cache,
+                     cache_shardings(cache, mesh, long_context=True), rules, mesh, prompt, steps,
+                     shardings)
+
+
+def moe_drops(model, params, toks, prompt: int, steps: int, max_len: int,
+              batch: int = TP_BATCH) -> np.ndarray:
     """The choices the MoE layers drop at capacity in the prefill and in
     each decode step ``(1 + steps,)``, from the same steps run op by op
     (``jax.disable_jit``, so that the scanned layers run as a loop) with
@@ -403,17 +479,17 @@ def moe_drops(model, params, toks, prompt: int, steps: int, max_len: int) -> np.
     drops = []
     try:
         with jax.disable_jit():
-            cache = model.init_cache(TP_BATCH, max_len, jnp.float32)
+            cache = model.init_cache(batch, max_len, jnp.float32)
             for t in range(1 + steps):
                 seen.clear()
                 if t == 0:
                     _, cache = model.prefill(params, {"tokens": toks[:, :prompt]}, cache)
-                    tokens = TP_BATCH * prompt
+                    tokens = batch * prompt
                 else:
                     pos = prompt + t - 1
                     _, cache = model.decode_step(params, cache, toks[:, pos:pos + 1],
                                                  jnp.asarray(pos, jnp.int32))
-                    tokens = TP_BATCH
+                    tokens = batch
                 kept = sum(float(np.asarray(d).sum()) for d in seen[0::2])
                 choices = len(seen) // 2 * tokens * cfg.moe_top_k
                 drops.append(choices - kept / cfg.moe_virtual_split)
@@ -427,7 +503,7 @@ def moe_drops(model, params, toks, prompt: int, steps: int, max_len: int) -> np.
 CASES = {"hier_and_compressed": hier_and_compressed, "gpipe": gpipe_case,
          "sharded_train": sharded_train, "elastic_restore": elastic_restore,
          "cache_writes": cache_writes, "primitives": primitives}
-EXTRA_CASES = {"tensor_parallel": tensor_parallel}
+EXTRA_CASES = {"tensor_parallel": tensor_parallel, "long_decode": long_decode}
 
 
 if __name__ == "__main__":

@@ -29,6 +29,7 @@ SMALL_SHAPES = {
     "train_4k": ("train", 32, 16),
     "prefill_32k": ("prefill", 32, 8),
     "decode_32k": ("decode", 64, 8),
+    "long_500k": ("decode", 64, 1),
 }
 MESH = ((2, 4), ("data", "model"))
 #: no tensor parallelism: the port's own layout, so a device's products are
@@ -39,13 +40,16 @@ NO_PROBE = {("mamba2-1.3b", "train_4k")}
 #: serving cells run on MESH alone (no probe, no DATA_MESH run): the dense
 #: config whose kv heads divide the model axis, beside qwen3's that do not;
 #: the hybrid and MoE families (mamba2's cells are among ARCHES' runs); MLA,
-#: the encoder and cross-attention
+#: the encoder and cross-attention; the long-context cells of the three
+#: sub-quadratic configs (a batch of one under long_decode_rules)
 TP_CELLS = (("deepseek-7b", "prefill_32k"), ("deepseek-7b", "decode_32k"),
             ("jamba-v0.1-52b", "prefill_32k"), ("jamba-v0.1-52b", "decode_32k"),
             ("mixtral-8x7b", "prefill_32k"), ("mixtral-8x7b", "decode_32k"),
             ("deepseek-v2-236b", "prefill_32k"), ("deepseek-v2-236b", "decode_32k"),
             ("whisper-tiny", "prefill_32k"), ("whisper-tiny", "decode_32k"),
-            ("llama-3.2-vision-11b", "prefill_32k"), ("llama-3.2-vision-11b", "decode_32k"))
+            ("llama-3.2-vision-11b", "prefill_32k"), ("llama-3.2-vision-11b", "decode_32k"),
+            ("mamba2-1.3b", "long_500k"), ("jamba-v0.1-52b", "long_500k"),
+            ("mixtral-8x7b", "long_500k"))
 
 
 def overrides(cfg) -> dict:

@@ -20,7 +20,9 @@ that reason.  Run them on the card:
   SSM, hybrid and MoE smoke configs launch the SSD kernel once per rank
   and mamba2 layer and equal the unsharded model in f32; MLA, the encoder
   and cross-attention equal it in f32, flash launched once per rank and
-  attention layer with a prompt.
+  attention layer with a prompt; a batch of one under ``long_decode_rules``
+  on (2, 4) card ranks (the cache's rows over ``data``) launches both
+  kernels once per rank and layer and equals the unsharded model in f32.
 """
 
 import dataclasses
@@ -42,6 +44,7 @@ from repro_torch.distributed import (
     device_put,
     gpipe,
     hierarchical_psum,
+    long_decode_rules,
     params_shardings,
     ppermute,
     psum,
@@ -195,13 +198,16 @@ def _serve_on_ranks(model, params, toks, mesh, layout, dtype, extras=None):
     prompts' ``extras`` (``frames`` or ``image_embeds``; the latter every
     decode step's memory too): both runs' logits (B, 5, Vp), the prefill's
     flash launches, and whether the cache was written into the placed
-    shards themselves."""
+    shards themselves.  ``layout`` ``"long"``: ``long_decode_rules`` and
+    ``cache_shardings(long_context=True)``."""
     extras = extras or {}
     memory = extras.get("image_embeds")
-    rules = (decode_rules if layout == "seq" else decode_rules_headsharded)(mesh)
+    rules = {"seq": decode_rules, "heads": decode_rules_headsharded,
+             "long": long_decode_rules}[layout](mesh)
     placed = device_put(params, params_shardings(params, mesh, fsdp_axis=None))
-    c0 = model.init_cache(4, 136, dtype=dtype, device=toks.device)
-    cache = device_put(c0, cache_shardings(c0, mesh, layout=layout))
+    c0 = model.init_cache(toks.shape[0], 136, dtype=dtype, device=toks.device)
+    cache = device_put(c0, cache_shardings(c0, mesh, layout="seq" if layout == "long" else layout,
+                                           long_context=layout == "long"))
     blocks = [s.data_ptr() for leaf in tree_leaves(cache) for s in leaf.shards]
     base = fa.flash_attention.launches
     with torch.no_grad():
@@ -321,5 +327,34 @@ def test_tensor_parallel_latent_and_cross_on_card_ranks(dev, arch, layout):
     prompt_attention = sum(seg.repeats for seg in (*cfg.segments(), *cfg.encoder_segments())
                            for s in seg.period if s.mixer in ("attn", "enc_attn", "cross_attn"))
     assert flash == 4 * prompt_attention and in_place
+    v = cfg.vocab_size
+    torch.testing.assert_close(got[..., :v], want[..., :v], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "jamba-v0.1-52b", "mixtral-8x7b",
+                                  "deepseek-v2-236b"])
+def test_long_decode_on_card_ranks(dev, arch):
+    """A batch of one under ``long_decode_rules`` on (2, 4) card ranks, the
+    smoke configs in f32: a 128-token prompt launches ``ssd_scan`` and
+    flash once per rank and layer at the rank's heads (the prompt whole on
+    both data ranks), the cache's rows over ``data`` are written in place,
+    and the logits after the prefill and 4 decode steps equal the
+    unsharded model's within 1e-4."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ssd_scan as ss
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32", attn_impl="flash")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    toks = torch.as_tensor(np.random.default_rng(3).integers(0, cfg.vocab_size, (1, 132)),
+                           device=dev)
+    mesh = compat_make_mesh((2, 4), ("data", "model"), devices=(dev,))
+    base = ss.ssd_scan.launches
+    got, want, flash, in_place = _serve_on_ranks(model, params, toks, mesh, "long",
+                                                 torch.float32)
+    layers = {m: sum(seg.repeats for seg in cfg.segments() for s in seg.period if s.mixer == m)
+              for m in ("mamba2", "attn")}
+    assert ss.ssd_scan.launches - base == 8 * layers["mamba2"] + layers["mamba2"]
+    assert flash == 8 * layers["attn"] and in_place
     v = cfg.vocab_size
     torch.testing.assert_close(got[..., :v], want[..., :v], rtol=1e-4, atol=1e-4)

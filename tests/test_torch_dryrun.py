@@ -237,6 +237,13 @@ TP_CELLS = [("qwen3-32b", "prefill_32k"), ("qwen3-32b", "decode_32k"),
             ("mamba2-1.3b", "prefill_32k"), ("mamba2-1.3b", "decode_32k"), *ref_child.TP_CELLS]
 
 
+def _rank_rows(shape: ShapeCell) -> int:
+    """A rank's batch rows on the (2, 4) mesh: half the batch, split over
+    data; the whole batch of one of a ``long_500k`` cell
+    (``long_decode_rules`` replicates it)."""
+    return shape.global_batch if shape.name == "long_500k" else shape.global_batch // 2
+
+
 def _whole_on_every_rank(cfg, shape: ShapeCell, model_ranks: int = 4) -> int:
     """The products GSPMD splits over ``model`` and the rank program
     computes whole, beyond XLA's share of them, in one scan body of a cell
@@ -245,7 +252,7 @@ def _whole_on_every_rank(cfg, shape: ShapeCell, model_ranks: int = 4) -> int:
     chunked route, the ``C·Bᵀ`` that every head shares (``2·rows·L·q·N``),
     of which XLA computes a quarter on each device.  The MoE router, whole
     on both sides, is not among them."""
-    rows = shape.global_batch // 2
+    rows = _rank_rows(shape)
     tokens = rows * (shape.seq_len if shape.kind == "prefill" else 1)
     layers = sum(s.mixer == "mamba2" for seg in lib._scan_bodies(cfg).segments()
                  for s in seg.period)
@@ -265,14 +272,24 @@ def _split_apart(cfg, shape: ShapeCell, model_ranks: int = 4) -> int:
     (the vlm's 2 over 4), the memory projections (``memory·wk_mem`` and
     ``memory·wv_mem``, ``2·rows·M·Dm·Hkv·Dh`` each): XLA splits them by
     kv head (one of the 2 a device), the rank program by the memory rows
-    (a quarter each).  A decode step's products agree: the MLA layers'
+    (a quarter each).  A decode step's products agree (the MLA layers'
     down-projections and the new token's latent whole on both sides, the
-    cross layers' memory read from the cache."""
-    if shape.kind != "prefill":
-        return 0
-    rows = shape.global_batch // 2
+    cross layers' memory read from the cache) but in a ``long_500k`` cell,
+    where the cache holds every kv head of its rows: per attention layer
+    whose kv heads the model axis does not divide (jamba's and mixtral's 2
+    over 4), XLA projects the new token's v (``x·wv``, ``2·B·D·Dh`` a kv
+    head) for the kv heads its device's q heads read, the rank program for
+    every kv head, and the difference is negative."""
     body = [s.mixer for seg in lib._scan_bodies(cfg).segments() for s in seg.period]
     h, dh, hkv = cfg.num_heads, cfg.resolved_head_dim, cfg.num_kv_heads
+    if shape.name == "long_500k":
+        if not hkv or hkv % model_ranks == 0:
+            return 0
+        read = max(h // model_ranks // (h // hkv), 1)  # the kv heads a rank's q heads read
+        return -body.count("attn") * 2 * shape.global_batch * cfg.d_model * (hkv - read) * dh
+    if shape.kind != "prefill":
+        return 0
+    rows = _rank_rows(shape)
     mla = 2 * 2 * rows * shape.seq_len * cfg.kv_lora_rank * h * dh
     apart = body.count("mla") * mla * (model_ranks - 1) // model_ranks
     if hkv % model_ranks:
@@ -294,8 +311,11 @@ def test_tensor_parallel_flops_held_to_reference(reference, small_shapes, monkey
     group on both sides, each returning its own rows.  Where the two
     partition a product differently, the difference is its closed form:
     mamba2's replicated B/C products (:func:`_whole_on_every_rank`), and
-    MLA's K/V decompression and the vlm's replicated memory projection
-    (:func:`_split_apart`).  Whisper's encoder, decoder and cross layers
+    MLA's K/V decompression and the vlm's replicated memory projection,
+    and a ``long_500k`` decode step's v projection of the new token
+    (:func:`_split_apart`).  The ``long_500k`` cells (a batch of one under
+    ``long_decode_rules``, its cache's rows over data) attend with the
+    rank's heads to its rows on both sides.  Whisper's encoder, decoder and cross layers
     (their heads split 1 a rank), deepseek-v2's MLA heads, its
     down-projections by the prompt's rows, experts and shared experts and
     the vlm's attention layers split alike.  As in the data-parallel
@@ -316,8 +336,8 @@ def test_tensor_parallel_flops_held_to_reference(reference, small_shapes, monkey
 def test_tensor_parallel_ssd_cost_counts_the_ranks_heads(small_shapes, arch):
     """The SSD kernel's formula in a tensor-parallel prefill cell: one call
     per mamba2 layer of the scan body, at the rank's rows and its quarter of
-    the heads; the long-context cell stays data-parallel
-    (``long_decode_rules``)."""
+    the heads; the long-context cell runs the tensor-parallel rank program
+    too (``long_decode_rules``)."""
     cfg = get_smoke_config(arch)
     ov = ref_child.overrides(cfg)
     mesh = _meta_mesh()
@@ -334,7 +354,7 @@ def test_tensor_parallel_ssd_cost_counts_the_ranks_heads(small_shapes, arch):
     assert rec["cost"]["kernels"]["ssd_scan"] == {"calls": layers, "flops": layers * flops,
                                                   "bytes": layers * nbytes}
     long = lib.run_cell(arch, "long_500k", mesh, mesh_label="test", overrides=ov)
-    assert long["cost_basis"].startswith(lib.COST_BASIS["data_parallel"])
+    assert long["cost_basis"].startswith(lib.COST_BASIS["tensor_parallel"])
 
 
 @pytest.mark.parametrize("impls,heads_attended", [(("masked", "decomposed"), 4),

@@ -701,7 +701,8 @@ def test_every_config_is_admitted():
 @pytest.mark.parametrize("what", ["ragged", "long_decode_rules", "unplaced_cache",
                                   "no_model_axis"])
 def test_refuses_what_it_does_not_run(what):
-    """The ragged MoE dispatch (jamba's and deepseek-v2's),
+    """The ragged MoE dispatch (jamba's and deepseek-v2's), a
+    ``decode_rules`` cache (its sequence over ``model``) run under
     ``long_decode_rules``, a cache not placed on the mesh and a mesh
     without a ``model`` axis are refused."""
     mesh = _mesh()
@@ -726,7 +727,9 @@ def test_refuses_what_it_does_not_run(what):
             sharded_prefill(model, params, tokens, c0, mesh=mesh, rules=decode_rules(mesh))
     elif what == "long_decode_rules":
         cache = device_put(c0, cache_shardings(c0, mesh))
-        with pytest.raises(NotImplementedError, match="long_decode_rules"):
+        assert cache["seg0"][0]["k"].sharding.spec[2] == "model"
+        with pytest.raises(ValueError, match=r"laid out for other rules \(its sequence over "
+                                             r"'model'\).*cache_shardings\(long_context=True\)"):
             sharded_prefill(model, params, tokens, cache, mesh=mesh,
                             rules=long_decode_rules(mesh))
     else:
@@ -747,8 +750,8 @@ def test_mixed_cache_layouts_are_refused():
     c0 = model.init_cache(ref.TP_BATCH, ref.TP_MAX_LEN, dtype=torch.float32, device="cpu")
     specs = lambda layout: tree_map(lambda _, s: s.spec,  # noqa: E731
                                     c0, cache_shardings(c0, mesh, layout=layout))
-    assert spmd._kv_cache_layout(c0, specs("seq")) == (True, False, False)
-    assert spmd._kv_cache_layout(c0, specs("heads")) == (False, False, True)
+    assert spmd._kv_cache_layout(c0, specs("seq")) == ("model", False, False)
+    assert spmd._kv_cache_layout(c0, specs("heads")) == (None, False, True)
     mixed = specs("heads")
     mixed["seg1"][0]["krope"] = P(None, "data", None, None)
     with pytest.raises(ValueError, match="lie differently"):

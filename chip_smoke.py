@@ -151,8 +151,9 @@ read just after:
   128) over each location's stacked partition of the histogram data; the
   summed counts must equal ``kernels.ref.histogram_ref`` bit for bit.
 * ``serve`` for qwen3-32b at full width (d_model 5120, 64/8 heads of 128,
-  d_ff 25,600, vocab 151,936) with ``attn_impl="flash"`` and depth cut to 8
-  of 64 layers, and for mamba2-1.3b at full width and depth (48 layers):
+  d_ff 25,600, vocab 151,936) with ``attn_impl="flash"`` and depth cut to 4
+  of 64 layers, and for mamba2-1.3b at full width, depth cut to 8 of 48
+  (``SERVE_QWEN3_LAYERS``, ``SERVE_MAMBA2_LAYERS``: the time limit):
   ``repro_torch.runtime.Server.generate`` on random bf16 weights drawn on the
   card from ``--seed``, batch 8, prompts of 512 random tokens, 32 greedy
   decode steps, ``max_len`` 576.  The prefill must launch the model's kernel
@@ -169,9 +170,9 @@ read just after:
   kernel in f32; qwen3's through the flash kernel's split route, once per
   layer) and must agree within ``F32_LOGIT_TOL``.  A third serve
   run, mamba2-1.3b at full width cut to 2 layers, holds the bf16 SSD route
-  to the same checks at a tolerance of 0.25, which 48 random layers' bf16
+  to the same checks at a tolerance of 0.25, which 8 random layers' bf16
   rounding does not allow.  Three more runs take the dense configs' other
-  layer branches through the same checks at full width cut to 2 layers, 8
+  layer branches through the same checks at full width cut to 1 layer, 8
   decode steps, ``attn_impl="flash"`` (head dim 128: the ``wgmma`` route):
   qwen2-72b (QKV bias), command-r-35b (parallel block, layernorm, tied
   embeddings) and deepseek-7b (MHA, 32 heads of 128 for keys and values).
@@ -183,12 +184,12 @@ read just after:
   uses them (``ModelConfig.param_counts()["active"]``).
 * ``serve`` for the MoE configs at full width, batch 8, 512-token prompts,
   8 decode steps, bf16, on random weights from ``--seed``: mixtral-8x7b cut
-  to 2 of 32 layers and jamba-v0.1-52b to one period (8 of 32: 7 Mamba2
+  to 1 of 32 layers and jamba-v0.1-52b to one period (8 of 32: 7 Mamba2
   layers, one attention layer, 4 MoE MLPs), both with
   ``attn_impl="flash"``; deepseek-v2-236b cut to 2 of 60 (its dense first
   layer and one MoE layer; MLA, no kernel).  The dropless row runs at
   capacity factor E/k (4, 8, 160/6), where no group drops a token: the
-  prefill must launch ``flash_attention`` 2 / 1 / 0 times and ``ssd_scan``
+  prefill must launch ``flash_attention`` 1 / 1 / 0 times and ``ssd_scan``
   0 / 7 / 0 times; ``moe_mlp``'s route recorder takes every layer's routes
   in the served run and in the recurrence, and ``route_mismatches`` counts
   per MoE layer the positions routed apart (a near-tie of bf16-rounded
@@ -234,8 +235,9 @@ read just after:
   equal distances; distances within 1e-4 of a brute force on the card;
   duplicated fit rows give the CPU's ids; SplIter below Baseline in
   dispatches and merges.
-* ``svm`` at ``benchmarks/bench_svm.py``'s full mode: 8 locations × 8
-  blocks × 512 rows, d = 8, 32 SVs, 300 steps, 2 iterations, under the same
+* ``svm`` at ``benchmarks/bench_svm.py``'s full mode's data: 8 locations ×
+  8 blocks × 512 rows, d = 8, 32 SVs, 100 steps (the quick mode's; the full
+  mode's 300 cut for the time limit), 2 iterations, under the same
   policies: support vectors bit-identical between the executors, each an
   actual (x, y) pair; training accuracy above 0.85 at 128 SVs and c = 10
   on the data of the reference's test (``tests/test_core_apps.py:109``;
@@ -297,13 +299,14 @@ cluster runs as ``mesh_launches``, ``service_launches`` and
   three modes' f32 gradients of step 1 within ``TRAIN_GRAD_TOL``.  lm20m
   whole preempted at step 6 (``PreemptionGuard.request_stop``), restored
   and finished: params, moments and loss tail bit-identical to an
-  uninterrupted run.  mamba2-1.3b whole (48 layers, 1.447B parameters,
-  remat full), global batch 8 in 2 blocks of 512 tokens, so that the
+  uninterrupted run.  mamba2-1.3b at full width, 16 of 48 layers
+  (``TRAIN_MAMBA2_LAYERS``; remat full), global batch 8 in 2 blocks of 512 tokens, so that the
   chunked SSD route carries the gradient: 3 ``spliter`` steps at peak lr
   1e-4, loss and every gradient finite; then, as a witness for a step at
   peak lr 1e-3, mamba2-1.3b cut to 2 layers at full width in f32: step 1's
-  gradients and 4 steps' losses on the card against the CPU port's from the
-  same params.  Every ``ARCH_IDS`` smoke config: one f32
+  gradients and 3 steps' losses (one sequence of 512 a step; the second
+  step at the peak, the third's loss after it) on the card against the CPU
+  port's from the same params.  Every ``ARCH_IDS`` smoke config: one f32
   ``spliter`` step's loss and gradients on the card against the same step
   on the CPU from the same params, gates at 0.75.  Checks of the repair:
   ``ops.flash_attention`` and ``ops.ssd_scan`` raise on an operand that
@@ -327,8 +330,8 @@ cluster runs as ``mesh_launches``, ``service_launches`` and
   stages of 3 on (4, 2) ``(pipe, data)``, 8 microbatches of 8 × 1024 bf16
   hidden states, against the layers in order (``BF16_TOL``), the flash
   kernel launched 8 ranks × 11 ticks × 3 layers = 264 times.  Decode:
-  qwen3-32b at 8 layers, 64 steps, under ``"decomposed"`` (bf16 and f32,
-  against the default path) and ``"sharded_dus"`` on (2, 4) ``(data,
+  qwen3-32b at the serve row's depth, 64 steps, under ``"decomposed"``
+  (bf16 and f32, against the default path) and ``"sharded_dus"`` on (2, 4) ``(data,
   model)``; deepseek-7b (2 layers) under ``decode_rules_headsharded`` and
   deepseek-v2-236b (2 layers) under ``"sharded_dus"``, 16 steps: logits and
   caches bit-equal to the default path; ms per step beside it.  The kernels
@@ -338,8 +341,8 @@ cluster runs as ``mesh_launches``, ``service_launches`` and
   every rank a position on the card, at full width (bf16, flash, random
   weights from the seed) on (1, 4) and (1, 16) ``(data, model)`` meshes,
   the second the production model axis (``TP_RUNS``): qwen3-32b at 8 and 2
-  layers (its 8 kv heads whole at 16), mamba2-1.3b whole and at 16 layers
-  (its 64 SSM heads 16 and 4 a rank), jamba-v0.1-52b's first period (7
+  layers (its 8 kv heads whole at 16), mamba2-1.3b at 8 and 4 of 48
+  layers (its 64 SSM heads 16 and 4 a rank), jamba-v0.1-52b's first period (7
   mamba2 layers, one attention layer, 4 MoE layers of 16 experts: 4 and 1
   a rank) and mixtral-8x7b at 2 layers (16 virtual experts).  Per mesh the
   unsharded model runs first in bf16 and on the same weights upcast to f32,
@@ -352,7 +355,8 @@ cluster runs as ``mesh_launches``, ``service_launches`` and
   ``F32_LOGIT_TOL`` of the unsharded f32 run, its cache within it
   relatively, and the MoE routes the unsharded f32 run's but at most
   ``F32_ROUTE_FLIPS`` (layer, token) pairs.  Then the bf16 runs under both
-  rule sets, 16 greedy steps (4 for the SSM and MoE configs at (1, 16)):
+  rule sets, 4 greedy steps (2 for the SSM, MoE, MLA and cross-attention
+  configs at (1, 16), whose f32 runs take 2 too):
   for the dense config the logits and the cache within ``TP_BF16_TOL`` of
   the unsharded model on the same weights and the greedy tokens equal
   wherever the unsharded top-2 margin exceeds it; with SSM or MoE layers
@@ -372,10 +376,11 @@ cluster runs as ``mesh_launches``, ``service_launches`` and
   each rank; the heads over ``model``), ``sharded_prefill`` /
   ``sharded_decode_step`` on a (2, 4) ``(data, model)`` mesh of positions
   on the card, at full width with a cache of ``LD_MAX_LEN`` = 524,288
-  rows, the ``long_500k`` cell's (``LD_RUNS``): mamba2-1.3b whole and
-  jamba-v0.1-52b's first period with 4,096-token prompts, mixtral-8x7b at
-  2 layers with 8,192 (twice its 4,096-slot ring, which the prompt wraps).
-  The unsharded model runs in bf16 (16 greedy steps), then on the same
+  rows, the ``long_500k`` cell's (``LD_RUNS``): mamba2-1.3b at 8 of 48
+  layers and jamba-v0.1-52b's first period with 4,096-token prompts,
+  mixtral-8x7b at 2 layers with 8,192 (twice its 4,096-slot ring, which
+  the prompt wraps).
+  The unsharded model runs in bf16 (8 greedy steps), then on the same
   weights upcast to f32 (4 steps fed the bf16 run's tokens, then one step
   at slot 524,287, the dry-run's, over seeded rows: the attention rows no
   run wrote, all of mixtral's ring); the long-context f32 run does the same
@@ -395,9 +400,33 @@ cluster runs as ``mesh_launches``, ``service_launches`` and
   The flash and ``ssd_scan`` entries of the kernels line give
   ``long_decode_cases`` (``LD_FLASH_SHAPES``, ``LD_SSD_SHAPES``), every
   entry ``long_decode_launches``.
+* ``tp_train``: the train step tensor-parallel over ``model`` under
+  ``train_rules`` (``sharded_train_step(..., rules=train_rules(mesh))``),
+  every rank a position on the card, TF32 off, within its own limit
+  (``TP_TRAIN_TIMEOUT_S``: past it the script exits non-zero, so a
+  deadlock in a backward fails the run).  First a two-rank ``pvary`` /
+  ``psum`` backward through the collectives' autograd nodes (the card's
+  autograd thread runs it, not the rank's: each rank's node raises, no
+  hang) and through ``value_and_grad``'s backward in segments (the exact
+  gradient).  Then lm100m whole in f32 on (2, 2, 2) ``(pod, data, model)``
+  and (1, 4), three steps of 4 blocks of 8 × 1024 from one seeded init,
+  beside the unsharded step: each step's loss within
+  ``TP_TRAIN_LOSS_RTOL`` and gradients (``tensor_parallel_gradients``)
+  within ``TP_TRAIN_TREE_TOL`` of each leaf's maximum, and after the third
+  both moments within it and every param within 2·lr; the params keep
+  their layouts.  qwen3-32b at full width (1 layer, ``TP_TRAIN_QWEN3``:
+  at 2 layers the f32 unsharded and sharded gradients and params on one
+  card ran out of its 80 GB)
+  on (1, 4): the loss and gradients the same, then one step with the
+  unsharded params freed.  Each line prints the step's ms beside the
+  unsharded gradients' (and lm100m's beside the data-parallel step's), the
+  census of a step, a rank's parameter and moment bytes and the step's
+  peak memory rise; lm100m in bf16 on (1, 4) prints its loss and gradient
+  errors.  No kernel runs (none has a backward): every entry of the
+  kernels line gives ``tp_train_launches`` 0.
 * ``dryrun``: the shape-only dry-run (``repro_torch.launch.dryrun_lib``)
   held against the card.  qwen3-32b's prefill as the serve phase runs it
-  (8 layers, 8 × 512 tokens, flash, bf16) and the train phase's lm100m
+  (4 layers, 8 × 512 tokens, flash, bf16) and the train phase's lm100m
   ``spliter`` step (gradients and the AdamW update) are each counted by
   ``count_cost`` on ``meta`` and on ``cuda:0``: FLOPs, bytes and the
   kernels' formulas equal, the prefill's flash kernel launched once a
@@ -462,29 +491,35 @@ VALUE_BINS = 128
 # attention) differ by rounding that random-weight layers amplify with depth;
 # each serve line reports the yardstick, the reference's own bf16 recurrence
 # against the same recurrence in f32 ("bf16_recurrence_vs_f32_recurrence"),
-# and each tolerance is two to three times what it measured on an H100 (0.081
-# for qwen3-32b at 8 layers, 1.25 for mamba2-1.3b at 48).  At 48 layers that
-# leaves mamba2's bf16 route loosely held, so a third run holds it at 2 layers
-# of the same width, where the yardstick is small.  "depth_check" runs stay
-# out of the kernel line's launch counts, which come from the full-depth runs.
-# The three dense configs whose layer branches qwen3 does not take (qwen2's
-# QKV bias, command-r's parallel block, layernorm and tied embeddings,
-# deepseek's MHA) run at full width cut to 2 layers, 8 decode steps; their
-# yardsticks measured 0.063, 0.043 and 0.065 on an H100, hence 0.2.
+# and each tolerance is two to three times what it measured on an H100 (700
+# W) at the row's depth: 0.074 for qwen3-32b at 4 layers, 0.185 for
+# mamba2-1.3b at 8.  A third run holds mamba2's bf16 route at 2 layers of
+# the same width, where the yardstick is smaller still.  "depth_check" runs stay out of the kernel
+# line's launch counts, which come from the deeper runs.  The three dense
+# configs whose layer branches qwen3 does not take (qwen2's QKV bias,
+# command-r's parallel block, layernorm and tied embeddings, deepseek's MHA)
+# run at full width cut to 1 layer, 8 decode steps; their yardsticks
+# measured 0.054, 0.031 and 0.057, hence 0.15.
+#: The serve rows' depths are cut for the script's time limit: the
+#: token-by-token recurrence that checks a row runs every layer about a
+#: thousand times (bf16 and f32) on the host's clock.  qwen3-32b 4 of 64
+#: layers, mamba2-1.3b 8 of 48, the dense branch rows 1 layer.
+SERVE_QWEN3_LAYERS, SERVE_MAMBA2_LAYERS, SERVE_BRANCH_LAYERS = 4, 8, 1
 SERVE = {
-    "qwen3-32b": {"arch": "qwen3-32b", "overrides": {"num_layers": 8, "attn_impl": "flash"},
+    "qwen3-32b": {"arch": "qwen3-32b",
+                  "overrides": {"num_layers": SERVE_QWEN3_LAYERS, "attn_impl": "flash"},
                   "kernel": "flash_attention", "logit_tol": 0.25},
-    "mamba2-1.3b": {"arch": "mamba2-1.3b", "overrides": {}, "kernel": "ssd_scan",
-                    "logit_tol": 2.5},
+    "mamba2-1.3b": {"arch": "mamba2-1.3b", "overrides": {"num_layers": SERVE_MAMBA2_LAYERS},
+                    "kernel": "ssd_scan", "logit_tol": 0.5},
     "mamba2-1.3b/2-layers": {"arch": "mamba2-1.3b", "overrides": {"num_layers": 2},
                              "kernel": "ssd_scan", "logit_tol": 0.25, "depth_check": True},
-    **{arch: {"arch": arch, "overrides": {"num_layers": 2, "attn_impl": "flash"},
-              "kernel": "flash_attention", "logit_tol": 0.2, "steps": 8, "depth_check": True}
+    **{arch: {"arch": arch, "overrides": {"num_layers": SERVE_BRANCH_LAYERS, "attn_impl": "flash"},
+              "kernel": "flash_attention", "logit_tol": 0.15, "steps": 8, "depth_check": True}
        for arch in ("qwen2-72b", "command-r-35b", "deepseek-7b")},
 }
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS, SERVE_MAX_LEN = 8, 512, 32, 576
-#: the MoE configs at full width, depth cut (mixtral 2 of 32 layers, jamba
-#: one period of 8 of 32, deepseek-v2 its dense first layer and one MoE
+#: the MoE configs at full width, depth cut (mixtral 1 of 32 layers, for
+#: the script's time limit; jamba one period of 8 of 32, deepseek-v2 its dense first layer and one MoE
 #: layer of 60), 8 decode steps.  The dropless row runs at capacity factor
 #: E/k (no group drops a token, so the prefill and the recurrence compute
 #: one function), the published row at the config's 1.25 on the same
@@ -492,11 +527,11 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS, SERVE_MAX_LEN = 8, 512, 32, 576
 #: MLA attends with its own products.  The bf16 logit tolerance is two to
 #: three times the yardstick ("bf16_recurrence_vs_f32_recurrence", at the
 #: positions where the two recurrences route alike) measured on an H100
-#: (700 W): 0.156 for mixtral, 1.05 for jamba (a route flip at an earlier
-#: position changes the SSM state every later position reads), 0.077 for
-#: deepseek-v2.
+#: (700 W): 0.072 for mixtral at 1 layer, 1.05 for jamba (a route flip at
+#: an earlier position changes the SSM state every later position reads),
+#: 0.077 for deepseek-v2.
 MOE_SERVE = {
-    "mixtral-8x7b": {"layers": 2, "flash": True, "logit_tol": 0.4},
+    "mixtral-8x7b": {"layers": 1, "flash": True, "logit_tol": 0.2},
     "jamba-v0.1-52b": {"layers": 8, "flash": True, "logit_tol": 2.5},
     "deepseek-v2-236b": {"layers": 2, "flash": False, "logit_tol": 0.2},
 }
@@ -563,6 +598,45 @@ def emit(obj) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+class PhaseClock:
+    """Each phase's wall seconds and the garbage collector's seconds in it
+    (``gc.callbacks``).  Calling it runs a phase: ``clock(name, fn, *args)``
+    returns ``fn(*args)`` and prints the phase's seconds, the collector's
+    and the script's so far as it ends (so a run cut at its time limit shows
+    how far it got).  The objects alive before the phase are frozen out of
+    the cyclic collector while it runs (``gc.freeze``), so that a collection
+    scans only what the phase made: the phases call ``gc.collect()``
+    hundreds of times to hand memory back to the card, and one over the
+    whole heap (torch's modules included) is slow."""
+
+    def __init__(self) -> None:
+        self.start = time.perf_counter()
+        self.seconds: dict[str, float] = {}  # in the order the phases ran
+        self.gc_seconds = 0.0
+        self._gc_start = 0.0
+        gc.callbacks.append(self._on_gc)
+
+    def _on_gc(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._gc_start = time.perf_counter()
+        else:
+            self.gc_seconds += time.perf_counter() - self._gc_start
+
+    def __call__(self, name: str, fn, *args):
+        gc.collect()
+        gc.freeze()
+        t0, gc0 = time.perf_counter(), self.gc_seconds
+        try:
+            out = fn(*args)
+        finally:
+            gc.unfreeze()
+        self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
+        emit({"phase": "clock", "after": name, "seconds": self.seconds[name],
+              "gc_seconds": self.gc_seconds - gc0,
+              "since_start": time.perf_counter() - self.start})
+        return out
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -2006,7 +2080,7 @@ def lm_kernel_checks(seed: int, dev: torch.device, x_values: torch.Tensor,
         "split_kv_launches": launches["split_kv"],
         "launches_by_run": {run: n["flash_attention_split"] for run, n in by_run.items()
                             if n.get("flash_attention_split")},
-        "per_call_of": "qwen3-32b f32 prefill (8 layers)", "max_abs_err": err32,
+        "per_call_of": f"qwen3-32b f32 prefill ({SERVE_QWEN3_LAYERS} layers)", "max_abs_err": err32,
         "tolerance": f"allclose {F32_TOL} (tests/test_kernels.py TOL[float32])",
         "qk_scales": list(scores.values()),
         **kernel_times(lambda: fa.flash_attention(q32, k32, v32, causal=True)),
@@ -2032,7 +2106,7 @@ def lm_kernel_checks(seed: int, dev: torch.device, x_values: torch.Tensor,
         "replaces": "src/repro/kernels/flash_attention.py:101",
         "launches": launches["flash_attention"], "max_abs_err": err,
         "launches_per_call": by_run["qwen3-32b"]["flash_attention"],
-        "per_call_of": "qwen3-32b prefill (8 layers)",
+        "per_call_of": f"qwen3-32b prefill ({SERVE_QWEN3_LAYERS} layers)",
         "launches_by_run": {run: n["flash_attention"] for run, n in by_run.items()
                             if n.get("flash_attention")},
         "tolerance": f"allclose {BF16_TOL} (bf16 output)",
@@ -2102,7 +2176,7 @@ def lm_kernel_checks(seed: int, dev: torch.device, x_values: torch.Tensor,
         "replaces": "src/repro/kernels/ssd_scan.py:93",
         "launches": launches["ssd_scan"], "max_abs_err": err,
         "launches_per_call": by_run["mamba2-1.3b"]["ssd_scan"],
-        "per_call_of": "mamba2-1.3b prefill (48 layers)",
+        "per_call_of": f"mamba2-1.3b prefill ({SERVE_MAMBA2_LAYERS} layers)",
         "launches_by_run": {run: n["ssd_scan"] for run, n in by_run.items() if n.get("ssd_scan")},
         "f32_not_bf16_max_abs_err": f32_raw_err,
         "tolerance": f"f32 on upcast inputs, allclose {SSD_TOL}; bf16 in/out: y allclose "
@@ -3566,7 +3640,9 @@ def knn_phase(seed: int, dev: torch.device) -> dict:
 
 
 SVM_BLOCKS_PER_LOCATION, SVM_BLOCK_ROWS, SVM_D = 8, 512, 8  # benchmarks/bench_svm.py:37,119
-SVM_NUM_SV, SVM_STEPS, SVM_ITERATIONS = 32, 300, 2
+#: the quick mode's 100 steps (``benchmarks/bench_svm.py:120``), not the full
+#: mode's 300: cut for the script's time limit
+SVM_NUM_SV, SVM_STEPS, SVM_ITERATIONS = 32, 100, 2
 
 
 def svm_phase(seed: int, dev: torch.device) -> dict:
@@ -3657,8 +3733,14 @@ SMOKE_LOSS_RTOL, SMOKE_GRAD_TOL = 1e-5, 1e-3
 #: mamba2-1.3b at 2 layers of full width, f32, peak lr 1e-3: steps on the
 #: card and on the CPU from the same params, each step's loss relative
 #: (AdamW's early updates are about lr·sign(g), so a gradient that rounds to
-#: the other sign moves its weight by up to 2·lr: held by losses)
-WITNESS_STEPS, WITNESS_LOSS_RTOL = 4, 1e-3
+#: the other sign moves its weight by up to 2·lr: held by losses).  One
+#: sequence of 512 a step, one warm-up step, so that the second step runs
+#: at the peak and the third step's loss reads its result (cut for the
+#: script's time limit: the CPU's steps are most of the phase)
+WITNESS_STEPS, WITNESS_LOSS_RTOL = 3, 1e-3
+#: mamba2-1.3b's bf16 steps at full width, 16 of its 48 layers (cut for the
+#: script's time limit)
+TRAIN_MAMBA2_LAYERS = 16
 
 
 def _train_counters() -> dict:
@@ -3904,8 +3986,8 @@ def train_phase(seed: int, dev: torch.device, card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # ---- mamba2-1.3b whole: the chunked SSD route carries the gradient ----
-    mamba = get_config("mamba2-1.3b")
+    # ---- mamba2-1.3b at full width: the chunked SSD route carries the gradient ----
+    mamba = dataclasses.replace(get_config("mamba2-1.3b"), num_layers=TRAIN_MAMBA2_LAYERS)
     check(mamba.remat == "full" and 512 % mamba.ssm_chunk == 0 and 512 > mamba.ssm_chunk,
           f"mamba2-1.3b: remat full and the chunked route at 512 ({mamba.remat}, "
           f"{mamba.ssm_chunk})")
@@ -3922,7 +4004,8 @@ def train_phase(seed: int, dev: torch.device, card: str) -> dict:
     n_leaves = len(tree_leaves(mgrads))
     del mgrads, blocks, loss
     params, opt, ms, losses, _ = _timed_steps(tr, params, opt, 3, dev)
-    row = {"phase": "train", "run": "mamba2-1.3b", "card": card, "params": n_params,
+    row = {"phase": "train", "run": "mamba2-1.3b", "card": card, "layers": mamba.num_layers,
+           "params": n_params,
            "tokens_per_step": 8 * 512, "ms_per_step": ms, "losses": losses,
            "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
            "finite_loss_and_gradients": finite, "nonzero_gradient_leaves": [nonzero, n_leaves],
@@ -3938,8 +4021,8 @@ def train_phase(seed: int, dev: torch.device, card: str) -> dict:
     # ---- a witness for mamba2's step at peak lr 1e-3: 2 layers at full width, f32,
     # the card's trajectory against the CPU port's from the same params ----
     m2 = dataclasses.replace(mamba, num_layers=2, dtype="float32")
-    kw2 = dict(global_batch=2, num_blocks=2, seq_len=512, steps=WITNESS_STEPS, peak_lr=1e-3,
-               warmup_steps=2, seed=seed)
+    kw2 = dict(global_batch=1, num_blocks=1, seq_len=512, steps=WITNESS_STEPS, peak_lr=1e-3,
+               warmup_steps=1, seed=seed)
     t0 = time.perf_counter()
     cpu_tr = Trainer(m2, TrainConfig(**kw2), device="cpu")
     card_tr = Trainer(m2, TrainConfig(**kw2), device=dev)
@@ -3958,7 +4041,8 @@ def train_phase(seed: int, dev: torch.device, card: str) -> dict:
         card_losses.append(float(loss))
     loss_gap = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
     emit({"phase": "train", "run": "mamba2-1.3b/2-layers/lr-1e-3", "card": card,
-          "layers": m2.num_layers, "dtype": m2.dtype, "tokens_per_step": 2 * 512,
+          "layers": m2.num_layers, "dtype": m2.dtype,
+          "tokens_per_step": kw2["global_batch"] * kw2["seq_len"],
           "card_losses": card_losses, "cpu_losses": cpu_losses, "loss_rel_gap": loss_gap,
           "step1_grad_gap": grad_gap, "loss_rtol": WITNESS_LOSS_RTOL,
           "grad_tol": SMOKE_GRAD_TOL, "seconds": time.perf_counter() - t0})
@@ -4021,7 +4105,7 @@ def train_phase(seed: int, dev: torch.device, card: str) -> dict:
 #: by element; tests/_dist_child.py:52-55); gpipe over lm100m's 12 layers as
 #: 4 stages of 3 on a (4, 2) mesh, 8 microbatches of 8 × 1024 bf16 hidden
 #: states, against the layers applied in order within BF16_TOL; the decode
-#: paths on qwen3-32b at 8 layers (the serve row's config).  The decomposed
+#: paths on qwen3-32b at the serve row's depth (``SERVE_QWEN3_LAYERS``).  The decomposed
 #: path against the default one: f32 within F32_LOGIT_TOL (the two differ
 #: only in the softmax's association; the reference's smoke test holds 2e-5
 #: at width 64), bf16 within the qwen3 serve row's 0.25 (each attention
@@ -4423,8 +4507,9 @@ def _sharded_decode_row(arch, model, params, toks, cache, base, base_ms, base_ca
 #: bf16 run's greedy decode steps.  qwen3-32b: (1, 4) at 8 layers (the 8 kv
 #: heads split 2 a rank) and (1, 16) at 2 layers, the production model axis
 #: (make_production_mesh), where 8 kv heads do not divide 16 and wk/wv stay
-#: replicated.  mamba2-1.3b: whole at (1, 4) (its 64 SSM heads 16 a rank),
-#: cut to 16 layers at (1, 16) (4 a rank).  jamba-v0.1-52b: one period at
+#: replicated.  mamba2-1.3b: cut to 8 of 48 layers at (1, 4) and 4 at
+#: (1, 16) (its 64 SSM heads 16 a rank, then 4; cut for the script's time
+#: limit).  jamba-v0.1-52b: one period at
 #: both (7 mamba2 layers of 128 heads, one attention layer, 4 MoE layers of
 #: 16 experts: 4 a rank, then 1).  mixtral-8x7b: 2 layers (16 virtual
 #: half-width experts: 4 a rank, then 1; its 4096-token window wider than
@@ -4437,10 +4522,12 @@ def _sharded_decode_row(arch, model, params, toks, cache, base, base_ms, base_ca
 #: layers (4 self-attention, 1 cross-attention to 1600 image tokens of
 #: 4096, which every decode step gets again, as the reference's server
 #: passes them; 8 kv heads 2 a rank, replicated at 16).  Every cross
-#: layer's gate is CROSS_GATE.  At (1, 16) the SSM, MoE, MLA and
-#: cross-attention configs take 4 decode steps, not 16: each step's host
-#: work grows with ranks × layers (the ranks take turns on one card), and
-#: the prefill and a few steps already run every collective.  Each mesh
+#: layer's gate is CROSS_GATE.  The bf16 runs take 4 greedy decode steps
+#: (cut for the script's time limit); at (1, 16) the
+#: SSM, MoE, MLA and cross-attention configs take 2, and their f32 runs
+#: too: each step's host work grows with ranks × layers (the ranks take
+#: turns on one card), and the prefill and a step already run every
+#: collective.  Each mesh
 #: runs the prefill of 8 512-token prompts and the steps under
 #: decode_rules (the cache's sequence over model:
 #: context-parallel decode) and decode_rules_headsharded (cache_impl
@@ -4460,20 +4547,20 @@ def _sharded_decode_row(arch, model, params, toks, cache, base, base_ms, base_ca
 #: layers), as for the decomposed decode.  The same holds for whisper's and
 #: the vlm's attention, MLA-free and MoE-free.  With SSM or MoE layers the bf16
 #: errors are printed, not judged: the unsharded bf16 model is itself 1.47
-#: (mamba2-1.3b, 48 layers) to 2.30 (mixtral-8x7b, routes flipped at earlier
-#: positions) from its f32 run on an H100 (700 W), of logits of about 5, so
+#: (mamba2-1.3b at 48 layers) to 2.30 (mixtral-8x7b,
+#: routes flipped at earlier positions) from its f32 run on an H100 (700 W), of logits of about 5, so
 #: no bf16 bound there could tell a wrong program from rounding; their f32
 #: check is the one that decides.  The card holds every rank's activations,
 #: so the prefill's peak memory rise counts the residual stream once a rank
 #: (each card of a real mesh would hold one); the rows print it whole.
 TP_RUNS = {
-    "qwen3-32b": {(1, 4): (8, 16), (1, 16): (2, 16)},
-    "mamba2-1.3b": {(1, 4): (48, 16), (1, 16): (16, 4)},
-    "jamba-v0.1-52b": {(1, 4): (8, 16), (1, 16): (8, 4)},
-    "mixtral-8x7b": {(1, 4): (2, 16), (1, 16): (2, 4)},
-    "deepseek-v2-236b": {(1, 4): (2, 16), (1, 16): (2, 4)},
-    "whisper-tiny": {(1, 4): (4, 16), (1, 16): (4, 4)},
-    "llama-3.2-vision-11b": {(1, 4): (5, 16), (1, 16): (5, 4)},
+    "qwen3-32b": {(1, 4): (8, 4), (1, 16): (2, 4)},
+    "mamba2-1.3b": {(1, 4): (8, 4), (1, 16): (4, 2)},
+    "jamba-v0.1-52b": {(1, 4): (8, 4), (1, 16): (8, 2)},
+    "mixtral-8x7b": {(1, 4): (2, 4), (1, 16): (2, 2)},
+    "deepseek-v2-236b": {(1, 4): (2, 4), (1, 16): (2, 2)},
+    "whisper-tiny": {(1, 4): (4, 4), (1, 16): (4, 2)},
+    "llama-3.2-vision-11b": {(1, 4): (5, 4), (1, 16): (5, 2)},
 }
 TP_F32_STEPS = 4
 #: the MoE routes of a tensor-parallel f32 run may differ from the
@@ -4867,15 +4954,17 @@ def _tensor_parallel_rows(arch: str, shape: tuple, layers: int, steps: int, seed
 #: the long-context serving path (``long_decode_rules``: the cache's rows over
 #: ``data``, the heads over ``model``) at full width on a (2, 4) (data, model)
 #: mesh, a batch of one and a cache of ``LD_MAX_LEN`` rows, the ``long_500k``
-#: cell's ``seq_len``: arch -> (layers, prompt).  mamba2-1.3b whole;
+#: cell's ``seq_len``: arch -> (layers, prompt).  mamba2-1.3b at 8 of 48
+#: layers (cut for the script's time limit: each decode step's host work
+#: grows with ranks × layers);
 #: mixtral-8x7b at 2 of 32 layers, its prompt twice its 4096-slot ring, which
 #: the prompt wraps; jamba-v0.1-52b's first period (8 of 32 layers: 7 mamba2,
 #: 1 attention, 4 MoE), whose f32 weights (53 GB) leave room for its f32
 #: caches (4.3 GB a copy) and little more
-LD_RUNS = {"mamba2-1.3b": (48, 4096), "mixtral-8x7b": (2, 8192), "jamba-v0.1-52b": (8, 4096)}
+LD_RUNS = {"mamba2-1.3b": (8, 4096), "mixtral-8x7b": (2, 8192), "jamba-v0.1-52b": (8, 4096)}
 LD_MESH = (2, 4)
 LD_MAX_LEN = 524_288
-LD_BF16_STEPS, LD_F32_STEPS = 16, 4
+LD_BF16_STEPS, LD_F32_STEPS = 8, 4
 #: the flash kernel at the long prefill's rank shapes: label -> (H, Hkv,
 #: window, memory, B, L) of q (B, L, H, 128) and k/v (B, L, Hkv, 128): a
 #: rank's 8 of 32 q heads and its 2 of 8 kv heads (``wk``/``wv`` split 2 a
@@ -5306,6 +5395,306 @@ def _long_decode_rows(arch: str, layers: int, prompt: int, seed: int, dev: torch
     return launches
 
 
+# ---------------------------------------------------------------------------
+# tp_train: the train step tensor-parallel over model under train_rules
+# ---------------------------------------------------------------------------
+
+#: lm100m's steps and meshes; qwen3-32b at full width: its layers, blocks,
+#: rows a block and tokens a row; the learning rate (AdamW's defaults
+#: otherwise, clip_norm 1.0)
+TP_TRAIN_STEPS, TP_TRAIN_LR = 3, 1e-3
+TP_TRAIN_MESHES = (((2, 2, 2), ("pod", "data", "model")), ((1, 4), ("data", "model")))
+TP_TRAIN_QWEN3 = {"layers": 1, "blocks": 2, "rows": 2, "seq": 512}
+#: f32 against the unsharded step: the loss relative, each gradient and
+#: moment leaf against its largest magnitude; a param within 2·lr (AdamW
+#: moves an element by at most about lr a step)
+TP_TRAIN_LOSS_RTOL, TP_TRAIN_TREE_TOL = 1e-5, 1e-3
+#: the phase's own limit: a deadlock in a backward fails the run here
+TP_TRAIN_TIMEOUT_S = 600.0
+
+
+def _guarded(fn, seconds: float, what: str):
+    """``fn()`` in a thread joined within ``seconds``; past them the
+    script exits non-zero at once (a rank thread that hangs in a rendezvous
+    cannot be woken)."""
+    box: dict = {}
+
+    def run():
+        try:
+            box["value"] = fn()
+        except BaseException as err:  # handed to the caller
+            box["error"] = err
+
+    t = threading.Thread(target=run, name=what, daemon=True)
+    t.start()
+    t.join(seconds)
+    if t.is_alive():
+        print(f"chip_smoke: {what} did not finish within {seconds:.0f} s", file=sys.stderr,
+              flush=True)
+        os._exit(1)
+    if "error" in box:
+        raise box["error"]
+    return box["value"]
+
+
+def _backward_threads(dev: torch.device) -> dict:
+    """A two-rank ``pvary``/``psum`` backward on ``dev``, both ranks on it:
+    through the collectives' autograd nodes (``torch.autograd.grad`` in the
+    rank thread), and through ``value_and_grad``'s backward in segments.
+    Returns which threads ran the node's backward and what it raised, and
+    whether the segmented gradients equal the closed form."""
+    from repro_torch.distributed import P, psum, pvary, shard_map
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.optim.grad_accum import value_and_grad
+
+    mesh = compat_make_mesh((1, 2), ("data", "model"), devices=(dev,))
+    v = torch.arange(6.0, device=dev).reshape(1, 6)
+    w = torch.arange(12.0, device=dev).reshape(2, 6)
+    threads, errors = [], []
+
+    def loss(p, b):
+        return psum((pvary(p, "model") * b["w"]).sum(), "model")
+
+    def node(vl, wl):
+        x = vl.detach().requires_grad_()
+        y = pvary(x, "model")
+        y.register_hook(lambda g: threads.append(threading.current_thread().name))
+        try:
+            torch.autograd.grad(psum((y * wl).sum(), "model"), x)
+        except RuntimeError as err:
+            errors.append(str(err))
+        return vl
+
+    def segments(vl, wl):
+        return value_and_grad(loss, vl, {"w": wl})[1]
+
+    shard_map(node, mesh=mesh, in_specs=(P("data"), P("model")), out_specs=P("data"))(v, w)
+    grads = shard_map(segments, mesh=mesh, in_specs=(P("data"), P("model")),
+                      out_specs=P("model"))(v, w)
+    return {"node_backward_threads": threads, "rank_threads": "shard_map-rank",
+            "node_backward_in_a_rank_thread": any(t == "shard_map-rank" for t in threads),
+            "node_errors": [e.split(":")[0] for e in errors],
+            "segments_exact": bool(torch.equal(grads, (w[0] + w[1]).expand(2, 6)))}
+
+
+def _leaf_gaps(got, want) -> float:
+    """The largest over leaves of a ShardedTensor tree's difference from a
+    whole tree, over the whole leaf's largest magnitude."""
+    from repro_torch._pytree import tree_leaves
+
+    worst = 0.0
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        scale = float(w.abs().max())
+        gap = float((g.full() - w).abs().max())
+        worst = max(worst, gap / scale if scale else gap)
+    return worst
+
+
+def _rank_bytes(tree, rank: int = 0) -> int:
+    from repro_torch._pytree import tree_leaves
+
+    return sum(t.shards[rank].numel() * t.shards[rank].element_size() for t in tree_leaves(tree))
+
+
+def _tp_train_rows(name: str, cfg, mesh_shape: tuple, axes: tuple, blocks: list, seed: int,
+                   dev: torch.device, card: str, *, hold_update: bool) -> dict:
+    """``cfg`` trained ``len(blocks)`` steps from one seeded init by
+    ``sharded_train_step(..., rules=train_rules(mesh))`` with every rank on
+    ``dev``, beside the unsharded step (``accumulate_gradients``): each
+    step's tensor-parallel loss and gradients (``tensor_parallel_gradients``)
+    held to the unsharded step's; with ``hold_update`` the unsharded
+    ``adamw_update`` runs too, the moments and params after the last step
+    are held to its, and a data-parallel step from the same params is
+    timed; without, the unsharded params are freed before the
+    tensor-parallel step.  Emits one line."""
+    from repro_torch._pytree import tree_leaves
+    from repro_torch.distributed import (
+        device_put,
+        params_shardings,
+        sharded_train_step,
+        tensor_parallel_gradients,
+        train_rules,
+    )
+    from repro_torch.distributed.spmd import collective_census
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import accumulate_gradients, adamw_init, adamw_update
+
+    model = build_model(cfg)
+    mesh = compat_make_mesh(mesh_shape, axes, devices=(dev,))
+    rules = train_rules(mesh)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed), device=dev, master=True)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    shardings = params_shardings(params, mesh, fsdp_axis="data")
+    placed = device_put(params, shardings)
+    opt_ref = adamw_init(params) if hold_update else None
+    opt = adamw_init(params)  # zeros; the step places them as the params lie
+    row = {"phase": "tp_train", "run": name, "card": card, "mesh": mesh.shape,
+           "params": n_params, "layers": cfg.num_layers, "dtype": cfg.dtype,
+           "tokens_per_step": int(blocks[0]["tokens"].numel()), "steps": len(blocks)}
+    losses, ref_losses, grad_gaps, loss_gaps, ms, ref_ms = [], [], [], [], [], []
+    accumulate_gradients(model.loss, params, blocks[0])  # warm: the times compare warm calls
+    for s, blk in enumerate(blocks):
+        t_ref, (loss_ref, g_ref) = _wall_ms(lambda: accumulate_gradients(model.loss, params, blk))
+        loss_g, g_tp = tensor_parallel_gradients(model.loss, placed, blk, mesh=mesh, rules=rules)
+        grad_gaps.append(_leaf_gaps(g_tp, g_ref))
+        loss_gaps.append(abs(float(loss_g) - float(loss_ref)) / abs(float(loss_ref)))
+        del g_tp
+        if hold_update:
+            params, opt_ref = adamw_update(params, g_ref, opt_ref, lr=TP_TRAIN_LR)
+        else:
+            params = None  # the unsharded step's memory, freed before the sharded step's
+        del g_ref
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        with collective_census() as census:
+            t_tp, (placed, opt, loss) = _wall_ms(lambda: sharded_train_step(
+                model.loss, placed, opt, blk, mesh=mesh, lr=TP_TRAIN_LR, rules=rules))
+        peak = torch.cuda.max_memory_allocated(dev) - before
+        losses.append(float(loss))
+        ref_losses.append(float(loss_ref))
+        loss_gaps.append(abs(float(loss) - float(loss_ref)) / abs(float(loss_ref)))
+        ms.append(t_tp)
+        ref_ms.append(t_ref)
+        if s == 0:
+            row["census_step"] = census
+            row["peak_memory_rise_gb"] = peak / 1e9
+    row.update(losses=losses, unsharded_losses=ref_losses, loss_gap_rel=max(loss_gaps),
+               loss_gap_rel_by_step=loss_gaps,
+               grad_gap=max(grad_gaps), grad_gap_by_step=grad_gaps, step_ms=ms,
+               unsharded_gradients_ms=ref_ms,
+               step_vs_unsharded_gradients=statistics.median(ms) / statistics.median(ref_ms),
+               rank_param_bytes=_rank_bytes(placed),
+               rank_moment_bytes=_rank_bytes(opt.m) + _rank_bytes(opt.v),
+               param_bytes=n_params * 4)
+    check(all(t.sharding == sh for t, sh in zip(tree_leaves(placed), tree_leaves(shardings))),
+          f"tp_train {name}: the params keep their layouts")
+    if hold_update:
+        row.update(m_gap=_leaf_gaps(opt.m, opt_ref.m), v_gap=_leaf_gaps(opt.v, opt_ref.v),
+                   param_max_abs_diff=max(float((p.full() - q).abs().max()) for p, q in zip(
+                       tree_leaves(placed), tree_leaves(params))))
+        del placed, opt
+        dp_placed = device_put(params, params_shardings(params, mesh))
+        dp_opt = adamw_init(params)
+        sharded_train_step(model.loss, dp_placed, dp_opt, blocks[0], mesh=mesh,
+                           lr=TP_TRAIN_LR)  # warm
+        row["data_parallel_step_ms"], _ = _wall_ms(lambda: sharded_train_step(
+            model.loss, dp_placed, dp_opt, blocks[0], mesh=mesh, lr=TP_TRAIN_LR))
+        del dp_placed, dp_opt
+    emit(row)
+    check(row["loss_gap_rel"] <= TP_TRAIN_LOSS_RTOL,
+          f"tp_train {name}: loss {row['loss_gap_rel']} > {TP_TRAIN_LOSS_RTOL} relative")
+    check(row["grad_gap"] <= TP_TRAIN_TREE_TOL,
+          f"tp_train {name}: gradients {row['grad_gap']} > {TP_TRAIN_TREE_TOL}")
+    if hold_update:
+        check(row["m_gap"] <= TP_TRAIN_TREE_TOL and row["v_gap"] <= TP_TRAIN_TREE_TOL,
+              f"tp_train {name}: moments {row['m_gap']}, {row['v_gap']} > {TP_TRAIN_TREE_TOL}")
+        check(row["param_max_abs_diff"] <= 2 * TP_TRAIN_LR,
+              f"tp_train {name}: params {row['param_max_abs_diff']} > 2·lr")
+    return row
+
+
+def _train_blocks(cfg, steps: int, nblocks: int, rows: int, seq: int, seed: int,
+                  dev: torch.device) -> list:
+    """Each step's seeded tokens and labels ``(nblocks, rows, seq)``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [{k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (nblocks, rows, seq)),
+                                device=dev) for k in ("tokens", "labels")} for _ in range(steps)]
+
+
+def tp_train_phase(seed: int, dev: torch.device, card: str) -> dict:
+    """The train step tensor-parallel over ``model`` under ``train_rules``
+    (``repro_torch.distributed.sharded_train_step(..., rules=...)``), every
+    rank a position on ``dev``, against the unsharded step, within
+    ``TP_TRAIN_TIMEOUT_S``."""
+    return _guarded(lambda: _tp_train(seed, dev, card), TP_TRAIN_TIMEOUT_S, "tp_train")
+
+
+def _tp_train(seed: int, dev: torch.device, card: str) -> dict:
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import _preset
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launches()
+    t_phase = time.perf_counter()
+    threads = _backward_threads(dev)
+    emit({"phase": "tp_train", "run": "backward_threads", "card": card, **threads})
+    check(threads["segments_exact"], "tp_train: the segmented backward's gradients are exact")
+    check(not threads["node_backward_in_a_rank_thread"] and len(threads["node_errors"]) == 2,
+          f"tp_train: a collective node's CUDA backward ran off its rank thread and raised "
+          f"({threads})")
+
+    lm = dataclasses.replace(_preset("lm100m"), dtype="float32")
+    blocks = _train_blocks(lm, TP_TRAIN_STEPS, TRAIN_BLOCKS, TRAIN_BATCH // TRAIN_BLOCKS,
+                           TRAIN_SEQ, seed, dev)
+    seconds = {}
+    for shape, axes in TP_TRAIN_MESHES:
+        t0 = time.perf_counter()
+        _tp_train_rows(f"lm100m/{'x'.join(map(str, shape))}", lm, shape, axes, blocks, seed,
+                       dev, card, hold_update=True)
+        seconds[f"lm100m/{'x'.join(map(str, shape))}"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bf16 = dataclasses.replace(lm, dtype="bfloat16")
+    _tp_train_bf16("lm100m/bf16/1x4", bf16, blocks[0], seed, dev, card)
+    seconds["lm100m/bf16/1x4"] = time.perf_counter() - t0
+    del blocks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    q = TP_TRAIN_QWEN3
+    qwen3 = dataclasses.replace(get_config("qwen3-32b"), dtype="float32", num_layers=q["layers"])
+    t0 = time.perf_counter()
+    _tp_train_rows("qwen3-32b/1x4", qwen3, (1, 4), ("data", "model"),
+                   _train_blocks(qwen3, 1, q["blocks"], q["rows"], q["seq"], seed, dev), seed,
+                   dev, card, hold_update=False)
+    seconds["qwen3-32b/1x4"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = read_launches()
+    emit({"phase": "tp_train", "run": "launches", "card": card, "launches": launches,
+          "seconds": time.perf_counter() - t_phase, "seconds_by_run": seconds})
+    return launches
+
+
+def _tp_train_bf16(name: str, cfg, blk: dict, seed: int, dev: torch.device,
+                           card: str) -> dict:
+    """``cfg`` (bf16 compute over f32 master weights) on (1, 4): the
+    tensor-parallel loss and gradients beside the unsharded step's, printed
+    and not held (each rank's partial products round to bf16)."""
+    from repro_torch.distributed import (
+        device_put,
+        params_shardings,
+        tensor_parallel_gradients,
+        train_rules,
+    )
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import accumulate_gradients
+
+    model = build_model(cfg)
+    mesh = compat_make_mesh((1, 4), ("data", "model"), devices=(dev,))
+    params = model.init(torch.Generator(device=dev).manual_seed(seed), device=dev, master=True)
+    loss_ref, g_ref = accumulate_gradients(model.loss, params, blk)
+    placed = device_put(params, params_shardings(params, mesh, fsdp_axis="data"))
+    ms, (loss, g_tp) = _wall_ms(lambda: tensor_parallel_gradients(
+        model.loss, placed, blk, mesh=mesh, rules=train_rules(mesh)))
+    row = {"phase": "tp_train", "run": name, "card": card, "loss": float(loss),
+           "unsharded_loss": float(loss_ref),
+           "loss_gap_rel": abs(float(loss) - float(loss_ref)) / abs(float(loss_ref)),
+           "grad_gap": _leaf_gaps(g_tp, g_ref), "gradients_ms": ms}
+    emit(row)
+    check(math.isfinite(row["loss"]), f"tp_train {name}: a finite loss")
+    return row
+
+
 SAMPLED_STEPS = 8
 
 
@@ -5602,6 +5991,7 @@ def main(argv=None) -> int:
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' products in f32
     torch.backends.cudnn.allow_tf32 = False
+    clock = PhaseClock()
 
     from repro_torch.core.blocked import BlockedArray, round_robin_placement
     from repro_torch.kernels import _build
@@ -5623,17 +6013,18 @@ def main(argv=None) -> int:
                                 policy=round_robin_placement, device=dev)
         for a in (hist, km)
     )
-    launches, per_call = main_path(x_hist, x_km, means, label_counts, args.seed, args.repeats)
+    launches, per_call = clock("main_path", main_path, x_hist, x_km, means, label_counts,
+                               args.seed, args.repeats)
     check(all(v > 0 for v in launches.values()), f"every kernel launched: {launches}")
-    kernels = kernel_checks(x_hist, x_km, args.seed, launches, per_call)
-    threaded_phase(x_hist, x_km, args.seed, args.repeats)
-    stream_launches = stream_phase(x_hist, x_km, args.seed, args.repeats)
-    mesh_launches = mesh_phase(x_hist, x_km, args.seed, args.repeats)
-    service_launches = service_phase(x_hist, x_km, args.seed, args.repeats)
-    cluster_launches = cluster_phase(x_hist, x_km, args.seed, args.repeats)
+    kernels = clock("kernel_checks", kernel_checks, x_hist, x_km, args.seed, launches, per_call)
+    clock("threaded", threaded_phase, x_hist, x_km, args.seed, args.repeats)
+    stream_launches = clock("stream", stream_phase, x_hist, x_km, args.seed, args.repeats)
+    mesh_launches = clock("mesh", mesh_phase, x_hist, x_km, args.seed, args.repeats)
+    service_launches = clock("service", service_phase, x_hist, x_km, args.seed, args.repeats)
+    cluster_launches = clock("cluster", cluster_phase, x_hist, x_km, args.seed, args.repeats)
     for k in kernels:
         k["stream_launches"] = stream_launches[k["name"]]
-    launches["partition_histogram"] = value_histogram_phase(x_hist)
+    launches["partition_histogram"] = clock("value_histogram", value_histogram_phase, x_hist)
     x_values = torch.stack([x_hist.block(b) for b in x_hist.blocks_at(0)])
     del hist, km, means, label_counts, x_hist, x_km
     torch.cuda.empty_cache()
@@ -5648,37 +6039,41 @@ def main(argv=None) -> int:
                 "split_kv": row["f32_prefill_split_kv_launches"]}
 
     for name, spec in SERVE.items():
-        result = serve_phase(name, args.seed, dev)
+        result = clock(f"serve/{name}", serve_phase, name, args.seed, dev)
         if not spec.get("depth_check"):
             count(name, result)
         torch.cuda.empty_cache()
     for name in MOE_SERVE:
-        rows = moe_serve_phase(name, args.seed, dev)
+        rows = clock(f"serve/{name}", moe_serve_phase, name, args.seed, dev)
         count(name, rows["dropless"])
         count(f"{name}/published", rows["published"])
         torch.cuda.empty_cache()
     for name in CROSS_SERVE:
-        count(name, cross_serve_phase(name, args.seed, dev))
+        count(name, clock(f"serve/{name}", cross_serve_phase, name, args.seed, dev))
         torch.cuda.empty_cache()
     for k in ("flash_attention", "ssd_scan", "flash_attention_split", "split_kv"):
         launches[k] = sum(n.get(k, 0) for n in by_run.values())
-    sampled_serve_phase(args.seed, dev)
+    clock("sampled_serve", sampled_serve_phase, args.seed, dev)
     torch.cuda.empty_cache()
-    knn_phase(args.seed, dev)
-    svm_phase(args.seed, dev)
+    clock("knn", knn_phase, args.seed, dev)
+    clock("svm", svm_phase, args.seed, dev)
     torch.cuda.empty_cache()
-    moe_phase(args.seed, dev)
+    clock("moe", moe_phase, args.seed, dev)
     torch.cuda.empty_cache()
-    train_launches = train_phase(args.seed, dev, card)
+    train_launches = clock("train", train_phase, args.seed, dev, card)
     torch.cuda.empty_cache()
-    distributed_launches = distributed_phase(args.seed, dev, card)
+    distributed_launches = clock("distributed", distributed_phase, args.seed, dev, card)
     torch.cuda.empty_cache()
-    tensor_parallel_launches = tensor_parallel_phase(args.seed, dev, card)
+    tensor_parallel_launches = clock("tensor_parallel", tensor_parallel_phase, args.seed, dev,
+                                     card)
     torch.cuda.empty_cache()
-    long_decode_launches = long_decode_phase(args.seed, dev, card)
+    long_decode_launches = clock("long_decode", long_decode_phase, args.seed, dev, card)
     torch.cuda.empty_cache()
-    dryrun_launches = dryrun_phase(args.seed, dev, card)
-    kernels += lm_kernel_checks(args.seed, dev, x_values, launches, by_run)
+    tp_train_launches = clock("tp_train", tp_train_phase, args.seed, dev, card)
+    torch.cuda.empty_cache()
+    dryrun_launches = clock("dryrun", dryrun_phase, args.seed, dev, card)
+    kernels += clock("lm_kernel_checks", lm_kernel_checks, args.seed, dev, x_values, launches,
+                     by_run)
     for k in kernels:  # launches on the mesh and service paths (None: not on them)
         k["mesh_launches"] = mesh_launches.get(k["name"])
         k["service_launches"] = service_launches.get(k["name"])
@@ -5687,11 +6082,14 @@ def main(argv=None) -> int:
         k["distributed_launches"] = distributed_launches[k["name"]]
         k["tensor_parallel_launches"] = tensor_parallel_launches[k["name"]]
         k["long_decode_launches"] = long_decode_launches[k["name"]]
+        k["tp_train_launches"] = tp_train_launches[k["name"]]
         k["dryrun_launches"] = dryrun_launches[k["name"]]
     check(len(kernels) == 5 and all(k["launches"] > 0 for k in kernels),
           f"every kernel launched on its path: {launches}")
     check(launches["flash_attention_split"] > 0 and launches["split_kv"] > 0,
           f"the flash kernel's split route launched on the f32 prefill: {launches}")
+    emit({"phase": "clock", "seconds_by_phase": clock.seconds, "gc_seconds": clock.gc_seconds,
+          "seconds": time.perf_counter() - clock.start})
     emit({"kernels": kernels})
     torch.cuda.synchronize()
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

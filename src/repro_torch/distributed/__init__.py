@@ -40,18 +40,20 @@ from repro_torch.distributed.spmd import (
     psum,
     psum_scatter,
     pmax,
+    pvary,
     shard_map,
     sharded_decode_step,
     sharded_prefill,
     sharded_train_step,
     tensor_parallel,
+    tensor_parallel_gradients,
 )
 
 __all__ = [
     "Mesh", "NamedSharding", "P", "PartitionSpec", "ShardedTensor", "device_put",
-    "shard_map", "psum", "pmax", "psum_scatter", "all_gather", "ppermute", "axis_index",
-    "axis_size", "data_parallel_gradients", "sharded_train_step", "sharded_prefill",
-    "sharded_decode_step", "tensor_parallel",
+    "shard_map", "psum", "pmax", "pvary", "psum_scatter", "all_gather", "ppermute",
+    "axis_index", "axis_size", "data_parallel_gradients", "sharded_train_step",
+    "tensor_parallel_gradients", "sharded_prefill", "sharded_decode_step", "tensor_parallel",
     "hierarchical_psum", "psum_pod_hierarchical", "compressed_psum_pod", "gpipe",
     "ShardingRules", "use_rules", "shard", "param_pspec", "params_shardings",
     "cache_shardings", "train_rules", "train_rules_sp", "decode_rules",

@@ -4,8 +4,8 @@ The port's stand-in for what ``jax.sharding`` and ``shard_map`` give the
 JAX package: a :class:`Mesh`, :class:`PartitionSpec` (``P``),
 :class:`NamedSharding`, a :class:`ShardedTensor` that holds one local
 tensor per rank, :func:`device_put`, :func:`shard_map` with collectives
-inside its body, the data-parallel train step built on them, and the
-tensor-parallel serving steps (:func:`sharded_prefill`,
+inside its body, the data-parallel and tensor-parallel train steps built on
+them, and the tensor-parallel serving steps (:func:`sharded_prefill`,
 :func:`sharded_decode_step`).
 
 **Why one process.**  The JAX package is single-controller: one process
@@ -40,10 +40,20 @@ operand, and once all have, each computes its result with torch ops on its
 own device.
 
 * Reductions fold in rank order (position order within the group), never
-  arrival order, so a result does not depend on thread timing.
+  arrival order, so a result does not depend on thread timing; bf16 and
+  f16 operands are summed in f32 and rounded once.
 * ``psum`` and ``all_gather`` are computed once per group and device, and
-  the group's ranks on that device receive the same tensor: treat a
-  collective's result as read-only, as JAX's values are.
+  the group's ranks on that device receive views of the same storage:
+  treat a collective's result as read-only, as JAX's values are.
+* They are differentiable by their transposes, as JAX's are: the
+  cotangent of a ``psum`` passes to the rank's operand (Megatron's
+  ``g``), that of an ``all_gather`` is ``psum_scatter``-ed and that of a
+  ``psum_scatter`` all-gathered; :func:`pvary` is the identity whose
+  cotangent is ``psum``-ed (Megatron's ``f``); ``pmax`` carries no
+  gradient.  A backward that calls a collective must run in the rank's
+  thread: in a rank body ``repro_torch.optim.value_and_grad`` runs it in
+  segments (:func:`backward_segments`), as it must on a card, where
+  PyTorch runs a graph's backward on the card's own autograd thread.
 * ``ppermute`` gives zeros to a rank that no pair targets.
 * A rank that raises wakes the others into ``BrokenBarrierError``, and
   the caller gets the raising rank's exception.  Ranks that call different
@@ -68,6 +78,17 @@ cache, gathers only the ``fsdp`` dims, and runs ``Model.prefill`` or
 (:func:`tensor_parallel`), which the model's layers read to call the
 ``model`` collectives (``models/layers.py``).  The dry-run traces the
 same body (:func:`serving_body`).
+
+**Tensor-parallel training** under ``train_rules``
+(:func:`tensor_parallel_gradients`, ``sharded_train_step(..., rules=...)``,
+:func:`training_step_body`): each rank keeps its ``model`` shards of the
+params and both AdamW moments, gathers the ``fsdp`` dims once a step, runs
+``accumulate_gradients(model.loss, ...)`` on its rows with the
+vocabulary-parallel loss and the backward in segments, sums the
+gradients over the data-parallel axes (the ``fsdp`` dims by the gather's
+transpose, so the rank keeps its shard) and updates its shards, the
+clip factor from one ``psum`` of the shards' squares.  The dense family
+only (``Model.tensor_parallel_training_refusal``).
 
 **Census.**  Inside :func:`collective_census` every collective that rank 0
 calls adds one to its kind's count and its operand and result bytes to its
@@ -110,6 +131,13 @@ __all__ = [
     "gathered",
     "data_parallel_gradients",
     "sharded_train_step",
+    "tensor_parallel_gradients",
+    "training_gradients_body",
+    "training_step_body",
+    "pvary",
+    "backward_segments",
+    "model_parallel",
+    "tensor_parallel_scope",
     "MODEL_AXIS",
     "TensorParallel",
     "tensor_parallel",
@@ -692,11 +720,14 @@ def _group(axis_name) -> tuple[_RankContext, tuple[str, ...], tuple[int, ...], i
 def _fold(tensors: Sequence[torch.Tensor], device: torch.device,
           combine: Callable = torch.add) -> torch.Tensor:
     """``tensors`` combined on ``device`` (summed, or by ``combine``, e.g.
-    ``torch.maximum``) in the order given."""
-    acc = tensors[0].to(device, copy=True)
+    ``torch.maximum``) in the order given; bf16 and f16 operands in f32,
+    rounded once at the end."""
+    dt = tensors[0].dtype
+    wide = torch.float32 if dt in (torch.bfloat16, torch.float16) else dt
+    acc = tensors[0].to(device, wide, copy=True)
     for t in tensors[1:]:
-        combine(acc, t.to(device), out=acc)
-    return acc
+        combine(acc, t.to(device, wide), out=acc)
+    return acc.to(dt)
 
 
 def _shared(memo: dict, key, compute: Callable) -> Any:
@@ -718,29 +749,106 @@ def axis_index(axis_name) -> int:
     return ctx.mesh.position(ctx.rank, _axes(axis_name))
 
 
+def _differentiable(x: Any, out: Any, transpose: Callable, collective: bool = False) -> Any:
+    """``out``, a collective's result (a tensor or a tree) computed from
+    ``x`` without autograd, made differentiable by ``transpose`` (a leaf's
+    cotangent to that of its operand) where autograd records ``x``: cut
+    from ``x``'s graph onto the thread's tape (:func:`backward_segments`),
+    every recorded leaf in one cut so that their backward runs as one
+    segment, or, without a tape, each wrapped in a :class:`_Transposed`
+    node.  ``collective``: the transpose calls a collective (it must run in
+    the rank's own thread)."""
+    if not torch.is_grad_enabled():
+        return out
+    xs, outs = tree_leaves(x), tree_leaves(out)
+    live = [i for i, t in enumerate(xs) if isinstance(t, torch.Tensor) and t.requires_grad]
+    if not live:
+        return out
+    tape = getattr(_TLS, "tape", None)
+    got = list(outs)
+    if tape is not None:
+        ys = [outs[i].detach().requires_grad_() for i in live]
+        tape.cut_many([xs[i] for i in live], ys,
+                      lambda cts, _leaves: ([transpose(ct) for ct in cts], None))
+        for i, y in zip(live, ys):
+            got[i] = y
+    else:
+        for i in live:
+            got[i] = _Transposed.apply(xs[i], outs[i], transpose, collective)
+    it = iter(got)
+    return tree_map(lambda _: next(it), out)
+
+
+class _Transposed(torch.autograd.Function):
+    """A collective's result as an autograd node whose backward is its
+    transpose.  A transpose that calls a collective must run in the rank's
+    thread: the backward of a CPU graph does (``torch.autograd.grad`` runs it
+    in the calling thread), that of a CUDA graph runs on the card's own
+    autograd thread and raises here (:func:`backward_segments` is the route
+    there)."""
+
+    @staticmethod
+    def forward(ctx, x, out, transpose, collective):
+        ctx.transpose, ctx.collective = transpose, collective
+        ctx.rank_ctx = getattr(_TLS, "ctx", None)
+        return out.detach()
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.collective and getattr(_TLS, "ctx", None) is not ctx.rank_ctx:
+            raise RuntimeError(
+                f"the backward of a collective ran in thread {threading.current_thread().name!r}, "
+                f"not its rank's (autograd runs a CUDA graph's backward on the card's own "
+                f"thread): differentiate a rank body with repro_torch.optim.accumulate_gradients "
+                f"or value_and_grad, whose backward runs in segments")
+        return ctx.transpose(g), None, None, None
+
+
 def psum(x: Any, axis_name) -> Any:
     """Sum of ``x`` (a tensor or a tree of tensors) over the named axes'
     group, folded in rank order.  A Python number is multiplied by the
-    group's size without a rendezvous (the reference's ``psum(1, axis)``)."""
+    group's size without a rendezvous (the reference's ``psum(1, axis)``).
+    Differentiable: the cotangent of the sum passes to the rank's own
+    operand, as Megatron's ``g`` and JAX's transpose of a ``psum`` whose
+    result every rank holds alike."""
     if isinstance(x, (int, float)):
         return x * axis_size(axis_name)
     ctx, axes, members, _ = _group(axis_name)
-    if ctx.rendezvous is None:
-        return _noted(ctx, "all-reduce", x, tree_map(torch.empty_like, x))
-    vals, memo = ctx.rendezvous.exchange(ctx.rank, ("psum", axes), x)
-    return _noted(ctx, "all-reduce", x, _shared(memo, (members, ctx.device), lambda: tree_map(
-        lambda *leaves: _fold(leaves, ctx.device), *[vals[r] for r in members])))
+    with torch.no_grad():
+        if ctx.rendezvous is None:
+            out = tree_map(torch.empty_like, x)
+        else:
+            vals, memo = ctx.rendezvous.exchange(ctx.rank, ("psum", axes), x)
+            out = tree_map(torch.Tensor.detach, _shared(
+                memo, (members, ctx.device), lambda: tree_map(
+                    lambda *leaves: _fold(leaves, ctx.device), *[vals[r] for r in members])))
+    return _differentiable(x, _noted(ctx, "all-reduce", x, out), lambda g: g)
+
+
+def pvary(x: torch.Tensor, axis_name) -> torch.Tensor:
+    """``x``, a value every rank of the named axes' group holds alike,
+    entering work that the ranks split (Megatron's ``f``, JAX's
+    ``pvary``): the identity, whose cotangent is the group's ``psum`` of the
+    ranks' partial cotangents.  Outside autograd, or over a group of one,
+    it is ``x`` itself."""
+    if not (torch.is_grad_enabled() and x.requires_grad) or axis_size(axis_name) == 1:
+        return x
+    return _differentiable(x, x, lambda g: psum(g, axis_name), collective=True)
 
 
 def pmax(x: Any, axis_name) -> Any:
     """Elementwise maximum of ``x`` (a tensor or a tree of tensors) over the
-    named axes' group (``jax.lax.pmax``; an ``all-reduce`` in the census)."""
+    named axes' group (``jax.lax.pmax``; an ``all-reduce`` in the census).
+    The result carries no gradient."""
     ctx, axes, members, _ = _group(axis_name)
-    if ctx.rendezvous is None:
-        return _noted(ctx, "all-reduce", x, tree_map(torch.empty_like, x))
-    vals, memo = ctx.rendezvous.exchange(ctx.rank, ("pmax", axes), x)
-    return _noted(ctx, "all-reduce", x, _shared(memo, (members, ctx.device), lambda: tree_map(
-        lambda *leaves: _fold(leaves, ctx.device, torch.maximum), *[vals[r] for r in members])))
+    with torch.no_grad():
+        if ctx.rendezvous is None:
+            return _noted(ctx, "all-reduce", x, tree_map(torch.empty_like, x))
+        vals, memo = ctx.rendezvous.exchange(ctx.rank, ("pmax", axes), x)
+        return _noted(ctx, "all-reduce", x, tree_map(torch.Tensor.detach, _shared(
+            memo, (members, ctx.device), lambda: tree_map(
+                lambda *leaves: _fold(leaves, ctx.device, torch.maximum),
+                *[vals[r] for r in members]))))
 
 
 def psum_scatter(x: torch.Tensor, axis_name, *, scatter_dimension: int = 0,
@@ -748,12 +856,10 @@ def psum_scatter(x: torch.Tensor, axis_name, *, scatter_dimension: int = 0,
     """The group's sum, of which the rank at position *i* keeps part *i*
     along ``scatter_dimension``: with ``tiled=False`` that dim's size must
     equal the group's and is removed; with ``tiled=True`` it is split into
-    equal parts and kept."""
+    equal parts and kept.  Its transpose is the :func:`all_gather` of the
+    cotangent."""
     ctx, axes, members, pos = _group(axis_name)
-    if ctx.rendezvous is not None:
-        vals, _ = ctx.rendezvous.exchange(ctx.rank, ("psum_scatter", axes, scatter_dimension,
-                                                     tiled), x)
-    n, d = len(members), scatter_dimension
+    n, d = len(members), scatter_dimension % x.ndim
     size = x.shape[d]
     if tiled and size % n:
         raise ValueError(f"psum_scatter: dim {d} of size {size} over {n} ranks")
@@ -763,27 +869,39 @@ def psum_scatter(x: torch.Tensor, axis_name, *, scatter_dimension: int = 0,
     def part(t):
         return t.narrow(d, pos * (size // n), size // n) if tiled else t.select(d, pos)
 
-    if ctx.rendezvous is None:
-        return _noted(ctx, "reduce-scatter", x, torch.empty_like(part(x)))
-    return _noted(ctx, "reduce-scatter", x, _fold([part(vals[r]) for r in members], ctx.device))
+    with torch.no_grad():
+        if ctx.rendezvous is None:
+            out = torch.empty_like(part(x))
+        else:
+            vals, _ = ctx.rendezvous.exchange(
+                ctx.rank, ("psum_scatter", axes, scatter_dimension, tiled), x)
+            out = _fold([part(vals[r]) for r in members], ctx.device)
+    return _differentiable(x, _noted(ctx, "reduce-scatter", x, out),
+                           lambda g: all_gather(g, axis_name, axis=d, tiled=tiled), True)
 
 
 def all_gather(x: torch.Tensor, axis_name, *, axis: int = 0, tiled: bool = False) -> torch.Tensor:
     """The group's operands in position order, stacked along a new dim
-    ``axis`` (``tiled=False``) or concatenated along ``axis`` (``tiled=True``)."""
+    ``axis`` (``tiled=False``) or concatenated along ``axis`` (``tiled=True``).
+    Its transpose is the :func:`psum_scatter` of the cotangent: each rank
+    gets the sum of the ranks' cotangents of its part."""
     ctx, axes, members, _ = _group(axis_name)
-    if ctx.rendezvous is None:
-        shape = list(x.shape)
-        if tiled:
-            shape[axis] *= len(members)
+    d = axis % (x.ndim if tiled else x.ndim + 1)
+    with torch.no_grad():
+        if ctx.rendezvous is None:
+            shape = list(x.shape)
+            if tiled:
+                shape[d] *= len(members)
+            else:
+                shape.insert(d, len(members))
+            out = x.new_empty(shape)
         else:
-            shape.insert(axis if axis >= 0 else len(shape) + 1 + axis, len(members))
-        return _noted(ctx, "all-gather", x, x.new_empty(shape))
-    vals, memo = ctx.rendezvous.exchange(ctx.rank, ("all_gather", axes, axis, tiled), x)
-    join = torch.cat if tiled else torch.stack
-    return _noted(ctx, "all-gather", x, _shared(
-        memo, (members, ctx.device),
-        lambda: join([vals[r].to(ctx.device) for r in members], dim=axis)))
+            vals, memo = ctx.rendezvous.exchange(ctx.rank, ("all_gather", axes, axis, tiled), x)
+            join = torch.cat if tiled else torch.stack
+            out = _shared(memo, (members, ctx.device),
+                          lambda: join([vals[r].to(ctx.device) for r in members], dim=d)).detach()
+    return _differentiable(x, _noted(ctx, "all-gather", x, out), lambda g: psum_scatter(
+        g, axis_name, scatter_dimension=d, tiled=tiled), True)
 
 
 def ppermute(x: Any, axis_name, perm: Sequence[tuple[int, int]]) -> Any:
@@ -802,6 +920,181 @@ def ppermute(x: Any, axis_name, perm: Sequence[tuple[int, int]]) -> Any:
         return _noted(ctx, "collective-permute", x, tree_map(torch.zeros_like, x))
     return _noted(ctx, "collective-permute", x,
                   tree_map(lambda t: t.to(ctx.device, copy=True), vals[members[src[0]]]))
+
+
+# ---------------------------------------------------------------------------
+# autograd in a rank body: the backward in segments
+# ---------------------------------------------------------------------------
+
+
+class _Sums:
+    """Running sums of cotangents, one per slot: a slot's first
+    contribution is kept as autograd gave it, the second added into a new
+    tensor, which later ones are added into in place."""
+
+    def __init__(self, n: int):
+        self.values: list[torch.Tensor | None] = [None] * n
+        self._owned: set[int] = set()
+
+    def add(self, i: int, g: torch.Tensor | None) -> None:
+        if g is None:
+            return
+        held = self.values[i]
+        if held is None:
+            self.values[i] = g
+        elif i in self._owned:
+            held.add_(g)
+        else:
+            self.values[i] = held + g
+            self._owned.add(i)
+
+    def take(self, i: int) -> torch.Tensor | None:
+        self._owned.discard(i)
+        held, self.values[i] = self.values[i], None
+        return held
+
+
+class _Tape:
+    """The cuts of one rank's forward, in the order it made them.
+
+    Each entry is ``(xs, ys, vjp)``: the leaves ``ys`` stand for values
+    computed from ``xs`` (a collective's results, or the input of a decoder
+    period), and ``vjp(cts, leaves)`` gives the cotangents of ``xs`` from
+    those of ``ys``, and any gradient of ``leaves`` it found on the way (a
+    recomputed period's).  No autograd node of the rank's graph calls a
+    collective: :meth:`backward` runs ``torch.autograd.grad`` one segment at
+    a time in the rank's own thread, and calls the collectives' transposes
+    itself between segments, in the reverse of the forward's order, the
+    same on every rank."""
+
+    def __init__(self):
+        self.entries: list[tuple[list, list, Callable]] = []
+
+    def cut_many(self, xs: list, ys: list, vjp: Callable) -> None:
+        self.entries.append((xs, ys, vjp))
+
+    def cut(self, x: torch.Tensor, y: torch.Tensor, vjp: Callable) -> None:
+        """One value's cut: ``vjp(ct, leaves) -> (cx, found)``."""
+
+        def many(cts, leaves):
+            cx, found = vjp(cts[0], leaves)
+            return [cx], found
+
+        self.entries.append(([x], [y], many))
+
+    def boundary(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` cut as the input of a segment (a layer's residual stream),
+        so that no later segment's backward runs past it."""
+        if not (torch.is_grad_enabled() and x.requires_grad):
+            return x
+        xl = x.detach().requires_grad_()
+        self.cut(x, xl, lambda ct, _leaves: (ct, None))
+        return xl
+
+    def period(self, body: Callable, x: torch.Tensor, *, recompute: bool) -> torch.Tensor:
+        """``body(x)`` as one segment of the backward (a decoder period):
+        its input is cut, so that no segment's backward runs past it into
+        the earlier periods.  ``recompute``: the forward keeps only ``x``
+        and ``body``'s output, and the backward runs ``body`` on ``x`` again,
+        its collectives included, and that run's own segments
+        (``cfg.remat == "full"``)."""
+        if not (torch.is_grad_enabled() and x.requires_grad):
+            return body(x)
+        if not recompute:
+            return body(self.boundary(x))
+        with torch.no_grad():
+            y = body(x).detach().requires_grad_()
+        value = x.detach()
+
+        def vjp(ct, leaves):
+            xl = value.detach().requires_grad_()
+            inner = _Tape()
+            outer = getattr(_TLS, "tape", None)
+            _TLS.tape = inner
+            try:
+                with torch.enable_grad():
+                    out = body(xl)
+            finally:
+                _TLS.tape = outer
+            *grads, cx = inner.backward([out], [ct], [*leaves, xl])
+            return cx, grads
+
+        self.cut(x, y, vjp)
+        return y
+
+    def backward(self, outs: Sequence[torch.Tensor], cts: Sequence[torch.Tensor] | None,
+                 leaves: Sequence[torch.Tensor]) -> list[torch.Tensor | None]:
+        """``torch.autograd.grad(outs, leaves, cts)`` over the cut graph
+        (None for a leaf the outputs do not reach); empties the tape."""
+        n = len(leaves)
+        ys = [y for _, entry_ys, _ in self.entries for y in entry_ys]
+        starts, at = [], 0
+        for _, entry_ys, _ in self.entries:
+            starts.append(at)
+            at += len(entry_ys)
+        grads, cot = _Sums(n), _Sums(len(ys))
+
+        def pull(outs, cts, upto: int) -> None:
+            pairs = [(o, c) for o, c in zip(outs, cts or [None] * len(outs)) if o.requires_grad]
+            if not pairs:
+                return
+            got = torch.autograd.grad([o for o, _ in pairs], [*leaves, *ys[:upto]],
+                                      grad_outputs=None if cts is None else [c for _, c in pairs],
+                                      allow_unused=True, retain_graph=True)
+            for i, g in enumerate(got[:n]):
+                grads.add(i, g)
+            for k, g in enumerate(got[n:]):
+                cot.add(k, g)
+
+        pull(outs, cts, len(ys))
+        for k in range(len(self.entries) - 1, -1, -1):
+            xs, entry_ys, vjp = self.entries[k]
+            at = starts[k]
+            ct = [cot.take(at + i) for i in range(len(entry_ys))]
+            ct = [torch.zeros_like(y) if c is None else c for c, y in zip(ct, entry_ys)]
+            cxs, found = vjp(ct, leaves)
+            for i, g in enumerate(found or ()):
+                grads.add(i, g)
+            pull(xs, cxs, at)
+        self.entries.clear()
+        return grads.values
+
+
+@contextlib.contextmanager
+def backward_segments():
+    """A fresh :class:`_Tape` for the calling rank thread's forward, or None
+    outside a ``shard_map`` body (and where autograd records nothing).
+
+    Inside a body the collectives cut their results onto it (and
+    ``Model.forward`` each decoder period), so that
+    ``tape.backward([loss], None, leaves)`` runs the backward in segments
+    in this thread.  The collectives' autograd nodes (:class:`_Transposed`)
+    cannot do that on a card: PyTorch runs a CUDA graph's backward on the
+    card's own autograd thread, which the rank threads of one card share
+    and where no rank's rendezvous can wait.  ``repro_torch.optim``'s
+    ``value_and_grad`` (and so ``accumulate_gradients``) uses it.  The
+    data-parallel program's ranks (a :class:`TensorParallel` not
+    ``over_model``) get none: they hold every param whole and take
+    PyTorch's one-pass backward and ``torch.utils.checkpoint``'s
+    recomputation, and a collective in their body (the MoE layer's token
+    gather) differentiates through its node, in the rank's thread on a CPU
+    graph (on a card it raises)."""
+    tp = getattr(_TLS, "tp", None)
+    if getattr(_TLS, "ctx", None) is None or not torch.is_grad_enabled() or (
+            tp is not None and not tp.over_model):
+        yield None
+        return
+    outer = getattr(_TLS, "tape", None)
+    _TLS.tape = tape = _Tape()
+    try:
+        yield tape
+    finally:
+        _TLS.tape = outer
+
+
+def recording_tape() -> _Tape | None:
+    """The calling thread's tape while a rank's forward records one."""
+    return getattr(_TLS, "tape", None)
 
 
 # ---------------------------------------------------------------------------
@@ -842,9 +1135,11 @@ def data_parallel_gradients(loss_fn: Callable, params: Any, blocks: dict[str, to
     gradients are summed over ``(pod, data)`` by
     :func:`~repro_torch.distributed.collectives.psum_pod_hierarchical`
     (a flat ``psum`` on a mesh without a ``pod`` axis) and divided by the
-    data-parallel rank count.  Tensor-parallel training over ``model`` is
-    not ported (serving is: :func:`sharded_prefill`): the ranks of one
-    ``(pod, data)`` position compute the same gradients.  Returns the loss
+    data-parallel rank count.  The ranks of one ``(pod, data)`` position
+    compute the same gradients (:func:`tensor_parallel_gradients` splits
+    the work over ``model``).  The body runs under a :class:`TensorParallel`
+    that names only the batch's axes, so that an MoE layer groups the whole
+    batch's tokens, as the reference's ``jax.jit`` does.  Returns the loss
     and the gradients as global tensors on rank 0's device.
     """
     from repro_torch.distributed.collectives import psum_pod_hierarchical
@@ -855,9 +1150,12 @@ def data_parallel_gradients(loss_fn: Callable, params: Any, blocks: dict[str, to
     p_specs = tree_map(_spec_of, params)
     b_specs = {k: P(None, dp) for k in blocks}
 
+    tp = TensorParallel(batch_axes=dp, over_model=False)
+
     def body(local_params, local_blocks):
         full = tree_map(gathered, local_params, p_specs)
-        loss, grads = accumulate_gradients(loss_fn, full, local_blocks)
+        with tensor_parallel_scope(tp):
+            loss, grads = accumulate_gradients(loss_fn, full, local_blocks)
         return loss.reshape(1), grads
 
     outs = _run_ranks(mesh, body, _local_args(mesh, (params, blocks), (p_specs, b_specs)))
@@ -876,19 +1174,218 @@ def data_parallel_gradients(loss_fn: Callable, params: Any, blocks: dict[str, to
 
 
 def sharded_train_step(loss_fn: Callable, params: Any, opt: Any, blocks: dict[str, torch.Tensor],
-                       *, mesh: Mesh, lr) -> tuple[Any, Any, torch.Tensor]:
-    """One data-parallel optimizer step: :func:`data_parallel_gradients`,
-    then :func:`repro_torch.optim.adamw_update` on the gathered params, which
-    go back to the layouts they came in (a plain tensor stays plain).
+                       *, mesh: Mesh, lr, rules: Any = None) -> tuple[Any, Any, torch.Tensor]:
+    """One optimizer step.  ``rules=train_rules(mesh)``: the tensor-parallel
+    program (:func:`tensor_parallel_gradients` and AdamW on each rank's
+    shards, :func:`training_step_body`), which writes the new params and
+    moments into the shards passed in, as ``adamw_update`` does, and returns
+    them as :class:`ShardedTensor` leaves in the params' layouts (plain
+    moments are placed so first).  Without ``rules``: the data-parallel
+    program, :func:`data_parallel_gradients`, then
+    :func:`repro_torch.optim.adamw_update` on the gathered params, which go
+    back to the layouts they came in (a plain tensor stays plain).
     Returns ``(params, opt, loss)``."""
     from repro_torch.optim import adamw_update
 
+    if rules is not None:
+        return _tensor_parallel_step(loss_fn, params, opt, blocks, mesh=mesh, lr=lr, rules=rules)
     loss, grads = data_parallel_gradients(loss_fn, params, blocks, mesh=mesh)
     full = tree_map(lambda p: p.full() if isinstance(p, ShardedTensor) else p, params)
     full, opt = adamw_update(full, grads, opt, lr=lr)
     new = tree_map(lambda p, f: ShardedTensor.from_global(f, p.sharding)
                    if isinstance(p, ShardedTensor) else f, params, full)
     return new, opt, loss
+
+
+# ---------------------------------------------------------------------------
+# the tensor-parallel train step
+# ---------------------------------------------------------------------------
+
+
+def _named(spec: PartitionSpec) -> set[str]:
+    return {a for e in spec if e is not None for a in _axes(e)}
+
+
+def _data_parallel_sum(x: torch.Tensor, dp: tuple[str, ...]) -> torch.Tensor:
+    """``x`` summed over the data-parallel axes inside a body:
+    hierarchically (reduce-scatter over ``data``, all-reduce over ``pod``,
+    all-gather over ``data``) where both remain, else one ``psum``."""
+    from repro_torch.distributed.collectives import hierarchical_psum
+
+    if not dp:
+        return x
+    if "pod" in dp and "data" in dp:
+        return hierarchical_psum(x.reshape(-1), fast_axis="data",
+                                 slow_axis="pod").reshape(x.shape)
+    return psum(x, dp)
+
+
+def _reduced_gradient(g: torch.Tensor, gather: PartitionSpec, dp: tuple[str, ...]) -> torch.Tensor:
+    """A rank's gradient of a param it gathered over ``gather``'s axes (the
+    ``fsdp`` dims) summed over the data-parallel ranks, as its own shard:
+    the gather's transpose (a tiled ``psum_scatter`` per gathered dim) sums
+    over those axes, and the rest of ``dp`` is summed whole."""
+    for d, e in enumerate(gather):
+        if e is not None:
+            g = psum_scatter(g, e, scatter_dimension=d, tiled=True)
+    return _data_parallel_sum(g, tuple(a for a in dp if a not in _named(gather)))
+
+
+def _sharded_norm(grads: Any, specs: Any) -> torch.Tensor:
+    """The global norm of gradients held as the ranks' shards laid out by
+    ``specs``: one ``psum`` over every mesh axis of the squares each rank
+    owns, a shard counted on the ranks at coordinate 0 of every axis its
+    spec does not name (a leaf replicated over ``model`` on one model rank)."""
+    ctx = _context()
+    owned: list[torch.Tensor] = []
+
+    def one(g, spec):
+        if all(axis_index(a) == 0 for a in ctx.mesh.axis_names if a not in _named(spec)):
+            owned.append(g)
+
+    tree_map(one, grads, specs)
+    total = torch.zeros((), dtype=torch.float32, device=tree_leaves(grads)[0].device)
+    for g in owned:
+        total = total + torch.sum(torch.square(g.to(torch.float32)))
+    return torch.sqrt(psum(total, ctx.mesh.axis_names))
+
+
+def _training_model(loss_fn: Callable, mesh: Mesh) -> Any:
+    model = getattr(loss_fn, "__self__", None)
+    if model is None or not hasattr(model, "tensor_parallel_training_refusal"):
+        raise TypeError("tensor-parallel training takes a Model's bound loss (model.loss)")
+    refusal = model.tensor_parallel_training_refusal()
+    if refusal is not None:
+        raise NotImplementedError(f"{model.cfg.name}: {refusal}")
+    if MODEL_AXIS not in mesh.shape:
+        raise ValueError(f"tensor-parallel training needs a {MODEL_AXIS!r} axis in {mesh}")
+    return model
+
+
+def training_gradients_body(model: Any, mesh: Mesh, params: Any, param_specs: Any, rules: Any, *,
+                            accum_mode: str = "spliter", hoist: bool = False) -> Callable:
+    """The body of a tensor-parallel training rank of ``model`` on ``mesh``
+    (the models ``Model.tensor_parallel_training_refusal`` admits), its
+    ``params`` laid out by ``param_specs``, under ``rules`` (``train_rules``).
+
+    ``body(params, blocks) -> (loss, grads)`` takes the rank's shards and
+    its rows of the blocks (leaves ``(nblocks, mb / dp, ...)``): it gathers
+    each param over its axes other than :data:`MODEL_AXIS` (the ``fsdp``
+    dims) and keeps its model shard, runs
+    ``accumulate_gradients(model.loss, ...)`` under ``rules`` with a
+    :class:`TensorParallel` whose ``batch_axes`` are the rules' ``batch``
+    (the layers' model collectives, ``pvary`` where a value every rank
+    holds enters split work, the vocabulary-parallel loss; the backward in
+    segments, :func:`backward_segments`), then sums the loss and the
+    gradients over the data-parallel axes (the ``fsdp`` dims by the
+    gather's transpose, a ``psum_scatter``, which leaves the rank its
+    shard; the rest hierarchically over ``(pod, data)``, as
+    ``psum_pod_hierarchical`` does, or by one ``psum``) and divides them by
+    the data-parallel rank count.  The gradients come out as the rank's
+    shards in the params' layouts."""
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.optim import accumulate_gradients
+
+    dp = _axes(rules.logical.get("batch") or ())
+    n_dp = mesh.axis_size(dp) if dp else 1
+    gather = tree_map(lambda _, s: _gather_spec(s), params, param_specs)
+    tp = TensorParallel(batch_axes=dp)
+
+    def mean(t: torch.Tensor) -> torch.Tensor:
+        return t / torch.full((), n_dp, dtype=t.dtype, device=t.device)
+
+    def body(params_l, blocks_l):
+        full = tree_map(gathered, params_l, gather)
+        with tensor_parallel_scope(tp), use_rules(rules):
+            loss, grads = accumulate_gradients(model.loss, full, blocks_l, mode=accum_mode,
+                                               hoist=hoist)
+        loss = mean(_data_parallel_sum(loss, dp))
+        grads = tree_map(lambda g, s: mean(_reduced_gradient(g, s, dp)), grads, gather)
+        return loss, grads
+
+    return body
+
+
+def training_step_body(model: Any, mesh: Mesh, params: Any, param_specs: Any, rules: Any, *, lr,
+                       accum_mode: str = "spliter", hoist: bool = False) -> Callable:
+    """:func:`training_gradients_body` and AdamW on the rank's shards:
+    ``body(params, opt, blocks) -> (params, opt, loss)``.  The clip factor
+    of ``adamw_update``'s default ``clip_norm=1.0`` comes from the whole
+    gradient's norm (:func:`_sharded_norm`); the update writes into the
+    rank's shards of the params and moments."""
+    from repro_torch.optim import adamw_update
+
+    gradients = training_gradients_body(model, mesh, params, param_specs, rules,
+                                        accum_mode=accum_mode, hoist=hoist)
+
+    def body(params_l, opt_l, blocks_l):
+        loss, grads = gradients(params_l, blocks_l)
+        gnorm = _sharded_norm(grads, param_specs)
+        scale = torch.clamp(torch.full_like(gnorm, 1.0) / torch.clamp(gnorm, min=1e-12), max=1.0)
+        grads = tree_map(lambda g: g * scale, grads)
+        new_p, new_opt = adamw_update(params_l, grads, opt_l, lr=lr, clip_norm=math.inf)
+        return new_p, new_opt, loss
+
+    return body
+
+
+def _as_sharded(outs: list, like: Any, mesh: Mesh) -> Any:
+    """The ranks' outputs (a tree like ``like`` per rank) as
+    :class:`ShardedTensor` leaves laid out as ``like``'s (a plain tensor:
+    replicated)."""
+    its = [iter(tree_leaves(o)) for o in outs]
+
+    def one(x):
+        sharding = x.sharding if isinstance(x, ShardedTensor) else NamedSharding(mesh, P())
+        return ShardedTensor(x.shape, sharding, [next(i) for i in its])
+
+    return tree_map(one, like)
+
+
+def tensor_parallel_gradients(loss_fn: Callable, params: Any, blocks: dict[str, torch.Tensor], *,
+                              mesh: Mesh, rules: Any) -> tuple[torch.Tensor, Any]:
+    """Mean loss and mean f32 gradients of ``loss_fn`` (a Model's bound
+    ``loss``) over ``blocks`` (leaves ``(nblocks, mb, ...)``), tensor-parallel
+    over ``model`` and data-parallel over the rules' ``batch`` axes: the
+    port's counterpart of the reference's ``jax.jit(step, in_shardings=...)``
+    under ``train_rules``.
+
+    ``params`` are :class:`ShardedTensor` leaves placed by
+    ``params_shardings(..., fsdp_axis="data")`` (a plain tensor is
+    replicated); each rank gathers only their ``fsdp`` dims and keeps its
+    heads, kv heads (where they divide the axis), MLP columns and vocabulary
+    rows, and runs :func:`training_gradients_body`.  Returns the loss and the
+    gradients as :class:`ShardedTensor` leaves in the params' layouts: no
+    leaf is gathered whole over ``model``."""
+    model = _training_model(loss_fn, mesh)
+    p_specs = tree_map(_spec_of, params)
+    b_specs = {k: P(None, _axes(rules.logical.get("batch") or ()) or None) for k in blocks}
+    body = training_gradients_body(model, mesh, params, p_specs, rules)
+    outs = _run_ranks(mesh, body, _local_args(mesh, (params, blocks), (p_specs, b_specs)))
+    return outs[0][0], _as_sharded([o[1] for o in outs], params, mesh)
+
+
+def _tensor_parallel_step(loss_fn: Callable, params: Any, opt: Any, blocks: dict, *, mesh: Mesh,
+                          lr, rules: Any) -> tuple[Any, Any, torch.Tensor]:
+    model = _training_model(loss_fn, mesh)
+
+    def place(t, p):  # a plain moment laid out as its param
+        if isinstance(t, ShardedTensor) or not isinstance(p, ShardedTensor):
+            return t
+        return ShardedTensor.from_global(t, p.sharding)
+
+    opt = dataclasses.replace(opt, m=tree_map(place, opt.m, params),
+                              v=tree_map(place, opt.v, params))
+    p_specs = tree_map(_spec_of, params)
+    o_specs = dataclasses.replace(opt, step=P(), m=p_specs, v=p_specs)
+    b_specs = {k: P(None, _axes(rules.logical.get("batch") or ()) or None) for k in blocks}
+    body = training_step_body(model, mesh, params, p_specs, rules, lr=lr)
+    outs = _run_ranks(mesh, body, _local_args(mesh, (params, opt, blocks),
+                                               (p_specs, o_specs, b_specs)))
+    new_p = _as_sharded([o[0] for o in outs], params, mesh)
+    m = _as_sharded([o[1].m for o in outs], opt.m, mesh)
+    v = _as_sharded([o[1].v for o in outs], opt.v, mesh)
+    return new_p, dataclasses.replace(opt, step=outs[0][1].step, m=m, v=v), outs[0][2]
 
 
 # ---------------------------------------------------------------------------
@@ -919,12 +1416,15 @@ class TensorParallel:
     rows are split over, as the rules' ``batch`` names them (none under
     ``long_decode_rules``, whose batch of one is replicated): the MoE layer
     groups the tokens of the whole batch, as the reference's ``jax.jit``
-    does."""
+    does.  ``over_model``: the params are split over :data:`MODEL_AXIS`
+    (:func:`model_parallel`); False in the data-parallel train program,
+    whose ranks hold every param whole and read only ``batch_axes``."""
 
     kv_seq_axis: str | None = None
     kv_heads_split: bool = False
     batch_axes: tuple[str, ...] = ()
     latent_split: bool = False
+    over_model: bool = True
 
 
 def first_rank() -> bool:
@@ -935,12 +1435,22 @@ def first_rank() -> bool:
 
 def tensor_parallel() -> TensorParallel | None:
     """The calling rank thread's :class:`TensorParallel`; None outside a
-    tensor-parallel body, where the layers compute as they always do."""
+    rank program that sets one."""
     return getattr(_TLS, "tp", None)
 
 
+def model_parallel() -> TensorParallel | None:
+    """The calling rank thread's :class:`TensorParallel` where its params
+    are split over :data:`MODEL_AXIS`; None elsewhere, where the layers
+    compute as they always do."""
+    tp = getattr(_TLS, "tp", None)
+    return tp if tp is not None and tp.over_model else None
+
+
 @contextlib.contextmanager
-def _tensor_parallel_scope(tp: TensorParallel):
+def tensor_parallel_scope(tp: TensorParallel):
+    """``tp`` as the calling rank thread's :func:`tensor_parallel` inside
+    the block."""
     outer = getattr(_TLS, "tp", None)
     _TLS.tp = tp
     try:
@@ -1065,7 +1575,7 @@ def serving_body(model: Any, mesh: Mesh, params: Any, param_specs: Any, cache: A
 
     def body(params_l, batch_l, cache_l):
         full = tree_map(gathered, params_l, gather)
-        with _tensor_parallel_scope(tp), use_rules(rules):
+        with tensor_parallel_scope(tp), use_rules(rules):
             logits, _ = step(full, batch_l, cache_l)
         return logits, cache_l
 

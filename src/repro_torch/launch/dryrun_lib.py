@@ -28,11 +28,19 @@ row's gather of kv heads over ``model``.  Every other cell is
 data-parallel: the rank gathers with ``all_gather`` what the port's
 model needs whole.
 
-* train — the params gathered, :func:`~repro_torch.optim.accumulate_gradients`
-  (SplIter over the microbatch blocks) on the rank's rows, the loss and
-  gradients summed over ``(pod, data)`` (hierarchically where the mesh has
-  both) and divided by their count, then AdamW on the rank's own shards (the
-  clip factor from the whole gradient's norm, which every rank holds);
+* train — the dense family (``Model.tensor_parallel_training_refusal``)
+  under ``train_rules`` runs the tensor-parallel train program
+  (``spmd.training_step_body``): the ``fsdp`` dims gathered, the rank's
+  ``model`` shards kept, :func:`~repro_torch.optim.accumulate_gradients` on
+  its rows with the backward in segments, the gradients reduce-scattered
+  over the ``fsdp`` dims and summed over the rest of ``(pod, data)``, AdamW
+  on the shards (``COST_BASIS["tensor_parallel_train"]``).  The other
+  families, and ``train_rules_sp``, run the data-parallel one: the params
+  gathered, :func:`~repro_torch.optim.accumulate_gradients` (SplIter over
+  the microbatch blocks) on the rank's rows, the loss and gradients summed
+  over ``(pod, data)`` (hierarchically where the mesh has both) and divided
+  by their count, then AdamW on the rank's own shards (the clip factor from
+  the whole gradient's norm, which every rank holds);
 * prefill — ``Model.prefill`` of the rank's prompts under ``decode_rules``
   (data-parallel: params and cache gathered, the cache's batch rows local);
 * decode — one ``Model.decode_step`` at the cache's last slot under the
@@ -114,6 +122,7 @@ from repro_torch.distributed.spmd import (
     Mesh,
     NamedSharding,
     P,
+    TensorParallel,
     axis_index,
     axis_size,
     collective_census,
@@ -121,6 +130,8 @@ from repro_torch.distributed.spmd import (
     psum,
     serving_body,
     shard_map,
+    tensor_parallel_scope,
+    training_step_body,
 )
 from repro_torch.kernels._build import recording_costs
 from repro_torch.models import build_model
@@ -148,6 +159,13 @@ COST_BASIS = {
         "a prompt's MLA down-projections and replicated k/v or memory projections by "
         "sequence rows; MLA's K/V decompressed at the rank's heads); " + _COUNTS),
 }
+COST_BASIS["tensor_parallel_train"] = (
+    "one rank's tensor-parallel train program at its shard shapes (the batch split over "
+    "(pod, data); heads, kv heads where they divide model, MLP columns and vocabulary rows "
+    "split over model as params_shardings places them, only fsdp dims gathered; replicated "
+    "k/v projections by sequence rows; the loss from the rank's vocabulary block; the "
+    "backward in segments, a recomputed period's forward counted again under remat='full'; "
+    "AdamW on the rank's shards); " + _COUNTS)
 COLLECTIVES_BASIS = {
     "data_parallel": (
         "census of the collectives rank 0's program calls (the params' and cache's gathers, "
@@ -164,6 +182,16 @@ COLLECTIVES_BASIS = {
         "data under long_decode_rules (the rank's own heads), or the MLA latent's all-gather "
         "under the heads layout; the fsdp gathers"),
 }
+COLLECTIVES_BASIS["tensor_parallel_train"] = (
+    "census of the collectives rank 0's program calls: the fsdp gathers once a step; per "
+    "microbatch block the forward's model all-reduces (the vocabulary-split embedding, after "
+    "wo and w_down, the loss's row max, sum of exponentials and label logit) and all-gathers "
+    "of a replicated kv head's rows, again in a recomputed period, and the backward's "
+    "transposes (an all-reduce over model for each value every rank holds alike that enters "
+    "split work: the attention's and MLP's input, qk-norm, replicated k/v weights, the head's "
+    "input; a reduce-scatter for each all-gather); then the loss's and gradients' sum over "
+    "the data-parallel axes (a reduce-scatter per fsdp dim, the rest hierarchical over "
+    "(pod, data) or one all-reduce) and the clip norm's all-reduce")
 MEMORY_BASIS = (
     "per-rank shard shapes of the arguments and outputs as the reference places them; "
     "temporaries are not counted, so peak_live_bytes is a lower bound"
@@ -362,7 +390,11 @@ def _lower_train(
     traced_blocks: int | None = None,
 ) -> Lowered:
     """``traced_blocks`` cuts the traced blocks (each ``global_batch //
-    num_blocks`` rows) below ``num_blocks``; the memory is the whole step's."""
+    num_blocks`` rows) below ``num_blocks``; the memory is the whole step's.
+    The models ``Model.tensor_parallel_training_refusal`` admits (the dense
+    family) run the tensor-parallel train program under ``train_rules``
+    (``spmd.training_step_body``); ``sp`` (``train_rules_sp``, not ported)
+    and the other families the data-parallel one."""
     model = build_model(cfg)
     dp = _dp_axes(mesh)
     params = model.init(None, device="meta", master=True)
@@ -386,10 +418,18 @@ def _lower_train(
                      donated=[(params, p_sh), (opt, o_sh)])
     p_specs, o_specs = _specs(p_sh), _specs(o_sh)
     rules = train_rules_sp(mesh) if sp else train_rules(mesh)
+    traced = blocks if traced_blocks is None else blocks_of(traced_blocks)
+    in_specs, out_specs = (p_specs, o_specs, _specs(b_sh)), (p_specs, o_specs, P())
+    if not sp and model.tensor_parallel_training_refusal() is None:
+        body = training_step_body(model, mesh, params, p_specs, rules, lr=1e-4,
+                                  accum_mode=accum_mode, hoist=hoist)
+        return Lowered(_rank_program(mesh, body, (params, opt, traced), in_specs, out_specs),
+                       memory, "tensor_parallel_train")
+    tp = TensorParallel(batch_axes=dp, over_model=False)  # the MoE groups: the whole batch's
 
     def body(params_l, opt_l, blocks_l):
         full = tree_map(gathered, params_l, p_specs)
-        with use_rules(rules):
+        with use_rules(rules), tensor_parallel_scope(tp):
             loss, grads = accumulate_gradients(model.loss, full, blocks_l, mode=accum_mode,
                                                hoist=hoist)
         loss, grads = _dp_mean((loss, grads), dp)
@@ -399,10 +439,7 @@ def _lower_train(
         new_p, new_opt = adamw_update(params_l, local, opt_l, lr=1e-4, clip_norm=math.inf)
         return new_p, new_opt, loss
 
-    traced = blocks if traced_blocks is None else blocks_of(traced_blocks)
-    return Lowered(_rank_program(mesh, body, (params, opt, traced),
-                                 (p_specs, o_specs, _specs(b_sh)), (p_specs, o_specs, P())),
-                   memory)
+    return Lowered(_rank_program(mesh, body, (params, opt, traced), in_specs, out_specs), memory)
 
 
 def _serving_fsdp(cfg: ModelConfig) -> Any:

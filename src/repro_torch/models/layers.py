@@ -12,12 +12,17 @@ params dict with the JAX package's names and layouts (attention weights
   that owns the slot, ``"decomposed"`` attends to the old cache and the new
   token before writing (:func:`cache_write`, :func:`attention`);
 * **tensor parallelism:** inside the body of
-  ``repro_torch.distributed.spmd.sharded_prefill`` or
-  ``sharded_decode_step`` (``spmd.tensor_parallel()`` is set) a rank holds
-  its shards of the params, and :func:`attention` and :func:`mlp` compute
-  on them with the ``model`` collectives where the reference's GSPMD
-  partition puts them: a ``psum`` after the row-split ``wo`` and ``w_down``
-  products (:func:`_attention_tp`, the sliding window's ring included).
+  ``repro_torch.distributed.spmd.sharded_prefill``, ``sharded_decode_step``
+  or the tensor-parallel train step (``spmd.model_parallel()`` is set) a
+  rank holds its shards of the params, and :func:`attention` and
+  :func:`mlp` compute on them with the ``model`` collectives where the
+  reference's GSPMD partition puts them: a ``psum`` after the row-split
+  ``wo`` and ``w_down`` products (:func:`_attention_tp`, the sliding
+  window's ring included).  Under autograd the residual stream entering
+  the rank's heads or columns, and the params every rank holds alike that
+  it uses for its share (``q_norm``, ``k_norm``, a replicated ``wk``/``wv``
+  and their biases), pass through ``spmd.pvary``, whose cotangent is summed
+  over ``model``.
   :func:`cross_attention` splits its q heads and ``wo`` the same way and
   projects the memory whole into the cache (:func:`_cross_attention_tp`).
   Outside such a body nothing here calls a collective, as the reference's
@@ -65,10 +70,11 @@ from repro_torch.distributed.spmd import (
     all_gather,
     axis_index,
     axis_size,
+    model_parallel,
     pmax,
     psum,
+    pvary,
     shard_map,
-    tensor_parallel,
 )
 from repro_torch.kernels import ops
 
@@ -389,7 +395,7 @@ def cross_attention(
     output is scaled by ``tanh(gate)``.  On a rank of a tensor-parallel
     body: :func:`_cross_attention_tp`.
     """
-    if tensor_parallel() is not None:
+    if model_parallel() is not None:
         return _cross_attention_tp(p, cfg, x, cache=cache, memory=memory), cache
     dt = x.dtype
     q = torch.einsum("bld,dhk->blhk", x, p["wq"].to(dt))
@@ -459,7 +465,7 @@ def attention(
         return cross_attention(p, cfg, x, cache=cache, memory=memory)
     dt = x.dtype
     cos, sin = rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
-    tp = tensor_parallel()
+    tp = model_parallel()
     if tp is not None:
         return _attention_tp(p, cfg, x, tp, cos, sin, causal=causal, cache=cache,
                              cache_pos=cache_pos), cache
@@ -522,16 +528,18 @@ def init_mlp(
 def mlp(p: Params, x: torch.Tensor, *, d_ff: int | None = None) -> torch.Tensor:
     """SwiGLU.  In a tensor-parallel body a rank holding its columns of
     ``w_gate``/``w_up`` and rows of ``w_down`` (fewer than ``d_ff``) sums
-    its partial output over the model axis."""
+    its partial output over the model axis; under autograd the input's
+    cotangent is summed over it (:func:`~repro_torch.distributed.spmd.pvary`)."""
+    tp = model_parallel()
+    if tp is not None and d_ff is None:
+        raise ValueError("mlp in a tensor-parallel body needs the global d_ff")
+    split = tp is not None and p["w_down"].shape[0] != d_ff
+    if split:  # the residual stream enters the rank's columns (Megatron's f)
+        x = pvary(x, MODEL_AXIS)
     dt = x.dtype
     h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
     out = h @ p["w_down"].to(dt)
-    tp = tensor_parallel()
-    if tp is None:
-        return out
-    if d_ff is None:
-        raise ValueError("mlp in a tensor-parallel body needs the global d_ff")
-    return psum(out, MODEL_AXIS) if p["w_down"].shape[0] != d_ff else out
+    return psum(out, MODEL_AXIS) if split else out
 
 
 # ---------------------------------------------------------------------------
@@ -677,6 +685,10 @@ def _attention_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, tp, cos: torch.T
                          f"wo {tuple(p['wo'].shape)} and the cache's heads are split unlike "
                          f"params_shardings and cache_shardings split them")
     q0 = rank * hq if q_split else 0
+    if q_split:  # what every rank holds alike enters the rank's share of the heads
+        alike = ("q_norm", "k_norm") + (() if kv_split else ("wk", "wv", "bk", "bv"))
+        x = pvary(x, MODEL_AXIS)
+        p = {k: pvary(v, MODEL_AXIS) if k in alike else v for k, v in p.items()}
     window = cfg.sliding_window
     seq_ax = tp.kv_seq_axis  # the axis the cache's rows are split over, or None
 

@@ -48,7 +48,12 @@ the attention heads (the encoder's and cross-attention's too) and the MLP
 heads and latent cache, ``ssm.py`` the SSM heads, ``moe.py`` the experts.
 Whisper's encoder runs in the body: its layers sum their partials over
 ``model``, so every rank ends with the whole memory of its batch rows.
-Outside such a body nothing changes.
+In the tensor-parallel train step (the dense family,
+:meth:`Model.tensor_parallel_training_refusal`) ``loss`` takes the
+log-probabilities from the rank's vocabulary block without gathering it
+(:func:`_vocab_parallel_log_likelihood`), and a tied head's gradient on
+the rank's rows of ``embed`` sums the lookup's and the head's.  Outside
+such a body nothing changes.
 
 **Recomputation.**  ``forward(..., remat=True)`` (which ``loss`` uses, as
 the reference's does) checkpoints each period of the decoder's segments by
@@ -60,7 +65,11 @@ products without batch dimensions (the reference's
 are the same under all three; only memory differs.  The recomputation does
 not record MoE routes a second time (``moe_mlp.routes``), and it launches no
 kernel: under autograd the model takes the plain attention and SSD routes
-(``layers.py``, ``ssm.py``).
+(``layers.py``, ``ssm.py``).  In a rank whose backward runs in segments
+(``spmd.backward_segments``) each layer is a segment, and under ``"full"``
+the tape recomputes a period, its collectives included, in the rank's
+thread; ``"dots"`` keeps the period's graph there (more memory than the
+reference's policy keeps, the same values).
 """
 
 from __future__ import annotations
@@ -81,7 +90,16 @@ from torch.utils.checkpoint import (
 from repro_torch._pytree import tree_map
 from repro_torch.configs.base import LayerSpec, ModelConfig, Segment, ShapeCell
 from repro_torch.core.blocked import resolve_device
-from repro_torch.distributed.spmd import MODEL_AXIS, axis_index, axis_size, psum, tensor_parallel
+from repro_torch.distributed.spmd import (
+    MODEL_AXIS,
+    axis_index,
+    axis_size,
+    model_parallel,
+    pmax,
+    psum,
+    pvary,
+    recording_tape,
+)
 from repro_torch.models import layers as L
 from repro_torch.models.mla import init_mla, mla_attention
 from repro_torch.models.moe import init_moe, moe_mlp, routes_paused
@@ -312,6 +330,32 @@ class Model:
                             f"dropless reference, not ported over the model axis")
         return None
 
+    def tensor_parallel_training_refusal(self) -> str | None:
+        """Why the tensor-parallel train step
+        (``repro_torch.distributed.spmd.tensor_parallel_gradients``) does not
+        run this model, or None where it does: the dense family, every layer
+        self-attention (with or without qk-norm or a window) and a SwiGLU
+        MLP, the head tied or not."""
+        cfg = self.cfg
+        runs = "tensor-parallel training runs the dense family: attention with SwiGLU MLPs"
+        if cfg.encoder_layers:
+            return f"{runs}; the encoder is not ported for training"
+        for seg in cfg.segments():
+            for s in seg.period:
+                if s.mixer == "mamba2":
+                    return f"{runs}; the SSM heads (mamba2) are not ported for training"
+                if s.mixer == "mla":
+                    return f"{runs}; MLA is not ported for training"
+                if s.mixer == "cross_attn":
+                    return f"{runs}; cross-attention is not ported for training"
+                if s.mixer != "attn":
+                    return f"{runs}; {s.mixer} layers are not ported"
+                if s.mlp == "moe":
+                    return f"{runs}; the experts (MoE) are not ported for training"
+                if s.mlp != "dense":
+                    return f"{runs}; {s.mlp} MLPs are not ported"
+        return None
+
     # ---------------- init ----------------
 
     def init(self, generator: torch.Generator, *, device: str | torch.device = "cuda",
@@ -371,16 +415,22 @@ class Model:
 
         def period_body(x, period_params, period_caches):
             for i, spec in enumerate(seg.period):
+                tape = recording_tape()
+                if i and tape is not None:  # each layer a segment of a rank's backward
+                    x = tape.boundary(x)
                 c = None if period_caches is None else period_caches[i]
                 x = _apply_layer(period_params[i], spec, cfg, x, ctx, c)
             return x
 
         def run_period(x, period_params, period_caches):
+            body = functools.partial(period_body, period_params=period_params,
+                                     period_caches=period_caches)
+            tape = recording_tape()
+            if tape is not None and caches is None:  # a rank's backward in segments
+                return tape.period(body, x, recompute=remat and cfg.remat == "full")
             if remat and cfg.remat != "none":
-                body = functools.partial(period_body, period_params=period_params,
-                                         period_caches=period_caches)
                 return _rematerialized(body, cfg.remat)(x)
-            return period_body(x, period_params, period_caches)
+            return body(x)
 
         if seg.repeats == 1:
             return run_period(x, seg_params, caches)
@@ -426,6 +476,8 @@ class Model:
             x = L.rms_norm(x, params["final_norm"])
         head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"]).to(x.dtype)
         first, head = self._vocab_block(head)
+        if head.shape[1] != cfg.padded_vocab:  # the normed stream enters the rank's columns
+            x = pvary(x, MODEL_AXIS)
         logits = x @ head
         # mask Megatron-style vocab padding (global column indices)
         if cfg.padded_vocab != cfg.vocab_size:
@@ -439,7 +491,7 @@ class Model:
         rank's block over the model axis (the columns of a split head, or
         its part of a replicated one, as ``P(dp, "model")`` places the
         logits)."""
-        if tensor_parallel() is None:
+        if model_parallel() is None:
             return 0, head
         n, rank = axis_size(MODEL_AXIS), axis_index(MODEL_AXIS)
         held = head.shape[1]
@@ -448,6 +500,7 @@ class Model:
         if held % n:
             raise ValueError(f"{held} vocabulary columns over {n} ranks")
         width = held // n
+        head = pvary(head, MODEL_AXIS)  # each rank's gradient covers its columns only
         return rank * width, head[:, rank * width:(rank + 1) * width]
 
     def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
@@ -455,7 +508,7 @@ class Model:
         a rank holding its rows of a split table looks up the tokens that
         fall in them, zero elsewhere, and the ranks sum over the model axis."""
         table, dt = params["embed"], getattr(torch, self.cfg.dtype)
-        if tensor_parallel() is None or table.shape[0] == self.cfg.padded_vocab:
+        if model_parallel() is None or table.shape[0] == self.cfg.padded_vocab:
             return table[tokens].to(dt)
         held = table.shape[0]
         local = tokens - axis_index(MODEL_AXIS) * held
@@ -483,12 +536,15 @@ class Model:
         """Mean next-token cross-entropy over the ``labels >= 0`` positions,
         in f32, with the forward rematerialized (``remat=True``) as the
         reference's loss is."""
-        logits = self.forward(params, batch, remat=True)
+        logits = self.forward(params, batch, remat=True).to(torch.float32)
         labels = batch["labels"]
         mask = labels >= 0
         lab = labels.clamp(min=0).to(torch.int64)
-        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-        ll = torch.gather(logp, -1, lab[..., None])[..., 0]
+        if model_parallel() is not None and logits.shape[-1] != self.cfg.padded_vocab:
+            ll = _vocab_parallel_log_likelihood(logits, lab)
+        else:
+            logp = torch.log_softmax(logits, dim=-1)
+            ll = torch.gather(logp, -1, lab[..., None])[..., 0]
         return -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1)
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, *,
@@ -562,6 +618,24 @@ class Model:
         if cfg.family == "vlm" and shape.kind != "decode":
             specs["image_embeds"] = spec(b, cfg.image_tokens, cfg.image_embed_dim, dtype=f)
         return specs
+
+
+def _vocab_parallel_log_likelihood(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The log-probability of each label from a tensor-parallel rank's f32
+    logits ``(B, S, V/n)``, its block of the vocabulary's columns (the
+    padding masked), without gathering the vocabulary: the row maximum by
+    ``pmax`` (a shift that carries no gradient), then one ``psum`` of the
+    sum of exponentials and of the label's logit from the rank whose block
+    holds it.  The same value as ``log_softmax`` at the label."""
+    width = logits.shape[-1]
+    top = pmax(logits.amax(dim=-1, keepdim=True), MODEL_AXIS)
+    local = labels - axis_index(MODEL_AXIS) * width
+    inside = (local >= 0) & (local < width)
+    picked = torch.gather(logits, -1, local.clamp(0, width - 1)[..., None])[..., 0]
+    total, label = psum((torch.exp(logits - top).sum(dim=-1),
+                         torch.where(inside, picked, torch.zeros((), device=picked.device))),
+                        MODEL_AXIS)
+    return label - top[..., 0] - torch.log(total)
 
 
 def build_model(cfg: ModelConfig) -> Model:

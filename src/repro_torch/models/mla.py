@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.spmd import MODEL_AXIS, all_gather, axis_index, psum, tensor_parallel
+from repro_torch.distributed.spmd import MODEL_AXIS, all_gather, axis_index, model_parallel, psum
 from repro_torch.models.layers import (
     Params,
     apply_rope,
@@ -167,7 +167,7 @@ def mla_attention(
     cache_pos: int | None = None,
 ) -> tuple[torch.Tensor, Params | None]:
     """Returns (out (B,L,D), the cache or None); a cache is updated in place."""
-    tp = tensor_parallel()
+    tp = model_parallel()
     if tp is not None:
         return _mla_tp(p, cfg, x, tp, positions=positions, cache=cache, cache_pos=cache_pos), cache
     dt = x.dtype

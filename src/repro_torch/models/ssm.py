@@ -40,8 +40,8 @@ from repro_torch.distributed.spmd import (
     all_gather,
     axis_index,
     axis_size,
+    model_parallel,
     psum,
-    tensor_parallel,
 )
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_scan import ssd_chunked
@@ -193,7 +193,7 @@ def mamba_block(
     cache: Params | None = None,          # {"conv": (B,W-1,Cin), "h": (B,NH,P,N)}
     use_chunked: bool = True,
 ) -> tuple[torch.Tensor, Params | None]:
-    if tensor_parallel() is not None:
+    if model_parallel() is not None:
         return _mamba_block_tp(p, cfg, x, cache=cache, use_chunked=use_chunked), cache
     z, conv_in, dt = _mamba_in(p, x)
     decode = cache is not None and x.shape[1] == 1

@@ -23,7 +23,10 @@ map onto it:
 Gradients are ``torch.autograd.grad`` of ``loss_fn`` with respect to
 detached copies of the (possibly hoisted) leaves, so the caller's params
 never require a gradient and the optimizer may update them in place.  All
-three modes give the same gradients up to float reassociation.
+three modes give the same gradients up to float reassociation.  In a rank
+of a ``shard_map`` body the backward runs in segments, the collectives'
+transposes called between them
+(``repro_torch.distributed.spmd.backward_segments``).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch._pytree import tree_leaves, tree_map
+from repro_torch.distributed.spmd import backward_segments
 
 LossFn = Callable[[Any, dict[str, torch.Tensor]], torch.Tensor]
 
@@ -56,9 +60,13 @@ def value_and_grad(loss_fn: LossFn, params: Any, batch: dict[str, torch.Tensor])
     the gradients a tree like ``params`` in each leaf's type (zeros where
     the loss does not reach a leaf, as ``jax.grad`` gives)."""
     diff = tree_map(lambda p: p.detach().requires_grad_(p.is_floating_point()), params)
-    loss = loss_fn(diff, batch)
+    with backward_segments() as tape:
+        loss = loss_fn(diff, batch)
     leaves = [p for p in tree_leaves(diff) if p.requires_grad]
-    grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
+    if tape is not None:  # a shard_map rank: the backward in segments, in its thread
+        grads = iter(tape.backward([loss], None, leaves))
+    else:
+        grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
 
     def grad_of(p):
         if not p.requires_grad:

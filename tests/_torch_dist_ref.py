@@ -7,11 +7,16 @@ that its own process keeps one device.  This child takes the output
 directory and then the names of the cases to run: by default every case of
 :data:`CASES` (every mode of ``tests/_dist_child.py`` that the port mirrors,
 not ``mesh_exec``, and the ``jax.lax`` collectives on the same mesh
-shapes); ``tensor_parallel`` (the reference's serving steps under GSPMD)
-is the tensor-parallel test's, ``long_decode`` (the same under
-``long_decode_rules``, a batch of one) the long-context test's.  It saves
-what each produced to ``out.npz`` in the directory (and the train step's
-params, as a checkpoint, under ``params/`` there).  The inputs are drawn
+shapes, and ``moe_groups``: mixtral's train step at a capacity that drops);
+``tensor_parallel`` (the reference's serving steps under GSPMD) is the
+tensor-parallel test's, ``long_decode`` (the same under
+``long_decode_rules``, a batch of one) the long-context test's,
+``tp_train`` (the train step under ``train_rules`` on two meshes, its
+gradients, params and moments) and ``collective_grads`` (``jax.grad``
+through each collective) the tensor-parallel training test's
+(``tests/test_torch_tp_train.py``).  It saves what each produced to
+``out.npz`` in the directory (and the train steps' params, as
+checkpoints, under ``params/`` and ``params_mixtral/`` there).  The inputs are drawn
 here exactly as the parent draws them for the port (numpy generators,
 fixed seeds).  Not collected by pytest (no ``test_`` prefix).
 """
@@ -63,9 +68,37 @@ def gpipe_case(out: dict) -> None:
                          mesh=mesh, axis="pipe")
 
 
-def sharded_train(out: dict) -> None:
-    """``_dist_child.check_sharded_train_step``: the sharded loss and the
-    unsharded one."""
+#: the tensor-parallel train cases: name -> (arch, config overrides, mesh
+#: shape and axes, checkpoint folder): qwen3's smoke config as it is and in
+#: f32, on (2, 2, 2) ("pod", "data", "model") and on (2, 4) ("data",
+#: "model"), where its 2 kv heads do not divide the model axis; mixtral's
+#: in f32 at capacity factor 1 (below E/k = 2, so that the groups drop
+#: choices), whose 8-row blocks (one 128-token group) split over 4
+#: data-parallel ranks leave each rank 32 tokens, not whole groups
+TRAIN_MESHES = {"222": ((2, 2, 2), ("pod", "data", "model")), "24": ((2, 4), ("data", "model"))}
+TRAIN_CASES = {
+    "qwen3/222": ("qwen3-32b", {}, "222", "params"),
+    "qwen3/24": ("qwen3-32b", {}, "24", "params"),
+    "qwen3_f32/222": ("qwen3-32b", {"dtype": "float32"}, "222", "params"),
+    "qwen3_f32/24": ("qwen3-32b", {"dtype": "float32"}, "24", "params"),
+    "mixtral_cf1/222": ("mixtral-8x7b", {"dtype": "float32", "moe_capacity_factor": 1.0},
+                           "222", "params_mixtral"),
+}
+TRAIN_LR = 1e-3
+
+
+def train_blocks(vocab: int) -> dict[str, np.ndarray]:
+    """Two blocks of 8 × 16 tokens and labels, shared with the parent."""
+    rng = np.random.default_rng(3)
+    return {k: rng.integers(0, vocab, (2, 8, 16)).astype(np.int32) for k in ("tokens", "labels")}
+
+
+def sharded_train(out: dict, case: str = "qwen3/222", full: bool = False) -> None:
+    """``_dist_child.check_sharded_train_step``: ``jax.jit(step)`` under
+    ``train_rules`` on the case's mesh, params by ``params_shardings`` (the
+    ``fsdp`` dims over data), the blocks' rows over the data-parallel axes;
+    saves the loss and the unsharded one, and with ``full`` the step's
+    gradients, new params and both moments, keyed by param path."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
@@ -76,31 +109,119 @@ def sharded_train(out: dict) -> None:
     from repro.models import build_model
     from repro.optim import accumulate_gradients, adamw_init, adamw_update
 
-    mesh = _mesh((2, 2, 2), ("pod", "data", "model"))
-    model = build_model(get_smoke_config("qwen3-32b"))
+    arch, ov, mesh_name, folder = TRAIN_CASES[case]
+    mesh = _mesh(*TRAIN_MESHES[mesh_name])
+    model = build_model(dataclasses.replace(get_smoke_config(arch), **ov))
     params = model.init(jax.random.key(0))
     opt = adamw_init(params)
-    rng = np.random.default_rng(3)
-    vocab = model.cfg.vocab_size
-    blocks = {k: jnp.asarray(rng.integers(0, vocab, (2, 8, 16)), jnp.int32)
-              for k in ("tokens", "labels")}
+    blocks = {k: jnp.asarray(v) for k, v in train_blocks(model.cfg.vocab_size).items()}
+    dp = tuple(a for a in mesh.axis_names if a in ("pod", "data"))
 
     def step(params, opt, blocks):
         loss, grads = accumulate_gradients(model.loss, params, blocks, mode="spliter")
-        p2, o2 = adamw_update(params, grads, opt, lr=1e-3)
-        return p2, o2, loss
+        p2, o2 = adamw_update(params, grads, opt, lr=TRAIN_LR)
+        return p2, o2, loss, grads
 
-    Checkpointer(os.path.join(OUT, "params")).save(0, params)  # the port restores these
+    ckpt = os.path.join(OUT, folder)
+    if not os.path.isdir(ckpt):
+        Checkpointer(ckpt).save(0, params)  # the port restores these
     p_sh = params_shardings(params, mesh)
-    b_sh = {k: NamedSharding(mesh, P(None, ("pod", "data"), None)) for k in blocks}
+    b_sh = {k: NamedSharding(mesh, P(None, dp, None)) for k in blocks}
     params = jax.device_put(params, p_sh)
     blocks = jax.device_put(blocks, b_sh)
     with use_rules(train_rules(mesh)):
-        _, _, loss = jax.jit(step, in_shardings=(p_sh, None, b_sh))(params, opt, blocks)
+        new_p, new_opt, loss, grads = jax.jit(step, in_shardings=(p_sh, None, b_sh))(
+            params, opt, blocks)
     loss_ref, _ = accumulate_gradients(
         model.loss, jax.device_get(params), jax.device_get(blocks), mode="spliter")
-    out["sharded_train/loss"] = np.float32(loss)
-    out["sharded_train/loss_ref"] = np.float32(loss_ref)
+    key = "sharded_train" if case == "qwen3/222" and not full else f"tp_train/{case}"
+    out[f"{key}/loss"] = np.float32(loss)
+    out[f"{key}/loss_ref"] = np.float32(loss_ref)
+    if full:
+        for name, tree in (("grads", grads), ("params", new_p), ("m", new_opt.m),
+                           ("v", new_opt.v)):
+            for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+                out[f"{key}/{name}/{tp_path(path)}"] = np.asarray(leaf)
+
+
+def tp_train(out: dict) -> None:
+    """qwen3's cases of :data:`TRAIN_CASES`, with their gradients, params
+    and moments."""
+    for case in TRAIN_CASES:
+        if case.startswith("qwen3"):
+            sharded_train(out, case, full=True)
+
+
+def moe_groups(out: dict) -> None:
+    """Mixtral's case of :data:`TRAIN_CASES`: the MoE groups of the whole
+    batch where a rank's rows are not whole groups."""
+    sharded_train(out, "mixtral_cf1/222", full=True)
+
+
+#: the collectives' gradients: name -> (the operand's kind, body over
+#: (lax-like namespace, the rank's operand, its weights)): each body ends in
+#: a loss every rank holds alike, and the gradient of the operand comes
+#: back laid out as it went in
+GRAD_PRIMITIVES = {
+    "psum": ("split", lambda lx, v, w: lx.psum(
+        (lx.psum(v * w, "model") ** 2).sum(), "data")),
+    "all_gather/tiled": ("split", lambda lx, v, w: lx.psum(
+        (lx.all_gather(v, "model", axis=0, tiled=True) ** 2 * lx.all_gather(
+            w, "model", axis=0, tiled=True) * (1 + lx.axis_index("model"))).sum(),
+        ("data", "model"))),
+    "all_gather/untiled": ("split", lambda lx, v, w: lx.psum(
+        (lx.all_gather(v * w, "model", axis=1, tiled=False) ** 2).sum()
+        * (1 + lx.axis_index("model")), ("data", "model"))),
+    "psum_scatter/tiled": ("tiles", lambda lx, v, w: lx.psum(
+        (lx.psum_scatter(v * w, "model", scatter_dimension=0, tiled=True) ** 2).sum(),
+        ("data", "model"))),
+    "psum_scatter/untiled": ("tiles", lambda lx, v, w: lx.psum(
+        (lx.psum_scatter((v * w).reshape(4, 1, 3), "model", scatter_dimension=0,
+                         tiled=False) ** 3).sum(), ("data", "model"))),
+    "pvary": ("rows", lambda lx, v, w: lx.psum(
+        (lx.pvary(v, "model") ** 2 * w * (1 + lx.axis_index("model"))).sum(),
+        ("data", "model"))),
+}
+#: kind -> (the operand's and its weights' shape, the axes their rows are
+#: split over on the (2, 4) ("data", "model") mesh): a rank holds a (1, 3)
+#: block of ``split``, a (4, 3) block of ``rows`` (the same on every model
+#: rank) and a (4, 3) block of ``tiles``
+GRAD_KINDS = {"split": ((8, 3), ("data", "model")), "rows": ((8, 3), ("data",)),
+              "tiles": ((32, 3), ("data", "model"))}
+
+
+def grad_inputs(kind: str) -> tuple[np.ndarray, np.ndarray]:
+    """The operand and its weights of ``kind``, shared with the parent."""
+    rng = np.random.default_rng(23)
+    shape = GRAD_KINDS[kind][0]
+    return (rng.standard_normal(shape).astype(np.float32),
+            rng.standard_normal(shape).astype(np.float32))
+
+
+def collective_grads(out: dict) -> None:
+    """``jax.grad`` of each :data:`GRAD_PRIMITIVES` body's loss through
+    ``shard_map`` (``check_vma`` on: the transposes of psum, all_gather,
+    psum_scatter and pvary)."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+
+    from repro.distributed.compat import shard_map
+
+    class Lax:
+        psum = staticmethod(jax.lax.psum)
+        psum_scatter = staticmethod(jax.lax.psum_scatter)
+        all_gather = staticmethod(jax.lax.all_gather)
+        axis_index = staticmethod(jax.lax.axis_index)
+        pvary = staticmethod(lambda x, axis: jax.lax.pcast(x, axis, to="varying"))
+
+    mesh = _mesh((2, 4), ("data", "model"))
+    for name, (kind, body) in GRAD_PRIMITIVES.items():
+        spec = P(GRAD_KINDS[kind][1])
+        f = shard_map(lambda v, w, body=body: body(Lax, v, w), mesh=mesh,
+                      in_specs=(spec, spec), out_specs=P())
+        v, w = grad_inputs(kind)
+        out[f"collective_grad/{name}"] = jax.grad(f)(jnp.asarray(v), jnp.asarray(w))
 
 
 def elastic_restore(out: dict) -> None:
@@ -502,8 +623,9 @@ def moe_drops(model, params, toks, prompt: int, steps: int, max_len: int,
 #: output directory (all of CASES by default)
 CASES = {"hier_and_compressed": hier_and_compressed, "gpipe": gpipe_case,
          "sharded_train": sharded_train, "elastic_restore": elastic_restore,
-         "cache_writes": cache_writes, "primitives": primitives}
-EXTRA_CASES = {"tensor_parallel": tensor_parallel, "long_decode": long_decode}
+         "cache_writes": cache_writes, "primitives": primitives, "moe_groups": moe_groups}
+EXTRA_CASES = {"tensor_parallel": tensor_parallel, "long_decode": long_decode,
+               "tp_train": tp_train, "collective_grads": collective_grads}
 
 
 if __name__ == "__main__":

@@ -37,12 +37,14 @@ MESH = ((2, 4), ("data", "model"))
 DATA_MESH = ((2, 1), ("data", "model"))
 #: cells without a probe: mamba2's train probe alone compiles for 12 s
 NO_PROBE = {("mamba2-1.3b", "train_4k")}
-#: serving cells run on MESH alone (no probe, no DATA_MESH run): the dense
-#: config whose kv heads divide the model axis, beside qwen3's that do not;
+#: serving cells, and the dense config's train cell, run on MESH alone (no
+#: probe, no DATA_MESH run): the dense config whose kv heads divide the
+#: model axis, beside qwen3's that do not;
 #: the hybrid and MoE families (mamba2's cells are among ARCHES' runs); MLA,
 #: the encoder and cross-attention; the long-context cells of the three
 #: sub-quadratic configs (a batch of one under long_decode_rules)
-TP_CELLS = (("deepseek-7b", "prefill_32k"), ("deepseek-7b", "decode_32k"),
+TP_CELLS = (("deepseek-7b", "train_4k"), ("deepseek-7b", "prefill_32k"),
+            ("deepseek-7b", "decode_32k"),
             ("jamba-v0.1-52b", "prefill_32k"), ("jamba-v0.1-52b", "decode_32k"),
             ("mixtral-8x7b", "prefill_32k"), ("mixtral-8x7b", "decode_32k"),
             ("deepseek-v2-236b", "prefill_32k"), ("deepseek-v2-236b", "decode_32k"),

@@ -23,6 +23,10 @@ that reason.  Run them on the card:
   attention layer with a prompt; a batch of one under ``long_decode_rules``
   on (2, 4) card ranks (the cache's rows over ``data``) launches both
   kernels once per rank and layer and equals the unsharded model in f32.
+* Tensor-parallel training: a collective's autograd node, whose CUDA
+  backward the card's autograd thread runs, raises there rather than
+  hang; lm1m's train step on (2, 2, 2) and (1, 4) card ranks, its
+  backward in segments, equals the unsharded step in f32.
 """
 
 import dataclasses
@@ -49,9 +53,13 @@ from repro_torch.distributed import (
     ppermute,
     psum,
     psum_scatter,
+    pvary,
     shard_map,
     sharded_decode_step,
     sharded_prefill,
+    sharded_train_step,
+    tensor_parallel_gradients,
+    train_rules,
     use_rules,
 )
 from repro_torch.kernels import flash_attention as fa
@@ -59,7 +67,7 @@ from repro_torch.launch.mesh import compat_make_mesh
 from repro_torch.launch.train import _preset
 from repro_torch.models.layers import cache_write
 from repro_torch.models.lm import _apply_layer, build_model
-from repro_torch.optim import accumulate_gradients
+from repro_torch.optim import accumulate_gradients, adamw_init, adamw_update
 
 pytestmark = pytest.mark.cuda
 
@@ -177,6 +185,58 @@ def test_data_parallel_gradients_on_the_card(dev):
     for g, r in zip(tree_leaves(grads), tree_leaves(grads_ref)):
         assert g.device == dev
         assert float((g - r).abs().max()) <= 2e-2 * (float(r.abs().max()) or 1.0)
+
+
+def test_a_collective_node_backward_raises_on_the_card(dev):
+    """``torch.autograd.grad`` through a ``pvary`` node on card ranks: the
+    card's autograd thread runs the node's backward, which finds no rank
+    there and raises on both ranks, with no hang."""
+    errors = []
+
+    def body(v):
+        x = v.detach().requires_grad_()
+        try:
+            torch.autograd.grad(psum(pvary(x, "model").sum(), "model"), x)
+        except RuntimeError as err:
+            errors.append(str(err))
+        return v
+
+    mesh = compat_make_mesh((1, 2), ("data", "model"), devices=(dev,))
+    shard_map(body, mesh=mesh, in_specs=(P("data"),), out_specs=P("data"))(
+        torch.ones((1, 4), device=dev))
+    assert len(errors) == 2 and all("not its rank's" in e for e in errors)
+
+
+@pytest.mark.parametrize("shape,axes", [((2, 2, 2), ("pod", "data", "model")),
+                                        ((1, 4), ("data", "model"))])
+def test_tensor_parallel_train_step_on_card_ranks(dev, shape, axes):
+    """lm1m in f32 (TF32 off): ``tensor_parallel_gradients`` within 1e-5
+    (loss, relative) and 1e-4 (each gradient leaf's maximum) of the
+    unsharded step's, and one ``sharded_train_step(..., rules=...)``'s
+    first moment within 1e-4 and params within 2·lr of the unsharded
+    AdamW step's, every rank's shard on the card."""
+    model = build_model(dataclasses.replace(_preset("lm1m"), dtype="float32"))
+    params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev, master=True)
+    g = torch.Generator(device=dev).manual_seed(1)
+    blocks = {k: torch.randint(0, model.cfg.vocab_size, (2, 8, 64), generator=g, device=dev)
+              for k in ("tokens", "labels")}
+    mesh = compat_make_mesh(shape, axes, devices=(dev,))
+    rules = train_rules(mesh)
+    placed = device_put(params, params_shardings(params, mesh, fsdp_axis="data"))
+    loss_ref, grads_ref = accumulate_gradients(model.loss, params, blocks)
+    loss, grads = tensor_parallel_gradients(model.loss, placed, blocks, mesh=mesh, rules=rules)
+    assert abs(float(loss) - float(loss_ref)) <= 1e-5 * abs(float(loss_ref))
+    for got, want in zip(tree_leaves(grads), tree_leaves(grads_ref)):
+        assert all(t.device == dev for t in got.shards)
+        assert float((got.full() - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    new, opt, _ = sharded_train_step(model.loss, placed, adamw_init(params), blocks, mesh=mesh,
+                                     lr=1e-3, rules=rules)
+    ref_p, ref_opt = adamw_update(tree_map(torch.clone, params), grads_ref, adamw_init(params),
+                                  lr=1e-3)
+    for got, want in zip(tree_leaves(opt.m), tree_leaves(ref_opt.m)):
+        assert float((got.full() - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    for got, want in zip(tree_leaves(new), tree_leaves(ref_p)):
+        assert float((got.full() - want).abs().max()) <= 2e-3
 
 
 def test_checkpoint_from_8_card_ranks_restores_onto_2(dev, tmp_path):

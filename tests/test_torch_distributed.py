@@ -4,9 +4,10 @@ Every mode of ``tests/_dist_child.py`` but ``mesh_exec`` (which
 ``tests/test_torch_mesh_executor.py`` covers): ``hier_psum``,
 ``compressed_psum``, ``gpipe``, ``sharded_train``, ``elastic_restore``,
 ``cache_write`` and ``heads_cache``, and the ``jax.lax`` collectives on the
-same mesh shapes.  The reference side runs once, in one child process on 8
-forced host devices (``tests/_torch_dist_ref.py``); the port side runs
-here, its ranks repeated ``cpu`` devices in this process.  Both draw the
+same mesh shapes; and the MoE groups of the data-parallel train step.
+The reference side runs once, in one child process on 8 forced host
+devices (``tests/_torch_dist_ref.py``); the port side runs here, its ranks
+repeated ``cpu`` devices in this process.  Both draw the
 same numpy inputs.  Beside the parity: reductions are bit-identical across
 runs, a raising rank re-raises without a hang, ranks that disagree on a
 collective raise, and a stress run with many rank threads keeps exact sums.
@@ -186,6 +187,51 @@ def test_sharded_train_step_matches_reference(reference, monkeypatch):
         assert len(got_leaves) == len(want_leaves) == len(jax.tree.leaves(params))
         for g, w in zip(got_leaves, want_leaves):
             assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_moe_groups_of_the_data_parallel_step_match_reference(reference):
+    """Mixtral's smoke config in f32 at capacity factor 1 (below E/k = 2:
+    the groups drop choices): each 8-row block is one
+    128-token group, and a data-parallel rank of (2, 2, 2) holds 2 rows (32
+    tokens), not a whole group.  The data-parallel step groups the whole
+    batch's tokens, as the reference's ``jax.jit`` under ``train_rules``
+    does: the loss within 1e-5 and every gradient within 1e-4 of its leaf's
+    maximum (f32).  Grouping a rank's own tokens gives other capacities and
+    drops, and another loss."""
+    from repro_torch._pytree import tree_leaves
+    from repro_torch.distributed.sharding import _map_with_path
+    from repro_torch.models.moe import moe_mlp
+
+    case = "mixtral_cf1/222"
+    arch, ov, mesh_name, folder = ref.TRAIN_CASES[case]
+    model = build_model(dataclasses.replace(get_smoke_config(arch), **ov))
+    template = model.init(torch.Generator().manual_seed(0), device="cpu", master=True)
+    params, _, _ = Checkpointer(os.path.join(reference["dir"], folder)).restore(template)
+    blocks = {k: torch.from_numpy(v.astype(np.int64))
+              for k, v in ref.train_blocks(model.cfg.vocab_size).items()}
+    mesh = _mesh(*ref.TRAIN_MESHES[mesh_name])
+    cfg = model.cfg
+    tokens = blocks["tokens"].shape[1] * blocks["tokens"].shape[2]
+    rank_tokens = tokens // (mesh.shape["pod"] * mesh.shape["data"])
+    assert min(cfg.moe_group, tokens) == tokens and rank_tokens % tokens  # not whole groups
+    moe_mlp.routes = []
+    try:
+        with torch.no_grad():
+            model.loss(params, {k: v[0] for k, v in blocks.items()})
+        dropped = sum(int(r["dropped"].sum()) for r in moe_mlp.routes)
+    finally:
+        moe_mlp.routes = None
+    assert dropped > 0
+    placed = device_put(params, params_shardings(params, mesh))
+    loss, grads = data_parallel_gradients(model.loss, placed, blocks, mesh=mesh)
+    key = f"tp_train/{case}"
+    np.testing.assert_allclose(float(loss), reference[f"{key}/loss"], rtol=1e-5)
+    names: list[str] = []
+    _map_with_path(lambda path, _: names.append("/".join(map(str, path))), params)
+    for name, g in zip(names, tree_leaves(grads), strict=True):
+        want = reference[f"{key}/grads/{name}"]
+        assert g.shape == want.shape, name
+        assert float(np.abs(g.numpy() - want).max()) <= 1e-4 * float(np.abs(want).max()), name
 
 
 def test_elastic_restore_matches_reference(reference, tmp_path):

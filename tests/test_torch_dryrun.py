@@ -206,8 +206,9 @@ def test_memory_matches_reference(reference, small_shapes, arch, shape):
 #: B/C products XLA splits and the rank program does not, and MLA's K/V
 #: decompression and the vlm's memory projection, which the two split
 #: differently, by closed forms.
-#: The train cells stay data-parallel and are not compared on (2, 4), where
-#: XLA splits products the port computes whole.
+#: The dense family's train cells run the tensor-parallel train program
+#: and are compared on (2, 4) too; the other families' stay data-parallel
+#: and are not, where XLA splits products the port computes whole.
 #: They are equal in every cell but mamba2's train step, where XLA forms
 #: four of the SSD einsums' gradient contractions (16384 FLOPs each at
 #: these widths, 0.29 % of the step) as dots and PyTorch's autograd as
@@ -222,26 +223,70 @@ def test_flops_held_to_reference(reference, small_shapes, monkeypatch, arch, sha
     of the reference's compiled module, within :data:`DOT_RTOL`.  The SSD
     kernel's formula counts the kernel's own work (64-row chunks, products
     split in two; held to a closed form below), so here the port's plain
-    chunked SSD, the reference model's own algorithm, takes its place."""
+    chunked SSD, the reference model's own algorithm, takes its place.  A
+    dense train cell runs the tensor-parallel train program over the
+    one-rank model axis, whose recomputation runs the period's last product
+    too (:func:`_train_apart` at one model rank)."""
     monkeypatch.setattr(ops, "ssd_scan", ss.ssd_chunked)
     mesh = compat_make_mesh(*ref_child.DATA_MESH, devices=(META,))
-    rec = lib.run_cell(arch, shape, mesh, mesh_label="data",
-                       overrides=ref_child.overrides(get_smoke_config(arch)))
+    cfg = get_smoke_config(arch)
+    rec = lib.run_cell(arch, shape, mesh, mesh_label="data", overrides=ref_child.overrides(cfg))
     assert rec["cost"]["kernels"] == {}
     want = reference[(arch, shape, "data")]["cost"]["dot_flops"]
     assert want > 0
-    assert rec["cost"]["flops"] == pytest.approx(want, rel=DOT_RTOL)
+    got = rec["cost"]["flops"]
+    dense = build_model(cfg).tensor_parallel_training_refusal() is None
+    if SHAPES[shape].kind == "train" and dense:
+        got += _train_apart(cfg, SHAPES[shape], model_ranks=1)
+    assert got == pytest.approx(want, rel=DOT_RTOL)
 
 
-TP_CELLS = [("qwen3-32b", "prefill_32k"), ("qwen3-32b", "decode_32k"),
+TP_CELLS = [("qwen3-32b", "train_4k"), ("qwen3-32b", "prefill_32k"), ("qwen3-32b", "decode_32k"),
             ("mamba2-1.3b", "prefill_32k"), ("mamba2-1.3b", "decode_32k"), *ref_child.TP_CELLS]
 
 
 def _rank_rows(shape: ShapeCell) -> int:
-    """A rank's batch rows on the (2, 4) mesh: half the batch, split over
-    data; the whole batch of one of a ``long_500k`` cell
+    """A rank's batch rows on the (2, 4) mesh in one traced body: half the
+    batch, split over data (of a train cell, half of one of its 4
+    microbatch blocks); the whole batch of one of a ``long_500k`` cell
     (``long_decode_rules`` replicates it)."""
-    return shape.global_batch if shape.name == "long_500k" else shape.global_batch // 2
+    if shape.name == "long_500k":
+        return shape.global_batch
+    return shape.global_batch // (4 if shape.kind == "train" else 1) // 2
+
+
+def _train_apart(cfg, shape: ShapeCell, model_ranks: int = 4, data_ranks: int = 2) -> int:
+    """The products of one traced train body (one period, one microbatch
+    block, the rank's T tokens) that XLA's partition computes beyond the
+    tensor-parallel train program's, on the (2, 4) mesh.
+
+    * Under ``remat="full"`` the rank program recomputes a period whole,
+      its last product too: ``w_down`` (``2·T·(d_ff/4)·D``), whose output
+      no backward reads and which XLA's recomputation leaves out (the
+      difference is negative).
+    * Where the kv heads do not divide the model axis (qwen3's 2 over 4,
+      ``wk``/``wv`` replicated), the rank program projects k and v for its
+      T/4 sequence rows with every kv head, in the forward, the
+      recomputation and the two gradient products each:
+      ``8·2·(T/4)·D·Hkv·Dh``.  XLA projects k with every kv head and v
+      with the r kv heads the rank's q heads read, in the forward and the
+      recomputation (``2·2·T·D·Dh·(Hkv + r)``); in the backward it forms
+      their input gradients at that width (``2·T·D·Dh·(Hkv + r)``) and
+      their weight gradients over the rank's D/2 ``fsdp`` rows
+      (``2·T·(D/2)·Dh·(Hkv + r)``)."""
+    t = _rank_rows(shape) * shape.seq_len
+    d, dh, hkv, h = cfg.d_model, cfg.resolved_head_dim, cfg.num_kv_heads, cfg.num_heads
+    layers = [s for seg in lib._scan_bodies(cfg).segments() for s in seg.period]
+    apart = 0
+    if cfg.remat == "full":
+        apart -= sum(s.mlp == "dense" for s in layers) * 2 * t * (cfg.d_ff // model_ranks) * d
+    if hkv % model_ranks:
+        read = max(h // model_ranks // (h // hkv), 1)
+        xla = (2 * 2 * t * d * dh * (hkv + read) + 2 * t * d * dh * (hkv + read)
+               + 2 * t * (d // data_ranks) * dh * (hkv + read))
+        mine = 8 * 2 * (t // model_ranks) * d * hkv * dh
+        apart += sum(s.mixer == "attn" for s in layers) * (xla - mine)
+    return apart
 
 
 def _whole_on_every_rank(cfg, shape: ShapeCell, model_ranks: int = 4) -> int:
@@ -279,7 +324,10 @@ def _split_apart(cfg, shape: ShapeCell, model_ranks: int = 4) -> int:
     whose kv heads the model axis does not divide (jamba's and mixtral's 2
     over 4), XLA projects the new token's v (``x·wv``, ``2·B·D·Dh`` a kv
     head) for the kv heads its device's q heads read, the rank program for
-    every kv head, and the difference is negative."""
+    every kv head, and the difference is negative.  A train cell's:
+    :func:`_train_apart`."""
+    if shape.kind == "train":
+        return _train_apart(cfg, shape)
     body = [s.mixer for seg in lib._scan_bodies(cfg).segments() for s in seg.period]
     h, dh, hkv = cfg.num_heads, cfg.resolved_head_dim, cfg.num_kv_heads
     if shape.name == "long_500k":
@@ -318,14 +366,19 @@ def test_tensor_parallel_flops_held_to_reference(reference, small_shapes, monkey
     rank's heads to its rows on both sides.  Whisper's encoder, decoder and cross layers
     (their heads split 1 a rank), deepseek-v2's MLA heads, its
     down-projections by the prompt's rows, experts and shared experts and
-    the vlm's attention layers split alike.  As in the data-parallel
-    comparison, the plain chunked SSD takes the kernel's place."""
+    the vlm's attention layers split alike.  The dense train cells
+    (qwen3-32b, deepseek-7b) run the tensor-parallel train program: the
+    forward, the recomputed period and the backward split four ways, the
+    loss from the rank's vocabulary block on both sides.  As in the
+    data-parallel comparison, the plain chunked SSD takes the kernel's
+    place."""
     monkeypatch.setattr(ops, "ssd_scan", ss.ssd_chunked)
     mesh = _meta_mesh()
     cfg = get_smoke_config(arch)
     rec = lib.run_cell(arch, shape, mesh, mesh_label="test", overrides=ref_child.overrides(cfg))
-    assert rec["cost_basis"].startswith(lib.COST_BASIS["tensor_parallel"])
-    assert rec["collectives_basis"] == lib.COLLECTIVES_BASIS["tensor_parallel"]
+    program = "tensor_parallel_train" if SHAPES[shape].kind == "train" else "tensor_parallel"
+    assert rec["cost_basis"].startswith(lib.COST_BASIS[program])
+    assert rec["collectives_basis"] == lib.COLLECTIVES_BASIS[program]
     want = reference[(arch, shape, "run")]["cost"]["dot_flops"]
     assert want > 0
     assert rec["cost"]["flops"] - _whole_on_every_rank(cfg, SHAPES[shape]) + _split_apart(
@@ -497,13 +550,17 @@ def test_depth_fit_equals_full_depth_count(small_shapes, shape):
 
 
 def test_train_census_counts_the_gathers_and_the_gradient_sum(small_shapes):
-    """qwen3's smoke train cell: one all-gather per sharded dim of every
-    param leaf (shard bytes in, the gathered dim's bytes out) and one psum
-    of the loss and the f32 gradients, by hand from the layouts."""
+    """mamba2's smoke train cell, which the tensor-parallel train program
+    refuses (its SSM heads), so the cell runs the data-parallel program: one
+    all-gather per sharded dim of every param leaf (shard bytes in, the
+    gathered dim's bytes out) and one psum of the loss and the f32
+    gradients, by hand from the layouts."""
     mesh = _meta_mesh()
-    cfg = get_smoke_config("qwen3-32b")
-    rec = lib.run_cell("qwen3-32b", "train_4k", mesh, mesh_label="test",
+    cfg = get_smoke_config("mamba2-1.3b")
+    assert build_model(cfg).tensor_parallel_training_refusal() is not None
+    rec = lib.run_cell("mamba2-1.3b", "train_4k", mesh, mesh_label="test",
                        overrides=ref_child.overrides(cfg))
+    assert rec["collectives_basis"] == lib.COLLECTIVES_BASIS["data_parallel"]
     params = build_model(lib._scan_bodies(cfg)).init(None, device=META, master=True)
     shardings = lib.params_shardings(params, mesh, fsdp_axis="data")
     gathers = operand = result = 0
@@ -519,6 +576,53 @@ def test_train_census_counts_the_gathers_and_the_gradient_sum(small_shapes):
     assert rec["collectives"]["counts"] == {"all-gather": gathers, "all-reduce": 1}
     assert rec["collectives"]["operand_bytes"] == {"all-gather": operand, "all-reduce": grads}
     assert rec["collectives"]["result_bytes"] == {"all-gather": result, "all-reduce": grads}
+
+
+def test_tensor_parallel_train_census_by_hand(small_shapes):
+    """qwen3's smoke train cell on the (2, 4) mesh (one period, one block of
+    the rank's T = 2 × 32 tokens, ``remat="full"``; its 2 kv heads
+    replicated over the 4-way model axis), the census by hand from the
+    layouts: the ``fsdp`` gathers over data, one per param leaf with a data
+    dim; the forward's all-reduces (the embedding's, after wo and w_down,
+    the loss's row max and its pair of sums) and the two all-gathers of the
+    k and v rows; the recomputed period's all-reduces and all-gathers again;
+    the backward's transposes: an all-reduce for each value every model
+    rank holds alike that enters its share (the head's, the MLP's and the
+    attention's input, q_norm, k_norm, wk and wv), a reduce-scatter for
+    each all-gather; the gradients' reduce-scatter over data per data dim,
+    an all-reduce over data of each leaf without one and of the loss, and
+    the clip norm's all-reduce."""
+    mesh = _meta_mesh()
+    cfg = get_smoke_config("qwen3-32b")
+    rec = lib.run_cell("qwen3-32b", "train_4k", mesh, mesh_label="test",
+                       overrides=ref_child.overrides(cfg))
+    assert rec["collectives_basis"] == lib.COLLECTIVES_BASIS["tensor_parallel_train"]
+    shape = SHAPES["train_4k"]
+    rows, seq, d, dh, hkv = 2, shape.seq_len, cfg.d_model, cfg.resolved_head_dim, cfg.num_kv_heads
+    act = rows * seq * d * 2  # a bf16 (rows, S, D) activation
+    kv_rows = rows * (seq // 4) * hkv * dh * 2  # a rank's bf16 k or v rows, every kv head
+    params = build_model(lib._scan_bodies(cfg)).init(None, device=META, master=True)
+    shardings = lib.params_shardings(params, mesh, fsdp_axis="data")
+    fsdp = [(leaf, sh) for leaf, sh in zip(tree_leaves(params), tree_leaves(shardings))
+            if any(e == "data" for e in sh.spec)]
+    whole = [leaf for leaf, sh in zip(tree_leaves(params), tree_leaves(shardings))
+             if all(e != "data" for e in sh.spec)]
+    mixer = params["seg0"][0]["mixer"]
+    gathered = [math.prod(sh.shard_shape(tuple(leaf.shape))) * 2 * 4 for leaf, sh in fsdp]
+    shard = [math.prod(sh.shard_shape(tuple(leaf.shape))) * 4 for leaf, sh in fsdp]
+    forward = [act, act, act, rows * seq * 4, 2 * rows * seq * 4]  # embed, wo, w_down, loss
+    recomputed = [act, act]
+    transposes = [act, act, act] + [mixer[k].numel() * 4 for k in ("q_norm", "k_norm", "wk",
+                                                                    "wv")]
+    sums = [leaf.numel() * 4 for leaf in whole] + [4, 4]  # replicated leaves, the loss, the norm
+    assert rec["collectives"]["counts"] == {
+        "all-gather": len(fsdp) + 4, "reduce-scatter": 2 + len(fsdp),
+        "all-reduce": len(forward) + len(recomputed) + len(transposes) + len(sums)}
+    assert rec["collectives"]["operand_bytes"] == {
+        "all-gather": sum(shard) + 4 * kv_rows, "reduce-scatter": 2 * 4 * kv_rows + sum(gathered),
+        "all-reduce": sum(forward) + sum(recomputed) + sum(transposes) + sum(sums)}
+    assert rec["collectives"]["result_bytes"]["all-gather"] == sum(gathered) + 4 * 4 * kv_rows
+    assert rec["collectives"]["result_bytes"]["reduce-scatter"] == 2 * kv_rows + sum(shard)
 
 
 @pytest.mark.parametrize("name", VARIANTS)

@@ -409,21 +409,36 @@ cluster runs as ``mesh_launches``, ``service_launches`` and
   autograd thread runs it, not the rank's: each rank's node raises, no
   hang) and through ``value_and_grad``'s backward in segments (the exact
   gradient).  Then lm100m whole in f32 on (2, 2, 2) ``(pod, data, model)``
-  and (1, 4), three steps of 4 blocks of 8 × 1024 from one seeded init,
-  beside the unsharded step: each step's loss within
-  ``TP_TRAIN_LOSS_RTOL`` and gradients (``tensor_parallel_gradients``)
-  within ``TP_TRAIN_TREE_TOL`` of each leaf's maximum, and after the third
-  both moments within it and every param within 2·lr; the params keep
-  their layouts.  qwen3-32b at full width (1 layer, ``TP_TRAIN_QWEN3``:
-  at 2 layers the f32 unsharded and sharded gradients and params on one
-  card ran out of its 80 GB)
-  on (1, 4): the loss and gradients the same, then one step with the
+  and (1, 4), two steps (three until the SSM, hybrid and MoE rows came)
+  of 2 blocks of 8 × 1024 (``TP_TRAIN_LM_BLOCKS``, 4 until then) from one
+  seeded init, beside the unsharded
+  step: each step's loss within ``TP_TRAIN_LOSS_RTOL`` and gradients
+  (``tensor_parallel_gradients``) within ``TP_TRAIN_TREE_TOL`` of each
+  leaf's maximum, and after the last both moments within it and every
+  param within 2·lr; the params keep their layouts.  qwen3-32b at full
+  width (1 layer, ``TP_TRAIN_QWEN3``: at 2 layers the f32 unsharded and
+  sharded gradients and params on one card ran out of its 80 GB) on
+  (1, 4): the loss and gradients the same, then one step with the
   unsharded params freed.  Each line prints the step's ms beside the
   unsharded gradients' (and lm100m's beside the data-parallel step's), the
   census of a step, a rank's parameter and moment bytes and the step's
   peak memory rise; lm100m in bf16 on (1, 4) prints its loss and gradient
-  errors.  No kernel runs (none has a backward): every entry of the
-  kernels line gives ``tp_train_launches`` 0.
+  errors.  Then the SSM, MoE and hybrid rows (``_tp_train_families``):
+  mamba2-1.3b at full width, 8 of 48 layers, on (1, 4) and mixtral-8x7b
+  at full width, 1 layer, on (1, 4) and (2, 2) (a rank's 512 tokens half
+  a 1,024-token group, so the token rows are all-gathered over data), 2
+  steps of 2 blocks of 2 × 512 (mixtral one), each step held to the
+  unsharded step from
+  the sharded run's own params and moments (``_tp_train_forced``: the
+  loss, gradients, moments and params as above, where the MoE routes of
+  the two agree; every route that flips must sit at a near-tie of the
+  unsharded router, ``ROUTE_NEAR_TIE``); jamba's period at its smoke width
+  on (2, 2, 2) (a cut: 13.3 B params at full width) the same way; and
+  mixtral's data-parallel step at smoke width on (2, 2, 2) (a cut: that
+  program holds every param whole on each rank), whose MoE ranks gather
+  the batch's token rows and run their backward in segments, against
+  the unsharded step.  No kernel runs (none has a backward): every entry
+  of the kernels line gives ``tp_train_launches`` 0.
 * ``dryrun``: the shape-only dry-run (``repro_torch.launch.dryrun_lib``)
   held against the card.  qwen3-32b's prefill as the serve phase runs it
   (4 layers, 8 × 512 tokens, flash, bf16) and the train phase's lm100m
@@ -5402,7 +5417,10 @@ def _long_decode_rows(arch: str, layers: int, prompt: int, seed: int, dev: torch
 #: lm100m's steps and meshes; qwen3-32b at full width: its layers, blocks,
 #: rows a block and tokens a row; the learning rate (AdamW's defaults
 #: otherwise, clip_norm 1.0)
-TP_TRAIN_STEPS, TP_TRAIN_LR = 3, 1e-3
+TP_TRAIN_STEPS, TP_TRAIN_LR = 2, 1e-3
+#: lm100m's blocks of 8 × 1024 a step (4, the train phase's, until the SSM,
+#: hybrid and MoE rows came: the script's time)
+TP_TRAIN_LM_BLOCKS = 2
 TP_TRAIN_MESHES = (((2, 2, 2), ("pod", "data", "model")), ((1, 4), ("data", "model")))
 TP_TRAIN_QWEN3 = {"layers": 1, "blocks": 2, "rows": 2, "seq": 512}
 #: f32 against the unsharded step: the loss relative, each gradient and
@@ -5478,14 +5496,17 @@ def _backward_threads(dev: torch.device) -> dict:
 
 
 def _leaf_gaps(got, want) -> float:
-    """The largest over leaves of a ShardedTensor tree's difference from a
-    whole tree, over the whole leaf's largest magnitude."""
+    """The largest over leaves of a tree's difference (ShardedTensor or
+    plain leaves) from a whole tree (on the card or kept on the host, a leaf
+    at a time on the card), over the whole leaf's largest magnitude."""
     from repro_torch._pytree import tree_leaves
 
     worst = 0.0
     for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        full = g.full() if hasattr(g, "full") else g
+        w = w.to(full.device)
         scale = float(w.abs().max())
-        gap = float((g.full() - w).abs().max())
+        gap = float((full - w).abs().max())
         worst = max(worst, gap / scale if scale else gap)
     return worst
 
@@ -5631,7 +5652,7 @@ def _tp_train(seed: int, dev: torch.device, card: str) -> dict:
           f"({threads})")
 
     lm = dataclasses.replace(_preset("lm100m"), dtype="float32")
-    blocks = _train_blocks(lm, TP_TRAIN_STEPS, TRAIN_BLOCKS, TRAIN_BATCH // TRAIN_BLOCKS,
+    blocks = _train_blocks(lm, TP_TRAIN_STEPS, TP_TRAIN_LM_BLOCKS, TRAIN_BATCH // TRAIN_BLOCKS,
                            TRAIN_SEQ, seed, dev)
     seconds = {}
     for shape, axes in TP_TRAIN_MESHES:
@@ -5658,6 +5679,7 @@ def _tp_train(seed: int, dev: torch.device, card: str) -> dict:
     seconds["qwen3-32b/1x4"] = time.perf_counter() - t0
     gc.collect()
     torch.cuda.empty_cache()
+    seconds.update(_tp_train_families(seed, dev, card))
     launches = read_launches()
     emit({"phase": "tp_train", "run": "launches", "card": card, "launches": launches,
           "seconds": time.perf_counter() - t_phase, "seconds_by_run": seconds})
@@ -5693,6 +5715,264 @@ def _tp_train_bf16(name: str, cfg, blk: dict, seed: int, dev: torch.device,
     emit(row)
     check(math.isfinite(row["loss"]), f"tp_train {name}: a finite loss")
     return row
+
+
+#: the SSM, MoE and hybrid rows: mamba2-1.3b at full width cut to 8 of 48
+#: layers on (1, 4) (16 SSM heads a rank); mixtral at full width, 1 layer,
+#: on (1, 4) and on (2, 2), where a rank's 512 tokens are not a whole
+#: 1,024-token group (its token rows all-gathered over data); jamba's
+#: period at its smoke width on (2, 2, 2) (a cut: its full-width period is
+#: 13.3 B params, ≈213 GB with gradients and moments, past one card); each
+#: 2 steps of 2 blocks of 2 × 512 tokens (mixtral's one block, jamba's one
+#: block of 8 × 64: the script's time); and mixtral's
+#: data-parallel step at its smoke width, capacity factor 1, on (2, 2, 2)
+#: (a cut: the data-parallel program holds every param whole on each of
+#: the 8 ranks, 8 × 13.7 GB of params and gradients at full width)
+TP_TRAIN_FAMILY_STEPS = 2
+TP_TRAIN_MAMBA2 = {"layers": 8, "blocks": 2, "rows": 2, "seq": 512}
+TP_TRAIN_MIXTRAL = {"layers": 1, "blocks": 1, "rows": 2, "seq": 512,
+                    "meshes": (((1, 4), ("data", "model")), ((2, 2), ("data", "model")))}
+TP_TRAIN_JAMBA_SMOKE = {"blocks": 1, "rows": 8, "seq": 64}
+TP_TRAIN_DP_MOE = {"blocks": 2, "rows": 8, "seq": 128, "capacity_factor": 1.0}
+
+
+def _host_tree(tree):
+    from repro_torch._pytree import tree_map
+
+    return tree_map(lambda t: t.detach().to("cpu"), tree)
+
+
+def _recorded_routes(fn, *, margins: bool = True):
+    """``fn()`` with ``moe_mlp.routes`` on and, with ``margins``, the
+    router's margins recorded (:func:`_recording_margins`, the forward's
+    calls only: a recomputation records no route): (result, routes,
+    margins), the routes and margins on the host."""
+    import repro_torch.models.moe as moe
+
+    moe.moe_mlp.routes = []
+    real, found = moe._route, []
+
+    def route(p, cfg, xt):
+        if margins and moe._recording():
+            with torch.no_grad():  # nothing saved that a recomputation would not save
+                logits = (xt @ p["router"].to(xt.dtype)).to(torch.float32)
+                top = logits.topk(cfg.moe_top_k + 1, -1).values
+                found.append((top[..., -2] - top[..., -1]).reshape(-1).cpu())
+        return real(p, cfg, xt)
+
+    moe._route = route
+    try:
+        out = fn()
+        routes = [{k: v.cpu() for k, v in r.items()} for r in moe.moe_mlp.routes]
+    finally:
+        moe._route = real
+        moe.moe_mlp.routes = None
+    return out, routes, found
+
+
+def _step_route_flips(routes, want, margins) -> dict:
+    """Tokens whose expert set differs between ``routes`` and ``want`` (the
+    unsharded run's, with its router ``margins``), and those whose drops
+    differ; each flip's unsharded margin."""
+    flips, drops, flip_margins = 0, 0, []
+    for r, w, m in zip(routes, want, margins):
+        moved = (r["experts"].sort(-1).values != w["experts"].sort(-1).values).any(-1)
+        flips += int(moved.sum())
+        drops += int((r["dropped"] != w["dropped"]).any(-1).sum())
+        flip_margins += [float(x) for x in m.reshape(moved.shape)[moved]]
+    return {"flips": flips, "drop_changes": drops, "flip_margins": flip_margins,
+            "calls": len(routes), "calls_unsharded": len(want)}
+
+
+def _tp_train_forced(name: str, cfg, mesh_shape: tuple, axes: tuple, blocks: list, seed: int,
+                     dev: torch.device, card: str, *, data_parallel: bool = False) -> dict:
+    """``cfg`` trained ``len(blocks)`` steps from one seeded init by
+    ``sharded_train_step(..., rules=train_rules(mesh))`` with every rank on
+    ``dev`` (with ``data_parallel``: by the data-parallel step, no rules,
+    ``data_parallel_gradients``, whose MoE ranks gather the batch's token
+    rows and so run their backward in segments, ``spmd.data_parallel_scope``),
+    each step held to the unsharded step taken from the same state:
+    the sharded run's params and moments gathered whole, so that AdamW's
+    ±lr moves of near-zero gradients whose sign the two runs round apart
+    (its first step moves every element by lr whatever its gradient's
+    size) do not compound into the later steps' comparisons.  Each step:
+    the unsharded loss, gradients and routes (``accumulate_gradients``, the
+    router's margins recorded), the tensor-parallel ones
+    (``tensor_parallel_gradients``) held to them where the routes agree
+    (every token's expert set, every drop) and printed where they do not
+    (every flip must be at a near-tie of the unsharded router,
+    ``ROUTE_NEAR_TIE``); the unsharded ``adamw_update``'s params and
+    moments kept on the host, the sharded step's held to them where the
+    routes agree.  The unsharded state never stays on the card beside the
+    sharded step's.  Emits one line."""
+    import dataclasses
+
+    from repro_torch._pytree import tree_leaves, tree_map
+    from repro_torch.distributed import (
+        data_parallel_gradients,
+        device_put,
+        params_shardings,
+        sharded_train_step,
+        tensor_parallel_gradients,
+        train_rules,
+    )
+    from repro_torch.distributed.spmd import collective_census, data_parallel_scope
+    from repro_torch.launch.mesh import compat_make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import accumulate_gradients, adamw_init, adamw_update
+
+    model = build_model(cfg)
+    moe = any(s.mlp == "moe" for seg in cfg.segments() for s in seg.period)
+    mesh = compat_make_mesh(mesh_shape, axes, devices=(dev,))
+    rules = None if data_parallel else train_rules(mesh)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed), device=dev, master=True)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    shardings = params_shardings(params, mesh, fsdp_axis="data")
+    placed = device_put(params, shardings)
+    opt = adamw_init(params)  # the data-parallel step keeps its moments whole
+    if not data_parallel:  # placed as the params lie, so the step copies none
+        opt = dataclasses.replace(opt, m=device_put(opt.m, shardings),
+                                  v=device_put(opt.v, shardings))
+    accumulate_gradients(model.loss, params, blocks[0])  # warm
+    del params
+
+    def whole(tree):  # a copy: the reference's adamw_update writes in place
+        return tree_map(lambda t: t.full() if hasattr(t, "full") else t.clone(), tree)
+
+    def gradients(blk):
+        if data_parallel:
+            return data_parallel_gradients(model.loss, placed, blk, mesh=mesh)
+        return tensor_parallel_gradients(model.loss, placed, blk, mesh=mesh, rules=rules)
+
+    row = {"phase": "tp_train", "run": name, "card": card, "mesh": mesh.shape,
+           "program": "data_parallel" if data_parallel else "tensor_parallel",
+           "params": n_params, "layers": cfg.num_layers, "dtype": cfg.dtype,
+           "tokens_per_step": int(blocks[0]["tokens"].numel()), "steps": len(blocks),
+           "reference": "the unsharded step from the sharded run's state, each step"}
+    if data_parallel:
+        dp = tuple(a for a in axes if a in ("pod", "data"))
+        row["segmented"] = data_parallel_scope(model.loss, dp, mesh.axis_size(dp)).segmented
+    losses, ref_losses, loss_gaps, grad_gaps, ms, ref_ms = [], [], [], [], [], []
+    m_gaps, v_gaps, p_diffs, routes_by_step, held = [], [], [], [], []
+    for s, blk in enumerate(blocks):
+        full = whole(placed)
+        (t_ref, (loss_ref, g_ref)), want, margins = _recorded_routes(
+            lambda: _wall_ms(lambda: accumulate_gradients(model.loss, full, blk)))
+        del full
+        (loss_g, g_tp), routes, _ = _recorded_routes(lambda: gradients(blk), margins=False)
+        flips = _step_route_flips(routes, want, margins) if moe else {
+            "flips": 0, "drop_changes": 0, "flip_margins": [], "calls": 0, "calls_unsharded": 0}
+        routes_by_step.append(flips)
+        held.append(flips["flips"] == 0 and flips["drop_changes"] == 0)
+        grad_gaps.append(_leaf_gaps(g_tp, g_ref))
+        loss_gaps.append(abs(float(loss_g) - float(loss_ref)) / abs(float(loss_ref)))
+        del g_tp
+        state = dataclasses.replace(opt, m=whole(opt.m), v=whole(opt.v))
+        ref_p, ref_opt = adamw_update(whole(placed), g_ref, state, lr=TP_TRAIN_LR)
+        ref_p, ref_m, ref_v = (_host_tree(t) for t in (ref_p, ref_opt.m, ref_opt.v))
+        del g_ref, state, ref_opt
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        with collective_census() as census:
+            t_tp, (placed, opt, loss) = _wall_ms(lambda: sharded_train_step(
+                model.loss, placed, opt, blk, mesh=mesh, lr=TP_TRAIN_LR, rules=rules))
+        peak = torch.cuda.max_memory_allocated(dev) - before
+        losses.append(float(loss))
+        ref_losses.append(float(loss_ref))
+        loss_gaps.append(abs(float(loss) - float(loss_ref)) / abs(float(loss_ref)))
+        ms.append(t_tp)
+        ref_ms.append(t_ref)
+        m_gaps.append(_leaf_gaps(opt.m, ref_m))
+        v_gaps.append(_leaf_gaps(opt.v, ref_v))
+        p_diffs.append(max(float((p.full() - q.to(dev)).abs().max()) for p, q in zip(
+            tree_leaves(placed), tree_leaves(ref_p))))
+        del ref_p, ref_m, ref_v
+        if s == 0:
+            row["census_step"] = census
+            row["peak_memory_rise_gb"] = peak / 1e9
+    row.update(losses=losses, unsharded_losses=ref_losses, loss_gap_rel_by_step=loss_gaps,
+               grad_gap_by_step=grad_gaps, m_gap_by_step=m_gaps, v_gap_by_step=v_gaps,
+               param_max_abs_diff_by_step=p_diffs, routes_by_step=routes_by_step,
+               held_by_step=held, step_ms=ms, unsharded_gradients_ms=ref_ms,
+               step_vs_unsharded_gradients=statistics.median(ms) / statistics.median(ref_ms),
+               rank_param_bytes=_rank_bytes(placed), param_bytes=n_params * 4)
+    if not data_parallel:
+        row["rank_moment_bytes"] = _rank_bytes(opt.m) + _rank_bytes(opt.v)
+    emit(row)
+    check(all(t.sharding == sh for t, sh in zip(tree_leaves(placed), tree_leaves(shardings))),
+          f"tp_train {name}: the params keep their layouts")
+    check(not data_parallel or not moe or row["segmented"],
+          f"tp_train {name}: the MoE data-parallel ranks run their backward in segments")
+    for s, flips in enumerate(routes_by_step):
+        check(flips["calls"] == flips["calls_unsharded"],
+              f"tp_train {name}: step {s} recorded {flips['calls']} routes, the unsharded "
+              f"step {flips['calls_unsharded']}")
+        check(all(m < ROUTE_NEAR_TIE for m in flips["flip_margins"]),
+              f"tp_train {name}: step {s} flipped a route past {ROUTE_NEAR_TIE}: "
+              f"{flips['flip_margins']}")
+        if not held[s]:
+            continue
+        gaps = loss_gaps[2 * s:2 * s + 2]
+        check(max(gaps) <= TP_TRAIN_LOSS_RTOL,
+              f"tp_train {name}: step {s} loss {gaps} > {TP_TRAIN_LOSS_RTOL} relative")
+        check(grad_gaps[s] <= TP_TRAIN_TREE_TOL,
+              f"tp_train {name}: step {s} gradients {grad_gaps[s]} > {TP_TRAIN_TREE_TOL}")
+        check(m_gaps[s] <= TP_TRAIN_TREE_TOL and v_gaps[s] <= TP_TRAIN_TREE_TOL,
+              f"tp_train {name}: step {s} moments {m_gaps[s]}, {v_gaps[s]} > "
+              f"{TP_TRAIN_TREE_TOL}")
+        check(p_diffs[s] <= 2 * TP_TRAIN_LR,
+              f"tp_train {name}: step {s} params {p_diffs[s]} > 2·lr")
+    del placed, opt
+    return row
+
+
+def _tp_train_families(seed: int, dev: torch.device, card: str) -> dict:
+    """The SSM, MoE and hybrid rows (``TP_TRAIN_MAMBA2``, ``TP_TRAIN_MIXTRAL``,
+    ``TP_TRAIN_JAMBA_SMOKE``, ``TP_TRAIN_DP_MOE``); returns each row's
+    seconds."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_smoke_config
+
+    seconds = {}
+
+    def timed(key, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        fn(*args, **kwargs)
+        seconds[key] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    steps = TP_TRAIN_FAMILY_STEPS
+    m = TP_TRAIN_MAMBA2
+    mamba2 = dataclasses.replace(get_config("mamba2-1.3b"), dtype="float32",
+                                 num_layers=m["layers"])
+    timed("mamba2-1.3b/1x4", _tp_train_forced, "mamba2-1.3b/1x4", mamba2, (1, 4),
+          ("data", "model"), _train_blocks(mamba2, steps, m["blocks"], m["rows"], m["seq"],
+                                           seed, dev), seed, dev, card)
+    x = TP_TRAIN_MIXTRAL
+    mixtral = dataclasses.replace(get_config("mixtral-8x7b"), dtype="float32",
+                                  num_layers=x["layers"])
+    blocks = _train_blocks(mixtral, steps, x["blocks"], x["rows"], x["seq"], seed, dev)
+    for shape, axes in x["meshes"]:
+        key = f"mixtral-8x7b/{'x'.join(map(str, shape))}"
+        timed(key, _tp_train_forced, key, mixtral, shape, axes, blocks, seed, dev, card)
+    j = TP_TRAIN_JAMBA_SMOKE
+    jamba = dataclasses.replace(get_smoke_config("jamba-v0.1-52b"), dtype="float32")
+    timed("jamba-v0.1-52b/smoke/2x2x2", _tp_train_forced, "jamba-v0.1-52b/smoke/2x2x2", jamba,
+          (2, 2, 2), ("pod", "data", "model"),
+          _train_blocks(jamba, steps, j["blocks"], j["rows"], j["seq"], seed, dev), seed, dev,
+          card)
+    d = TP_TRAIN_DP_MOE
+    small = dataclasses.replace(get_smoke_config("mixtral-8x7b"), dtype="float32",
+                                moe_capacity_factor=d["capacity_factor"])
+    timed("mixtral-8x7b/smoke/data_parallel/2x2x2", _tp_train_forced,
+          "mixtral-8x7b/smoke/data_parallel/2x2x2", small, (2, 2, 2), ("pod", "data", "model"),
+          _train_blocks(small, steps, d["blocks"], d["rows"], d["seq"], seed, dev), seed, dev,
+          card, data_parallel=True)
+    return seconds
 
 
 SAMPLED_STEPS = 8

@@ -87,8 +87,9 @@ params and both AdamW moments, gathers the ``fsdp`` dims once a step, runs
 vocabulary-parallel loss and the backward in segments, sums the
 gradients over the data-parallel axes (the ``fsdp`` dims by the gather's
 transpose, so the rank keeps its shard) and updates its shards, the
-clip factor from one ``psum`` of the shards' squares.  The dense family
-only (``Model.tensor_parallel_training_refusal``).
+clip factor from one ``psum`` of the shards' squares.  The dense, SSM,
+hybrid and MoE families (``Model.tensor_parallel_training_refusal``
+refuses MLA, cross-attention and the encoder).
 
 **Census.**  Inside :func:`collective_census` every collective that rank 0
 calls adds one to its kind's count and its operand and result bytes to its
@@ -130,6 +131,7 @@ __all__ = [
     "collective_census",
     "gathered",
     "data_parallel_gradients",
+    "data_parallel_scope",
     "sharded_train_step",
     "tensor_parallel_gradients",
     "training_gradients_body",
@@ -1074,14 +1076,13 @@ def backward_segments():
     and where no rank's rendezvous can wait.  ``repro_torch.optim``'s
     ``value_and_grad`` (and so ``accumulate_gradients``) uses it.  The
     data-parallel program's ranks (a :class:`TensorParallel` not
-    ``over_model``) get none: they hold every param whole and take
-    PyTorch's one-pass backward and ``torch.utils.checkpoint``'s
-    recomputation, and a collective in their body (the MoE layer's token
-    gather) differentiates through its node, in the rank's thread on a CPU
-    graph (on a card it raises)."""
+    ``over_model``) get one only where their body calls a collective
+    (``segmented``: the MoE layer's token gather over the data axes);
+    the others hold every param whole, call none, and take PyTorch's
+    one-pass backward and ``torch.utils.checkpoint``'s recomputation."""
     tp = getattr(_TLS, "tp", None)
     if getattr(_TLS, "ctx", None) is None or not torch.is_grad_enabled() or (
-            tp is not None and not tp.over_model):
+            tp is not None and not (tp.over_model or tp.segmented)):
         yield None
         return
     outer = getattr(_TLS, "tape", None)
@@ -1119,6 +1120,21 @@ def _spec_of(x) -> PartitionSpec:
     return x.sharding.spec if isinstance(x, ShardedTensor) else P()
 
 
+def data_parallel_scope(loss_fn: Callable, dp: tuple[str, ...], n_dp: int) -> TensorParallel:
+    """The :class:`TensorParallel` of a data-parallel train rank of
+    ``loss_fn`` over the axes ``dp`` (``n_dp`` ranks): it names only the
+    batch's axes, so that an MoE layer groups the whole batch's tokens, and
+    is ``segmented`` where the rank's forward calls a collective under
+    autograd: a Model's loss with capacity-bucketed MoE layers, whose token
+    gather over ``dp`` is cut onto the rank's tape (:func:`backward_segments`),
+    on more than one rank.  Elsewhere the ranks call no collective and keep
+    PyTorch's one-pass backward."""
+    cfg = getattr(getattr(loss_fn, "__self__", None), "cfg", None)
+    moe = cfg is not None and cfg.moe_impl == "onehot" and any(
+        s.mlp == "moe" for seg in cfg.segments() for s in seg.period)
+    return TensorParallel(batch_axes=dp, over_model=False, segmented=moe and n_dp > 1)
+
+
 def data_parallel_gradients(loss_fn: Callable, params: Any, blocks: dict[str, torch.Tensor], *,
                             mesh: Mesh) -> tuple[torch.Tensor, Any]:
     """Mean loss and mean f32 gradients of ``loss_fn`` over ``blocks``
@@ -1138,9 +1154,11 @@ def data_parallel_gradients(loss_fn: Callable, params: Any, blocks: dict[str, to
     data-parallel rank count.  The ranks of one ``(pod, data)`` position
     compute the same gradients (:func:`tensor_parallel_gradients` splits
     the work over ``model``).  The body runs under a :class:`TensorParallel`
-    that names only the batch's axes, so that an MoE layer groups the whole
-    batch's tokens, as the reference's ``jax.jit`` does.  Returns the loss
-    and the gradients as global tensors on rank 0's device.
+    that names only the batch's axes (:func:`data_parallel_scope`), so that
+    an MoE layer groups the whole batch's tokens, as the reference's
+    ``jax.jit`` does, its backward in segments where it gathers them.
+    Returns the loss and the gradients as global tensors on rank 0's
+    device.
     """
     from repro_torch.distributed.collectives import psum_pod_hierarchical
     from repro_torch.optim import accumulate_gradients
@@ -1150,7 +1168,7 @@ def data_parallel_gradients(loss_fn: Callable, params: Any, blocks: dict[str, to
     p_specs = tree_map(_spec_of, params)
     b_specs = {k: P(None, dp) for k in blocks}
 
-    tp = TensorParallel(batch_axes=dp, over_model=False)
+    tp = data_parallel_scope(loss_fn, dp, n_dp)
 
     def body(local_params, local_blocks):
         full = tree_map(gathered, local_params, p_specs)
@@ -1353,10 +1371,10 @@ def tensor_parallel_gradients(loss_fn: Callable, params: Any, blocks: dict[str, 
     ``params`` are :class:`ShardedTensor` leaves placed by
     ``params_shardings(..., fsdp_axis="data")`` (a plain tensor is
     replicated); each rank gathers only their ``fsdp`` dims and keeps its
-    heads, kv heads (where they divide the axis), MLP columns and vocabulary
-    rows, and runs :func:`training_gradients_body`.  Returns the loss and the
-    gradients as :class:`ShardedTensor` leaves in the params' layouts: no
-    leaf is gathered whole over ``model``."""
+    heads, kv heads (where they divide the axis), SSM heads, MLP columns,
+    experts and vocabulary rows, and runs :func:`training_gradients_body`.
+    Returns the loss and the gradients as :class:`ShardedTensor` leaves in
+    the params' layouts: no leaf is gathered whole over ``model``."""
     model = _training_model(loss_fn, mesh)
     p_specs = tree_map(_spec_of, params)
     b_specs = {k: P(None, _axes(rules.logical.get("batch") or ()) or None) for k in blocks}
@@ -1418,13 +1436,16 @@ class TensorParallel:
     groups the tokens of the whole batch, as the reference's ``jax.jit``
     does.  ``over_model``: the params are split over :data:`MODEL_AXIS`
     (:func:`model_parallel`); False in the data-parallel train program,
-    whose ranks hold every param whole and read only ``batch_axes``."""
+    whose ranks hold every param whole and read only ``batch_axes``, and
+    run their backward in segments where ``segmented``
+    (:func:`data_parallel_scope`)."""
 
     kv_seq_axis: str | None = None
     kv_heads_split: bool = False
     batch_axes: tuple[str, ...] = ()
     latent_split: bool = False
     over_model: bool = True
+    segmented: bool = False
 
 
 def first_rank() -> bool:

@@ -28,14 +28,18 @@ row's gather of kv heads over ``model``.  Every other cell is
 data-parallel: the rank gathers with ``all_gather`` what the port's
 model needs whole.
 
-* train — the dense family (``Model.tensor_parallel_training_refusal``)
-  under ``train_rules`` runs the tensor-parallel train program
-  (``spmd.training_step_body``): the ``fsdp`` dims gathered, the rank's
-  ``model`` shards kept, :func:`~repro_torch.optim.accumulate_gradients` on
-  its rows with the backward in segments, the gradients reduce-scattered
-  over the ``fsdp`` dims and summed over the rest of ``(pod, data)``, AdamW
-  on the shards (``COST_BASIS["tensor_parallel_train"]``).  The other
-  families, and ``train_rules_sp``, run the data-parallel one: the params
+* train — the dense, SSM, hybrid and MoE families
+  (``Model.tensor_parallel_training_refusal``) under ``train_rules`` run
+  the tensor-parallel train program (``spmd.training_step_body``): the
+  ``fsdp`` dims gathered, the rank's ``model`` shards kept (heads, SSM
+  heads, MLP columns, experts, vocabulary rows),
+  :func:`~repro_torch.optim.accumulate_gradients` on its rows with the
+  backward in segments, the gradients reduce-scattered over the ``fsdp``
+  dims and summed over the rest of ``(pod, data)``, AdamW on the shards
+  (``COST_BASIS["tensor_parallel_train"]``).  The other families (MLA,
+  cross-attention, the encoder), and ``train_rules_sp``, run the
+  data-parallel one (an MoE model's ranks in segments where they gather
+  the batch's token rows, ``spmd.data_parallel_scope``): the params
   gathered, :func:`~repro_torch.optim.accumulate_gradients` (SplIter over
   the microbatch blocks) on the rank's rows, the loss and gradients summed
   over ``(pod, data)`` (hierarchically where the mesh has both) and divided
@@ -122,10 +126,10 @@ from repro_torch.distributed.spmd import (
     Mesh,
     NamedSharding,
     P,
-    TensorParallel,
     axis_index,
     axis_size,
     collective_census,
+    data_parallel_scope,
     gathered,
     psum,
     serving_body,
@@ -161,11 +165,12 @@ COST_BASIS = {
 }
 COST_BASIS["tensor_parallel_train"] = (
     "one rank's tensor-parallel train program at its shard shapes (the batch split over "
-    "(pod, data); heads, kv heads where they divide model, MLP columns and vocabulary rows "
-    "split over model as params_shardings places them, only fsdp dims gathered; replicated "
-    "k/v projections by sequence rows; the loss from the rank's vocabulary block; the "
-    "backward in segments, a recomputed period's forward counted again under remat='full'; "
-    "AdamW on the rank's shards); " + _COUNTS)
+    "(pod, data); heads, kv heads where they divide model, SSM heads, MLP columns, experts "
+    "and vocabulary rows split over model as params_shardings places them, only fsdp dims "
+    "gathered; replicated k/v projections by sequence rows; the mamba2 B/C projections and "
+    "C·Bᵀ and the MoE router whole on every rank; the loss from the rank's vocabulary block; "
+    "the backward in segments, a recomputed period's forward counted again under "
+    "remat='full'; AdamW on the rank's shards); " + _COUNTS)
 COLLECTIVES_BASIS = {
     "data_parallel": (
         "census of the collectives rank 0's program calls (the params' and cache's gathers, "
@@ -185,13 +190,16 @@ COLLECTIVES_BASIS = {
 COLLECTIVES_BASIS["tensor_parallel_train"] = (
     "census of the collectives rank 0's program calls: the fsdp gathers once a step; per "
     "microbatch block the forward's model all-reduces (the vocabulary-split embedding, after "
-    "wo and w_down, the loss's row max, sum of exponentials and label logit) and all-gathers "
-    "of a replicated kv head's rows, again in a recomputed period, and the backward's "
-    "transposes (an all-reduce over model for each value every rank holds alike that enters "
-    "split work: the attention's and MLP's input, qk-norm, replicated k/v weights, the head's "
-    "input; a reduce-scatter for each all-gather); then the loss's and gradients' sum over "
-    "the data-parallel axes (a reduce-scatter per fsdp dim, the rest hierarchical over "
-    "(pod, data) or one all-reduce) and the clip norm's all-reduce")
+    "wo, w_down, mamba2's w_out and the experts' partial combine, the mamba2 gated norm's "
+    "sum of squares, the loss's row max, sum of exponentials and label logit) and "
+    "all-gathers (a replicated kv head's rows, the MoE token rows over the data axes where a "
+    "rank's rows are not whole dispatch groups), again in a recomputed period, and the "
+    "backward's transposes (an all-reduce over model for each value every rank holds alike "
+    "that enters split work: the attention's, MLP's, mamba2 mixer's and experts' input, "
+    "qk-norm, replicated k/v weights, mamba2's B/C weights, the router, the gated norm's sum "
+    "of squares, the head's input; a reduce-scatter for each all-gather); then the loss's and "
+    "gradients' sum over the data-parallel axes (a reduce-scatter per fsdp dim, the rest "
+    "hierarchical over (pod, data) or one all-reduce) and the clip norm's all-reduce")
 MEMORY_BASIS = (
     "per-rank shard shapes of the arguments and outputs as the reference places them; "
     "temporaries are not counted, so peak_live_bytes is a lower bound"
@@ -391,10 +399,11 @@ def _lower_train(
 ) -> Lowered:
     """``traced_blocks`` cuts the traced blocks (each ``global_batch //
     num_blocks`` rows) below ``num_blocks``; the memory is the whole step's.
-    The models ``Model.tensor_parallel_training_refusal`` admits (the dense
-    family) run the tensor-parallel train program under ``train_rules``
-    (``spmd.training_step_body``); ``sp`` (``train_rules_sp``, not ported)
-    and the other families the data-parallel one."""
+    The models ``Model.tensor_parallel_training_refusal`` admits (the
+    dense, SSM, hybrid and MoE families) run the tensor-parallel train
+    program under ``train_rules`` (``spmd.training_step_body``); ``sp``
+    (``train_rules_sp``, not ported) and the other families the
+    data-parallel one."""
     model = build_model(cfg)
     dp = _dp_axes(mesh)
     params = model.init(None, device="meta", master=True)
@@ -425,7 +434,7 @@ def _lower_train(
                                   accum_mode=accum_mode, hoist=hoist)
         return Lowered(_rank_program(mesh, body, (params, opt, traced), in_specs, out_specs),
                        memory, "tensor_parallel_train")
-    tp = TensorParallel(batch_axes=dp, over_model=False)  # the MoE groups: the whole batch's
+    tp = data_parallel_scope(model.loss, dp, mesh.axis_size(dp))  # the whole batch's MoE groups
 
     def body(params_l, opt_l, blocks_l):
         full = tree_map(gathered, params_l, p_specs)

@@ -74,6 +74,7 @@ from repro_torch.distributed.spmd import (
     pmax,
     psum,
     pvary,
+    recording_tape,
     shard_map,
 )
 from repro_torch.kernels import ops
@@ -89,13 +90,24 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6, *,
              axis: str | None = None) -> torch.Tensor:
     """RMS norm over the last dim.  With ``axis`` (a tensor-parallel rank)
     ``x`` and ``w`` hold the rank's block of that dim, split evenly over the
-    mesh axis ``axis``: the f32 sum of squares is summed over it."""
+    mesh axis ``axis``: the f32 sum of squares is summed over it.  That sum,
+    which every rank holds alike, then scales the rank's own channels, so
+    under autograd it passes through ``pvary``: its cotangent is summed over
+    ``axis`` before the ``psum``'s transpose hands it to each rank's
+    squares.  In a rank whose backward runs in segments ``x`` is cut first
+    (``spmd.recording_tape``), so that the cotangents of both its uses, the
+    scaled channels and the squares, meet there and the backward runs
+    through ``x``'s graph once."""
     dt = x.dtype
+    tape = recording_tape() if axis is not None else None
+    if tape is not None:
+        x = tape.boundary(x)
     x = x.to(torch.float32)
     if axis is None:
         ms = torch.mean(x * x, dim=-1, keepdim=True)
     else:
-        ms = psum(torch.sum(x * x, dim=-1, keepdim=True), axis) / (x.shape[-1] * axis_size(axis))
+        total = pvary(psum(torch.sum(x * x, dim=-1, keepdim=True), axis), axis)
+        ms = total / (x.shape[-1] * axis_size(axis))
     return (x * torch.rsqrt(ms + eps) * (1.0 + w)).to(dt)
 
 
@@ -361,11 +373,22 @@ def _sdpa_decode_decomposed(
     return out.reshape(b, lq, h, dh)
 
 
+def plain_route(*tensors) -> bool:
+    """Whether a layer takes its plain PyTorch route, not a kernel: where
+    autograd records the operands (the kernels have no backward), and in a
+    rank's training forward whose backward runs in segments
+    (``spmd.recording_tape``), whose recomputed periods first run without
+    autograd and then with it: both passes compute alike, as the
+    reference's training step runs its plain functions."""
+    return ops.records_grad(*tensors) or recording_tape() is not None
+
+
 def _prefill_attention(q, k, v, *, causal: bool, window: int, cfg: ModelConfig) -> torch.Tensor:
     """Attention of a whole prompt over itself or over the memory: the
-    kernel under ``attn_impl="flash"``, unless autograd records it (the
-    module's docstring: the kernel has no backward)."""
-    if cfg.attn_impl == "flash" and not ops.records_grad(q, k, v):
+    kernel under ``attn_impl="flash"``, unless the layer trains
+    (:func:`plain_route`; the module's docstring: the kernel has no
+    backward)."""
+    if cfg.attn_impl == "flash" and not plain_route(q, k, v):
         return ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                    causal=causal, window=window)
     return _sdpa_auto(q, k, v, causal=causal, window=window)

@@ -48,8 +48,8 @@ the attention heads (the encoder's and cross-attention's too) and the MLP
 heads and latent cache, ``ssm.py`` the SSM heads, ``moe.py`` the experts.
 Whisper's encoder runs in the body: its layers sum their partials over
 ``model``, so every rank ends with the whole memory of its batch rows.
-In the tensor-parallel train step (the dense family,
-:meth:`Model.tensor_parallel_training_refusal`) ``loss`` takes the
+In the tensor-parallel train step (the dense, SSM, hybrid and MoE
+families, :meth:`Model.tensor_parallel_training_refusal`) ``loss`` takes the
 log-probabilities from the rank's vocabulary block without gathering it
 (:func:`_vocab_parallel_log_likelihood`), and a tied head's gradient on
 the rank's rows of ``embed`` sums the lookup's and the head's.  Outside
@@ -68,8 +68,10 @@ kernel: under autograd the model takes the plain attention and SSD routes
 (``layers.py``, ``ssm.py``).  In a rank whose backward runs in segments
 (``spmd.backward_segments``) each layer is a segment, and under ``"full"``
 the tape recomputes a period, its collectives included, in the rank's
-thread; ``"dots"`` keeps the period's graph there (more memory than the
-reference's policy keeps, the same values).
+thread (its first, forward-only pass takes the plain routes too,
+``layers.plain_route``, and launches no kernel); ``"dots"`` keeps the
+period's graph there (more memory than the reference's policy keeps, the
+same values).
 """
 
 from __future__ import annotations
@@ -288,10 +290,10 @@ def _saves_dots(ctx, op, *args, **kwargs):
     return CheckpointPolicy.MUST_SAVE if plain else CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _rematerialized(body, policy: str):
-    """``body(x)`` under ``torch.utils.checkpoint`` by ``policy`` (``"full"``
-    or ``"dots"``).  The recomputation in the backward runs with the MoE
-    route recorder paused, so a forward records its routes once."""
+def _recorded_once(body):
+    """``body`` whose calls after the first run with the MoE route recorder
+    paused: the recomputation of a period in the backward routes the same
+    tokens again, and a forward records its routes once."""
     ran = False
 
     def run(x):
@@ -302,9 +304,17 @@ def _rematerialized(body, policy: str):
         ran = True
         return body(x)
 
+    return run
+
+
+def _rematerialized(body, policy: str):
+    """``body(x)`` under ``torch.utils.checkpoint`` by ``policy`` (``"full"``
+    or ``"dots"``), its recomputation recording no routes
+    (:func:`_recorded_once`)."""
     kw = {}
     if policy == "dots":
         kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _saves_dots)
+    run = _recorded_once(body)
     return lambda x: checkpoint(run, x, use_reentrant=False, preserve_rng_state=False, **kw)
 
 
@@ -333,26 +343,28 @@ class Model:
     def tensor_parallel_training_refusal(self) -> str | None:
         """Why the tensor-parallel train step
         (``repro_torch.distributed.spmd.tensor_parallel_gradients``) does not
-        run this model, or None where it does: the dense family, every layer
-        self-attention (with or without qk-norm or a window) and a SwiGLU
-        MLP, the head tied or not."""
+        run this model, or None where it does: every layer's mixer
+        self-attention (with or without qk-norm or a window) or Mamba2, and
+        its MLP SwiGLU, capacity-bucketed MoE (``moe_impl="onehot"``) or
+        none, the head tied or not: the dense, SSM, hybrid and MoE
+        families."""
         cfg = self.cfg
-        runs = "tensor-parallel training runs the dense family: attention with SwiGLU MLPs"
+        runs = ("tensor-parallel training runs attention and mamba2 mixers with SwiGLU, "
+                "onehot MoE or no MLPs")
         if cfg.encoder_layers:
             return f"{runs}; the encoder is not ported for training"
         for seg in cfg.segments():
             for s in seg.period:
-                if s.mixer == "mamba2":
-                    return f"{runs}; the SSM heads (mamba2) are not ported for training"
                 if s.mixer == "mla":
                     return f"{runs}; MLA is not ported for training"
                 if s.mixer == "cross_attn":
                     return f"{runs}; cross-attention is not ported for training"
-                if s.mixer != "attn":
+                if s.mixer not in ("attn", "mamba2"):
                     return f"{runs}; {s.mixer} layers are not ported"
-                if s.mlp == "moe":
-                    return f"{runs}; the experts (MoE) are not ported for training"
-                if s.mlp != "dense":
+                if s.mlp == "moe" and cfg.moe_impl != "onehot":
+                    return (f"{runs}; moe_impl={cfg.moe_impl!r} is the data-parallel "
+                            f"dropless reference, not ported over the model axis")
+                if s.mlp not in ("dense", "moe", "none"):
                     return f"{runs}; {s.mlp} MLPs are not ported"
         return None
 
@@ -427,7 +439,9 @@ class Model:
                                      period_caches=period_caches)
             tape = recording_tape()
             if tape is not None and caches is None:  # a rank's backward in segments
-                return tape.period(body, x, recompute=remat and cfg.remat == "full")
+                recompute = remat and cfg.remat == "full"
+                return tape.period(_recorded_once(body) if recompute else body, x,
+                                   recompute=recompute)
             if remat and cfg.remat != "none":
                 return _rematerialized(body, cfg.remat)(x)
             return body(x)

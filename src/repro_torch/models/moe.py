@@ -55,7 +55,13 @@ reference's: ``jax.jit`` groups the tokens of the whole batch, so where a
 rank's batch rows do not tile whole groups it all-gathers the token rows
 over the batch's data axes first and keeps its own rows of the output.
 Under ``long_decode_rules`` the batch of one is replicated (its axes are
-none): every rank's rows are the whole batch, grouped as they are.
+none): every rank's rows are the whole batch, grouped as they are.  The
+tensor-parallel train step (``spmd.tensor_parallel_gradients``) runs the
+same rank program under autograd: the tokens entering the rank's experts
+and the router pass through ``pvary``, since every rank routes the whole
+group alike but only its own experts' gates reach its combine, so their
+cotangents are partials summed over ``model``; the token gather's
+transpose reduce-scatters the rows' cotangents back over the data axes.
 
 Routes can be recorded: with :attr:`moe_mlp.routes` set to a list (it is
 ``None``, off, by default), every call appends
@@ -71,6 +77,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -84,6 +91,7 @@ from repro_torch.distributed.spmd import (
     axis_size,
     first_rank,
     psum,
+    pvary,
     tensor_parallel,
 )
 from repro_torch.models.layers import Params, draw_normal, init_mlp, mlp
@@ -122,8 +130,14 @@ def _route(p: Params, cfg: ModelConfig, xt: torch.Tensor):
     return gates.to(dt), expert_idx
 
 
+def _recording() -> bool:
+    """Whether this thread records routes: the recorder is on and no
+    recomputation in it is paused (:func:`routes_paused`)."""
+    return moe_mlp.routes is not None and not getattr(_PAUSED, "on", False)
+
+
 def _record(shape, experts: torch.Tensor, dropped: torch.Tensor) -> None:
-    if moe_mlp.routes is not None:
+    if _recording():
         moe_mlp.routes.append({"experts": experts.reshape(*shape, -1),
                                "dropped": dropped.reshape(*shape, -1)})
 
@@ -156,7 +170,11 @@ def _moe_onehot(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     xs = all_gather(x, dp, axis=0, tiled=True) if gather else x
     n = xs.shape[0] * l // g
     held = p["experts_gate"].shape[0]  # the rank's experts: [e0, e0 + held)
-    e0 = axis_index(MODEL_AXIS) * held if held != ev else 0
+    split = held != ev
+    e0 = axis_index(MODEL_AXIS) * held if split else 0
+    if split:  # every rank routes alike, but only its own experts' gates reach its combine
+        xs = pvary(xs, MODEL_AXIS)
+        p = dict(p, router=pvary(p["router"], MODEL_AXIS))
 
     xg = xs.reshape(n, g, d)
     gates, idx = _route(p, cfg, xg)                       # (n,g,k) ×2
@@ -176,7 +194,7 @@ def _moe_onehot(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     pos_of = torch.sum(pos * m, dim=-1)                   # (n,g,k)
     kept = pos_of < cap                                   # capacity drop mask
     keep = kept.to(dt)
-    if moe_mlp.routes is not None:
+    if _recording():
         _record_routes(tp, dp, ndp, gather, l, experts, ~kept.reshape(n, g, k // vs, vs)[..., 0])
 
     oh_e = m[..., e0:e0 + held].to(dt)                    # (n,g,k,held)
@@ -199,7 +217,7 @@ def _moe_onehot(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         # gate-weighted return
         out[r0 - lo:r1 - lo] = torch.einsum("gec,ecd->gd", comb[r0 - i * g:r1 - i * g], y)
     out = out.reshape(b, l, d)
-    return psum(out, MODEL_AXIS) if held != ev else out
+    return psum(out, MODEL_AXIS) if split else out
 
 
 def _record_routes(tp, dp: tuple[str, ...], ndp: int, gathered: bool, l: int,
@@ -280,13 +298,19 @@ def moe_mlp(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 moe_mlp.routes = None
 
 
+_PAUSED = threading.local()
+
+
 @contextlib.contextmanager
 def routes_paused():
-    """Record no routes inside the block: a rematerialized period's
-    recomputation in the backward (``models/lm.py``) routes the same tokens
-    again, and a forward records its routes once."""
-    saved, moe_mlp.routes = moe_mlp.routes, None
+    """Record no routes in the calling thread inside the block: a
+    rematerialized period's recomputation in the backward (``models/lm.py``:
+    ``torch.utils.checkpoint``'s, or a rank's tape's) routes the same tokens
+    again, and a forward records its routes once.  Per thread, since the
+    ranks of a tensor-parallel body recompute in their own threads, taking
+    turns."""
+    saved, _PAUSED.on = getattr(_PAUSED, "on", False), True
     try:
         yield
     finally:
-        moe_mlp.routes = saved
+        _PAUSED.on = saved

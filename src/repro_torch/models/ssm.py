@@ -14,7 +14,9 @@ the block (grad mode on and an SSD operand requiring a gradient, as in
 kernel has no backward (nor has the JAX package's), its wrapper raises
 rather than return an output without a ``grad_fn``, and the reference's
 block runs the jnp ``ssd_chunked`` on every route, so its gradient is that
-of the plain function, as the port's is.  :func:`ssd_reference` is
+of the plain function, as the port's is.  So does a training rank's
+forward whose backward runs in segments, the forward-only pass of a
+recomputed period too (``layers.plain_route``).  :func:`ssd_reference` is
 the naive sequential recurrence.  The block's cache is updated in place.
 
 **Tensor parallelism.**  Inside a tensor-parallel serving body
@@ -23,6 +25,8 @@ the naive sequential recurrence.  The block's cache is updated in place.
 ``dt_bias`` and ``ssm_norm`` and its rows of ``w_out`` (as
 ``params_shardings`` splits them), ``w_in_b``, ``w_in_c``, ``conv_b`` and
 ``conv_c`` whole, and its block of the cache (:func:`_mamba_block_tp`).
+The tensor-parallel train step (``spmd.tensor_parallel_gradients``) runs
+the same rank program under autograd, without a cache.
 
 Single B/C group (n_groups=1), as in the assigned configs.
 """
@@ -42,10 +46,11 @@ from repro_torch.distributed.spmd import (
     axis_size,
     model_parallel,
     psum,
+    pvary,
 )
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_scan import ssd_chunked
-from repro_torch.models.layers import Params, draw_normal, rms_norm
+from repro_torch.models.layers import Params, draw_normal, plain_route, rms_norm
 
 __all__ = [
     "init_mamba",
@@ -142,11 +147,12 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, state: torch.Tensor | None = 
 
 def _ssd_prompt(cfg: ModelConfig, xh, dt, a, bm, cm, use_chunked: bool):
     """The SSD over a prompt at whatever heads ``xh`` holds: the chunked
-    route (the kernel, or ``ssd_chunked`` under autograd) where the prompt
-    tiles into more than one chunk, else the sequential recurrence."""
+    route (the kernel, or ``ssd_chunked`` where the layer trains,
+    ``layers.plain_route``) where the prompt tiles into more than one
+    chunk, else the sequential recurrence."""
     l = xh.shape[1]
     if use_chunked and l % cfg.ssm_chunk == 0 and l > cfg.ssm_chunk:
-        ssd = ssd_chunked if ops.records_grad(xh, dt, a, bm, cm) else ops.ssd_scan
+        ssd = ssd_chunked if plain_route(xh, dt, a, bm, cm) else ops.ssd_scan
         return ssd(xh.contiguous(), dt.contiguous(), a, bm.contiguous(), cm.contiguous(),
                    chunk=cfg.ssm_chunk)
     return ssd_reference(xh, dt, a, bm, cm)
@@ -208,6 +214,10 @@ def mamba_block(
     return out, cache
 
 
+#: the leaves a tensor-parallel rank holds whole and uses for its own heads
+_ALIKE = frozenset({"w_in_b", "w_in_c", "conv_b", "conv_c"})
+
+
 def _mamba_block_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, *, cache: Params | None,
                     use_chunked: bool) -> torch.Tensor:
     """:func:`mamba_block` on a rank of a tensor-parallel serving body, on
@@ -226,7 +236,15 @@ def _mamba_block_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, *, cache: Para
     ``all_gather``), takes the old state of its channels from the whole,
     and writes its block of the new state.  A dim the model axis does not
     divide is whole on every rank (``param_pspec``, ``cache_shardings``),
-    and the rank computes it whole."""
+    and the rank computes it whole.
+
+    Under autograd (the tensor-parallel train step, ``cache=None``) the
+    residual stream and the leaves every rank holds whole for its heads'
+    share (``w_in_b``, ``w_in_c``, ``conv_b``, ``conv_c``) enter through
+    ``pvary``, whose cotangent sums the ranks' partials over the model
+    axis, as :func:`~repro_torch.models.layers._attention_tp`'s do; the
+    gated norm's sum of squares is ``pvary``'d after its ``psum``
+    (:func:`~repro_torch.models.layers.rms_norm`)."""
     dt_ = x.dtype
     din = cfg.ssm_expand * cfg.d_model
     ph, n, w1 = cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_conv_width - 1
@@ -244,6 +262,9 @@ def _mamba_block_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, *, cache: Para
                          f"w_in_dt, {channels} and {heads}: split unlike params_shardings and "
                          f"cache_shardings split them")
     x0 = rank * dl if split else 0
+    if split:  # what every rank holds alike enters the rank's share of the heads
+        x = pvary(x, MODEL_AXIS)
+        p = {k: pvary(v, MODEL_AXIS) if k in _ALIKE else v for k, v in p.items()}
 
     z, conv_in, dt = _mamba_in(p, x)                    # conv_in (B, L, dl + 2N)
     state = None

@@ -16,7 +16,8 @@ gradients, params and moments) and ``collective_grads`` (``jax.grad``
 through each collective) the tensor-parallel training test's
 (``tests/test_torch_tp_train.py``).  It saves what each produced to
 ``out.npz`` in the directory (and the train steps' params, as
-checkpoints, under ``params/`` and ``params_mixtral/`` there).  The inputs are drawn
+checkpoints, under ``params/``, ``params_mixtral/``, ``params_mamba2/`` and
+``params_jamba/`` there).  The inputs are drawn
 here exactly as the parent draws them for the port (numpy generators,
 fixed seeds).  Not collected by pytest (no ``test_`` prefix).
 """
@@ -71,10 +72,13 @@ def gpipe_case(out: dict) -> None:
 #: the tensor-parallel train cases: name -> (arch, config overrides, mesh
 #: shape and axes, checkpoint folder): qwen3's smoke config as it is and in
 #: f32, on (2, 2, 2) ("pod", "data", "model") and on (2, 4) ("data",
-#: "model"), where its 2 kv heads do not divide the model axis; mixtral's
-#: in f32 at capacity factor 1 (below E/k = 2, so that the groups drop
-#: choices), whose 8-row blocks (one 128-token group) split over 4
-#: data-parallel ranks leave each rank 32 tokens, not whole groups
+#: "model"), where its 2 kv heads do not divide the model axis; mamba2's
+#: and jamba's in f32 on both (8 SSM heads: 4 and 2 a rank), jamba's as it
+#: is (bf16 compute) on (2, 2, 2); mixtral's in f32 on (2, 4) (4 experts,
+#: one a rank) and at capacity factor 1 (below E/k = 2, so that the groups
+#: drop choices) on (2, 2, 2), whose 8-row blocks (one 128-token group)
+#: split over 4 data-parallel ranks leave each rank 32 tokens, not whole
+#: groups
 TRAIN_MESHES = {"222": ((2, 2, 2), ("pod", "data", "model")), "24": ((2, 4), ("data", "model"))}
 TRAIN_CASES = {
     "qwen3/222": ("qwen3-32b", {}, "222", "params"),
@@ -83,6 +87,12 @@ TRAIN_CASES = {
     "qwen3_f32/24": ("qwen3-32b", {"dtype": "float32"}, "24", "params"),
     "mixtral_cf1/222": ("mixtral-8x7b", {"dtype": "float32", "moe_capacity_factor": 1.0},
                            "222", "params_mixtral"),
+    "mixtral_f32/24": ("mixtral-8x7b", {"dtype": "float32"}, "24", "params_mixtral"),
+    "mamba2_f32/222": ("mamba2-1.3b", {"dtype": "float32"}, "222", "params_mamba2"),
+    "mamba2_f32/24": ("mamba2-1.3b", {"dtype": "float32"}, "24", "params_mamba2"),
+    "jamba_f32/222": ("jamba-v0.1-52b", {"dtype": "float32"}, "222", "params_jamba"),
+    "jamba_f32/24": ("jamba-v0.1-52b", {"dtype": "float32"}, "24", "params_jamba"),
+    "jamba/222": ("jamba-v0.1-52b", {}, "222", "params_jamba"),
 }
 TRAIN_LR = 1e-3
 
@@ -97,8 +107,10 @@ def sharded_train(out: dict, case: str = "qwen3/222", full: bool = False) -> Non
     """``_dist_child.check_sharded_train_step``: ``jax.jit(step)`` under
     ``train_rules`` on the case's mesh, params by ``params_shardings`` (the
     ``fsdp`` dims over data), the blocks' rows over the data-parallel axes;
-    saves the loss and the unsharded one, and with ``full`` the step's
-    gradients, new params and both moments, keyed by param path."""
+    saves the loss and the unsharded one (not for an f32 case with
+    ``full``, which the parent holds to the step's own loss), and with
+    ``full`` the step's gradients, new params and both moments, keyed by
+    param path."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
@@ -132,11 +144,12 @@ def sharded_train(out: dict, case: str = "qwen3/222", full: bool = False) -> Non
     with use_rules(train_rules(mesh)):
         new_p, new_opt, loss, grads = jax.jit(step, in_shardings=(p_sh, None, b_sh))(
             params, opt, blocks)
-    loss_ref, _ = accumulate_gradients(
-        model.loss, jax.device_get(params), jax.device_get(blocks), mode="spliter")
     key = "sharded_train" if case == "qwen3/222" and not full else f"tp_train/{case}"
     out[f"{key}/loss"] = np.float32(loss)
-    out[f"{key}/loss_ref"] = np.float32(loss_ref)
+    if not (full and ov.get("dtype") == "float32"):  # an f32 case is held to the step alone
+        loss_ref, _ = accumulate_gradients(
+            model.loss, jax.device_get(params), jax.device_get(blocks), mode="spliter")
+        out[f"{key}/loss_ref"] = np.float32(loss_ref)
     if full:
         for name, tree in (("grads", grads), ("params", new_p), ("m", new_opt.m),
                            ("v", new_opt.v)):
@@ -145,11 +158,10 @@ def sharded_train(out: dict, case: str = "qwen3/222", full: bool = False) -> Non
 
 
 def tp_train(out: dict) -> None:
-    """qwen3's cases of :data:`TRAIN_CASES`, with their gradients, params
-    and moments."""
+    """Every case of :data:`TRAIN_CASES`, with its gradients, params and
+    moments."""
     for case in TRAIN_CASES:
-        if case.startswith("qwen3"):
-            sharded_train(out, case, full=True)
+        sharded_train(out, case, full=True)
 
 
 def moe_groups(out: dict) -> None:

@@ -26,7 +26,11 @@ that reason.  Run them on the card:
 * Tensor-parallel training: a collective's autograd node, whose CUDA
   backward the card's autograd thread runs, raises there rather than
   hang; lm1m's train step on (2, 2, 2) and (1, 4) card ranks, its
-  backward in segments, equals the unsharded step in f32.
+  backward in segments, equals the unsharded step in f32; so do the SSM,
+  hybrid and MoE smoke configs' gradients, their routes equal; mixtral's
+  data-parallel step, whose MoE ranks gather the token rows over the data
+  axes, runs its backward in segments on the card and equals the unsharded
+  step.
 """
 
 import dataclasses
@@ -235,6 +239,73 @@ def test_tensor_parallel_train_step_on_card_ranks(dev, shape, axes):
                                   lr=1e-3)
     for got, want in zip(tree_leaves(opt.m), tree_leaves(ref_opt.m)):
         assert float((got.full() - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    for got, want in zip(tree_leaves(new), tree_leaves(ref_p)):
+        assert float((got.full() - want).abs().max()) <= 2e-3
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "jamba-v0.1-52b", "mixtral-8x7b"])
+def test_tensor_parallel_train_families_on_card_ranks(dev, arch):
+    """The SSM, hybrid and MoE smoke configs in f32 (TF32 off): the
+    tensor-parallel gradients on (2, 2, 2) card ranks within 1e-5 (loss,
+    relative) and 1e-4 (each gradient leaf's maximum) of the unsharded
+    step's, the routes (``moe_mlp.routes``) equal where the model has MoE
+    layers, every rank's shard on the card."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.moe import moe_mlp
+
+    model = build_model(dataclasses.replace(get_smoke_config(arch), dtype="float32"))
+    params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev, master=True)
+    g = torch.Generator(device=dev).manual_seed(1)
+    blocks = {k: torch.randint(0, model.cfg.vocab_size, (2, 8, 32), generator=g, device=dev)
+              for k in ("tokens", "labels")}
+    mesh = compat_make_mesh((2, 2, 2), ("pod", "data", "model"), devices=(dev,))
+    placed = device_put(params, params_shardings(params, mesh, fsdp_axis="data"))
+    moe_mlp.routes = []
+    try:
+        loss_ref, grads_ref = accumulate_gradients(model.loss, params, blocks)
+        want_routes, moe_mlp.routes = moe_mlp.routes, []
+        loss, grads = tensor_parallel_gradients(model.loss, placed, blocks, mesh=mesh,
+                                                rules=train_rules(mesh))
+        routes = moe_mlp.routes
+    finally:
+        moe_mlp.routes = None
+    assert len(routes) == len(want_routes)
+    assert all(torch.equal(a["experts"], b["experts"]) for a, b in zip(routes, want_routes))
+    assert abs(float(loss) - float(loss_ref)) <= 1e-5 * abs(float(loss_ref))
+    for got, want in zip(tree_leaves(grads), tree_leaves(grads_ref)):
+        assert all(t.device == dev for t in got.shards)
+        assert float((got.full() - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_data_parallel_moe_step_on_card_ranks(dev):
+    """Mixtral's smoke config in f32 at capacity factor 1 on (2, 2, 2) card
+    ranks: a rank's 32 tokens are not a whole 128-token group, so the MoE
+    layer all-gathers the token rows over the data axes inside the
+    forward.  On the card that gather's transpose cannot run on autograd's
+    card thread; the data-parallel ranks run their backward in segments
+    (``spmd.data_parallel_scope``), and the step's loss and gradients equal
+    the unsharded step's within 1e-5 and 1e-4, its params within 2·lr."""
+    from repro_torch.configs import get_smoke_config
+
+    cfg = dataclasses.replace(get_smoke_config("mixtral-8x7b"), dtype="float32",
+                              moe_capacity_factor=1.0)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev, master=True)
+    g = torch.Generator(device=dev).manual_seed(1)
+    blocks = {k: torch.randint(0, cfg.vocab_size, (2, 8, 16), generator=g, device=dev)
+              for k in ("tokens", "labels")}
+    mesh = compat_make_mesh((2, 2, 2), ("pod", "data", "model"), devices=(dev,))
+    placed = device_put(params, params_shardings(params, mesh))
+    loss_ref, grads_ref = accumulate_gradients(model.loss, params, blocks)
+    loss, grads = data_parallel_gradients(model.loss, placed, blocks, mesh=mesh)
+    assert abs(float(loss) - float(loss_ref)) <= 1e-5 * abs(float(loss_ref))
+    for got, want in zip(tree_leaves(grads), tree_leaves(grads_ref)):
+        assert got.device == dev
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    new, _, _ = sharded_train_step(model.loss, placed, adamw_init(params), blocks, mesh=mesh,
+                                   lr=1e-3)
+    ref_p, _ = adamw_update(tree_map(torch.clone, params), grads_ref, adamw_init(params),
+                            lr=1e-3)
     for got, want in zip(tree_leaves(new), tree_leaves(ref_p)):
         assert float((got.full() - want).abs().max()) <= 2e-3
 

@@ -206,13 +206,13 @@ def test_memory_matches_reference(reference, small_shapes, arch, shape):
 #: B/C products XLA splits and the rank program does not, and MLA's K/V
 #: decompression and the vlm's memory projection, which the two split
 #: differently, by closed forms.
-#: The dense family's train cells run the tensor-parallel train program
-#: and are compared on (2, 4) too; the other families' stay data-parallel
-#: and are not, where XLA splits products the port computes whole.
-#: They are equal in every cell but mamba2's train step, where XLA forms
-#: four of the SSD einsums' gradient contractions (16384 FLOPs each at
-#: these widths, 0.29 % of the step) as dots and PyTorch's autograd as
-#: products and sums.  1 %: a lost LM head, layer or batch share is far more.
+#: The dense, SSM, hybrid and MoE families' train cells run the
+#: tensor-parallel train program and are compared on (2, 4) too, their
+#: gaps to XLA's partition in closed form (:func:`_train_apart`); on
+#: ``DATA_MESH`` over the one-rank model axis the same function gives the
+#: recomputed period's last product and the four SSD gradient contractions
+#: XLA forms as dots (16384 FLOPs each at mamba2's widths).  1 %: a lost
+#: LM head, layer or batch share is far more.
 DOT_RTOL = 0.01
 
 
@@ -224,9 +224,9 @@ def test_flops_held_to_reference(reference, small_shapes, monkeypatch, arch, sha
     kernel's formula counts the kernel's own work (64-row chunks, products
     split in two; held to a closed form below), so here the port's plain
     chunked SSD, the reference model's own algorithm, takes its place.  A
-    dense train cell runs the tensor-parallel train program over the
-    one-rank model axis, whose recomputation runs the period's last product
-    too (:func:`_train_apart` at one model rank)."""
+    train cell runs the tensor-parallel train program over the one-rank
+    model axis, whose recomputation runs the period's last product too
+    (:func:`_train_apart` at one model rank)."""
     monkeypatch.setattr(ops, "ssd_scan", ss.ssd_chunked)
     mesh = compat_make_mesh(*ref_child.DATA_MESH, devices=(META,))
     cfg = get_smoke_config(arch)
@@ -235,14 +235,15 @@ def test_flops_held_to_reference(reference, small_shapes, monkeypatch, arch, sha
     want = reference[(arch, shape, "data")]["cost"]["dot_flops"]
     assert want > 0
     got = rec["cost"]["flops"]
-    dense = build_model(cfg).tensor_parallel_training_refusal() is None
-    if SHAPES[shape].kind == "train" and dense:
+    tensor_parallel = build_model(cfg).tensor_parallel_training_refusal() is None
+    if SHAPES[shape].kind == "train" and tensor_parallel:
         got += _train_apart(cfg, SHAPES[shape], model_ranks=1)
     assert got == pytest.approx(want, rel=DOT_RTOL)
 
 
 TP_CELLS = [("qwen3-32b", "train_4k"), ("qwen3-32b", "prefill_32k"), ("qwen3-32b", "decode_32k"),
-            ("mamba2-1.3b", "prefill_32k"), ("mamba2-1.3b", "decode_32k"), *ref_child.TP_CELLS]
+            ("mamba2-1.3b", "train_4k"), ("mamba2-1.3b", "prefill_32k"),
+            ("mamba2-1.3b", "decode_32k"), *ref_child.TP_CELLS]
 
 
 def _rank_rows(shape: ShapeCell) -> int:
@@ -258,12 +259,15 @@ def _rank_rows(shape: ShapeCell) -> int:
 def _train_apart(cfg, shape: ShapeCell, model_ranks: int = 4, data_ranks: int = 2) -> int:
     """The products of one traced train body (one period, one microbatch
     block, the rank's T tokens) that XLA's partition computes beyond the
-    tensor-parallel train program's, on the (2, 4) mesh.
+    tensor-parallel train program's, on the (2, 4) mesh (negative where the
+    rank program computes more).
 
     * Under ``remat="full"`` the rank program recomputes a period whole,
-      its last product too: ``w_down`` (``2·T·(d_ff/4)·D``), whose output
-      no backward reads and which XLA's recomputation leaves out (the
-      difference is negative).
+      its last product too, whose output no backward reads and which XLA's
+      recomputation leaves out: the last layer's ``w_down``
+      (``2·T·(d_ff/4)·D``), mamba2's ``w_out`` (``2·T·(din/4)·D``) or the
+      experts' combine of the rank's rows (``2·T·(E/4)·C·D``, C the
+      per-expert capacity).
     * Where the kv heads do not divide the model axis (qwen3's 2 over 4,
       ``wk``/``wv`` replicated), the rank program projects k and v for its
       T/4 sequence rows with every kv head, in the forward, the
@@ -273,19 +277,67 @@ def _train_apart(cfg, shape: ShapeCell, model_ranks: int = 4, data_ranks: int = 
       recomputation (``2·2·T·D·Dh·(Hkv + r)``); in the backward it forms
       their input gradients at that width (``2·T·D·Dh·(Hkv + r)``) and
       their weight gradients over the rank's D/2 ``fsdp`` rows
-      (``2·T·(D/2)·Dh·(Hkv + r)``)."""
+      (``2·T·(D/2)·Dh·(Hkv + r)``).
+    * Per mamba2 layer the rank program computes whole what XLA splits four
+      ways, in the forward, the recomputation and the two gradient products
+      each: the B and C projections of the replicated ``w_in_b``/``w_in_c``
+      (``2·T·D·N`` each) and, on the chunked route, the ``C·Bᵀ`` every
+      head shares (``2·T·q·N``, q the chunk); and XLA forms four of the
+      SSD's gradient contractions as dots, over the rank's heads, two over
+      the head dim P and two over the state N (``2·T·(nh/4)·P`` and
+      ``2·T·(nh/4)·N`` each), where PyTorch's autograd takes products and
+      sums.
+    * Per MoE layer whose rank all-gathers the batch's G token rows (G > T):
+      the rank program dispatches them all to its E/4 experts and takes the
+      input gradient of all G rows (``2·G·(E/4)·C·D``), where XLA takes its
+      own T rows'; it combines and differentiates the combine for its own T
+      rows, where XLA does the forward, the output's and the combine
+      weights' gradients for all G (``3·2·(G − T)·(E/4)·C·D`` more on XLA's
+      side); XLA keeps the experts' D over ``fsdp`` in eight of their
+      twelve products (``w_down``'s forward, recomputation and both
+      gradients, the input gradients through ``w_gate``/``w_up`` and their
+      weight gradients: ``2·(E/4)·C·F·D/2`` each), where the rank gathers
+      them whole; and the rank program forms the combine weights' gradient
+      as a product over the k choices (``2·G·k·(E/4)·C``), XLA as products
+      and sums."""
+    from repro_torch.models.moe import _groups
+
     t = _rank_rows(shape) * shape.seq_len
     d, dh, hkv, h = cfg.d_model, cfg.resolved_head_dim, cfg.num_kv_heads, cfg.num_heads
-    layers = [s for seg in lib._scan_bodies(cfg).segments() for s in seg.period]
+    segments = lib._scan_bodies(cfg).segments()
+    layers = [s for seg in segments for s in seg.period]
+    m = model_ranks
+    din = cfg.ssm_expand * cfg.d_model
+    ev, k = cfg.moe_experts * cfg.moe_virtual_split, cfg.moe_top_k * cfg.moe_virtual_split
+    g, cap = _groups(cfg, t * data_ranks) if cfg.moe_experts else (t, 0)
+    held = ev // m if ev % m == 0 else ev
     apart = 0
     if cfg.remat == "full":
-        apart -= sum(s.mlp == "dense" for s in layers) * 2 * t * (cfg.d_ff // model_ranks) * d
-    if hkv % model_ranks:
-        read = max(h // model_ranks // (h // hkv), 1)
+        for seg in segments:
+            last = seg.period[-1]
+            if last.mlp == "dense":
+                apart -= 2 * t * ((cfg.dense_d_ff or cfg.d_ff) // m) * d
+            elif last.mlp == "moe":
+                apart -= 2 * t * held * cap * d
+            elif last.mixer == "mamba2":
+                apart -= 2 * t * (din // m) * d
+    if hkv and hkv % m:
+        read = max(h // m // (h // hkv), 1)
         xla = (2 * 2 * t * d * dh * (hkv + read) + 2 * t * d * dh * (hkv + read)
                + 2 * t * (d // data_ranks) * dh * (hkv + read))
-        mine = 8 * 2 * (t // model_ranks) * d * hkv * dh
+        mine = 8 * 2 * (t // m) * d * hkv * dh
         apart += sum(s.mixer == "attn" for s in layers) * (xla - mine)
+    n, nh, p = cfg.ssm_state, din // cfg.ssm_head_dim if cfg.ssm_head_dim else 0, cfg.ssm_head_dim
+    chunked = shape.seq_len > cfg.ssm_chunk and shape.seq_len % cfg.ssm_chunk == 0
+    whole = 4 * (2 * 2 * t * d * n + (2 * t * cfg.ssm_chunk * n if chunked else 0))
+    ssd_dots = 4 * t * (nh // m) * (p + n) if chunked else 0
+    apart += sum(s.mixer == "mamba2" for s in layers) * (ssd_dots - whole * (m - 1) // m)
+    if g > t:
+        f = cfg.moe_d_ff // cfg.moe_virtual_split
+        moe = (3 * 2 * (g - t) * held * cap * d - 2 * (g - t) * held * cap * d
+               - 8 * 2 * held * cap * f * d * (data_ranks - 1) // data_ranks
+               - 2 * g * k * held * cap)
+        apart += sum(s.mlp == "moe" for s in layers) * moe
     return apart
 
 
@@ -296,7 +348,10 @@ def _whole_on_every_rank(cfg, shape: ShapeCell, model_ranks: int = 4) -> int:
     replicated ``w_in_b``/``w_in_c`` (``2·rows·L·D·N`` each) and, on the
     chunked route, the ``C·Bᵀ`` that every head shares (``2·rows·L·q·N``),
     of which XLA computes a quarter on each device.  The MoE router, whole
-    on both sides, is not among them."""
+    on both sides, is not among them.  A train cell's are in
+    :func:`_train_apart`."""
+    if shape.kind == "train":
+        return 0
     rows = _rank_rows(shape)
     tokens = rows * (shape.seq_len if shape.kind == "prefill" else 1)
     layers = sum(s.mixer == "mamba2" for seg in lib._scan_bodies(cfg).segments()
@@ -550,15 +605,15 @@ def test_depth_fit_equals_full_depth_count(small_shapes, shape):
 
 
 def test_train_census_counts_the_gathers_and_the_gradient_sum(small_shapes):
-    """mamba2's smoke train cell, which the tensor-parallel train program
-    refuses (its SSM heads), so the cell runs the data-parallel program: one
-    all-gather per sharded dim of every param leaf (shard bytes in, the
-    gathered dim's bytes out) and one psum of the loss and the f32
+    """whisper-tiny's smoke train cell, which the tensor-parallel train
+    program refuses (its encoder), so the cell runs the data-parallel
+    program: one all-gather per sharded dim of every param leaf (shard bytes
+    in, the gathered dim's bytes out) and one psum of the loss and the f32
     gradients, by hand from the layouts."""
     mesh = _meta_mesh()
-    cfg = get_smoke_config("mamba2-1.3b")
+    cfg = get_smoke_config("whisper-tiny")
     assert build_model(cfg).tensor_parallel_training_refusal() is not None
-    rec = lib.run_cell("mamba2-1.3b", "train_4k", mesh, mesh_label="test",
+    rec = lib.run_cell("whisper-tiny", "train_4k", mesh, mesh_label="test",
                        overrides=ref_child.overrides(cfg))
     assert rec["collectives_basis"] == lib.COLLECTIVES_BASIS["data_parallel"]
     params = build_model(lib._scan_bodies(cfg)).init(None, device=META, master=True)
@@ -623,6 +678,53 @@ def test_tensor_parallel_train_census_by_hand(small_shapes):
         "all-reduce": sum(forward) + sum(recomputed) + sum(transposes) + sum(sums)}
     assert rec["collectives"]["result_bytes"]["all-gather"] == sum(gathered) + 4 * 4 * kv_rows
     assert rec["collectives"]["result_bytes"]["reduce-scatter"] == 2 * kv_rows + sum(shard)
+
+
+def test_tensor_parallel_train_census_by_hand_ssm(small_shapes):
+    """mamba2's smoke train cell on the (2, 4) mesh (one period of one
+    mamba2 layer, one block of the rank's T = 2 × 32 tokens,
+    ``remat="full"``; its 8 SSM heads 2 a rank), the census by hand from
+    the layouts: the ``fsdp`` gathers over data, one per param leaf with a
+    data dim; the forward's all-reduces (the embedding's, the gated norm's
+    f32 sum of squares and ``w_out``'s partial, the loss's row max and its
+    pair of sums); the recomputed period's two again; the backward's
+    transposes: an all-reduce for each value every model rank holds alike
+    that enters its share (the mixer's input, ``w_in_b``, ``w_in_c``,
+    ``conv_b``, ``conv_c``, the norm's sum of squares, the head's input);
+    the gradients' reduce-scatter over data per data dim, an all-reduce
+    over data of each leaf without one and of the loss, and the clip norm's
+    all-reduce.  No all-gather inside the step: training runs no cache."""
+    mesh = _meta_mesh()
+    cfg = get_smoke_config("mamba2-1.3b")
+    rec = lib.run_cell("mamba2-1.3b", "train_4k", mesh, mesh_label="test",
+                       overrides=ref_child.overrides(cfg))
+    assert rec["collectives_basis"] == lib.COLLECTIVES_BASIS["tensor_parallel_train"]
+    rows, seq, d = 2, SHAPES["train_4k"].seq_len, cfg.d_model
+    act = rows * seq * d * 2  # a bf16 (rows, S, D) activation
+    sumsq = rows * seq * 4  # the gated norm's f32 sum of squares, one a token
+    params = build_model(lib._scan_bodies(cfg)).init(None, device=META, master=True)
+    shardings = lib.params_shardings(params, mesh, fsdp_axis="data")
+    fsdp = [(leaf, sh) for leaf, sh in zip(tree_leaves(params), tree_leaves(shardings))
+            if any(e == "data" for e in sh.spec)]
+    no_data = [math.prod(sh.shard_shape(tuple(leaf.shape))) * 4
+               for leaf, sh in zip(tree_leaves(params), tree_leaves(shardings))
+               if all(e != "data" for e in sh.spec)]  # the rank's shard, summed over data
+    mixer = params["seg0"][0]["mixer"]
+    gathered = [math.prod(sh.shard_shape(tuple(leaf.shape))) * 2 * 4 for leaf, sh in fsdp]
+    shard = [math.prod(sh.shard_shape(tuple(leaf.shape))) * 4 for leaf, sh in fsdp]
+    forward = [act, sumsq, act, rows * seq * 4, 2 * rows * seq * 4]  # embed, norm, w_out, loss
+    recomputed = [sumsq, act]
+    alike = [mixer[k].numel() * 4 for k in ("w_in_b", "w_in_c", "conv_b", "conv_c")]
+    transposes = [act, sumsq, act] + alike  # the mixer's input, the norm, the head's input
+    sums = no_data + [4, 4]  # the leaves without a data dim, the loss, the clip norm
+    assert rec["collectives"]["counts"] == {
+        "all-gather": len(fsdp), "reduce-scatter": len(fsdp),
+        "all-reduce": len(forward) + len(recomputed) + len(transposes) + len(sums)}
+    assert rec["collectives"]["operand_bytes"] == {
+        "all-gather": sum(shard), "reduce-scatter": sum(gathered),
+        "all-reduce": sum(forward) + sum(recomputed) + sum(transposes) + sum(sums)}
+    assert rec["collectives"]["result_bytes"]["all-gather"] == sum(gathered)
+    assert rec["collectives"]["result_bytes"]["reduce-scatter"] == sum(shard)
 
 
 @pytest.mark.parametrize("name", VARIANTS)

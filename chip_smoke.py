@@ -437,8 +437,19 @@ cluster runs as ``mesh_launches``, ``service_launches`` and
   mixtral's data-parallel step at smoke width on (2, 2, 2) (a cut: that
   program holds every param whole on each rank), whose MoE ranks gather
   the batch's token rows and run their backward in segments, against
-  the unsharded step.  No kernel runs (none has a backward): every entry
-  of the kernels line gives ``tp_train_launches`` 0.
+  the unsharded step.  Then the MLA, vision and audio rows
+  (``_tp_train_memory_families``), held the same way, every cross
+  ``gate`` at ``TP_TRAIN_GATE`` (drawn 0, it would zero every gradient of
+  the cross layers and the encoder; each row checks them nonzero):
+  deepseek-v2-236b's first layer at full width on (1, 4) (MLA and the
+  dense SwiGLU; a cut: its second layer is a 160-expert MoE) and its three
+  smoke layers on (2, 2, 2) (a width cut); llama-3.2-vision-11b's first
+  period (5 of 40 layers, the cross layer's kv heads split) at full width
+  on (1, 4), its ``image_embeds`` seeded; whisper-tiny whole, its
+  ``frames`` seeded, on (2, 2) and on (1, 4), where its 6 heads do not
+  divide the axis and each rank computes attention whole.  No kernel runs
+  (none has a backward): every entry of the kernels line gives
+  ``tp_train_launches`` 0.
 * ``dryrun``: the shape-only dry-run (``repro_torch.launch.dryrun_lib``)
   held against the card.  qwen3-32b's prefill as the serve phase runs it
   (4 layers, 8 × 512 tokens, flash, bf16) and the train phase's lm100m
@@ -5503,6 +5514,8 @@ def _leaf_gaps(got, want) -> float:
 
     worst = 0.0
     for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        if not w.numel():  # a segment of no repeats (deepseek-v2 cut to one layer)
+            continue
         full = g.full() if hasattr(g, "full") else g
         w = w.to(full.device)
         scale = float(w.abs().max())
@@ -5544,7 +5557,8 @@ def _tp_train_rows(name: str, cfg, mesh_shape: tuple, axes: tuple, blocks: list,
     model = build_model(cfg)
     mesh = compat_make_mesh(mesh_shape, axes, devices=(dev,))
     rules = train_rules(mesh)
-    params = model.init(torch.Generator(device=dev).manual_seed(seed), device=dev, master=True)
+    params = _with_gates(model.init(torch.Generator(device=dev).manual_seed(seed), device=dev,
+                                    master=True))
     n_params = sum(t.numel() for t in tree_leaves(params))
     shardings = params_shardings(params, mesh, fsdp_axis="data")
     placed = device_put(params, shardings)
@@ -5560,6 +5574,10 @@ def _tp_train_rows(name: str, cfg, mesh_shape: tuple, axes: tuple, blocks: list,
         loss_g, g_tp = tensor_parallel_gradients(model.loss, placed, blk, mesh=mesh, rules=rules)
         grad_gaps.append(_leaf_gaps(g_tp, g_ref))
         loss_gaps.append(abs(float(loss_g) - float(loss_ref)) / abs(float(loss_ref)))
+        if s == 0:  # the encoder's and the cross layers' gradients, which a gate of 0 zeroes
+            row["memory_path_leaves"] = len(_memory_path_leaves(g_tp))
+            row["memory_path_zero_leaves"] = [n for n, g in _memory_path_leaves(g_tp)
+                                              if not bool((g.full() != 0).any())]
         del g_tp
         if hold_update:
             params, opt_ref = adamw_update(params, g_ref, opt_ref, lr=TP_TRAIN_LR)
@@ -5618,12 +5636,58 @@ def _tp_train_rows(name: str, cfg, mesh_shape: tuple, axes: tuple, blocks: list,
 
 def _train_blocks(cfg, steps: int, nblocks: int, rows: int, seq: int, seed: int,
                   dev: torch.device) -> list:
-    """Each step's seeded tokens and labels ``(nblocks, rows, seq)``."""
+    """Each step's seeded tokens and labels ``(nblocks, rows, seq)``, and
+    the stubbed frontend's output where the config has one: whisper's
+    ``frames`` ``(nblocks, rows, encoder_seq, d_model)``, the vlm's
+    ``image_embeds`` ``(nblocks, rows, image_tokens, image_embed_dim)``, f32
+    normals drawn on the card."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    return [{k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (nblocks, rows, seq)),
-                                device=dev) for k in ("tokens", "labels")} for _ in range(steps)]
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    memory = {"audio": ("frames", cfg.encoder_seq, cfg.d_model),
+              "vlm": ("image_embeds", cfg.image_tokens, cfg.image_embed_dim)}.get(cfg.family)
+    steps_blocks = []
+    for _ in range(steps):
+        blk = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (nblocks, rows, seq)),
+                                  device=dev) for k in ("tokens", "labels")}
+        if memory is not None:
+            name, m, width = memory
+            blk[name] = torch.randn((nblocks, rows, m, width), generator=gen, device=dev)
+        steps_blocks.append(blk)
+    return steps_blocks
+
+
+#: every cross-attention ``gate`` of a tp_train row: both packages draw it
+#: 0, and ``tanh(0)`` silences the cross layers, so every gradient of their
+#: projections and of the encoder would be 0 and checked nothing
+TP_TRAIN_GATE = 0.5
+
+
+def _with_gates(params):
+    """``params`` with every cross ``gate`` leaf at :data:`TP_TRAIN_GATE`."""
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: node[k].fill_(TP_TRAIN_GATE) if k == "gate" else walk(node[k])
+                    for k in node}
+        if isinstance(node, (tuple, list)):
+            return type(node)(walk(v) for v in node)
+        return node
+
+    return walk(params)
+
+
+def _memory_path_leaves(tree) -> list:
+    """(path, leaf) of the encoder's and the cross layers' leaves of a
+    params or gradients tree."""
+    from repro_torch._pytree import tree_leaves
+    from repro_torch.distributed.sharding import _map_with_path
+
+    names: list[str] = []
+    _map_with_path(lambda path, _: names.append("/".join(map(str, path))), tree)
+    cross = {n.rsplit("/", 1)[0] for n in names if n.endswith("/wk_mem")}
+    return [(n, leaf) for n, leaf in zip(names, tree_leaves(tree))
+            if n.startswith("enc_") or n.rsplit("/", 1)[0] in cross]
 
 
 def tp_train_phase(seed: int, dev: torch.device, card: str) -> dict:
@@ -5734,12 +5798,42 @@ TP_TRAIN_MIXTRAL = {"layers": 1, "blocks": 1, "rows": 2, "seq": 512,
                     "meshes": (((1, 4), ("data", "model")), ((2, 2), ("data", "model")))}
 TP_TRAIN_JAMBA_SMOKE = {"blocks": 1, "rows": 8, "seq": 64}
 TP_TRAIN_DP_MOE = {"blocks": 2, "rows": 8, "seq": 128, "capacity_factor": 1.0}
+#: the MLA, vision and audio rows, every cross ``gate`` at
+#: :data:`TP_TRAIN_GATE`: deepseek-v2-236b at full width cut to its first
+#: layer (MLA: 128 heads, 32 a rank, and the dense SwiGLU at 12,288; 1.39 B
+#: params: its second layer brings a 160-expert MoE, 5.36 B params, ≈86 GB
+#: with gradients and moments, past one card) on (1, 4); deepseek-v2's
+#: three smoke layers (MLA beside the shared-expert MoE; a width cut) on
+#: (2, 2, 2), 4 × 256 tokens so that the 4 data-parallel ranks get a row
+#: each; llama-3.2-vision-11b at full width cut to one period of 5 of 40
+#: layers (4 self-attention layers and the cross layer: 2.14 B params; 8 q
+#: and 2 kv heads a rank, so ``wk_mem``/``wv_mem`` are split), its
+#: ``image_embeds`` (rows, 1600, 4096), on (1, 4); whisper-tiny whole (4 +
+#: 4 layers, 41.2 M params), its ``frames`` (rows, 1500, 384), on (2, 2)
+#: (3 heads a rank) and on (1, 4) (6 heads do not divide 4: attention whole
+#: on every rank, the MLP and the vocabulary split); each 2 steps of one
+#: block of 2 × 512 tokens
+TP_TRAIN_DEEPSEEK_V2 = {"layers": 1, "blocks": 1, "rows": 2, "seq": 512}
+TP_TRAIN_DEEPSEEK_V2_SMOKE = {"blocks": 1, "rows": 4, "seq": 256}
+TP_TRAIN_VLM = {"layers": 5, "blocks": 1, "rows": 2, "seq": 512}
+TP_TRAIN_WHISPER = {"blocks": 1, "rows": 2, "seq": 512,
+                    "meshes": (((2, 2), ("data", "model")), ((1, 4), ("data", "model")))}
 
 
 def _host_tree(tree):
+    """A copy of ``tree`` on the host, in page-locked memory: a copy into
+    fresh pageable memory runs far below the link's rate, and the caching
+    host allocator hands the next step the blocks this one frees
+    (:func:`_release_host_cache` returns them after a row)."""
     from repro_torch._pytree import tree_map
 
-    return tree_map(lambda t: t.detach().to("cpu"), tree)
+    return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(
+        t.detach()), tree)
+
+
+def _release_host_cache() -> None:
+    """Return the caching host allocator's page-locked blocks to the host."""
+    torch._C._host_emptyCache()
 
 
 def _recorded_routes(fn, *, margins: bool = True):
@@ -5825,7 +5919,8 @@ def _tp_train_forced(name: str, cfg, mesh_shape: tuple, axes: tuple, blocks: lis
     moe = any(s.mlp == "moe" for seg in cfg.segments() for s in seg.period)
     mesh = compat_make_mesh(mesh_shape, axes, devices=(dev,))
     rules = None if data_parallel else train_rules(mesh)
-    params = model.init(torch.Generator(device=dev).manual_seed(seed), device=dev, master=True)
+    params = _with_gates(model.init(torch.Generator(device=dev).manual_seed(seed), device=dev,
+                                    master=True))
     n_params = sum(t.numel() for t in tree_leaves(params))
     shardings = params_shardings(params, mesh, fsdp_axis="data")
     placed = device_put(params, shardings)
@@ -5866,6 +5961,10 @@ def _tp_train_forced(name: str, cfg, mesh_shape: tuple, axes: tuple, blocks: lis
         held.append(flips["flips"] == 0 and flips["drop_changes"] == 0)
         grad_gaps.append(_leaf_gaps(g_tp, g_ref))
         loss_gaps.append(abs(float(loss_g) - float(loss_ref)) / abs(float(loss_ref)))
+        if s == 0:  # the encoder's and the cross layers' gradients, which a gate of 0 zeroes
+            row["memory_path_leaves"] = len(_memory_path_leaves(g_tp))
+            row["memory_path_zero_leaves"] = [n for n, g in _memory_path_leaves(g_tp)
+                                              if not bool((g.full() != 0).any())]
         del g_tp
         state = dataclasses.replace(opt, m=whole(opt.m), v=whole(opt.v))
         ref_p, ref_opt = adamw_update(whole(placed), g_ref, state, lr=TP_TRAIN_LR)
@@ -5887,7 +5986,7 @@ def _tp_train_forced(name: str, cfg, mesh_shape: tuple, axes: tuple, blocks: lis
         m_gaps.append(_leaf_gaps(opt.m, ref_m))
         v_gaps.append(_leaf_gaps(opt.v, ref_v))
         p_diffs.append(max(float((p.full() - q.to(dev)).abs().max()) for p, q in zip(
-            tree_leaves(placed), tree_leaves(ref_p))))
+            tree_leaves(placed), tree_leaves(ref_p)) if q.numel()))
         del ref_p, ref_m, ref_v
         if s == 0:
             row["census_step"] = census
@@ -5905,6 +6004,10 @@ def _tp_train_forced(name: str, cfg, mesh_shape: tuple, axes: tuple, blocks: lis
           f"tp_train {name}: the params keep their layouts")
     check(not data_parallel or not moe or row["segmented"],
           f"tp_train {name}: the MoE data-parallel ranks run their backward in segments")
+    cross = any(s.mixer == "cross_attn" for seg in cfg.segments() for s in seg.period)
+    check(not cross or (row["memory_path_leaves"] and not row["memory_path_zero_leaves"]),
+          f"tp_train {name}: zero gradients of the encoder or cross layers: "
+          f"{row.get('memory_path_zero_leaves')}")
     for s, flips in enumerate(routes_by_step):
         check(flips["calls"] == flips["calls_unsharded"],
               f"tp_train {name}: step {s} recorded {flips['calls']} routes, the unsharded "
@@ -5925,12 +6028,14 @@ def _tp_train_forced(name: str, cfg, mesh_shape: tuple, axes: tuple, blocks: lis
         check(p_diffs[s] <= 2 * TP_TRAIN_LR,
               f"tp_train {name}: step {s} params {p_diffs[s]} > 2·lr")
     del placed, opt
+    _release_host_cache()
     return row
 
 
 def _tp_train_families(seed: int, dev: torch.device, card: str) -> dict:
     """The SSM, MoE and hybrid rows (``TP_TRAIN_MAMBA2``, ``TP_TRAIN_MIXTRAL``,
-    ``TP_TRAIN_JAMBA_SMOKE``, ``TP_TRAIN_DP_MOE``); returns each row's
+    ``TP_TRAIN_JAMBA_SMOKE``, ``TP_TRAIN_DP_MOE``) and the MLA, vision and
+    audio rows (:func:`_tp_train_memory_families`); returns each row's
     seconds."""
     import dataclasses
 
@@ -5972,6 +6077,47 @@ def _tp_train_families(seed: int, dev: torch.device, card: str) -> dict:
           "mixtral-8x7b/smoke/data_parallel/2x2x2", small, (2, 2, 2), ("pod", "data", "model"),
           _train_blocks(small, steps, d["blocks"], d["rows"], d["seq"], seed, dev), seed, dev,
           card, data_parallel=True)
+    seconds.update(_tp_train_memory_families(seed, dev, card))
+    return seconds
+
+
+def _tp_train_memory_families(seed: int, dev: torch.device, card: str) -> dict:
+    """The MLA, vision and audio rows (``TP_TRAIN_DEEPSEEK_V2``,
+    ``TP_TRAIN_DEEPSEEK_V2_SMOKE``, ``TP_TRAIN_VLM``, ``TP_TRAIN_WHISPER``),
+    each step held to the unsharded step from the sharded run's state
+    (:func:`_tp_train_forced`); returns each row's seconds."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_smoke_config
+
+    seconds = {}
+    steps = TP_TRAIN_FAMILY_STEPS
+
+    def row(key, cfg, mesh_shape, axes, shape):
+        blocks = _train_blocks(cfg, steps, shape["blocks"], shape["rows"], shape["seq"], seed,
+                               dev)
+        t0 = time.perf_counter()
+        _tp_train_forced(key, cfg, mesh_shape, axes, blocks, seed, dev, card)
+        seconds[key] = time.perf_counter() - t0
+        del blocks
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    d = TP_TRAIN_DEEPSEEK_V2
+    row("deepseek-v2-236b/1x4", dataclasses.replace(get_config("deepseek-v2-236b"),
+                                                    dtype="float32", num_layers=d["layers"]),
+        (1, 4), ("data", "model"), d)
+    row("deepseek-v2-236b/smoke/2x2x2",
+        dataclasses.replace(get_smoke_config("deepseek-v2-236b"), dtype="float32"), (2, 2, 2),
+        ("pod", "data", "model"), TP_TRAIN_DEEPSEEK_V2_SMOKE)
+    v = TP_TRAIN_VLM
+    row("llama-3.2-vision-11b/1x4", dataclasses.replace(
+        get_config("llama-3.2-vision-11b"), dtype="float32", num_layers=v["layers"]),
+        (1, 4), ("data", "model"), v)
+    w = TP_TRAIN_WHISPER
+    whisper = dataclasses.replace(get_config("whisper-tiny"), dtype="float32")
+    for shape, axes in w["meshes"]:
+        row(f"whisper-tiny/{'x'.join(map(str, shape))}", whisper, shape, axes, w)
     return seconds
 
 

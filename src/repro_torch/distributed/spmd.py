@@ -87,9 +87,9 @@ params and both AdamW moments, gathers the ``fsdp`` dims once a step, runs
 vocabulary-parallel loss and the backward in segments, sums the
 gradients over the data-parallel axes (the ``fsdp`` dims by the gather's
 transpose, so the rank keeps its shard) and updates its shards, the
-clip factor from one ``psum`` of the shards' squares.  The dense, SSM,
-hybrid and MoE families (``Model.tensor_parallel_training_refusal``
-refuses MLA, cross-attention and the encoder).
+clip factor from one ``psum`` of the shards' squares.  Every config of
+the repo with the onehot MoE (``Model.tensor_parallel_training_refusal``
+refuses the ragged dispatch).
 
 **Census.**  Inside :func:`collective_census` every collective that rank 0
 calls adds one to its kind's count and its operand and result bytes to its
@@ -963,7 +963,12 @@ class _Tape:
     computed from ``xs`` (a collective's results, or the input of a decoder
     period), and ``vjp(cts, leaves)`` gives the cotangents of ``xs`` from
     those of ``ys``, and any gradient of ``leaves`` it found on the way (a
-    recomputed period's).  No autograd node of the rank's graph calls a
+    recomputed period's).  :meth:`backward` hands a ``vjp`` the ``ys`` of
+    the entries before its own after the leaves, so that a recomputed
+    period which closes over an earlier value (the decoder's
+    cross-attention memory, the encoder's output) returns that value's
+    cotangent, which is then summed into those entries' cotangents and
+    carried back through them.  No autograd node of the rank's graph calls a
     collective: :meth:`backward` runs ``torch.autograd.grad`` one segment at
     a time in the rank's own thread, and calls the collectives' transposes
     itself between segments, in the reverse of the forward's order, the
@@ -999,7 +1004,11 @@ class _Tape:
         the earlier periods.  ``recompute``: the forward keeps only ``x``
         and ``body``'s output, and the backward runs ``body`` on ``x`` again,
         its collectives included, and that run's own segments
-        (``cfg.remat == "full"``)."""
+        (``cfg.remat == "full"``).  A value ``body`` closes over that autograd
+        records (the memory of whisper's cross layers) is read as it is in
+        both passes; the recomputation gives its cotangent to the
+        :meth:`backward` that runs it, which carries it to the entries
+        before the period."""
         if not (torch.is_grad_enabled() and x.requires_grad):
             return body(x)
         if not recompute:
@@ -1054,9 +1063,12 @@ class _Tape:
             at = starts[k]
             ct = [cot.take(at + i) for i in range(len(entry_ys))]
             ct = [torch.zeros_like(y) if c is None else c for c, y in zip(ct, entry_ys)]
-            cxs, found = vjp(ct, leaves)
+            cxs, found = vjp(ct, [*leaves, *ys[:at]])
             for i, g in enumerate(found or ()):
-                grads.add(i, g)
+                if i < n:
+                    grads.add(i, g)
+                else:  # an earlier entry's value that a recomputed period closed over
+                    cot.add(i - n, g)
             pull(xs, cxs, at)
         self.entries.clear()
         return grads.values

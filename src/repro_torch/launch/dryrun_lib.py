@@ -28,16 +28,17 @@ row's gather of kv heads over ``model``.  Every other cell is
 data-parallel: the rank gathers with ``all_gather`` what the port's
 model needs whole.
 
-* train — the dense, SSM, hybrid and MoE families
-  (``Model.tensor_parallel_training_refusal``) under ``train_rules`` run
+* train — every config with the onehot MoE
+  (``Model.tensor_parallel_training_refusal``) under ``train_rules`` runs
   the tensor-parallel train program (``spmd.training_step_body``): the
-  ``fsdp`` dims gathered, the rank's ``model`` shards kept (heads, SSM
-  heads, MLP columns, experts, vocabulary rows),
+  ``fsdp`` dims gathered, the rank's ``model`` shards kept (heads, MLA's,
+  the encoder's and cross-attention's too, SSM heads, MLP columns,
+  experts, vocabulary rows),
   :func:`~repro_torch.optim.accumulate_gradients` on its rows with the
   backward in segments, the gradients reduce-scattered over the ``fsdp``
   dims and summed over the rest of ``(pod, data)``, AdamW on the shards
-  (``COST_BASIS["tensor_parallel_train"]``).  The other families (MLA,
-  cross-attention, the encoder), and ``train_rules_sp``, run the
+  (``COST_BASIS["tensor_parallel_train"]``).  The ragged MoE dispatch,
+  and ``train_rules_sp``, run the
   data-parallel one (an MoE model's ranks in segments where they gather
   the batch's token rows, ``spmd.data_parallel_scope``): the params
   gathered, :func:`~repro_torch.optim.accumulate_gradients` (SplIter over
@@ -167,7 +168,10 @@ COST_BASIS["tensor_parallel_train"] = (
     "one rank's tensor-parallel train program at its shard shapes (the batch split over "
     "(pod, data); heads, kv heads where they divide model, SSM heads, MLP columns, experts "
     "and vocabulary rows split over model as params_shardings places them, only fsdp dims "
-    "gathered; replicated k/v projections by sequence rows; the mamba2 B/C projections and "
+    "gathered; replicated k/v or memory projections and MLA's down-projections by sequence "
+    "rows, MLA's K/V decompressed at the rank's heads, split memory projections at the "
+    "rank's kv heads; the layers whose heads do not divide model whole on every rank; the "
+    "encoder as the decoder's layers, not recomputed; the mamba2 B/C projections and "
     "C·Bᵀ and the MoE router whole on every rank; the loss from the rank's vocabulary block; "
     "the backward in segments, a recomputed period's forward counted again under "
     "remat='full'; AdamW on the rank's shards); " + _COUNTS)
@@ -192,11 +196,13 @@ COLLECTIVES_BASIS["tensor_parallel_train"] = (
     "microbatch block the forward's model all-reduces (the vocabulary-split embedding, after "
     "wo, w_down, mamba2's w_out and the experts' partial combine, the mamba2 gated norm's "
     "sum of squares, the loss's row max, sum of exponentials and label logit) and "
-    "all-gathers (a replicated kv head's rows, the MoE token rows over the data axes where a "
+    "all-gathers (a replicated kv head's or memory projection's rows, MLA's q_a and latent "
+    "rows, the MoE token rows over the data axes where a "
     "rank's rows are not whole dispatch groups), again in a recomputed period, and the "
     "backward's transposes (an all-reduce over model for each value every rank holds alike "
     "that enters split work: the attention's, MLP's, mamba2 mixer's and experts' input, "
-    "qk-norm, replicated k/v weights, mamba2's B/C weights, the router, the gated norm's sum "
+    "qk-norm, replicated k/v weights, MLA's down-projections and their norms, the "
+    "cross-attention memory, mamba2's B/C weights, the router, the gated norm's sum "
     "of squares, the head's input; a reduce-scatter for each all-gather); then the loss's and "
     "gradients' sum over the data-parallel axes (a reduce-scatter per fsdp dim, the rest "
     "hierarchical over (pod, data) or one all-reduce) and the clip norm's all-reduce")
@@ -399,10 +405,10 @@ def _lower_train(
 ) -> Lowered:
     """``traced_blocks`` cuts the traced blocks (each ``global_batch //
     num_blocks`` rows) below ``num_blocks``; the memory is the whole step's.
-    The models ``Model.tensor_parallel_training_refusal`` admits (the
-    dense, SSM, hybrid and MoE families) run the tensor-parallel train
-    program under ``train_rules`` (``spmd.training_step_body``); ``sp``
-    (``train_rules_sp``, not ported) and the other families the
+    The models ``Model.tensor_parallel_training_refusal`` admits (every
+    config with the onehot MoE) run the tensor-parallel train program
+    under ``train_rules`` (``spmd.training_step_body``); ``sp``
+    (``train_rules_sp``, not ported) and the ragged MoE dispatch the
     data-parallel one."""
     model = build_model(cfg)
     dp = _dp_axes(mesh)

@@ -691,7 +691,12 @@ def _attention_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, tp, cos: torch.T
     ``pos % S`` on the rank whose block holds it and attends to every
     written slot (the decomposed step to every one but that slot).  A
     prompt that wraps the ring projects its k/v rows sequence-parallel in
-    equal shares of the prompt, not by cache block.  Under
+    equal shares of the prompt, not by cache block.  In training
+    (:func:`plain_route`: autograd records the layer, or a rank's tape)
+    where the heads do not divide the axis (whisper's 6 over 4) every rank
+    computes the layer whole, no rows gathered: each rank's cotangent of
+    gathered rows would be the whole one, and the gather's transpose would
+    sum them over the ranks.  Under
     ``long_decode_rules`` the prompt is every ``data`` rank's (the batch is
     replicated): each computes its heads' attention over the whole prompt
     and writes its block of the rows (of the ring, rolled, where the prompt
@@ -778,7 +783,8 @@ def _attention_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, tp, cos: torch.T
             ck[:, :max(hi - rows0, 0)] = kw[:, rows0:hi].to(ck.dtype)
             cv[:, :max(hi - rows0, 0)] = vw[:, rows0:hi].to(cv.dtype)
 
-        if kv_split or n == 1:
+        # a training forward (plain_route's test) computes unsplit heads whole
+        if kv_split or n == 1 or (not q_split and plain_route(x)):
             k, v = project("wk"), project("wv")
             if ck is not None:
                 write_ring(*((k, v) if tp.kv_heads_split else (all_heads(k), all_heads(v))))
@@ -815,7 +821,18 @@ def _cross_attention_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, *, cache: 
     kv heads project the rank's heads, which the ranks all-gather; kept
     whole (the kv heads do not divide the axis), they project the rank's
     share of the memory rows (:func:`sequence_parallel`).  The rank then attends with its q heads to the kv heads they
-    read (:func:`_kv_for_heads`), flash on a prompt."""
+    read (:func:`_kv_for_heads`), flash on a prompt.
+
+    **Training** (no cache, in the tensor-parallel train step): split
+    ``wk_mem``/``wv_mem`` project only the rank's kv heads, which are those
+    its q heads read, and nothing is gathered (as XLA splits them); kept
+    whole, they project the rank's share of the memory rows, as in serving;
+    where the heads do not divide the axis every rank computes the layer
+    whole.  ``x``, ``q_norm``/``k_norm``, replicated ``wk_mem``/``wv_mem``
+    and the memory (the encoder's output, where it carries a gradient)
+    enter the rank's share of the heads or rows through ``pvary``;
+    ``gate`` scales the output after its ``psum``, so every rank computes
+    its whole gradient alike and it takes none."""
     heads, kv_heads = cfg.num_heads, cfg.num_kv_heads
     group = heads // kv_heads
     hq = p["wq"].shape[1]
@@ -826,12 +843,21 @@ def _cross_attention_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, *, cache: 
                          f"{tuple(p['wk_mem'].shape)} and wo {tuple(p['wo'].shape)} are split "
                          f"unlike params_shardings splits them")
     q0 = axis_index(MODEL_AXIS) * hq if q_split else 0
+    own = kv_split and cache is None  # the rank's kv heads are those its q heads read
+    if q_split:  # what every rank holds alike enters the rank's share of the heads
+        alike = ("q_norm", "k_norm") + (() if kv_split else ("wk_mem", "wv_mem"))
+        x = pvary(x, MODEL_AXIS)
+        p = {k: pvary(v, MODEL_AXIS) if k in alike else v for k, v in p.items()}
+        if memory is not None:
+            memory = pvary(memory, MODEL_AXIS)
     dt = x.dtype
     q = torch.einsum("bld,dhk->blhk", x, p["wq"].to(dt))
     if memory is not None:
 
         def project(w: str) -> torch.Tensor:
             proj = lambda m: _einsum("bmd,dhk->bmhk", m, p[w].to(dt))  # noqa: E731
+            if own or (cache is None and not q_split):
+                return proj(memory)
             if kv_split:
                 return all_gather(proj(memory), MODEL_AXIS, axis=2, tiled=True)
             return sequence_parallel(proj, memory)
@@ -845,7 +871,8 @@ def _cross_attention_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, *, cache: 
                 cache[name].copy_(t)
     else:
         kk, vv = cache["k_mem"].to(dt), cache["v_mem"].to(dt)
-    kk, vv = _kv_for_heads(kk, q0, hq, group), _kv_for_heads(vv, q0, hq, group)
+    first = 0 if own else q0  # the rank's first q head among the kv heads kk holds
+    kk, vv = _kv_for_heads(kk, first, hq, group), _kv_for_heads(vv, first, hq, group)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         kk = rms_norm(kk, p["k_norm"])

@@ -48,8 +48,8 @@ the attention heads (the encoder's and cross-attention's too) and the MLP
 heads and latent cache, ``ssm.py`` the SSM heads, ``moe.py`` the experts.
 Whisper's encoder runs in the body: its layers sum their partials over
 ``model``, so every rank ends with the whole memory of its batch rows.
-In the tensor-parallel train step (the dense, SSM, hybrid and MoE
-families, :meth:`Model.tensor_parallel_training_refusal`) ``loss`` takes the
+In the tensor-parallel train step (every config of the repo with the
+onehot MoE, :meth:`Model.tensor_parallel_training_refusal`) ``loss`` takes the
 log-probabilities from the rank's vocabulary block without gathering it
 (:func:`_vocab_parallel_log_likelihood`), and a tied head's gradient on
 the rank's rows of ``embed`` sums the lookup's and the head's.  Outside
@@ -326,40 +326,26 @@ class Model:
         """Why the tensor-parallel serving body
         (``repro_torch.distributed.spmd.sharded_prefill``) does not run this
         model, or None where it does: every layer's mixer self-attention
-        (windowed or not; the encoder's), MLA, cross-attention or Mamba2,
-        and its MLP SwiGLU, capacity-bucketed MoE or none."""
-        cfg = self.cfg
-        runs = ("tensor-parallel serving runs attention (windowed or not, the encoder's), "
-                "mla, cross_attn and mamba2 mixers with SwiGLU, onehot MoE or no MLPs")
-        for seg in (*cfg.segments(), *cfg.encoder_segments()):
-            for s in seg.period:
-                if s.mixer not in ("attn", "enc_attn", "mla", "cross_attn", "mamba2"):
-                    return f"{runs}; {s.mixer} layers are not ported"
-                if s.mlp == "moe" and cfg.moe_impl != "onehot":
-                    return (f"{runs}; moe_impl={cfg.moe_impl!r} is the data-parallel "
-                            f"dropless reference, not ported over the model axis")
-        return None
+        (windowed or not, with or without qk-norm; the encoder's), MLA,
+        cross-attention or Mamba2, and its MLP SwiGLU, capacity-bucketed MoE
+        (``moe_impl="onehot"``) or none, the head tied or not."""
+        return self._refusal("tensor-parallel serving runs")
 
     def tensor_parallel_training_refusal(self) -> str | None:
         """Why the tensor-parallel train step
         (``repro_torch.distributed.spmd.tensor_parallel_gradients``) does not
-        run this model, or None where it does: every layer's mixer
-        self-attention (with or without qk-norm or a window) or Mamba2, and
-        its MLP SwiGLU, capacity-bucketed MoE (``moe_impl="onehot"``) or
-        none, the head tied or not: the dense, SSM, hybrid and MoE
-        families."""
+        run this model, or None where it does: the models
+        :meth:`tensor_parallel_refusal` admits, every config of the repo
+        with the onehot MoE."""
+        return self._refusal("tensor-parallel training runs")
+
+    def _refusal(self, program: str) -> str | None:
         cfg = self.cfg
-        runs = ("tensor-parallel training runs attention and mamba2 mixers with SwiGLU, "
-                "onehot MoE or no MLPs")
-        if cfg.encoder_layers:
-            return f"{runs}; the encoder is not ported for training"
-        for seg in cfg.segments():
+        runs = (f"{program} attention (windowed or not, the encoder's), mla, cross_attn and "
+                f"mamba2 mixers with SwiGLU, onehot MoE or no MLPs")
+        for seg in (*cfg.segments(), *cfg.encoder_segments()):
             for s in seg.period:
-                if s.mixer == "mla":
-                    return f"{runs}; MLA is not ported for training"
-                if s.mixer == "cross_attn":
-                    return f"{runs}; cross-attention is not ported for training"
-                if s.mixer not in ("attn", "mamba2"):
+                if s.mixer not in ("attn", "enc_attn", "mla", "cross_attn", "mamba2"):
                     return f"{runs}; {s.mixer} layers are not ported"
                 if s.mlp == "moe" and cfg.moe_impl != "onehot":
                     return (f"{runs}; moe_impl={cfg.moe_impl!r} is the data-parallel "
@@ -408,6 +394,11 @@ class Model:
 
         if seg.repeats == 1:
             return init_period()
+        if seg.repeats == 0:  # the reference's vmap over no keys: every leaf (0, ...), no draw
+            shapes = tuple(_init_layer(spec, self.cfg, generator=None, device="meta", dtype=dtype)
+                           for spec in seg.period)
+            return tree_map(lambda l: torch.empty((0, *l.shape), dtype=l.dtype, device=device),
+                            shapes)
         # leaves stacked (repeats, ...): allocate once, fill repeat by repeat
         first = init_period()
         stacked = tree_map(

@@ -31,7 +31,14 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.spmd import MODEL_AXIS, all_gather, axis_index, model_parallel, psum
+from repro_torch.distributed.spmd import (
+    MODEL_AXIS,
+    all_gather,
+    axis_index,
+    model_parallel,
+    psum,
+    pvary,
+)
 from repro_torch.models.layers import (
     Params,
     apply_rope,
@@ -47,6 +54,8 @@ __all__ = ["init_mla", "mla_attention"]
 
 #: prefill query chunk, and the length from which the prefill is chunked
 _Q_CHUNK, _CHUNK_FROM = 512, 2048
+#: the low-rank down-projections and their norms, which every rank holds whole
+_DOWN = ("wq_a", "q_norm_a", "wkv_a", "kv_norm_a")
 
 
 def init_mla(cfg: ModelConfig, *, generator: torch.Generator, device,
@@ -247,7 +256,25 @@ def _mla_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, tp, *, positions: torc
     does.  Either way the rank applies its ``wv_b`` heads and its ``wo``
     rows.  The row is written on the rank itself, never through
     :func:`~repro_torch.models.layers.cache_write`, whose ``"sharded_dus"``
-    write would open a ``shard_map`` inside the rank."""
+    write would open a ``shard_map`` inside the rank.
+
+    **Training** (no cache, in the tensor-parallel train step, under
+    autograd and the backward in segments): the down-projections stay
+    sequence-parallel, as in a prompt.  Every rank would otherwise compute
+    the same ``B·L·D·(Q + Kr + Rh)`` products (deepseek-v2: 10.8 M
+    multiply-adds a token a layer, beside the 9.4 M of ``wq_b`` on a
+    rank's quarter of the heads), while the two gathers of ``(B, L, Q)`` and
+    ``(B, L, Kr + Rh)`` move less than one layer's ``psum`` of ``(B, L, D)``
+    at D = 5120; and the gradient of the whole-run down-projections would
+    need the same ``psum`` over ``model`` (the rank's heads give a partial
+    cotangent of the latent) that the split one needs.  The gathers'
+    transpose (a ``psum_scatter``) sums the cotangents of the rank's rows
+    from every rank's heads, so the gradients of ``wq_a``, ``q_norm_a``,
+    ``wkv_a`` and ``kv_norm_a``, and ``x``'s, cover the rank's rows only:
+    they enter through ``pvary``, whose transpose sums them over ``model``.
+    Where the heads do not divide the axis the rank computes the layer
+    whole, the down-projections too: nothing is split, and a gather's
+    transpose would sum the ranks' identical cotangents."""
     dt = x.dtype
     heads, dh, rh = cfg.num_heads, cfg.resolved_head_dim, cfg.rope_head_dim
     rank = axis_index(MODEL_AXIS)
@@ -261,8 +288,12 @@ def _mla_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, tp, *, positions: torc
     q0 = rank * hq if split else 0
     scale = 1.0 / np.sqrt(dh + rh)
     l = x.shape[1]
-    # a prompt's down-projections by rows; a decode step's whole on every rank
-    rows = sequence_parallel if l > 1 else _by_rows
+    if split:  # what every rank holds alike enters the rank's rows or heads
+        x = pvary(x, MODEL_AXIS)
+        p = {k: pvary(v, MODEL_AXIS) if k in _DOWN else v for k, v in p.items()}
+    # a prompt's down-projections by rows; a decode step's whole on every rank,
+    # and a training step's where the heads are not split
+    rows = sequence_parallel if l > 1 and (split or cache is not None) else _by_rows
     q_nope, q_rope = _project_q(p, cfg, x, positions, rows)  # the rank's heads
     c_kv, k_rope = _project_kv_latent(p, cfg, x, positions, rows)
     if cache is not None:

@@ -16,8 +16,9 @@ gradients, params and moments) and ``collective_grads`` (``jax.grad``
 through each collective) the tensor-parallel training test's
 (``tests/test_torch_tp_train.py``).  It saves what each produced to
 ``out.npz`` in the directory (and the train steps' params, as
-checkpoints, under ``params/``, ``params_mixtral/``, ``params_mamba2/`` and
-``params_jamba/`` there).  The inputs are drawn
+checkpoints, under ``params/``, ``params_mixtral/``, ``params_mamba2/``,
+``params_jamba/``, ``params_deepseek/``, ``params_vlm/`` and
+``params_whisper/`` there).  The inputs are drawn
 here exactly as the parent draws them for the port (numpy generators,
 fixed seeds).  Not collected by pytest (no ``test_`` prefix).
 """
@@ -78,7 +79,11 @@ def gpipe_case(out: dict) -> None:
 #: one a rank) and at capacity factor 1 (below E/k = 2, so that the groups
 #: drop choices) on (2, 2, 2), whose 8-row blocks (one 128-token group)
 #: split over 4 data-parallel ranks leave each rank 32 tokens, not whole
-#: groups
+#: groups; deepseek-v2's (MLA beside the shared-expert MoE), the vlm's
+#: (cross-attention to image embeddings; its 2 kv heads split over (2, 2,
+#: 2)'s model axis and replicated on (2, 4)'s) and whisper's (the encoder,
+#: whose output every cross layer reads) in f32 on both, the vlm's as it is
+#: on (2, 2, 2), every cross ``gate`` drawn apart from 0 (:func:`tp_gates`)
 TRAIN_MESHES = {"222": ((2, 2, 2), ("pod", "data", "model")), "24": ((2, 4), ("data", "model"))}
 TRAIN_CASES = {
     "qwen3/222": ("qwen3-32b", {}, "222", "params"),
@@ -93,14 +98,32 @@ TRAIN_CASES = {
     "jamba_f32/222": ("jamba-v0.1-52b", {"dtype": "float32"}, "222", "params_jamba"),
     "jamba_f32/24": ("jamba-v0.1-52b", {"dtype": "float32"}, "24", "params_jamba"),
     "jamba/222": ("jamba-v0.1-52b", {}, "222", "params_jamba"),
+    "deepseek_v2_f32/222": ("deepseek-v2-236b", {"dtype": "float32"}, "222", "params_deepseek"),
+    "deepseek_v2_f32/24": ("deepseek-v2-236b", {"dtype": "float32"}, "24", "params_deepseek"),
+    "vlm_f32/222": ("llama-3.2-vision-11b", {"dtype": "float32"}, "222", "params_vlm"),
+    "vlm_f32/24": ("llama-3.2-vision-11b", {"dtype": "float32"}, "24", "params_vlm"),
+    "vlm/222": ("llama-3.2-vision-11b", {}, "222", "params_vlm"),
+    "whisper_f32/222": ("whisper-tiny", {"dtype": "float32"}, "222", "params_whisper"),
+    "whisper_f32/24": ("whisper-tiny", {"dtype": "float32"}, "24", "params_whisper"),
 }
 TRAIN_LR = 1e-3
 
 
-def train_blocks(vocab: int) -> dict[str, np.ndarray]:
-    """Two blocks of 8 × 16 tokens and labels, shared with the parent."""
+def train_blocks(cfg) -> dict[str, np.ndarray]:
+    """Two blocks of 8 × 16 tokens and labels of the config (either
+    package's), and the stubbed frontend's output where it has one
+    (whisper's ``frames``, the vlm's ``image_embeds``), shared with the
+    parent."""
     rng = np.random.default_rng(3)
-    return {k: rng.integers(0, vocab, (2, 8, 16)).astype(np.int32) for k in ("tokens", "labels")}
+    blocks = {k: rng.integers(0, cfg.vocab_size, (2, 8, 16)).astype(np.int32)
+              for k in ("tokens", "labels")}
+    memory = {"audio": ("frames", cfg.encoder_seq, cfg.d_model),
+              "vlm": ("image_embeds", cfg.image_tokens, cfg.image_embed_dim)}.get(cfg.family)
+    if memory is not None:
+        name, rows, width = memory
+        blocks[name] = np.random.default_rng(4).standard_normal(
+            (2, 8, rows, width)).astype(np.float32)
+    return blocks
 
 
 def sharded_train(out: dict, case: str = "qwen3/222", full: bool = False) -> None:
@@ -124,9 +147,10 @@ def sharded_train(out: dict, case: str = "qwen3/222", full: bool = False) -> Non
     arch, ov, mesh_name, folder = TRAIN_CASES[case]
     mesh = _mesh(*TRAIN_MESHES[mesh_name])
     model = build_model(dataclasses.replace(get_smoke_config(arch), **ov))
-    params = model.init(jax.random.key(0))
+    params = jax.tree.map(jnp.asarray, tp_gates(jax.tree.map(np.asarray,
+                                                             model.init(jax.random.key(0)))))
     opt = adamw_init(params)
-    blocks = {k: jnp.asarray(v) for k, v in train_blocks(model.cfg.vocab_size).items()}
+    blocks = {k: jnp.asarray(v) for k, v in train_blocks(model.cfg).items()}
     dp = tuple(a for a in mesh.axis_names if a in ("pod", "data"))
 
     def step(params, opt, blocks):
@@ -138,7 +162,8 @@ def sharded_train(out: dict, case: str = "qwen3/222", full: bool = False) -> Non
     if not os.path.isdir(ckpt):
         Checkpointer(ckpt).save(0, params)  # the port restores these
     p_sh = params_shardings(params, mesh)
-    b_sh = {k: NamedSharding(mesh, P(None, dp, None)) for k in blocks}
+    b_sh = {k: NamedSharding(mesh, P(None, dp, *(None,) * (v.ndim - 2)))
+            for k, v in blocks.items()}
     params = jax.device_put(params, p_sh)
     blocks = jax.device_put(blocks, b_sh)
     with use_rules(train_rules(mesh)):

@@ -27,7 +27,9 @@ that reason.  Run them on the card:
   backward the card's autograd thread runs, raises there rather than
   hang; lm1m's train step on (2, 2, 2) and (1, 4) card ranks, its
   backward in segments, equals the unsharded step in f32; so do the SSM,
-  hybrid and MoE smoke configs' gradients, their routes equal; mixtral's
+  hybrid and MoE smoke configs' gradients, their routes equal, and those
+  of MLA, cross-attention and the encoder (their cross gates at 0.5, the
+  encoder's and cross layers' gradients nonzero); mixtral's
   data-parallel step, whose MoE ranks gather the token rows over the data
   axes, runs its backward in segments on the card and equals the unsharded
   step.
@@ -67,6 +69,7 @@ from repro_torch.distributed import (
     use_rules,
 )
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.distributed.sharding import _map_with_path
 from repro_torch.launch.mesh import compat_make_mesh
 from repro_torch.launch.train import _preset
 from repro_torch.models.layers import cache_write
@@ -275,6 +278,51 @@ def test_tensor_parallel_train_families_on_card_ranks(dev, arch):
     for got, want in zip(tree_leaves(grads), tree_leaves(grads_ref)):
         assert all(t.device == dev for t in got.shards)
         assert float((got.full() - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "llama-3.2-vision-11b", "whisper-tiny"])
+def test_tensor_parallel_train_memory_families_on_card_ranks(dev, arch):
+    """MLA, cross-attention and the encoder's smoke configs in f32 (TF32
+    off), every cross ``gate`` at 0.5 (drawn 0, it zeroes the cross layers'
+    and the encoder's gradients), seeded ``frames``/``image_embeds``: the
+    tensor-parallel gradients on (2, 2, 2) card ranks within 1e-5 (loss,
+    relative) and 1e-4 (each gradient leaf's maximum) of the unsharded
+    step's, under ``remat="full"`` (whisper's decoder periods recomputed
+    on each rank's tape), the encoder's and cross layers' nonzero."""
+    from repro_torch.configs import get_smoke_config
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev, master=True)
+    for seg in params.values():
+        for layer in (seg if isinstance(seg, tuple) else ()):
+            if "gate" in layer.get("mixer", {}):
+                layer["mixer"]["gate"].fill_(0.5)
+    g = torch.Generator(device=dev).manual_seed(1)
+    blocks = {k: torch.randint(0, cfg.vocab_size, (2, 8, 32), generator=g, device=dev)
+              for k in ("tokens", "labels")}
+    if cfg.family == "audio":
+        blocks["frames"] = torch.randn((2, 8, cfg.encoder_seq, cfg.d_model), generator=g,
+                                       device=dev)
+    if cfg.family == "vlm":
+        blocks["image_embeds"] = torch.randn((2, 8, cfg.image_tokens, cfg.image_embed_dim),
+                                             generator=g, device=dev)
+    mesh = compat_make_mesh((2, 2, 2), ("pod", "data", "model"), devices=(dev,))
+    placed = device_put(params, params_shardings(params, mesh, fsdp_axis="data"))
+    loss_ref, grads_ref = accumulate_gradients(model.loss, params, blocks)
+    loss, grads = tensor_parallel_gradients(model.loss, placed, blocks, mesh=mesh,
+                                            rules=train_rules(mesh))
+    assert abs(float(loss) - float(loss_ref)) <= 1e-5 * abs(float(loss_ref))
+    names: list[str] = []
+    _map_with_path(lambda path, _: names.append("/".join(map(str, path))), params)
+    cross = {n.rsplit("/", 1)[0] for n in names if n.endswith("/wk_mem")}
+    for name, got, want in zip(names, tree_leaves(grads), tree_leaves(grads_ref)):
+        assert all(t.device == dev for t in got.shards)
+        if not want.numel():
+            continue
+        assert float((got.full() - want).abs().max()) <= 1e-4 * float(want.abs().max()), name
+        if name.startswith("enc_") or name.rsplit("/", 1)[0] in cross:
+            assert float(want.abs().max()) > 0, name
 
 
 def test_data_parallel_moe_step_on_card_ranks(dev):

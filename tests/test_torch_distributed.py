@@ -208,7 +208,7 @@ def test_moe_groups_of_the_data_parallel_step_match_reference(reference):
     template = model.init(torch.Generator().manual_seed(0), device="cpu", master=True)
     params, _, _ = Checkpointer(os.path.join(reference["dir"], folder)).restore(template)
     blocks = {k: torch.from_numpy(v.astype(np.int64))
-              for k, v in ref.train_blocks(model.cfg.vocab_size).items()}
+              for k, v in ref.train_blocks(model.cfg).items()}
     mesh = _mesh(*ref.TRAIN_MESHES[mesh_name])
     cfg = model.cfg
     tokens = blocks["tokens"].shape[1] * blocks["tokens"].shape[2]

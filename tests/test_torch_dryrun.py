@@ -206,7 +206,7 @@ def test_memory_matches_reference(reference, small_shapes, arch, shape):
 #: B/C products XLA splits and the rank program does not, and MLA's K/V
 #: decompression and the vlm's memory projection, which the two split
 #: differently, by closed forms.
-#: The dense, SSM, hybrid and MoE families' train cells run the
+#: Every family's train cells run the
 #: tensor-parallel train program and are compared on (2, 4) too, their
 #: gaps to XLA's partition in closed form (:func:`_train_apart`); on
 #: ``DATA_MESH`` over the one-rank model axis the same function gives the
@@ -299,7 +299,22 @@ def _train_apart(cfg, shape: ShapeCell, model_ranks: int = 4, data_ranks: int = 
       weight gradients: ``2·(E/4)·C·F·D/2`` each), where the rank gathers
       them whole; and the rank program forms the combine weights' gradient
       as a product over the k choices (``2·G·k·(E/4)·C``), XLA as products
-      and sums."""
+      and sums.
+    * Per MLA layer XLA computes the low-rank down-projections (``wq_a``:
+      D → Q, ``wkv_a``: D → Kr + Rh) for all T rows on every model rank, in
+      the forward, the recomputation and the input gradient at full D
+      (``3·2·T·D·(Q + Kr + Rh)``) and the weight gradient over the rank's
+      D/2 ``fsdp`` rows (``2·T·(D/2)·(Q + Kr + Rh)``); the rank program
+      projects its T/4 rows sequence-parallel, the weight gathered whole, in
+      four products of ``2·(T/4)·D·(Q + Kr + Rh)``.  Both decompress K and
+      V for the rank's heads only.
+    * No other layer of the MLA, vision and audio families differs: the
+      vlm's memory projections (2 kv heads over 4) are a quarter of the
+      products on both sides, XLA's by one kv head and its D/2 ``fsdp`` rows
+      of the image width, the rank program's by a quarter of the memory
+      rows; whisper's encoder is recomputed by neither side, and its cross
+      layers' kv heads divide the axis (the rank projects its own, ungathered,
+      as XLA does)."""
     from repro_torch.models.moe import _groups
 
     t = _rank_rows(shape) * shape.seq_len
@@ -332,6 +347,10 @@ def _train_apart(cfg, shape: ShapeCell, model_ranks: int = 4, data_ranks: int = 
     whole = 4 * (2 * 2 * t * d * n + (2 * t * cfg.ssm_chunk * n if chunked else 0))
     ssd_dots = 4 * t * (nh // m) * (p + n) if chunked else 0
     apart += sum(s.mixer == "mamba2" for s in layers) * (ssd_dots - whole * (m - 1) // m)
+    if cfg.mla:
+        low = cfg.q_lora_rank + cfg.kv_lora_rank + cfg.rope_head_dim
+        xla = 3 * 2 * t * d * low + 2 * t * (d // data_ranks) * low
+        apart += sum(s.mixer == "mla" for s in layers) * (xla - 4 * 2 * (t // m) * d * low)
     if g > t:
         f = cfg.moe_d_ff // cfg.moe_virtual_split
         moe = (3 * 2 * (g - t) * held * cap * d - 2 * (g - t) * held * cap * d
@@ -421,10 +440,12 @@ def test_tensor_parallel_flops_held_to_reference(reference, small_shapes, monkey
     rank's heads to its rows on both sides.  Whisper's encoder, decoder and cross layers
     (their heads split 1 a rank), deepseek-v2's MLA heads, its
     down-projections by the prompt's rows, experts and shared experts and
-    the vlm's attention layers split alike.  The dense train cells
-    (qwen3-32b, deepseek-7b) run the tensor-parallel train program: the
-    forward, the recomputed period and the backward split four ways, the
-    loss from the rank's vocabulary block on both sides.  As in the
+    the vlm's attention layers split alike.  The train cells of every
+    family run the tensor-parallel train program: the forward, the
+    recomputed period and the backward split four ways, the loss from the
+    rank's vocabulary block on both sides, the gaps in closed form
+    (:func:`_train_apart`; deepseek-v2's MLA down-projections, whole on
+    XLA's side and by rows on the rank's).  As in the
     data-parallel comparison, the plain chunked SSD takes the kernel's
     place."""
     monkeypatch.setattr(ops, "ssd_scan", ss.ssd_chunked)
@@ -605,16 +626,15 @@ def test_depth_fit_equals_full_depth_count(small_shapes, shape):
 
 
 def test_train_census_counts_the_gathers_and_the_gradient_sum(small_shapes):
-    """whisper-tiny's smoke train cell, which the tensor-parallel train
-    program refuses (its encoder), so the cell runs the data-parallel
+    """whisper-tiny's smoke train cell under ``train_rules_sp`` (the ``sp``
+    variant, not ported over ``model``), so the cell runs the data-parallel
     program: one all-gather per sharded dim of every param leaf (shard bytes
     in, the gathered dim's bytes out) and one psum of the loss and the f32
     gradients, by hand from the layouts."""
     mesh = _meta_mesh()
     cfg = get_smoke_config("whisper-tiny")
-    assert build_model(cfg).tensor_parallel_training_refusal() is not None
     rec = lib.run_cell("whisper-tiny", "train_4k", mesh, mesh_label="test",
-                       overrides=ref_child.overrides(cfg))
+                       overrides=ref_child.overrides(cfg), sp=True)
     assert rec["collectives_basis"] == lib.COLLECTIVES_BASIS["data_parallel"]
     params = build_model(lib._scan_bodies(cfg)).init(None, device=META, master=True)
     shardings = lib.params_shardings(params, mesh, fsdp_axis="data")

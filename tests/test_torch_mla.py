@@ -112,3 +112,60 @@ def test_absorbed_decode_equals_decompressed_prefill():
         step, _ = tmla.mla_attention(tp, tcfg, tx[:, t:t + 1], positions=tpos[:, t:t + 1],
                                      cache=cache, cache_pos=t)
         np.testing.assert_allclose(step[:, 0].numpy(), full[:, t].numpy(), **DECODE_TOL)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_one_layer_model_has_an_empty_moe_segment(device):
+    """deepseek-v2's smoke config cut to one layer: its MoE segment repeats
+    0 times, and both packages build it with every leaf stacked ``(0, ...)``
+    (the reference's ``vmap`` over no keys), on any device."""
+    import dataclasses
+
+    from repro.configs import get_smoke_config as j_smoke
+    from repro.models import build_model as j_build
+    from repro_torch._pytree import tree_leaves
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.sharding import _map_with_path
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_smoke_config("deepseek-v2-236b"), num_layers=1)
+    assert [s.repeats for s in cfg.segments()] == [1, 0]
+    want = jax.eval_shape(j_build(dataclasses.replace(j_smoke("deepseek-v2-236b"),
+                                                      num_layers=1)).init, jax.random.key(0))
+    want = {"/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path): leaf.shape
+            for path, leaf in jax.tree_util.tree_flatten_with_path(want)[0]}
+    gen = torch.Generator().manual_seed(0) if device == "cpu" else None
+    params = build_model(cfg).init(gen, device=device, master=True)
+    names: list[str] = []
+    _map_with_path(lambda path, _: names.append("/".join(map(str, path))), params)
+    got = dict(zip(names, (tuple(t.shape) for t in tree_leaves(params))))
+    assert got == want
+    assert all(shape[0] == 0 for name, shape in got.items() if name.startswith("seg1/"))
+    assert all(t.device.type == device for t in tree_leaves(params))
+
+
+def test_one_layer_model_loss_matches_reference():
+    """The one-layer deepseek-v2 of the test above in f32, its params the
+    reference's (``params_from_numpy``): the loss within 1e-5 of the
+    reference's (``tests/test_torch_grads.py``'s f32 bound)."""
+    import dataclasses
+
+    from repro.configs import get_smoke_config as j_smoke
+    from repro.models import build_model as j_build
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import params_from_numpy
+
+    jcfg = dataclasses.replace(j_smoke("deepseek-v2-236b"), num_layers=1, dtype="float32")
+    cfg = dataclasses.replace(get_smoke_config("deepseek-v2-236b"), num_layers=1,
+                              dtype="float32")
+    jm = j_build(jcfg)
+    jp = jm.init(jax.random.key(0))
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
+    want = jax.jit(jm.loss)(jp, {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)})
+    params = params_from_numpy(jax.tree.map(np.asarray, jp), cfg, device="cpu", master=True)
+    got = build_model(cfg).loss(params, {"tokens": torch.from_numpy(tokens.astype(np.int64)),
+                                         "labels": torch.from_numpy(labels.astype(np.int64))})
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)

@@ -9,12 +9,16 @@ is (bf16 compute) and in f32, on (2, 2, 2) ("pod", "data", "model") and on
 axis; mamba2's and jamba's in f32 on both and jamba's in bf16 on (2, 2,
 2); mixtral's in f32 on (2, 4) and at capacity factor 1 on (2, 2, 2),
 where the groups drop choices and a rank's rows are not whole groups (its
-token rows gathered over the data axes); and ``jax.grad`` through each
-collective of a ``shard_map``.  The port side runs here, its ranks
-repeated ``cpu`` devices, from the child's params (its checkpoint) and the
+token rows gathered over the data axes); deepseek-v2's (MLA), the vlm's
+(cross-attention, its 2 kv heads split on (2, 2, 2) and replicated on (2,
+4)) and whisper's (the encoder) in f32 on both, the vlm's in bf16 on (2,
+2, 2), their cross gates drawn apart from 0 in the reference's tree
+(``ref.tp_gates``), the memory inputs from ``ref.train_blocks``; and
+``jax.grad`` through each collective of a ``shard_map``.  The port side
+runs here, its ranks repeated ``cpu`` devices, from the child's params (its checkpoint) and the
 same numpy blocks.
 
-Bounds: the bf16 cases at the data-parallel test's
+Bounds: qwen3's bf16 cases at the data-parallel test's
 (``tests/test_torch_distributed.py``): the loss within 5e-3 of the
 reference's, each gradient leaf within 2e-2 of its maximum of the port's
 own unsharded step, as that test holds the data-parallel step, the first
@@ -22,8 +26,9 @@ moment there too and the second within 4e-2 (a square doubles the relative
 error), each param within 2·lr (one AdamW step moves an element by at most
 lr·(1 + weight decay · |p|)).  The two packages' unsharded bf16 gradients
 already differ by up to 0.018 of a leaf's maximum at this size, which
-leaves no room under 2e-2 for the sharded step's own rounding; the f32
-cases hold the step to the reference: 1e-5 relative on the loss and 1e-4
+leaves no room under 2e-2 for the sharded step's own rounding; jamba's
+and the vlm's bf16 cases through their f32 cases (``BF16_HELD_BY_F32``);
+the f32 cases hold the step to the reference: 1e-5 relative on the loss and 1e-4
 of each leaf's maximum on the gradients and both moments, and each param
 within 1e-4 of its leaf's maximum wherever the reference's gradient is at
 least 1e-3 of its leaf's (a smaller one may take the other sign in either
@@ -76,6 +81,8 @@ TRAIN_CASES = list(ref.TRAIN_CASES)
 DENSE = ("qwen3-32b", "qwen2-72b", "command-r-35b", "deepseek-7b")
 #: the SSM, MoE and hybrid families, admitted beside the dense one
 FAMILIES = ("mamba2-1.3b", "mixtral-8x7b", "jamba-v0.1-52b")
+#: MLA, cross-attention and the encoder
+MEMORY_FAMILIES = ("deepseek-v2-236b", "llama-3.2-vision-11b", "whisper-tiny")
 
 
 @pytest.fixture(scope="module")
@@ -105,9 +112,42 @@ def _problem(reference, case):
     model = build_model(dataclasses.replace(get_smoke_config(arch), **ov))
     template = model.init(torch.Generator().manual_seed(0), device="cpu", master=True)
     params, _, _ = Checkpointer(os.path.join(reference["dir"], folder)).restore(template)
-    blocks = {k: torch.from_numpy(v.astype(np.int64))
-              for k, v in ref.train_blocks(model.cfg.vocab_size).items()}
-    return model, params, _mesh(*ref.TRAIN_MESHES[mesh_name]), blocks
+    return model, params, _mesh(*ref.TRAIN_MESHES[mesh_name]), _blocks(model.cfg)
+
+
+def _blocks(cfg) -> dict[str, torch.Tensor]:
+    """``ref.train_blocks`` as the port's tensors: tokens and labels in
+    int64, a memory (frames, image embeddings) in f32."""
+    return {k: torch.from_numpy(v.astype(np.int64) if v.dtype.kind == "i" else v)
+            for k, v in ref.train_blocks(cfg).items()}
+
+
+def _with_gates(params, value: float = 0.5):
+    """``params`` with every cross-attention ``gate`` at ``value``: drawn
+    0, as both packages draw it, ``tanh(gate)`` silences the cross layers
+    and every gradient of their projections and of the encoder is 0."""
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: torch.full_like(v, value) if k == "gate" else walk(v)
+                    for k, v in node.items()}
+        if isinstance(node, (tuple, list)):
+            return type(node)(walk(v) for v in node)
+        return node
+
+    return walk(params)
+
+
+def _assert_memory_path_trains(grads) -> None:
+    """Every gradient leaf of the encoder and of the cross layers is
+    nonzero: with a gate of 0 they would all be 0, and a check of them
+    would check nothing."""
+    names = _paths(grads)
+    cross = {n.rsplit("/", 1)[0] for n in names if n.endswith("/wk_mem")}
+    held = [(n, leaf) for n, leaf in zip(names, tree_leaves(grads))
+            if n.startswith("enc_") or n.rsplit("/", 1)[0] in cross]
+    assert cross and held
+    for name, leaf in held:
+        assert float(_full(leaf).abs().max()) > 0, f"{name}: a zero gradient"
 
 
 def _paths(tree) -> list[str]:
@@ -147,10 +187,15 @@ def _assert_leaves(got, want, rel: float, what: str) -> None:
 #: gradients by up to 1.07 of a leaf's maximum (0.32 of the tree's norm)
 #: from the reference's f32 step, and the reference's own sharded bf16
 #: gradients from its unsharded ones by up to 0.49 (``_torch_train_spread.py``),
-#: so no leaf bound holds; the sharded step is held no further from the f32
+#: so no leaf bound holds; the vlm's five layers move the port's unsharded
+#: bf16 gradients by up to 0.038 of a leaf's maximum from the reference's
+#: f32 ones, its sharded bf16 step 0.036 from its unsharded one, and the
+#: reference's own sharded bf16 step 0.27 from its unsharded one
+#: (``_torch_train_spread.py vlm``), so 2e-2 of a leaf's maximum does not
+#: hold between two bf16 steps either; the sharded step is held no further from the f32
 #: step, in the tree's norm, than ``BF16_NORM_FACTOR`` times the port's
 #: unsharded bf16 step
-BF16_HELD_BY_F32 = {"jamba/222": "jamba_f32/222"}
+BF16_HELD_BY_F32 = {"jamba/222": "jamba_f32/222", "vlm/222": "vlm_f32/222"}
 BF16_NORM_FACTOR = 1.5
 #: the second moment's bound where it is not 1e-4 (f32): v is (1 − β₂)·g²,
 #: so its error over its leaf's maximum is twice the gradient's, and
@@ -212,6 +257,8 @@ def test_gradients_match_reference(reference, case):
     for g, sh, p in zip(tree_leaves(grads), tree_leaves(shardings), tree_leaves(params)):
         assert g.sharding == sh and g.dtype == torch.float32
         assert all(tuple(s.shape) == sh.shard_shape(tuple(p.shape)) for s in g.shards)
+    if model.cfg.family in ("audio", "vlm"):
+        _assert_memory_path_trains(grads)
     if f32:
         _assert_leaves(grads, _from_reference(reference, f"{key}/grads"), 1e-4, key)
     elif case in BF16_HELD_BY_F32:
@@ -271,13 +318,23 @@ def test_step_matches_reference(reference, case):
             assert float(err[firm].max(initial=0)) <= 1e-4 * float(np.abs(want).max()), name
 
 
-#: leaf -> (case, its path under seg0/0): leaves every model rank holds
-#: whole and uses for its own share of the work
-REPLICATED = {"q_norm": ("qwen3_f32/24", "mixer"), "k_norm": ("qwen3_f32/24", "mixer"),
-              "wk": ("qwen3_f32/24", "mixer"), "wv": ("qwen3_f32/24", "mixer"),
-              "router": ("mixtral_f32/24", "mlp"), "w_in_b": ("mamba2_f32/24", "mixer"),
-              "w_in_c": ("mamba2_f32/24", "mixer"), "conv_b": ("mamba2_f32/24", "mixer"),
-              "conv_c": ("mamba2_f32/24", "mixer")}
+#: leaf -> (case, the path of its dict): leaves every model rank holds
+#: whole and uses for its own share of the work, or (``gate``) after the
+#: ranks' partials are summed
+REPLICATED = {"q_norm": ("qwen3_f32/24", "seg0/0/mixer"),
+              "k_norm": ("qwen3_f32/24", "seg0/0/mixer"),
+              "wk": ("qwen3_f32/24", "seg0/0/mixer"), "wv": ("qwen3_f32/24", "seg0/0/mixer"),
+              "router": ("mixtral_f32/24", "seg0/0/mlp"),
+              "w_in_b": ("mamba2_f32/24", "seg0/0/mixer"),
+              "w_in_c": ("mamba2_f32/24", "seg0/0/mixer"),
+              "conv_b": ("mamba2_f32/24", "seg0/0/mixer"),
+              "conv_c": ("mamba2_f32/24", "seg0/0/mixer"),
+              "wq_a": ("deepseek_v2_f32/24", "seg0/0/mixer"),
+              "wkv_a": ("deepseek_v2_f32/24", "seg0/0/mixer"),
+              "q_norm_a": ("deepseek_v2_f32/24", "seg0/0/mixer"),
+              "kv_norm_a": ("deepseek_v2_f32/24", "seg0/0/mixer"),
+              "wk_mem": ("vlm_f32/24", "seg0/4/mixer"), "wv_mem": ("vlm_f32/24", "seg0/4/mixer"),
+              "gate": ("vlm_f32/24", "seg0/4/mixer")}
 
 
 @pytest.mark.parametrize("leaf", list(REPLICATED))
@@ -286,17 +343,25 @@ def test_replicated_params_get_their_whole_gradient(reference, leaf):
     on each rank's own heads), ``wk``/``wv`` (replicated: 2 kv heads do not
     divide 4, so each rank projects its share of the rows), mixtral's
     ``router`` (every rank routes every token, but only its own experts'
-    gates reach its combine) and mamba2's ``w_in_b``, ``w_in_c``,
-    ``conv_b`` and ``conv_c`` (the B and C every rank's heads read) get the
-    sum of the ranks' partials: the whole gradient, on every model rank."""
+    gates reach its combine), mamba2's ``w_in_b``, ``w_in_c``, ``conv_b``
+    and ``conv_c`` (the B and C every rank's heads read), deepseek-v2's
+    MLA down-projections ``wq_a``/``wkv_a`` and their norms (each rank
+    projects its share of the rows, which every rank's heads read), and
+    the vlm's ``wk_mem``/``wv_mem`` (replicated: each rank projects its
+    share of the memory rows) get the sum of the ranks' partials: the whole
+    gradient, on every model rank.  So does the vlm's cross ``gate``, which
+    scales the output after its ``psum`` and so is counted once."""
     case, where = REPLICATED[leaf]
     model, params, mesh, blocks = _problem(reference, case)
     placed = device_put(params, params_shardings(params, mesh, fsdp_axis="data"))
     _, grads = spmd.tensor_parallel_gradients(model.loss, placed, blocks, mesh=mesh,
                                               rules=train_rules(mesh))
-    g = grads["seg0"][0][where][leaf]
+    g = grads
+    for step in where.split("/"):
+        g = g[int(step)] if step.isdigit() else g[step]
+    g = g[leaf]
     assert "model" not in {a for e in g.sharding.spec if e for a in spmd._axes(e)}
-    want = reference[f"tp_train/{case}/grads/seg0/0/{where}/{leaf}"]
+    want = reference[f"tp_train/{case}/grads/{where}/{leaf}"]
     scale = float(np.abs(want).max())
     assert scale > 0
     for r in range(mesh.size):  # every rank holds the sum, not its partial
@@ -428,26 +493,109 @@ def test_vocab_parallel_log_likelihood_matches_log_softmax(padded):
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("arch", DENSE + FAMILIES)
-def test_loss_and_gradients_match_the_unsharded_model(arch):
-    """Each admitted smoke config in f32 (command-r's head tied, qwen2's qkv
-    biases, deepseek's 4 kv heads split over 4; mamba2's SSM heads, 2 a
-    rank; mixtral's experts, 1 a rank; jamba's period of 7 mamba2 layers, an
-    attention layer and 4 MoE MLPs): the tensor-parallel loss on (2, 4)
-    within 1e-6 of the unsharded ``Model.loss``, every gradient within 1e-4
-    of its leaf's maximum."""
-    model = build_model(dataclasses.replace(get_smoke_config(arch), dtype="float32"))
-    params = model.init(torch.Generator().manual_seed(0), device="cpu", master=True)
-    blocks = {k: torch.from_numpy(v.astype(np.int64))
-              for k, v in ref.train_blocks(model.cfg.vocab_size).items()}
+def _held_to_unsharded(cfg, shape=(2, 4), axes=("data", "model")):
+    """The tensor-parallel loss and gradients of ``cfg`` (its cross gates
+    at 0.5) on the mesh against the unsharded ``Model.loss``: the loss
+    within 1e-6, every gradient within 1e-4 of its leaf's maximum.
+    Returns the sharded gradients."""
+    model = build_model(cfg)
+    params = _with_gates(model.init(torch.Generator().manual_seed(0), device="cpu",
+                                    master=True))
+    blocks = _blocks(model.cfg)
     loss_ref, grads_ref = accumulate_gradients(model.loss, params, blocks)
-    mesh = _mesh((2, 4), ("data", "model"))
+    mesh = _mesh(shape, axes)
     placed = device_put(params, params_shardings(params, mesh, fsdp_axis="data"))
     loss, grads = spmd.tensor_parallel_gradients(model.loss, placed, blocks, mesh=mesh,
                                                  rules=train_rules(mesh))
     np.testing.assert_allclose(float(loss), float(loss_ref), rtol=1e-6)
-    for a, b in zip(tree_leaves(grads), tree_leaves(grads_ref)):
-        assert float((a.full() - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    for name, a, b in zip(_paths(grads), tree_leaves(grads), tree_leaves(grads_ref)):
+        assert float((a.full() - b).abs().max()) <= 1e-4 * float(b.abs().max()), name
+    return grads
+
+
+@pytest.mark.parametrize("arch", DENSE + FAMILIES + MEMORY_FAMILIES)
+def test_loss_and_gradients_match_the_unsharded_model(arch):
+    """Each smoke config in f32 (command-r's head tied, qwen2's qkv
+    biases, deepseek's 4 kv heads split over 4; mamba2's SSM heads, 2 a
+    rank; mixtral's experts, 1 a rank; jamba's period of 7 mamba2 layers, an
+    attention layer and 4 MoE MLPs; deepseek-v2's MLA heads, 1 a rank, its
+    down-projections by rows; the vlm's cross layer, its 2 kv heads
+    replicated; whisper's encoder and cross layers, tied head): the
+    tensor-parallel loss on (2, 4) within 1e-6 of the unsharded
+    ``Model.loss``, every gradient within 1e-4 of its leaf's maximum, and
+    the cross layers' and the encoder's gradients nonzero."""
+    grads = _held_to_unsharded(dataclasses.replace(get_smoke_config(arch), dtype="float32"))
+    if arch in MEMORY_FAMILIES[1:]:
+        _assert_memory_path_trains(grads)
+
+
+@pytest.mark.parametrize("arch,kv_heads", [("whisper-tiny", 6), ("llama-3.2-vision-11b", 2),
+                                           ("deepseek-v2-236b", 6)])
+def test_heads_the_model_axis_does_not_divide_train_whole(arch, kv_heads):
+    """Six heads over a model axis of 4 (whisper-tiny's at full width): each
+    rank computes the attention, cross-attention or MLA layer whole, its
+    k/v, memory and down-projections too (a gather of rows that every rank
+    computes alike would have its transpose sum their cotangents four
+    times), while the MLP and the vocabulary stay split; held to the
+    unsharded model as above."""
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32", num_heads=6,
+                              num_kv_heads=kv_heads, head_dim=16)
+    grads = _held_to_unsharded(cfg)
+    if arch != "deepseek-v2-236b":
+        _assert_memory_path_trains(grads)
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2)])
+def test_encoder_gradients_through_recomputed_periods(shape):
+    """Whisper's smoke config in f32 under ``remat="full"`` (its default),
+    the cross gates at 0.5: each decoder period is recomputed in the
+    rank's backward and closes over the encoder's output, so the
+    cotangent every period sends into it must reach every encoder layer.
+    Each ``enc_seg0`` gradient is nonzero and within 1e-4 of its leaf's
+    maximum of the unsharded model's."""
+    cfg = dataclasses.replace(get_smoke_config("whisper-tiny"), dtype="float32")
+    assert cfg.remat == "full"
+    grads = _held_to_unsharded(cfg, shape)
+    enc = [leaf for name, leaf in zip(_paths(grads), tree_leaves(grads))
+           if name.startswith("enc_seg0/")]
+    assert enc and all(float(leaf.full().abs().max()) > 0 for leaf in enc)
+
+
+def test_recomputed_period_carries_the_cotangent_of_what_it_closes_over():
+    """A rank's tape recomputes a period (``recompute=True``) that closes
+    over ``m``, computed before the period and cut from its producer by a
+    ``psum`` (as whisper's decoder periods read the encoder's output): the
+    cotangent the recomputation gives ``m`` goes on to ``m``'s producer.
+    On (1, 2) ranks, ``we`` split by columns and ``wo`` by rows as Megatron
+    splits an MLP, every gradient equals plain autograd's of the unsharded
+    function within 1e-6."""
+    g = torch.Generator().manual_seed(13)
+    x = torch.randn((4, 6), generator=g)
+    params = {"u": torch.randn((6, 6), generator=g), "v": torch.randn((6, 6), generator=g),
+              "we": torch.randn((6, 8), generator=g), "wo": torch.randn((8, 6), generator=g)}
+
+    def loss(p, b, period=lambda body, z: body(z), pvary=lambda t: t, psum=lambda t: t):
+        m = psum(torch.tanh(pvary(b["x"]) @ p["we"]) @ p["wo"])
+        z = b["x"] @ p["u"]
+        y = period(lambda t: torch.tanh(t @ p["v"]) * m, z)
+        return (y ** 2).sum()
+
+    leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+    want = torch.autograd.grad(loss(leaves, {"x": x}), list(leaves.values()))
+
+    def rank_loss(p, b):
+        tape = spmd.recording_tape()
+        assert tape is not None
+        return loss(p, b, period=lambda body, z: tape.period(body, z, recompute=True),
+                    pvary=lambda t: spmd.pvary(t, "model"), psum=lambda t: psum(t, "model"))
+
+    specs = {"u": P(), "v": P(), "we": P(None, "model"), "wo": P("model")}
+    got = shard_map(lambda p, xl: value_and_grad(rank_loss, p, {"x": xl})[1],
+                    mesh=_mesh((1, 2), ("data", "model")), in_specs=(specs, P()),
+                    out_specs=specs)(params, x)
+    for name, w in zip(params, want):
+        np.testing.assert_allclose(got[name].numpy(), w.numpy(), rtol=1e-6, atol=1e-6,
+                                   err_msg=name)
 
 
 def test_clipped_norm_counts_a_replicated_leaf_once():
@@ -596,29 +744,22 @@ def test_data_parallel_moe_backward_runs_in_segments(reference, monkeypatch):
 # what the program refuses
 # ---------------------------------------------------------------------------
 
-REFUSED = {"deepseek-v2-236b": "MLA", "whisper-tiny": "encoder",
-           "llama-3.2-vision-11b": "cross-attention"}
-
-
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_training_refusal_names_each_family(arch):
-    """The dense, SSM, MoE and hybrid families and the presets are admitted
-    (and the ragged MoE dispatch refused); each other family is refused
-    with its reason, by the model and by the program."""
+    """Every config of the repo is admitted, the dense, SSM, MoE, hybrid,
+    MLA, vision and audio families alike; the ragged MoE dispatch is
+    refused with its reason, by the model and by the program."""
     model = build_model(get_smoke_config(arch))
-    refusal = model.tensor_parallel_training_refusal()
-    if arch in DENSE + FAMILIES:
-        assert refusal is None
-        if model.cfg.family in ("moe", "hybrid"):
-            ragged = build_model(dataclasses.replace(model.cfg, moe_impl="ragged"))
-            assert "ragged" in ragged.tensor_parallel_training_refusal()
+    assert model.tensor_parallel_training_refusal() is None
+    if not model.cfg.moe_experts:
         return
-    assert REFUSED[arch] in refusal
+    ragged = build_model(dataclasses.replace(model.cfg, moe_impl="ragged"))
+    assert "ragged" in ragged.tensor_parallel_training_refusal()
     mesh = _mesh((1, 2), ("data", "model"))
-    params = model.init(torch.Generator().manual_seed(0), device="cpu", master=True)
+    params = ragged.init(torch.Generator().manual_seed(0), device="cpu", master=True)
     blocks = {k: torch.zeros((1, 2, 4), dtype=torch.int64) for k in ("tokens", "labels")}
-    with pytest.raises(NotImplementedError, match=REFUSED[arch]):
-        spmd.tensor_parallel_gradients(model.loss, params, blocks, mesh=mesh,
+    with pytest.raises(NotImplementedError, match="ragged"):
+        spmd.tensor_parallel_gradients(ragged.loss, params, blocks, mesh=mesh,
                                        rules=train_rules(mesh))
 
 

@@ -401,7 +401,8 @@ cluster runs as ``mesh_launches``, ``service_launches`` and
   ``long_decode_cases`` (``LD_FLASH_SHAPES``, ``LD_SSD_SHAPES``), every
   entry ``long_decode_launches``.
 * ``tp_train``: the train step tensor-parallel over ``model`` under
-  ``train_rules`` (``sharded_train_step(..., rules=train_rules(mesh))``),
+  ``train_rules`` (``sharded_train_step(..., rules=train_rules(mesh))``)
+  and ``train_rules_sp``,
   every rank a position on the card, TF32 off, within its own limit
   (``TP_TRAIN_TIMEOUT_S``: past it the script exits non-zero, so a
   deadlock in a backward fails the run).  First a two-rank ``pvary`` /
@@ -447,8 +448,16 @@ cluster runs as ``mesh_launches``, ``service_launches`` and
   period (5 of 40 layers, the cross layer's kv heads split) at full width
   on (1, 4), its ``image_embeds`` seeded; whisper-tiny whole, its
   ``frames`` seeded, on (2, 2) and on (1, 4), where its 6 heads do not
-  divide the axis and each rank computes attention whole.  No kernel runs
-  (none has a backward): every entry of the kernels line gives
+  divide the axis and each rank computes attention whole.  Then the
+  sequence-parallel rows (``_tp_train_sequence_parallel``, ``TP_TRAIN_SP``:
+  ``train_rules_sp``, the residual stream between blocks split by sequence
+  over ``model``), held the same way, each followed by one ``train_rules``
+  step from its last state whose ms, peak memory rise and census print
+  beside its own: qwen3-32b (1 layer), mixtral-8x7b (1 layer) and
+  mamba2-1.3b (2 layers) at full width and whisper-tiny whole on (1, 4)
+  (its 1,500 frames 375 a rank, attention whole on every rank's gathered
+  rows), deepseek-v2's and the vlm's smoke configs on (2, 2, 2).  No
+  kernel runs (none has a backward): every entry of the kernels line gives
   ``tp_train_launches`` 0.
 * ``dryrun``: the shape-only dry-run (``repro_torch.launch.dryrun_lib``)
   held against the card.  qwen3-32b's prefill as the serve phase runs it
@@ -5422,7 +5431,7 @@ def _long_decode_rows(arch: str, layers: int, prompt: int, seed: int, dev: torch
 
 
 # ---------------------------------------------------------------------------
-# tp_train: the train step tensor-parallel over model under train_rules
+# tp_train: the train step tensor-parallel over model under train_rules(_sp)
 # ---------------------------------------------------------------------------
 
 #: lm100m's steps and meshes; qwen3-32b at full width: its layers, blocks,
@@ -5692,6 +5701,7 @@ def _memory_path_leaves(tree) -> list:
 
 def tp_train_phase(seed: int, dev: torch.device, card: str) -> dict:
     """The train step tensor-parallel over ``model`` under ``train_rules``
+    and ``train_rules_sp``
     (``repro_torch.distributed.sharded_train_step(..., rules=...)``), every
     rank a position on ``dev``, against the unsharded step, within
     ``TP_TRAIN_TIMEOUT_S``."""
@@ -5744,6 +5754,7 @@ def _tp_train(seed: int, dev: torch.device, card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     seconds.update(_tp_train_families(seed, dev, card))
+    seconds.update(_tp_train_sequence_parallel(seed, dev, card))
     launches = read_launches()
     emit({"phase": "tp_train", "run": "launches", "card": card, "launches": launches,
           "seconds": time.perf_counter() - t_phase, "seconds_by_run": seconds})
@@ -5879,9 +5890,11 @@ def _step_route_flips(routes, want, margins) -> dict:
 
 
 def _tp_train_forced(name: str, cfg, mesh_shape: tuple, axes: tuple, blocks: list, seed: int,
-                     dev: torch.device, card: str, *, data_parallel: bool = False) -> dict:
+                     dev: torch.device, card: str, *, data_parallel: bool = False,
+                     rules: str = "train_rules", beside: str | None = None) -> dict:
     """``cfg`` trained ``len(blocks)`` steps from one seeded init by
-    ``sharded_train_step(..., rules=train_rules(mesh))`` with every rank on
+    ``sharded_train_step(..., rules=...)`` under ``rules`` (``"train_rules"``
+    or ``"train_rules_sp"``) with every rank on
     ``dev`` (with ``data_parallel``: by the data-parallel step, no rules,
     ``data_parallel_gradients``, whose MoE ranks gather the batch's token
     rows and so run their backward in segments, ``spmd.data_parallel_scope``),
@@ -5896,9 +5909,12 @@ def _tp_train_forced(name: str, cfg, mesh_shape: tuple, axes: tuple, blocks: lis
     (every token's expert set, every drop) and printed where they do not
     (every flip must be at a near-tie of the unsharded router,
     ``ROUTE_NEAR_TIE``); the unsharded ``adamw_update``'s params and
-    moments kept on the host, the sharded step's held to them where the
+    moments (:func:`_unsharded_update`, leaf by leaf) kept on the host,
+    the sharded step's held to them where the
     routes agree.  The unsharded state never stays on the card beside the
-    sharded step's.  Emits one line."""
+    sharded step's.  ``beside``: the rules of one more step from the last
+    state (``"train_rules"``), timed with its peak memory rise and census,
+    unchecked, printed beside the row's own.  Emits one line."""
     import dataclasses
 
     from repro_torch._pytree import tree_leaves, tree_map
@@ -5908,17 +5924,17 @@ def _tp_train_forced(name: str, cfg, mesh_shape: tuple, axes: tuple, blocks: lis
         params_shardings,
         sharded_train_step,
         tensor_parallel_gradients,
-        train_rules,
     )
+    from repro_torch.distributed import sharding
     from repro_torch.distributed.spmd import collective_census, data_parallel_scope
     from repro_torch.launch.mesh import compat_make_mesh
     from repro_torch.models import build_model
-    from repro_torch.optim import accumulate_gradients, adamw_init, adamw_update
+    from repro_torch.optim import accumulate_gradients, adamw_init
 
     model = build_model(cfg)
     moe = any(s.mlp == "moe" for seg in cfg.segments() for s in seg.period)
     mesh = compat_make_mesh(mesh_shape, axes, devices=(dev,))
-    rules = None if data_parallel else train_rules(mesh)
+    rules_name, rules = rules, None if data_parallel else getattr(sharding, rules)(mesh)
     params = _with_gates(model.init(torch.Generator(device=dev).manual_seed(seed), device=dev,
                                     master=True))
     n_params = sum(t.numel() for t in tree_leaves(params))
@@ -5931,7 +5947,7 @@ def _tp_train_forced(name: str, cfg, mesh_shape: tuple, axes: tuple, blocks: lis
     accumulate_gradients(model.loss, params, blocks[0])  # warm
     del params
 
-    def whole(tree):  # a copy: the reference's adamw_update writes in place
+    def whole(tree):  # a copy: the unsharded step must not share the sharded run's storage
         return tree_map(lambda t: t.full() if hasattr(t, "full") else t.clone(), tree)
 
     def gradients(blk):
@@ -5941,6 +5957,7 @@ def _tp_train_forced(name: str, cfg, mesh_shape: tuple, axes: tuple, blocks: lis
 
     row = {"phase": "tp_train", "run": name, "card": card, "mesh": mesh.shape,
            "program": "data_parallel" if data_parallel else "tensor_parallel",
+           "rules": None if data_parallel else rules_name,
            "params": n_params, "layers": cfg.num_layers, "dtype": cfg.dtype,
            "tokens_per_step": int(blocks[0]["tokens"].numel()), "steps": len(blocks),
            "reference": "the unsharded step from the sharded run's state, each step"}
@@ -5966,10 +5983,8 @@ def _tp_train_forced(name: str, cfg, mesh_shape: tuple, axes: tuple, blocks: lis
             row["memory_path_zero_leaves"] = [n for n, g in _memory_path_leaves(g_tp)
                                               if not bool((g.full() != 0).any())]
         del g_tp
-        state = dataclasses.replace(opt, m=whole(opt.m), v=whole(opt.v))
-        ref_p, ref_opt = adamw_update(whole(placed), g_ref, state, lr=TP_TRAIN_LR)
-        ref_p, ref_m, ref_v = (_host_tree(t) for t in (ref_p, ref_opt.m, ref_opt.v))
-        del g_ref, state, ref_opt
+        ref_p, ref_m, ref_v = _unsharded_update(placed, opt, g_ref)
+        del g_ref
         gc.collect()
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated(dev)
@@ -5999,6 +6014,19 @@ def _tp_train_forced(name: str, cfg, mesh_shape: tuple, axes: tuple, blocks: lis
                rank_param_bytes=_rank_bytes(placed), param_bytes=n_params * 4)
     if not data_parallel:
         row["rank_moment_bytes"] = _rank_bytes(opt.m) + _rank_bytes(opt.v)
+    if beside is not None:  # one step of the other rules from the last state, as it lies
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        with collective_census() as census:
+            t_b, (placed, opt, _) = _wall_ms(lambda: sharded_train_step(
+                model.loss, placed, opt, blocks[-1], mesh=mesh, lr=TP_TRAIN_LR,
+                rules=getattr(sharding, beside)(mesh)))
+        row["beside"] = {"rules": beside, "step_ms": t_b, "own_last_step_ms": ms[-1],
+                         "census_step": census,
+                         "peak_memory_rise_gb": (torch.cuda.max_memory_allocated(dev)
+                                                 - before) / 1e9}
     emit(row)
     check(all(t.sharding == sh for t, sh in zip(tree_leaves(placed), tree_leaves(shardings))),
           f"tp_train {name}: the params keep their layouts")
@@ -6030,6 +6058,40 @@ def _tp_train_forced(name: str, cfg, mesh_shape: tuple, axes: tuple, blocks: lis
     del placed, opt
     _release_host_cache()
     return row
+
+
+def _unsharded_update(placed, opt, grads) -> tuple:
+    """``adamw_update`` of the sharded run's state (its params and moments
+    gathered whole) by the unsharded ``grads``, clipped by their global
+    norm as the whole-tree update clips them, one leaf at a time, so that
+    only one leaf's whole copies stand beside the sharded state on the
+    card (qwen3-32b's 2.1 B f32 params at full width); each result in
+    page-locked host memory (:func:`_host_tree`): (params, m, v)."""
+    import dataclasses
+    import math
+
+    from repro_torch._pytree import tree_leaves, tree_map
+    from repro_torch.optim import adamw_update
+    from repro_torch.optim.adamw import global_norm
+
+    def whole(t):  # a copy: adamw_update writes in place
+        return t.full() if hasattr(t, "full") else t.clone()
+
+    gnorm = global_norm(grads)
+    scale = torch.clamp(torch.full_like(gnorm, 1.0) / torch.clamp(gnorm, min=1e-12), max=1.0)
+    done = []
+    for p, m, v, g in zip(tree_leaves(placed), tree_leaves(opt.m), tree_leaves(opt.v),
+                          tree_leaves(grads)):
+        state = dataclasses.replace(opt, m=[whole(m)], v=[whole(v)])
+        new_p, new_opt = adamw_update([whole(p)], [g.to(torch.float32) * scale], state,
+                                      lr=TP_TRAIN_LR, clip_norm=math.inf)
+        done.append(_host_tree((new_p[0], new_opt.m[0], new_opt.v[0])))
+        del state, new_p, new_opt
+    trees = []
+    for i in range(3):
+        it = iter(d[i] for d in done)
+        trees.append(tree_map(lambda _: next(it), opt.m))
+    return tuple(trees)
 
 
 def _tp_train_families(seed: int, dev: torch.device, card: str) -> dict:
@@ -6118,6 +6180,61 @@ def _tp_train_memory_families(seed: int, dev: torch.device, card: str) -> dict:
     whisper = dataclasses.replace(get_config("whisper-tiny"), dtype="float32")
     for shape, axes in w["meshes"]:
         row(f"whisper-tiny/{'x'.join(map(str, shape))}", whisper, shape, axes, w)
+    return seconds
+
+
+#: the sequence-parallel rows (``train_rules_sp``: the residual stream
+#: between blocks split by sequence over ``model``), each held as the
+#: ``train_rules`` rows are (:func:`_tp_train_forced`) and followed by one
+#: ``train_rules`` step from its last state, timed beside its own:
+#: qwen3-32b at full width, 1 layer, one step of 2 blocks of 2 × 512 (as
+#: ``TP_TRAIN_QWEN3``); mixtral-8x7b at full width, 1 layer, and
+#: mamba2-1.3b at full width, 2 layers, on (1, 4); whisper-tiny whole on
+#: (1, 4) (attention whole on each rank, its 1,500 frames 375 a rank, 512
+#: tokens 128 a rank); deepseek-v2's and the vlm's smoke configs on (2, 2,
+#: 2), every cross ``gate`` at ``TP_TRAIN_GATE``; 2 steps of one block but
+#: qwen3's
+TP_TRAIN_SP = (
+    ("qwen3-32b", "full", {"layers": 1, "steps": 1, "blocks": 2, "rows": 2, "seq": 512},
+     (1, 4), ("data", "model")),
+    ("mixtral-8x7b", "full", {"layers": 1, "steps": 2, "blocks": 1, "rows": 2, "seq": 512},
+     (1, 4), ("data", "model")),
+    ("mamba2-1.3b", "full", {"layers": 2, "steps": 2, "blocks": 1, "rows": 2, "seq": 512},
+     (1, 4), ("data", "model")),
+    ("whisper-tiny", "full", {"steps": 2, "blocks": 1, "rows": 2, "seq": 512},
+     (1, 4), ("data", "model")),
+    ("deepseek-v2-236b", "smoke", {"steps": 2, "blocks": 1, "rows": 4, "seq": 256},
+     (2, 2, 2), ("pod", "data", "model")),
+    ("llama-3.2-vision-11b", "smoke", {"steps": 2, "blocks": 1, "rows": 4, "seq": 256},
+     (2, 2, 2), ("pod", "data", "model")),
+)
+
+
+def _tp_train_sequence_parallel(seed: int, dev: torch.device, card: str) -> dict:
+    """The ``train_rules_sp`` rows of :data:`TP_TRAIN_SP`, each step held to
+    the unsharded step from the sharded run's state
+    (:func:`_tp_train_forced`), a ``train_rules`` step beside; returns each
+    row's seconds."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_smoke_config
+
+    seconds = {}
+    for arch, width, shape, mesh_shape, axes in TP_TRAIN_SP:
+        cfg = dataclasses.replace((get_config if width == "full" else get_smoke_config)(arch),
+                                  dtype="float32")
+        if "layers" in shape:
+            cfg = dataclasses.replace(cfg, num_layers=shape["layers"])
+        key = f"{arch}{'' if width == 'full' else '/smoke'}/{'x'.join(map(str, mesh_shape))}/sp"
+        blocks = _train_blocks(cfg, shape["steps"], shape["blocks"], shape["rows"],
+                               shape["seq"], seed, dev)
+        t0 = time.perf_counter()
+        _tp_train_forced(key, cfg, mesh_shape, axes, blocks, seed, dev, card,
+                         rules="train_rules_sp", beside="train_rules")
+        seconds[key] = time.perf_counter() - t0
+        del blocks
+        gc.collect()
+        torch.cuda.empty_cache()
     return seconds
 
 

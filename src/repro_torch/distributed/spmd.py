@@ -89,7 +89,11 @@ gradients over the data-parallel axes (the ``fsdp`` dims by the gather's
 transpose, so the rank keeps its shard) and updates its shards, the
 clip factor from one ``psum`` of the shards' squares.  Every config of
 the repo with the onehot MoE (``Model.tensor_parallel_training_refusal``
-refuses the ragged dispatch).
+refuses the ragged dispatch).  Under ``train_rules_sp`` the same program
+holds the residual stream between blocks as each rank's rows of the
+sequence over ``model`` (:attr:`TensorParallel.seq_res`, Megatron's
+sequence parallelism: a reduce-scatter and an all-gather where
+``train_rules`` has an all-reduce); other rule sets are refused.
 
 **Census.**  Inside :func:`collective_census` every collective that rank 0
 calls adds one to its kind's count and its operand and result bytes to its
@@ -882,12 +886,16 @@ def psum_scatter(x: torch.Tensor, axis_name, *, scatter_dimension: int = 0,
                            lambda g: all_gather(g, axis_name, axis=d, tiled=tiled), True)
 
 
-def all_gather(x: torch.Tensor, axis_name, *, axis: int = 0, tiled: bool = False) -> torch.Tensor:
+def all_gather(x: torch.Tensor, axis_name, *, axis: int = 0, tiled: bool = False,
+               invariant: bool = False) -> torch.Tensor:
     """The group's operands in position order, stacked along a new dim
     ``axis`` (``tiled=False``) or concatenated along ``axis`` (``tiled=True``).
     Its transpose is the :func:`psum_scatter` of the cotangent: each rank
-    gets the sum of the ranks' cotangents of its part."""
-    ctx, axes, members, _ = _group(axis_name)
+    gets the sum of the ranks' cotangents of its part.  ``invariant``: the
+    result is a value every rank then holds alike, with the cotangent every
+    rank holds alike too (JAX's ``all_gather_invariant``), so the transpose
+    keeps the rank's own part of it, with no sum and no collective."""
+    ctx, axes, members, pos = _group(axis_name)
     d = axis % (x.ndim if tiled else x.ndim + 1)
     with torch.no_grad():
         if ctx.rendezvous is None:
@@ -902,6 +910,9 @@ def all_gather(x: torch.Tensor, axis_name, *, axis: int = 0, tiled: bool = False
             join = torch.cat if tiled else torch.stack
             out = _shared(memo, (members, ctx.device),
                           lambda: join([vals[r].to(ctx.device) for r in members], dim=d)).detach()
+    if invariant:
+        return _differentiable(x, _noted(ctx, "all-gather", x, out), lambda g: g.narrow(
+            d, pos * x.shape[d], x.shape[d]) if tiled else g.select(d, pos))
     return _differentiable(x, _noted(ctx, "all-gather", x, out), lambda g: psum_scatter(
         g, axis_name, scatter_dimension=d, tiled=tiled), True)
 
@@ -1205,7 +1216,8 @@ def data_parallel_gradients(loss_fn: Callable, params: Any, blocks: dict[str, to
 
 def sharded_train_step(loss_fn: Callable, params: Any, opt: Any, blocks: dict[str, torch.Tensor],
                        *, mesh: Mesh, lr, rules: Any = None) -> tuple[Any, Any, torch.Tensor]:
-    """One optimizer step.  ``rules=train_rules(mesh)``: the tensor-parallel
+    """One optimizer step.  ``rules=train_rules(mesh)`` or
+    ``train_rules_sp(mesh)`` (other rules are refused): the tensor-parallel
     program (:func:`tensor_parallel_gradients` and AdamW on each rank's
     shards, :func:`training_step_body`), which writes the new params and
     moments into the shards passed in, as ``adamw_update`` does, and returns
@@ -1292,11 +1304,32 @@ def _training_model(loss_fn: Callable, mesh: Mesh) -> Any:
     return model
 
 
+def _residual_axis(rules: Any, mesh: Mesh) -> str | None:
+    """The mesh axis the train program ``rules`` name splits the residual
+    stream's sequence over between blocks: None under ``train_rules``,
+    :data:`MODEL_AXIS` under ``train_rules_sp`` (None too where that axis
+    is one rank); any other rule set is refused, since the tensor-parallel
+    train step runs those two programs only."""
+    from repro_torch.distributed.sharding import train_rules, train_rules_sp
+
+    programs = {"train_rules": train_rules(mesh).logical,
+                "train_rules_sp": train_rules_sp(mesh).logical}
+    if dict(rules.logical) not in programs.values():
+        raise ValueError(f"the tensor-parallel train step runs {' or '.join(programs)} on "
+                         f"{mesh}, not the rules {dict(rules.logical)}")
+    axis = rules.logical["seq_res"]
+    return axis if axis is not None and mesh.axis_size(axis) > 1 else None
+
+
 def training_gradients_body(model: Any, mesh: Mesh, params: Any, param_specs: Any, rules: Any, *,
                             accum_mode: str = "spliter", hoist: bool = False) -> Callable:
     """The body of a tensor-parallel training rank of ``model`` on ``mesh``
     (the models ``Model.tensor_parallel_training_refusal`` admits), its
-    ``params`` laid out by ``param_specs``, under ``rules`` (``train_rules``).
+    ``params`` laid out by ``param_specs``, under ``rules``: ``train_rules``,
+    or ``train_rules_sp``, whose residual stream between blocks the rank
+    holds as its rows of the sequence, split over ``model`` where the axis
+    divides the length (:attr:`TensorParallel.seq_res`; ``models/lm.py``);
+    other rules are refused.
 
     ``body(params, blocks) -> (loss, grads)`` takes the rank's shards and
     its rows of the blocks (leaves ``(nblocks, mb / dp, ...)``): it gathers
@@ -1316,10 +1349,11 @@ def training_gradients_body(model: Any, mesh: Mesh, params: Any, param_specs: An
     from repro_torch.distributed.sharding import use_rules
     from repro_torch.optim import accumulate_gradients
 
+    seq_res = _residual_axis(rules, mesh)
     dp = _axes(rules.logical.get("batch") or ())
     n_dp = mesh.axis_size(dp) if dp else 1
     gather = tree_map(lambda _, s: _gather_spec(s), params, param_specs)
-    tp = TensorParallel(batch_axes=dp)
+    tp = TensorParallel(batch_axes=dp, seq_res=seq_res)
 
     def mean(t: torch.Tensor) -> torch.Tensor:
         return t / torch.full((), n_dp, dtype=t.dtype, device=t.device)
@@ -1378,7 +1412,8 @@ def tensor_parallel_gradients(loss_fn: Callable, params: Any, blocks: dict[str, 
     ``loss``) over ``blocks`` (leaves ``(nblocks, mb, ...)``), tensor-parallel
     over ``model`` and data-parallel over the rules' ``batch`` axes: the
     port's counterpart of the reference's ``jax.jit(step, in_shardings=...)``
-    under ``train_rules``.
+    under ``train_rules`` or ``train_rules_sp`` (the residual stream between
+    blocks split by sequence over ``model``); other rules are refused.
 
     ``params`` are :class:`ShardedTensor` leaves placed by
     ``params_shardings(..., fsdp_axis="data")`` (a plain tensor is
@@ -1450,7 +1485,18 @@ class TensorParallel:
     (:func:`model_parallel`); False in the data-parallel train program,
     whose ranks hold every param whole and read only ``batch_axes``, and
     run their backward in segments where ``segmented``
-    (:func:`data_parallel_scope`)."""
+    (:func:`data_parallel_scope`).
+
+    In the tensor-parallel train program under ``train_rules_sp``,
+    ``seq_res`` is the mesh axis (:data:`MODEL_AXIS`) the residual stream's
+    sequence is split over between blocks; ``rows`` says how the input of
+    the layer being run lies, as ``models/lm.py`` sets it per layer:
+    ``"whole"``, every rank holds every row alike (serving, ``train_rules``,
+    and a stream whose length the axis does not divide); ``"split"``, the
+    rank holds its rows, which a layer gathers over ``seq_res`` before its
+    split work and whose partial output it reduce-scatters back to them;
+    ``"gathered"``, those rows gathered by the caller, which takes the
+    partial output (command-r's parallel block)."""
 
     kv_seq_axis: str | None = None
     kv_heads_split: bool = False
@@ -1458,6 +1504,8 @@ class TensorParallel:
     latent_split: bool = False
     over_model: bool = True
     segmented: bool = False
+    seq_res: str | None = None
+    rows: str = "whole"
 
 
 def first_rank() -> bool:

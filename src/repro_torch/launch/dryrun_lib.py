@@ -37,9 +37,11 @@ model needs whole.
   :func:`~repro_torch.optim.accumulate_gradients` on its rows with the
   backward in segments, the gradients reduce-scattered over the ``fsdp``
   dims and summed over the rest of ``(pod, data)``, AdamW on the shards
-  (``COST_BASIS["tensor_parallel_train"]``).  The ragged MoE dispatch,
-  and ``train_rules_sp``, run the
-  data-parallel one (an MoE model's ranks in segments where they gather
+  (``COST_BASIS["tensor_parallel_train"]``); with ``sp``
+  (``train_rules_sp``) the same program with the residual stream between
+  blocks split by sequence over ``model`` where the axis divides it
+  (``COST_BASIS["tensor_parallel_train_sp"]``).  The ragged MoE dispatch
+  runs the data-parallel one (an MoE model's ranks in segments where they gather
   the batch's token rows, ``spmd.data_parallel_scope``): the params
   gathered, :func:`~repro_torch.optim.accumulate_gradients` (SplIter over
   the microbatch blocks) on the rank's rows, the loss and gradients summed
@@ -175,6 +177,13 @@ COST_BASIS["tensor_parallel_train"] = (
     "C·Bᵀ and the MoE router whole on every rank; the loss from the rank's vocabulary block; "
     "the backward in segments, a recomputed period's forward counted again under "
     "remat='full'; AdamW on the rank's shards); " + _COUNTS)
+COST_BASIS["tensor_parallel_train_sp"] = (
+    "one rank's sequence-parallel train program under train_rules_sp: the tensor-parallel "
+    "train program with the residual stream between blocks held as the rank's rows of the "
+    "sequence where model divides its length (the embedding, every norm and residual add "
+    "and the final norm on those rows; MLA's down-projections on them; each layer's split "
+    "work on its rows gathered, a layer whose heads do not divide model whole on them); "
+    + COST_BASIS["tensor_parallel_train"].split("program at its shard shapes ", 1)[1])
 COLLECTIVES_BASIS = {
     "data_parallel": (
         "census of the collectives rank 0's program calls (the params' and cache's gathers, "
@@ -206,6 +215,18 @@ COLLECTIVES_BASIS["tensor_parallel_train"] = (
     "of squares, the head's input; a reduce-scatter for each all-gather); then the loss's and "
     "gradients' sum over the data-parallel axes (a reduce-scatter per fsdp dim, the rest "
     "hierarchical over (pod, data) or one all-reduce) and the clip norm's all-reduce")
+COLLECTIVES_BASIS["tensor_parallel_train_sp"] = (
+    "census of the collectives rank 0's program calls: as the tensor-parallel train "
+    "program's, but where model divides the sequence the residual stream's all-reduces over "
+    "model become a reduce-scatter along the sequence (the vocabulary-split embedding, after "
+    "wo, w_down, mamba2's w_out and the experts' partial combine, command-r's summed "
+    "parallel block) and each layer's split work, the head and the encoder's output take an "
+    "all-gather of the rank's rows, MLA's down-projections none; in the backward each "
+    "such pair transposed (an all-gather for a reduce-scatter, a reduce-scatter for an "
+    "all-gather; the encoder output's gather keeps the rank's rows with none), an all-reduce "
+    "over model for each replicated weight applied to the rank's rows (the norms, the cross "
+    "gate, a table held whole, a layer whose heads do not divide model) and none for the "
+    "gathered stream")
 MEMORY_BASIS = (
     "per-rank shard shapes of the arguments and outputs as the reference places them; "
     "temporaries are not counted, so peak_live_bytes is a lower bound"
@@ -402,14 +423,16 @@ def _lower_train(
     sp: bool = False,
     hoist: bool = False,
     traced_blocks: int | None = None,
+    data_parallel: bool = False,
 ) -> Lowered:
     """``traced_blocks`` cuts the traced blocks (each ``global_batch //
     num_blocks`` rows) below ``num_blocks``; the memory is the whole step's.
     The models ``Model.tensor_parallel_training_refusal`` admits (every
     config with the onehot MoE) run the tensor-parallel train program
-    under ``train_rules`` (``spmd.training_step_body``); ``sp``
-    (``train_rules_sp``, not ported) and the ragged MoE dispatch the
-    data-parallel one."""
+    under ``train_rules`` (``spmd.training_step_body``), or with ``sp``
+    under ``train_rules_sp`` (the residual stream split by sequence over
+    ``model`` between blocks); the ragged MoE dispatch the data-parallel
+    one, as does every model with ``data_parallel``."""
     model = build_model(cfg)
     dp = _dp_axes(mesh)
     params = model.init(None, device="meta", master=True)
@@ -435,11 +458,11 @@ def _lower_train(
     rules = train_rules_sp(mesh) if sp else train_rules(mesh)
     traced = blocks if traced_blocks is None else blocks_of(traced_blocks)
     in_specs, out_specs = (p_specs, o_specs, _specs(b_sh)), (p_specs, o_specs, P())
-    if not sp and model.tensor_parallel_training_refusal() is None:
+    if not data_parallel and model.tensor_parallel_training_refusal() is None:
         body = training_step_body(model, mesh, params, p_specs, rules, lr=1e-4,
                                   accum_mode=accum_mode, hoist=hoist)
         return Lowered(_rank_program(mesh, body, (params, opt, traced), in_specs, out_specs),
-                       memory, "tensor_parallel_train")
+                       memory, "tensor_parallel_train_sp" if sp else "tensor_parallel_train")
     tp = data_parallel_scope(model.loss, dp, mesh.axis_size(dp))  # the whole batch's MoE groups
 
     def body(params_l, opt_l, blocks_l):

@@ -25,6 +25,11 @@ params dict with the JAX package's names and layouts (attention weights
   over ``model``.
   :func:`cross_attention` splits its q heads and ``wo`` the same way and
   projects the memory whole into the cache (:func:`_cross_attention_tp`).
+  Under ``train_rules_sp`` a layer takes the rank's rows of the stream,
+  gathers them along the sequence before its split work and
+  reduce-scatters its partial back to them (:func:`into_split`,
+  :func:`out_of_split`; a layer every rank computes whole:
+  :func:`into_whole`, :func:`out_of_whole`).
   Outside such a body nothing here calls a collective, as the reference's
   ``shard(...)`` is the identity outside a rules context;
 * the decode cache is updated in place: a one-row write at the slot into the
@@ -73,6 +78,7 @@ from repro_torch.distributed.spmd import (
     model_parallel,
     pmax,
     psum,
+    psum_scatter,
     pvary,
     recording_tape,
     shard_map,
@@ -552,17 +558,101 @@ def mlp(p: Params, x: torch.Tensor, *, d_ff: int | None = None) -> torch.Tensor:
     """SwiGLU.  In a tensor-parallel body a rank holding its columns of
     ``w_gate``/``w_up`` and rows of ``w_down`` (fewer than ``d_ff``) sums
     its partial output over the model axis; under autograd the input's
-    cotangent is summed over it (:func:`~repro_torch.distributed.spmd.pvary`)."""
+    cotangent is summed over it (:func:`~repro_torch.distributed.spmd.pvary`).
+    Where the rank holds its rows of the stream (``train_rules_sp``) it
+    gathers them first and reduce-scatters the partial output back to them
+    (:func:`into_split`, :func:`out_of_split`)."""
     tp = model_parallel()
     if tp is not None and d_ff is None:
         raise ValueError("mlp in a tensor-parallel body needs the global d_ff")
     split = tp is not None and p["w_down"].shape[0] != d_ff
-    if split:  # the residual stream enters the rank's columns (Megatron's f)
-        x = pvary(x, MODEL_AXIS)
+    # the residual stream enters the rank's columns (Megatron's f), or the
+    # rank computes them all on its gathered rows
+    x, p = into_split(x, p) if split else into_whole(x, p)
     dt = x.dtype
     h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
     out = h @ p["w_down"].to(dt)
-    return psum(out, MODEL_AXIS) if split else out
+    return out_of_split(out) if split else out_of_whole(out)
+
+
+# ---------------------------------------------------------------------------
+# a layer's input and output on a tensor-parallel rank
+# ---------------------------------------------------------------------------
+
+
+def stream_rows() -> str:
+    """How the input of the layer being run lies on a tensor-parallel rank
+    (``spmd.TensorParallel.rows``): ``"whole"`` outside one, and wherever
+    every rank holds every row; ``"split"`` where the rank holds its rows of
+    the sequence (``train_rules_sp``); ``"gathered"`` where its caller
+    gathered them and takes the partial output."""
+    tp = model_parallel()
+    return "whole" if tp is None else tp.rows
+
+
+def own_rows(t: torch.Tensor) -> torch.Tensor:
+    """The rank's rows (dim 1) of ``t``, which every rank holds whole: its
+    equal share of the sequence over the residual stream's axis."""
+    axis = model_parallel().seq_res
+    share = t.shape[1] // axis_size(axis)
+    return t.narrow(1, axis_index(axis) * share, share)
+
+
+def gather_rows(x: torch.Tensor) -> torch.Tensor:
+    """The ranks' rows of the stream gathered along the sequence over the
+    residual stream's axis; the transpose reduce-scatters the ranks'
+    partial cotangents back to each rank's rows."""
+    return all_gather(x, model_parallel().seq_res, axis=1, tiled=True)
+
+
+def into_split(x: torch.Tensor, p: Params, alike=()) -> tuple[torch.Tensor, Params]:
+    """``x`` and the params ``p`` entering the rank's share of a layer's
+    heads, columns or experts.  The params named in ``alike`` (held whole
+    by every rank and used for its share) pass through ``pvary``, whose
+    transpose sums the ranks' partial cotangents over ``model``.  So does
+    ``x`` where every rank holds it whole (Megatron's ``f``); the rank's
+    rows of it (``"split"``) are gathered instead (:func:`gather_rows`),
+    whose transpose already sums them; rows its caller gathered are taken
+    as they are."""
+    p = {k: pvary(v, MODEL_AXIS) if k in alike else v for k, v in p.items()}
+    rows = stream_rows()
+    if rows == "split":
+        return gather_rows(x), p
+    return (pvary(x, MODEL_AXIS) if rows == "whole" else x), p
+
+
+def out_of_split(out: torch.Tensor) -> torch.Tensor:
+    """The rank's partial output of its share, summed over ``model``: a
+    ``psum``, or, where the rank holds its rows of the stream, a
+    reduce-scatter along the sequence to them; where its caller gathered
+    the rows, left to the caller."""
+    rows = stream_rows()
+    if rows == "split":
+        return psum_scatter(out, model_parallel().seq_res, scatter_dimension=1, tiled=True)
+    return psum(out, MODEL_AXIS) if rows == "whole" else out
+
+
+def into_whole(x: torch.Tensor, p: Params) -> tuple[torch.Tensor, Params]:
+    """``x`` and ``p`` entering a layer every rank computes whole (the model
+    axis divides none of its heads, columns or experts).  Where the rank
+    holds its rows of the stream, they are gathered and the rank keeps its
+    rows of the output (:func:`out_of_whole`): its cotangents of every
+    param (each tensor of ``p``) then cover those rows only, so each passes
+    through ``pvary``.  Elsewhere nothing changes."""
+    rows = stream_rows()
+    if rows == "gathered":
+        raise ValueError("a layer every rank computes whole takes the rank's rows, not rows "
+                         "its caller gathered")
+    if rows == "whole":
+        return x, p
+    return gather_rows(x), {k: pvary(v, MODEL_AXIS) if isinstance(v, torch.Tensor) else v
+                            for k, v in p.items()}
+
+
+def out_of_whole(out: torch.Tensor) -> torch.Tensor:
+    """The output of a layer every rank computed whole: the rank's rows of
+    it where the rank holds its rows of the stream (:func:`into_whole`)."""
+    return own_rows(out) if stream_rows() == "split" else out
 
 
 # ---------------------------------------------------------------------------
@@ -696,7 +786,13 @@ def _attention_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, tp, cos: torch.T
     where the heads do not divide the axis (whisper's 6 over 4) every rank
     computes the layer whole, no rows gathered: each rank's cotangent of
     gathered rows would be the whole one, and the gather's transpose would
-    sum them over the ranks.  Under
+    sum them over the ranks.  Under ``train_rules_sp`` the layer takes the
+    rank's rows of the stream: it gathers them (:func:`into_split`: no
+    ``pvary`` of ``x``, the gather's transpose sums its cotangent) and
+    reduce-scatters ``wo``'s partial back to them; where the heads do not
+    divide the axis it computes the layer whole on the gathered rows and
+    keeps its rows of the output, every weight through ``pvary``
+    (:func:`into_whole`).  Under
     ``long_decode_rules`` the prompt is every ``data`` rank's (the batch is
     replicated): each computes its heads' attention over the whole prompt
     and writes its block of the rows (of the ring, rolled, where the prompt
@@ -714,9 +810,10 @@ def _attention_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, tp, cos: torch.T
                          f"params_shardings and cache_shardings split them")
     q0 = rank * hq if q_split else 0
     if q_split:  # what every rank holds alike enters the rank's share of the heads
-        alike = ("q_norm", "k_norm") + (() if kv_split else ("wk", "wv", "bk", "bv"))
-        x = pvary(x, MODEL_AXIS)
-        p = {k: pvary(v, MODEL_AXIS) if k in alike else v for k, v in p.items()}
+        x, p = into_split(x, p, ("q_norm", "k_norm") + (() if kv_split else (
+            "wk", "wv", "bk", "bv")))
+    else:
+        x, p = into_whole(x, p)
     window = cfg.sliding_window
     seq_ax = tp.kv_seq_axis  # the axis the cache's rows are split over, or None
 
@@ -804,7 +901,7 @@ def _attention_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, tp, cos: torch.T
             k, v = _kv_for_heads(k, q0, hq, group), _kv_for_heads(v, q0, hq, group)
         out = _prefill_attention(q, k, v, causal=causal, window=window, cfg=cfg)
     out = torch.einsum("blhk,hkd->bld", out, p["wo"].to(x.dtype))
-    return psum(out, MODEL_AXIS) if o_split else out
+    return out_of_split(out) if o_split else out_of_whole(out)
 
 
 def _cross_attention_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, *, cache: Params | None,
@@ -832,7 +929,12 @@ def _cross_attention_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, *, cache: 
     and the memory (the encoder's output, where it carries a gradient)
     enter the rank's share of the heads or rows through ``pvary``;
     ``gate`` scales the output after its ``psum``, so every rank computes
-    its whole gradient alike and it takes none."""
+    its whole gradient alike and it takes none.  Under ``train_rules_sp``
+    the rank's rows of the stream are gathered, the output reduce-scattered
+    back to them, and ``gate``, which then scales the rank's rows only,
+    takes ``pvary``; where the heads do not divide the axis the layer runs
+    whole on the gathered rows, the memory and every weight through
+    ``pvary`` (:func:`into_whole`)."""
     heads, kv_heads = cfg.num_heads, cfg.num_kv_heads
     group = heads // kv_heads
     hq = p["wq"].shape[1]
@@ -844,12 +946,14 @@ def _cross_attention_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, *, cache: 
                          f"unlike params_shardings splits them")
     q0 = axis_index(MODEL_AXIS) * hq if q_split else 0
     own = kv_split and cache is None  # the rank's kv heads are those its q heads read
+    rows = stream_rows()
     if q_split:  # what every rank holds alike enters the rank's share of the heads
         alike = ("q_norm", "k_norm") + (() if kv_split else ("wk_mem", "wv_mem"))
-        x = pvary(x, MODEL_AXIS)
-        p = {k: pvary(v, MODEL_AXIS) if k in alike else v for k, v in p.items()}
-        if memory is not None:
-            memory = pvary(memory, MODEL_AXIS)
+        x, p = into_split(x, p, alike + (("gate",) if rows == "split" else ()))
+    else:
+        x, p = into_whole(x, p)
+    if memory is not None and (q_split or rows == "split"):
+        memory = pvary(memory, MODEL_AXIS)
     dt = x.dtype
     q = torch.einsum("bld,dhk->blhk", x, p["wq"].to(dt))
     if memory is not None:
@@ -883,6 +987,5 @@ def _cross_attention_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, *, cache: 
     else:
         out = _prefill_attention(q, kk, vv, causal=False, window=0, cfg=cfg)
     out = _einsum("blhk,hkd->bld", out, p["wo"].to(dt))
-    if o_split:
-        out = psum(out, MODEL_AXIS)
+    out = out_of_split(out) if o_split else out_of_whole(out)
     return torch.tanh(p["gate"].to(dt)) * out

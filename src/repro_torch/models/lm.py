@@ -52,8 +52,19 @@ In the tensor-parallel train step (every config of the repo with the
 onehot MoE, :meth:`Model.tensor_parallel_training_refusal`) ``loss`` takes the
 log-probabilities from the rank's vocabulary block without gathering it
 (:func:`_vocab_parallel_log_likelihood`), and a tied head's gradient on
-the rank's rows of ``embed`` sums the lookup's and the head's.  Outside
-such a body nothing changes.
+the rank's rows of ``embed`` sums the lookup's and the head's.  Under
+``train_rules_sp`` (``spmd.TensorParallel.seq_res``) a rank holds the
+residual stream between blocks as its rows of the sequence, where the
+model axis divides its length (the decoder's tokens and the encoder's
+frames decided apart, as the reference's ``shard`` drops an axis that
+does not divide the dim): the embedding's sum is reduce-scattered to
+them, every norm and residual add runs on them (the norms' weights
+through ``pvary``, their cotangents covering the rank's rows only), each
+layer gathers them for its split work and reduce-scatters its partial
+back (``layers.into_split``; command-r's parallel block once for both
+halves), the final norm runs on them before the head's gather, and the
+encoder's normed rows are gathered into the memory every rank holds
+alike.  Outside such a body nothing changes.
 
 **Recomputation.**  ``forward(..., remat=True)`` (which ``loss`` uses, as
 the reference's does) checkpoints each period of the decoder's segments by
@@ -94,13 +105,16 @@ from repro_torch.configs.base import LayerSpec, ModelConfig, Segment, ShapeCell
 from repro_torch.core.blocked import resolve_device
 from repro_torch.distributed.spmd import (
     MODEL_AXIS,
+    all_gather,
     axis_index,
     axis_size,
     model_parallel,
     pmax,
     psum,
+    psum_scatter,
     pvary,
     recording_tape,
+    tensor_parallel_scope,
 )
 from repro_torch.models import layers as L
 from repro_torch.models.mla import init_mla, mla_attention
@@ -159,6 +173,16 @@ def _mlp(p: Params, spec: LayerSpec, cfg: ModelConfig, x: torch.Tensor) -> torch
     return moe_mlp(p, cfg, x)
 
 
+def _norm(x: torch.Tensor, p: Params, name: str, cfg: ModelConfig, rows: str) -> torch.Tensor:
+    """``cfg``'s norm by ``p[name]`` (and its bias).  On the rank's rows of
+    the stream (``rows == "split"``) the weights' cotangents cover those
+    rows only: they pass through ``pvary``, whose transpose sums them over
+    the ranks, once a use, in the segment that computes them."""
+    if rows == "split":
+        p = {k: pvary(p[k], MODEL_AXIS) for k in (name, name + "_b") if k in p}
+    return L.apply_norm(x, p, name, cfg)
+
+
 def _apply_layer(
     p: Params,
     spec: LayerSpec,
@@ -168,8 +192,27 @@ def _apply_layer(
     cache: Params | None,
 ) -> torch.Tensor:
     """Pre-norm residual block; command-r runs attn ∥ mlp off one norm.
-    A layer's cache (views into the stacked cache) is updated in place."""
-    h = L.apply_norm(x, p, "ln1", cfg)
+    A layer's cache (views into the stacked cache) is updated in place.
+    On a tensor-parallel rank ``ctx["rows"]`` says how ``x`` lies
+    (``spmd.TensorParallel.rows``), which the layer's sublayers read."""
+    tp = model_parallel()
+    if tp is None:
+        return _block(p, spec, cfg, x, ctx, cache)
+    with tensor_parallel_scope(dataclasses.replace(tp, rows=ctx.get("rows", "whole"))):
+        return _block(p, spec, cfg, x, ctx, cache)
+
+
+def _gathers_once(p: Params, spec: LayerSpec, cfg: ModelConfig) -> bool:
+    """Whether a parallel block splits both its attention heads and its MLP
+    columns over ``model``, so that one gather of the rank's normed rows
+    feeds both and one reduce-scatter returns the sum of their partials."""
+    return (spec.mixer == "attn" and p["mixer"]["wq"].shape[1] != cfg.num_heads
+            and spec.mlp == "dense"
+            and p["mlp"]["w_down"].shape[0] != (cfg.dense_d_ff or cfg.d_ff))
+
+
+def _mixer(p: Params, spec: LayerSpec, cfg: ModelConfig, h: torch.Tensor, ctx: dict[str, Any],
+           cache: Params | None) -> torch.Tensor:
     if spec.mixer in ("attn", "enc_attn"):
         mix, _ = L.attention(
             p["mixer"], cfg, h,
@@ -187,14 +230,26 @@ def _apply_layer(
         mix, _ = mamba_block(p["mixer"], cfg, h, cache=cache)
     else:  # pragma: no cover
         raise ValueError(spec.mixer)
+    return mix
 
+
+def _block(p: Params, spec: LayerSpec, cfg: ModelConfig, x: torch.Tensor, ctx: dict[str, Any],
+           cache: Params | None) -> torch.Tensor:
+    rows = L.stream_rows()
+    h = _norm(x, p, "ln1", cfg, rows)
     if cfg.parallel_block and spec.mlp != "none":
         # command-r: x + attn(norm(x)) + mlp(norm(x))
-        return x + mix + _mlp(p["mlp"], spec, cfg, h)
+        if rows == "split" and _gathers_once(p, spec, cfg):
+            tp = model_parallel()
+            h = L.gather_rows(h)
+            with tensor_parallel_scope(dataclasses.replace(tp, rows="gathered")):
+                both = _mixer(p, spec, cfg, h, ctx, cache) + _mlp(p["mlp"], spec, cfg, h)
+            return x + psum_scatter(both, tp.seq_res, scatter_dimension=1, tiled=True)
+        return x + _mixer(p, spec, cfg, h, ctx, cache) + _mlp(p["mlp"], spec, cfg, h)
 
-    x = x + mix
+    x = x + _mixer(p, spec, cfg, h, ctx, cache)
     if spec.mlp != "none":
-        h2 = L.apply_norm(x, p, "ln2", cfg)
+        h2 = _norm(x, p, "ln2", cfg, rows)
         x = x + _mlp(p["mlp"], spec, cfg, h2)
     return x
 
@@ -447,15 +502,23 @@ class Model:
 
     def _encode(self, params: Params, frames: torch.Tensor) -> torch.Tensor:
         """Whisper encoder over stubbed frame embeddings (B, M, D):
-        bidirectional self-attention, no cache."""
+        bidirectional self-attention, no cache.  On the rank of a
+        sequence-parallel train step whose axis divides the M frames the
+        rank runs its rows of them and the ranks' normed rows are gathered
+        into the memory every rank holds alike (its cotangent too, so the
+        gather's transpose keeps the rank's rows of it)."""
         cfg = self.cfg
         b, m, _ = frames.shape
-        ctx = {"positions": torch.arange(m, device=frames.device).expand(b, m)}
-        x = self._run_segment(params["enc_seg0"], cfg.encoder_segments()[0],
-                              frames.to(getattr(torch, cfg.dtype)), ctx, None)
-        if cfg.norm == "layernorm":
-            return L.layer_norm(x, params["enc_final_norm"], params["enc_final_norm_b"])
-        return L.rms_norm(x, params["enc_final_norm"])
+        rows = self._stream_rows(m)
+        x = frames.to(getattr(torch, cfg.dtype))
+        if rows == "split":
+            x = L.own_rows(x)
+        ctx = {"positions": torch.arange(m, device=frames.device).expand(b, m), "rows": rows}
+        x = self._run_segment(params["enc_seg0"], cfg.encoder_segments()[0], x, ctx, None)
+        x = _norm(x, params, "enc_final_norm", cfg, rows)
+        if rows == "split":
+            x = all_gather(x, model_parallel().seq_res, axis=1, tiled=True, invariant=True)
+        return x
 
     def _memory(self, params: Params, batch: dict[str, torch.Tensor]) -> torch.Tensor | None:
         """Cross-attention's memory: the encoder's output over ``frames``
@@ -473,15 +536,17 @@ class Model:
             x = self._run_segment(params[f"seg{si}"], seg, x, ctx, c, remat=remat)
         return x
 
-    def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+    def _logits(self, params: Params, x: torch.Tensor, rows: str = "whole") -> torch.Tensor:
+        """The logits of the stream ``x`` (on a tensor-parallel rank, its
+        vocabulary block's; of the rank's rows of the stream under
+        ``rows == "split"``, normed there and then gathered)."""
         cfg = self.cfg
-        if cfg.norm == "layernorm":
-            x = L.layer_norm(x, params["final_norm"], params["final_norm_b"])
-        else:
-            x = L.rms_norm(x, params["final_norm"])
+        x = _norm(x, params, "final_norm", cfg, rows)
         head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"]).to(x.dtype)
         first, head = self._vocab_block(head)
-        if head.shape[1] != cfg.padded_vocab:  # the normed stream enters the rank's columns
+        if rows == "split":  # every row enters the rank's columns; the gather's transpose sums
+            x = L.gather_rows(x)
+        elif head.shape[1] != cfg.padded_vocab:  # the normed stream enters the rank's columns
             x = pvary(x, MODEL_AXIS)
         logits = x @ head
         # mask Megatron-style vocab padding (global column indices)
@@ -508,19 +573,41 @@ class Model:
         head = pvary(head, MODEL_AXIS)  # each rank's gradient covers its columns only
         return rank * width, head[:, rank * width:(rank + 1) * width]
 
-    def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed(self, params: Params, tokens: torch.Tensor, rows: str = "whole") -> torch.Tensor:
         """The token embeddings in ``cfg.dtype``.  In a tensor-parallel body
         a rank holding its rows of a split table looks up the tokens that
-        fall in them, zero elsewhere, and the ranks sum over the model axis."""
+        fall in them, zero elsewhere, and the ranks sum over the model axis:
+        a ``psum``, or under ``rows == "split"`` (the rank keeps its rows of
+        the sequence) a reduce-scatter along the sequence.  A table held
+        whole gives the rank's rows of the sequence only, its gradient then
+        summed over the ranks (``pvary``)."""
         table, dt = params["embed"], getattr(torch, self.cfg.dtype)
-        if model_parallel() is None or table.shape[0] == self.cfg.padded_vocab:
+        if model_parallel() is None:
+            return table[tokens].to(dt)
+        if table.shape[0] == self.cfg.padded_vocab:
+            if rows == "split":
+                return pvary(table, MODEL_AXIS)[L.own_rows(tokens)].to(dt)
             return table[tokens].to(dt)
         held = table.shape[0]
         local = tokens - axis_index(MODEL_AXIS) * held
         inside = (local >= 0) & (local < held)
-        rows = table[local.clamp(0, held - 1)].to(dt)
-        zero = torch.zeros((), dtype=dt, device=rows.device)
-        return psum(torch.where(inside[..., None], rows, zero), MODEL_AXIS)
+        found = table[local.clamp(0, held - 1)].to(dt)
+        zero = torch.zeros((), dtype=dt, device=found.device)
+        part = torch.where(inside[..., None], found, zero)
+        if rows == "split":
+            return psum_scatter(part, model_parallel().seq_res, scatter_dimension=1, tiled=True)
+        return psum(part, MODEL_AXIS)
+
+    def _stream_rows(self, length: int) -> str:
+        """How the residual stream of ``length`` positions lies on the
+        calling rank (``spmd.TensorParallel.rows``): ``"split"`` in the
+        sequence-parallel train step (``train_rules_sp``) where its axis
+        divides the length, as the reference's ``shard`` drops an axis that
+        does not divide the dim; ``"whole"`` elsewhere."""
+        tp = model_parallel()
+        if tp is None or tp.seq_res is None or length % axis_size(tp.seq_res):
+            return "whole"
+        return "split"
 
     # ---------------- entry points ----------------
 
@@ -532,10 +619,11 @@ class Model:
         reference."""
         tokens = batch["tokens"]
         b, s = tokens.shape
-        x = self._embed(params, tokens)
+        rows = self._stream_rows(s)
+        x = self._embed(params, tokens, rows)
         ctx = {"positions": torch.arange(s, device=tokens.device).expand(b, s),
-               "memory": self._memory(params, batch)}
-        return self._logits(params, self._trunk(params, x, ctx, None, remat=remat))
+               "memory": self._memory(params, batch), "rows": rows}
+        return self._logits(params, self._trunk(params, x, ctx, None, remat=remat), rows)
 
     def loss(self, params: Params, batch: dict[str, torch.Tensor]) -> torch.Tensor:
         """Mean next-token cross-entropy over the ``labels >= 0`` positions,

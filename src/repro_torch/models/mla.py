@@ -36,7 +36,6 @@ from repro_torch.distributed.spmd import (
     all_gather,
     axis_index,
     model_parallel,
-    psum,
     pvary,
 )
 from repro_torch.models.layers import (
@@ -45,9 +44,16 @@ from repro_torch.models.layers import (
     cache_write,
     combine_context_parallel,
     draw_normal,
+    gather_rows,
+    into_split,
+    into_whole,
+    out_of_split,
+    out_of_whole,
+    own_rows,
     rms_norm,
     rope_cos_sin,
     sequence_parallel,
+    stream_rows,
 )
 
 __all__ = ["init_mla", "mla_attention"]
@@ -86,6 +92,13 @@ def init_mla(cfg: ModelConfig, *, generator: torch.Generator, device,
 def _by_rows(f, *ts: torch.Tensor) -> torch.Tensor:
     """``f(*ts)`` of tensors (B, L, ...) that ``f`` maps row by row."""
     return f(*ts)
+
+
+def _own_rows_gathered(f, *ts: torch.Tensor) -> torch.Tensor:
+    """``f`` over the rank's rows of the stream (``ts[0]``, the rank's own
+    under ``train_rules_sp``) and of the rest (every rank holds them whole),
+    the ranks' rows all-gathered along the sequence."""
+    return gather_rows(f(ts[0], *(own_rows(t) for t in ts[1:])))
 
 
 def _project_q(p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
@@ -274,7 +287,13 @@ def _mla_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, tp, *, positions: torc
     they enter through ``pvary``, whose transpose sums them over ``model``.
     Where the heads do not divide the axis the rank computes the layer
     whole, the down-projections too: nothing is split, and a gather's
-    transpose would sum the ranks' identical cotangents."""
+    transpose would sum the ranks' identical cotangents.  Under
+    ``train_rules_sp`` the rank holds its rows of the stream: they feed the
+    down-projections as they are (no gather of ``x``, unless q comes
+    straight from it, without ``wq_a``), the ``q_a`` and latent gathers
+    stay, and ``wo``'s partial is reduce-scattered back to the rank's rows;
+    the heads undivided, the layer runs whole on the gathered rows
+    (:func:`~repro_torch.models.layers.into_whole`)."""
     dt = x.dtype
     heads, dh, rh = cfg.num_heads, cfg.resolved_head_dim, cfg.rope_head_dim
     rank = axis_index(MODEL_AXIS)
@@ -287,15 +306,21 @@ def _mla_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, tp, *, positions: torc
                          f"unlike params_shardings splits them")
     q0 = rank * hq if split else 0
     scale = 1.0 / np.sqrt(dh + rh)
-    l = x.shape[1]
-    if split:  # what every rank holds alike enters the rank's rows or heads
-        x = pvary(x, MODEL_AXIS)
-        p = {k: pvary(v, MODEL_AXIS) if k in _DOWN else v for k, v in p.items()}
+    l = positions.shape[1]
     # a prompt's down-projections by rows; a decode step's whole on every rank,
     # and a training step's where the heads are not split
     rows = sequence_parallel if l > 1 and (split or cache is not None) else _by_rows
+    down = x  # what the down-projections take
+    if split and stream_rows() == "split":  # the rank's own rows
+        p = {k: pvary(v, MODEL_AXIS) if k in _DOWN else v for k, v in p.items()}
+        rows = _own_rows_gathered
+        if "wq_a" not in p:  # q straight from x needs every row
+            x = gather_rows(x)
+    else:  # what every rank holds alike enters the rank's rows or heads
+        x, p = into_split(x, p, _DOWN) if split else into_whole(x, p)
+        down = x
     q_nope, q_rope = _project_q(p, cfg, x, positions, rows)  # the rank's heads
-    c_kv, k_rope = _project_kv_latent(p, cfg, x, positions, rows)
+    c_kv, k_rope = _project_kv_latent(p, cfg, down, positions, rows)
     if cache is not None:
         ckv, krope = cache["ckv"], cache["krope"]
         # the rank's block: rows [rows0, rows0 + ckv.shape[1]), columns from c0 and r0
@@ -340,4 +365,4 @@ def _mla_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, tp, *, positions: torc
         if cache is not None:
             write(c_kv, k_rope, 0)
     out = torch.einsum("blhk,hkd->bld", o, p["wo"].to(dt))
-    return psum(out, MODEL_AXIS) if split else out
+    return out_of_split(out) if split else out_of_whole(out)

@@ -62,6 +62,11 @@ and the router pass through ``pvary``, since every rank routes the whole
 group alike but only its own experts' gates reach its combine, so their
 cotangents are partials summed over ``model``; the token gather's
 transpose reduce-scatters the rows' cotangents back over the data axes.
+Under ``train_rules_sp`` the rank's rows of the residual stream are first
+gathered along the sequence over ``model`` (whose transpose sums their
+cotangents, so the tokens take no ``pvary``), the groups stay the whole
+batch's, and the partial combine is reduce-scattered back to the rank's
+rows.
 
 Routes can be recorded: with :attr:`moe_mlp.routes` set to a list (it is
 ``None``, off, by default), every call appends
@@ -90,11 +95,20 @@ from repro_torch.distributed.spmd import (
     axis_index,
     axis_size,
     first_rank,
-    psum,
     pvary,
     tensor_parallel,
 )
-from repro_torch.models.layers import Params, draw_normal, init_mlp, mlp
+from repro_torch.models.layers import (
+    Params,
+    draw_normal,
+    gather_rows,
+    init_mlp,
+    into_whole,
+    mlp,
+    out_of_split,
+    out_of_whole,
+    stream_rows,
+)
 
 __all__ = ["init_moe", "moe_mlp", "routes_paused"]
 
@@ -159,9 +173,16 @@ def _groups(cfg: ModelConfig, t: int) -> tuple[int, int]:
 
 def _moe_onehot(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
-    b, l, d = x.shape
     e, k, vs = cfg.moe_experts, cfg.moe_top_k, cfg.moe_virtual_split
     ev = e * vs
+    held = p["experts_gate"].shape[0]  # the rank's experts: [e0, e0 + held)
+    split = held != ev
+    rows = stream_rows()
+    if not split:  # every rank computes every expert, on the gathered rows of its stream
+        x, p = into_whole(x, p)
+    elif rows == "split":  # the rank's rows of the stream, gathered along the sequence
+        x = gather_rows(x)
+    b, l, d = x.shape
     tp = tensor_parallel()
     dp = () if tp is None else tp.batch_axes  # replicated under long_decode_rules: none
     ndp = axis_size(dp) if dp else 1
@@ -169,11 +190,10 @@ def _moe_onehot(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     gather = (b * l) % g != 0  # the rank's rows are not whole groups: route the batch's
     xs = all_gather(x, dp, axis=0, tiled=True) if gather else x
     n = xs.shape[0] * l // g
-    held = p["experts_gate"].shape[0]  # the rank's experts: [e0, e0 + held)
-    split = held != ev
     e0 = axis_index(MODEL_AXIS) * held if split else 0
     if split:  # every rank routes alike, but only its own experts' gates reach its combine
-        xs = pvary(xs, MODEL_AXIS)
+        if rows == "whole":  # the gathered rows' transpose already sums their cotangents
+            xs = pvary(xs, MODEL_AXIS)
         p = dict(p, router=pvary(p["router"], MODEL_AXIS))
 
     xg = xs.reshape(n, g, d)
@@ -217,7 +237,7 @@ def _moe_onehot(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         # gate-weighted return
         out[r0 - lo:r1 - lo] = torch.einsum("gec,ecd->gd", comb[r0 - i * g:r1 - i * g], y)
     out = out.reshape(b, l, d)
-    return psum(out, MODEL_AXIS) if split else out
+    return out_of_split(out) if split else out_of_whole(out)
 
 
 def _record_routes(tp, dp: tuple[str, ...], ndp: int, gathered: bool, l: int,

@@ -45,12 +45,19 @@ from repro_torch.distributed.spmd import (
     axis_index,
     axis_size,
     model_parallel,
-    psum,
-    pvary,
 )
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_scan import ssd_chunked
-from repro_torch.models.layers import Params, draw_normal, plain_route, rms_norm
+from repro_torch.models.layers import (
+    Params,
+    draw_normal,
+    into_split,
+    into_whole,
+    out_of_split,
+    out_of_whole,
+    plain_route,
+    rms_norm,
+)
 
 __all__ = [
     "init_mamba",
@@ -244,11 +251,14 @@ def _mamba_block_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, *, cache: Para
     ``pvary``, whose cotangent sums the ranks' partials over the model
     axis, as :func:`~repro_torch.models.layers._attention_tp`'s do; the
     gated norm's sum of squares is ``pvary``'d after its ``psum``
-    (:func:`~repro_torch.models.layers.rms_norm`)."""
+    (:func:`~repro_torch.models.layers.rms_norm`).  Under ``train_rules_sp``
+    the rank's rows of the stream are gathered before ``in_proj`` and
+    ``w_out``'s partial is reduce-scattered back to them
+    (:func:`~repro_torch.models.layers.into_split`); the gated norm's
+    ``psum`` over the heads stays."""
     dt_ = x.dtype
     din = cfg.ssm_expand * cfg.d_model
     ph, n, w1 = cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_conv_width - 1
-    b, l, _ = x.shape
     m, rank = axis_size(MODEL_AXIS), axis_index(MODEL_AXIS)
     dl, nhl = p["w_in_x"].shape[1], p["w_in_dt"].shape[1]
     split = dl != din
@@ -262,9 +272,10 @@ def _mamba_block_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, *, cache: Para
                          f"w_in_dt, {channels} and {heads}: split unlike params_shardings and "
                          f"cache_shardings split them")
     x0 = rank * dl if split else 0
-    if split:  # what every rank holds alike enters the rank's share of the heads
-        x = pvary(x, MODEL_AXIS)
-        p = {k: pvary(v, MODEL_AXIS) if k in _ALIKE else v for k, v in p.items()}
+    # what every rank holds alike enters the rank's share of the heads; the
+    # conv and the SSD need every row, so the rank's rows are gathered first
+    x, p = into_split(x, p, _ALIKE) if split else into_whole(x, p)
+    b, l, _ = x.shape
 
     z, conv_in, dt = _mamba_in(p, x)                    # conv_in (B, L, dl + 2N)
     state = None
@@ -293,4 +304,4 @@ def _mamba_block_tp(p: Params, cfg: ModelConfig, x: torch.Tensor, *, cache: Para
     if cache is not None:
         cache["conv"].copy_(new_state[..., c0:c0 + cb])
         cache["h"].copy_(h)
-    return psum(out, MODEL_AXIS) if split else out
+    return out_of_split(out) if split else out_of_whole(out)

@@ -11,9 +11,10 @@ shapes, and ``moe_groups``: mixtral's train step at a capacity that drops);
 ``tensor_parallel`` (the reference's serving steps under GSPMD) is the
 tensor-parallel test's, ``long_decode`` (the same under
 ``long_decode_rules``, a batch of one) the long-context test's,
-``tp_train`` (the train step under ``train_rules`` on two meshes, its
-gradients, params and moments) and ``collective_grads`` (``jax.grad``
-through each collective) the tensor-parallel training test's
+``tp_train`` (the train step under ``train_rules`` and ``train_rules_sp``
+on two meshes, its gradients, params and moments) and
+``collective_grads`` (``jax.grad`` through each collective) the
+tensor-parallel training test's
 (``tests/test_torch_tp_train.py``).  It saves what each produced to
 ``out.npz`` in the directory (and the train steps' params, as
 checkpoints, under ``params/``, ``params_mixtral/``, ``params_mamba2/``,
@@ -71,8 +72,8 @@ def gpipe_case(out: dict) -> None:
 
 
 #: the tensor-parallel train cases: name -> (arch, config overrides, mesh
-#: shape and axes, checkpoint folder): qwen3's smoke config as it is and in
-#: f32, on (2, 2, 2) ("pod", "data", "model") and on (2, 4) ("data",
+#: shape and axes, checkpoint folder, rules): qwen3's smoke config as it is
+#: and in f32, on (2, 2, 2) ("pod", "data", "model") and on (2, 4) ("data",
 #: "model"), where its 2 kv heads do not divide the model axis; mamba2's
 #: and jamba's in f32 on both (8 SSM heads: 4 and 2 a rank), jamba's as it
 #: is (bf16 compute) on (2, 2, 2); mixtral's in f32 on (2, 4) (4 experts,
@@ -83,39 +84,68 @@ def gpipe_case(out: dict) -> None:
 #: (cross-attention to image embeddings; its 2 kv heads split over (2, 2,
 #: 2)'s model axis and replicated on (2, 4)'s) and whisper's (the encoder,
 #: whose output every cross layer reads) in f32 on both, the vlm's as it is
-#: on (2, 2, 2), every cross ``gate`` drawn apart from 0 (:func:`tp_gates`)
+#: on (2, 2, 2), every cross ``gate`` drawn apart from 0 (:func:`tp_gates`),
+#: all under ``train_rules``; and the ``_sp`` cases under
+#: ``train_rules_sp`` (the residual stream split by sequence over
+#: ``model`` between blocks), qwen3's also over :data:`TRAIN_SEQ`'s 18
+#: tokens, which 4 does not divide, so its stream stays whole
 TRAIN_MESHES = {"222": ((2, 2, 2), ("pod", "data", "model")), "24": ((2, 4), ("data", "model"))}
 TRAIN_CASES = {
-    "qwen3/222": ("qwen3-32b", {}, "222", "params"),
-    "qwen3/24": ("qwen3-32b", {}, "24", "params"),
-    "qwen3_f32/222": ("qwen3-32b", {"dtype": "float32"}, "222", "params"),
-    "qwen3_f32/24": ("qwen3-32b", {"dtype": "float32"}, "24", "params"),
+    "qwen3/222": ("qwen3-32b", {}, "222", "params", "train_rules"),
+    "qwen3/24": ("qwen3-32b", {}, "24", "params", "train_rules"),
+    "qwen3_f32/222": ("qwen3-32b", {"dtype": "float32"}, "222", "params", "train_rules"),
+    "qwen3_f32/24": ("qwen3-32b", {"dtype": "float32"}, "24", "params", "train_rules"),
     "mixtral_cf1/222": ("mixtral-8x7b", {"dtype": "float32", "moe_capacity_factor": 1.0},
-                           "222", "params_mixtral"),
-    "mixtral_f32/24": ("mixtral-8x7b", {"dtype": "float32"}, "24", "params_mixtral"),
-    "mamba2_f32/222": ("mamba2-1.3b", {"dtype": "float32"}, "222", "params_mamba2"),
-    "mamba2_f32/24": ("mamba2-1.3b", {"dtype": "float32"}, "24", "params_mamba2"),
-    "jamba_f32/222": ("jamba-v0.1-52b", {"dtype": "float32"}, "222", "params_jamba"),
-    "jamba_f32/24": ("jamba-v0.1-52b", {"dtype": "float32"}, "24", "params_jamba"),
-    "jamba/222": ("jamba-v0.1-52b", {}, "222", "params_jamba"),
-    "deepseek_v2_f32/222": ("deepseek-v2-236b", {"dtype": "float32"}, "222", "params_deepseek"),
-    "deepseek_v2_f32/24": ("deepseek-v2-236b", {"dtype": "float32"}, "24", "params_deepseek"),
-    "vlm_f32/222": ("llama-3.2-vision-11b", {"dtype": "float32"}, "222", "params_vlm"),
-    "vlm_f32/24": ("llama-3.2-vision-11b", {"dtype": "float32"}, "24", "params_vlm"),
-    "vlm/222": ("llama-3.2-vision-11b", {}, "222", "params_vlm"),
-    "whisper_f32/222": ("whisper-tiny", {"dtype": "float32"}, "222", "params_whisper"),
-    "whisper_f32/24": ("whisper-tiny", {"dtype": "float32"}, "24", "params_whisper"),
+                        "222", "params_mixtral", "train_rules"),
+    "mixtral_f32/24": ("mixtral-8x7b", {"dtype": "float32"}, "24", "params_mixtral",
+                       "train_rules"),
+    "mamba2_f32/222": ("mamba2-1.3b", {"dtype": "float32"}, "222", "params_mamba2",
+                       "train_rules"),
+    "mamba2_f32/24": ("mamba2-1.3b", {"dtype": "float32"}, "24", "params_mamba2", "train_rules"),
+    "jamba_f32/222": ("jamba-v0.1-52b", {"dtype": "float32"}, "222", "params_jamba",
+                      "train_rules"),
+    "jamba_f32/24": ("jamba-v0.1-52b", {"dtype": "float32"}, "24", "params_jamba", "train_rules"),
+    "jamba/222": ("jamba-v0.1-52b", {}, "222", "params_jamba", "train_rules"),
+    "deepseek_v2_f32/222": ("deepseek-v2-236b", {"dtype": "float32"}, "222", "params_deepseek",
+                            "train_rules"),
+    "deepseek_v2_f32/24": ("deepseek-v2-236b", {"dtype": "float32"}, "24", "params_deepseek",
+                           "train_rules"),
+    "vlm_f32/222": ("llama-3.2-vision-11b", {"dtype": "float32"}, "222", "params_vlm",
+                    "train_rules"),
+    "vlm_f32/24": ("llama-3.2-vision-11b", {"dtype": "float32"}, "24", "params_vlm",
+                   "train_rules"),
+    "vlm/222": ("llama-3.2-vision-11b", {}, "222", "params_vlm", "train_rules"),
+    "whisper_f32/222": ("whisper-tiny", {"dtype": "float32"}, "222", "params_whisper",
+                        "train_rules"),
+    "whisper_f32/24": ("whisper-tiny", {"dtype": "float32"}, "24", "params_whisper",
+                       "train_rules"),
+    "qwen3_f32_sp/24": ("qwen3-32b", {"dtype": "float32"}, "24", "params", "train_rules_sp"),
+    "qwen3_f32_sp/222": ("qwen3-32b", {"dtype": "float32"}, "222", "params", "train_rules_sp"),
+    "qwen3_f32_sp_odd/24": ("qwen3-32b", {"dtype": "float32"}, "24", "params",
+                            "train_rules_sp"),
+    "mixtral_f32_sp/24": ("mixtral-8x7b", {"dtype": "float32"}, "24", "params_mixtral",
+                          "train_rules_sp"),
+    "jamba_f32_sp/222": ("jamba-v0.1-52b", {"dtype": "float32"}, "222", "params_jamba",
+                         "train_rules_sp"),
+    "deepseek_v2_f32_sp/24": ("deepseek-v2-236b", {"dtype": "float32"}, "24", "params_deepseek",
+                              "train_rules_sp"),
+    "vlm_f32_sp/222": ("llama-3.2-vision-11b", {"dtype": "float32"}, "222", "params_vlm",
+                       "train_rules_sp"),
+    "whisper_f32_sp/24": ("whisper-tiny", {"dtype": "float32"}, "24", "params_whisper",
+                          "train_rules_sp"),
 }
+#: a case's tokens a row where they are not 16
+TRAIN_SEQ = {"qwen3_f32_sp_odd/24": 18}
 TRAIN_LR = 1e-3
 
 
-def train_blocks(cfg) -> dict[str, np.ndarray]:
-    """Two blocks of 8 × 16 tokens and labels of the config (either
+def train_blocks(cfg, seq: int = 16) -> dict[str, np.ndarray]:
+    """Two blocks of 8 × ``seq`` tokens and labels of the config (either
     package's), and the stubbed frontend's output where it has one
     (whisper's ``frames``, the vlm's ``image_embeds``), shared with the
     parent."""
     rng = np.random.default_rng(3)
-    blocks = {k: rng.integers(0, cfg.vocab_size, (2, 8, 16)).astype(np.int32)
+    blocks = {k: rng.integers(0, cfg.vocab_size, (2, 8, seq)).astype(np.int32)
               for k in ("tokens", "labels")}
     memory = {"audio": ("frames", cfg.encoder_seq, cfg.d_model),
               "vlm": ("image_embeds", cfg.image_tokens, cfg.image_embed_dim)}.get(cfg.family)
@@ -128,7 +158,7 @@ def train_blocks(cfg) -> dict[str, np.ndarray]:
 
 def sharded_train(out: dict, case: str = "qwen3/222", full: bool = False) -> None:
     """``_dist_child.check_sharded_train_step``: ``jax.jit(step)`` under
-    ``train_rules`` on the case's mesh, params by ``params_shardings`` (the
+    the case's rules on its mesh, params by ``params_shardings`` (the
     ``fsdp`` dims over data), the blocks' rows over the data-parallel axes;
     saves the loss and the unsharded one (not for an f32 case with
     ``full``, which the parent holds to the step's own loss), and with
@@ -140,17 +170,19 @@ def sharded_train(out: dict, case: str = "qwen3/222", full: bool = False) -> Non
 
     from repro.checkpoint import Checkpointer
     from repro.configs import get_smoke_config
-    from repro.distributed.sharding import params_shardings, train_rules, use_rules
+    from repro.distributed import sharding
+    from repro.distributed.sharding import params_shardings, use_rules
     from repro.models import build_model
     from repro.optim import accumulate_gradients, adamw_init, adamw_update
 
-    arch, ov, mesh_name, folder = TRAIN_CASES[case]
+    arch, ov, mesh_name, folder, rules = TRAIN_CASES[case]
     mesh = _mesh(*TRAIN_MESHES[mesh_name])
     model = build_model(dataclasses.replace(get_smoke_config(arch), **ov))
     params = jax.tree.map(jnp.asarray, tp_gates(jax.tree.map(np.asarray,
                                                              model.init(jax.random.key(0)))))
     opt = adamw_init(params)
-    blocks = {k: jnp.asarray(v) for k, v in train_blocks(model.cfg).items()}
+    blocks = {k: jnp.asarray(v)
+              for k, v in train_blocks(model.cfg, TRAIN_SEQ.get(case, 16)).items()}
     dp = tuple(a for a in mesh.axis_names if a in ("pod", "data"))
 
     def step(params, opt, blocks):
@@ -166,7 +198,7 @@ def sharded_train(out: dict, case: str = "qwen3/222", full: bool = False) -> Non
             for k, v in blocks.items()}
     params = jax.device_put(params, p_sh)
     blocks = jax.device_put(blocks, b_sh)
-    with use_rules(train_rules(mesh)):
+    with use_rules(getattr(sharding, rules)(mesh)):
         new_p, new_opt, loss, grads = jax.jit(step, in_shardings=(p_sh, None, b_sh))(
             params, opt, blocks)
     key = "sharded_train" if case == "qwen3/222" and not full else f"tp_train/{case}"

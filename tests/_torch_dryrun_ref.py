@@ -6,7 +6,8 @@ that its own process keeps one device.  This child runs the JAX package's
 ``run_cell`` and ``probe_cell`` (but for :data:`NO_PROBE`) for every cell
 of :data:`ARCHES` × :data:`SHAPE_NAMES` on a (2, 4) ("data", "model") mesh,
 then ``run_cell`` for the same cells on the data-parallel
-:data:`DATA_MESH`, and for :data:`TP_CELLS` on the (2, 4) mesh, at the smoke
+:data:`DATA_MESH`, for :data:`TP_CELLS` on the (2, 4) mesh, and for
+:data:`SP_CELLS` there with ``sp=True`` (``train_rules_sp``), at the smoke
 configs' widths (passed as ``overrides``)
 and the small shape cells of :data:`SMALL_SHAPES` (patched into the shared
 ``SHAPES`` dict, which only this process sees), and writes the records as
@@ -57,6 +58,8 @@ TP_CELLS = (("deepseek-7b", "train_4k"), ("deepseek-7b", "prefill_32k"),
             ("llama-3.2-vision-11b", "decode_32k"),
             ("mamba2-1.3b", "long_500k"), ("jamba-v0.1-52b", "long_500k"),
             ("mixtral-8x7b", "long_500k"))
+#: train cells run with ``sp=True`` (``train_rules_sp``) on MESH
+SP_CELLS = (("qwen3-32b", "train_4k"), ("mamba2-1.3b", "train_4k"))
 
 
 def overrides(cfg) -> dict:
@@ -123,6 +126,9 @@ if __name__ == "__main__":
                                                overrides=ov))
     for arch, shape in TP_CELLS:
         records.append(dryrun_lib.run_cell(arch, shape, mesh, mesh_label="test",
+                                           overrides=overrides(get_smoke_config(arch))))
+    for arch, shape in SP_CELLS:
+        records.append(dryrun_lib.run_cell(arch, shape, mesh, mesh_label="test", sp=True,
                                            overrides=overrides(get_smoke_config(arch))))
     with open(sys.argv[1], "w") as f:
         json.dump(records, f)

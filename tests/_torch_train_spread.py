@@ -46,7 +46,7 @@ def reference_side(out_dir: str, family: str) -> None:
     out: dict = {}
     for case in CASES[family]:
         ref.sharded_train(out, case, full=True)
-    arch, ov, _, _ = ref.TRAIN_CASES[CASES[family][0]]
+    arch, ov, _, _, _ = ref.TRAIN_CASES[CASES[family][0]]
     model = build_model(dataclasses.replace(get_smoke_config(arch), **ov))
     blocks = {k: jnp.asarray(v) for k, v in ref.train_blocks(model.cfg).items()}
     params = jax.tree.map(jnp.asarray, ref.tp_gates(jax.tree.map(

@@ -32,7 +32,8 @@ that reason.  Run them on the card:
   encoder's and cross layers' gradients nonzero); mixtral's
   data-parallel step, whose MoE ranks gather the token rows over the data
   axes, runs its backward in segments on the card and equals the unsharded
-  step.
+  step; under ``train_rules_sp`` (the residual stream split by sequence
+  over ``model``) qwen3's and mixtral's smoke steps equal it too.
 """
 
 import dataclasses
@@ -323,6 +324,55 @@ def test_tensor_parallel_train_memory_families_on_card_ranks(dev, arch):
         assert float((got.full() - want).abs().max()) <= 1e-4 * float(want.abs().max()), name
         if name.startswith("enc_") or name.rsplit("/", 1)[0] in cross:
             assert float(want.abs().max()) > 0, name
+
+
+@pytest.mark.parametrize("arch", ["qwen3-32b", "mixtral-8x7b"])
+def test_sequence_parallel_train_step_on_card_ranks(dev, arch):
+    """qwen3's and mixtral's smoke configs in f32 (TF32 off) under
+    ``train_rules_sp`` on (2, 2, 2) card ranks, each rank holding 16 of a
+    row's 32 positions between blocks: ``tensor_parallel_gradients`` within
+    1e-5 (loss, relative) and 1e-4 (each gradient leaf's maximum) of the
+    unsharded step's, the routes equal, one ``sharded_train_step``'s first
+    moment within 1e-4 and params within 2·lr of the unsharded AdamW
+    step's, and the step's census holds reduce-scatters of the stream."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import train_rules_sp
+    from repro_torch.distributed.spmd import collective_census
+    from repro_torch.models.moe import moe_mlp
+
+    model = build_model(dataclasses.replace(get_smoke_config(arch), dtype="float32"))
+    params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev, master=True)
+    g = torch.Generator(device=dev).manual_seed(1)
+    blocks = {k: torch.randint(0, model.cfg.vocab_size, (2, 8, 32), generator=g, device=dev)
+              for k in ("tokens", "labels")}
+    mesh = compat_make_mesh((2, 2, 2), ("pod", "data", "model"), devices=(dev,))
+    rules = train_rules_sp(mesh)
+    placed = device_put(params, params_shardings(params, mesh, fsdp_axis="data"))
+    moe_mlp.routes = []
+    try:
+        loss_ref, grads_ref = accumulate_gradients(model.loss, params, blocks)
+        want_routes, moe_mlp.routes = moe_mlp.routes, []
+        loss, grads = tensor_parallel_gradients(model.loss, placed, blocks, mesh=mesh,
+                                                rules=rules)
+        routes = moe_mlp.routes
+    finally:
+        moe_mlp.routes = None
+    assert len(routes) == len(want_routes)
+    assert all(torch.equal(a["experts"], b["experts"]) for a, b in zip(routes, want_routes))
+    assert abs(float(loss) - float(loss_ref)) <= 1e-5 * abs(float(loss_ref))
+    for got, want in zip(tree_leaves(grads), tree_leaves(grads_ref)):
+        assert all(t.device == dev for t in got.shards)
+        assert float((got.full() - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    with collective_census() as census:
+        new, opt, _ = sharded_train_step(model.loss, placed, adamw_init(params), blocks,
+                                         mesh=mesh, lr=1e-3, rules=rules)
+    assert census["counts"]["reduce-scatter"] > 0
+    ref_p, ref_opt = adamw_update(tree_map(torch.clone, params), grads_ref, adamw_init(params),
+                                  lr=1e-3)
+    for got, want in zip(tree_leaves(opt.m), tree_leaves(ref_opt.m)):
+        assert float((got.full() - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    for got, want in zip(tree_leaves(new), tree_leaves(ref_p)):
+        assert float((got.full() - want).abs().max()) <= 2e-3
 
 
 def test_data_parallel_moe_step_on_card_ranks(dev):

@@ -203,7 +203,7 @@ def test_moe_groups_of_the_data_parallel_step_match_reference(reference):
     from repro_torch.models.moe import moe_mlp
 
     case = "mixtral_cf1/222"
-    arch, ov, mesh_name, folder = ref.TRAIN_CASES[case]
+    arch, ov, mesh_name, folder, _ = ref.TRAIN_CASES[case]
     model = build_model(dataclasses.replace(get_smoke_config(arch), **ov))
     template = model.init(torch.Generator().manual_seed(0), device="cpu", master=True)
     params, _, _ = Checkpointer(os.path.join(reference["dir"], folder)).restore(template)

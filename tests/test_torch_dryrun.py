@@ -63,7 +63,8 @@ CELLS = [(a, s) for a in ARCH_IDS for s in SHAPES]
 
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
-    """The child's records, keyed by (arch, shape, "run" | "probe")."""
+    """The child's records, keyed by (arch, shape, "run" | "probe" |
+    "data" | "sp")."""
     path = str(tmp_path_factory.mktemp("dryrun_ref") / "records.json")
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=8",
                JAX_PLATFORMS="cpu")
@@ -80,6 +81,7 @@ def reference(tmp_path_factory):
     got.update({(a, s, "data"): next(records) for a in ref_child.ARCHES
                 for s in ref_child.SHAPE_NAMES})
     got.update({(a, s, "run"): next(records) for a, s in ref_child.TP_CELLS})
+    got.update({(a, s, "sp"): next(records) for a, s in ref_child.SP_CELLS})
     assert next(records, None) is None
     return got
 
@@ -461,6 +463,50 @@ def test_tensor_parallel_flops_held_to_reference(reference, small_shapes, monkey
         cfg, SHAPES[shape]) == want
 
 
+def _sp_apart(cfg, shape: ShapeCell) -> int:
+    """The products of one traced train body under ``train_rules_sp`` that
+    XLA's partition computes beyond the sequence-parallel rank program's
+    (on the (2, 4) mesh).  The rank program computes the products of the
+    ``train_rules`` program (its stream's collectives differ, not its
+    products), so :func:`_train_apart` holds but for what XLA partitions
+    otherwise once the stream is split by sequence.  mamba2's products
+    XLA partitions as under ``train_rules``.  Per attention layer (qwen3's,
+    its 2 kv heads replicated over 4) XLA projects q, k and v on the rank's
+    T/4 sequence rows with every head, and reshards them to heads by
+    all-to-all, in the forward and the recomputation:
+    ``2·(T/4)·D·Dh·(H + 2·Hkv)`` each, where under ``train_rules`` it
+    projects all T rows with half the heads, ``2·T·D·Dh·(H + 2·Hkv)/2``;
+    and its backward's products of those projections and of the
+    attention's weights come to ``2·T·D·Dh`` fewer (nine and six units of
+    ``T·D·Dh``, against thirteen and four: the compiled modules' ``dot``
+    instructions)."""
+    t = _rank_rows(shape) * shape.seq_len
+    d, dh, h, hkv = cfg.d_model, cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    attn = sum(s.mixer == "attn" for seg in lib._scan_bodies(cfg).segments() for s in seg.period)
+    passes = 2 * (2 * (t // 4) * d * dh * (h + 2 * hkv) - t * d * dh * (h + 2 * hkv))
+    return _train_apart(cfg, shape) + attn * (passes - 2 * t * d * dh)
+
+
+@pytest.mark.parametrize("arch,shape", ref_child.SP_CELLS)
+def test_sequence_parallel_flops_held_to_reference(reference, small_shapes, monkeypatch, arch,
+                                                   shape):
+    """The ``sp`` train cells (``train_rules_sp``) on the (2, 4) mesh run the
+    sequence-parallel rank program, under its own ``cost_basis`` and
+    ``collectives_basis``, and its matrix-product FLOPs equal the products
+    of one device's module that XLA compiles under ``train_rules_sp``, the
+    gaps in closed form (:func:`_sp_apart`)."""
+    monkeypatch.setattr(ops, "ssd_scan", ss.ssd_chunked)
+    cfg = get_smoke_config(arch)
+    rec = lib.run_cell(arch, shape, _meta_mesh(), mesh_label="test", sp=True,
+                       overrides=ref_child.overrides(cfg))
+    assert rec["cost_basis"].startswith(lib.COST_BASIS["tensor_parallel_train_sp"])
+    assert rec["collectives_basis"] == lib.COLLECTIVES_BASIS["tensor_parallel_train_sp"]
+    assert rec["collectives"]["counts"]["reduce-scatter"] > 0
+    want = reference[(arch, shape, "sp")]["cost"]["dot_flops"]
+    assert want > 0
+    assert rec["cost"]["flops"] + _sp_apart(cfg, SHAPES[shape]) == want
+
+
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "jamba-v0.1-52b"])
 def test_tensor_parallel_ssd_cost_counts_the_ranks_heads(small_shapes, arch):
     """The SSD kernel's formula in a tensor-parallel prefill cell: one call
@@ -626,16 +672,18 @@ def test_depth_fit_equals_full_depth_count(small_shapes, shape):
 
 
 def test_train_census_counts_the_gathers_and_the_gradient_sum(small_shapes):
-    """whisper-tiny's smoke train cell under ``train_rules_sp`` (the ``sp``
-    variant, not ported over ``model``), so the cell runs the data-parallel
-    program: one all-gather per sharded dim of every param leaf (shard bytes
+    """whisper-tiny's smoke train cell in the data-parallel program (the
+    ragged MoE dispatch's, reached here directly: ``_lower_train``'s
+    ``data_parallel``, one period and one block as ``run_cell`` traces
+    them): one all-gather per sharded dim of every param leaf (shard bytes
     in, the gathered dim's bytes out) and one psum of the loss and the f32
     gradients, by hand from the layouts."""
     mesh = _meta_mesh()
     cfg = get_smoke_config("whisper-tiny")
-    rec = lib.run_cell("whisper-tiny", "train_4k", mesh, mesh_label="test",
-                       overrides=ref_child.overrides(cfg), sp=True)
-    assert rec["collectives_basis"] == lib.COLLECTIVES_BASIS["data_parallel"]
+    lowered = lib._lower_train(lib._scan_bodies(cfg), mesh, SHAPES["train_4k"], traced_blocks=1,
+                               data_parallel=True)
+    assert lowered.rank_program == "data_parallel"
+    rec = lowered.trace()
     params = build_model(lib._scan_bodies(cfg)).init(None, device=META, master=True)
     shardings = lib.params_shardings(params, mesh, fsdp_axis="data")
     gathers = operand = result = 0
@@ -698,6 +746,70 @@ def test_tensor_parallel_train_census_by_hand(small_shapes):
         "all-reduce": sum(forward) + sum(recomputed) + sum(transposes) + sum(sums)}
     assert rec["collectives"]["result_bytes"]["all-gather"] == sum(gathered) + 4 * 4 * kv_rows
     assert rec["collectives"]["result_bytes"]["reduce-scatter"] == 2 * kv_rows + sum(shard)
+
+
+def test_sequence_parallel_train_census_by_hand(small_shapes):
+    """qwen3's smoke train cell with ``sp=True`` (``train_rules_sp``) on the
+    (2, 4) mesh: one period, one block of the rank's 2 rows of 32 tokens,
+    which the 4-way model axis divides, so each rank holds 8 of every row's
+    positions between blocks.  No all-reduce over ``model`` carries the
+    stream: the embedding's sum and the partials after ``wo`` and
+    ``w_down`` are reduce-scattered along the sequence to the rank's rows
+    (a bf16 (2, 32, D) operand, a quarter of it out), and each of the
+    attention, the MLP and the head all-gathers the rank's rows first; the
+    replicated k and v rows are all-gathered as under ``train_rules``.
+    The recomputed period calls its gathers and reduce-scatters again.  The
+    backward transposes each: an all-gather for each reduce-scatter (the
+    embedding's, ``wo``'s and ``w_down``'s), a reduce-scatter for each
+    all-gather (the head's input, the MLP's and the attention's, k and v),
+    and an all-reduce over ``model`` for each replicated weight applied to
+    the rank's rows or used for its share (``ln1``, ``ln2``, the final
+    norm, ``q_norm``, ``k_norm``, ``wk``, ``wv``); the loss keeps its row
+    max and its pair of sums, the gradients their sums over data and the
+    clip norm's all-reduce, as under ``train_rules``."""
+    mesh = _meta_mesh()
+    cfg = get_smoke_config("qwen3-32b")
+    rec = lib.run_cell("qwen3-32b", "train_4k", mesh, mesh_label="test", sp=True,
+                       overrides=ref_child.overrides(cfg))
+    assert rec["cost_basis"].startswith(lib.COST_BASIS["tensor_parallel_train_sp"])
+    assert rec["collectives_basis"] == lib.COLLECTIVES_BASIS["tensor_parallel_train_sp"]
+    rows, seq, d, dh, hkv = 2, SHAPES["train_4k"].seq_len, cfg.d_model, cfg.resolved_head_dim, \
+        cfg.num_kv_heads
+    act = rows * seq * d * 2  # a bf16 (rows, S, D) activation; the rank holds a quarter
+    kv_rows = rows * (seq // 4) * hkv * dh * 2  # a rank's bf16 k or v rows, every kv head
+    params = build_model(lib._scan_bodies(cfg)).init(None, device=META, master=True)
+    shardings = lib.params_shardings(params, mesh, fsdp_axis="data")
+    fsdp = [(leaf, sh) for leaf, sh in zip(tree_leaves(params), tree_leaves(shardings))
+            if any(e == "data" for e in sh.spec)]
+    whole = [leaf for leaf, sh in zip(tree_leaves(params), tree_leaves(shardings))
+             if all(e != "data" for e in sh.spec)]
+    layer = params["seg0"][0]
+    gathered = [math.prod(sh.shard_shape(tuple(leaf.shape))) * 2 * 4 for leaf, sh in fsdp]
+    shard = [math.prod(sh.shard_shape(tuple(leaf.shape))) * 4 for leaf, sh in fsdp]
+    # the stream's gathers: the forward's attention, MLP and head inputs, the
+    # recomputed period's two; the reduce-scatters' transposes: embedding, wo, w_down
+    stream_gathers = 3 + 2 + 3
+    kv_gathers = 2 + 2  # the forward's and the recomputed period's k and v rows
+    # reduce-scatters of the stream: the embedding, wo and w_down, wo and w_down
+    # again, and the gathers' transposes: head, MLP, attention
+    stream_scatters = 3 + 2 + 3
+    weights = [layer[k].numel() * 4 for k in ("ln1", "ln2")] + [params["final_norm"].numel() * 4]
+    weights += [layer["mixer"][k].numel() * 4 for k in ("q_norm", "k_norm", "wk", "wv")]
+    loss = [rows * seq * 4, 2 * rows * seq * 4]  # the row max, the pair of sums
+    sums = [leaf.numel() * 4 for leaf in whole] + [4, 4]  # replicated leaves, loss, clip norm
+    counts = rec["collectives"]["counts"]
+    assert counts == {
+        "all-gather": len(fsdp) + stream_gathers + kv_gathers,
+        "reduce-scatter": len(fsdp) + stream_scatters + 2,
+        "all-reduce": len(loss) + len(weights) + len(sums)}
+    assert rec["collectives"]["operand_bytes"] == {
+        "all-gather": sum(shard) + stream_gathers * act // 4 + kv_gathers * kv_rows,
+        "reduce-scatter": sum(gathered) + stream_scatters * act + 2 * 4 * kv_rows,
+        "all-reduce": sum(loss) + sum(weights) + sum(sums)}
+    assert rec["collectives"]["result_bytes"] == {
+        "all-gather": sum(gathered) + stream_gathers * act + kv_gathers * 4 * kv_rows,
+        "reduce-scatter": sum(shard) + stream_scatters * act // 4 + 2 * kv_rows,
+        "all-reduce": sum(loss) + sum(weights) + sum(sums)}
 
 
 def test_tensor_parallel_train_census_by_hand_ssm(small_shapes):

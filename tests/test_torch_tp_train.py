@@ -63,6 +63,7 @@ from repro_torch.distributed import (
     shard_map,
     sharded_train_step,
     train_rules,
+    train_rules_sp,
 )
 from repro_torch.distributed import spmd
 from repro_torch.distributed.sharding import _map_with_path
@@ -83,6 +84,7 @@ DENSE = ("qwen3-32b", "qwen2-72b", "command-r-35b", "deepseek-7b")
 FAMILIES = ("mamba2-1.3b", "mixtral-8x7b", "jamba-v0.1-52b")
 #: MLA, cross-attention and the encoder
 MEMORY_FAMILIES = ("deepseek-v2-236b", "llama-3.2-vision-11b", "whisper-tiny")
+RULES = {"train_rules": train_rules, "train_rules_sp": train_rules_sp}
 
 
 @pytest.fixture(scope="module")
@@ -108,18 +110,24 @@ def _mesh(shape, axes):
 def _problem(reference, case):
     """The case's model, the reference's params (from the child's
     checkpoint), its mesh and blocks."""
-    arch, ov, mesh_name, folder = ref.TRAIN_CASES[case]
+    arch, ov, mesh_name, folder, _ = ref.TRAIN_CASES[case]
     model = build_model(dataclasses.replace(get_smoke_config(arch), **ov))
     template = model.init(torch.Generator().manual_seed(0), device="cpu", master=True)
     params, _, _ = Checkpointer(os.path.join(reference["dir"], folder)).restore(template)
-    return model, params, _mesh(*ref.TRAIN_MESHES[mesh_name]), _blocks(model.cfg)
+    return (model, params, _mesh(*ref.TRAIN_MESHES[mesh_name]),
+            _blocks(model.cfg, ref.TRAIN_SEQ.get(case, 16)))
 
 
-def _blocks(cfg) -> dict[str, torch.Tensor]:
+def _rules(case, mesh):
+    """The case's rules (``train_rules`` or ``train_rules_sp``) on ``mesh``."""
+    return RULES[ref.TRAIN_CASES[case][4]](mesh)
+
+
+def _blocks(cfg, seq: int = 16) -> dict[str, torch.Tensor]:
     """``ref.train_blocks`` as the port's tensors: tokens and labels in
     int64, a memory (frames, image embeddings) in f32."""
     return {k: torch.from_numpy(v.astype(np.int64) if v.dtype.kind == "i" else v)
-            for k, v in ref.train_blocks(cfg).items()}
+            for k, v in ref.train_blocks(cfg, seq).items()}
 
 
 def _with_gates(params, value: float = 0.5):
@@ -201,7 +209,7 @@ BF16_NORM_FACTOR = 1.5
 #: so its error over its leaf's maximum is twice the gradient's, and
 #: jamba's f32 gradients move by 2.2e-5 of a leaf's maximum when its params
 #: move by 1e-7 of themselves (``_torch_train_spread.py``)
-V_RTOL = {"jamba_f32/222": 2e-4, "jamba_f32/24": 2e-4}
+V_RTOL = {"jamba_f32/222": 2e-4, "jamba_f32/24": 2e-4, "jamba_f32_sp/222": 2e-4}
 
 
 def _tree_gap(got, want, *, of=None) -> float:
@@ -241,17 +249,31 @@ def _assert_loss(loss, reference, key: str, f32: bool) -> None:
 # ---------------------------------------------------------------------------
 
 
+#: the ``train_rules_sp`` cases whose 18 tokens a row the model axis (4)
+#: does not divide: the stream stays whole, as the reference's ``shard``
+#: drops the axis, so the rank program's collectives are ``train_rules``'
+SP_WHOLE = ("qwen3_f32_sp_odd/24",)
+
+
 @pytest.mark.parametrize("case", TRAIN_CASES)
 def test_gradients_match_reference(reference, case):
-    """``tensor_parallel_gradients`` on the rank's shards: the loss and
-    every gradient leaf, each held as the rank's shard in its param's
-    layout (no leaf gathered whole over ``model``); in bf16 the gradients
-    against the port's unsharded step (the module's docstring)."""
+    """``tensor_parallel_gradients`` under the case's rules on the rank's
+    shards: the loss and every gradient leaf, each held as the rank's
+    shard in its param's layout (no leaf gathered whole over ``model``); in
+    bf16 the gradients against the port's unsharded step (the module's
+    docstring).  A ``train_rules_sp`` case over a length the model axis does
+    not divide calls the collectives of the ``train_rules`` program."""
     model, params, mesh, blocks = _problem(reference, case)
     shardings = params_shardings(params, mesh, fsdp_axis="data")
     placed = device_put(params, shardings)
-    loss, grads = spmd.tensor_parallel_gradients(model.loss, placed, blocks, mesh=mesh,
-                                                 rules=train_rules(mesh))
+    with spmd.collective_census() as census:
+        loss, grads = spmd.tensor_parallel_gradients(model.loss, placed, blocks, mesh=mesh,
+                                                     rules=_rules(case, mesh))
+    if case in SP_WHOLE:  # the stream the axis does not divide: train_rules' program
+        with spmd.collective_census() as whole:
+            spmd.tensor_parallel_gradients(model.loss, placed, blocks, mesh=mesh,
+                                           rules=train_rules(mesh))
+        assert census == whole
     key, f32 = f"tp_train/{case}", _is_f32(case)
     _assert_loss(loss, reference, key, f32)
     for g, sh, p in zip(tree_leaves(grads), tree_leaves(shardings), tree_leaves(params)):
@@ -272,7 +294,7 @@ def test_gradients_match_reference(reference, case):
 
 @pytest.mark.parametrize("case", TRAIN_CASES)
 def test_step_matches_reference(reference, case):
-    """``sharded_train_step(..., rules=train_rules(mesh))``: the loss, the
+    """``sharded_train_step(..., rules=...)`` under the case's rules: the loss, the
     new params and both AdamW moments, kept as ``model`` (and ``data``)
     shards in the params' layouts; in bf16 the params and moments against
     the port's unsharded step (the module's docstring), jamba's moments
@@ -281,7 +303,7 @@ def test_step_matches_reference(reference, case):
     shardings = params_shardings(params, mesh, fsdp_axis="data")
     placed = device_put(params, shardings)
     new, opt, loss = sharded_train_step(model.loss, placed, adamw_init(params), blocks, mesh=mesh,
-                                        lr=ref.TRAIN_LR, rules=train_rules(mesh))
+                                        lr=ref.TRAIN_LR, rules=_rules(case, mesh))
     key, f32 = f"tp_train/{case}", _is_f32(case)
     _assert_loss(loss, reference, key, f32)
     assert int(opt.step) == 1
@@ -334,7 +356,13 @@ REPLICATED = {"q_norm": ("qwen3_f32/24", "seg0/0/mixer"),
               "q_norm_a": ("deepseek_v2_f32/24", "seg0/0/mixer"),
               "kv_norm_a": ("deepseek_v2_f32/24", "seg0/0/mixer"),
               "wk_mem": ("vlm_f32/24", "seg0/4/mixer"), "wv_mem": ("vlm_f32/24", "seg0/4/mixer"),
-              "gate": ("vlm_f32/24", "seg0/4/mixer")}
+              "gate": ("vlm_f32/24", "seg0/4/mixer"),
+              # under train_rules_sp: weights applied to each rank's rows of the stream
+              "sp/ln1": ("qwen3_f32_sp/24", "seg0/0"), "sp/ln2": ("qwen3_f32_sp/24", "seg0/0"),
+              "sp/final_norm": ("qwen3_f32_sp/24", ""),
+              "sp/ln1_b": ("whisper_f32_sp/24", "enc_seg0/0"),
+              "sp/enc_final_norm": ("whisper_f32_sp/24", ""),
+              "sp/gate": ("vlm_f32_sp/222", "seg0/4/mixer")}
 
 
 @pytest.mark.parametrize("leaf", list(REPLICATED))
@@ -350,18 +378,24 @@ def test_replicated_params_get_their_whole_gradient(reference, leaf):
     the vlm's ``wk_mem``/``wv_mem`` (replicated: each rank projects its
     share of the memory rows) get the sum of the ranks' partials: the whole
     gradient, on every model rank.  So does the vlm's cross ``gate``, which
-    scales the output after its ``psum`` and so is counted once."""
+    scales the output after its ``psum`` and so is counted once.  Under
+    ``train_rules_sp`` (``sp/``) the weights each rank applies to its own
+    rows of the stream get the sum too: qwen3's ``ln1``, ``ln2`` and final
+    norm, whisper's encoder norms (a layernorm's bias, the final norm
+    before the memory's gather) and the vlm's cross ``gate``, which then
+    scales the rank's rows."""
     case, where = REPLICATED[leaf]
+    leaf = leaf.rsplit("/", 1)[-1]
     model, params, mesh, blocks = _problem(reference, case)
     placed = device_put(params, params_shardings(params, mesh, fsdp_axis="data"))
     _, grads = spmd.tensor_parallel_gradients(model.loss, placed, blocks, mesh=mesh,
-                                              rules=train_rules(mesh))
+                                              rules=_rules(case, mesh))
     g = grads
-    for step in where.split("/"):
+    for step in filter(None, where.split("/")):
         g = g[int(step)] if step.isdigit() else g[step]
     g = g[leaf]
     assert "model" not in {a for e in g.sharding.spec if e for a in spmd._axes(e)}
-    want = reference[f"tp_train/{case}/grads/{where}/{leaf}"]
+    want = reference[f"tp_train/{case}/grads/{where + '/' if where else ''}{leaf}"]
     scale = float(np.abs(want).max())
     assert scale > 0
     for r in range(mesh.size):  # every rank holds the sum, not its partial
@@ -493,11 +527,11 @@ def test_vocab_parallel_log_likelihood_matches_log_softmax(padded):
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
 
 
-def _held_to_unsharded(cfg, shape=(2, 4), axes=("data", "model")):
+def _held_to_unsharded(cfg, shape=(2, 4), axes=("data", "model"), rules=train_rules):
     """The tensor-parallel loss and gradients of ``cfg`` (its cross gates
-    at 0.5) on the mesh against the unsharded ``Model.loss``: the loss
-    within 1e-6, every gradient within 1e-4 of its leaf's maximum.
-    Returns the sharded gradients."""
+    at 0.5) on the mesh under ``rules`` against the unsharded
+    ``Model.loss``: the loss within 1e-6, every gradient within 1e-4 of its
+    leaf's maximum.  Returns the sharded gradients."""
     model = build_model(cfg)
     params = _with_gates(model.init(torch.Generator().manual_seed(0), device="cpu",
                                     master=True))
@@ -506,15 +540,16 @@ def _held_to_unsharded(cfg, shape=(2, 4), axes=("data", "model")):
     mesh = _mesh(shape, axes)
     placed = device_put(params, params_shardings(params, mesh, fsdp_axis="data"))
     loss, grads = spmd.tensor_parallel_gradients(model.loss, placed, blocks, mesh=mesh,
-                                                 rules=train_rules(mesh))
+                                                 rules=rules(mesh))
     np.testing.assert_allclose(float(loss), float(loss_ref), rtol=1e-6)
     for name, a, b in zip(_paths(grads), tree_leaves(grads), tree_leaves(grads_ref)):
         assert float((a.full() - b).abs().max()) <= 1e-4 * float(b.abs().max()), name
     return grads
 
 
+@pytest.mark.parametrize("rules", list(RULES))
 @pytest.mark.parametrize("arch", DENSE + FAMILIES + MEMORY_FAMILIES)
-def test_loss_and_gradients_match_the_unsharded_model(arch):
+def test_loss_and_gradients_match_the_unsharded_model(arch, rules):
     """Each smoke config in f32 (command-r's head tied, qwen2's qkv
     biases, deepseek's 4 kv heads split over 4; mamba2's SSM heads, 2 a
     rank; mixtral's experts, 1 a rank; jamba's period of 7 mamba2 layers, an
@@ -523,14 +558,21 @@ def test_loss_and_gradients_match_the_unsharded_model(arch):
     replicated; whisper's encoder and cross layers, tied head): the
     tensor-parallel loss on (2, 4) within 1e-6 of the unsharded
     ``Model.loss``, every gradient within 1e-4 of its leaf's maximum, and
-    the cross layers' and the encoder's gradients nonzero."""
-    grads = _held_to_unsharded(dataclasses.replace(get_smoke_config(arch), dtype="float32"))
+    the cross layers' and the encoder's gradients nonzero; under
+    ``train_rules`` and under ``train_rules_sp``, whose residual stream
+    each rank holds as its 4 of the 16 rows (command-r's parallel block:
+    one gather of the normed rows, one reduce-scatter of the summed
+    partials; whisper's 24 encoder frames 6 a rank)."""
+    grads = _held_to_unsharded(dataclasses.replace(get_smoke_config(arch), dtype="float32"),
+                               rules=RULES[rules])
     if arch in MEMORY_FAMILIES[1:]:
         _assert_memory_path_trains(grads)
 
 
-@pytest.mark.parametrize("arch,kv_heads", [("whisper-tiny", 6), ("llama-3.2-vision-11b", 2),
-                                           ("deepseek-v2-236b", 6)])
+WHOLE_HEADS = [("whisper-tiny", 6), ("llama-3.2-vision-11b", 2), ("deepseek-v2-236b", 6)]
+
+
+@pytest.mark.parametrize("arch,kv_heads", WHOLE_HEADS)
 def test_heads_the_model_axis_does_not_divide_train_whole(arch, kv_heads):
     """Six heads over a model axis of 4 (whisper-tiny's at full width): each
     rank computes the attention, cross-attention or MLA layer whole, its
@@ -543,6 +585,31 @@ def test_heads_the_model_axis_does_not_divide_train_whole(arch, kv_heads):
     grads = _held_to_unsharded(cfg)
     if arch != "deepseek-v2-236b":
         _assert_memory_path_trains(grads)
+
+
+@pytest.mark.parametrize("arch,kv_heads", WHOLE_HEADS + [("command-r-35b", 6)])
+def test_whole_layers_on_the_ranks_rows_under_sequence_parallel(arch, kv_heads):
+    """The six heads of the test above under ``train_rules_sp``: each rank
+    gathers its 4 of the 16 rows, computes such a layer whole and keeps its
+    rows of the output, every weight of the layer through ``pvary`` (its
+    cotangent covers the rank's rows); command-r's parallel block, whose
+    attention then runs whole beside its split MLP, gathers and scatters
+    each apart.  Held to the unsharded model as above."""
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32", num_heads=6,
+                              num_kv_heads=kv_heads, head_dim=16)
+    grads = _held_to_unsharded(cfg, rules=train_rules_sp)
+    if arch in MEMORY_FAMILIES[1:]:
+        _assert_memory_path_trains(grads)
+
+
+def test_mla_without_a_q_down_projection_under_sequence_parallel():
+    """deepseek-v2's smoke config without ``wq_a`` (``q_lora_rank=0``, q
+    projected straight from the stream) under ``train_rules_sp``: the rank's
+    rows feed the latent's down-projection as they are, and q takes the
+    gathered rows; held to the unsharded model as above."""
+    cfg = dataclasses.replace(get_smoke_config("deepseek-v2-236b"), dtype="float32",
+                              q_lora_rank=0)
+    _held_to_unsharded(cfg, rules=train_rules_sp)
 
 
 @pytest.mark.parametrize("shape", [(1, 2), (2, 2)])
@@ -766,3 +833,26 @@ def test_training_refusal_names_each_family(arch):
 @pytest.mark.parametrize("preset", ["lm1m", "lm20m", "lm100m"])
 def test_presets_are_admitted(preset):
     assert build_model(_preset(preset)).tensor_parallel_training_refusal() is None
+
+
+@pytest.mark.parametrize("rules", ["decode_rules", "long_decode_rules"])
+def test_train_step_refuses_rules_it_does_not_implement(rules):
+    """The tensor-parallel train step runs the programs of ``train_rules``'
+    logical map and of ``train_rules_sp``'s; handed serving rules with
+    another map (the heads whole and the KV sequence over ``model``, or over
+    ``data``) it raises, from ``sharded_train_step`` and
+    ``tensor_parallel_gradients`` alike, rather than run another program
+    under their name."""
+    from repro_torch.distributed import sharding
+
+    model = build_model(dataclasses.replace(get_smoke_config("qwen3-32b"), dtype="float32"))
+    params = model.init(torch.Generator().manual_seed(0), device="cpu", master=True)
+    blocks = _blocks(model.cfg)
+    mesh = _mesh((2, 4), ("data", "model"))
+    placed = device_put(params, params_shardings(params, mesh, fsdp_axis="data"))
+    with pytest.raises(ValueError, match="runs train_rules or train_rules_sp"):
+        sharded_train_step(model.loss, placed, adamw_init(params), blocks, mesh=mesh,
+                           lr=ref.TRAIN_LR, rules=getattr(sharding, rules)(mesh))
+    with pytest.raises(ValueError, match="runs train_rules or train_rules_sp"):
+        spmd.tensor_parallel_gradients(model.loss, placed, blocks, mesh=mesh,
+                                       rules=getattr(sharding, rules)(mesh))
